@@ -3,13 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the checkout (`nvcc`, sm_90a), holds each
-kernel against its plain PyTorch version at the shapes the serving engine
-gives it, times the kernel, the plain version and one PyTorch library call
-computing the same function, then drives the paged serving engine at
-TinyLlama-1.1B width (22 layers, bf16, random weights from a seed) through
-both kernels and checks its output.  Prints the card, a `kernels` JSON line,
-and as its last line
+Builds the CUDA kernels from the checkout (`nvcc`, sm_90a, one process per
+source, all at once) and holds each against its plain PyTorch version at the
+shapes its main path gives it, timing the kernel, the plain version and one
+PyTorch library call computing the same function:
+  * K1 dense forward, K2 dQ and K3 dK/dV at the training shape (B 4,
+    S 2048, 32/4 heads x 64, causal, bf16), with and without dropout, the
+    dropout keep mask read back from K1 and compared bit for bit, and two
+    backward calls compared bit for bit;
+  * K4 decode and K8 paged prefill at the serving engine's shapes.
+Then it trains TinyLlama-1.1B at full width (22 layers, bf16, random weights
+from a seed) for three AdamW steps at B 4 x S 2048 through K1-K3, and
+drives the paged serving engine at the same width through K4 and K8,
+checking each path's output and launch counts.  Prints the card, a
+`kernels` JSON line, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 Any failed phase raises and the script exits non-zero; with no GPU, or
 without the package beside it, it exits non-zero and prints no result.
@@ -18,6 +25,7 @@ without the package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -93,6 +101,38 @@ def gated(torch, out, ref32, ref_native, name, mult=None, atol=None):
     atol = tt.FWD_ATOL if atol is None else atol
     err = tt.assert_close_rel(out, ref32, ref_native, mult, atol, name=name)
     return err, mult * tt.max_abs_err(ref_native, ref32) + atol
+
+
+# the per-row gate's floors: a bf16 unit roundoff of the row's own RMS (the
+# rounding of the kernel's bf16 output alone stays below it) and 1e-3 of
+# the whole tensor's RMS (rows whose exact value is ~0)
+ROW_REL_FLOOR, ROW_ABS_FLOOR = 2.0 ** -8, 1e-3
+
+
+def gated_rows(torch, out, ref32, ref_native, name, mult, check=True):
+    """The gate that scales with the values, beside `gated`'s max-abs one:
+    each row over the head dim (a (b, q row, head) of out or dq, a (b, key,
+    kv head) of dk or dv) has its RMS error against the fp32 plain version
+    held to mult x the native plain version's RMS error on the same row +
+    ROW_REL_FLOOR x the row's RMS + ROW_ABS_FLOOR x the tensor's RMS.
+    Returns (worst error / gate over the rows, median |ref|, median gate);
+    asserts the worst is at most 1 unless `check` is false."""
+    import numpy as np
+    ref = ref32.float()
+    rms = ref.pow(2).mean(-1).sqrt()
+    e_k = (out.float() - ref).pow(2).mean(-1).sqrt()
+    e_n = (ref_native.float() - ref).pow(2).mean(-1).sqrt()
+    gate = (mult * e_n + ROW_REL_FLOOR * rms
+            + ROW_ABS_FLOOR * float(ref.pow(2).mean().sqrt()))
+    ratio = (e_k / gate).flatten()
+    i = int(ratio.argmax())
+    at = tuple(int(x) for x in np.unravel_index(i, tuple(rms.shape)))
+    assert not check or float(ratio[i]) <= 1.0, (
+        f"{name}: row {at}: RMS err {float(e_k.flatten()[i]):.3e} "
+        f"> gate {float(gate.flatten()[i]):.3e} ({mult} x native "
+        f"{float(e_n.flatten()[i]):.3e}, row RMS "
+        f"{float(rms.flatten()[i]):.3e})")
+    return float(ratio[i]), float(ref.abs().median()), float(gate.median())
 
 
 def phase_k4(torch, flush):
@@ -273,6 +313,458 @@ def phase_k8(torch, flush):
           f"({by})")
     return dict(max_abs_err=err, gate=gate, ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+
+# ------------------------------------------------------- K1-K3 (training)
+
+# the training shape: TinyLlama-1.1B attention at B 4 x S 2048
+DENSE_B, DENSE_S, DENSE_HQ, DENSE_HK, DENSE_D = 4, 2048, 32, 4, 64
+DENSE_DROPOUT = 0.1
+# the dropout seed of the gate check's wrong tiles
+SENS_SEED = (0x2468ACE0, 0x7FFFFFFF)
+
+
+def spliced(x, y, lo, n=64):
+    """x with sequence positions [lo, lo + n) (dim 1) taken from y."""
+    z = x.clone()
+    z[:, lo:lo + n] = y[:, lo:lo + n]
+    return z
+
+
+def dense_work(B, S, Hq, Hk, D):
+    """(flops, bytes) of K1, K2 and K3 for a causal B x S x Hq x D call:
+    4, 6 and 8 flops x D per live (q row, key) pair (2, 3 and 4 products),
+    each input read once and each output written once."""
+    pairs = B * Hq * S * (S + 1) // 2
+    q_bytes, kv_bytes, row_bytes = B * S * Hq * D * 2, B * S * Hk * D * 2, \
+        B * Hq * S * 4
+    return {
+        "K1": (4 * D * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+        "K2": (6 * D * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+        "K3": (8 * D * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+    }
+
+
+def read_dropout_mask(torch, dfwd, B, S, Hq, Hk, seed, p):
+    """K1's dropout keep mask (B, Hq, S, S), read back 64 keys at a time:
+    with q = 0 every score is 0, so with v = I (64 keys = head_dim 64) and
+    the keys shifted by pos_base, out[b, i, h, j] = keep / (64 (1 - p))."""
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    dev = torch.device("cuda")
+    n = 64
+    q = torch.zeros((B, S, Hq, n), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros((B, n, Hk, n), device=dev, dtype=torch.bfloat16)
+    eye = torch.eye(n, device=dev, dtype=torch.bfloat16)
+    v = eye[None, :, None, :].expand(B, n, Hk, n).contiguous()
+    keep = torch.empty((B, Hq, S, S), dtype=torch.bool, device=dev)
+    for k0 in range(0, S, n):
+        out, _ = dfwd.flash_attn_dense_fwd(
+            q, k, v, 0.125, masklib.MaskParams(), dropout_p=p,
+            dropout_seed=seed, pos_base=(0, k0, 0, 0))
+        keep[..., k0:k0 + n] = out.permute(0, 2, 1, 3) > 0
+    return keep
+
+
+def gate_sensitivity(torch, tt, cases):
+    """Each (name, wrong, ref32, ref_native, mult, atol) is a kernel output
+    made wrong on one late tile only: the per-row gate must reject it; the
+    max-abs gate's verdict is printed beside."""
+    seen = []
+    for name, wrong, r32, r16, mult, atol in cases:
+        ratio = gated_rows(torch, wrong, r32, r16, name, mult, check=False)[0]
+        assert ratio > 1.0, f"the per-row gate passed a wrong {name}"
+        err = tt.max_abs_err(wrong, r32)
+        gate = mult * tt.max_abs_err(r16, r32) + atol
+        seen.append(f"{name} row err/gate {ratio:.2f}, max abs {err:.3e} "
+                    f"{'>' if err > gate else '<='} {gate:.3e}")
+    print("dense gate check (one late tile keyed with another dropout "
+          "seed; the per-row gate must reject each): " + "; ".join(seen),
+          flush=True)
+
+
+def phase_dense(torch, flush):
+    """K1, K2 and K3 at the training shape against their plain versions;
+    returns the per-kernel results of the `kernels` line."""
+    import numpy as np
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.ops.flash_attention import flash_attn_func
+    from flash_attn_v100_tpu_torch.utils import testing as tt
+
+    dev = torch.device("cuda")
+    B, S, Hq, Hk, D = DENSE_B, DENSE_S, DENSE_HQ, DENSE_HK, DENSE_D
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=ggen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, do = rnd(B, S, Hq, D), rnd(B, S, Hk, D), rnd(B, S, Hk, D), \
+        rnd(B, S, Hq, D)
+    params = masklib.MaskParams(causal=True)
+    scale = D ** -0.5
+    seed = torch.tensor([0x13579BDF, 0x80000001], dtype=torch.int64)
+    errs = {}
+    for p in (0.0, DENSE_DROPOUT):
+        kw = dict(dropout_p=p, dropout_seed=seed if p else None)
+        tag = f"p={p}"
+        out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params, **kw)
+        dq, dk, dv = dbwd.flash_attn_dense_bwd(q, k, v, out, do, lse, scale,
+                                               params, **kw)
+        torch.cuda.synchronize()
+        o32, l32 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params, **kw)
+        o16, l16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params,
+                                                 upcast=False, **kw)
+        rows = {}
+        errs[("K1", p)] = gated(torch, out, o32, o16, f"K1 {tag} out")
+        rows["K1 out"] = gated_rows(torch, out, o32, o16, f"K1 {tag} out",
+                                    tt.FWD_MULT)
+        lse_err = gated(torch, lse, l32, l16, f"K1 {tag} lse")
+        if p:
+            wrong_kw = dict(dropout_p=p, dropout_seed=SENS_SEED)
+            o_wrong = dfwd.flash_attn_dense_fwd(q, k, v, scale, params,
+                                                **wrong_kw)[0]
+            wrong = [("K1 out", spliced(out, o_wrong, S - 64), o32, o16,
+                      tt.FWD_MULT, tt.FWD_ATOL)]
+            del o_wrong
+        del o32, o16, l32, l16
+        g32 = dbwd.flash_attn_dense_bwd_ref(q, k, v, out, do, lse, scale,
+                                            params, **kw)
+        g16 = dbwd.flash_attn_dense_bwd_ref(q, k, v, out, do, lse, scale,
+                                            params, upcast=False, **kw)
+        for name, key, g, r32, r16 in (("K2", "dq", dq, g32[0], g16[0]),
+                                       ("K3", "dk", dk, g32[1], g16[1]),
+                                       ("K3", "dv", dv, g32[2], g16[2])):
+            errs[(name, p, key)] = gated(torch, g, r32, r16,
+                                         f"{name} {tag} {key}",
+                                         tt.BWD_MULT, tt.BWD_ATOL)
+            rows[f"{name} {key}"] = gated_rows(
+                torch, g, r32, r16, f"{name} {tag} {key}", tt.BWD_MULT)
+        if p:
+            g_wrong = dbwd.flash_attn_dense_bwd(q, k, v, out, do, lse, scale,
+                                                params, **wrong_kw)
+            for (key, lo), g, gw, r32, r16 in zip(
+                    (("K2 dq", S - 64), ("K3 dk", S // 2),
+                     ("K3 dv", S - 128)), (dq, dk, dv), g_wrong, g32, g16):
+                wrong.append((key, spliced(g, gw, lo), r32, r16,
+                              tt.BWD_MULT, tt.BWD_ATOL))
+            gate_sensitivity(torch, tt, wrong)
+            del wrong, g_wrong
+        del g32, g16
+        again = dbwd.flash_attn_dense_bwd(q, k, v, out, do, lse, scale,
+                                          params, **kw)
+        assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)), \
+            "two backward calls differ"
+        print(f"dense {tag} (B={B}, S={S}, Hq={Hq}, Hk={Hk}, D={D}, causal, "
+              f"bf16): max abs err vs fp32 plain <= gate (2x / 3x the bf16 "
+              f"plain error + 1e-5 / 1e-4): K1 out "
+              f"{errs[('K1', p)][0]:.3e} <= {errs[('K1', p)][1]:.3e}, lse "
+              f"{lse_err[0]:.3e} <= {lse_err[1]:.3e}; K2 dq "
+              f"{errs[('K2', p, 'dq')][0]:.3e} <= "
+              f"{errs[('K2', p, 'dq')][1]:.3e}; K3 dk "
+              f"{errs[('K3', p, 'dk')][0]:.3e} <= "
+              f"{errs[('K3', p, 'dk')][1]:.3e}, dv "
+              f"{errs[('K3', p, 'dv')][0]:.3e} <= "
+              f"{errs[('K3', p, 'dv')][1]:.3e}; two backward calls "
+              f"bit-equal", flush=True)
+        print(f"dense {tag}: per-row RMS err vs fp32 plain <= 2x / 3x the "
+              f"bf16 plain row's + 2^-8 x row RMS + 1e-3 x tensor RMS "
+              f"(worst err/gate; median |ref|, median row gate): " + ", ".join(
+                  f"{key} {r:.3f} ({med:.3e}, {g:.3e})"
+                  for key, (r, med, g) in rows.items()), flush=True)
+        del out, lse, dq, dk, dv, again
+
+    # the dropout mask: K1's, read back, against flash_attn_func's dmask
+    _, _, dmask = flash_attn_func(q, k, v, dropout_p=DENSE_DROPOUT,
+                                  causal=True, return_attn_probs=True,
+                                  dropout_seed=seed)
+    kernel_keep = read_dropout_mask(torch, dfwd, B, S, Hq, Hk, seed,
+                                    DENSE_DROPOUT)
+    assert torch.equal(kernel_keep, dmask > 0), "K1's dropout mask differs"
+    rate = float(kernel_keep.float().mean())
+    print(f"dense dropout: K1's keep mask over {kernel_keep.numel()} "
+          f"positions bit-equal to flash_attn_func's dmask (keep rate "
+          f"{rate:.5f}, 1 - p = {1 - DENSE_DROPOUT})", flush=True)
+    del dmask, kernel_keep
+
+    # times at the training shape, no dropout
+    kw = dict(dropout_p=0.0, dropout_seed=None)
+    out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params, **kw)
+    delta = dbwd.softmax_delta(out, do)
+    lse_c = lse.clamp_min(NEG_INF).contiguous()
+    kargs = (q, k, v, do, lse_c, delta, None, scale, params, 0.0, None, 0,
+             None, Hq)
+    ms = {"K1": time_ms(torch, lambda: dfwd.flash_attn_dense_fwd(
+              q, k, v, scale, params, **kw), flush=flush),
+          "K2": time_ms(torch, lambda: dbwd.dq_kernel(*kargs), flush=flush),
+          "K3": time_ms(torch, lambda: dbwd.dkv_kernel(*kargs), flush=flush)}
+    plain_fwd = time_ms(torch, lambda: dfwd.flash_attn_dense_fwd_ref(
+        q, k, v, scale, params, **kw), reps=3, warmup=1, flush=flush)
+    plain_bwd = time_ms(torch, lambda: dbwd.flash_attn_dense_bwd_ref(
+        q, k, v, out, do, lse, scale, params, **kw), reps=3, warmup=1,
+        flush=flush)
+    F = torch.nn.functional
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), flush=flush)
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+    do_s = do.transpose(1, 2).contiguous()
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qs, ks, vs), do_s, retain_graph=True), flush=flush)
+    work = dense_work(B, S, Hq, Hk, D)
+    res = {}
+    for name, plain, lib in (("K1", plain_fwd, lib_fwd),
+                             ("K2", plain_bwd, lib_bwd),
+                             ("K3", plain_bwd, lib_bwd)):
+        flops, nbytes = work[name]
+        bms, by = bound_ms(nbytes, flops)
+        worst = max((e for key, e in errs.items() if key[0] == name),
+                    key=lambda e: e[0])
+        res[name] = dict(max_abs_err=worst[0], gate=worst[1], ms=ms[name],
+                         plain_ms=plain, library_ms=lib, bound_ms=bms,
+                         bound_by=by)
+        print(f"{name} B={B} S={S} Hq={Hq} Hk={Hk} D={D} causal: kernel "
+              f"{ms[name]:.4f} ms, plain {plain:.4f} ms"
+              f"{' (dq, dk, dv together)' if name != 'K1' else ''}, sdpa "
+              f"{'fwd' if name == 'K1' else 'bwd (K2 + K3)'} {lib:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}, {flops:.3e} flop)", flush=True)
+    return res
+
+
+# ------------------------------------------------------- training phase
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 3
+TRAIN_CHECK_B, TRAIN_CHECK_S = 1, 512
+TRAIN_LOSS_GATE = ("assert_close_rel(mult=2, atol=1e-5): kernel-path loss vs "
+                   "fp32-plain-attention loss within 2x the "
+                   "bf16-plain-attention loss' distance")
+
+
+def _kernel_counts(dfwd, dbwd):
+    return {"K1": dfwd.flash_attn_dense_fwd.launches,
+            "K2": dbwd.dq_kernel.launches, "K3": dbwd.dkv_kernel.launches,
+            "plain_fwd": dfwd.flash_attn_dense_fwd_ref.calls,
+            "plain_bwd": dbwd.flash_attn_dense_bwd_ref.calls}
+
+
+def _reset_counts(dfwd, dbwd):
+    dfwd.flash_attn_dense_fwd.launches = 0
+    dbwd.dq_kernel.launches = dbwd.dkv_kernel.launches = 0
+    dfwd.flash_attn_dense_fwd_ref.calls = dbwd.flash_attn_dense_bwd_ref.calls = 0
+
+
+def _plain_attention(fa_mod, dfwd, dbwd, upcast):
+    """Point flash_attn_func at the plain versions (fp32 or native)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = fa_mod.flash_attn_dense_fwd, fa_mod.flash_attn_dense_bwd
+        fa_mod.flash_attn_dense_fwd = lambda *a, **k: \
+            dfwd.flash_attn_dense_fwd_ref(*a, upcast=upcast, **k)
+        fa_mod.flash_attn_dense_bwd = lambda *a, **k: \
+            dbwd.flash_attn_dense_bwd_ref(*a, upcast=upcast, **k)
+        try:
+            yield
+        finally:
+            fa_mod.flash_attn_dense_fwd, fa_mod.flash_attn_dense_bwd = saved
+    return ctx()
+
+
+def phase_train(torch, cfg):
+    """Three AdamW steps of TinyLlama-1.1B at B 4 x S 2048 through K1-K3."""
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.utils import testing as tt
+
+    dev = torch.device("cuda")
+    params = tm.init_params(cfg, seed=SEED, device=dev, lm_head=True)
+    for t in tm.param_leaves(params):
+        t.requires_grad_(True)
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                           generator=gen).to(dev)
+    step, init_opt = tm.make_train_step(cfg)
+    opt = init_opt(params)
+    n_params = sum(t.numel() for t in tm.param_leaves(params))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(dfwd, dbwd)
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, tokens)
+        losses.append(float(loss))            # syncs
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = _kernel_counts(dfwd, dbwd)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    L = cfg.n_layers
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    for name in ("K1", "K2", "K3"):
+        assert counts[name] == L * TRAIN_STEPS, counts
+    assert counts["plain_fwd"] == 0 and counts["plain_bwd"] == 0, counts
+    step_ms = statistics.median(secs[1:]) * 1e3
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    print(f"train: {L} layers, dim {cfg.dim}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads x {cfg.head_dim}, ffn {cfg.ffn_dim}, vocab {cfg.vocab_size}, "
+          f"untied lm_head, {cfg.dtype}, {n_params / 1e9:.3f} B params; "
+          f"AdamW(lr 3e-4, wd 0.01); B {TRAIN_B} x S {TRAIN_S} tokens",
+          flush=True)
+    print(f"train: losses {[round(x, 5) for x in losses]}, step times "
+          f"{[round(x * 1e3, 1) for x in secs]} ms; step {step_ms:.1f} ms "
+          f"(median of steps 2-{TRAIN_STEPS}), {tok_s:.0f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB; launches per step K1 "
+          f"{counts['K1'] // TRAIN_STEPS}, K2 {counts['K2'] // TRAIN_STEPS}, "
+          f"K3 {counts['K3'] // TRAIN_STEPS}; plain calls "
+          f"{counts['plain_fwd']} / {counts['plain_bwd']}", flush=True)
+
+    prof = profile_train(torch, step, params, opt, tokens)
+
+    # layer 0's attention, captured from a forward/backward at the training
+    # shape, replayed through the plain versions
+    cap = replay_layer0(torch, tm, dfwd, dbwd, tt, params, tokens, cfg)
+
+    # a small batch at full depth: the kernel-path loss against the same
+    # loss through the plain attention versions
+    small = tokens[:TRAIN_CHECK_B, :TRAIN_CHECK_S + 1]
+    with torch.no_grad():
+        loss_k = tm.loss_fn(params, small, cfg)
+        with _plain_attention(fa_mod, dfwd, dbwd, True):
+            loss32 = tm.loss_fn(params, small, cfg)
+        with _plain_attention(fa_mod, dfwd, dbwd, False):
+            loss16 = tm.loss_fn(params, small, cfg)
+    err, gate = gated(torch, loss_k, loss32, loss16,
+                      f"B {TRAIN_CHECK_B} x S {TRAIN_CHECK_S} loss", 2.0,
+                      1e-5)
+    print(f"train: B {TRAIN_CHECK_B} x S {TRAIN_CHECK_S} loss (full depth) "
+          f"kernel {float(loss_k):.6f}, plain fp32 {float(loss32):.6f}, "
+          f"plain bf16 {float(loss16):.6f}: err {err:.3e} <= gate {gate:.3e} "
+          f"({TRAIN_LOSS_GATE})", flush=True)
+    return dict(launches=counts, step_ms=step_ms, tokens_s=tok_s,
+                peak_gb=peak_gb, losses=losses, profile=prof, replay=cap)
+
+
+def replay_layer0(torch, tm, dfwd, dbwd, tt, params, tokens, cfg):
+    """One forward/backward at the training shape with layer 0's attention
+    inputs, output and gradients captured; the kernel results against the
+    plain fp32 and bf16 versions on the same inputs."""
+    real = tm.flash_attn_func
+    cap = {}
+
+    def spy(q, k, v, **kw):
+        if cap:
+            return real(q, k, v, **kw)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            cap[name] = t.detach().clone()
+            t.register_hook(lambda g, name=name: cap.__setitem__(
+                "d" + name, g.detach().clone()))
+        out = real(q, k, v, **kw)
+        cap["out"] = out.detach().clone()
+        out.register_hook(lambda g: cap.__setitem__("dout",
+                                                     g.detach().clone()))
+        return out
+
+    tm.flash_attn_func = spy
+    try:
+        tm.loss_fn(params, tokens, cfg).backward()
+    finally:
+        tm.flash_attn_func = real
+    for t in tm.param_leaves(params):
+        t.grad = None
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    scale = cfg.head_dim ** -0.5
+    mp = masklib.MaskParams(causal=True)
+    q, k, v, dout = cap["q"], cap["k"], cap["v"], cap["dout"]
+    o32, lse32 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, mp)
+    o16, lse16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, mp,
+                                               upcast=False)
+    # K2 and K3 took K1's out and lse: K1 again on the captured inputs
+    # gives them bit for bit (it is deterministic), and the plain backward
+    # versions take the same, as in phase_dense; with each its own out, the
+    # delta = rowsum(O dO) of a short row cancels to a different rounding
+    out_k, lse_k = dfwd.flash_attn_dense_fwd(q, k, v, scale, mp)
+    assert torch.equal(out_k, cap["out"]), "K1 is not deterministic"
+    g32 = dbwd.flash_attn_dense_bwd_ref(q, k, v, out_k, dout, lse_k, scale,
+                                        mp)
+    g16 = dbwd.flash_attn_dense_bwd_ref(q, k, v, out_k, dout, lse_k, scale,
+                                        mp, upcast=False)
+    del out_k, lse_k, lse32, lse16
+    # the gradients of a loss averaged over B x S tokens are tiny: the atol
+    # is scaled by the largest |ref| where that is below 1 (as if dout were
+    # scaled up, the check being linear in dout), and the per-row gate
+    # scales with each row
+    res, rows = {}, {}
+    for name, r32, r16, mult, atol in (
+            ("out", o32, o16, tt.FWD_MULT, tt.FWD_ATOL),
+            *((n, a, b, tt.BWD_MULT, tt.BWD_ATOL)
+              for n, a, b in zip(("dq", "dk", "dv"), g32, g16))):
+        ref_max = float(r32.float().abs().max())
+        assert ref_max > 0, f"layer 0 attention {name}: all-zero reference"
+        res[name] = gated(torch, cap[name], r32, r16,
+                          f"layer 0 attention {name}", mult,
+                          atol * min(1.0, ref_max))
+        rows[name] = gated_rows(torch, cap[name], r32, r16,
+                                f"layer 0 attention {name}", mult)
+    print("train: layer 0 attention replayed (q/k/v/dout captured at B "
+          f"{tokens.shape[0]} x S {tokens.shape[1] - 1}); max abs err vs "
+          "fp32 plain <= 2x / 3x the bf16 plain error + (1e-5 / 1e-4) x "
+          "min(1, max |ref|): " + ", ".join(f"{k_} {e:.3e} <= {g:.3e}"
+                                for k_, (e, g) in res.items())
+          + "; per-row worst err/gate (median |ref|, median row gate): "
+          + ", ".join(f"{k_} {r:.3f} ({med:.3e}, {g:.3e})"
+                      for k_, (r, med, g) in rows.items()), flush=True)
+    return res
+
+
+def profile_train(torch, step, params, opt, tokens):
+    """Where a training step's time goes: one more step under
+    torch.profiler (CPU + CUDA activities)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # user annotations (the optimizer's step region) also show on the
+    # device timeline, overlapping the kernels they enclose
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    share = {}
+    for key, pat in (("K1", "fwd_kernel"), ("K2", "dq_kernel"),
+                     ("K3", "dkv_kernel")):
+        share[key] = sum(us for n, us in by_name.items() if pat in n) / \
+            max(busy_us, 1e-9)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    res = dict(wall_ms=wall * 1e3, busy_ms=busy_us / 1e3,
+               busy_share=busy_us / 1e3 / max(wall * 1e3, 1e-9),
+               launches=len(kernels), share=share)
+    print(f"train profile (torch.profiler, one step): wall "
+          f"{res['wall_ms']:.1f} ms, device busy {res['busy_ms']:.1f} ms "
+          f"({100 * res['busy_share']:.1f}%), {len(kernels)} kernel "
+          f"launches; shares of device time: K1 {100 * share['K1']:.1f}%, "
+          f"K2 {100 * share['K2']:.1f}%, K3 {100 * share['K3']:.1f}%",
+          flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:9.3f} ms  {name[:90]}")
+    return res
 
 
 # ------------------------------------------------------------ engine phase
@@ -487,22 +979,38 @@ def main() -> int:
               flush=True)
 
     flush = torch.empty(64 * 2 ** 20 // 4, device="cuda")   # > 50 MB L2
+    dense = phase_dense(torch, flush)
+    torch.cuda.empty_cache()
     k4 = phase_k4(torch, flush)
     k8 = phase_k8(torch, flush)
     del flush
     from flash_attn_v100_tpu_torch import ModelConfig
-    eng = phase_engine(torch, ModelConfig.tinyllama_1b())
+    cfg = ModelConfig.tinyllama_1b()
+    train = phase_train(torch, cfg)
+    torch.cuda.empty_cache()
+    eng = phase_engine(torch, cfg)
 
     kernels = []
-    for name, res, src, replaces, key in (
+    for name, res, src, replaces, launches in (
+            ("K1 flash_attn_dense_fwd", dense["K1"], "fwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/fwd.py:152",
+             train["launches"]["K1"]),
+            ("K2 flash_attn_dense_bwd (dq)", dense["K2"], "bwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/bwd.py:122",
+             train["launches"]["K2"]),
+            ("K3 flash_attn_dense_bwd (dk, dv)", dense["K3"], "bwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/bwd.py:330",
+             train["launches"]["K3"]),
             ("K4 paged_decode_attention", k4, "decode.cu",
-             "flash_attn_v100_tpu/ops/pallas/decode.py:72", "decode"),
+             "flash_attn_v100_tpu/ops/pallas/decode.py:72",
+             eng["launches"]["decode"]),
             ("K8 flash_attn_varlen_fwd_paged", k8, "varlen_paged.cu",
-             "flash_attn_v100_tpu/ops/pallas/varlen.py:947", "varlen")):
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:947",
+             eng["launches"]["varlen"])):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"flash_attn_v100_tpu_torch/csrc/{src}", replaces=replaces,
-            launches=eng["launches"][key], max_abs_err=res["max_abs_err"],
+            launches=launches, max_abs_err=res["max_abs_err"],
             max_abs_err_gate=res["gate"],
             ms=res["ms"], plain_ms=res["plain_ms"],
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],

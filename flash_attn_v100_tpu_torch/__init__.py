@@ -2,18 +2,23 @@
 for NVIDIA Hopper (H100, sm_90a).
 
 The JAX package `flash_attn_v100_tpu` is the reference; this package grows
-beside it slice by slice.  It holds the paged serving engine: the KV-cache
-attention API with its two hand-written CUDA kernels (split-KV decode and
-paged varlen prefill), the Llama-family model's serving path, and the
-continuous-batching runtime.  Entry points run on the GPU unless the caller
-passes device="cpu", where every kernel is replaced by its plain PyTorch
-version.
+beside it slice by slice.  It holds
+  * training: `flash_attn_func` (dense attention, differentiable) on three
+    hand-written CUDA kernels (K1 forward, K2 dQ, K3 dK/dV) and the
+    Llama-family model's `forward`, `loss_fn`, `sgd_train_step` and
+    `make_train_step`;
+  * the paged serving engine: the KV-cache attention API with its two
+    hand-written CUDA kernels (split-KV decode and paged varlen prefill),
+    the model's serving path, and the continuous-batching runtime.
+Entry points run on the GPU unless the caller passes device="cpu" (or CPU
+tensors), where every kernel is replaced by its plain PyTorch version.
 """
 
 from flash_attn_v100_tpu_torch.models.transformer import (
     ModelConfig, params_from_jax)
+from flash_attn_v100_tpu_torch.ops.flash_attention import flash_attn_func
 from flash_attn_v100_tpu_torch.ops.kvcache import flash_attn_with_kvcache
 from flash_attn_v100_tpu_torch.runtime.engine import ServingEngine
 
-__all__ = ["flash_attn_with_kvcache", "ServingEngine", "ModelConfig",
-           "params_from_jax"]
+__all__ = ["flash_attn_func", "flash_attn_with_kvcache", "ServingEngine",
+           "ModelConfig", "params_from_jax"]

@@ -1,24 +1,28 @@
 """Llama-family decoder (TinyLlama, Mistral's sliding window, Qwen2's qkv
-bias) on the port's attention ops: the serving half.
+bias) on the port's attention ops: training and decode.
 
 Parameters are a plain dict with the JAX package's names (`embed`,
 `layers[i]` with wq/wk/wv/wo/w1/w3/w2/ln1/ln2 and optional bq/bk/bv,
 `ln_f`, optional `lm_head`); `params_from_jax` carries a JAX parameter tree
-across.  `forward`, `loss_fn` and the train steps come with the training
-slice (they need the dense forward/backward kernels).
+across.  Training (`forward`, `loss_fn`, `sgd_train_step`,
+`make_train_step`) runs attention through `flash_attn_func` (K1 forward,
+K2/K3 backward); decode through `flash_attn_with_kvcache`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from flash_attn_v100_tpu_torch.config import (
     DeviceLike, as_torch_dtype, resolve_device)
+from flash_attn_v100_tpu_torch.ops.flash_attention import (
+    flash_attn_func, normalize_seed)
 from flash_attn_v100_tpu_torch.ops.kvcache import flash_attn_with_kvcache
+from flash_attn_v100_tpu_torch.ops.rotary import apply_rotary_emb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,11 +111,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     return params
 
 
-def params_from_jax(tree, device: DeviceLike = None, dtype=None) -> Dict:
+def params_from_jax(tree, device: DeviceLike = None, dtype=None,
+                    requires_grad: bool = False) -> Dict:
     """A JAX parameter tree (nested dicts/lists of arrays, e.g. after
     `jax.device_get`) -> the port's parameter dict with the same names, as
-    torch tensors on `device` (in `dtype` if given).  Carries `lm_head` and
-    the Qwen2 `bq/bk/bv` when present."""
+    torch tensors on `device` (in `dtype` if given), leaves that require
+    grad if `requires_grad` (as torch optimizers need).  Carries `lm_head`
+    and the Qwen2 `bq/bk/bv` when present."""
     dev = resolve_device(device)
     dt = as_torch_dtype(dtype)
 
@@ -122,7 +128,8 @@ def params_from_jax(tree, device: DeviceLike = None, dtype=None) -> Dict:
             t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(a))
-        return t.to(device=dev, dtype=dt or t.dtype)
+        return t.to(device=dev, dtype=dt or t.dtype).requires_grad_(
+            requires_grad)
 
     out = dict(embed=conv(tree["embed"]), ln_f=conv(tree["ln_f"]),
                layers=[{k: conv(v) for k, v in lp.items()}
@@ -172,6 +179,112 @@ def logits_head(x, params):
     head = params.get("lm_head")
     head = params["embed"].T if head is None else head
     return (x @ head).to(torch.float32)
+
+
+def param_leaves(params: Dict) -> List[torch.Tensor]:
+    """Every tensor of a parameter dict, in a fixed order."""
+    leaves = [params["embed"], params["ln_f"]]
+    if "lm_head" in params:
+        leaves.append(params["lm_head"])
+    for lp in params["layers"]:
+        leaves += [lp[k] for k in sorted(lp)]
+    return leaves
+
+
+def _map_params(params: Dict, fn: Callable) -> Dict:
+    out = {k: fn(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: fn(v) for k, v in lp.items()}
+                     for lp in params["layers"]]
+    return out
+
+
+# ======================================================================
+# Training path
+# ======================================================================
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, mesh=None,
+            dropout_seeds=None, generator: Optional[torch.Generator] = None
+            ) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, vocab) fp32, differentiable in the
+    parameters.  With cfg.dropout_p > 0, layer i's attention dropout is
+    keyed by `dropout_seeds[i]` (an (n_layers, 2) array of (lo, hi) words,
+    e.g. JAX's key_data(fold_in(rng_key, i))[:2]), else by two words drawn
+    from `generator`."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (sharded training) comes with the "
+                                  "parallel slice")
+    B, S = tokens.shape
+    dev = tokens.device
+    cos, sin = rope_tables(cfg, cfg.max_seq_len, device=dev)
+    pos = torch.arange(S, device=dev)[None, :]
+    x = params["embed"][tokens]
+    for i, lp in enumerate(params["layers"]):
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = qkv_proj(h, lp, cfg, B, S)
+        q = apply_rotary_emb(q, cos, sin, pos, interleaved=False)
+        k = apply_rotary_emb(k, cos, sin, pos, interleaved=False)
+        seed = normalize_seed(
+            cfg.dropout_p,
+            None if dropout_seeds is None else dropout_seeds[i], generator)
+        attn = flash_attn_func(q, k, v, causal=True, dropout_p=cfg.dropout_p,
+                               window_size=cfg.window_size(),
+                               dropout_seed=seed)
+        x = x + attn.reshape(B, S, -1) @ lp["wo"]
+        x = x + mlp(rmsnorm(x, lp["ln2"], cfg.norm_eps), lp)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return logits_head(x, params)
+
+
+def loss_fn(params, tokens: torch.Tensor, cfg: ModelConfig, **kw
+            ) -> torch.Tensor:
+    """Next-token cross entropy, the mean over B * (S - 1) positions."""
+    logits = forward(params, tokens[:, :-1], cfg, **kw)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, tokens[:, 1:, None].to(torch.long))[..., 0]
+    return nll.mean()
+
+
+def sgd_train_step(params, tokens: torch.Tensor, cfg: ModelConfig,
+                   lr: float = 1e-2, **kw):
+    """One plain-SGD step; returns (loss, new_params) with p - lr * g in p's
+    dtype.  `params` is left as it is."""
+    leaves = _map_params(params, lambda t: t.detach().requires_grad_(True))
+    flat = param_leaves(leaves)
+    loss = loss_fn(leaves, tokens, cfg, **kw)
+    grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
+    new = _map_params(leaves, lambda t: (t - lr * grads[id(t)].to(t.dtype))
+                      .detach())
+    return loss.detach(), new
+
+
+def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None):
+    """-> (step, init_opt).  `init_opt(params)` builds the optimizer over the
+    parameters' leaves, which must require grad (`params_from_jax(...,
+    requires_grad=True)`, or `requires_grad_()` on each): AdamW(lr 3e-4,
+    weight_decay 0.01, betas 0.9/0.999, eps 1e-8, decay on every leaf), the
+    defaults of optax.adamw, unless `optimizer` (leaves -> torch optimizer)
+    is given.  `step(params, opt, tokens, dropout_seeds=None,
+    generator=None) -> (loss, params, opt)` updates the parameters in
+    place."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (sharded training) comes with the "
+                                  "parallel slice")
+    if optimizer is None:
+        def optimizer(leaves):
+            return torch.optim.AdamW(leaves, lr=3e-4, weight_decay=0.01)
+
+    def init_opt(params):
+        return optimizer(param_leaves(params))
+
+    def step(params, opt, tokens, dropout_seeds=None, generator=None):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, tokens, cfg, dropout_seeds=dropout_seeds,
+                       generator=generator)
+        loss.backward()
+        opt.step()
+        return loss.detach(), params, opt
+
+    return step, init_opt
 
 
 # ======================================================================

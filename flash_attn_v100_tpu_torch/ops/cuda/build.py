@@ -27,7 +27,8 @@ CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "build"
 
 # kernel name -> source file in csrc/
-SOURCES = {"decode": "decode.cu", "varlen_paged": "varlen_paged.cu"}
+SOURCES = {"decode": "decode.cu", "varlen_paged": "varlen_paged.cu",
+           "fwd": "fwd.cu", "bwd": "bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,6 +36,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
+
+# mask (causal, window_left, window_right, softcap, has_alibi), then dropout
+# (enabled, seed_lo, seed_hi, threshold, scale, q0, k0, b0, h0, num_heads)
+_MASK_DROPOUT = [_I, _I, _I, _F, _I] + [_I, _U, _U, _U, _F] + [_I] * 5
 
 # C signatures of the entry points of each library
 SIGNATURES = {
@@ -46,6 +52,14 @@ SIGNATURES = {
         "fa_varlen_paged_launch": ([_I, _P, _P, _P, _P, _I] + [_P] * 6
                                    + [_P] + [_LL] * 3 + [_I] * 8
                                    + [_F, _I, _I, _I, _F, _I, _P], _I),
+    },
+    "fwd": {
+        "fa_fwd_launch": ([_I] + [_P] * 6 + [_I] * 7 + [_F] + _MASK_DROPOUT
+                          + [_P], _I),
+    },
+    "bwd": {
+        name: ([_I] + [_P] * 10 + [_I] * 7 + [_F] + _MASK_DROPOUT + [_P], _I)
+        for name in ("fa_dq_launch", "fa_dkv_launch")
     },
 }
 

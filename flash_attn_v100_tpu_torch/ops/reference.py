@@ -9,7 +9,9 @@ Semantics:
   val = val - alibi_slope * |i - (j - offset)|   (before softcap)
   val = softcap * tanh(val / softcap)            (after scale + alibi)
   masked positions -> -inf
-Fully-masked rows produce out = 0 and lse = -inf.  `upcast=True` computes
+Dropout applies after the softmax, keyed by absolute position through the
+Philox bits of ops/philox.py.  Fully-masked rows produce out = 0 and
+lse = -inf.  `upcast=True` computes
 in fp32; `upcast=False` keeps the input dtype for both products (the
 same-bit-width yardstick of utils/testing.py).
 """
@@ -20,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_v100_tpu_torch.ops import philox
 from flash_attn_v100_tpu_torch.ops.rotary import apply_rotary_emb
 
 
@@ -27,9 +30,14 @@ def mha_reference(q, k, v, softmax_scale: Optional[float] = None,
                   causal: bool = False,
                   window_size: Tuple[int, int] = (-1, -1),
                   softcap: float = 0.0, alibi_slopes=None,
-                  upcast: bool = True, return_lse: bool = False):
+                  upcast: bool = True, return_lse: bool = False,
+                  dropout_p: float = 0.0, dropout_seed=0,
+                  return_dmask: bool = False, dropout_bh_base: int = 0):
     """q (B, M, Hq, D), k/v (B, N, Hk, D) -> out (B, M, Hq, D)
-    [, lse (B, Hq, M) fp32]."""
+    [, lse (B, Hq, M) fp32] [, dmask (B, Hq, M, N), +1 kept / -1 dropped].
+
+    `dropout_seed` is a 64-bit int or a (lo, hi) pair; `dropout_bh_base`
+    offsets the Philox (batch * H + head) stream id."""
     dtype_og = q.dtype
     B, M, Hq, D = q.shape
     N, Hk = k.shape[1], k.shape[2]
@@ -75,9 +83,26 @@ def mha_reference(q, k, v, softmax_scale: Optional[float] = None,
     p = e / l_safe
     lse = torch.where(l[..., 0] == 0, torch.full_like(l[..., 0], float("-inf")),
                       m_safe[..., 0] + torch.log(l_safe[..., 0]))
+    dmask = None
+    if dropout_p > 0.0:
+        if isinstance(dropout_seed, int):
+            seed_lo, seed_hi = philox.split_seed(dropout_seed)
+        else:
+            seed_lo, seed_hi = (int(x) for x in dropout_seed)
+        bh = ((torch.arange(B, device=dev)[:, None] + dropout_bh_base) * Hq
+              + torch.arange(Hq, device=dev)[None, :]).view(B, Hq, 1, 1)
+        keep = philox.dropout_keep_mask(i, j, bh, seed_lo, seed_hi, dropout_p)
+        p = torch.where(keep, p / (1.0 - dropout_p), torch.zeros_like(p))
+        if return_dmask:
+            dmask = torch.where(keep, 1.0, -1.0).to(dtype_og)
     o = torch.einsum("bhmn,bhnd->bhmd", p.to(vt.dtype), vt)
     out = o.transpose(1, 2).to(dtype_og)
-    return (out, lse.float()) if return_lse else out
+    results = (out,)
+    if return_lse:
+        results += (lse.float(),)
+    if return_dmask:
+        results += (dmask,)
+    return results[0] if len(results) == 1 else results
 
 
 def mha_reference_kvcache(q, k_cache, v_cache, k_new=None, v_new=None,

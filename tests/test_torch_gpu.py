@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K4 decode, K8 paged prefill) and the entry points
-that reach them, on the card, against their plain PyTorch versions on the
-same device.  Every test takes the `cuda` fixture, which skips where no CUDA
+"""The port's CUDA kernels (K1 dense forward, K2 dQ, K3 dK/dV, K4 decode,
+K8 paged prefill) and the entry points that reach them, on the card,
+against their plain PyTorch versions on the same device.  Every test takes the `cuda` fixture, which skips where no CUDA
 device is present; on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
@@ -9,7 +9,8 @@ device is present; on the machine with the card:
 
 Gates: kernel outputs and LSEs by the tolerance model of utils/testing.py
 (error against the fp32 plain version within 2x the same-dtype plain
-version's error + 1e-5); an LSE of -inf (no live key) must match exactly;
+version's error + 1e-5; gradients 3x + 1e-4); an LSE of -inf (no live key)
+must match exactly; dropout keep masks and two backward calls bit-equal;
 appended cache payloads without rotary bit-equal to the CPU append.
 """
 
@@ -19,14 +20,17 @@ import torch
 
 from flash_attn_v100_tpu_torch import ModelConfig, ServingEngine
 from flash_attn_v100_tpu_torch.models import transformer as tmodel
+from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
 from flash_attn_v100_tpu_torch.ops import kvcache as kv
 from flash_attn_v100_tpu_torch.ops import masks as masklib
 from flash_attn_v100_tpu_torch.ops.cuda import build
+from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
 from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
 from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
 from flash_attn_v100_tpu_torch.runtime import engine as eng_mod
 from flash_attn_v100_tpu_torch.utils.testing import (
-    assert_close_rel, assert_fwd_close)
+    assert_bwd_close, assert_close_rel, assert_fwd_close)
 
 torch.set_num_threads(1)
 
@@ -41,7 +45,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: runs on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build_all()          # both kernels, nvcc processes in parallel
+    build.build_all()          # every kernel, nvcc processes in parallel
     return torch.device("cuda")
 
 
@@ -50,6 +54,182 @@ def _gate_lse(lse, lse32, lse_nat, name):
     assert torch.equal(fin, torch.isfinite(lse)), f"{name}: -inf rows differ"
     if fin.any():
         assert_fwd_close(lse[fin], lse32[fin], lse_nat[fin], name=name)
+
+
+# ------------------------------------------------------------ K1, K2, K3
+
+# name: (B, Hq, Hk, M, N, mask kwargs, alibi, dropout_p, ring extras)
+DENSE_CASES = {
+    "causal_gqa": (2, 8, 2, 200, 200, dict(causal=True), False, 0.0, {}),
+    "m_gt_n_causal_empty_rows": (1, 4, 2, 256, 100, dict(causal=True), False,
+                                 0.0, {}),
+    "window_softcap_alibi_cross": (2, 4, 4, 130, 190,
+                                   dict(window_left=32, window_right=8,
+                                        softcap=20.0), True, 0.0, {}),
+    "dropout_gqa_causal": (2, 4, 1, 160, 160, dict(causal=True), False, 0.15,
+                           {}),
+    "ring_offset_pos_base_dropout": (
+        1, 4, 2, 128, 192, dict(causal=True), False, 0.1,
+        dict(offset=-20, pos_base=(256, 64, 1, 4), num_heads_total=16)),
+}
+DENSE_SEED = torch.tensor([0x2468ACE0, 0x80000007], dtype=torch.int64)
+
+
+def _dense_inputs(name, dtype, D, dev):
+    B, Hq, Hk, M, N, mkw, alibi, p, extras = DENSE_CASES[name]
+    rng = np.random.default_rng(29)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    q, k, v, do = t(B, M, Hq, D), t(B, N, Hk, D), t(B, N, Hk, D), \
+        t(B, M, Hq, D)
+    slopes = torch.from_numpy(rng.uniform(0.01, 0.2, (B, Hq)).astype(
+        np.float32)).to(dev) if alibi else None
+    kw = dict(alibi_slopes=slopes, dropout_p=p, dropout_seed=DENSE_SEED,
+              **extras)
+    params = masklib.MaskParams(has_alibi=alibi, **mkw)
+    return (q, k, v, D ** -0.5, params), do, kw
+
+
+@pytest.mark.parametrize("name", list(DENSE_CASES))
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_dense_kernels_match_plain(cuda, dt, D, name):
+    args, do, kw = _dense_inputs(name, DTYPES[dt], D, cuda)
+    launches = (dfwd.flash_attn_dense_fwd.launches, dbwd.dq_kernel.launches,
+                dbwd.dkv_kernel.launches)
+    out, lse = dfwd.flash_attn_dense_fwd(*args, **kw)
+    grads = dbwd.flash_attn_dense_bwd(*args[:3], out, do, lse, *args[3:],
+                                      **kw)
+    torch.cuda.synchronize()
+    assert (dfwd.flash_attn_dense_fwd.launches, dbwd.dq_kernel.launches,
+            dbwd.dkv_kernel.launches) == tuple(n + 1 for n in launches)
+    o32, lse32 = dfwd.flash_attn_dense_fwd_ref(*args, **kw)
+    onat, lsenat = dfwd.flash_attn_dense_fwd_ref(*args, upcast=False, **kw)
+    assert_fwd_close(out, o32, onat, name=f"K1 {name} out")
+    _gate_lse(lse, lse32, lsenat, f"K1 {name} lse")
+    # the backward from the kernel's own out and lse, against the plain
+    # backward from the same out and lse
+    g32 = dbwd.flash_attn_dense_bwd_ref(*args[:3], out, do, lse, *args[3:],
+                                        **kw)
+    gnat = dbwd.flash_attn_dense_bwd_ref(*args[:3], out, do, lse, *args[3:],
+                                         upcast=False, **kw)
+    for g, gr32, grn, what in zip(grads, g32, gnat, ("K2 dq", "K3 dk",
+                                                     "K3 dv")):
+        assert g.dtype == args[0].dtype and g.shape == gr32.shape
+        assert_bwd_close(g, gr32, grn, name=f"{what} {name}")
+    if name.startswith("m_gt_n"):
+        dead = args[0].shape[1] - args[1].shape[1]
+        assert torch.isneginf(lse[:, :, :dead]).all()
+        assert not out[:, :dead].any() and not grads[0][:, :dead].any()
+
+
+def test_dense_backward_bitwise_deterministic(cuda):
+    args, do, kw = _dense_inputs("dropout_gqa_causal", torch.bfloat16, 64,
+                                 cuda)
+    out, lse = dfwd.flash_attn_dense_fwd(*args, **kw)
+    g1 = dbwd.flash_attn_dense_bwd(*args[:3], out, do, lse, *args[3:], **kw)
+    g2 = dbwd.flash_attn_dense_bwd(*args[:3], out, do, lse, *args[3:], **kw)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_dense_kernels_dropout_masks_bit_equal(cuda, dt):
+    """Read the kernels' keep masks back: with q = 0 every live score is 0,
+    so with v = I (N = D = 64) K1 gives out[i, j] = keep(i, j) / (64 (1-p))
+    and, with dout = I, K3 gives dv[j, i] = keep(i, j) / (64 (1-p))."""
+    B, H, n, p = 2, 4, 64, 0.3
+    dtype = DTYPES[dt]
+    eye = torch.eye(n, device=cuda, dtype=dtype)
+    q = torch.zeros((B, n, H, n), device=cuda, dtype=dtype)
+    v = eye[None, :, None, :].expand(B, n, H, n).contiguous()
+    kw = dict(dropout_p=p, dropout_seed=DENSE_SEED, pos_base=(5, 640, 1, 3),
+              num_heads_total=16)
+    params = masklib.MaskParams()
+    out, lse = dfwd.flash_attn_dense_fwd(q, q, v, 0.125, params, **kw)
+    _, _, dv = dbwd.flash_attn_dense_bwd(q, q, v, out, v, lse, 0.125,
+                                         params, **kw)
+    keep = torch.stack([dfwd.dense_keep_mask(b, H, n, n, p, DENSE_SEED,
+                                             kw["pos_base"], 16, cuda)
+                        for b in range(B)])                 # (B, H, i, j)
+    assert torch.equal(out.permute(0, 2, 1, 3) > 0, keep)
+    assert torch.equal(dv.permute(0, 2, 3, 1) > 0, keep)
+
+
+def test_dense_kernels_reject_fp32(cuda):
+    args, do, kw = _dense_inputs("causal_gqa", torch.float32, 64, cuda)
+    with pytest.raises(TypeError):
+        dfwd.flash_attn_dense_fwd(*args, **kw)
+
+
+def test_flash_attn_func_padded_head_dim(cuda):
+    """head_dim 40: padded to 64 by the kernel wrappers and sliced back."""
+    rng = np.random.default_rng(8)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+        for s in ((2, 96, 4, 40), (2, 96, 2, 40), (2, 96, 2, 40),
+                  (2, 96, 4, 40)))
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fa_mod.flash_attn_func(*leaves, causal=True)
+        (out.float() * do.float()).sum().backward()
+        return out.detach(), [t.grad for t in leaves]
+
+    out, grads = run()
+    plain = {}
+    for upcast in (True, False):
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(fa_mod, "flash_attn_dense_fwd", lambda *a, **k_: (
+                dfwd.flash_attn_dense_fwd_ref(*a, upcast=upcast, **k_)))
+            m.setattr(fa_mod, "flash_attn_dense_bwd", lambda *a, **k_: (
+                dbwd.flash_attn_dense_bwd_ref(*a, upcast=upcast, **k_)))
+            plain[upcast] = run()
+    assert out.shape == q.shape
+    assert_fwd_close(out, plain[True][0], plain[False][0], name="out")
+    for i, what in enumerate(("dq", "dk", "dv")):
+        assert_bwd_close(grads[i], plain[True][1][i], plain[False][1][i],
+                         name=what)
+
+
+def test_train_step_runs_the_kernels(cuda, monkeypatch):
+    """One loss/backward of a small bf16 model through K1-K3: 1 launch of
+    each per layer, loss and gradients within the gates of the same step
+    through the plain versions."""
+    cfg = _tiny(torch.bfloat16)
+    params = tmodel.init_params(cfg, seed=5, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 129))).to(cuda)
+
+    def run():
+        leaves = dict(params, layers=[
+            {k: t.detach().clone().requires_grad_() for k, t in lp.items()}
+            for lp in params["layers"]])
+        loss = tmodel.loss_fn(leaves, tokens, cfg)
+        loss.backward()
+        return loss.detach(), leaves["layers"][0]["wq"].grad
+
+    before = (dfwd.flash_attn_dense_fwd.launches, dbwd.dq_kernel.launches,
+              dbwd.dkv_kernel.launches)
+    loss, g = run()
+    assert (dfwd.flash_attn_dense_fwd.launches - before[0],
+            dbwd.dq_kernel.launches - before[1],
+            dbwd.dkv_kernel.launches - before[2]) == (cfg.n_layers,) * 3
+    plain = {}
+    for upcast in (True, False):
+        with monkeypatch.context() as m:
+            m.setattr(fa_mod, "flash_attn_dense_fwd", lambda *a, **k_: (
+                dfwd.flash_attn_dense_fwd_ref(*a, upcast=upcast, **k_)))
+            m.setattr(fa_mod, "flash_attn_dense_bwd", lambda *a, **k_: (
+                dbwd.flash_attn_dense_bwd_ref(*a, upcast=upcast, **k_)))
+            plain[upcast] = run()
+    assert torch.isfinite(loss)
+    assert_close_rel(loss, plain[True][0], plain[False][0], 2.0, 1e-5,
+                     name="loss")
+    assert_bwd_close(g, plain[True][1], plain[False][1], name="layer 0 dwq")
 
 
 # ------------------------------------------------------------------ K4
