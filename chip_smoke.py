@@ -11,6 +11,11 @@ PyTorch library call computing the same function:
     S 2048, 32/4 heads x 64, causal, bf16), with and without dropout, the
     dropout keep mask read back from K1 and compared bit for bit, and two
     backward calls compared bit for bit;
+  * K5 varlen forward, K6 dQ and K7 dK/dV at the same width through
+    flash_attn_varlen_func: 4 x 2048 equal lengths bit-equal to
+    flash_attn_func (with dropout: K5's keep mask read back), a padded
+    batch through unpad_input / pad_input, and packed documents, where
+    each kernel is held against its plain version;
   * K4 decode and K8 paged prefill at the serving engine's shapes.
 Then it trains TinyLlama-1.1B at full width (22 layers, bf16, random weights
 from a seed) for three AdamW steps at B 4 x S 2048 through K1-K3, and
@@ -20,6 +25,12 @@ checking each path's output and launch counts.  Prints the card, a
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 Any failed phase raises and the script exits non-zero; with no GPU, or
 without the package beside it, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --dense-times TREE
+
+instead times K1-K3 of the port found in the directory TREE (a checkout,
+e.g. of a parent commit) at the training shape and prints a digest of
+their outputs, to compare two trees on one card in one call.
 """
 
 from __future__ import annotations
@@ -365,7 +376,7 @@ def read_dropout_mask(torch, dfwd, B, S, Hq, Hk, seed, p):
     return keep
 
 
-def gate_sensitivity(torch, tt, cases):
+def gate_sensitivity(torch, tt, cases, phase="dense"):
     """Each (name, wrong, ref32, ref_native, mult, atol) is a kernel output
     made wrong on one late tile only: the per-row gate must reject it; the
     max-abs gate's verdict is printed beside."""
@@ -377,7 +388,7 @@ def gate_sensitivity(torch, tt, cases):
         gate = mult * tt.max_abs_err(r16, r32) + atol
         seen.append(f"{name} row err/gate {ratio:.2f}, max abs {err:.3e} "
                     f"{'>' if err > gate else '<='} {gate:.3e}")
-    print("dense gate check (one late tile keyed with another dropout "
+    print(f"{phase} gate check (one late tile keyed with another dropout "
           "seed; the per-row gate must reject each): " + "; ".join(seen),
           flush=True)
 
@@ -532,6 +543,382 @@ def phase_dense(torch, flush):
               f"{' (dq, dk, dv together)' if name != 'K1' else ''}, sdpa "
               f"{'fwd' if name == 'K1' else 'bwd (K2 + K3)'} {lib:.4f} ms, "
               f"bound {bms:.4f} ms ({by}, {flops:.3e} flop)", flush=True)
+    return res
+
+
+# ------------------------------------------------- K5-K7 (varlen phase)
+
+# TinyLlama-1.1B attention at B 4 x S 2048, as the dense phase; the padded
+# batch's real lengths (4621 tokens) and the packed documents' length range
+VARLEN_PAD_LENS = (2048, 1536, 1000, 37)
+VARLEN_DOC_LENS = (37, 2048)
+
+
+def packed_doc_lengths(rows: int, S: int, seed: int = 0):
+    """Per row, document lengths drawn uniform in VARLEN_DOC_LENS until the
+    row is full, the last document taking the remainder."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(rows):
+        left, docs = S, []
+        while left > 0:
+            n = int(rng.integers(VARLEN_DOC_LENS[0], VARLEN_DOC_LENS[1] + 1))
+            docs.append(min(n, left))
+            left -= docs[-1]
+        out.append(docs)
+    return out
+
+
+def varlen_work(lens, Hq, Hk, D):
+    """(flops, bytes) of K5, K6 and K7 for causal self-attention over
+    sequences of `lens`: dense_work's rule per sequence (4, 6 and 8 flops x
+    D per live (q row, key) pair), each input read once and each output
+    written once."""
+    pairs = Hq * sum(n * (n + 1) // 2 for n in lens)
+    T = sum(lens)
+    q_bytes, kv_bytes, row_bytes = T * Hq * D * 2, T * Hk * D * 2, T * Hq * 4
+    return {
+        "K5": (4 * D * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+        "K6": (6 * D * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+        "K7": (8 * D * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+    }
+
+
+def spliced0(x, y, lo, n=64):
+    """x with packed rows [lo, lo + n) (dim 0) taken from y."""
+    z = x.clone()
+    z[lo:lo + n] = y[lo:lo + n]
+    return z
+
+
+def varlen_library(torch, q, k, v, cu, max_len):
+    """The library yardstick for causal varlen attention: one call of
+    torch.nn.attention.varlen.varlen_attn where the installed torch has it,
+    else SDPA (`enable_gqa`) with a boolean block-diagonal causal mask over
+    the packed sequence.  Returns (label, forward fn, output)."""
+    import inspect
+    F = torch.nn.functional
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+        sig = inspect.signature(varlen_attn).parameters
+        kw = {}
+        kk, vv, label = k, v, "varlen_attn"
+        if "enable_gqa" in sig:
+            kw["enable_gqa"] = True
+        else:
+            g = q.shape[1] // k.shape[1]
+            kk, vv = (t.repeat_interleave(g, dim=1) for t in (k, v))
+            label += " (k/v heads repeated)"
+        if "window_size" in sig:
+            kw["window_size"] = (-1, 0)
+        else:
+            kw["is_causal"] = True
+
+        def fn():
+            return varlen_attn(q, kk, vv, cu, cu, max_len, max_len, **kw)
+        out = fn()
+        torch.cuda.synchronize()
+        return label, fn, out
+    except (ImportError, RuntimeError, TypeError, ValueError) as e:
+        print(f"varlen: varlen_attn unusable here ({type(e).__name__}: "
+              f"{str(e)[:120]}); SDPA with a block-diagonal mask instead",
+              flush=True)
+    T = q.shape[0]
+    seg = torch.repeat_interleave(
+        torch.arange(cu.numel() - 1, device=q.device),
+        (cu[1:] - cu[:-1]).long(), output_size=T)
+    pos = torch.arange(T, device=q.device)
+    mask = (seg[:, None] == seg[None, :]) & (pos[None, :] <= pos[:, None])
+    qs, ks, vs = (t.transpose(0, 1)[None] for t in (q, k, v))
+
+    def fn():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+    return "sdpa (block-diagonal causal mask)", fn, fn()
+
+
+def _varlen_counts(vl):
+    return {"K5": vl.flash_attn_varlen_fwd.launches,
+            "K6": vl.varlen_dq_kernel.launches,
+            "K7": vl.varlen_dkv_kernel.launches,
+            "plain_fwd": vl.flash_attn_varlen_fwd_ref.calls,
+            "plain_bwd": vl.flash_attn_varlen_bwd_ref.calls}
+
+
+def phase_varlen(torch, flush):
+    """flash_attn_varlen_func forward and backward at TinyLlama-1.1B
+    attention width (32/4 heads x 64, causal, bf16) through the public
+    entry points: (a) 4 x 2048 equal lengths against flash_attn_func, with
+    and without dropout; (b) a padded batch through unpad_input ->
+    flash_attn_varlen_func -> pad_input; (c) packed documents through
+    unpad_input_for_concatenated_sequences.  Then K5, K6 and K7 against
+    their plain versions at (c), and their times.  Returns the per-kernel
+    results of the `kernels` line."""
+    import numpy as np
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops import padding as padlib
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    from flash_attn_v100_tpu_torch.ops.flash_attention import flash_attn_func
+    from flash_attn_v100_tpu_torch.ops.varlen import flash_attn_varlen_func
+    from flash_attn_v100_tpu_torch.utils import testing as tt
+
+    dev = torch.device("cuda")
+    B, S, Hq, Hk, D = DENSE_B, DENSE_S, DENSE_HQ, DENSE_HK, DENSE_D
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=ggen, device=dev).to(
+            torch.bfloat16)
+
+    scale = D ** -0.5
+    params = masklib.MaskParams(causal=True)
+    seed = torch.tensor([0x0F1E2D3C, 0x4B5A6978], dtype=torch.int64)
+    x = {n: rnd(B, S, h, D) for n, h in (("q", Hq), ("k", Hk), ("v", Hk),
+                                          ("do", Hq))}
+    cu_a = torch.arange(B + 1, dtype=torch.int32, device=dev) * S
+    mask_b = (torch.arange(S, device=dev)[None, :]
+              < torch.tensor(VARLEN_PAD_LENS, device=dev)[:, None])
+    docs = packed_doc_lengths(B, S, SEED)
+    aml = torch.zeros((B, S), dtype=torch.int32)
+    for r, d in enumerate(docs):
+        aml[r, :len(d)] = torch.tensor(d, dtype=torch.int32)
+    aml = aml.to(dev)
+
+    def leaves(packed=True):
+        return [(x[n].reshape(B * S, *x[n].shape[2:]) if packed else x[n])
+                .clone().requires_grad_() for n in ("q", "k", "v")]
+
+    # ---- the main path, through the public entry points, counted
+    torch.cuda.synchronize()
+    vl.flash_attn_varlen_fwd.launches = 0
+    vl.varlen_dq_kernel.launches = vl.varlen_dkv_kernel.launches = 0
+    vl.flash_attn_varlen_fwd_ref.calls = vl.flash_attn_varlen_bwd_ref.calls = 0
+    t0 = time.perf_counter()
+    run_a = {}
+    for p in (0.0, DENSE_DROPOUT):                          # (a)
+        lv = leaves()
+        out, lse, dmask = flash_attn_varlen_func(
+            *lv, cu_a, cu_a, S, S, dropout_p=p, dropout_seed=seed,
+            causal=True, return_attn_probs=True)
+        out.backward(x["do"].reshape(B * S, Hq, D))
+        run_a[p] = (out.detach(), lse.detach(), dmask,
+                    *(t.grad for t in lv))
+    lv_b = leaves(packed=False)                             # (b)
+    un = [padlib.unpad_input(t, mask_b) for t in lv_b]
+    idx_b, cu_b, ms_b = un[0][1], un[0][2], un[0][3]
+    out_b = padlib.pad_input(flash_attn_varlen_func(
+        un[0][0], un[1][0], un[2][0], cu_b, cu_b, ms_b, ms_b, causal=True),
+        idx_b, B, S)
+    out_b.backward(x["do"])
+    lv_c = leaves(packed=False)                             # (c)
+    un = [padlib.unpad_input_for_concatenated_sequences(t, aml)
+          for t in lv_c]
+    cu_c, ms_c = un[0][2], un[0][3]
+    out_c = flash_attn_varlen_func(un[0][0], un[1][0], un[2][0], cu_c, cu_c,
+                                   ms_c, ms_c, causal=True)
+    out_c.backward(padlib.index_first_axis(
+        x["do"].reshape(B * S, Hq, D), un[0][1]))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = _varlen_counts(vl)
+    for name in ("K5", "K6", "K7"):
+        assert counts[name] == 4, counts       # (a) twice, (b), (c)
+    assert counts["plain_fwd"] == 0 and counts["plain_bwd"] == 0, counts
+    lens_c = [n for d in docs for n in d]
+    print(f"varlen main path (flash_attn_varlen_func fwd + bwd, Hq={Hq}, "
+          f"Hk={Hk}, D={D}, causal, bf16; (a) {B} x {S} with p 0 and "
+          f"{DENSE_DROPOUT}, (b) padded lengths {list(VARLEN_PAD_LENS)} = "
+          f"{sum(VARLEN_PAD_LENS)} tokens, (c) {len(lens_c)} packed "
+          f"documents of {min(lens_c)}-{max(lens_c)} tokens in {B} rows of "
+          f"{S}): {main_s:.3f} s, launches K5 {counts['K5']}, K6 "
+          f"{counts['K6']}, K7 {counts['K7']}; plain calls "
+          f"{counts['plain_fwd']} / {counts['plain_bwd']}", flush=True)
+
+    # ---- (a): bit for bit against flash_attn_func on the same tensors
+    for p, (out, lse, dmask, dq, dk, dv) in run_a.items():
+        ld = [x[n].clone().requires_grad_() for n in ("q", "k", "v")]
+        out_d, lse_d, dmask_d = flash_attn_func(
+            *ld, dropout_p=p, dropout_seed=seed, causal=True,
+            return_attn_probs=True)
+        out_d.backward(x["do"])
+        assert torch.equal(out, out_d.reshape(B * S, Hq, D)), f"(a) p={p} out"
+        assert torch.equal(lse, lse_d.permute(1, 0, 2).reshape(Hq, B * S)), \
+            f"(a) p={p} lse"
+        for g, gd, what in zip((dq, dk, dv), ld, ("dq", "dk", "dv")):
+            assert torch.equal(g, gd.grad.reshape(g.shape)), f"(a) {what}"
+        if p:
+            assert torch.equal(dmask, dmask_d.permute(0, 2, 1, 3).reshape(
+                B * S, Hq, S)), "(a) dmask"
+        del out_d, lse_d, dmask_d, ld
+    # K5's keep mask read back: q = k = 0 and v one-hot on 64 keys at a time
+    q0 = torch.zeros((B * S, Hq, D), device=dev, dtype=torch.bfloat16)
+    k0 = torch.zeros((B * S, Hk, D), device=dev, dtype=torch.bfloat16)
+    v1 = torch.zeros_like(k0)
+    eye = torch.eye(D, device=dev, dtype=torch.bfloat16)
+    keep = torch.empty((B * S, Hq, S), dtype=torch.bool, device=dev)
+    for c0 in range(0, S, D):
+        v1.zero_()
+        v1.view(B, S, Hk, D)[:, c0:c0 + D] = eye[:, None, :]
+        o, _ = vl.flash_attn_varlen_fwd(
+            q0, k0, v1, cu_a, cu_a, S, S, 0.125, masklib.MaskParams(),
+            dropout_p=DENSE_DROPOUT, dropout_seed=seed)
+        keep[..., c0:c0 + D] = o > 0
+    assert torch.equal(keep, run_a[DENSE_DROPOUT][2] > 0), "K5's mask"
+    rate = float(keep.float().mean())
+    print(f"varlen (a): out, LSE, dq, dk, dv bit-equal to flash_attn_func "
+          f"at p 0 and {DENSE_DROPOUT}, dmask too; K5's keep mask read back "
+          f"over {keep.numel()} positions bit-equal to the dmask (keep rate "
+          f"{rate:.5f})", flush=True)
+    del run_a, keep, q0, k0, v1
+
+    # ---- (b): each sequence against flash_attn_func on it alone: out bit
+    # for bit; the gradients too unless delta = rowsum(O dO), a torch
+    # reduction over tensors of another size, rounds differently (then
+    # within 2 bf16 ulps)
+    assert not out_b[mask_b.logical_not()].any()
+    for t in lv_b:
+        assert not t.grad[mask_b.logical_not()].any()
+    n_exact = 0
+    for r, n in enumerate(VARLEN_PAD_LENS):
+        ld = [x[nm][r:r + 1, :n].clone().requires_grad_()
+              for nm in ("q", "k", "v")]
+        o = flash_attn_func(*ld, causal=True)
+        o.backward(x["do"][r:r + 1, :n])
+        assert torch.equal(o[0], out_b[r, :n]), f"(b) row {r} out"
+        for t, td in zip(lv_b, ld):
+            g, gd = t.grad[r, :n].float(), td.grad[0].float()
+            n_exact += int(torch.equal(g, gd))
+            assert torch.allclose(g, gd, rtol=2.0 ** -6, atol=1e-6), \
+                f"(b) row {r}: max diff {float((g - gd).abs().max()):.3e}"
+    print(f"varlen (b): padded rows and their gradients 0; each sequence's "
+          f"out bit-equal to flash_attn_func on it alone, dq/dk/dv "
+          f"bit-equal in {n_exact} of {3 * len(VARLEN_PAD_LENS)} "
+          f"(the rest within 2 bf16 ulps)", flush=True)
+    del out_b, lv_b
+
+    # ---- (c): K5, K6, K7 against their plain versions
+    qc, kc, vc = (u[0].detach() for u in un)
+    doc = padlib.index_first_axis(x["do"].reshape(B * S, Hq, D), un[0][1])
+    args = (qc, kc, vc, cu_c, cu_c, ms_c, ms_c, scale, params)
+    out, lse = vl.flash_attn_varlen_fwd(*args)
+    bargs = (qc, kc, vc, out, doc, lse, cu_c, cu_c, ms_c, ms_c, scale,
+             params)
+    grads = vl.flash_attn_varlen_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_c.detach()), "(c) out differs from the path"
+    for g, t in zip(grads, lv_c):
+        assert torch.equal(padlib.pad_input(g, un[0][1], B, S), t.grad)
+    o32, l32 = vl.flash_attn_varlen_fwd_ref(*args)
+    o16, l16 = vl.flash_attn_varlen_fwd_ref(*args, upcast=False)
+    errs, rows = {}, {}
+    errs["K5"] = gated(torch, out, o32, o16, "K5 out")
+    rows["K5 out"] = gated_rows(torch, out, o32, o16, "K5 out", tt.FWD_MULT)
+    lse_err = gated(torch, lse, l32, l16, "K5 lse")
+    # one late tile made wrong: the kernels' outputs under dropout
+    big = int(np.argmax(lens_c))
+    q_first = int(sum(lens_c[:big]))
+    late = q_first + max(lens_c[big] - 64, 0)
+    mid = q_first + lens_c[big] // 2
+    wkw = dict(dropout_p=DENSE_DROPOUT, dropout_seed=SENS_SEED)
+    o_w = vl.flash_attn_varlen_fwd(*args, **wkw)[0]
+    wrong = [("K5 out", spliced0(out, o_w, late), o32, o16, tt.FWD_MULT,
+              tt.FWD_ATOL)]
+    del o32, o16, l32, l16, o_w
+    g32 = vl.flash_attn_varlen_bwd_ref(*bargs)
+    g16 = vl.flash_attn_varlen_bwd_ref(*bargs, upcast=False)
+    for name, key, g, r32, r16 in (("K6", "dq", grads[0], g32[0], g16[0]),
+                                   ("K7", "dk", grads[1], g32[1], g16[1]),
+                                   ("K7", "dv", grads[2], g32[2], g16[2])):
+        errs[(name, key)] = gated(torch, g, r32, r16, f"{name} {key}",
+                                  tt.BWD_MULT, tt.BWD_ATOL)
+        rows[f"{name} {key}"] = gated_rows(torch, g, r32, r16,
+                                           f"{name} {key}", tt.BWD_MULT)
+    g_w = vl.flash_attn_varlen_bwd(*bargs, **wkw)
+    for (key, lo), g, gw, r32, r16 in zip(
+            (("K6 dq", late), ("K7 dk", mid), ("K7 dv", late)), grads, g_w,
+            g32, g16):
+        wrong.append((key, spliced0(g, gw, lo), r32, r16, tt.BWD_MULT,
+                      tt.BWD_ATOL))
+    gate_sensitivity(torch, tt, wrong, "varlen (c)")
+    del g32, g16, g_w, wrong
+    again = vl.flash_attn_varlen_bwd(*bargs)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again)), \
+        "two varlen backward calls differ"
+    print(f"varlen (c) ({len(lens_c)} documents, {sum(lens_c)} tokens): max "
+          f"abs err vs fp32 plain <= gate (2x / 3x the bf16 plain error + "
+          f"1e-5 / 1e-4): K5 out {errs['K5'][0]:.3e} <= {errs['K5'][1]:.3e}"
+          f", lse {lse_err[0]:.3e} <= {lse_err[1]:.3e}; K6 dq "
+          f"{errs[('K6', 'dq')][0]:.3e} <= {errs[('K6', 'dq')][1]:.3e}; K7 "
+          f"dk {errs[('K7', 'dk')][0]:.3e} <= {errs[('K7', 'dk')][1]:.3e}, "
+          f"dv {errs[('K7', 'dv')][0]:.3e} <= {errs[('K7', 'dv')][1]:.3e}; "
+          f"two backward calls bit-equal", flush=True)
+    print("varlen (c): per-row RMS err vs fp32 plain (worst err/gate; "
+          "median |ref|, median row gate): " + ", ".join(
+              f"{key} {r:.3f} ({med:.3e}, {g:.3e})"
+              for key, (r, med, g) in rows.items()), flush=True)
+    del again, grads
+
+    # ---- times: kernel, plain, library at (c), and at (b)
+    res = {}
+    for case, lens_w, qw, kw_, vw, cu_w, ms_w in (
+            ("c", lens_c, qc, kc, vc, cu_c, ms_c),
+            ("b", list(VARLEN_PAD_LENS), *(
+                padlib.unpad_input(x[n], mask_b)[0] for n in ("q", "k", "v")),
+             cu_b, ms_b)):
+        args = (qw, kw_, vw, cu_w, cu_w, ms_w, ms_w, scale, params)
+        out, lse = vl.flash_attn_varlen_fwd(*args)
+        dow = torch.randn(qw.shape, generator=ggen, device=dev).to(qw.dtype)
+        delta = vl.varlen_delta(out, dow)
+        lse_c = lse.clamp_min(NEG_INF).contiguous()
+        kargs = (qw, kw_, vw, dow, lse_c, delta, None, cu_w, cu_w, None,
+                 None, ms_w, ms_w, scale, params, 0.0, None)
+        ms = {"K5": time_ms(torch, lambda: vl.flash_attn_varlen_fwd(*args),
+                            flush=flush),
+              "K6": time_ms(torch, lambda: vl.varlen_dq_kernel(*kargs),
+                            flush=flush),
+              "K7": time_ms(torch, lambda: vl.varlen_dkv_kernel(*kargs),
+                            flush=flush)}
+        plain_f = plain_b = None
+        if case == "c":
+            plain_f = time_ms(torch, lambda: vl.flash_attn_varlen_fwd_ref(
+                *args), reps=3, warmup=1, flush=flush)
+            plain_b = time_ms(torch, lambda: vl.flash_attn_varlen_bwd_ref(
+                qw, kw_, vw, out, dow, lse, cu_w, cu_w, ms_w, ms_w, scale,
+                params), reps=3, warmup=1, flush=flush)
+        ql, kl, vl_ = (t.clone().requires_grad_() for t in (qw, kw_, vw))
+        label, lib_fn, o_lib = varlen_library(torch, ql, kl, vl_, cu_w, ms_w)
+        lib_f = time_ms(torch, lib_fn, flush=flush)
+        o_lib = o_lib[0] if isinstance(o_lib, tuple) else o_lib
+        do_lib = dow if o_lib.dim() == 3 else dow.transpose(0, 1)[None]
+        lib_b = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (ql, kl, vl_), do_lib, retain_graph=True), flush=flush)
+        work = varlen_work(lens_w, Hq, Hk, D)
+        for name, plain, lib in (("K5", plain_f, lib_f), ("K6", plain_b,
+                                                          lib_b),
+                                 ("K7", plain_b, lib_b)):
+            flops, nbytes = work[name]
+            bms, by = bound_ms(nbytes, flops)
+            print(f"{name} ({case}) {len(lens_w)} sequences, {sum(lens_w)} "
+                  f"tokens, {flops // (4 * D * Hq) if name == 'K5' else ''}"
+                  f"{' live pairs a head, ' if name == 'K5' else ''}"
+                  f"Hq={Hq} Hk={Hk} D={D} causal: kernel {ms[name]:.4f} ms"
+                  f"{'' if plain is None else f', plain {plain:.4f} ms'}"
+                  f"{' (dq, dk, dv together)' if name != 'K5' and plain else ''}"
+                  f", {label} {'fwd' if name == 'K5' else 'bwd (K6 + K7)'} "
+                  f"{lib:.4f} ms, bound {bms:.4f} ms ({by}, {flops:.3e} flop)",
+                  flush=True)
+            if case == "c":
+                worst = max((e for k_, e in errs.items()
+                             if (k_ if isinstance(k_, str) else k_[0])
+                             == name), key=lambda e: e[0])
+                res[name] = dict(max_abs_err=worst[0], gate=worst[1],
+                                 ms=ms[name], plain_ms=plain,
+                                 library_ms=lib, library=label,
+                                 bound_ms=bms, bound_by=by)
+        del ql, kl, vl_, o_lib
+    res["launches"] = counts
     return res
 
 
@@ -946,6 +1333,52 @@ def profile_decode(torch, eng, cfg, prompt_len=64, n_new=17):
     return res
 
 
+# --------------------------------------------- dense kernels, two trees
+
+def dense_times(torch) -> dict:
+    """K1, K2 and K3 of the `flash_attn_v100_tpu_torch` on sys.path at the
+    training shape: a SHA-256 digest of their outputs (p 0 and 0.1) and
+    their times, to compare two trees of the port in one call:
+        python3 chip_smoke.py --dense-times TREE"""
+    import hashlib
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+
+    build.build_all(["fwd", "bwd"])
+    dev = torch.device("cuda")
+    B, S, Hq, Hk, D = DENSE_B, DENSE_S, DENSE_HQ, DENSE_HK, DENSE_D
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    q, k, v, do = (torch.randn(s, generator=ggen, device=dev).to(
+        torch.bfloat16) for s in ((B, S, Hq, D), (B, S, Hk, D),
+                                  (B, S, Hk, D), (B, S, Hq, D)))
+    params = masklib.MaskParams(causal=True)
+    scale = D ** -0.5
+    seed = torch.tensor([0x13579BDF, 0x80000001], dtype=torch.int64)
+    h = hashlib.sha256()
+    for p in (0.0, DENSE_DROPOUT):
+        kw = dict(dropout_p=p, dropout_seed=seed if p else None)
+        out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params, **kw)
+        grads = dbwd.flash_attn_dense_bwd(q, k, v, out, do, lse, scale,
+                                          params, **kw)
+        for t in (out, lse, *grads):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+    out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params)
+    delta = dbwd.softmax_delta(out, do)
+    lse_c = lse.clamp_min(NEG_INF).contiguous()
+    kargs = (q, k, v, do, lse_c, delta, None, scale, params, 0.0, None, 0,
+             None, Hq)
+    ms = {"K1": time_ms(torch, lambda: dfwd.flash_attn_dense_fwd(
+              q, k, v, scale, params), flush=flush),
+          "K2": time_ms(torch, lambda: dbwd.dq_kernel(*kargs), flush=flush),
+          "K3": time_ms(torch, lambda: dbwd.dkv_kernel(*kargs), flush=flush)}
+    return {"digest": h.hexdigest()[:16], "ms": ms}
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -954,6 +1387,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dense-times"]:
+        sys.path.insert(0, sys.argv[2])
+        res = dense_times(torch)
+        print(json.dumps(dict(res, tree=sys.argv[2], card=card_line())))
+        return 0
     from flash_attn_v100_tpu_torch.ops.cuda import build
 
     card = card_line()
@@ -963,7 +1401,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc per source, "
           f"concurrent: {built})", flush=True)
@@ -980,6 +1418,8 @@ def main() -> int:
 
     flush = torch.empty(64 * 2 ** 20 // 4, device="cuda")   # > 50 MB L2
     dense = phase_dense(torch, flush)
+    torch.cuda.empty_cache()
+    varlen = phase_varlen(torch, flush)
     torch.cuda.empty_cache()
     k4 = phase_k4(torch, flush)
     k8 = phase_k8(torch, flush)
@@ -1001,6 +1441,16 @@ def main() -> int:
             ("K3 flash_attn_dense_bwd (dk, dv)", dense["K3"], "bwd.cu",
              "flash_attn_v100_tpu/ops/pallas/bwd.py:330",
              train["launches"]["K3"]),
+            ("K5 flash_attn_varlen_fwd", varlen["K5"], "fwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:289",
+             varlen["launches"]["K5"]),
+            ("K6 flash_attn_varlen_bwd (dq)", varlen["K6"], "varlen_bwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:1160",
+             varlen["launches"]["K6"]),
+            ("K7 flash_attn_varlen_bwd (dk, dv)", varlen["K7"],
+             "varlen_bwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:1343",
+             varlen["launches"]["K7"]),
             ("K4 paged_decode_attention", k4, "decode.cu",
              "flash_attn_v100_tpu/ops/pallas/decode.py:72",
              eng["launches"]["decode"]),
@@ -1015,6 +1465,8 @@ def main() -> int:
             ms=res["ms"], plain_ms=res["plain_ms"],
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=res["library_ms"]))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build "
+          f"on", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

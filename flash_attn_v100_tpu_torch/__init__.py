@@ -7,6 +7,9 @@ beside it slice by slice.  It holds
     hand-written CUDA kernels (K1 forward, K2 dQ, K3 dK/dV) and the
     Llama-family model's `forward`, `loss_fn`, `sgd_train_step` and
     `make_train_step`;
+  * packed sequences: `flash_attn_varlen_func` (differentiable; K5
+    forward, K6 dQ, K7 dK/dV, and K8 for paged K/V) and the pad/unpad
+    helpers of `ops/padding.py`;
   * the paged serving engine: the KV-cache attention API with its two
     hand-written CUDA kernels (split-KV decode and paged varlen prefill),
     the model's serving path, and the continuous-batching runtime.
@@ -18,7 +21,15 @@ from flash_attn_v100_tpu_torch.models.transformer import (
     ModelConfig, params_from_jax)
 from flash_attn_v100_tpu_torch.ops.flash_attention import flash_attn_func
 from flash_attn_v100_tpu_torch.ops.kvcache import flash_attn_with_kvcache
+from flash_attn_v100_tpu_torch.ops.varlen import flash_attn_varlen_func
 from flash_attn_v100_tpu_torch.runtime.engine import ServingEngine
 
-__all__ = ["flash_attn_func", "flash_attn_with_kvcache", "ServingEngine",
-           "ModelConfig", "params_from_jax"]
+# the names the JAX package also exports
+flash_attn_gpu = flash_attn_func
+flash_attn_varlen_gpu = flash_attn_varlen_func
+flash_attn_with_kvcache_gpu = flash_attn_with_kvcache
+
+__all__ = ["flash_attn_func", "flash_attn_varlen_func",
+           "flash_attn_with_kvcache", "flash_attn_gpu",
+           "flash_attn_varlen_gpu", "flash_attn_with_kvcache_gpu",
+           "ServingEngine", "ModelConfig", "params_from_jax"]

@@ -1,0 +1,77 @@
+// Per-sequence bookkeeping of the attention kernels: dense (batch row b)
+// or packed varlen (sequence b), the dense case being the varlen one with
+// cu_seqlens = b * M.  K1 and K5 are one forward body instantiated for both
+// (csrc/fwd.cu); K6/K7 (csrc/varlen_bwd.cu) use the varlen case.
+//
+// A block reads its sequence's row bases and lengths here once, as the
+// reference CUDA kernels' BlockInfo does (include/template.h:55-69 of the
+// upstream source).  The varlen case is the torch counterpart of
+// flash_attn_v100_tpu/ops/pallas/varlen.py::build_ragged_info reduced to one
+// sequence:
+//     used = min(len_k, seqused_k) if seqused_k > 0 else 0
+//     slk  = used - leftpad_k            (live keys, leftpad-relative)
+//     offs = slk - len_q                 (bottom-right alignment)
+// and the key at leftpad-relative position j is packed row
+// cu_k[b] + leftpad_k[b] + j.  The dense case has slq = M, slk = N, the
+// caller's offset, q row b * M + i and key row b * N + j.
+#pragma once
+
+namespace fa {
+
+struct SeqArgs {
+  // dense: q rows and keys of every batch row; varlen: max_seqlen_q and
+  // max_seqlen_k, which only size the grid
+  int M, N;
+  int offset;            // dense: key position - offset aligns with q row
+  int Tq;                // varlen: packed q rows (the LSE / delta row stride)
+  const int* cu_q;       // varlen: (B + 1,) packed q row of each sequence
+  const int* cu_k;       // varlen: (B + 1,)
+  const int* seqused_k;  // varlen: (B,) or nullptr
+  const int* leftpad_k;  // varlen: (B,) or nullptr
+};
+
+struct Seq {
+  long long q_base;  // packed q row of q position 0
+  long long k_base;  // packed k row of key position 0
+  long long lse_b;   // LSE / delta index of (head 0, q position 0)
+  long long lse_h;   // LSE / delta stride of one head
+  int slq, slk, offs;
+
+  __device__ long long lse_index(int h, int qp) const {
+    return lse_b + h * lse_h + qp;
+  }
+};
+
+// LSE and delta are (B, Hq, M) when dense and (Hq, Tq) when varlen
+template <bool kVarlen>
+__device__ __forceinline__ Seq seq_info(const SeqArgs& s, int b, int Hq) {
+  Seq r;
+  if constexpr (kVarlen) {
+    const int q0 = s.cu_q[b];
+    const int k0 = s.cu_k[b];
+    int used = s.cu_k[b + 1] - k0;
+    if (s.seqused_k) {
+      const int u = s.seqused_k[b];
+      used = u > 0 ? min(used, u) : 0;
+    }
+    const int lp = s.leftpad_k ? s.leftpad_k[b] : 0;
+    r.slq = s.cu_q[b + 1] - q0;
+    r.slk = used - lp;
+    r.offs = r.slk - r.slq;
+    r.q_base = q0;
+    r.k_base = static_cast<long long>(k0) + lp;
+    r.lse_b = q0;
+    r.lse_h = s.Tq;
+  } else {
+    r.slq = s.M;
+    r.slk = s.N;
+    r.offs = s.offset;
+    r.q_base = static_cast<long long>(b) * s.M;
+    r.k_base = static_cast<long long>(b) * s.N;
+    r.lse_b = static_cast<long long>(b) * Hq * s.M;
+    r.lse_h = s.M;
+  }
+  return r;
+}
+
+}  // namespace fa

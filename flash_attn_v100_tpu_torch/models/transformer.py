@@ -140,12 +140,14 @@ def params_from_jax(tree, device: DeviceLike = None, dtype=None,
 
 
 def rope_tables(cfg: ModelConfig, seqlen: Optional[int] = None,
-                device: DeviceLike = "cpu"):
+                device: DeviceLike = None):
+    """(cos, sin) fp32 (seqlen, head_dim // 2) on `device` (default: the
+    GPU, config.resolve_device)."""
     seqlen = seqlen or cfg.max_seq_len
     half = cfg.head_dim // 2
     freqs = cfg.rope_theta ** (-np.arange(0, half) / half)
     ang = np.arange(seqlen)[:, None] * freqs[None, :]
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return (torch.as_tensor(np.cos(ang), dtype=torch.float32, device=dev),
             torch.as_tensor(np.sin(ang), dtype=torch.float32, device=dev))
 

@@ -28,7 +28,7 @@ BUILD_DIR = PKG_ROOT / "build"
 
 # kernel name -> source file in csrc/
 SOURCES = {"decode": "decode.cu", "varlen_paged": "varlen_paged.cu",
-           "fwd": "fwd.cu", "bwd": "bwd.cu"}
+           "fwd": "fwd.cu", "bwd": "bwd.cu", "varlen_bwd": "varlen_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -56,10 +56,18 @@ SIGNATURES = {
     "fwd": {
         "fa_fwd_launch": ([_I] + [_P] * 6 + [_I] * 7 + [_F] + _MASK_DROPOUT
                           + [_P], _I),
+        "fa_varlen_fwd_launch": ([_I] + [_P] * 10 + [_I] * 6 + [_F]
+                                 + _MASK_DROPOUT + [_P], _I),
     },
     "bwd": {
         name: ([_I] + [_P] * 10 + [_I] * 7 + [_F] + _MASK_DROPOUT + [_P], _I)
         for name in ("fa_dq_launch", "fa_dkv_launch")
+    },
+    # the varlen entries take no dropout position bases
+    "varlen_bwd": {
+        name: ([_I] + [_P] * 14 + [_I] * 7 + [_F] + _MASK_DROPOUT[:10]
+               + [_P], _I)
+        for name in ("fa_varlen_dq_launch", "fa_varlen_dkv_launch")
     },
 }
 

@@ -1,5 +1,23 @@
-"""K8: paged-KV varlen attention forward (`csrc/varlen_paged.cu`) and its
-plain twin.
+"""Packed varlen attention kernels and their plain twins: K5 forward (the
+dense forward's body instantiated for varlen, `csrc/fwd.cu`), K6 dQ and K7
+dK/dV (`csrc/varlen_bwd.cu`) on contiguous packed K/V, and K8 forward with
+K/V read through a block table from a page pool (`csrc/varlen_paged.cu`).
+
+`flash_attn_varlen_fwd` / `flash_attn_varlen_bwd` have the signatures and
+returns of flash_attn_v100_tpu/ops/pallas/varlen.py's (without the TPU
+tiling knobs): q (Tq, Hq, D) split by `cu_seqlens_q`, k/v (Tk, Hk, D) split
+by `cu_seqlens_k`, optional `seqused_k` and `leftpad_k` (B,), ALiBi slopes
+(Hq,) or (B, Hq), Philox dropout with a (lo, hi) seed keyed on
+(within-sequence q position, leftpad-relative key position,
+bh = b * Hq + h); the forward returns out (Tq, Hq, D) in q's dtype and lse
+(Hq, Tq) fp32, the backward (dq, dk, dv) in the packed layouts, folding
+`dlse` in as delta - dlse.  Packed rows past cu_q[B] and keys that no
+sequence uses come out as O = 0, LSE = -inf and zero gradients.  The
+kernels take head_dim 32/64/128/256; other head dims up to 256 are
+zero-padded to the next of those and sliced back.  `max_seqlen_q` and
+`max_seqlen_k` are host ints that must bound every sequence's lengths: they
+size the grids.  The CUDA path reads cu_seqlens, seqused_k and leftpad_k on
+the device and never syncs with the host; the plain versions do.
 
 `flash_attn_varlen_fwd_paged` has the signature and returns of
 flash_attn_v100_tpu/ops/pallas/varlen.py::flash_attn_varlen_fwd_paged: packed
@@ -11,31 +29,346 @@ fp32.  page_size must be a multiple of 128.
 
 The ragged bookkeeping of build_ragged_info (varlen.py:48-151) is, per q
 row at within-sequence position qp of sequence b,
-    used  = min(seqlens_k[b], seqused_k[b])
-    slk   = (min(mp * ps, used) if used > 0 else 0) - leftpad_k[b]
-    offs  = slk - seqlen_q[b]
+    used  = min(len_k[b], seqused_k[b]) if seqused_k[b] > 0 else 0
+            (K8: len_k = seqlens_k, and used is further capped at mp * ps)
+    slk   = used - leftpad_k[b]
+    offs  = slk - len_q[b]
     live keys (leftpad-relative) = [lo, hi] with
         hi = slk - 1, min'ed with qp + offs + window_right_eff
         lo = 0, max'ed with qp + offs - window_left
-and the key at leftpad-relative position j is cache row leftpad + j of the
-sequence's pages.  The kernel evaluates it as index math; the plain version
-with torch ops.
+and the key at leftpad-relative position j is packed row
+cu_k[b] + leftpad_k[b] + j (K8: cache row leftpad + j of the sequence's
+pages).  The kernels evaluate it as index math (`csrc/seq.cuh`); the plain
+versions with `seq_bounds` and torch ops.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
+from flash_attn_v100_tpu_torch.config import NEG_INF
 from flash_attn_v100_tpu_torch.ops import masks as masklib
 from flash_attn_v100_tpu_torch.ops.cuda import build
-
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+from flash_attn_v100_tpu_torch.ops.cuda.bwd import flash_attn_dense_bwd_ref
+from flash_attn_v100_tpu_torch.ops.cuda.fwd import (
+    DTYPE_CODE, c_dropout_args, c_mask_args, flash_attn_dense_fwd_ref,
+    kernel_head_dim, pad_head_dim, slopes_bh)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+# ------------------------------------------------------ ragged bookkeeping
+
+def seq_bounds(cu_seqlens_q, cu_seqlens_k, seqused_k=None,
+               leftpad_k=None) -> List[Tuple[int, int, int, int, int]]:
+    """Per sequence (q0, slq, k0, slk, offs) as host ints: its first packed
+    q row and q length, the packed row of its leftpad-relative key 0, its
+    live key count and its mask offset (module docstring).  Syncs with the
+    host: the plain versions and the dropout mask use it, never the CUDA
+    path."""
+    cu_q = [int(x) for x in cu_seqlens_q.tolist()]
+    cu_k = [int(x) for x in cu_seqlens_k.tolist()]
+    B = len(cu_q) - 1
+    used = None if seqused_k is None else [int(x) for x in seqused_k.tolist()]
+    lps = [0] * B if leftpad_k is None else [int(x)
+                                             for x in leftpad_k.tolist()]
+    out = []
+    for b in range(B):
+        slq = cu_q[b + 1] - cu_q[b]
+        n = cu_k[b + 1] - cu_k[b]
+        if used is not None:
+            n = min(n, used[b]) if used[b] > 0 else 0
+        slk = n - lps[b]
+        out.append((cu_q[b], slq, cu_k[b] + lps[b], slk, slk - slq))
+    return out
+
+
+def _ragged_device_args(cu_seqlens_q, cu_seqlens_k, seqused_k, leftpad_k,
+                        B: int, dev) -> tuple:
+    """The int32 bookkeeping the kernels read, contiguous on `dev`."""
+    out = []
+    for name, t, n in (("cu_seqlens_q", cu_seqlens_q, B + 1),
+                       ("cu_seqlens_k", cu_seqlens_k, B + 1),
+                       ("seqused_k", seqused_k, B),
+                       ("leftpad_k", leftpad_k, B)):
+        if t is None:
+            out.append(None)
+            continue
+        if t.device != dev or t.dim() != 1 or t.shape[0] != n:
+            raise ValueError(f"{name} must be a ({n},) tensor on {dev}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        out.append(t.to(torch.int32).contiguous())
+    return tuple(out)
+
+
+def _check_packed_inputs(q, k, v, what: str) -> None:
+    if q.dtype not in DTYPE_CODE:
+        raise TypeError(f"{what} kernel takes bf16/fp16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k and v must share one dtype")
+    if (q.dim() != 3 or k.dim() != 3 or k.shape[2] != q.shape[2]
+            or v.shape != k.shape or q.shape[1] % k.shape[1]):
+        raise ValueError(f"{what}: k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError(f"{what}: all inputs must be on one device")
+
+
+# ------------------------------------------------------------ K5 forward
+
+def flash_attn_varlen_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cu_seqlens_q: torch.Tensor,
+    cu_seqlens_k: torch.Tensor,
+    max_seqlen_q: int,
+    max_seqlen_k: int,
+    softmax_scale: float,
+    params: masklib.MaskParams,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    dropout_p: float = 0.0,
+    dropout_seed=None,
+    seqused_k: Optional[torch.Tensor] = None,
+    leftpad_k: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5; see the module docstring.  CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return flash_attn_varlen_fwd_ref(
+            q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+            softmax_scale, params, alibi_slopes=alibi_slopes,
+            dropout_p=dropout_p, dropout_seed=dropout_seed,
+            seqused_k=seqused_k, leftpad_k=leftpad_k)
+
+    _check_packed_inputs(q, k, v, "flash_attn_varlen_fwd")
+    Tq, Hq, D = q.shape
+    Hk = k.shape[1]
+    B = cu_seqlens_q.shape[0] - 1
+    dev = q.device
+    cu_q, cu_k, used, lp = _ragged_device_args(
+        cu_seqlens_q, cu_seqlens_k, seqused_k, leftpad_k, B, dev)
+    Dk = kernel_head_dim(D)
+    q, k, v = (pad_head_dim(t, Dk).contiguous() for t in (q, k, v))
+    slopes = slopes_bh(alibi_slopes, B, Hq, dev) if params.has_alibi else None
+    # packed rows past cu_q[B] belong to no block: O = 0, LSE = -inf
+    out = torch.zeros_like(q)
+    lse = torch.full((Hq, Tq), float("-inf"), dtype=torch.float32,
+                     device=dev)
+    lib = build.load("fwd")
+    rc = lib.fa_varlen_fwd_launch(
+        DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        cu_q.data_ptr(), cu_k.data_ptr(), _ptr(used), _ptr(lp),
+        _ptr(slopes), out.data_ptr(), lse.data_ptr(), B, Tq,
+        int(max_seqlen_q), Hq, Hk, Dk, float(softmax_scale),
+        *c_mask_args(params),
+        *c_dropout_args(dropout_p, dropout_seed, None, Hq),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "flash_attn_varlen_fwd")
+    flash_attn_varlen_fwd.launches += 1
+    return (out if Dk == D else out[..., :D].contiguous()), lse
+
+
+flash_attn_varlen_fwd.launches = 0
+
+
+def flash_attn_varlen_fwd_ref(
+    q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
+    max_seqlen_k: int, softmax_scale: float, params: masklib.MaskParams,
+    alibi_slopes=None, dropout_p: float = 0.0, dropout_seed=None,
+    seqused_k=None, leftpad_k=None, upcast: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5, one sequence at a time through the
+    dense plain version (the kernels' rounding points) with the sequence's
+    offset and dropout keyed on bh = b * Hq + h.  `upcast=False` keeps both
+    products in q's dtype."""
+    flash_attn_varlen_fwd_ref.calls += 1
+    Tq, Hq, _ = q.shape
+    B = cu_seqlens_q.shape[0] - 1
+    slopes = (slopes_bh(alibi_slopes, B, Hq, q.device) if params.has_alibi
+              else None)
+    out = torch.zeros_like(q)
+    lse = torch.full((Hq, Tq), float("-inf"), dtype=torch.float32,
+                     device=q.device)
+    for b, (q0, slq, k0, slk, offs) in enumerate(seq_bounds(
+            cu_seqlens_q, cu_seqlens_k, seqused_k, leftpad_k)):
+        if slq <= 0 or slk <= 0:
+            continue
+        o, l = flash_attn_dense_fwd_ref(
+            q[None, q0:q0 + slq], k[None, k0:k0 + slk],
+            v[None, k0:k0 + slk], softmax_scale, params,
+            alibi_slopes=None if slopes is None else slopes[b:b + 1],
+            dropout_p=dropout_p, dropout_seed=dropout_seed, offset=offs,
+            pos_base=(0, 0, b, 0), num_heads_total=Hq, upcast=upcast)
+        out[q0:q0 + slq] = o[0]
+        lse[:, q0:q0 + slq] = l[0]
+    return out, lse
+
+
+flash_attn_varlen_fwd_ref.calls = 0
+
+
+# ------------------------------------------------------ K6, K7 backward
+
+def varlen_delta(out, dout, dlse=None) -> torch.Tensor:
+    """delta (Hq, Tq) fp32 = rowsum(O * dO) - dlse."""
+    delta = (out.to(torch.float32) * dout.to(torch.float32)).sum(-1).t()
+    if dlse is not None:
+        delta = delta - dlse.to(torch.float32)
+    return delta.contiguous()
+
+
+def _launch_bwd(fn_name: str, q, k, v, dout, lse, delta, slopes, dq, dk,
+                dv, cu_q, cu_k, used, lp, max_seqlen_q, max_seqlen_k,
+                softmax_scale, params, dropout_p, dropout_seed) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn_name} launches on CUDA tensors only; "
+                         "flash_attn_varlen_bwd takes the plain version for "
+                         "CPU tensors")
+    Tq, Hq, D = q.shape
+    lib = build.load("varlen_bwd")
+    rc = getattr(lib, fn_name)(
+        DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(slopes),
+        _ptr(dq), _ptr(dk), _ptr(dv), cu_q.data_ptr(), cu_k.data_ptr(),
+        _ptr(used), _ptr(lp), cu_q.shape[0] - 1, Tq, int(max_seqlen_q),
+        int(max_seqlen_k), Hq, k.shape[1], D, float(softmax_scale),
+        *c_mask_args(params),
+        *c_dropout_args(dropout_p, dropout_seed, None, Hq)[:5],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, fn_name)
+
+
+def varlen_dq_kernel(q, k, v, dout, lse, delta, slopes, cu_q, cu_k, used,
+                     lp, max_seqlen_q, max_seqlen_k, softmax_scale, params,
+                     dropout_p, dropout_seed):
+    """K6 on contiguous CUDA tensors at a kernel head dim and int32
+    bookkeeping on the device -> dq (rows past cu_q[B] are 0)."""
+    dq = torch.zeros_like(q)
+    _launch_bwd("fa_varlen_dq_launch", q, k, v, dout, lse, delta, slopes, dq,
+                None, None, cu_q, cu_k, used, lp, max_seqlen_q, max_seqlen_k,
+                softmax_scale, params, dropout_p, dropout_seed)
+    varlen_dq_kernel.launches += 1
+    return dq
+
+
+varlen_dq_kernel.launches = 0
+
+
+def varlen_dkv_kernel(q, k, v, dout, lse, delta, slopes, cu_q, cu_k, used,
+                      lp, max_seqlen_q, max_seqlen_k, softmax_scale, params,
+                      dropout_p, dropout_seed):
+    """K7 on contiguous CUDA tensors at a kernel head dim and int32
+    bookkeeping on the device -> (dk, dv) (keys no sequence uses are 0)."""
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    _launch_bwd("fa_varlen_dkv_launch", q, k, v, dout, lse, delta, slopes,
+                None, dk, dv, cu_q, cu_k, used, lp, max_seqlen_q,
+                max_seqlen_k, softmax_scale, params, dropout_p, dropout_seed)
+    varlen_dkv_kernel.launches += 1
+    return dk, dv
+
+
+varlen_dkv_kernel.launches = 0
+
+
+def flash_attn_varlen_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    cu_seqlens_q: torch.Tensor,
+    cu_seqlens_k: torch.Tensor,
+    max_seqlen_q: int,
+    max_seqlen_k: int,
+    softmax_scale: float,
+    params: masklib.MaskParams,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    dropout_p: float = 0.0,
+    dropout_seed=None,
+    seqused_k: Optional[torch.Tensor] = None,
+    leftpad_k: Optional[torch.Tensor] = None,
+    dlse: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6 and K7; see the module docstring.  delta = rowsum(O dO) - dlse
+    (Hq, Tq) is computed here in plain torch and the LSE clamped to
+    NEG_INF, as flash_attn_dense_bwd does.  CPU tensors take the plain
+    version."""
+    if q.device.type == "cpu":
+        return flash_attn_varlen_bwd_ref(
+            q, k, v, out, dout, lse, cu_seqlens_q, cu_seqlens_k,
+            max_seqlen_q, max_seqlen_k, softmax_scale, params,
+            alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+            dropout_seed=dropout_seed, seqused_k=seqused_k,
+            leftpad_k=leftpad_k, dlse=dlse)
+
+    _check_packed_inputs(q, k, v, "flash_attn_varlen_bwd")
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("dout must match q in shape and dtype")
+    Tq, Hq, D = q.shape
+    B = cu_seqlens_q.shape[0] - 1
+    ragged = _ragged_device_args(cu_seqlens_q, cu_seqlens_k, seqused_k,
+                                 leftpad_k, B, q.device)
+    delta = varlen_delta(out, dout, dlse)
+    lse = lse.to(torch.float32).clamp_min(NEG_INF).contiguous()
+    Dk = kernel_head_dim(D)
+    q, k, v, dout = (pad_head_dim(t, Dk).contiguous()
+                     for t in (q, k, v, dout))
+    slopes = (slopes_bh(alibi_slopes, B, Hq, q.device) if params.has_alibi
+              else None)
+    args = (q, k, v, dout, lse, delta, slopes, *ragged, max_seqlen_q,
+            max_seqlen_k, softmax_scale, params, dropout_p, dropout_seed)
+    dq = varlen_dq_kernel(*args)
+    dk, dv = varlen_dkv_kernel(*args)
+    if Dk != D:
+        dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
+
+
+def flash_attn_varlen_bwd_ref(
+    q, k, v, out, dout, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
+    max_seqlen_k: int, softmax_scale: float, params: masklib.MaskParams,
+    alibi_slopes=None, dropout_p: float = 0.0, dropout_seed=None,
+    seqused_k=None, leftpad_k=None, dlse=None, upcast: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6 and K7, one sequence at a time through
+    the dense plain version (the kernels' rounding points).
+    `upcast=False` keeps the products in q's dtype."""
+    flash_attn_varlen_bwd_ref.calls += 1
+    Hq = q.shape[1]
+    B = cu_seqlens_q.shape[0] - 1
+    slopes = (slopes_bh(alibi_slopes, B, Hq, q.device) if params.has_alibi
+              else None)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for b, (q0, slq, k0, slk, offs) in enumerate(seq_bounds(
+            cu_seqlens_q, cu_seqlens_k, seqused_k, leftpad_k)):
+        if slq <= 0 or slk <= 0:
+            continue
+        sq, sk = slice(q0, q0 + slq), slice(k0, k0 + slk)
+        g = flash_attn_dense_bwd_ref(
+            q[None, sq], k[None, sk], v[None, sk], out[None, sq],
+            dout[None, sq], lse[None, :, sq], softmax_scale, params,
+            alibi_slopes=None if slopes is None else slopes[b:b + 1],
+            dropout_p=dropout_p, dropout_seed=dropout_seed,
+            dlse=None if dlse is None else dlse[None, :, sq], offset=offs,
+            pos_base=(0, 0, b, 0), num_heads_total=Hq, upcast=upcast)
+        dq[sq], dk[sk], dv[sk] = g[0][0], g[1][0], g[2][0]
+    return dq, dk, dv
+
+
+flash_attn_varlen_bwd_ref.calls = 0
+
+
+# ------------------------------------------------------- K8 paged forward
 
 
 def flash_attn_varlen_fwd_paged(
@@ -64,7 +397,7 @@ def flash_attn_varlen_fwd_paged(
     Tq, Hq, D = q.shape
     Hk, P, ps, Dk = k_pool.shape
     dev = q.device
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in DTYPE_CODE:
         raise TypeError(f"varlen kernel takes bf16/fp16, got {q.dtype}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError("q and the page pools must share one dtype")
@@ -105,18 +438,16 @@ def flash_attn_varlen_fwd_paged(
         if slopes.dim() == 1:
             slopes = slopes[None].expand(B, Hq)
         slopes = slopes.contiguous()
-    out = torch.empty_like(q)
-    lse = torch.empty((Hq, Tq), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    # packed rows past cu_q[B] belong to no block: O = 0, LSE = -inf
+    out = torch.zeros_like(q)
+    lse = torch.full((Hq, Tq), float("-inf"), dtype=torch.float32,
+                     device=dev)
     lib = build.load("varlen_paged")
     s_h, s_p, s_tok, _ = k_pool.stride()
     rc = lib.fa_varlen_paged_launch(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+        DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), tbl.data_ptr(), tbl.shape[1], cu_q.data_ptr(),
-        lens.data_ptr(), ptr(used), ptr(lp), ptr(slopes), out.data_ptr(),
+        lens.data_ptr(), _ptr(used), _ptr(lp), _ptr(slopes), out.data_ptr(),
         lse.data_ptr(), s_h, s_p, s_tok, B, Tq, Hq, Hk, D, ps, mp,
         int(max_seqlen_q), float(softmax_scale), int(params.causal),
         int(params.window_left), int(params.window_right),

@@ -105,6 +105,53 @@ def mha_reference(q, k, v, softmax_scale: Optional[float] = None,
     return results[0] if len(results) == 1 else results
 
 
+def mha_reference_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k,
+                         softmax_scale: Optional[float] = None,
+                         causal: bool = False,
+                         window_size: Tuple[int, int] = (-1, -1),
+                         softcap: float = 0.0, alibi_slopes=None,
+                         dropout_p: float = 0.0, dropout_seed=0,
+                         upcast: bool = True, return_lse: bool = False,
+                         seqused_k=None):
+    """Packed-sequence oracle, one sequence at a time through
+    `mha_reference`: q (Tq, Hq, D), k/v (Tk, Hk, D) -> out (Tq, Hq, D)
+    [, lse (Hq, Tq)].  `seqused_k` caps each sequence's keys (0: none, then
+    O = 0 and LSE = -inf); dropout is keyed on bh = b * Hq + h."""
+    cu_q = [int(x) for x in torch.as_tensor(cu_seqlens_q).tolist()]
+    cu_k = [int(x) for x in torch.as_tensor(cu_seqlens_k).tolist()]
+    used = (None if seqused_k is None
+            else [int(x) for x in torch.as_tensor(seqused_k).tolist()])
+    Hq = q.shape[1]
+    outs, lses = [], []
+    for b in range(len(cu_q) - 1):
+        q_b = q[cu_q[b]:cu_q[b + 1]][None]
+        klen = cu_k[b + 1] - cu_k[b]
+        if used is not None:
+            klen = min(klen, used[b]) if used[b] > 0 else 0
+        if klen == 0:
+            outs.append(torch.zeros_like(q_b[0]))
+            lses.append(torch.full((Hq, q_b.shape[1]), float("-inf"),
+                                   dtype=torch.float32, device=q.device))
+            continue
+        k_b = k[cu_k[b]:cu_k[b] + klen][None]
+        v_b = v[cu_k[b]:cu_k[b] + klen][None]
+        slopes_b = None
+        if alibi_slopes is not None:
+            sl = torch.as_tensor(alibi_slopes)
+            slopes_b = sl if sl.dim() == 1 else sl[b]
+        o_b, lse_b = mha_reference(
+            q_b, k_b, v_b, softmax_scale=softmax_scale, causal=causal,
+            window_size=window_size, softcap=softcap, alibi_slopes=slopes_b,
+            dropout_p=dropout_p, dropout_seed=dropout_seed, upcast=upcast,
+            return_lse=True, dropout_bh_base=b)
+        outs.append(o_b[0])
+        lses.append(lse_b[0])
+    out = torch.cat(outs, dim=0)
+    if return_lse:
+        return out, torch.cat(lses, dim=1)
+    return out
+
+
 def mha_reference_kvcache(q, k_cache, v_cache, k_new=None, v_new=None,
                           rotary_cos=None, rotary_sin=None,
                           cache_seqlens=None, cache_batch_idx=None,

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 dense forward, K2 dQ, K3 dK/dV, K4 decode,
-K8 paged prefill) and the entry points that reach them, on the card,
+K5 varlen forward, K6 varlen dQ, K7 varlen dK/dV, K8 paged prefill) and the
+entry points that reach them, on the card,
 against their plain PyTorch versions on the same device.  Every test takes the `cuda` fixture, which skips where no CUDA
 device is present; on the machine with the card:
 
@@ -23,6 +24,8 @@ from flash_attn_v100_tpu_torch.models import transformer as tmodel
 from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
 from flash_attn_v100_tpu_torch.ops import kvcache as kv
 from flash_attn_v100_tpu_torch.ops import masks as masklib
+from flash_attn_v100_tpu_torch.ops import padding as padlib
+from flash_attn_v100_tpu_torch.ops import varlen as varlen_mod
 from flash_attn_v100_tpu_torch.ops.cuda import build
 from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
 from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
@@ -384,6 +387,293 @@ def test_kernels_reject_fp32_and_bad_shapes(cuda):
     args, kw = _varlen_inputs("causal_prefix", torch.float32, 64, cuda)
     with pytest.raises(TypeError):
         vl.flash_attn_varlen_fwd_paged(*args, **kw)
+
+
+# ------------------------------------------------------------ K5, K6, K7
+
+# name: (q lens, k lens, extra q rows, extra keys, Hq, Hk, mask kwargs,
+#        alibi, dropout_p, seqused_k, leftpad_k)
+PACKED_CASES = {
+    "causal_gqa_ragged": ([37, 200, 1, 130], None, 0, 0, 8, 2,
+                          dict(causal=True), False, 0.0, None, None),
+    "cross_window_softcap_alibi": ([16, 48, 70], [128, 96, 70], 0, 0, 4, 4,
+                                   dict(window_left=32, window_right=8,
+                                        softcap=20.0), True, 0.0, None,
+                                   None),
+    "dropout_gqa_causal": ([100, 64, 150], None, 0, 0, 4, 1,
+                           dict(causal=True), False, 0.15, None, None),
+    "seqused_leftpad_uncovered": ([64, 40, 90], [100, 60, 120], 9, 7, 4, 2,
+                                  dict(causal=True), False, 0.0,
+                                  [80, 0, 110], [5, 3, 17]),
+}
+
+
+def _packed_inputs(name, dtype, D, dev):
+    (lq, lk, xq, xk, Hq, Hk, mkw, alibi, p, used, lp) = PACKED_CASES[name]
+    lk = lq if lk is None else lk
+    rng = np.random.default_rng(41)
+    Tq, Tk = sum(lq) + xq, sum(lk) + xk
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    def i32(x):
+        return None if x is None else torch.tensor(x, dtype=torch.int32,
+                                                   device=dev)
+
+    q, k, v, do = t(Tq, Hq, D), t(Tk, Hk, D), t(Tk, Hk, D), t(Tq, Hq, D)
+    cu_q = i32(np.concatenate([[0], np.cumsum(lq)]).tolist())
+    cu_k = i32(np.concatenate([[0], np.cumsum(lk)]).tolist())
+    slopes = torch.from_numpy(rng.uniform(0.01, 0.2, (len(lq), Hq)).astype(
+        np.float32)).to(dev) if alibi else None
+    params = masklib.MaskParams(has_alibi=alibi, **mkw)
+    args = (q, k, v, cu_q, cu_k, max(lq), max(lk), D ** -0.5, params)
+    kw = dict(alibi_slopes=slopes, dropout_p=p, dropout_seed=DENSE_SEED,
+              seqused_k=i32(used), leftpad_k=i32(lp))
+    return args, do, kw
+
+
+def _varlen_counts():
+    return (vl.flash_attn_varlen_fwd.launches, vl.varlen_dq_kernel.launches,
+            vl.varlen_dkv_kernel.launches)
+
+
+@pytest.mark.parametrize("name", list(PACKED_CASES))
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_varlen_kernels_match_plain(cuda, dt, D, name):
+    args, do, kw = _packed_inputs(name, DTYPES[dt], D, cuda)
+    q, k, v, cu_q, cu_k, msq, msk, scale, params = args
+    before = _varlen_counts()
+    out, lse = vl.flash_attn_varlen_fwd(*args, **kw)
+    grads = vl.flash_attn_varlen_bwd(q, k, v, out, do, lse, cu_q, cu_k, msq,
+                                     msk, scale, params, **kw)
+    torch.cuda.synchronize()
+    assert _varlen_counts() == tuple(n + 1 for n in before)
+    o32, lse32 = vl.flash_attn_varlen_fwd_ref(*args, **kw)
+    onat, lsenat = vl.flash_attn_varlen_fwd_ref(*args, upcast=False, **kw)
+    assert_fwd_close(out, o32, onat, name=f"K5 {name} out")
+    _gate_lse(lse, lse32, lsenat, f"K5 {name} lse")
+    bargs = (q, k, v, out, do, lse, cu_q, cu_k, msq, msk, scale, params)
+    g32 = vl.flash_attn_varlen_bwd_ref(*bargs, **kw)
+    gnat = vl.flash_attn_varlen_bwd_ref(*bargs, upcast=False, **kw)
+    for g, gr32, grn, what in zip(grads, g32, gnat, ("K6 dq", "K7 dk",
+                                                     "K7 dv")):
+        assert g.dtype == q.dtype and g.shape == gr32.shape
+        assert_bwd_close(g, gr32, grn, name=f"{what} {name}")
+    # rows and keys that no sequence covers read exactly 0 / -inf
+    live_q = torch.zeros(q.shape[0], dtype=torch.bool, device=cuda)
+    live_k = torch.zeros(k.shape[0], dtype=torch.bool, device=cuda)
+    for q0, slq, k0, slk, _ in vl.seq_bounds(cu_q, cu_k, kw["seqused_k"],
+                                             kw["leftpad_k"]):
+        live_q[q0:q0 + slq] = slk > 0
+        live_k[k0:k0 + max(slk, 0)] = True
+    assert not out[~live_q].any() and not grads[0][~live_q].any()
+    assert torch.isneginf(lse[:, ~live_q]).all()
+    assert not grads[1][~live_k].any() and not grads[2][~live_k].any()
+
+
+def test_varlen_backward_bitwise_deterministic(cuda):
+    args, do, kw = _packed_inputs("dropout_gqa_causal", torch.bfloat16, 64,
+                                  cuda)
+    q, k, v, cu_q, cu_k, msq, msk, scale, params = args
+    out, lse = vl.flash_attn_varlen_fwd(*args, **kw)
+    bargs = (q, k, v, out, do, lse, cu_q, cu_k, msq, msk, scale, params)
+    g1 = vl.flash_attn_varlen_bwd(*bargs, **kw)
+    g2 = vl.flash_attn_varlen_bwd(*bargs, **kw)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_varlen_kernels_dropout_masks_bit_equal(cuda, dt):
+    """Read K5's and K7's keep masks back as in the dense test: 64 keys
+    and 64 q rows a sequence, q = 0, v = I (K5: out[i, j] = keep(i, j) /
+    (64 (1 - p))) and dout = I (K7: dv[j, i] likewise)."""
+    B, H, n, p = 3, 4, 64, 0.3
+    dtype = DTYPES[dt]
+    eye = torch.eye(n, device=cuda, dtype=dtype)
+    q = torch.zeros((B * n, H, n), device=cuda, dtype=dtype)
+    v = eye[None, :, None, :].expand(B, n, H, n).reshape(B * n, H, n)
+    v = v.contiguous()
+    cu = torch.arange(B + 1, dtype=torch.int32, device=cuda) * n
+    params = masklib.MaskParams()
+    kw = dict(dropout_p=p, dropout_seed=DENSE_SEED)
+    out, lse = vl.flash_attn_varlen_fwd(q, q, v, cu, cu, n, n, 0.125, params,
+                                        **kw)
+    _, _, dv = vl.flash_attn_varlen_bwd(q, q, v, out, v, lse, cu, cu, n, n,
+                                        0.125, params, **kw)
+    keep = varlen_mod.varlen_dropout_mask(cu, B * n, H, n, p, DENSE_SEED,
+                                          cuda)                # (i, h, j)
+    assert torch.equal(out > 0, keep)
+    dv_keep = dv.view(B, n, H, n).permute(0, 3, 2, 1).reshape(B * n, H, n)
+    assert torch.equal(dv_keep > 0, keep)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_varlen_equal_lengths_bit_equal_to_flash_attn_func(cuda, p):
+    """cu_seqlens = b * S: K5-K7 are K1-K3's bodies on the same sequences,
+    so out, LSE and the gradients agree bit for bit."""
+    B, S, Hq, Hk, D = 3, 200, 8, 2, 64
+    rng = np.random.default_rng(12)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+        for s in ((B, S, Hq, D), (B, S, Hk, D), (B, S, Hk, D),
+                  (B, S, Hq, D)))
+    cu = torch.arange(B + 1, dtype=torch.int32, device=cuda) * S
+    kw = dict(dropout_p=p, dropout_seed=DENSE_SEED, causal=True,
+              return_attn_probs=True)
+    dense = [t.clone().requires_grad_() for t in (q, k, v)]
+    out_d, lse_d, mask_d = fa_mod.flash_attn_func(*dense, **kw)
+    out_d.backward(do)
+    packed = [t.reshape(B * S, *t.shape[2:]).clone().requires_grad_()
+              for t in (q, k, v)]
+    out_v, lse_v, mask_v = varlen_mod.flash_attn_varlen_func(
+        *packed, cu, cu, S, S, **kw)
+    out_v.backward(do.reshape(B * S, Hq, D))
+    assert torch.equal(out_v, out_d.reshape(B * S, Hq, D))
+    assert torch.equal(lse_v, lse_d.permute(1, 0, 2).reshape(Hq, B * S))
+    for a, b in zip(packed, dense):
+        assert torch.equal(a.grad, b.grad.reshape(a.grad.shape))
+    if p:
+        assert torch.equal(mask_v, mask_d.permute(0, 2, 1, 3).reshape(
+            B * S, Hq, S))
+
+
+def _plain_varlen(monkeypatch, upcast):
+    """Point flash_attn_varlen_func at the plain versions."""
+    monkeypatch.setattr(varlen_mod, "flash_attn_varlen_fwd", lambda *a, **k_:
+                        vl.flash_attn_varlen_fwd_ref(*a, upcast=upcast, **k_))
+    monkeypatch.setattr(varlen_mod, "flash_attn_varlen_bwd", lambda *a, **k_:
+                        vl.flash_attn_varlen_bwd_ref(*a, upcast=upcast, **k_))
+    monkeypatch.setattr(varlen_mod, "flash_attn_varlen_fwd_paged",
+                        lambda *a, **k_: vl.flash_attn_varlen_fwd_paged_ref(
+                            *a, upcast=upcast, **k_))
+
+
+def test_varlen_func_padded_head_dim_unpad_pad(cuda, monkeypatch):
+    """head_dim 40 (padded to 64 by the wrappers) through unpad_input ->
+    flash_attn_varlen_func -> pad_input and backward, against the same
+    path through the plain versions."""
+    B, S, Hq, Hk, D = 3, 96, 4, 2, 40
+    rng = np.random.default_rng(13)
+    x = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        cuda, torch.bfloat16) for s in ((B, S, Hq, D), (B, S, Hk, D),
+                                        (B, S, Hk, D), (B, S, Hq, D))]
+    mask = (torch.arange(S, device=cuda)[None, :]
+            < torch.tensor([96, 50, 7], device=cuda)[:, None])
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in x[:3]]
+        qu, idx, cu, ms, _ = padlib.unpad_input(leaves[0], mask)
+        ku, vu = (padlib.unpad_input(t, mask)[0] for t in leaves[1:])
+        o = varlen_mod.flash_attn_varlen_func(qu, ku, vu, cu, cu, ms, ms,
+                                              causal=True)
+        out = padlib.pad_input(o, idx, B, S)
+        (out.float() * x[3].float()).sum().backward()
+        return out.detach(), [t.grad for t in leaves]
+
+    before = _varlen_counts()
+    out, grads = run()
+    assert _varlen_counts() == tuple(n + 1 for n in before)
+    plain = {}
+    for upcast in (True, False):
+        with monkeypatch.context() as m:
+            _plain_varlen(m, upcast)
+            plain[upcast] = run()
+    assert out.shape == x[0].shape and not out[2, 7:].any()
+    assert_fwd_close(out, plain[True][0], plain[False][0], name="out")
+    for i, what in enumerate(("dq", "dk", "dv")):
+        assert_bwd_close(grads[i], plain[True][1][i], plain[False][1][i],
+                         name=what)
+
+
+def _paged_pool(packed, lens, ps, dev, dtype):
+    """Packed (Tk, Hk, D) -> NHD pool (P, ps, Hk, D), shuffled pages."""
+    pages = [-(-n // ps) for n in lens]
+    P = sum(pages) + 1
+    ids = np.random.default_rng(ps).permutation(np.arange(1, P))
+    pool = torch.zeros((P, ps) + tuple(packed.shape[1:]), device=dev,
+                       dtype=dtype)
+    table = np.zeros((len(lens), max(pages)), np.int32)
+    at = off = 0
+    for b, n in enumerate(lens):
+        for j in range(pages[b]):
+            m = min(ps, n - j * ps)
+            pool[ids[at], :m] = packed[off + j * ps:off + j * ps + m]
+            table[b, j] = ids[at]
+            at += 1
+        off += n
+    return pool, torch.from_numpy(table).to(dev)
+
+
+@pytest.mark.parametrize("route", ["hnd", "nhd128", "nhd_gather"])
+def test_varlen_block_table_routes_match_plain(cuda, route, monkeypatch):
+    lq, lk, Hq, Hk, D = [64, 100, 17], [300, 128, 37], 8, 2, 64
+    rng = np.random.default_rng(17)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+
+    q, k, v, do = t(sum(lq), Hq, D), t(sum(lk), Hk, D), t(sum(lk), Hk, D), \
+        t(sum(lq), Hq, D)
+    ps = 32 if route == "nhd_gather" else 128
+    kp, table = _paged_pool(k, lk, ps, cuda, torch.bfloat16)
+    vp, _ = _paged_pool(v, lk, ps, cuda, torch.bfloat16)
+    layout = "NHD"
+    if route == "hnd":
+        kp, vp = (x.permute(2, 0, 1, 3).contiguous() for x in (kp, vp))
+        layout = "HND"
+    cu_q = torch.tensor(np.concatenate([[0], np.cumsum(lq)]),
+                        dtype=torch.int32, device=cuda)
+    cu_k = torch.tensor(np.concatenate([[0], np.cumsum(lk)]),
+                        dtype=torch.int32, device=cuda)
+
+    def run():
+        leaves = [x.clone().requires_grad_() for x in (q, kp, vp)]
+        out = varlen_mod.flash_attn_varlen_func(
+            *leaves, cu_q, cu_k, max(lq), max(lk), causal=True,
+            block_table=table, kv_cache_layout=layout)
+        if route != "nhd_gather":
+            assert out.grad_fn is None
+            return out, []
+        out.backward(do)
+        return out.detach(), [x.grad for x in leaves]
+
+    before = (vl.flash_attn_varlen_fwd_paged.launches, *_varlen_counts())
+    out, grads = run()
+    after = (vl.flash_attn_varlen_fwd_paged.launches, *_varlen_counts())
+    expect = (1, 0, 0, 0) if route != "nhd_gather" else (0, 1, 1, 1)
+    assert tuple(a - b for a, b in zip(after, before)) == expect
+    plain = {}
+    for upcast in (True, False):
+        with monkeypatch.context() as m:
+            _plain_varlen(m, upcast)
+            plain[upcast] = run()
+    assert_fwd_close(out, plain[True][0], plain[False][0], name="out")
+    for i, g in enumerate(grads):
+        assert_bwd_close(g, plain[True][1][i], plain[False][1][i],
+                         name=f"grad {i}")
+
+
+def test_varlen_paged_rows_past_the_last_sequence_read_zero(cuda):
+    """K8 with 5 packed q rows past cu_q[B]: no block covers them, and they
+    read O = 0 and LSE = -inf, as in the JAX package."""
+    args, kw = _varlen_inputs("causal_prefix", torch.bfloat16, 64, cuda)
+    q = torch.cat([args[0], torch.ones_like(args[0][:5])])
+    out, lse = vl.flash_attn_varlen_fwd_paged(q, *args[1:], **kw)
+    n = args[0].shape[0]
+    assert not out[n:].any() and torch.isneginf(lse[:, n:]).all()
+    assert out[:n].any()
+
+
+def test_varlen_kernels_reject_fp32(cuda):
+    args, do, kw = _packed_inputs("causal_gqa_ragged", torch.float32, 64,
+                                  cuda)
+    with pytest.raises(TypeError):
+        vl.flash_attn_varlen_fwd(*args, **kw)
 
 
 # ------------------------------------------------- flash_attn_with_kvcache

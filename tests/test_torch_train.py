@@ -88,3 +88,18 @@ def test_training_entry_points_reject_mesh(setup):
                    mesh=object())
     with pytest.raises(NotImplementedError):
         tt.make_train_step(CFG_T, mesh=object())
+
+
+def test_rope_tables_match_jax_on_the_named_device():
+    """rope_tables places its tables on the device it is given (the GPU by
+    default, like every entry point); here the CPU, named explicitly."""
+    cos_j, sin_j = jt.rope_tables(CFG_J, 64)
+    cos_t, sin_t = tt.rope_tables(CFG_T, 64, device="cpu")
+    assert cos_t.device.type == "cpu" and cos_t.dtype == torch.float32
+    np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j), rtol=0,
+                               atol=1e-6)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tt.rope_tables(CFG_T, 64)
