@@ -16,11 +16,16 @@ PyTorch library call computing the same function:
     flash_attn_func (with dropout: K5's keep mask read back), a padded
     batch through unpad_input / pad_input, and packed documents, where
     each kernel is held against its plain version;
-  * K4 decode and K8 paged prefill at the serving engine's shapes.
+  * K4 decode and K8 paged prefill at the serving engine's shapes;
+  * their quantized variants K4q and K8q over int8, fp8 (e4m3) and int4
+    pools at the same shapes, against their plain twins and the fp32
+    oracle over the dequantized pool, all eight timed in turns over
+    5 x 100 launches (the spread of each).
 Then it trains TinyLlama-1.1B at full width (22 layers, bf16, random weights
 from a seed) for three AdamW steps at B 4 x S 2048 through K1-K3, and
-drives the paged serving engine at the same width through K4 and K8,
-checking each path's output and launch counts.  Prints the card, a
+drives the paged serving engine at the same width through K4 and K8, then
+once from each quantized pool through K4q and K8q, checking each path's
+output and launch counts.  Prints the card, a
 `kernels` JSON line, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 Any failed phase raises and the script exits non-zero; with no GPU, or
@@ -31,6 +36,12 @@ without the package beside it, it exits non-zero and prints no result.
 instead times K1-K3 of the port found in the directory TREE (a checkout,
 e.g. of a parent commit) at the training shape and prints a digest of
 their outputs, to compare two trees on one card in one call.
+
+    python3 chip_smoke.py --serve-times ROUNDS
+
+instead serves the engine runs' traffic from a bf16, an int8, an fp8 and
+an int4 pool in turns, ROUNDS times each after a warm-up round, and prints
+each pool's decode tok/s and TTFT p50 with their medians and quartiles.
 """
 
 from __future__ import annotations
@@ -75,10 +86,52 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, ops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gather_kv(torch, kp, vp, tbl, lens, ps):
+    """Each sequence's K/V gathered from (Hk, P, ps, D) pools through its
+    block-table row into contiguous (B, Hk, max len, D), zeros past its
+    length: the input of the SDPA yardstick (pre-gathered KV)."""
+    B, Hk, D = len(lens), kp.shape[0], kp.shape[-1]
+    kc = kp.new_zeros((B, Hk, int(max(lens)), D))
+    vc = torch.zeros_like(kc)
+    for b in range(B):
+        n = int(lens[b])
+        pages = tbl[b, :-(-n // ps)].long()
+        kc[b, :, :n] = kp[:, pages].reshape(Hk, -1, D)[:, :n]
+        vc[b, :, :n] = vp[:, pages].reshape(Hk, -1, D)[:, :n]
+    return kc, vc
+
+
+def decode_sdpa(torch, q, kc, vc, lens_d, group):
+    """SDPA of the decode step (one new token, q rows (B, Hk, >= group, D))
+    over pre-gathered KV, masked to each sequence's length."""
+    B, Hk, _, D = q.shape
+    qs = q[:, :, :group].reshape(B, Hk * group, 1, D)
+    mask = (torch.arange(kc.shape[2], device=q.device)[None, :]
+            < lens_d[:, None].long())[:, None, None, :]
+    F = torch.nn.functional
+    return lambda: F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def prefill_sdpa(torch, q, kc, vc, prefix, T):
+    """SDPA of a paged prefill (B sequences of T new tokens behind cached
+    prefixes, packed q (B * T, Hq, D)) over pre-gathered KV, bottom-right
+    causal."""
+    B, dev = len(prefix), q.device
+    qs = q.view(B, T, q.shape[1], q.shape[2]).transpose(1, 2)
+    kpos = torch.arange(kc.shape[2], device=dev)[None, None, :]
+    qpos = (torch.arange(T, device=dev)[None, :, None]
+            + prefix.to(dev)[:, None, None])
+    mask = (kpos <= qpos)[:, None]
+    F = torch.nn.functional
+    return lambda: F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
+                                                  enable_gqa=True)
 
 
 def make_pool(torch, gen, dev, Hk, n_pages, ps, D, dtype):
@@ -231,20 +284,9 @@ def phase_k4(torch, flush):
     plain_ms = time_ms(torch, lambda: dec.paged_decode_attention_ref(
         *args, **kw), reps=5, flush=flush)
     # library yardstick: SDPA over the K/V already gathered to contiguous
-    nmax = int(lens.max())
-    kc = torch.zeros((B, Hk, nmax, D), dtype=torch.bfloat16, device=dev)
-    vc = torch.zeros_like(kc)
-    for b in range(B):
-        n = int(lens[b])
-        pages = tbl[b, :-(-n // ps)].long()
-        kc[b, :, :n] = kp[:, pages].reshape(Hk, -1, D)[:, :n]
-        vc[b, :, :n] = vp[:, pages].reshape(Hk, -1, D)[:, :n]
-    qs = q[:, :, :group].reshape(B, Hk * group, 1, D)
-    mask = (torch.arange(nmax, device=dev)[None, :] < lens_d[:, None].long()
-            )[:, None, None, :]
-    F = torch.nn.functional
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, kc, vc, attn_mask=mask, enable_gqa=True), flush=flush)
+    kc, vc = gather_kv(torch, kp, vp, tbl, lens, ps)
+    library_ms = time_ms(torch, decode_sdpa(torch, q, kc, vc, lens_d, group),
+                         flush=flush)
     S = dec.resolve_num_splits(0, B, Hk, Rq, max_pages, dev)
     live = int(lens.sum())
     # inputs once, and the output as one fp32 partial + LSE per row (S = 1):
@@ -299,20 +341,9 @@ def phase_k8(torch, flush):
                         flush=flush)
     plain_ms = time_ms(torch, lambda: vl.flash_attn_varlen_fwd_paged_ref(
         *args), reps=5, flush=flush)
-    kc = torch.zeros((B, Hk, max_k, D), dtype=torch.bfloat16, device=dev)
-    vc = torch.zeros_like(kc)
-    for b in range(B):
-        n = int(seqlens[b])
-        pages = tbl[b, :-(-n // ps)].long()
-        kc[b, :, :n] = kp[:, pages].reshape(Hk, -1, D)[:, :n]
-        vc[b, :, :n] = vp[:, pages].reshape(Hk, -1, D)[:, :n]
-    qs = q.view(B, T, Hq, D).transpose(1, 2)
-    kpos = torch.arange(max_k, device=dev)[None, None, :]
-    qpos = torch.arange(T, device=dev)[None, :, None] + prefix.to(dev)[:, None, None]
-    mask = (kpos <= qpos)[:, None]                      # bottom-right causal
-    F = torch.nn.functional
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, kc, vc, attn_mask=mask, enable_gqa=True), flush=flush)
+    kc, vc = gather_kv(torch, kp, vp, tbl, seqlens, ps)
+    library_ms = time_ms(torch, prefill_sdpa(torch, q, kc, vc, prefix, T),
+                         flush=flush)
     live_pairs = sum(T * int(p) + T * (T + 1) // 2 for p in prefix)
     flops = 4 * live_pairs * Hq * D
     nbytes = (2 * q.numel() * 2 + Hq * B * T * 4
@@ -326,7 +357,245 @@ def phase_k8(torch, flush):
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
 
 
-# ------------------------------------------------------- K1-K3 (training)
+# ------------------------------------------- K4q, K8q (quantized pools)
+
+QUANT_KINDS = ("int8", "fp8", "int4")
+# the fp32 oracle over the dequantized pool: the JAX package's gates
+# (tests/test_quant.py: 0.1 for int8 / fp8, int4's resolution bound 0.3)
+QUANT_ORACLE_GATE = {"int8": 0.1, "fp8": 0.1, "int4": 0.3}
+# kernel vs plain twin LSE: the same fp32 scores summed in another order
+# with other exp ulps (P's rounding does not reach the LSE)
+QUANT_LSE_ATOL = 1e-4
+QUANT_GATE = ("out vs the plain twin at the kernel's P grouping: max abs <= "
+              "2 x the error P's rounding makes (twin with P unrounded) + "
+              "1e-5, and per row (gated_rows, mult 2); LSE within 1e-4; vs "
+              "the fp32 oracle over the dequantized pool within 0.1 "
+              "(int8, fp8) / 0.3 (int4)")
+INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak
+# the 16-bit and quantized kernels timed in turns: repeats x launches each
+SPREAD_REPEATS, SPREAD_REPS = 5, 100
+
+
+def quant_dtype(torch, kind):
+    return {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
+            "int4": "int4"}[kind]
+
+
+def quant_pools(torch, kp, vp, kind):
+    """bf16 HND pools -> the quantized (k, v, k_scales, v_scales) and the
+    dequantized pools in fp32 (the oracle's K/V) and bf16 (SDPA's)."""
+    from flash_attn_v100_tpu_torch.ops import quant
+    pools, deq = [], []
+    for x in (kp, vp):
+        p, s = quant.quantize_kv(x, quant_dtype(torch, kind))
+        pools.append((p, s))
+        deq.append(quant.dequantize_kv(p, s, torch.float32,
+                                       int4=kind == "int4"))
+    (kq, ks), (vq, vs) = pools
+    return (kq, vq, ks, vs), deq
+
+
+def quant_ops_per_s(kind):
+    # fp8's products stay 16-bit (K converted to q's type, P to bf16)
+    return BF16_FLOPS_PER_S if kind == "fp8" else INT8_OPS_PER_S
+
+
+def gate_quant(torch, name, kind, out, lse, twin, twin_unrounded, lse_twin,
+               oracle, wrong):
+    """`out` (and `lse`) of K4q/K8q against QUANT_GATE; `wrong` is the same
+    output made wrong on one late tile, which the per-row gate must
+    reject."""
+    from flash_attn_v100_tpu_torch.utils import testing as tt
+    err, gate = gated(torch, out, twin, twin_unrounded, f"{name} out")
+    ratio = gated_rows(torch, out, twin, twin_unrounded, f"{name} out", 2.0)[0]
+    fin = torch.isfinite(lse_twin)
+    assert torch.equal(fin, torch.isfinite(lse)), f"{name}: -inf rows differ"
+    lse_err = tt.max_abs_err(lse[fin], lse_twin[fin])
+    assert lse_err <= QUANT_LSE_ATOL, f"{name} lse err {lse_err:.3e}"
+    o_err = tt.max_abs_err(out, oracle)
+    assert o_err <= QUANT_ORACLE_GATE[kind], (
+        f"{name}: err vs the fp32 oracle {o_err:.3e} > "
+        f"{QUANT_ORACLE_GATE[kind]}")
+    w_ratio = gated_rows(torch, wrong, twin, twin_unrounded, f"{name} wrong",
+                         2.0, check=False)[0]
+    assert w_ratio > 1.0, f"the per-row gate passed a wrong {name}"
+    print(f"{name}: out max_abs_err {err:.3e} <= gate {gate:.3e}, worst row "
+          f"err/gate {ratio:.3f}, lse {lse_err:.3e} <= {QUANT_LSE_ATOL}, vs "
+          f"fp32 oracle {o_err:.3e} <= {QUANT_ORACLE_GATE[kind]}; a late "
+          f"tile with V's scales shifted by one token: row err/gate "
+          f"{w_ratio:.2f}", flush=True)
+    return dict(max_abs_err=err, gate=gate, row_ratio=ratio, lse_err=lse_err,
+                oracle_err=o_err, wrong_ratio=w_ratio)
+
+
+def quant_k4(torch, flush):
+    """K4q at phase_k4's engine decode case (the same lens, table, pool and
+    q rows: same seeds), once per payload kind, beside the 16-bit K4.
+    Returns ({kind: result}, {name: timed call})."""
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    ggen = torch.Generator(device=dev).manual_seed(SEED)
+    B, Hk, group, D, ps, max_pages = 8, 4, 8, 64, 128, 16
+    lens = torch.randint(600, 2001, (B,), generator=gen)
+    tbl, n_pages = paged_tables(torch, gen, lens, ps, max_pages, dev)
+    kp, vp = make_pool(torch, ggen, dev, Hk, n_pages, ps, D, torch.bfloat16)
+    Rq = 8
+    q = torch.randn((B, Hk, Rq, D), generator=ggen, device=dev).to(
+        torch.bfloat16)
+    lens_d = lens.to(dev, torch.int32)
+    lp = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(qpos_vec=lens_d - 1, softmax_scale=D ** -0.5,
+              params=masklib.MaskParams(window_right=0), t_new=1,
+              group=group, num_splits=0)
+    S = dec.resolve_num_splits(0, B, Hk, Rq, max_pages, dev)
+    live = int(lens.sum())
+    timed = {"K4 (bf16)": lambda: dec.paged_decode_attention(
+        q, kp[None], vp[None], tbl, lens_d, lp, **kw)}
+    res = {}
+    for kind in QUANT_KINDS:
+        (kq, vq, ks, vs), (kd, vd) = quant_pools(torch, kp, vp, kind)
+        args = (q, kq[None], vq[None], tbl, lens_d, lp)
+        qkw = dict(kw, k_scales=ks[None], v_scales=vs[None],
+                   int4=kind == "int4")
+
+        def run(qkw=qkw, args=args):
+            return dec.paged_decode_attention(*args, **qkw)
+        o, lse = dec.merge_partials(*run())
+        torch.cuda.synchronize()
+        twin, lse_twin = dec.merge_partials(*dec.paged_decode_attention_ref(
+            *args, **qkw))
+        unr = dec.merge_partials(*dec.paged_decode_attention_ref(
+            *args, round_p=False, **qkw))[0]
+        oracle = dec.merge_partials(*dec.paged_decode_attention_ref(
+            q, kd[None], vd[None], tbl, lens_d, lp, **kw))[0]
+        # the last batch row ("one late tile") with V's scales read one
+        # token off
+        o_w = dec.merge_partials(*dec.paged_decode_attention(
+            *args, **dict(qkw, v_scales=torch.roll(vs, 1, dims=2)[None])))[0]
+        wrong = o.clone()
+        wrong[B - 1] = o_w[B - 1]
+        r = gate_quant(torch, f"K4q {kind} decode", kind, o, lse, twin, unr,
+                       lse_twin, oracle, wrong)
+        del twin, unr, oracle, o_w, wrong
+        r["plain_ms"] = time_ms(torch, lambda: dec.paged_decode_attention_ref(
+            *args, **qkw), reps=5, flush=flush)
+        kc, vc = gather_kv(torch, kd.to(torch.bfloat16),
+                           vd.to(torch.bfloat16), tbl, lens, ps)
+        r["library_ms"] = time_ms(
+            torch, decode_sdpa(torch, q, kc, vc, lens_d, group), flush=flush)
+        del kc, vc
+        row_bytes = D // 2 if kind == "int4" else D
+        nbytes = (q.numel() * 2 + 2 * live * Hk * (row_bytes + 4)
+                  + tbl.numel() * 4 + B * 12 + B * Hk * Rq * (D + 1) * 4)
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            nbytes, 4 * live * Hk * group * D, quant_ops_per_s(kind))
+        res[kind] = r
+        timed[f"K4q {kind}"] = run
+    print(f"K4q decode B={B} Hk={Hk} group={group} D={D} ps={ps} "
+          f"lens={lens.tolist()} splits={S} ({QUANT_GATE})", flush=True)
+    return res, timed
+
+
+def quant_k8(torch, flush):
+    """K8q at phase_k8's shape (the same tables, pool and q: same seeds),
+    once per payload kind, beside the 16-bit K8.  Returns ({kind: result},
+    {name: timed call})."""
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    B, T, Hq, Hk, D, ps = 4, 512, 32, 4, 64, 128
+    prefix = torch.tensor([0, 300, 0, 300])
+    seqlens = prefix + T
+    max_k = int(seqlens.max())
+    mp = -(-max_k // ps)
+    tbl, n_pages = paged_tables(torch, gen, seqlens, ps, mp, dev)
+    kp, vp = make_pool(torch, ggen, dev, Hk, n_pages, ps, D, torch.bfloat16)
+    q = torch.randn((B * T, Hq, D), generator=ggen, device=dev).to(
+        torch.bfloat16)
+    cu_q = torch.arange(B + 1, dtype=torch.int32, device=dev) * T
+    seq_d = seqlens.to(dev, torch.int32)
+    params = masklib.MaskParams(causal=True, window_right=0)
+    tail = (tbl, cu_q, seq_d, T, max_k, D ** -0.5, params)
+    timed = {"K8 (bf16)": lambda: vl.flash_attn_varlen_fwd_paged(
+        q, kp, vp, *tail)}
+    live_pairs = sum(T * int(p) + T * (T + 1) // 2 for p in prefix)
+    res = {}
+    for kind in QUANT_KINDS:
+        (kq, vq, ks, vs), (kd, vd) = quant_pools(torch, kp, vp, kind)
+        args = (q, kq, vq, *tail)
+        skw = dict(k_scales=ks, v_scales=vs)
+
+        def run(args=args, skw=skw):
+            return vl.flash_attn_varlen_fwd_paged(*args, **skw)
+        out, lse = run()
+        torch.cuda.synchronize()
+        twin, lse_twin = vl.flash_attn_varlen_fwd_paged_ref(*args, **skw)
+        unr = vl.flash_attn_varlen_fwd_paged_ref(*args, round_p=False,
+                                                 **skw)[0]
+        oracle = vl.flash_attn_varlen_fwd_paged_ref(q, kd, vd, *tail)[0]
+        # the last sequence's last 64-row q tile with V's scales read one
+        # token off
+        o_w = vl.flash_attn_varlen_fwd_paged(
+            *args, k_scales=ks, v_scales=torch.roll(vs, 1, dims=2))[0]
+        wrong = spliced0(out, o_w, B * T - 64)
+        r = gate_quant(torch, f"K8q {kind} prefill", kind, out, lse, twin,
+                       unr, lse_twin, oracle, wrong)
+        del twin, unr, oracle, o_w, wrong
+        r["plain_ms"] = time_ms(
+            torch, lambda: vl.flash_attn_varlen_fwd_paged_ref(*args, **skw),
+            reps=5, flush=flush)
+        kc, vc = gather_kv(torch, kd.to(torch.bfloat16),
+                           vd.to(torch.bfloat16), tbl, seqlens, ps)
+        r["library_ms"] = time_ms(
+            torch, prefill_sdpa(torch, q, kc, vc, prefix, T), flush=flush)
+        del kc, vc
+        row_bytes = D // 2 if kind == "int4" else D
+        nbytes = (2 * q.numel() * 2 + Hq * B * T * 4
+                  + 2 * int(seqlens.sum()) * Hk * (row_bytes + 4)
+                  + tbl.numel() * 4)
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            nbytes, 4 * live_pairs * Hq * D, quant_ops_per_s(kind))
+        res[kind] = r
+        timed[f"K8q {kind}"] = run
+    print(f"K8q prefill B={B} T={T} prefixes={prefix.tolist()} Hq={Hq} "
+          f"Hk={Hk} D={D} ps={ps} ({QUANT_GATE})", flush=True)
+    return res, timed
+
+
+def phase_quant(torch, flush):
+    """K4q and K8q for each payload kind against their plain twins and the
+    oracle, then every variant and the 16-bit K4 / K8 at the same inputs
+    timed in turns (SPREAD_REPEATS x SPREAD_REPS launches each).  Returns
+    {"K4q": {kind: result}, "K8q": {kind: result}, "spread": {name: [ms of
+    each repeat]}}; a result's `ms` is the median of its repeats."""
+    k4q, timed = quant_k4(torch, flush)
+    k8q, timed8 = quant_k8(torch, flush)
+    timed.update(timed8)
+    spread = {name: [] for name in timed}
+    for _ in range(SPREAD_REPEATS):
+        for name, fn in timed.items():
+            spread[name].append(time_ms(torch, fn, reps=SPREAD_REPS,
+                                        flush=flush))
+    for name, times in spread.items():
+        med = statistics.median(times)
+        line = (f"{name}: {med:.4f} ms (median of {SPREAD_REPEATS} repeats "
+                f"of {SPREAD_REPS} launches; repeats {min(times):.4f}-"
+                f"{max(times):.4f})")
+        kid, kind = name.split()
+        if kid in ("K4q", "K8q"):
+            r = (k4q if kid == "K4q" else k8q)[kind]
+            r["ms"], r["ms_repeats"] = med, times
+            line += (f", plain {r['plain_ms']:.4f} ms, SDPA over the "
+                     f"dequantized pre-gathered KV {r['library_ms']:.4f} ms, "
+                     f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        print(line, flush=True)
+    return {"K4q": k4q, "K8q": k8q, "spread": spread}
 
 # the training shape: TinyLlama-1.1B attention at B 4 x S 2048
 DENSE_B, DENSE_S, DENSE_HQ, DENSE_HK, DENSE_D = 4, 2048, 32, 4, 64
@@ -1160,18 +1429,66 @@ ENGINE_LOGITS_MULT, ENGINE_LOGITS_ATOL = 2.0, 1e-5
 ENGINE_LOGITS_GATE = ("assert_close_rel(mult=2, atol=1e-5): kernel-path logits "
                       "vs fp32-plain-attention logits within 2x the "
                       "bf16-plain-attention logits' distance")
+ENGINE_QUANT_GATE = ("assert_close_rel(mult=2, atol=1e-5): kernel-path logits "
+                     "vs the plain twins' logits within 2x the distance of "
+                     "the twins with P unrounded")
 # the engine run: LONG prompts prefill first (K8 route), then SHORT prompts
 # arrive (K4 prefill route, T bucket 64) and all decode N_NEW tokens greedily
 N_LONG, LONG_LEN, SHORT_LENS, N_NEW = 6, 512, (40, 25), 32
 PAGE_SIZE, NUM_PAGES = 128, 64
 
 
-def phase_engine(torch, cfg):
-    """ServingEngine at `cfg` through both kernels; the first prefill step
-    of each route is replayed with the plain attention versions."""
-    import functools
-    import numpy as np
+def _scale_clones(kw):
+    return {n: (x.clone() if n in ("k_scales", "v_scales") and x is not None
+                else x) for n, x in kw.items()}
+
+
+def make_engine(torch, params, cfg, kind=None):
+    """The engine runs' ServingEngine: a pool of payload `kind` ("int8",
+    "fp8", "int4"; None: the model dtype) on the card."""
     from flash_attn_v100_tpu_torch import ServingEngine
+    eng = ServingEngine(params, cfg, max_batch=N_LONG + len(SHORT_LENS),
+                        num_pages=NUM_PAGES, page_size=PAGE_SIZE,
+                        device="cuda",
+                        kv_dtype=None if kind is None else quant_dtype(
+                            torch, kind))
+    assert eng.sched.is_native, "the native scheduler must be in use"
+    assert eng.quantized == (kind is not None)
+    return eng
+
+
+def serve_traffic(torch, eng, cfg):
+    """The engine runs' traffic: N_LONG prompts of LONG_LEN tokens
+    prefilled in one step (the K8 route), then SHORT_LENS prompts beside
+    their decodes (the K4 route), N_NEW greedy tokens each.  Returns (the
+    outputs, the request ids, the host clock at submit / after the second
+    step / at the end, the tokens generated at the last two)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    long_prompts = [rng.integers(1, cfg.vocab_size, LONG_LEN).tolist()
+                    for _ in range(N_LONG)]
+    short_prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                     for n in SHORT_LENS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=N_NEW) for p in long_prompts]
+    eng.step()                           # 6 x 512-token prefill: K8 route
+    rids += [eng.submit(p, max_new_tokens=N_NEW) for p in short_prompts]
+    eng.step()                           # short prefills (K4) + 6 decodes
+    torch.cuda.synchronize()
+    t_a, tok_a = time.perf_counter(), eng.metrics["tokens_generated"]
+    out = eng.run_to_completion()
+    torch.cuda.synchronize()
+    t_b, tok_b = time.perf_counter(), eng.metrics["tokens_generated"]
+    return out, rids, (t0, t_a, t_b), (tok_a, tok_b)
+
+
+def phase_engine(torch, cfg, kind=None):
+    """ServingEngine at `cfg` through both kernels (K4q / K8q over a pool
+    of payload `kind` "int8", "fp8" or "int4"; None: the model dtype's
+    K4 / K8); the first prefill step of each route is replayed with the
+    plain attention versions."""
+    import functools
     from flash_attn_v100_tpu_torch.models.transformer import init_params
     from flash_attn_v100_tpu_torch.ops import kvcache as kv_mod
     from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
@@ -1179,52 +1496,57 @@ def phase_engine(torch, cfg):
     from flash_attn_v100_tpu_torch.runtime import engine as eng_mod
 
     params = init_params(cfg, seed=SEED, device="cuda", lm_head=True)
-    eng = ServingEngine(params, cfg, max_batch=N_LONG + len(SHORT_LENS),
-                        num_pages=NUM_PAGES, page_size=PAGE_SIZE,
-                        device="cuda")
-    assert eng.sched.is_native, "the native scheduler must be in use"
-    rng = np.random.default_rng(SEED)
-    long_prompts = [rng.integers(1, cfg.vocab_size, LONG_LEN).tolist()
-                    for _ in range(N_LONG)]
-    short_prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
-                     for n in SHORT_LENS]
+    eng = make_engine(torch, params, cfg, kind)
+    tag = "engine" if kind is None else f"engine {kind}"
 
     # capture the first prefill (T > 1) step of each route: the pools
-    # before it, its inputs and its logits
+    # (and scales) before it, its inputs and its logits
     real_pf = eng_mod.paged_forward
     cap = {}
 
     def spy(params_, k_pool, v_pool, tokens, cs, bt, cfg_, **kw):
-        route = eng_mod._route(cfg_, tokens.shape[1], k_pool.shape[2])
+        rows = (k_pool if kw.get("k_scales") is None
+                else kw["k_scales"]).shape[2]
+        route = eng_mod._route(cfg_, tokens.shape[1], rows)
         if route in cap or tokens.shape[1] == 1:
             return real_pf(params_, k_pool, v_pool, tokens, cs, bt, cfg_, **kw)
-        c = cap[route] = dict(k=k_pool.clone(), v=v_pool.clone(), kw=kw,
+        c = cap[route] = dict(k=k_pool.clone(), v=v_pool.clone(),
+                              kw=_scale_clones(kw),
                               args=(tokens.clone(), cs.clone(), bt.clone()))
         out = real_pf(params_, k_pool, v_pool, tokens, cs, bt, cfg_, **kw)
         c["logits"] = out[0].clone()
         return out
 
+    def counts():
+        if kind is None:
+            return {"decode": dec.paged_decode_attention.launches,
+                    "varlen": vl.flash_attn_varlen_fwd_paged.launches}
+        return {"decode": dec.paged_decode_attention.quant_launches[kind],
+                "varlen": vl.flash_attn_varlen_fwd_paged.quant_launches[kind]}
+
+    twins = (dec.paged_decode_attention_ref, vl.flash_attn_varlen_fwd_paged_ref)
     dec.paged_decode_attention.launches = 0
     vl.flash_attn_varlen_fwd_paged.launches = 0
+    for k in QUANT_KINDS:
+        dec.paged_decode_attention.quant_launches[k] = 0
+        vl.flash_attn_varlen_fwd_paged.quant_launches[k] = 0
+    for twin in twins:
+        twin.calls = 0
     eng_mod.paged_forward.calls.update(decode=0, varlen=0)
     eng_mod.paged_forward = spy
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rids = [eng.submit(p, max_new_tokens=N_NEW) for p in long_prompts]
-        eng.step()                       # 6 x 512-token prefill: K8 route
-        rids += [eng.submit(p, max_new_tokens=N_NEW) for p in short_prompts]
-        eng.step()                       # short prefills (K4) + 6 decodes
-        torch.cuda.synchronize()
-        t_a, tok_a = time.perf_counter(), eng.metrics["tokens_generated"]
-        out = eng.run_to_completion()
-        torch.cuda.synchronize()
-        t_b, tok_b = time.perf_counter(), eng.metrics["tokens_generated"]
+        out, rids, (t0, t_a, t_b), (tok_a, tok_b) = serve_traffic(
+            torch, eng, cfg)
     finally:
         eng_mod.paged_forward = real_pf
-    launches = {"decode": dec.paged_decode_attention.launches,
-                "varlen": vl.flash_attn_varlen_fwd_paged.launches}
+    launches = counts()
     calls = dict(eng_mod.paged_forward.calls)
+    twin_calls = [twin.calls for twin in twins]
+    other = (dec.paged_decode_attention.launches
+             + vl.flash_attn_varlen_fwd_paged.launches
+             + sum(dec.paged_decode_attention.quant_launches.values())
+             + sum(vl.flash_attn_varlen_fwd_paged.quant_launches.values())
+             - sum(launches.values()))
 
     assert sorted(out) == sorted(rids), "every request must finish"
     for rid in rids:
@@ -1235,6 +1557,8 @@ def phase_engine(torch, cfg):
     for route in ("decode", "varlen"):
         assert calls[route] > 0 and launches[route] > 0, (calls, launches)
         assert launches[route] == L * calls[route], (route, launches, calls)
+    assert twin_calls == [0, 0], f"plain twins called: {twin_calls}"
+    assert other == 0, f"{other} launches of another payload's kernels"
     assert sorted(cap) == ["decode", "varlen"], sorted(cap)
 
     # each captured prefill step again, with the plain attention versions
@@ -1245,50 +1569,78 @@ def phase_engine(torch, cfg):
         kv_mod.flash_attn_varlen_fwd_paged = varlen_fn
         try:
             return real_pf(params, c["k"].clone(), c["v"].clone(),
-                           *c["args"], cfg, **c["kw"])[0]
+                           *c["args"], cfg, **_scale_clones(c["kw"]))[0]
         finally:
             (kv_mod.paged_decode_attention,
              kv_mod.flash_attn_varlen_fwd_paged) = saved
 
+    # the yardstick: 16-bit pools, products in bf16; quantized pools, P
+    # left unrounded
+    yard = dict(upcast=False) if kind is None else dict(round_p=False)
     errs = {}
     for route in ("varlen", "decode"):
         c = cap[route]
-        plain32 = replay(c, dec.paged_decode_attention_ref,
-                         vl.flash_attn_varlen_fwd_paged_ref)
-        plain16 = replay(
-            c, functools.partial(dec.paged_decode_attention_ref, upcast=False),
-            functools.partial(vl.flash_attn_varlen_fwd_paged_ref,
-                              upcast=False))
+        plain = replay(c, *twins)
+        plain_y = replay(c, *(functools.partial(t, **yard) for t in twins))
         logits = c["logits"]
-        assert logits.shape == plain32.shape and torch.isfinite(logits).all()
-        err, gate = gated(torch, logits, plain32, plain16,
-                          f"first {route}-route prefill logits",
+        assert logits.shape == plain.shape and torch.isfinite(logits).all()
+        err, gate = gated(torch, logits, plain, plain_y,
+                          f"{tag}: first {route}-route prefill logits",
                           ENGINE_LOGITS_MULT, ENGINE_LOGITS_ATOL)
         errs[route] = err
         tokens = c["args"][0]
-        print(f"engine: first {route}-route prefill (tokens "
+        print(f"{tag}: first {route}-route prefill (tokens "
               f"{tuple(tokens.shape)}) logits max_abs_err {err:.4e} <= gate "
-              f"{gate:.4e} vs fp32 plain ({ENGINE_LOGITS_GATE})")
-    assert launches["varlen"] == vl.flash_attn_varlen_fwd_paged.launches
-    assert launches["decode"] == dec.paged_decode_attention.launches
+              f"{gate:.4e} vs the plain versions ("
+              f"{ENGINE_LOGITS_GATE if kind is None else ENGINE_QUANT_GATE})")
+    assert launches == counts(), "the replays launched a kernel"
 
+    pool_bytes = sum(t.numel() * t.element_size() for t in (
+        eng.k_pool, eng.v_pool, eng.k_scales, eng.v_scales) if t is not None)
     ttfts = [eng.ttft(r) for r in rids]
     ttft_p50_ms = statistics.median(ttfts) * 1e3
     decode_tok_s = (tok_b - tok_a) / (t_b - t_a)
-    print(f"engine: {cfg.n_layers} layers, dim {cfg.dim}, {cfg.n_heads}/"
+    print(f"{tag}: {cfg.n_layers} layers, dim {cfg.dim}, {cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads x {cfg.head_dim}, {cfg.dtype}, untied "
-          f"lm_head; {len(rids)} requests ({N_LONG} x {LONG_LEN} + "
+          f"lm_head, KV pool {eng.k_pool.dtype}"
+          f"{' (int4-packed)' if eng.kv_int4 else ''} {pool_bytes} bytes "
+          f"with scales; {len(rids)} requests ({N_LONG} x {LONG_LEN} + "
           f"{list(SHORT_LENS)} prompt tokens, {N_NEW} new each, greedy), "
           f"max_batch {eng.max_batch}, page_size {PAGE_SIZE}")
-    print(f"engine: forward calls {calls}, kernel launches {launches}")
-    print(f"engine: TTFT p50 {ttft_p50_ms:.2f} ms (first-wave "
+    print(f"{tag}: forward calls {calls}, kernel launches {launches}, plain "
+          f"twin calls {twin_calls}")
+    print(f"{tag}: TTFT p50 {ttft_p50_ms:.2f} ms (first-wave "
           f"{statistics.median(ttfts[:N_LONG]) * 1e3:.2f} ms, second-wave "
           f"{statistics.median(ttfts[N_LONG:]) * 1e3:.2f} ms), steady decode "
           f"{decode_tok_s:.1f} tok/s ({tok_b - tok_a} tokens in "
-          f"{t_b - t_a:.3f} s), total {t_b - t0:.3f} s")
+          f"{t_b - t_a:.3f} s), total {t_b - t0:.3f} s", flush=True)
     prof = profile_decode(torch, eng, cfg)
     return dict(launches=launches, ttft_p50_ms=ttft_p50_ms,
-                decode_tok_s=decode_tok_s, logits_err=errs, profile=prof)
+                decode_tok_s=decode_tok_s, logits_err=errs, profile=prof,
+                pool_bytes=pool_bytes)
+
+
+def phase_engine_quant(torch, cfg, bf16):
+    """phase_engine once per quantized payload kind; `bf16` is the 16-bit
+    run's result, whose pool bytes, TTFT and decode rate are printed
+    beside (pool bytes: payload + scales, 2 (D + 4) / (2 D) of bf16's for
+    int8 / fp8, 2 (D / 2 + 4) / (2 D) for int4)."""
+    D = cfg.head_dim
+    res = {}
+    for kind in QUANT_KINDS:
+        r = res[kind] = phase_engine(torch, cfg, kind)
+        torch.cuda.empty_cache()
+        want = ((D // 2 if kind == "int4" else D) + 4) / (2 * D)
+        ratio = r["pool_bytes"] / bf16["pool_bytes"]
+        assert abs(ratio - want) < 1e-12, (kind, ratio, want)
+        print(f"engine {kind} vs bf16: pool bytes {ratio:.4f}x (expected "
+              f"{want:.4f}), TTFT p50 {r['ttft_p50_ms']:.2f} vs "
+              f"{bf16['ttft_p50_ms']:.2f} ms, decode {r['decode_tok_s']:.1f} "
+              f"vs {bf16['decode_tok_s']:.1f} tok/s, device busy "
+              f"{r['profile']['busy_ms_per_step']:.3f} vs "
+              f"{bf16['profile']['busy_ms_per_step']:.3f} ms per decode step",
+              flush=True)
+    return res
 
 
 def profile_decode(torch, eng, cfg, prompt_len=64, n_new=17):
@@ -1379,6 +1731,50 @@ def dense_times(torch) -> dict:
     return {"digest": h.hexdigest()[:16], "ms": ms}
 
 
+# ------------------------------------------ serving, all four pools in turns
+
+def quartiles(xs):
+    q = statistics.quantiles(xs, n=4)
+    return dict(median=statistics.median(xs), q1=q[0], q3=q[2])
+
+
+def serve_times(torch, rounds: int) -> dict:
+    """Steady decode tok/s and TTFT p50 of the engine runs' traffic from a
+    bf16 pool and from each quantized pool, the four engines run in turns
+    (the order reversed every other round) `rounds` times after one round
+    that warms up, to read the pools' difference against the spread of
+    each (a decode step is host-bound, so one run of each does not
+    settle it):
+        python3 chip_smoke.py --serve-times ROUNDS"""
+    from flash_attn_v100_tpu_torch import ModelConfig
+    from flash_attn_v100_tpu_torch.models.transformer import init_params
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+
+    build.build_all(["decode", "varlen_paged", "decode_quant",
+                     "varlen_paged_quant"])
+    cfg = ModelConfig.tinyllama_1b()
+    params = init_params(cfg, seed=SEED, device="cuda", lm_head=True)
+    kinds = ("bf16",) + QUANT_KINDS
+    runs = {k: dict(decode_tok_s=[], ttft_p50_ms=[]) for k in kinds}
+    for i in range(rounds + 1):
+        for kind in (kinds if i % 2 == 0 else kinds[::-1]):
+            eng = make_engine(torch, params, cfg,
+                              None if kind == "bf16" else kind)
+            out, rids, (_, t_a, t_b), (tok_a, tok_b) = serve_traffic(
+                torch, eng, cfg)
+            assert sorted(out) == sorted(rids), "every request must finish"
+            if i:
+                runs[kind]["decode_tok_s"].append((tok_b - tok_a)
+                                                  / (t_b - t_a))
+                runs[kind]["ttft_p50_ms"].append(statistics.median(
+                    eng.ttft(r) for r in rids) * 1e3)
+            del eng
+            torch.cuda.empty_cache()
+    return {kind: dict(r, **{f"{m}_quartiles": quartiles(r[m])
+                             for m in ("decode_tok_s", "ttft_p50_ms")})
+            for kind, r in runs.items()}
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1391,6 +1787,10 @@ def main() -> int:
         sys.path.insert(0, sys.argv[2])
         res = dense_times(torch)
         print(json.dumps(dict(res, tree=sys.argv[2], card=card_line())))
+        return 0
+    if sys.argv[1:2] == ["--serve-times"]:
+        res = serve_times(torch, int(sys.argv[2]))
+        print(json.dumps(dict(res, card=card_line())))
         return 0
     from flash_attn_v100_tpu_torch.ops.cuda import build
 
@@ -1423,15 +1823,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     k4 = phase_k4(torch, flush)
     k8 = phase_k8(torch, flush)
+    quant = phase_quant(torch, flush)
+    k4["ms_repeats"] = quant["spread"]["K4 (bf16)"]
+    k8["ms_repeats"] = quant["spread"]["K8 (bf16)"]
     del flush
     from flash_attn_v100_tpu_torch import ModelConfig
     cfg = ModelConfig.tinyllama_1b()
     train = phase_train(torch, cfg)
     torch.cuda.empty_cache()
     eng = phase_engine(torch, cfg)
+    torch.cuda.empty_cache()
+    eng_q = phase_engine_quant(torch, cfg, eng)
 
-    kernels = []
-    for name, res, src, replaces, launches in (
+    rows = [
             ("K1 flash_attn_dense_fwd", dense["K1"], "fwd.cu",
              "flash_attn_v100_tpu/ops/pallas/fwd.py:152",
              train["launches"]["K1"]),
@@ -1456,15 +1860,33 @@ def main() -> int:
              eng["launches"]["decode"]),
             ("K8 flash_attn_varlen_fwd_paged", k8, "varlen_paged.cu",
              "flash_attn_v100_tpu/ops/pallas/varlen.py:947",
-             eng["launches"]["varlen"])):
-        kernels.append(dict(
+             eng["launches"]["varlen"])]
+    for kind in QUANT_KINDS:
+        rows.append((f"K4q paged_decode_attention ({kind} pool)",
+                     quant["K4q"][kind], "decode_quant.cu",
+                     "flash_attn_v100_tpu/ops/pallas/decode.py:72",
+                     eng_q[kind]["launches"]["decode"]))
+    for kind in QUANT_KINDS:
+        rows.append((f"K8q flash_attn_varlen_fwd_paged ({kind} pool)",
+                     quant["K8q"][kind], "varlen_paged_quant.cu",
+                     "flash_attn_v100_tpu/ops/pallas/varlen.py:947",
+                     eng_q[kind]["launches"]["varlen"]))
+    kernels = []
+    for name, res, src, replaces, launches in rows:
+        row = dict(
             name=name, route="cuda",
             source=f"flash_attn_v100_tpu_torch/csrc/{src}", replaces=replaces,
             launches=launches, max_abs_err=res["max_abs_err"],
             max_abs_err_gate=res["gate"],
             ms=res["ms"], plain_ms=res["plain_ms"],
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
-            library_ms=res["library_ms"]))
+            library_ms=res["library_ms"])
+        if "ms_repeats" in res:
+            row["ms_repeats"] = res["ms_repeats"]
+        if "oracle_err" in res:
+            row["oracle_err"] = res["oracle_err"]
+            row["library"] = "SDPA over the dequantized, pre-gathered KV"
+        kernels.append(row)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build "
           f"on", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -10,17 +10,23 @@ beside it slice by slice.  It holds
   * packed sequences: `flash_attn_varlen_func` (differentiable; K5
     forward, K6 dQ, K7 dK/dV, and K8 for paged K/V) and the pad/unpad
     helpers of `ops/padding.py`;
-  * the paged serving engine: the KV-cache attention API with its two
-    hand-written CUDA kernels (split-KV decode and paged varlen prefill),
-    the model's serving path, and the continuous-batching runtime.
+  * the paged serving engine: the KV-cache attention API with its
+    hand-written CUDA kernels (split-KV decode K4 and paged varlen prefill
+    K8, and their int8/fp8/int4 variants K4q and K8q over quantized pools),
+    the model's serving path, and the continuous-batching runtime;
+  * the KV-cache formats: `quantize_kv` / `dequantize_kv` and the cache
+    constructors of `cache/`.
 Entry points run on the GPU unless the caller passes device="cpu" (or CPU
 tensors), where every kernel is replaced by its plain PyTorch version.
 """
 
+from flash_attn_v100_tpu_torch.cache import (
+    ContiguousCache, PagedCache, init_contiguous, init_paged, kvcache_kwargs)
 from flash_attn_v100_tpu_torch.models.transformer import (
     ModelConfig, params_from_jax)
 from flash_attn_v100_tpu_torch.ops.flash_attention import flash_attn_func
 from flash_attn_v100_tpu_torch.ops.kvcache import flash_attn_with_kvcache
+from flash_attn_v100_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from flash_attn_v100_tpu_torch.ops.varlen import flash_attn_varlen_func
 from flash_attn_v100_tpu_torch.runtime.engine import ServingEngine
 
@@ -32,4 +38,6 @@ flash_attn_with_kvcache_gpu = flash_attn_with_kvcache
 __all__ = ["flash_attn_func", "flash_attn_varlen_func",
            "flash_attn_with_kvcache", "flash_attn_gpu",
            "flash_attn_varlen_gpu", "flash_attn_with_kvcache_gpu",
-           "ServingEngine", "ModelConfig", "params_from_jax"]
+           "ServingEngine", "ModelConfig", "params_from_jax", "quantize_kv",
+           "dequantize_kv", "ContiguousCache", "PagedCache",
+           "init_contiguous", "init_paged", "kvcache_kwargs"]

@@ -1,0 +1,63 @@
+// Quantized KV payloads on the device: the byte-level helpers the quantized
+// kernels (decode_quant.cu, varlen_paged_quant.cu) share.  The layouts are
+// those of flash_attn_v100_tpu_torch/ops/quant.py:
+//   int8  one signed byte per element, scale = amax / 127 per (token, head);
+//   fp8   one e4m3 byte per element, scale = amax / 448;
+//   int4  two tokens per byte along the token axis: byte (t, d) holds token
+//         2t's dim d in its low nibble, biased by +8, and token 2t + 1's in
+//         its high nibble, in two's complement.
+// The kernels unpack int4 to int8 in token order (the TPU kernel's nibble
+// ANDs and [evens | odds] column order are Mosaic workarounds) and convert
+// e4m3 exactly (no subnormal flush).
+#pragma once
+
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include <stdint.h>
+
+namespace fa {
+
+// payload kinds, as the wrappers pass them
+constexpr int kInt8 = 0;
+constexpr int kFp8 = 1;
+constexpr int kInt4 = 2;
+
+// e4m3 byte -> float, exact (every e4m3 value, subnormals included, is an
+// fp16 value)
+__device__ __forceinline__ float e4m3_to_float(uint8_t x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(
+      static_cast<__nv_fp8_storage_t>(x), __NV_E4M3)));
+}
+
+// four int4-packed bytes -> the four even tokens' int8 values (low nibbles,
+// bias removed) and the four odd tokens' (high nibbles, sign-extended),
+// each packed four to a word in byte order
+__device__ __forceinline__ void unpack_int4x4(uint32_t w, uint32_t& lo,
+                                              uint32_t& hi) {
+  lo = hi = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int b = static_cast<int8_t>((w >> (8 * i)) & 0xFFu);
+    lo |= (static_cast<uint32_t>((b & 15) - 8) & 0xFFu) << (8 * i);
+    hi |= (static_cast<uint32_t>(b >> 4) & 0xFFu) << (8 * i);
+  }
+}
+
+// sixteen int4-packed bytes -> sixteen int8 values of the even token and
+// sixteen of the odd token
+__device__ __forceinline__ void unpack_int4x16(const uint4& raw, uint4& even,
+                                               uint4& odd) {
+  unpack_int4x4(raw.x, even.x, odd.x);
+  unpack_int4x4(raw.y, even.y, odd.y);
+  unpack_int4x4(raw.z, even.z, odd.z);
+  unpack_int4x4(raw.w, even.w, odd.w);
+}
+
+// P's int8 quantization of one row over a group of keys, as the TPU kernels
+// round it: scale = amax / 127 (1 where the group is all zero), value
+// rint(p / scale), half to even
+__device__ __forceinline__ float p_scale_of(float amax) {
+  return amax == 0.0f ? 1.0f : amax / 127.0f;
+}
+
+}  // namespace fa

@@ -14,6 +14,7 @@ of them; `chip_smoke.py` calls it so that the build is timed on its own.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,7 +29,9 @@ BUILD_DIR = PKG_ROOT / "build"
 
 # kernel name -> source file in csrc/
 SOURCES = {"decode": "decode.cu", "varlen_paged": "varlen_paged.cu",
-           "fwd": "fwd.cu", "bwd": "bwd.cu", "varlen_bwd": "varlen_bwd.cu"}
+           "fwd": "fwd.cu", "bwd": "bwd.cu", "varlen_bwd": "varlen_bwd.cu",
+           "decode_quant": "decode_quant.cu",
+           "varlen_paged_quant": "varlen_paged_quant.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -68,6 +71,17 @@ SIGNATURES = {
         name: ([_I] + [_P] * 14 + [_I] * 7 + [_F] + _MASK_DROPOUT[:10]
                + [_P], _I)
         for name in ("fa_varlen_dq_launch", "fa_varlen_dkv_launch")
+    },
+    # (kind, dtype) first; payload then scale strides
+    "decode_quant": {
+        "fa_decode_quant_launch": ([_I, _I] + [_P] * 12 + [_LL] * 8
+                                   + [_I] * 11
+                                   + [_F, _I, _I, _I, _F, _I, _P], _I),
+    },
+    "varlen_paged_quant": {
+        "fa_varlen_paged_quant_launch": (
+            [_I, _I] + [_P] * 6 + [_I] + [_P] * 7 + [_LL] * 6 + [_I] * 8
+            + [_F, _F] + [_I] * 4 + [_F, _I, _P], _I),
     },
 }
 
@@ -162,3 +176,14 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t from a launch."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+
+
+def counted(fn):
+    """`fn` with a `.calls` count of its calls (the plain twins' counters:
+    a main path that runs the kernels leaves them at 0)."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        wrapper.calls += 1
+        return fn(*args, **kwargs)
+    wrapper.calls = 0
+    return wrapper

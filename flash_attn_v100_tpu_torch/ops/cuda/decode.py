@@ -8,7 +8,17 @@ a block table (B, max_pages) int32; it returns fp32 normalized partials
 o_part (B, Hk, S, Rq, D) and lse_part (B, Hk, S, Rq, 1), one per KV split,
 combined by `merge_partials`.
 
-For CUDA tensors it launches the kernel (bf16 or fp16; anything else
+With `k_scales` / `v_scales` ((C1, Hk, C2, page_size, 1) fp32) the pools
+are quantized (ops/quant.py): int8, fp8 (e4m3), or with `int4=True`
+int4-packed int8 whose pool view holds page_size / 2 rows.  That is K4q
+(`csrc/decode_quant.cu`), the TPU kernel's quantized branches: q rows and P
+quantized to int8 on the fly for int8/int4 pools, P rounded to bf16 for
+fp8 (see the kernel's note).  P's int8 scale is taken per group of `p_tile`
+consecutive cache rows counted from each split's first row: P_TILE (the
+kernel's 32-key chunk) in the kernel and on the CPU path; the TPU kernel's
+grouping is one page (`p_tile=None` in the plain version).
+
+For CUDA tensors it launches the kernel (q in bf16 or fp16; anything else
 raises); for CPU tensors it computes `paged_decode_attention_ref`, the plain
 PyTorch version of the same function.
 """
@@ -22,12 +32,16 @@ import torch
 from flash_attn_v100_tpu_torch.config import EXP_CLAMP
 from flash_attn_v100_tpu_torch.ops import masks as masklib
 from flash_attn_v100_tpu_torch.ops.cuda import build
+from flash_attn_v100_tpu_torch.ops.quant import (
+    INT8_MAX, ieee_div, payload_bytes, quant_kind, unpack_int4_tokens)
 
 ROW_TILE = 8         # q rows per block (kRowTile in decode.cu)
 SM_COUNT_H100 = 132  # the split rule's target when no device is at hand
 BLOCKS_PER_SM = 4    # auto splits aim at this many blocks per SM
+P_TILE = 32          # K4q's key chunk: P's int8 group (kKeyTile)
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+KIND_CODE = {"int8": 0, "fp8": 1, "int4": 2}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -68,11 +82,15 @@ def paged_decode_attention(
     group: int,
     num_splits: int = 0,
     alibi_slopes_rows: Optional[torch.Tensor] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    int4: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split-KV paged attention core; see the module docstring.
     `qpos_vec` (B,) is the position of the first new token in the live
     frame (default cache_seqlens - t_new); `leftpad` (B,) or None for
-    none; `alibi_slopes_rows` is (B, Hk, Rq[, 1]) fp32 per folded row."""
+    none; `alibi_slopes_rows` is (B, Hk, Rq[, 1]) fp32 per folded row;
+    `k_scales` / `v_scales` mark quantized pools (K4q)."""
     if qpos_vec is None:
         qpos_vec = cache_seqlens.to(torch.int32) - t_new
     if q_rows.device.type == "cpu":
@@ -80,18 +98,26 @@ def paged_decode_attention(
             q_rows, k_pages, v_pages, block_table, cache_seqlens, leftpad,
             qpos_vec=qpos_vec, softmax_scale=softmax_scale, params=params,
             t_new=t_new, group=group, num_splits=num_splits,
-            alibi_slopes_rows=alibi_slopes_rows)
-
-    B, Hk, Rq, D = q_rows.shape
-    C1, Hk2, C2, ps, Dk = k_pages.shape
-    dev = q_rows.device
+            alibi_slopes_rows=alibi_slopes_rows, k_scales=k_scales,
+            v_scales=v_scales, int4=int4, p_tile=P_TILE)
     if q_rows.dtype not in _DTYPE_CODE:
-        raise TypeError(f"decode kernel takes bf16/fp16, got {q_rows.dtype}")
-    if k_pages.dtype != q_rows.dtype or v_pages.dtype != q_rows.dtype:
-        raise TypeError("q rows and the page pools must share one dtype")
+        raise TypeError(f"decode kernel takes bf16/fp16 q, got {q_rows.dtype}")
+    kind = None
+    if k_scales is None:
+        if k_pages.dtype != q_rows.dtype or v_pages.dtype != q_rows.dtype:
+            raise TypeError("q rows and the page pools must share one dtype")
+    else:
+        kind = _check_quant(k_pages, v_pages, k_scales, v_scales, int4)
+    B, Hk, Rq, D = q_rows.shape
+    C1, Hk2, C2, rows, Dk = k_pages.shape
+    ps = rows if kind is None else k_scales.shape[-2]
+    dev = q_rows.device
     if Hk2 != Hk or Dk != D or v_pages.shape != k_pages.shape:
         raise ValueError(f"pool view {tuple(k_pages.shape)} does not match "
                          f"q rows {tuple(q_rows.shape)}")
+    if kind is not None and k_scales.shape != (C1, Hk, C2, ps, 1):
+        raise ValueError(f"scales {tuple(k_scales.shape)} do not match the "
+                         f"pool view {tuple(k_pages.shape)}")
     if D not in (32, 64, 128, 256):
         raise ValueError(f"decode kernel takes head_dim 32/64/128/256, got {D}")
     if Rq % ROW_TILE:
@@ -99,11 +125,12 @@ def paged_decode_attention(
     if k_pages.stride() != v_pages.stride() or k_pages.stride(-1) != 1:
         raise ValueError("k/v pool views need equal strides and a "
                          "contiguous last axis")
-    if any(s % 8 for s in k_pages.stride()[:-1]) or any(
-            t.data_ptr() % 16 for t in (k_pages, v_pages)):
-        raise ValueError("pool strides must be multiples of 8 elements and "
+    if any(s * k_pages.element_size() % 16 for s in k_pages.stride()[:-1]) or \
+            any(t.data_ptr() % 16 for t in (k_pages, v_pages)):
+        raise ValueError("pool strides must be multiples of 16 bytes and "
                          "the pools 16-byte aligned (16-byte loads)")
-    for t in (k_pages, v_pages, block_table, cache_seqlens, leftpad, qpos_vec):
+    for t in (k_pages, v_pages, k_scales, v_scales, block_table,
+              cache_seqlens, leftpad, qpos_vec):
         if t is not None and t.device != dev:
             raise ValueError("all decode inputs must be on one device")
     max_pages = block_table.shape[1]
@@ -120,42 +147,230 @@ def paged_decode_attention(
         slopes = alibi_slopes_rows.to(torch.float32).reshape(B, Hk, Rq).contiguous()
     o_part = torch.empty((B, Hk, S, Rq, D), dtype=torch.float32, device=dev)
     lse_part = torch.empty((B, Hk, S, Rq, 1), dtype=torch.float32, device=dev)
-
-    lib = build.load("decode")
-    s_c1, s_h, s_c2, s_tok, _ = k_pages.stride()
-    rc = lib.fa_decode_launch(
-        _DTYPE_CODE[q_rows.dtype], q_rows.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), tbl.data_ptr(), lens.data_ptr(),
-        lp.data_ptr() if lp is not None else None,
-        qpos.data_ptr(), slopes.data_ptr() if slopes is not None else None,
-        o_part.data_ptr(), lse_part.data_ptr(),
-        s_c1, s_h, s_c2, s_tok, C2, B, Hk, Rq, D, S, max_pages, ps, nb,
-        t_new, group, float(softmax_scale), int(params.causal),
-        int(params.window_left), int(params.window_right),
-        float(params.softcap), int(params.has_alibi),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    ptrs = (q_rows.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    tail = (tbl.data_ptr(), lens.data_ptr(),
+            lp.data_ptr() if lp is not None else None, qpos.data_ptr(),
+            slopes.data_ptr() if slopes is not None else None,
+            o_part.data_ptr(), lse_part.data_ptr())
+    dims = (C2, B, Hk, Rq, D, S, max_pages, ps, nb, t_new, group,
+            float(softmax_scale), int(params.causal),
+            int(params.window_left), int(params.window_right),
+            float(params.softcap), int(params.has_alibi),
+            torch.cuda.current_stream(dev).cuda_stream)
+    code = _DTYPE_CODE[q_rows.dtype]
+    if kind is None:
+        rc = build.load("decode").fa_decode_launch(
+            code, *ptrs, *tail, *k_pages.stride()[:4], *dims)
+        build.check(rc, "paged_decode_attention")
+        paged_decode_attention.launches += 1
+    else:
+        rc = build.load("decode_quant").fa_decode_quant_launch(
+            KIND_CODE[kind], code, *ptrs, k_scales.data_ptr(),
+            v_scales.data_ptr(), *tail, *k_pages.stride()[:4],
+            *k_scales.stride()[:4], *dims)
+        build.check(rc, "paged_decode_attention (quantized)")
+        paged_decode_attention.quant_launches[kind] += 1
     return o_part, lse_part
 
 
 paged_decode_attention.launches = 0
+# K4q launches, per payload kind
+paged_decode_attention.quant_launches = {k: 0 for k in KIND_CODE}
 
 
+def _quant_kind(k_pages, k_scales, int4: bool) -> str:
+    kind = "int4" if int4 else quant_kind(k_pages.dtype)
+    rows, ps = k_pages.shape[-2], k_scales.shape[-2]
+    if kind == "int4" and (k_pages.dtype != torch.int8 or ps != 2 * rows):
+        raise ValueError("int4 pools are int8 bytes with page_size / 2 rows "
+                         f"(pool rows {rows}, scale rows {ps})")
+    if kind != "int4" and ps != rows:
+        raise ValueError(f"scales hold {ps} rows a page, the pool {rows}")
+    return kind
+
+
+def _check_quant(k_pages, v_pages, k_scales, v_scales, int4: bool) -> str:
+    """The payload kind of quantized pools given to the kernel, checked."""
+    if v_scales is None or v_pages.dtype != k_pages.dtype:
+        raise TypeError("k/v pools must share one quantized dtype and both "
+                        "scales be given")
+    kind = _quant_kind(k_pages, k_scales, int4)
+    if (k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32
+            or k_scales.shape != v_scales.shape
+            or k_scales.stride() != v_scales.stride()):
+        raise ValueError("k/v scales must be fp32 views of one shape and "
+                         "equal strides")
+    return kind
+
+
+def _pad_dim(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """x with zeros appended along `dim` up to length n."""
+    extra = n - x.shape[dim]
+    if extra <= 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = extra
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def _quantize_rows(x: torch.Tensor):
+    """Per-row int8 quantization over the last axis, as the kernels quantize
+    q and P: (values as float, scale) with scale = amax / 127 (1 where the
+    row is all zero) and values round(x / scale), half to even."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax == 0, torch.ones_like(amax),
+                        ieee_div(amax, INT8_MAX))
+    return torch.round(x / scale), scale
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
+    """einsum of integer-valued tensors, exact: float64 holds every int32
+    sum of int8 products (torch has no integer matmul on CUDA)."""
+    return torch.einsum(eq, a.to(torch.float64), b.to(torch.float64)).to(
+        torch.float32)
+
+
+def quant_payload_values(pages: torch.Tensor, kind: str) -> torch.Tensor:
+    """Payload rows (..., rows, D) -> their quantized values (..., ps, D):
+    int8 values (int8, int4 unpacked in token order) or e4m3 values as
+    fp32, exactly."""
+    if kind == "int4":
+        return unpack_int4_tokens(pages, axis=-2)
+    if kind == "fp8":
+        return pages.to(torch.float32)
+    return pages
+
+
+def _gather_pages(pool: torch.Tensor, tbl: torch.Tensor, C2: int):
+    """(C1, Hk, C2, rows, W) pool, (B, max_pages) ids -> (B, Hk, max_pages,
+    rows, W), through the payload's bytes (fp8 is not indexable
+    everywhere)."""
+    g = payload_bytes(pool)[tbl // C2, :, tbl % C2]
+    return g.view(pool.dtype).permute(0, 2, 1, 3, 4)
+
+
+def _decode_quant_ref(q_rows, k_pages, v_pages, k_scales, v_scales, int4,
+                      block_table, cache_seqlens, leftpad, qpos_vec,
+                      softmax_scale, params, t_new, group, num_splits,
+                      alibi_slopes_rows, p_tile, round_p):
+    """The K4q arithmetic (module docstring), split by split, with P's
+    int8 scale per group of p_tile rows from each split's first row and
+    the online softmax's running max taken per group, as the kernels take
+    it."""
+    B, Hk, Rq, D = q_rows.shape
+    kind = _quant_kind(k_pages, k_scales, int4)
+    C2, ps = k_pages.shape[2], k_scales.shape[-2]
+    dev = q_rows.device
+    max_pages = block_table.shape[1]
+    S = resolve_num_splits(num_splits, B, Hk, Rq, max_pages, dev)
+    nb = _cdiv(max_pages, S)
+    span = nb * ps
+    G = p_tile or ps
+    ng = _cdiv(span, G)
+    tbl = block_table.to(device=dev, dtype=torch.long)
+
+    def split_cols(x):
+        # (B, Hk, max_pages * ps, ...) -> (B, Hk, S, ng * G, ...): each
+        # split padded with zeros to whole groups
+        x = _pad_dim(x, 2, S * span)
+        x = x.reshape(B, Hk, S, span, *x.shape[3:])
+        return _pad_dim(x, 3, ng * G)
+
+    def payload(pool):
+        vals = quant_payload_values(_gather_pages(pool, tbl, C2), kind)
+        return split_cols(vals.reshape(B, Hk, max_pages * ps, D))
+
+    def scales(pool):
+        g = _gather_pages(pool, tbl, C2).reshape(B, Hk, max_pages * ps)
+        return split_cols(g)[:, :, None]                  # (B, Hk, 1, S, n)
+
+    k, v = payload(k_pages), payload(v_pages)             # (B, Hk, S, n, D)
+    ks, vs = scales(k_scales), scales(v_scales)
+    q32 = q_rows.to(torch.float32)
+    if kind == "fp8":
+        s = torch.einsum("bhrd,bhsnd->bhrsn", q32, k) * ks
+    else:
+        q8, q_scale = _quantize_rows(q32)
+        s = _int_matmul(q8, k, "bhrd,bhsnd->bhrsn") * q_scale[..., None] * ks
+
+    # positions: column i of split s is cache row s * span + i
+    i = torch.arange(ng * G, device=dev)
+    j = (torch.arange(S, device=dev)[:, None] * span + i).view(1, 1, 1, S, -1)
+    lens = cache_seqlens.to(device=dev, dtype=torch.long).view(B, 1, 1, 1, 1)
+    lp = (0 if leftpad is None
+          else leftpad.to(device=dev, dtype=torch.long).view(B, 1, 1, 1, 1))
+    jl = j - lp
+    r = torch.arange(Rq, device=dev).view(1, 1, Rq, 1, 1)
+    qpos = qpos_vec.to(device=dev, dtype=torch.long).view(B, 1, 1, 1, 1) + (
+        r % t_new if t_new > 1 else 0)
+    valid = ((i < span) & (jl >= 0) & (jl < lens) & (r < group * t_new)
+             & masklib.position_mask(qpos, jl, offset=0, params=params))
+    slope = None
+    if params.has_alibi:
+        slope = alibi_slopes_rows.to(device=dev, dtype=torch.float32).reshape(
+            B, Hk, Rq, 1, 1)
+    s = masklib.apply_score_pipeline(s, qpos, jl, softmax_scale=softmax_scale,
+                                     offset=0, params=params, valid=valid,
+                                     alibi_slope=slope)
+
+    # online softmax over the groups of each split: m runs per group
+    shape = (B, Hk, Rq, S, ng, G)
+    s, valid = s.reshape(shape), valid.expand(B, Hk, Rq, S, ng * G).reshape(shape)
+    m_run = torch.cummax(s.amax(dim=-1), dim=-1).values   # (B, Hk, Rq, S, ng)
+    p = torch.exp(torch.clamp(s - m_run[..., None], min=EXP_CLAMP))
+    p = torch.where(valid, p, torch.zeros_like(p))
+    m = m_run[..., -1:]
+    w = torch.exp(m_run - m)                              # rescale to the end
+    l = (p.sum(dim=-1) * w).sum(dim=-1)                   # (B, Hk, Rq, S)
+    pv = p * vs.reshape(B, Hk, 1, S, ng, G)
+    v = v.reshape(B, Hk, S, ng, G, D)
+    if kind == "fp8":
+        if round_p:
+            pv = pv.to(torch.bfloat16).to(torch.float32)
+        o = torch.einsum("bhrsgn,bhsgnd->bhrsgd", pv, v)
+    elif round_p:
+        p8, p_scale = _quantize_rows(pv)
+        o = _int_matmul(p8, v, "bhrsgn,bhsgnd->bhrsgd") * p_scale
+    else:
+        o = _int_matmul(pv, v, "bhrsgn,bhsgnd->bhrsgd")
+    o = (o * w[..., None]).sum(dim=-2)                    # (B, Hk, Rq, S, D)
+    l_t = l.permute(0, 1, 3, 2)[..., None]                # (B, Hk, S, Rq, 1)
+    o = o.permute(0, 1, 3, 2, 4) * torch.where(
+        l_t == 0, torch.zeros_like(l_t), 1.0 / l_t)
+    m_t = m[..., 0].permute(0, 1, 3, 2)[..., None]
+    lse = torch.where(l_t == 0, torch.full_like(l_t, float("-inf")),
+                      m_t + torch.log(torch.where(l_t == 0,
+                                                  torch.ones_like(l_t), l_t)))
+    return o, lse
+
+
+@build.counted
 def paged_decode_attention_ref(
     q_rows, k_pages, v_pages, block_table, cache_seqlens, leftpad, *,
     qpos_vec: Optional[torch.Tensor] = None, softmax_scale: float,
     params: masklib.MaskParams, t_new: int, group: int, num_splits: int = 0,
     alibi_slopes_rows: Optional[torch.Tensor] = None, upcast: bool = True,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None, int4: bool = False,
+    p_tile: Optional[int] = P_TILE, round_p: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: same inputs, same partials.
     `upcast=False` keeps both products in the input dtype (the
-    same-bit-width yardstick of the tolerance model)."""
+    same-bit-width yardstick of the tolerance model).  With `k_scales` the
+    quantized arithmetic of K4q, P's int8 scale per `p_tile` rows (None:
+    per page, the TPU kernel's grouping); `round_p=False` skips P's int8
+    (fp8: bf16) rounding, the yardstick for the kernel's rounding of P.
+    `upcast` does not apply to quantized pools."""
+    if qpos_vec is None:
+        qpos_vec = cache_seqlens.to(torch.int32) - t_new
+    if k_scales is not None:
+        return _decode_quant_ref(
+            q_rows, k_pages, v_pages, k_scales, v_scales, int4, block_table,
+            cache_seqlens, leftpad, qpos_vec, softmax_scale, params, t_new,
+            group, num_splits, alibi_slopes_rows, p_tile, round_p)
     B, Hk, Rq, D = q_rows.shape
     _, _, C2, ps, _ = k_pages.shape
     dev = q_rows.device
-    if qpos_vec is None:
-        qpos_vec = cache_seqlens.to(torch.int32) - t_new
     max_pages = block_table.shape[1]
     S = resolve_num_splits(num_splits, B, Hk, Rq, max_pages, dev)
     nb = _cdiv(max_pages, S)

@@ -25,7 +25,13 @@ q (Tq, Hq, D) split by `cu_seqlens_q`, HND page pools (Hk, P, ps, D) (any
 strides with a contiguous last axis), a block table (B, >= mp) with
 mp = ceil(max_seqlen_k / ps), per-sequence `seqlens_k`, optional `seqused_k`
 and `leftpad_k`; it returns out (Tq, Hq, D) in q's dtype and lse (Hq, Tq)
-fp32.  page_size must be a multiple of 128.
+fp32.  page_size must be a multiple of 128.  With `k_scales` / `v_scales`
+((Hk, P, page_size, 1) fp32) the pools are quantized (ops/quant.py), as
+JAX detects them: fp8 by dtype, int4 by a pool of page_size / 2 rows,
+else int8.  That is K8q (`csrc/varlen_paged_quant.cu`, the TPU kernel's
+kv_quant branches; see its note), whose P is quantized per row over each
+P_TILE = 64-row tile of the sequence's cache rows (`p_tile=None` in the
+plain version: per page, the TPU kernel's grouping at kv_unroll 1).
 
 The ragged bookkeeping of build_ragged_info (varlen.py:48-151) is, per q
 row at within-sequence position qp of sequence b,
@@ -44,6 +50,7 @@ versions with `seq_bounds` and torch ops.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -52,9 +59,16 @@ from flash_attn_v100_tpu_torch.config import NEG_INF
 from flash_attn_v100_tpu_torch.ops import masks as masklib
 from flash_attn_v100_tpu_torch.ops.cuda import build
 from flash_attn_v100_tpu_torch.ops.cuda.bwd import flash_attn_dense_bwd_ref
+from flash_attn_v100_tpu_torch.ops.cuda.decode import (
+    KIND_CODE, _check_quant, _int_matmul, _quantize_rows,
+    quant_payload_values)
 from flash_attn_v100_tpu_torch.ops.cuda.fwd import (
     DTYPE_CODE, c_dropout_args, c_mask_args, flash_attn_dense_fwd_ref,
     kernel_head_dim, pad_head_dim, slopes_bh)
+from flash_attn_v100_tpu_torch.ops.quant import FP8, payload_bytes
+
+P_TILE = 64       # K8q's key tile: P's int8 group (kBK)
+LOG2E = math.log2(math.e)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -385,6 +399,8 @@ def flash_attn_varlen_fwd_paged(
     alibi_slopes: Optional[torch.Tensor] = None,   # (B, Hq)
     seqused_k: Optional[torch.Tensor] = None,
     leftpad_k: Optional[torch.Tensor] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """See the module docstring.  CPU tensors take the plain version."""
     if q.device.type == "cpu":
@@ -392,15 +408,24 @@ def flash_attn_varlen_fwd_paged(
             q, k_pool, v_pool, block_table, cu_seqlens_q, seqlens_k,
             max_seqlen_q, max_seqlen_k, softmax_scale, params,
             alibi_slopes=alibi_slopes, seqused_k=seqused_k,
-            leftpad_k=leftpad_k)
-
-    Tq, Hq, D = q.shape
-    Hk, P, ps, Dk = k_pool.shape
-    dev = q.device
+            leftpad_k=leftpad_k, k_scales=k_scales, v_scales=v_scales,
+            p_tile=P_TILE)
     if q.dtype not in DTYPE_CODE:
-        raise TypeError(f"varlen kernel takes bf16/fp16, got {q.dtype}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("q and the page pools must share one dtype")
+        raise TypeError(f"varlen kernel takes bf16/fp16 q, got {q.dtype}")
+    kind = None
+    if k_scales is None:
+        if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+            raise TypeError("q and the page pools must share one dtype")
+    else:
+        kind = _check_quant(k_pool, v_pool, k_scales, v_scales,
+                            paged_quant_kind(k_pool, k_scales) == "int4")
+        if k_scales.shape != (*k_pool.shape[:2], k_scales.shape[2], 1):
+            raise ValueError(f"scales {tuple(k_scales.shape)} do not match "
+                             f"the pools {tuple(k_pool.shape)}")
+    Tq, Hq, D = q.shape
+    Hk, P, rows, Dk = k_pool.shape
+    ps = rows if kind is None else k_scales.shape[2]
+    dev = q.device
     if Dk != D or v_pool.shape != k_pool.shape or Hq % Hk:
         raise ValueError(f"pools {tuple(k_pool.shape)} do not match q "
                          f"{tuple(q.shape)}")
@@ -411,17 +436,18 @@ def flash_attn_varlen_fwd_paged(
     if k_pool.stride() != v_pool.stride() or k_pool.stride(-1) != 1:
         raise ValueError("k/v pools need equal strides and a contiguous "
                          "last axis")
-    if any(s % 8 for s in k_pool.stride()[:-1]) or any(
-            t.data_ptr() % 16 for t in (k_pool, v_pool)):
-        raise ValueError("pool strides must be multiples of 8 elements and "
+    if any(s * k_pool.element_size() % 16 for s in k_pool.stride()[:-1]) or \
+            any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
+        raise ValueError("pool strides must be multiples of 16 bytes and "
                          "the pools 16-byte aligned (16-byte loads)")
     B = cu_seqlens_q.shape[0] - 1
     mp = _cdiv(max_seqlen_k, ps)
     if block_table.shape[0] < B or block_table.shape[1] < mp:
         raise ValueError(f"block_table {tuple(block_table.shape)} must cover "
                          f"{B} sequences x {mp} pages")
-    for t in (k_pool, v_pool, block_table, cu_seqlens_q, seqlens_k):
-        if t.device != dev:
+    for t in (k_pool, v_pool, k_scales, v_scales, block_table, cu_seqlens_q,
+              seqlens_k):
+        if t is not None and t.device != dev:
             raise ValueError("all varlen inputs must be on one device")
 
     q = q.contiguous()
@@ -442,35 +468,154 @@ def flash_attn_varlen_fwd_paged(
     out = torch.zeros_like(q)
     lse = torch.full((Hq, Tq), float("-inf"), dtype=torch.float32,
                      device=dev)
-    lib = build.load("varlen_paged")
-    s_h, s_p, s_tok, _ = k_pool.stride()
-    rc = lib.fa_varlen_paged_launch(
-        DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), tbl.data_ptr(), tbl.shape[1], cu_q.data_ptr(),
-        lens.data_ptr(), _ptr(used), _ptr(lp), _ptr(slopes), out.data_ptr(),
-        lse.data_ptr(), s_h, s_p, s_tok, B, Tq, Hq, Hk, D, ps, mp,
-        int(max_seqlen_q), float(softmax_scale), int(params.causal),
-        int(params.window_left), int(params.window_right),
-        float(params.softcap), int(params.has_alibi),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "flash_attn_varlen_fwd_paged")
-    flash_attn_varlen_fwd_paged.launches += 1
+    head = (tbl.data_ptr(), tbl.shape[1], cu_q.data_ptr(), lens.data_ptr(),
+            _ptr(used), _ptr(lp), _ptr(slopes), out.data_ptr(),
+            lse.data_ptr(), *k_pool.stride()[:3])
+    mask = (int(params.causal), int(params.window_left),
+            int(params.window_right), float(params.softcap),
+            int(params.has_alibi), torch.cuda.current_stream(dev).cuda_stream)
+    dims = (B, Tq, Hq, Hk, D, ps, mp, int(max_seqlen_q))
+    if kind is None:
+        rc = build.load("varlen_paged").fa_varlen_paged_launch(
+            DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), *head, *dims, float(softmax_scale), *mask)
+        build.check(rc, "flash_attn_varlen_fwd_paged")
+        flash_attn_varlen_fwd_paged.launches += 1
+    else:
+        exp2, scale, slope_mult = _exp2_domain(softmax_scale, params)
+        rc = build.load("varlen_paged_quant").fa_varlen_paged_quant_launch(
+            KIND_CODE[kind], DTYPE_CODE[q.dtype], q.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), k_scales.data_ptr(),
+            v_scales.data_ptr(), *head, *k_scales.stride()[:3], *dims,
+            float(scale), float(slope_mult), int(exp2), *mask)
+        build.check(rc, "flash_attn_varlen_fwd_paged (quantized)")
+        flash_attn_varlen_fwd_paged.quant_launches[kind] += 1
     return out, lse
 
 
 flash_attn_varlen_fwd_paged.launches = 0
+# K8q launches, per payload kind
+flash_attn_varlen_fwd_paged.quant_launches = {k: 0 for k in KIND_CODE}
 
 
+def paged_quant_kind(k_pool, k_scales) -> str:
+    """int8 / fp8 / int4 of a quantized pool, detected as JAX detects it:
+    fp8 by dtype, int4 by scales holding twice the pool's rows a page."""
+    rows, ps = k_pool.shape[2], k_scales.shape[2]
+    if k_pool.dtype == FP8:
+        kind = "fp8"
+    elif k_pool.dtype == torch.int8:
+        kind = "int4" if ps == 2 * rows else "int8"
+    else:
+        raise ValueError("quantized paged varlen supports int8/int4/fp8 "
+                         f"pools (got {k_pool.dtype})")
+    if ps != (2 * rows if kind == "int4" else rows):
+        raise ValueError(f"scales hold {ps} rows a page, the pool {rows}")
+    return kind
+
+
+def _exp2_domain(softmax_scale: float, params: masklib.MaskParams):
+    """K8q's softmax domain, the TPU kernel's: base 2 (scores times
+    log2(e), exp2) unless softcap's tanh needs the natural scale.  Returns
+    (use exp2, score scale, ALiBi slope multiplier)."""
+    if params.softcap == 0.0:
+        return True, softmax_scale * LOG2E, LOG2E
+    return False, softmax_scale, 1.0
+
+
+def _paged_quant_ref(q, k_pool, v_pool, k_scales, v_scales, tbl, b, mp,
+                     lp, slk, slq, q0, eff, softmax_scale, slopes, p_tile,
+                     round_p):
+    """One sequence of K8q's arithmetic (module docstring) over the
+    sequence's mp * ps cache rows: P's int8 scale per p_tile rows of them
+    and the online softmax's running max per group, as the kernels take
+    it.  Returns (out (slq, Hq, D) fp32, lse (Hq, slq))."""
+    Hq, D = q.shape[1], q.shape[2]
+    Hk = k_pool.shape[0]
+    ps = k_scales.shape[2]
+    kind = paged_quant_kind(k_pool, k_scales)
+    group = Hq // Hk
+    dev = q.device
+    N = mp * ps
+    G = p_tile or ps
+    pages = tbl[b, :mp]
+
+    def gather(pool):                      # (Hk, P, rows, W) -> (Hk, mp, rows, W)
+        return payload_bytes(pool)[:, pages].view(pool.dtype)
+
+    def kv(pool):
+        vals = quant_payload_values(gather(pool), kind).reshape(Hk, N, D)
+        return vals.repeat_interleave(group, dim=0)           # (Hq, N, D)
+
+    k, v = kv(k_pool), kv(v_pool)
+    ks = gather(k_scales).reshape(Hk, N).repeat_interleave(group, dim=0)
+    vs = gather(v_scales).reshape(Hk, N).repeat_interleave(group, dim=0)
+    q32 = q[q0:q0 + slq].transpose(0, 1).to(torch.float32)    # (Hq, slq, D)
+    if kind == "fp8":
+        s = torch.einsum("hqd,hkd->hqk", q32, k) * ks[:, None]
+    else:
+        q8, q_scale = _quantize_rows(q32)
+        s = _int_matmul(q8, k, "hqd,hkd->hqk") * q_scale * ks[:, None]
+    exp2, scale, slope_mult = _exp2_domain(softmax_scale, eff)
+    qp = torch.arange(slq, device=dev).view(1, slq, 1)
+    raw = torch.arange(N, device=dev).view(1, 1, N)
+    rel = raw - lp                         # leftpad-relative key position
+    offs = slk - slq
+    valid = ((rel >= 0) & (rel < slk)
+             & masklib.position_mask(qp, rel, offset=offs, params=eff))
+    slope = None if slopes is None else (
+        slopes[b].view(Hq, 1, 1) * torch.tensor(slope_mult,
+                                                dtype=torch.float32))
+    s = masklib.apply_score_pipeline(s, qp, rel, softmax_scale=scale,
+                                     offset=offs, params=eff, valid=valid,
+                                     alibi_slope=slope)
+    ex = torch.exp2 if exp2 else torch.exp
+    shape = (Hq, slq, N // G, G)
+    s = s.reshape(shape)
+    valid = valid.expand(Hq, slq, N).reshape(shape)
+    m_run = torch.cummax(s.amax(dim=-1), dim=-1).values     # (Hq, slq, ng)
+    p = torch.where(valid, ex(s - m_run[..., None]), torch.zeros_like(s))
+    m = m_run[..., -1:]
+    w = ex(m_run - m)
+    l = (p.sum(dim=-1) * w).sum(dim=-1)                     # (Hq, slq)
+    pv = p * vs.reshape(Hq, 1, N // G, G)
+    vg = v.reshape(Hq, N // G, G, D)
+    if kind == "fp8":
+        if round_p:
+            pv = pv.to(torch.bfloat16).to(torch.float32)
+        o = torch.einsum("hqgn,hgnd->hqgd", pv, vg)
+    elif round_p:
+        p8, p_scale = _quantize_rows(pv)
+        o = _int_matmul(p8, vg, "hqgn,hgnd->hqgd") * p_scale
+    else:
+        o = _int_matmul(pv, vg, "hqgn,hgnd->hqgd")
+    o = (o * w[..., None]).sum(dim=-2)                      # (Hq, slq, D)
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = torch.where(l[..., None] == 0, torch.zeros_like(o), o / safe[..., None])
+    m_nat = m[..., 0] * (math.log(2.0) if exp2 else 1.0)
+    lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
+                      m_nat + torch.log(safe))
+    return o.transpose(0, 1), lse
+
+
+@build.counted
 def flash_attn_varlen_fwd_paged_ref(
     q, k_pool, v_pool, block_table, cu_seqlens_q, seqlens_k,
     max_seqlen_q: int, max_seqlen_k: int, softmax_scale: float,
     params: masklib.MaskParams, alibi_slopes=None, seqused_k=None,
-    leftpad_k=None, upcast: bool = True,
+    leftpad_k=None, upcast: bool = True, k_scales=None, v_scales=None,
+    p_tile: Optional[int] = P_TILE, round_p: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel, one sequence at a time.
-    `upcast=False` keeps both products in q's dtype."""
+    `upcast=False` keeps both products in q's dtype.  With `k_scales` the
+    quantized arithmetic of K8q, P's int8 scale per `p_tile` cache rows
+    (None: per page, the TPU kernel's grouping at kv_unroll 1);
+    `round_p=False` skips P's int8 (fp8: bf16) rounding, the yardstick for
+    the kernel's rounding of P.  `upcast` does not apply to quantized
+    pools."""
     Tq, Hq, D = q.shape
-    Hk, _, ps, _ = k_pool.shape
+    Hk = k_pool.shape[0]
+    ps = (k_pool if k_scales is None else k_scales).shape[2]
     group = Hq // Hk
     dev = q.device
     cd = torch.float32 if upcast else q.dtype
@@ -501,6 +646,13 @@ def flash_attn_varlen_fwd_paged_ref(
         lp = lps[b]
         slk = (min(mp * ps, u) if u > 0 else 0) - lp
         if slq <= 0 or slk <= 0:
+            continue
+        if k_scales is not None:
+            o, l = _paged_quant_ref(q, k_pool, v_pool, k_scales, v_scales,
+                                    tbl, b, mp, lp, slk, slq, q0, eff,
+                                    softmax_scale, slopes, p_tile, round_p)
+            out[q0:q0 + slq] = o.to(q.dtype)
+            lse[:, q0:q0 + slq] = l
             continue
         pages = tbl[b, :mp]
         k = k_pool[:, pages].reshape(Hk, mp * ps, D)[:, lp:lp + slk]

@@ -1,6 +1,6 @@
 """Public KV-cache attention API — `flash_attn_with_kvcache`.
 
-Surface of flash_attn_v100_tpu/ops/kvcache.py for 16/32-bit caches:
+Surface of flash_attn_v100_tpu/ops/kvcache.py:
   * q (B, T_new, Hq, D); contiguous cache (B_c, N, Hk, D) or paged cache
     (num_pages, page_size, Hk, D) + block_table (B, max_pages) in the
     token-major "NHD" layout, or (B_c, Hk, N, D) / (Hk, num_pages,
@@ -11,22 +11,29 @@ Surface of flash_attn_v100_tpu/ops/kvcache.py for 16/32-bit caches:
   * cache_batch_idx and cache_leftpad (each rejected with paged caches);
   * causal implies window_right = 0, and `causal` itself only matters when
     T_new > 1;
-  * num_splits (0 = auto), return_softmax_lse.
+  * num_splits (0 = auto), return_softmax_lse;
+  * quantized caches (ops/quant.py): int8 or fp8 (float8_e4m3fn) payloads
+    with `k_scales` / `v_scales` in the caches' layout, head_dim collapsed
+    to 1; an int8 cache whose token dimension is half its scales' is
+    int4-packed (two tokens a byte).  Appended k/v are quantized after
+    rotary, per (token, head); an int4 token merges into its nibble of the
+    shared byte (the partner's nibble is kept).
 
-The append updates `k_cache` / `v_cache` IN PLACE (the reference CUDA
+The append updates the caches (and scales) IN PLACE (the reference CUDA
 contract); the return value still has the JAX package's tuple shapes so
 callers port one to one:
     out                               # no new kv, no lse
     (out, lse)                        # return_softmax_lse
     (out, (k_cache, v_cache))         # new kv appended
     (out, lse, (k_cache, v_cache))    # both
-where the caches are the caller's own tensors.  Every layout reaches the
+with (k_cache, v_cache, k_scales, v_scales) in the last slot for a
+quantized cache, all the caller's own tensors.  Every layout reaches the
 kernels as a strided view, without a copy.
 
-Attention runs in one of two kernels: the split-KV decode kernel (K4,
-ops/cuda/decode.py) or, for paged prefills with group * T_new >=
-VARLEN_PREFILL_MIN_ROWS and page_size % 128 == 0, the paged varlen forward
-(K8, ops/cuda/varlen.py).
+Attention runs in one of two kernels: the split-KV decode kernel (K4, or
+K4q for quantized caches, ops/cuda/decode.py) or, for paged prefills with
+group * T_new >= VARLEN_PREFILL_MIN_ROWS and page_size % 128 == 0, the
+paged varlen forward (K8 / K8q, ops/cuda/varlen.py).
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from flash_attn_v100_tpu_torch.ops.cuda.decode import (
     merge_partials, paged_decode_attention)
 from flash_attn_v100_tpu_torch.ops.cuda.varlen import (
     flash_attn_varlen_fwd_paged)
+from flash_attn_v100_tpu_torch.ops.quant import (
+    FP8, quantize_int4_values, quantize_kv, scatter_payload_)
 from flash_attn_v100_tpu_torch.ops.rotary import apply_rotary_emb
 
 # Paged prefills with at least this many q rows (group * T_new) route to the
@@ -53,6 +62,102 @@ def _pick_page_size(N: int) -> int:
         if N % ps == 0:
             return ps
     return N
+
+
+# ---- int4 appends into token-packed pools (ops/quant.py layout) ----
+# An int4 token is a nibble of a byte it shares with its partner token (2t
+# low nibble, biased by +8; 2t + 1 high nibble).  Both helpers below work
+# in place on fixed shapes, with no host sync: where two new tokens share a
+# byte, both write the same final value, so the scatter's duplicate indices
+# agree.  `idx` indexes the pool to (B, T, Hk, D) bytes, one per new token.
+
+def _nibbles(vals: torch.Tensor):
+    """int4 values -> (low-nibble byte bits, high-nibble byte bits), int32."""
+    v = vals.to(torch.int32)
+    return (v + 8) & 0xF, (v & 0xF) << 4
+
+
+def _tokens(idx, sl: slice):
+    """The index tuple restricted to the new tokens `sl` (dim 1)."""
+    return tuple(i[:, sl] if i.shape[1] > 1 else i for i in idx)
+
+
+def _int4_rmw(pool, idx, vals, parity) -> None:
+    """Read-modify-write: each new token merges its nibble into its byte,
+    keeping the other nibble; even offsets in one round, odd in a second
+    (JAX's _int4_rmw_paged).  A token whose partner writes in the round
+    writes the partner's value, else its byte as read."""
+    lo, hi = _nibbles(vals)
+    even = (parity == 0)[..., None, None]
+    T = vals.shape[1]
+    if T == 1:
+        old = pool[idx].to(torch.int32)
+        pool[idx] = torch.where(even, (old & 0xF0) | lo,
+                                (old & 0x0F) | hi).to(torch.int8)
+        return
+    t = torch.arange(T, device=pool.device)[None, :, None, None]
+    old = pool[idx].to(torch.int32)
+    lo_prev = torch.cat([lo[:, :1], lo[:, :-1]], dim=1)
+    pool[idx] = torch.where(
+        even, (old & 0xF0) | lo,
+        torch.where(t >= 1, (old & 0xF0) | lo_prev, old)).to(torch.int8)
+    old = pool[idx].to(torch.int32)
+    hi_next = torch.cat([hi[:, 1:], hi[:, -1:]], dim=1)
+    pool[idx] = torch.where(
+        ~even, (old & 0x0F) | hi,
+        torch.where(t < T - 1, (old & 0x0F) | hi_next, old)).to(torch.int8)
+
+
+def _int4_append(pool, idx, vals, parity) -> None:
+    """Multi-token append that reads the pool only at the two possible
+    boundary tokens (JAX's _int4_append_paged): each pair (t, t + 1) with t
+    at an even offset is one whole new byte; a first token at an odd offset
+    and a last token at an even offset share their byte with an old token
+    and merge into it.  T == 1 is the read-modify-write."""
+    T = vals.shape[1]
+    if T < 2:
+        _int4_rmw(pool, idx, vals, parity)
+        return
+    lo, hi = _nibbles(vals)
+    even = (parity == 0)[..., None, None]
+    pair = lo[:, :-1] | hi[:, 1:]                       # byte of (t, t + 1)
+    old_first = pool[_tokens(idx, slice(0, 1))].to(torch.int32)
+    old_last = pool[_tokens(idx, slice(T - 1, T))].to(torch.int32)
+    as_even = torch.cat([pair, (old_last & 0xF0) | lo[:, -1:]], dim=1)
+    as_odd = torch.cat([(old_first & 0x0F) | hi[:, :1], pair], dim=1)
+    pool[idx] = torch.where(even, as_even, as_odd).to(torch.int8)
+
+
+def _paged_index(pool, page_ids, off):
+    h = torch.arange(pool.shape[0], device=pool.device)[None, None, :]
+    return h, page_ids[..., None].long(), (off // 2)[..., None].long()
+
+
+def _contig_index(pool, b_ix, rows):
+    h = torch.arange(pool.shape[1], device=pool.device)[None, None, :]
+    return b_ix.long()[:, None, None], h, (rows // 2)[..., None].long()
+
+
+def _int4_rmw_paged(pool, vals, page_ids, off) -> None:
+    """int4 values (B, T, Hk, D) into the packed paged pool (Hk, P,
+    page_size / 2, D) at page page_ids[b, t], token offset off[b, t]."""
+    _int4_rmw(pool, _paged_index(pool, page_ids, off), vals, off % 2)
+
+
+def _int4_append_paged(pool, vals, page_ids, off) -> None:
+    _int4_append(pool, _paged_index(pool, page_ids, off), vals, off % 2)
+
+
+def _int4_rmw_contig(pool, vals, b_ix, rows) -> None:
+    """Contiguous analog: pool (Bc, Hk, N / 2, D), vals (B, Hk, T, D),
+    rows (B, T) absolute token indices, b_ix (B,) cache rows."""
+    _int4_rmw(pool, _contig_index(pool, b_ix, rows), vals.transpose(1, 2),
+              rows % 2)
+
+
+def _int4_append_contig(pool, vals, b_ix, rows) -> None:
+    _int4_append(pool, _contig_index(pool, b_ix, rows), vals.transpose(1, 2),
+                 rows % 2)
 
 
 def uses_varlen_route(paged: bool, group: int, t_new: int,
@@ -90,10 +195,6 @@ def flash_attn_with_kvcache(
     append_window: Optional[Tuple] = None,
 ):
     """See the module docstring."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "quantized KV caches (k_scales/v_scales: int8/fp8/int4 pools) "
-            "come with port slice 4 (quantized pools)")
     if q_position_lens is not None or append_window is not None:
         raise NotImplementedError(
             "q_position_lens/append_window (sequence-sharded decode) come "
@@ -107,7 +208,14 @@ def flash_attn_with_kvcache(
         raise ValueError("cache_leftpad is not supported with paged KV cache")
     if (k is None) != (v is None):
         raise ValueError("k and v must be given together")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+    quantized = k_scales is not None
+    if quantized != (v_scales is not None):
+        raise ValueError("k_scales and v_scales must be given together")
+    if quantized and (k_cache.dtype not in (torch.int8, FP8)
+                      or v_cache.dtype != k_cache.dtype):
+        raise ValueError("scales given but the cache dtype is not int8/fp8")
+    if not quantized and (k_cache.dtype != q.dtype
+                          or v_cache.dtype != q.dtype):
         # the kernels read the pool as is: allocate caches in q's dtype
         raise TypeError(f"k_cache/v_cache ({k_cache.dtype}, {v_cache.dtype}) "
                         f"must have q's dtype {q.dtype}")
@@ -124,12 +232,25 @@ def flash_attn_with_kvcache(
         kc, vc = k_cache, v_cache
     else:
         raise ValueError(f"unknown kv_cache_layout {kv_cache_layout!r}")
+    ksc = vsc = None
+    if quantized:
+        if kv_cache_layout == "HND":
+            ksc, vsc = k_scales, v_scales
+        elif paged:
+            ksc, vsc = (x.permute(2, 0, 1, 3) for x in (k_scales, v_scales))
+        else:
+            ksc, vsc = k_scales.transpose(1, 2), v_scales.transpose(1, 2)
+    # an int8 cache with half its scales' token rows is int4-packed
+    int4 = (quantized and kc.dtype == torch.int8
+            and ksc.shape[-2] == 2 * kc.shape[-2])
 
     if paged:
-        Hk, P, page_size, D = kc.shape
+        Hk, P, kv_rows, D = kc.shape
+        page_size = 2 * kv_rows if int4 else kv_rows
         N_capacity = block_table.shape[1] * page_size
     else:
-        Bc, Hk, N, D = kc.shape
+        Bc, Hk, kv_rows, D = kc.shape
+        N = 2 * kv_rows if int4 else kv_rows
         page_size = _pick_page_size(N)
         N_capacity = N
     if D != D_og:
@@ -173,33 +294,59 @@ def flash_attn_with_kvcache(
     # scratch page with cache_seqlens 0) give an undefined winner; callers
     # only let that happen where nobody reads the slot.
     if appended:
+        if quantized:
+            # quantized after rotary, per (token, head); int4 stays
+            # unpacked here and merges into its nibble below
+            quant = quantize_int4_values if int4 else (
+                lambda x: quantize_kv(x, kc.dtype))
+            (k, k_s), (v, v_s) = quant(k), quant(v)
         if paged:
             col = (pos // page_size).clamp(0, block_table.shape[1] - 1)
             page_ids = torch.gather(block_table.to(dev), 1, col.long())
             off = pos % page_size
-            h_ix = torch.arange(Hk, device=dev)[None, None, :]
-            kc[h_ix, page_ids[..., None], off[..., None]] = k.to(kc.dtype)
-            vc[h_ix, page_ids[..., None], off[..., None]] = v.to(vc.dtype)
+            idx = (torch.arange(Hk, device=dev)[None, None, :],
+                   page_ids[..., None], off[..., None])
+            if int4:
+                _int4_append_paged(kc, k, page_ids, off)
+                _int4_append_paged(vc, v, page_ids, off)
+            else:
+                scatter_payload_(kc, idx, k)
+                scatter_payload_(vc, idx, v)
+            if quantized:
+                ksc[idx], vsc[idx] = k_s, v_s
         else:
             rows = pos if leftpad is None else pos + leftpad[:, None]
             b_ix = (torch.arange(B, device=dev) if cache_batch_idx is None
                     else torch.as_tensor(cache_batch_idx).to(dev))
-            h_ix = torch.arange(Hk, device=dev)[None, :, None]
-            kc[b_ix[:, None, None], h_ix, rows[:, None, :]] = k.transpose(
-                1, 2).to(kc.dtype)
-            vc[b_ix[:, None, None], h_ix, rows[:, None, :]] = v.transpose(
-                1, 2).to(vc.dtype)
+            idx = (b_ix[:, None, None],
+                   torch.arange(Hk, device=dev)[None, :, None],
+                   rows[:, None, :])
+            if int4:
+                _int4_append_contig(kc, k.transpose(1, 2), b_ix, rows)
+                _int4_append_contig(vc, v.transpose(1, 2), b_ix, rows)
+            else:
+                scatter_payload_(kc, idx, k.transpose(1, 2))
+                scatter_payload_(vc, idx, v.transpose(1, 2))
+            if quantized:
+                ksc[idx], vsc[idx] = k_s.transpose(1, 2), v_s.transpose(1, 2)
 
     lens_total = cache_seqlens + (T_new if appended else 0)
 
     # ---- page pool view + table ----
+    pool_ks = pool_vs = None
     if paged:
         pool_k, pool_v = kc[None], vc[None]            # (1, Hk, P, ps, D)
+        if quantized:
+            pool_ks, pool_vs = ksc[None], vsc[None]
         tbl = block_table.to(device=dev, dtype=torch.int32)
     else:
         nb = N // page_size
-        pool_k = kc.reshape(Bc, Hk, nb, page_size, D)
-        pool_v = vc.reshape(Bc, Hk, nb, page_size, D)
+        rows_pp = page_size // 2 if int4 else page_size   # payload rows a page
+        pool_k = kc.reshape(Bc, Hk, nb, rows_pp, D)
+        pool_v = vc.reshape(Bc, Hk, nb, rows_pp, D)
+        if quantized:
+            pool_ks = ksc.reshape(Bc, Hk, nb, page_size, 1)
+            pool_vs = vsc.reshape(Bc, Hk, nb, page_size, 1)
         bidx = (torch.arange(B, dtype=torch.int32, device=dev)
                 if cache_batch_idx is None
                 else torch.as_tensor(cache_batch_idx).to(device=dev,
@@ -232,7 +379,9 @@ def flash_attn_with_kvcache(
         out, lse_v = flash_attn_varlen_fwd_paged(
             qp, pool_k[0], pool_v[0], tbl, cu_q, lens_total, T_new,
             int(tbl.shape[1]) * page_size, float(softmax_scale), params,
-            alibi_slopes=slopes)
+            alibi_slopes=slopes,
+            k_scales=None if pool_ks is None else pool_ks[0],
+            v_scales=None if pool_vs is None else pool_vs[0])
         out = out.reshape(B, T_new, Hq, D).to(dtype_og)
         lse = None
         if return_softmax_lse:
@@ -259,7 +408,8 @@ def flash_attn_with_kvcache(
             qpos_vec=qlens if appended else qlens - T_new,
             softmax_scale=float(softmax_scale), params=params, t_new=T_new,
             group=group, num_splits=num_splits,
-            alibi_slopes_rows=slopes_rows)
+            alibi_slopes_rows=slopes_rows, k_scales=pool_ks,
+            v_scales=pool_vs, int4=int4)
         o, lse = merge_partials(o_part, lse_part)
         o = o[:, :, :n_rows].reshape(B, Hk, group, T_new, D)
         out = o.permute(0, 3, 1, 2, 4).to(dtype_og).reshape(B, T_new, Hq, D)
@@ -270,5 +420,6 @@ def flash_attn_with_kvcache(
     if return_softmax_lse:
         results.append(lse)
     if appended:
-        results.append((k_cache, v_cache))
+        results.append((k_cache, v_cache, k_scales, v_scales) if quantized
+                       else (k_cache, v_cache))
     return results[0] if len(results) == 1 else tuple(results)

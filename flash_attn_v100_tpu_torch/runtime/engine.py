@@ -10,6 +10,9 @@ Design (the JAX package's engine, in eager PyTorch):
     into the page axis: (Hk, (num_pages + 1) * L, page_size, D), page p of
     layer l at folded id p * L + l.  Each layer addresses the pool through
     an offset block table (`tbl * L + l`) and its append writes in place.
+    Quantized pools (kv_dtype int8, fp8 e4m3 or "int4", ops/quant.py) add
+    (Hk, (num_pages + 1) * L, page_size, 1) fp32 scale pools; int4 pools
+    hold page_size / 2 rows (two tokens a byte).
     Page 0 is a scratch page: padded batch rows point at it with
     cache_seqlens 0, so their appends land there and nobody reads them.
   * Bounded shapes: the decode batch is padded to `max_batch`, prefill
@@ -41,30 +44,34 @@ from flash_attn_v100_tpu_torch.models.transformer import (
     ModelConfig, logits_head, mlp, qkv_proj, rmsnorm, rope_tables)
 from flash_attn_v100_tpu_torch.ops.kvcache import (
     flash_attn_with_kvcache, uses_varlen_route)
+from flash_attn_v100_tpu_torch.ops.quant import FP8, is_int4, payload_bytes
 from flash_attn_v100_tpu_torch.runtime.scheduler import Scheduler
 
 
 def paged_forward(params, k_pool, v_pool, tokens, cache_seqlens, block_table,
                   cfg: ModelConfig, *, k_scales=None, v_scales=None,
                   mesh=None, rope=None, last_idx=None):
-    """tokens (B, T) -> (logits (B, T, vocab) fp32, k_pool, v_pool).
+    """tokens (B, T) -> (logits (B, T, vocab) fp32, k_pool, v_pool
+    [, k_scales, v_scales]).
 
     k_pool/v_pool: (Hk, P_f, ps, D) layer-folded HND pools (see the module
-    docstring), appended IN PLACE and returned for the JAX call shape.
-    block_table (B, max_pages) holds UNFOLDED page ids.  `rope` is an
-    optional precomputed (cos, sin) on the pool's device; `last_idx` (B,)
-    computes the logits at those positions only ((B, 1, vocab))."""
+    docstring), appended IN PLACE and returned for the JAX call shape; with
+    int8/fp8/int4 pools pass the (Hk, P_f, ps, 1) fp32 scale pools, which
+    are updated in place and returned too.  block_table (B, max_pages)
+    holds UNFOLDED page ids.  `rope` is an optional precomputed (cos, sin)
+    on the pool's device; `last_idx` (B,) computes the logits at those
+    positions only ((B, 1, vocab))."""
     if mesh is not None:
         raise NotImplementedError("mesh-sharded serving comes with port "
                                   "slice 5 (parallel)")
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("quantized KV pools come with port slice 4")
+    quantized = k_scales is not None
     B, T = tokens.shape
     L = cfg.n_layers
     dev = tokens.device
     cos, sin = rope if rope is not None else rope_tables(
         cfg, cfg.max_seq_len, device=dev)
-    _FORWARD_CALLS[_route(cfg, T, k_pool.shape[2])] += 1
+    page_size = (k_scales if quantized else k_pool).shape[2]
+    _FORWARD_CALLS[_route(cfg, T, page_size)] += 1
     x = params["embed"][tokens]
     for li, lp in enumerate(params["layers"]):
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
@@ -73,13 +80,17 @@ def paged_forward(params, k_pool, v_pool, tokens, cache_seqlens, block_table,
             q, k_pool, v_pool, k=k, v=v, rotary_cos=cos, rotary_sin=sin,
             cache_seqlens=cache_seqlens, block_table=block_table * L + li,
             causal=True, rotary_interleaved=False,
-            window_size=cfg.window_size(), kv_cache_layout="HND")
+            window_size=cfg.window_size(), kv_cache_layout="HND",
+            k_scales=k_scales, v_scales=v_scales)
         x = x + attn.reshape(B, T, -1) @ lp["wo"]
         x = x + mlp(rmsnorm(x, lp["ln2"], cfg.norm_eps), lp)
     if last_idx is not None:
         x = x[torch.arange(B, device=dev), last_idx.to(torch.long)][:, None]
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return logits_head(x, params), k_pool, v_pool
+    logits = logits_head(x, params)
+    if quantized:
+        return logits, k_pool, v_pool, k_scales, v_scales
+    return logits, k_pool, v_pool
 
 
 # paged_forward calls per attention kernel route (a host-side count; each
@@ -193,21 +204,21 @@ class ServingEngine:
                  decode_fuse: int = 8,
                  device: DeviceLike = None):
         """Options as in the JAX package's ServingEngine.  `device` holds
-        the pools and must hold `params` (default: CUDA).  `mesh` and the
-        quantized `kv_dtype`s (int8, fp8, "int4") come with later port
-        slices and raise NotImplementedError; a 16/32-bit `kv_dtype` other
-        than `cfg.dtype` raises TypeError (the kernels read the pools in the
-        model dtype)."""
+        the pools and must hold `params` (default: CUDA).  `kv_dtype`:
+        torch.int8, torch.float8_e4m3fn or "int4" (or their names) for a
+        quantized pool (appended KV quantizes on the fly, the kernels
+        dequantize in their tiles; "int4" packs two tokens a byte); any
+        other `kv_dtype` than `cfg.dtype` raises TypeError (16/32-bit pools
+        are read in the model dtype).  `mesh` comes with a later port slice
+        and raises NotImplementedError."""
         if mesh is not None:
             raise NotImplementedError("mesh-sharded / multi-process serving "
                                       "comes with port slice 5 (parallel)")
-        kv_dt = None if kv_dtype == "int4" else as_torch_dtype(
+        self.kv_int4 = is_int4(kv_dtype)
+        kv_dt = torch.int8 if self.kv_int4 else as_torch_dtype(
             kv_dtype or cfg.dtype)
-        if kv_dt not in (torch.bfloat16, torch.float16, torch.float32):
-            raise NotImplementedError(
-                f"kv_dtype {kv_dtype!r}: quantized pools (int8/fp8/int4) come "
-                "with port slice 4")
-        if kv_dt != as_torch_dtype(cfg.dtype):
+        self.quantized = kv_dt in (torch.int8, FP8)
+        if not self.quantized and kv_dt != as_torch_dtype(cfg.dtype):
             raise TypeError(f"kv_dtype {kv_dtype!r}: 16/32-bit pools are held "
                             f"in the model dtype {cfg.dtype}")
         if cfg.max_seq_len % page_size:
@@ -230,10 +241,21 @@ class ServingEngine:
         # scheduler hands out pages 1..num_pages
         self.sched = Scheduler(max_batch, num_pages, page_size,
                                use_native=use_native)
+        if self.kv_int4 and page_size % 2:
+            raise ValueError("int4 pools pack two tokens a byte: page_size "
+                             "must be even")
         pool_shape = (cfg.n_kv_heads, (num_pages + 1) * cfg.n_layers,
-                      page_size, cfg.head_dim)
+                      page_size // 2 if self.kv_int4 else page_size,
+                      cfg.head_dim)
         self.k_pool = torch.zeros(pool_shape, dtype=kv_dt, device=self.device)
         self.v_pool = torch.zeros(pool_shape, dtype=kv_dt, device=self.device)
+        self.k_scales = self.v_scales = None
+        if self.quantized:
+            sc_shape = pool_shape[:2] + (page_size, 1)
+            self.k_scales = torch.ones(sc_shape, dtype=torch.float32,
+                                       device=self.device)
+            self.v_scales = torch.ones(sc_shape, dtype=torch.float32,
+                                       device=self.device)
         self._rope = rope_tables(cfg, cfg.max_seq_len, device=self.device)
         self.greedy = greedy
         self.temperature = temperature
@@ -279,10 +301,11 @@ class ServingEngine:
         return (self._rng_seed * 1_000_003 + ctr) & 0x7FFF_FFFF_FFFF_FFFF
 
     def _forward(self, toks, cs, bt, last_idx=None):
-        logits, self.k_pool, self.v_pool = paged_forward(
+        # the pools (and scales) are appended in place
+        return paged_forward(
             self.params, self.k_pool, self.v_pool, toks, cs, bt, self.cfg,
-            rope=self._rope, last_idx=last_idx)
-        return logits
+            k_scales=self.k_scales, v_scales=self.v_scales, rope=self._rope,
+            last_idx=last_idx)[0]
 
     def _prefill_fn(self, toks, cs, bt, last_idx, ctr, sampling):
         logits = self._forward(toks, cs, bt, last_idx=last_idx)
@@ -316,8 +339,12 @@ class ServingEngine:
         def fold(ids):
             return (ids.to(torch.long)[:, None] * L + ar).reshape(-1)
         src_f, dst_f = fold(src), fold(dst)
-        self.k_pool[:, dst_f] = self.k_pool[:, src_f]
-        self.v_pool[:, dst_f] = self.v_pool[:, src_f]
+        pools = [self.k_pool, self.v_pool]
+        if self.quantized:
+            pools += [self.k_scales, self.v_scales]
+        for pool in pools:
+            pool = payload_bytes(pool)
+            pool[:, dst_f] = pool[:, src_f]
 
     # ---- request API ----
 

@@ -162,13 +162,19 @@ def test_engine_greedy_matches_jax():
 
 def test_engine_rejects_later_slices_and_missing_gpu():
     _, (tcfg, tparams) = sc.make_models()
-    for kw in (dict(mesh=object()), dict(kv_dtype=torch.int8),
-               dict(kv_dtype="int4")):
-        with pytest.raises(NotImplementedError):
-            TorchEngine(tparams, tcfg, page_size=8, device="cpu", **kw)
-    with pytest.raises(TypeError):                # pools in the model dtype
-        TorchEngine(tparams, tcfg, page_size=8, device="cpu",
-                    kv_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        TorchEngine(tparams, tcfg, page_size=8, device="cpu", mesh=object())
+    # quantized pools (slice 4) are built: int4 packs two tokens a byte
+    for kv_dtype, rows in ((torch.int8, 8), ("float8_e4m3fn", 8),
+                           ("int4", 4)):
+        eng = TorchEngine(tparams, tcfg, page_size=8, num_pages=4,
+                          device="cpu", kv_dtype=kv_dtype)
+        assert eng.quantized and eng.k_pool.shape[2] == rows
+        assert eng.k_scales.shape == eng.k_pool.shape[:2] + (8, 1)
+    for kv_dtype in (torch.bfloat16, torch.float8_e5m2):
+        with pytest.raises(TypeError):       # 16/32-bit pools: model dtype
+            TorchEngine(tparams, tcfg, page_size=8, device="cpu",
+                        kv_dtype=kv_dtype)
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError):

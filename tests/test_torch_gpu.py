@@ -25,6 +25,7 @@ from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
 from flash_attn_v100_tpu_torch.ops import kvcache as kv
 from flash_attn_v100_tpu_torch.ops import masks as masklib
 from flash_attn_v100_tpu_torch.ops import padding as padlib
+from flash_attn_v100_tpu_torch.ops import quant
 from flash_attn_v100_tpu_torch.ops import varlen as varlen_mod
 from flash_attn_v100_tpu_torch.ops.cuda import build
 from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
@@ -855,3 +856,239 @@ def test_engine_fp16_runs_both_kernels(cuda):
     for route in ("decode", "varlen"):
         assert calls[route] > 0
         assert launches[route] == cfg.n_layers * calls[route]
+
+
+# ------------------------------------------- K4q, K8q (quantized pools)
+
+QUANT_KINDS = {"int8": torch.int8, "fp8": torch.float8_e4m3fn, "int4": "int4"}
+# kernel vs plain LSE: the same fp32 scores summed in another order with
+# other exp ulps (P's rounding does not reach the LSE)
+QUANT_LSE_ATOL = 1e-4
+
+
+def _quantize(x, kind, dev, token_axis=-2):
+    """A float tensor -> (payload, scales) on `dev`, quantized on the CPU."""
+    p, s = quant.quantize_kv(x.float().cpu(), QUANT_KINDS[kind],
+                             token_axis=token_axis)
+    return p.to(dev), s.to(dev)
+
+
+def _gate_quant(out, lse, ref, ref_unrounded, lse_ref, name):
+    """The kernel against its plain version at the kernel's P grouping,
+    within 2x the error P's rounding itself makes (the plain version with
+    P unrounded) + 1e-5; the LSE within QUANT_LSE_ATOL."""
+    assert_fwd_close(out, ref, ref_unrounded, name=f"{name} out")
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(fin, torch.isfinite(lse)), f"{name}: -inf rows differ"
+    if fin.any():
+        torch.testing.assert_close(lse[fin], lse_ref[fin], rtol=0,
+                                   atol=QUANT_LSE_ATOL)
+
+
+def _decode_quant_inputs(name, kind, dtype, D, dev):
+    (q, k, v, *rest), kw = _decode_inputs(name, torch.float32, D, "cpu")
+    (kq, ks), (vq, vs) = (_quantize(x, kind, dev) for x in (k, v))
+    args = (q.to(dev, dtype), kq, vq, *(x.to(dev) for x in rest))
+    kw = {n: (x.to(dev) if isinstance(x, torch.Tensor) else x)
+          for n, x in kw.items()}
+    kw.update(k_scales=ks, v_scales=vs, int4=kind == "int4")
+    return args, kw
+
+
+@pytest.mark.parametrize("kind", list(QUANT_KINDS))
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_decode_quant_kernel_matches_plain(cuda, dt, D, name, kind):
+    args, kw = _decode_quant_inputs(name, kind, DTYPES[dt], D, cuda)
+    before = dec.paged_decode_attention.quant_launches[kind]
+    o, lse = dec.merge_partials(*dec.paged_decode_attention(*args, **kw))
+    torch.cuda.synchronize()
+    assert dec.paged_decode_attention.quant_launches[kind] == before + 1
+    ref, lse_ref = dec.merge_partials(*dec.paged_decode_attention_ref(
+        *args, **kw))
+    unr = dec.merge_partials(*dec.paged_decode_attention_ref(
+        *args, round_p=False, **kw))[0]
+    _gate_quant(o, lse, ref, unr, lse_ref, f"K4q {kind} {name}")
+    if name.startswith("t1_empty_row"):
+        assert torch.isneginf(lse[0]).all() and not o[0].any()
+
+
+def _varlen_quant_inputs(name, kind, dtype, D, dev):
+    (q, k, v, *rest), kw = _varlen_inputs(name, torch.float32, D, "cpu")
+    (kq, ks), (vq, vs) = (_quantize(x, kind, dev) for x in (k, v))
+    args = (q.to(dev, dtype), kq, vq,
+            *(x.to(dev) if isinstance(x, torch.Tensor) else x for x in rest))
+    kw = {n: (x.to(dev) if isinstance(x, torch.Tensor) else x)
+          for n, x in kw.items()}
+    kw.update(k_scales=ks, v_scales=vs)
+    return args, kw
+
+
+@pytest.mark.parametrize("kind", list(QUANT_KINDS))
+@pytest.mark.parametrize("name", list(VARLEN_CASES))
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_varlen_quant_kernel_matches_plain(cuda, dt, D, name, kind):
+    args, kw = _varlen_quant_inputs(name, kind, DTYPES[dt], D, cuda)
+    before = vl.flash_attn_varlen_fwd_paged.quant_launches[kind]
+    out, lse = vl.flash_attn_varlen_fwd_paged(*args, **kw)
+    torch.cuda.synchronize()
+    assert vl.flash_attn_varlen_fwd_paged.quant_launches[kind] == before + 1
+    ref, lse_ref = vl.flash_attn_varlen_fwd_paged_ref(*args, **kw)
+    unr = vl.flash_attn_varlen_fwd_paged_ref(*args, round_p=False, **kw)[0]
+    _gate_quant(out, lse, ref, unr, lse_ref, f"K8q {kind} {name}")
+
+
+def test_quant_kernels_reject_bad_inputs(cuda):
+    args, kw = _decode_quant_inputs("t1", "int8", torch.bfloat16, 64, cuda)
+    with pytest.raises(TypeError):                       # fp32 q
+        dec.paged_decode_attention(args[0].float(), *args[1:], **kw)
+    with pytest.raises(ValueError):                      # int4 rows
+        dec.paged_decode_attention(*args, **dict(kw, int4=True))
+    args, kw = _varlen_quant_inputs("causal_prefix", "int4", torch.bfloat16,
+                                    64, cuda)
+    with pytest.raises(ValueError):                      # a bf16 pool
+        vl.flash_attn_varlen_fwd_paged(
+            args[0], *(x.to(torch.bfloat16) for x in args[1:3]), *args[3:],
+            **kw)
+
+
+def test_ieee_div_is_correctly_rounded(cuda):
+    """The quantization scales (amax / 127, / 448, / 7) on the card: CUDA
+    torch divides by a Python scalar as a product with its reciprocal,
+    which can miss the IEEE quotient the kernels compute by an ulp and
+    flip a rounded q or P byte.  ieee_div gives the correctly rounded
+    quotient, which is float64's quotient rounded once to fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand(1 << 20, generator=gen, device=cuda) * 100
+    for c in (quant.INT8_MAX, quant.FP8_E4M3_MAX, quant.INT4_MAX):
+        assert torch.equal(quant.ieee_div(x, c), (x.double() / c).float())
+
+
+def _plain_quant(round_p):
+    def decode(*a, **k):
+        return dec.paged_decode_attention_ref(*a, round_p=round_p, **k)
+
+    def varlen(*a, **k):
+        return vl.flash_attn_varlen_fwd_paged_ref(*a, round_p=round_p, **k)
+    return decode, varlen
+
+
+# name: (paged, layout, T_new, extra kwargs)
+KVCACHE_QUANT_CASES = {
+    "paged_hnd_decode_append": (True, "HND", 1, {}),
+    "paged_nhd_varlen_route_append_window": (
+        True, "NHD", 256, dict(window_size=(100, -1))),
+    "contig_nhd_append_leftpad_alibi": (
+        False, "NHD", 3, dict(cache_leftpad=[4, 1, 9], alibi=True)),
+}
+
+
+@pytest.mark.parametrize("kind", list(QUANT_KINDS))
+@pytest.mark.parametrize("name", list(KVCACHE_QUANT_CASES))
+def test_kvcache_quant_kernels_match_plain(cuda, name, kind, monkeypatch):
+    """flash_attn_with_kvcache over a quantized cache on each route: the
+    kernel path against the plain versions, and the appended payload and
+    scales bit-equal to the CPU append (no rotary)."""
+    paged, layout, T, extra = KVCACHE_QUANT_CASES[name]
+    rng = np.random.default_rng(23)
+    Hq, Hk, D = 8, 2, 64
+    varlen = T * (Hq // Hk) >= kv.VARLEN_PREFILL_MIN_ROWS
+    B, ps = (2, 128) if varlen else (3, 32)
+    kw = dict(causal=True, kv_cache_layout=layout, return_softmax_lse=True)
+    if paged:
+        mp = 4
+        P = 1 + B * mp
+        shape = (P, ps, Hk, D) if layout == "NHD" else (Hk, P, ps, D)
+        # disjoint pages: two rows appending into one page would make the
+        # scatter's winner, and with int4 the merged byte, undefined
+        kw["block_table"] = torch.from_numpy(rng.permutation(
+            np.arange(1, P))[:B * mp].reshape(B, mp).astype(np.int32))
+        cap, tok_axis = mp * ps, (1 if layout == "NHD" else 2)
+    else:
+        shape = (B, 96, Hk, D)
+        cap, tok_axis = 96 - 12, 1
+    extra = dict(extra)
+    if extra.pop("alibi", False):
+        kw["alibi_slopes"] = torch.from_numpy(
+            rng.uniform(0.01, 0.2, (B, Hq)).astype(np.float32))
+    if "cache_leftpad" in extra:
+        extra["cache_leftpad"] = torch.tensor(extra["cache_leftpad"],
+                                              dtype=torch.int32)
+    kw.update(extra)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    (kc, ks), (vc, vs) = (quant.quantize_kv(mk(*shape), QUANT_KINDS[kind],
+                                            token_axis=tok_axis)
+                          for _ in range(2))
+    cs = torch.from_numpy(rng.integers(5, cap - T, size=B).astype(np.int32))
+    q, kn, vn = mk(B, T, Hq, D), mk(B, T, Hk, D), mk(B, T, Hk, D)
+
+    def call(dev, dtype):
+        caches = [x.clone().to(dev) for x in (kc, vc, ks, vs)]
+        res = kv.flash_attn_with_kvcache(
+            q.to(dev, dtype), caches[0], caches[1], k=kn.to(dev, dtype),
+            v=vn.to(dev, dtype), cache_seqlens=cs.to(dev),
+            k_scales=caches[2], v_scales=caches[3],
+            **{n: (x.to(dev) if isinstance(x, torch.Tensor) else x)
+               for n, x in kw.items()})
+        return res, caches
+
+    counter = (vl.flash_attn_varlen_fwd_paged if varlen
+               else dec.paged_decode_attention).quant_launches
+    before = counter[kind]
+    res, caches = call(cuda, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert counter[kind] == before + 1, "the call took the wrong route"
+    assert all(a is b for a, b in zip(res[2], caches)), "append in place"
+    plain = {}
+    for round_p in (True, False):
+        with monkeypatch.context() as m:
+            fd, fv = _plain_quant(round_p)
+            m.setattr(kv, "paged_decode_attention", fd)
+            m.setattr(kv, "flash_attn_varlen_fwd_paged", fv)
+            plain[round_p] = call(cuda, torch.bfloat16)[0]
+    _gate_quant(res[0], res[1], plain[True][0], plain[False][0],
+                plain[True][1], f"kvcache {kind} {name}")
+    cpu_res, _ = call(torch.device("cpu"), torch.bfloat16)
+    for got, want in zip(res[2], cpu_res[2]):
+        assert torch.equal(quant.payload_bytes(got).cpu(),
+                           quant.payload_bytes(want))
+
+
+@pytest.mark.parametrize("kind", list(QUANT_KINDS))
+def test_engine_quant_runs_both_kernels(cuda, kind):
+    """A small bf16 model served from a quantized pool: both quantized
+    kernels run on their routes and no plain version does."""
+    cfg = _tiny(torch.bfloat16)
+    params = tmodel.init_params(cfg, seed=5, device=cuda, lm_head=True)
+    eng = ServingEngine(params, cfg, max_batch=4, num_pages=16,
+                        page_size=128, device=cuda,
+                        kv_dtype=QUANT_KINDS[kind])
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (128, 100, 9)]
+    calls0 = dict(eng_mod.paged_forward.calls)
+    launches0 = (dec.paged_decode_attention.quant_launches[kind],
+                 vl.flash_attn_varlen_fwd_paged.quant_launches[kind])
+    plain0 = (dec.paged_decode_attention_ref.calls,
+              vl.flash_attn_varlen_fwd_paged_ref.calls)
+    rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+    out = eng.run_to_completion()
+    calls = {r: eng_mod.paged_forward.calls[r] - calls0[r]
+             for r in ("decode", "varlen")}
+    launches = {
+        "decode": dec.paged_decode_attention.quant_launches[kind]
+        - launches0[0],
+        "varlen": vl.flash_attn_varlen_fwd_paged.quant_launches[kind]
+        - launches0[1]}
+    assert sorted(out) == sorted(rids)
+    for rid in rids:
+        assert len(out[rid]) == 6
+        assert all(0 <= tok < cfg.vocab_size for tok in out[rid])
+    for route in ("decode", "varlen"):
+        assert calls[route] > 0
+        assert launches[route] == cfg.n_layers * calls[route]
+    assert (dec.paged_decode_attention_ref.calls,
+            vl.flash_attn_varlen_fwd_paged_ref.calls) == plain0

@@ -161,11 +161,19 @@ def test_kvcache_rejections():
     with pytest.raises(ValueError):
         torch_kvcache(q, pool, pool, block_table=bt,
                       cache_leftpad=torch.zeros(1, dtype=torch.int32))
-    for kw in (dict(k_scales=pool, v_scales=pool),
-               dict(q_position_lens=torch.zeros(1)),
+    for kw in (dict(q_position_lens=torch.zeros(1)),
                dict(append_window=(0, 8))):
         with pytest.raises(NotImplementedError):
             torch_kvcache(q, pool, pool, block_table=bt, **kw)
+    # as the JAX package's test_quant_errors: scales on a float cache, and
+    # k_scales without v_scales
+    scales = torch.ones(4, 8, 2, 1)
+    with pytest.raises(ValueError):
+        torch_kvcache(q, pool, pool, block_table=bt, k_scales=scales,
+                      v_scales=scales)
+    pool8 = torch.zeros(4, 8, 2, 32, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        torch_kvcache(q, pool8, pool8, block_table=bt, k_scales=scales)
     # a pool of another dtype than q is refused, not read through a copy
     pool16 = pool.to(torch.bfloat16)
     with pytest.raises(TypeError):
@@ -176,8 +184,8 @@ def test_kvcache_rejections():
 def test_cache_constructors_match_jax(kind):
     """init_paged / init_contiguous build the JAX package's HND caches (same
     shapes, zeros, payload dtype); one append + attention through each
-    package's cache then agrees.  Quantized payloads wait for slice 4; the
-    default device is the GPU."""
+    package's cache then agrees; the quantized caches match JAX's shapes
+    and scales; the default device is the GPU."""
     from flash_attn_v100_tpu import cache as jcache
     from flash_attn_v100_tpu_torch import cache as tcache
     rng = np.random.default_rng(8)
@@ -210,8 +218,27 @@ def test_cache_constructors_match_jax(kind):
     np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]), rtol=0,
                                atol=ATOL)
     assert np.array_equal(tc.k.numpy(), np.asarray(jout[1][0]))
-    with pytest.raises(NotImplementedError):
-        tcache.init_paged(P, ps, Hk, D, dtype=torch.int8, device="cpu")
+    assert not tc.quantized and tcache.kvcache_kwargs(tc) == dict(
+        kv_cache_layout="HND")
+    # quantized caches: the JAX package's payload shapes and dtypes, scales
+    # of ones (int4: half the token rows, scales per token)
+    for tdt, jdt in ((torch.int8, jnp.int8),
+                     (torch.float8_e4m3fn, jnp.float8_e4m3fn),
+                     ("int4", "int4")):
+        if kind == "paged":
+            jq = jcache.init_paged(P, ps, Hk, D, dtype=jdt)
+            tq = tcache.init_paged(P, ps, Hk, D, dtype=tdt, device="cpu")
+        else:
+            jq = jcache.init_contiguous(B, 48, Hk, D, dtype=jdt)
+            tq = tcache.init_contiguous(B, 48, Hk, D, dtype=tdt, device="cpu")
+        assert tq.quantized and jq.quantized
+        assert tuple(tq.k.shape) == tuple(jq.k.shape)
+        assert str(tq.k.dtype).split(".")[-1] == str(jq.k.dtype)
+        assert np.array_equal(tq.k_scales.numpy(), np.asarray(jq.k_scales))
+        assert set(tcache.kvcache_kwargs(tq)) == {
+            "kv_cache_layout", "k_scales", "v_scales"}
+    with pytest.raises(TypeError):
+        tcache.init_paged(P, ps, Hk, D, dtype=torch.int16, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tcache.init_contiguous(B, 48, Hk, D)
