@@ -9,8 +9,10 @@ shapes its main path gives it, timing the kernel, the plain version and one
 PyTorch library call computing the same function:
   * K1 dense forward, K2 dQ and K3 dK/dV at the training shape (B 4,
     S 2048, 32/4 heads x 64, causal, bf16), with and without dropout, the
-    dropout keep mask read back from K1 and compared bit for bit, and two
-    backward calls compared bit for bit;
+    dropout keep mask read back from K1 and compared bit for bit, two
+    backward calls compared bit for bit, and K2's and K3's registers,
+    spills, shared memory and resident warps a multiprocessor at D 64 and
+    128;
   * K5 varlen forward, K6 dQ and K7 dK/dV at the same width through
     flash_attn_varlen_func: 4 x 2048 equal lengths bit-equal to
     flash_attn_func (with dropout: K5's keep mask read back), a padded
@@ -197,6 +199,30 @@ def gated_rows(torch, out, ref32, ref_native, name, mult, check=True):
         f"{float(e_n.flatten()[i]):.3e}, row RMS "
         f"{float(rms.flatten()[i]):.3e})")
     return float(ratio[i]), float(ref.abs().median()), float(gate.median())
+
+
+# flash_attn_varlen_func's gradients against flash_attn_func's on the same
+# sequences: K6/K7 keep the summation order K2/K3 had before K2/K3 were
+# redesigned, so the two differ by bf16 roundings (by many ulps of an
+# element only where its sum cancels). Each row over the head dim is held
+# to two bf16 unit roundoffs of its RMS, + 1e-3 of the tensor's RMS for
+# rows near 0
+CROSS_ROW_REL, CROSS_ABS = 2.0 ** -7, 1e-3
+
+
+def cross_path(torch, g, gd, name):
+    """Asserts, for each row over the head dim, RMS(g - gd) <= CROSS_ROW_REL
+    x RMS(gd's row) + CROSS_ABS x RMS(gd); returns the worst ratio of a
+    row's RMS difference to its gate."""
+    g, gd = g.float(), gd.float()
+    err = (g - gd).pow(2).mean(-1).sqrt()
+    gate = (CROSS_ROW_REL * gd.pow(2).mean(-1).sqrt()
+            + CROSS_ABS * float(gd.pow(2).mean().sqrt()))
+    ratio = float((err / gate).max())
+    assert ratio <= 1.0, (
+        f"{name}: varlen vs flash_attn_func, worst row RMS difference / "
+        f"gate {ratio:.3f}, max |diff| {float((g - gd).abs().max()):.3e}")
+    return ratio
 
 
 def phase_k4(torch, flush):
@@ -625,6 +651,31 @@ def dense_work(B, S, Hq, Hk, D):
     }
 
 
+def bwd_occupancy(build) -> dict:
+    """K2 and K3 in bf16 at D 64 and 128, in the variant without bias or
+    dropout (extra 0, the training path's) and with (extra 1): registers,
+    local memory (spills and stack), dynamic shared memory, threads and
+    resident blocks a multiprocessor, from the library's
+    `fa_bwd_occupancy` (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+    lib = build.load("bwd")
+    res = {}
+    for name, dkv in (("K2", 0), ("K3", 1)):
+        for D in (64, 128):
+            for extra in (0, 1):
+                out = (ctypes.c_int * 5)()
+                build.check(lib.fa_bwd_occupancy(dkv, 0, D, extra,
+                                                 ctypes.addressof(out)),
+                            "fa_bwd_occupancy")
+                blocks, smem, threads, regs, local = out
+                res[(name, D, extra)] = dict(
+                    registers=regs, local_bytes=local, smem_bytes=smem,
+                    threads=threads, blocks_per_sm=blocks,
+                    warps_per_sm=blocks * threads // 32)
+    return res
+
+
 def read_dropout_mask(torch, dfwd, B, S, Hq, Hk, seed, p):
     """K1's dropout keep mask (B, Hq, S, S), read back 64 keys at a time:
     with q = 0 every score is 0, so with v = I (64 keys = head_dim 64) and
@@ -811,7 +862,25 @@ def phase_dense(torch, flush):
               f"{ms[name]:.4f} ms, plain {plain:.4f} ms"
               f"{' (dq, dk, dv together)' if name != 'K1' else ''}, sdpa "
               f"{'fwd' if name == 'K1' else 'bwd (K2 + K3)'} {lib:.4f} ms, "
-              f"bound {bms:.4f} ms ({by}, {flops:.3e} flop)", flush=True)
+              f"bound {bms:.4f} ms ({by}, {flops:.3e} flop), "
+              f"{flops / ms[name] / 1e9:.1f} TFLOP/s = "
+              f"{100 * bms / ms[name]:.1f}% of the bound", flush=True)
+
+    # K2 / K3: what a block holds and how many fit on a multiprocessor
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    for (name, d, extra), o in bwd_occupancy(build).items():
+        print(f"{name} occupancy (bf16, D {d}, "
+              f"{'bias/dropout' if extra else 'no bias/dropout'} variant): "
+              f"{o['registers']} registers, local memory (spills, stack) "
+              f"{o['local_bytes']} B, {o['smem_bytes']} B dynamic "
+              f"shared memory and {o['threads']} threads a block, "
+              f"{o['blocks_per_sm']} blocks = {o['warps_per_sm']} warps "
+              f"resident a multiprocessor", flush=True)
+        assert o["local_bytes"] == 0, f"{name} D {d} extra {extra} spills"
+        assert o["warps_per_sm"] >= 8, \
+            f"{name} D {d} extra {extra}: under 8 warps/SM"
+        if d == D and not extra:
+            res[name]["occupancy"] = o
     return res
 
 
@@ -928,6 +997,8 @@ def phase_varlen(torch, flush):
     from flash_attn_v100_tpu_torch.config import NEG_INF
     from flash_attn_v100_tpu_torch.ops import masks as masklib
     from flash_attn_v100_tpu_torch.ops import padding as padlib
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
     from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
     from flash_attn_v100_tpu_torch.ops.flash_attention import flash_attn_func
     from flash_attn_v100_tpu_torch.ops.varlen import flash_attn_varlen_func
@@ -1005,7 +1076,11 @@ def phase_varlen(torch, flush):
           f"{counts['K6']}, K7 {counts['K7']}; plain calls "
           f"{counts['plain_fwd']} / {counts['plain_bwd']}", flush=True)
 
-    # ---- (a): bit for bit against flash_attn_func on the same tensors
+    # ---- (a): against flash_attn_func on the same tensors: out, LSE and
+    # dmask bit for bit (K5 is K1's body); K6/K7 add in another order than
+    # K2/K3, so both paths' gradients are held to the plain backward's gate
+    # and to each other within a few bf16 ulps (cross_path)
+    n_exact, worst = 0, 0.0
     for p, (out, lse, dmask, dq, dk, dv) in run_a.items():
         ld = [x[n].clone().requires_grad_() for n in ("q", "k", "v")]
         out_d, lse_d, dmask_d = flash_attn_func(
@@ -1015,12 +1090,25 @@ def phase_varlen(torch, flush):
         assert torch.equal(out, out_d.reshape(B * S, Hq, D)), f"(a) p={p} out"
         assert torch.equal(lse, lse_d.permute(1, 0, 2).reshape(Hq, B * S)), \
             f"(a) p={p} lse"
-        for g, gd, what in zip((dq, dk, dv), ld, ("dq", "dk", "dv")):
-            assert torch.equal(g, gd.grad.reshape(g.shape)), f"(a) {what}"
         if p:
             assert torch.equal(dmask, dmask_d.permute(0, 2, 1, 3).reshape(
                 B * S, Hq, S)), "(a) dmask"
-        del out_d, lse_d, dmask_d, ld
+        bw = (*(x[n].reshape(B * S, *x[n].shape[2:]) for n in ("q", "k", "v")),
+              out, x["do"].reshape(B * S, Hq, D), lse, cu_a, cu_a, S, S,
+              scale, params)
+        pkw = dict(dropout_p=p, dropout_seed=seed)
+        g32 = vl.flash_attn_varlen_bwd_ref(*bw, **pkw)
+        g16 = vl.flash_attn_varlen_bwd_ref(*bw, upcast=False, **pkw)
+        for g, gd, r32, r16, what in zip((dq, dk, dv), ld, g32, g16,
+                                         ("dq", "dk", "dv")):
+            gd = gd.grad.reshape(g.shape)
+            gated(torch, g, r32, r16, f"(a) p={p} varlen {what}",
+                  tt.BWD_MULT, tt.BWD_ATOL)
+            gated(torch, gd, r32, r16, f"(a) p={p} flash_attn_func {what}",
+                  tt.BWD_MULT, tt.BWD_ATOL)
+            worst = max(worst, cross_path(torch, g, gd, f"(a) p={p} {what}"))
+            n_exact += int(torch.equal(g, gd))
+        del out_d, lse_d, dmask_d, ld, g32, g16
     # K5's keep mask read back: q = k = 0 and v one-hot on 64 keys at a time
     q0 = torch.zeros((B * S, Hq, D), device=dev, dtype=torch.bfloat16)
     k0 = torch.zeros((B * S, Hk, D), device=dev, dtype=torch.bfloat16)
@@ -1036,35 +1124,49 @@ def phase_varlen(torch, flush):
         keep[..., c0:c0 + D] = o > 0
     assert torch.equal(keep, run_a[DENSE_DROPOUT][2] > 0), "K5's mask"
     rate = float(keep.float().mean())
-    print(f"varlen (a): out, LSE, dq, dk, dv bit-equal to flash_attn_func "
-          f"at p 0 and {DENSE_DROPOUT}, dmask too; K5's keep mask read back "
-          f"over {keep.numel()} positions bit-equal to the dmask (keep rate "
-          f"{rate:.5f})", flush=True)
+    print(f"varlen (a): out, LSE bit-equal to flash_attn_func at p 0 and "
+          f"{DENSE_DROPOUT}, dmask too; dq, dk, dv of both paths within the "
+          f"plain backward's gate and of each other within 2^-7 of each "
+          f"row's RMS + 1e-3 of the tensor's (worst row {worst:.3f} of its "
+          f"gate; bit-equal in {n_exact} of 6); K5's keep "
+          f"mask read back over {keep.numel()} positions bit-equal to the "
+          f"dmask (keep rate {rate:.5f})", flush=True)
     del run_a, keep, q0, k0, v1
 
     # ---- (b): each sequence against flash_attn_func on it alone: out bit
-    # for bit; the gradients too unless delta = rowsum(O dO), a torch
-    # reduction over tensors of another size, rounds differently (then
-    # within 2 bf16 ulps)
+    # for bit; the gradients within the gate of the plain backward on that
+    # sequence alone and within a few bf16 ulps of flash_attn_func's
+    # (K6/K7 and K2/K3 add in different orders)
     assert not out_b[mask_b.logical_not()].any()
     for t in lv_b:
         assert not t.grad[mask_b.logical_not()].any()
-    n_exact = 0
+    n_exact, worst = 0, 0.0
     for r, n in enumerate(VARLEN_PAD_LENS):
         ld = [x[nm][r:r + 1, :n].clone().requires_grad_()
               for nm in ("q", "k", "v")]
         o = flash_attn_func(*ld, causal=True)
         o.backward(x["do"][r:r + 1, :n])
         assert torch.equal(o[0], out_b[r, :n]), f"(b) row {r} out"
-        for t, td in zip(lv_b, ld):
-            g, gd = t.grad[r, :n].float(), td.grad[0].float()
-            n_exact += int(torch.equal(g, gd))
-            assert torch.allclose(g, gd, rtol=2.0 ** -6, atol=1e-6), \
-                f"(b) row {r}: max diff {float((g - gd).abs().max()):.3e}"
+        sq = [t.detach() for t in ld]
+        o_r, l_r = dfwd.flash_attn_dense_fwd(*sq, scale, params)
+        bw = (*sq, o_r, x["do"][r:r + 1, :n], l_r, scale, params)
+        g32 = dbwd.flash_attn_dense_bwd_ref(*bw)
+        g16 = dbwd.flash_attn_dense_bwd_ref(*bw, upcast=False)
+        for t, td, r32, r16, what in zip(lv_b, ld, g32, g16,
+                                         ("dq", "dk", "dv")):
+            g = t.grad[r:r + 1, :n]
+            gated(torch, g, r32, r16, f"(b) row {r} {what}", tt.BWD_MULT,
+                  tt.BWD_ATOL)
+            worst = max(worst, cross_path(torch, g, td.grad,
+                                          f"(b) row {r} {what}"))
+            n_exact += int(torch.equal(g, td.grad))
     print(f"varlen (b): padded rows and their gradients 0; each sequence's "
-          f"out bit-equal to flash_attn_func on it alone, dq/dk/dv "
-          f"bit-equal in {n_exact} of {3 * len(VARLEN_PAD_LENS)} "
-          f"(the rest within 2 bf16 ulps)", flush=True)
+          f"out bit-equal to flash_attn_func on it alone, dq/dk/dv within "
+          f"the plain backward's gate on it alone and within 2^-7 of each "
+          f"row's RMS + 1e-3 of the tensor's of flash_attn_func's (worst row "
+          f"{worst:.3f} of its gate; "
+          f"bit-equal in {n_exact} of {3 * len(VARLEN_PAD_LENS)})",
+          flush=True)
     del out_b, lv_b
 
     # ---- (c): K5, K6, K7 against their plain versions
@@ -1195,9 +1297,11 @@ def phase_varlen(torch, flush):
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 3
 TRAIN_CHECK_B, TRAIN_CHECK_S = 1, 512
-TRAIN_LOSS_GATE = ("assert_close_rel(mult=2, atol=1e-5): kernel-path loss vs "
-                   "fp32-plain-attention loss within 2x the "
-                   "bf16-plain-attention loss' distance")
+TRAIN_LOSS_GATE = ("assert_close_rel(mult=2, atol=1e-5) over the tokens: "
+                   "each kernel-path token loss vs fp32-plain-attention's "
+                   "within 2x the bf16-plain-attention token losses' largest "
+                   "distance; the mean loss within max(2x the bf16 mean's "
+                   "distance + 1e-5, 3 x std(bf16 token errors) / sqrt(n))")
 
 
 def _kernel_counts(dfwd, dbwd):
@@ -1290,22 +1394,43 @@ def phase_train(torch, cfg):
     # shape, replayed through the plain versions
     cap = replay_layer0(torch, tm, dfwd, dbwd, tt, params, tokens, cfg)
 
-    # a small batch at full depth: the kernel-path loss against the same
-    # loss through the plain attention versions
+    # a small batch at full depth: each token's loss (loss_fn's terms) on
+    # the kernel path against the same through the plain attention
+    # versions; per token, since one bf16 reading of the mean loss is a
+    # yardstick that can fall near 0 by chance
     small = tokens[:TRAIN_CHECK_B, :TRAIN_CHECK_S + 1]
+
+    def token_losses():
+        logp = torch.log_softmax(tm.forward(params, small[:, :-1], cfg),
+                                 dim=-1)
+        return -logp.gather(-1, small[:, 1:, None].to(torch.long))[..., 0]
+
     with torch.no_grad():
-        loss_k = tm.loss_fn(params, small, cfg)
+        loss_k = token_losses()
         with _plain_attention(fa_mod, dfwd, dbwd, True):
-            loss32 = tm.loss_fn(params, small, cfg)
+            loss32 = token_losses()
         with _plain_attention(fa_mod, dfwd, dbwd, False):
-            loss16 = tm.loss_fn(params, small, cfg)
+            loss16 = token_losses()
     err, gate = gated(torch, loss_k, loss32, loss16,
-                      f"B {TRAIN_CHECK_B} x S {TRAIN_CHECK_S} loss", 2.0,
-                      1e-5)
-    print(f"train: B {TRAIN_CHECK_B} x S {TRAIN_CHECK_S} loss (full depth) "
-          f"kernel {float(loss_k):.6f}, plain fp32 {float(loss32):.6f}, "
-          f"plain bf16 {float(loss16):.6f}: err {err:.3e} <= gate {gate:.3e} "
-          f"({TRAIN_LOSS_GATE})", flush=True)
+                      f"B {TRAIN_CHECK_B} x S {TRAIN_CHECK_S} token losses",
+                      2.0, 1e-5)
+    # the mean loss too, against a shift of every token: its gate has a
+    # floor of 3 standard errors of the mean of the bf16 token errors, since
+    # the bf16 mean's own distance can fall near 0 by chance
+    means = [float(x.double().mean()) for x in (loss_k, loss32, loss16)]
+    e16 = (loss16 - loss32).double()
+    spread = 3.0 * float(e16.std()) / e16.numel() ** 0.5
+    mean_err = abs(means[0] - means[1])
+    mean_gate = max(2.0 * abs(means[2] - means[1]) + 1e-5, spread)
+    assert mean_err <= mean_gate, (
+        f"mean loss: err {mean_err:.3e} > gate {mean_gate:.3e}")
+    print(f"train: B {TRAIN_CHECK_B} x S {TRAIN_CHECK_S} token losses (full "
+          f"depth): max err {err:.3e} <= gate {gate:.3e}; mean kernel "
+          f"{means[0]:.6f}, plain fp32 {means[1]:.6f}, plain bf16 "
+          f"{means[2]:.6f}: err {mean_err:.3e} <= gate {mean_gate:.3e} "
+          f"(bf16 mean's distance {abs(means[2] - means[1]):.3e}, std "
+          f"{float(e16.std()):.3e} of {e16.numel()} bf16 token errors, "
+          f"floor {spread:.3e}) ({TRAIN_LOSS_GATE})", flush=True)
     return dict(launches=counts, step_ms=step_ms, tokens_s=tok_s,
                 peak_gb=peak_gb, losses=losses, profile=prof, replay=cap)
 
@@ -1881,8 +2006,9 @@ def main() -> int:
             ms=res["ms"], plain_ms=res["plain_ms"],
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=res["library_ms"])
-        if "ms_repeats" in res:
-            row["ms_repeats"] = res["ms_repeats"]
+        for key in ("ms_repeats", "occupancy"):
+            if key in res:
+                row[key] = res[key]
         if "oracle_err" in res:
             row["oracle_err"] = res["oracle_err"]
             row["library"] = "SDPA over the dequantized, pre-gathered KV"

@@ -18,30 +18,69 @@
 // P^T dO, dS^T Q), against Q/K/V/dO bytes read once per tile: far above
 // the ~295 flop/byte ridge.
 //
-// What the design does about it: K2 is q-centric, one block per (64-row q
-// tile, q head, batch row), looping over the key tiles its rows' intervals
-// touch; K3 is key-centric, one block per (key tile, kv head, batch row),
-// looping over the `group` q heads of its kv head and, for each, over the
-// live 64-row q tiles.  Each warp owns 16 rows of its block (q rows in K2,
-// key rows in K3), so a tile needs one block barrier, for its shared
-// operand loads.  Products run on WMMA 16x16x16 with fp32 accumulators kept
-// in shared memory.  Every output element is summed by one block in a fixed
-// order with no atomics, so the backward is bitwise deterministic.  Key
-// tiles are 64 wide up to D = 128 and 32 wide at D = 256 (shared memory).
+// What the design does about it (the FlashAttention-2 shape with Hopper's
+// warpgroup products; helpers in csrc/mma_sm90.cuh):
+//   * Work.  K2 is q-centric: one block of 4 warps per (64-row q tile, q
+//     head, batch row), each warp owning 16 q rows, looping over the key
+//     tiles its rows' intervals touch.  K3 is key-centric: one block of 4
+//     warps per (key tile, kv head, batch row), each warp owning 16 key
+//     rows (at D 256 two warps share them, each holding half of D), looping
+//     over the `group` q heads of its kv head and, for each, over the live
+//     q tiles.
+//   * Products.  At D 64 and 128 the 4 warps are one warpgroup and every
+//     product is a wgmma over the block's 64 rows: S = Q K^T and dP =
+//     dO V^T (K3: S^T = K Q^T, dP^T = V dO^T) with both operands read from
+//     shared memory, K-major; dQ += dS K (K3: dV += P_drop^T dO,
+//     dK += dS^T Q) with A from registers and B read MN-major through the
+//     transpose bit.  At D 32 and 256 each warp runs mma.sync m16n8k16 on
+//     its own rows, operands through ldmatrix.
+//   * Registers.  The accumulators (dQ in K2; dK and dV in K3) live in
+//     registers for the block's whole life and go to device memory once.
+//     S and dP of the current tile stay in the accumulator fragments; the
+//     score pass (mask, bias, exp, dropout, dS) runs on them, taking each
+//     element's (row, col) from the fragment layout, and P_drop and dS,
+//     rounded to the input type, are the A operands of the next products:
+//     the accumulator layout is the A layout, so nothing goes back to shared
+//     memory.
+//   * Shared memory.  The block's fixed operands (Q and dO in K2; K and V
+//     in K3) and a two-stage cp.async ring of the streamed ones (K, V and
+//     the dropout column words in K2; Q, dO, lse, delta and the dropout row
+//     words in K3).  Tiles are 128-byte swizzled for wgmma and padded by 16
+//     bytes a row for ldmatrix, so neither has bank conflicts.
+//   * In flight.  While a stage is computed on, the next tile's copies run;
+//     one block barrier a tile.
+//   * Masks.  Only tiles that straddle a row's causal/window edge or the
+//     ragged end of M or N run the per-element mask test.  ALiBi, softcap
+//     and dropout are compiled only into the kernel variant for the calls
+//     that use them.
+//   * Order.  The linear block index maps to the tile heaviest first under
+//     causal masking (K3's low key tiles, K2's high q tiles); the map is a
+//     permutation, so every tile is visited once under any mask.
+//   * Tiles (shared memory a block, 16-bit inputs, with 1 KB of alignment
+//     slack):
+//         D     K2: q rows x keys a step    K3: keys x q rows a step
+//         32    64 x 64  mma.sync (33 KB)   64 x 64  mma.sync (33 KB)
+//         64    64 x 64  wgmma    (51 KB)   64 x 64  wgmma    (51 KB)
+//         128   64 x 32  wgmma    (67 KB)   64 x 32  wgmma    (67 KB)
+//         256   64 x 32  mma.sync (135 KB)  32 x 32  mma.sync (102 KB)
+//   * Nothing is summed across blocks: every output element belongs to one
+//     block, which adds its terms in a fixed order, so two calls are
+//     bitwise equal.
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 #include <type_traits>
 
 #include "masks.cuh"
+#include "mma_sm90.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace fa::sm90;
 
-constexpr int kBQ = 64;  // q rows per tile (K2: per block; K3: per step)
+constexpr int kThreads = 128;   // 4 warps, both kernels
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
   const void* q;          // (B, M, Hq, D)
@@ -54,15 +93,20 @@ struct BwdArgs {
   void* dq;               // (B, M, Hq, D)
   void* dk;               // (B, N, Hk, D)
   void* dv;
-  int M, N, Hq, Hk, group, offset;
+  int B, M, N, Hq, Hk, group, offset;
   float scale;
   fa::MaskParams mp_;
   fa::DropoutParams dp;
 };
 
 template <int D>
-struct KeyTile {
-  static constexpr int BK = D <= 128 ? 64 : 32;
+struct Tiles {
+  static constexpr int kDqBQ = 64;                    // K2: q rows a block
+  static constexpr int kDqBK = D <= 64 ? 64 : 32;     // K2: keys a step
+  static constexpr int kKeyWarps = D <= 128 ? 4 : 2;  // K3: 16-key slabs
+  static constexpr int kSplit = 4 / kKeyWarps;        // K3: warps a slab
+  static constexpr int kDkvBK = 16 * kKeyWarps;       // K3: keys a block
+  static constexpr int kDkvBQ = D <= 64 ? 64 : 32;    // K3: q rows a step
 };
 
 // live keys of q row qp: [key_lo, key_hi]
@@ -77,6 +121,10 @@ struct Live {
   __device__ bool valid(int qp, int kp) const {
     return kp >= key_lo(qp) && kp <= key_hi(qp);
   }
+  // every key of [kp0, kp0 + nk) is live for every q row of [qp0, qp0 + nq)
+  __device__ bool full(int qp0, int nq, int kp0, int nk) const {
+    return key_lo(qp0 + nq - 1) <= kp0 && key_hi(qp0) >= kp0 + nk - 1;
+  }
 };
 
 __device__ __forceinline__ Live make_live(const BwdArgs& a) {
@@ -88,69 +136,191 @@ __device__ __forceinline__ Live make_live(const BwdArgs& a) {
   return lv;
 }
 
-// dS of one score; p_drop returned through *pd
-__device__ __forceinline__ float grad_score(float s_raw, float dp, int qp,
-                                            int kp, bool valid, float lse,
-                                            float delta, bool keep,
-                                            float slope, const BwdArgs& a,
-                                            float* pd) {
-  const float s = fa::score_bias(s_raw, qp + a.offset, kp, a.scale, slope,
-                                 a.mp_);
-  const float p = valid ? expf(fminf(s - lse, 0.0f)) : 0.0f;
-  const float p_drop = a.dp.enabled ? (keep ? p * a.dp.scale : 0.0f) : p;
-  float ds = (p_drop * dp - p * delta) * a.scale;
-  if (a.mp_.softcap > 0.0f) {
-    const float sn = s * (1.0f / a.mp_.softcap);
+// One score of a fragment: s holds S on entry and P_drop on return, dp
+// holds dO.V^T on entry and dS on return.
+template <bool MASK, bool EXTRA>
+__device__ __forceinline__ void grad_score(float& s, float& dp, int qp, int kp,
+                                           float lse, float delta,
+                                           uint32_t rw, uint32_t cw,
+                                           float slope, const Live& lv,
+                                           const BwdArgs& a) {
+  const float sb =
+      EXTRA ? fa::score_bias(s, qp + a.offset, kp, a.scale, slope, a.mp_)
+            : s * a.scale;
+  float p = exp2f(fminf(sb - lse, 0.0f) * kLog2e);
+  if (MASK && !(qp < a.M && lv.valid(qp, kp))) p = 0.0f;
+  float pd = p;
+  if (EXTRA && a.dp.enabled)
+    pd = fa::dropout_keep(rw, cw, a.dp) ? p * a.dp.scale : 0.0f;
+  float ds = (pd * dp - p * delta) * a.scale;
+  if (EXTRA && a.mp_.softcap > 0.0f) {
+    const float sn = sb * (1.0f / a.mp_.softcap);
     ds *= 1.0f - sn * sn;
   }
-  *pd = p_drop;
-  return ds;
+  s = pd;
+  dp = ds;
 }
 
-// C[16 x 16*NB] (fp32, smem, row stride ldc) (+)= A[16 x 16*KB] B, A row
-// major; B row or column major (B(k, n) at b[k * ldb + n] or b[k + n * ldb])
-template <typename T, typename LayoutB, int NB, int KB, bool ACC>
-__device__ __forceinline__ void warp_mma(const T* a, int lda, const T* b,
-                                         int ldb, float* c, int ldc) {
-  constexpr bool kColB = std::is_same<LayoutB, wmma::col_major>::value;
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (ACC)
-      wmma::load_matrix_sync(acc, c + nb * 16, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kb = 0; kb < KB; ++kb) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa_;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LayoutB> fb;
-      wmma::load_matrix_sync(fa_, a + kb * 16, lda);
-      wmma::load_matrix_sync(
-          fb, kColB ? b + nb * 16 * ldb + kb * 16 : b + kb * 16 * ldb + nb * 16,
-          ldb);
-      wmma::mma_sync(acc, fa_, fb, acc);
-    }
-    wmma::store_matrix_sync(c + nb * 16, acc, ldc, wmma::mem_row_major);
+// ------------------------------------------------------ the two products
+
+// The products of a block, on one of two paths with the same per-thread
+// accumulator layout (a warp's 16 rows in mma C fragments):
+//   abt: acc = A B^T, A the block's rows of tile a (R_A rows x D), B the N
+//        rows of tile b (N x D): S = Q K^T, S^T = K Q^T and the dP's;
+//   ab:  acc += A B, A this warp's rows in registers (k = the K rows of
+//        tile b), B the columns [n0, n0 + N) of tile b (K x D): dQ = dS K,
+//        dV = P_drop^T dO, dK = dS^T Q.
+// SyncPath (D 32 and 256): mma.sync, each warp its own 16 rows (a_row),
+// operands through ldmatrix from rows padded by 16 bytes.  WgPath (D 64 and
+// 128): wgmma, the block's four warps one warpgroup over all 64 rows of A,
+// B read by the tensor cores from 128-byte-swizzled tiles; a batch of
+// products starts with begin() and its results are readable after
+// commit_wait() and settle().
+
+template <typename T, int D>
+struct SyncPath {
+  static constexpr int LD = D + 8;
+  template <int R>
+  static constexpr size_t tile_bytes() {
+    return static_cast<size_t>(R) * LD * sizeof(T);
   }
+  template <int R>
+  __device__ static int chunk(int r, int c8) {
+    return (r * LD + c8 * 8) * static_cast<int>(sizeof(T));
+  }
+  __device__ static void copies_landed() {}
+  __device__ static void begin() {}
+  __device__ static void commit_wait() {}
+  template <int NB>
+  __device__ static void settle(float (&)[NB][4]) {}
+
+  template <int RA, int N>
+  __device__ static void abt(float (&acc)[N / 8][4], const unsigned char* a,
+                             int a_row, const unsigned char* b, int lane) {
+    const T* as = reinterpret_cast<const T*>(a) + a_row * LD;
+    const T* bs = reinterpret_cast<const T*>(b);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t af[4];
+      load_a<LD>(af, as + kk * 16, lane);
+#pragma unroll
+      for (int nb = 0; nb < N / 16; ++nb) {
+        uint32_t bf[4];
+        load_b_nk<LD>(bf, bs + nb * 16 * LD + kk * 16, lane);
+        mma16816<T>(acc[2 * nb], af, bf[0], bf[1]);
+        mma16816<T>(acc[2 * nb + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+
+  template <int K, int N>
+  __device__ static void ab(float (&acc)[N / 8][4],
+                            const uint32_t (&af)[K / 16][4],
+                            const unsigned char* b, int n0, int lane) {
+    const T* bs = reinterpret_cast<const T*>(b) + n0;
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < N / 16; ++nb) {
+        uint32_t bf[4];
+        load_b_kn<LD>(bf, bs + kk * 16 * LD + nb * 16, lane);
+        mma16816<T>(acc[2 * nb], af[kk], bf[0], bf[1]);
+        mma16816<T>(acc[2 * nb + 1], af[kk], bf[2], bf[3]);
+      }
+  }
+};
+
+template <typename T, int D>
+struct WgPath {
+  template <int R>
+  static constexpr size_t tile_bytes() {
+    return static_cast<size_t>(R) * D * sizeof(T);
+  }
+  template <int R>
+  __device__ static int chunk(int r, int c8) {
+    return sw128_chunk<R>(r, c8);
+  }
+  // this thread's cp.async writes, landed, made visible to wgmma
+  __device__ static void copies_landed() { fence_proxy_async(); }
+  __device__ static void begin() { wgmma_fence(); }
+  __device__ static void commit_wait() {
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  template <int NB>
+  __device__ static void settle(float (&acc)[NB][4]) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) fence_operand(acc[j][e]);
+  }
+
+  template <int RA, int N>
+  __device__ static void abt(float (&acc)[N / 8][4], const unsigned char* a,
+                             int, const unsigned char* b, int) {
+    static_assert(RA == 64, "one warpgroup: 64 rows of A");
+    const uint32_t sa = smem_u32(a), sb = smem_u32(b);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<N, T>::ss(&acc[0][0],
+                      sw128_desc(sa + (kk / 4) * RA * 128 + (kk % 4) * 32, 0,
+                                 1024),
+                      sw128_desc(sb + (kk / 4) * N * 128 + (kk % 4) * 32, 0,
+                                 1024),
+                      kk > 0);
+  }
+
+  template <int K, int N>
+  __device__ static void ab(float (&acc)[N / 8][4],
+                            const uint32_t (&af)[K / 16][4],
+                            const unsigned char* b, int, int) {
+    static_assert(N == D, "one warpgroup: all D columns");
+    const uint32_t sb = smem_u32(b);
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk)
+      Wgmma<N, T>::rs(&acc[0][0], af[kk],
+                      sw128_desc(sb + kk * 16 * 128, K * 128, 1024), 1);
+  }
+};
+
+template <typename T, int D>
+using PathOf = typename std::conditional<D == 64 || D == 128, WgPath<T, D>,
+                                         SyncPath<T, D>>::type;
+
+constexpr size_t align1k(size_t x) { return (x + 1023) / 1024 * 1024; }
+
+// the dynamic shared memory from its first 1024-byte boundary (swizzled
+// tiles need it; every layout below reserves the slack)
+__device__ __forceinline__ unsigned char* smem_base(unsigned char* smem) {
+  return smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
 }
 
-// one 16-bit row tile of `rows` rows from a (B, L, H, D) tensor at
-// (b, row0, h); rows at or past L are zero
-template <typename T, int D, int kThreads>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const void* src,
-                                          int b, int row0, int rows, int L,
-                                          int H, int h) {
+// ROWS rows of a (B, L, H, D) tensor at (b, row0, h) into a tile in P's
+// layout, 16 bytes a copy; rows at or past L are zero
+template <typename T, int D, int ROWS, class P>
+__device__ __forceinline__ void load_tile_async(unsigned char* dst,
+                                                const void* src, int b,
+                                                int row0, int L, int H,
+                                                int h) {
+  constexpr int kChunks = D / 8;
+  constexpr int kTotal = ROWS * kChunks;
   const T* g = static_cast<const T*>(src);
-  for (int idx = threadIdx.x; idx < rows * (D / 8); idx += kThreads) {
-    const int r = idx / (D / 8);
-    const int d8 = (idx % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < L) {
-      const long long off =
-          ((static_cast<long long>(b) * L + row0 + r) * H + h) * D + d8;
-      val = *reinterpret_cast<const uint4*>(g + off);
+#pragma unroll
+  for (int i = 0; i < (kTotal + kThreads - 1) / kThreads; ++i) {
+    const int idx = i * kThreads + threadIdx.x;
+    if (kTotal % kThreads == 0 || idx < kTotal) {
+      const int r = idx / kChunks;
+      const int c8 = idx % kChunks;
+      const bool in = row0 + r < L;
+      const T* p = in ? g + ((static_cast<long long>(b) * L + row0 + r) * H +
+                             h) * D + c8 * 8
+                      : g;
+      cp_async16(dst + P::template chunk<ROWS>(r, c8), p, in);
     }
-    *reinterpret_cast<uint4*>(dst + r * ld + d8) = val;
   }
 }
 
@@ -158,118 +328,142 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const void* src,
 
 template <typename T, int D>
 struct DqSmem {
-  static constexpr int BK = KeyTile<D>::BK;
-  static constexpr int DQ = D + 8;
-  static constexpr int SP = BK + 4;
-  static constexpr int PP = BK + 8;
-  static constexpr int OP = D + 4;
+  using P = PathOf<T, D>;
+  static constexpr int BQ = Tiles<D>::kDqBQ, BK = Tiles<D>::kDqBK;
   static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + sizeof(T) * kBQ * DQ;
-  static constexpr size_t k_off = do_off + sizeof(T) * kBQ * DQ;
-  static constexpr size_t v_off = k_off + sizeof(T) * BK * DQ;
-  static constexpr size_t s_off = v_off + sizeof(T) * BK * DQ;
-  static constexpr size_t dp_off = s_off + sizeof(float) * kBQ * SP;
-  static constexpr size_t ds_off = dp_off + sizeof(float) * kBQ * SP;
-  static constexpr size_t acc_off = ds_off + sizeof(T) * kBQ * PP;
-  static constexpr size_t lse_off = acc_off + sizeof(float) * kBQ * OP;
-  static constexpr size_t delta_off = lse_off + sizeof(float) * kBQ;
-  static constexpr size_t rw_off = delta_off + sizeof(float) * kBQ;
-  static constexpr size_t cw_off = rw_off + sizeof(uint32_t) * kBQ;
-  static constexpr size_t bytes = cw_off + sizeof(uint32_t) * BK;
+  static constexpr size_t do_off = P::template tile_bytes<BQ>();
+  static constexpr size_t stage_off = align1k(2 * do_off);
+  // a stage: the K and V tiles and the dropout column words
+  static constexpr size_t k_off = 0;
+  static constexpr size_t v_off = P::template tile_bytes<BK>();
+  static constexpr size_t cw_off = 2 * v_off;
+  static constexpr size_t stage_bytes = align1k(cw_off + sizeof(uint32_t) * BK);
+  static constexpr size_t bytes = stage_off + 2 * stage_bytes + 1024;
 };
 
-constexpr int kDqThreads = (kBQ / 16) * 32;
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kDqThreads) dq_kernel(BwdArgs a) {
+template <typename T, int D, bool EXTRA>
+__global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   using L = DqSmem<T, D>;
-  constexpr int BK = L::BK, DQ = L::DQ, SP = L::SP, PP = L::PP, OP = L::OP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem + L::q_off);
-  T* do_s = reinterpret_cast<T*>(smem + L::do_off);
-  T* k_s = reinterpret_cast<T*>(smem + L::k_off);
-  T* v_s = reinterpret_cast<T*>(smem + L::v_off);
-  float* s_s = reinterpret_cast<float*>(smem + L::s_off);
-  float* dp_s = reinterpret_cast<float*>(smem + L::dp_off);
-  T* ds_s = reinterpret_cast<T*>(smem + L::ds_off);
-  float* acc_s = reinterpret_cast<float*>(smem + L::acc_off);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta_off);
-  uint32_t* rw_s = reinterpret_cast<uint32_t*>(smem + L::rw_off);
-  uint32_t* cw_s = reinterpret_cast<uint32_t*>(smem + L::cw_off);
+  using P = typename L::P;
+  constexpr int BQ = L::BQ, BK = L::BK;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_base(smem_raw);
+  unsigned char* q_s = smem + L::q_off;
+  unsigned char* do_s = smem + L::do_off;
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int qp0 = blockIdx.x * kBQ;
-  const int nq = min(kBQ, a.M - qp0);
+  // heaviest first: q tiles from the last (under causal masking a later q
+  // tile sees more keys), each over all heads and batch rows
+  const int n_tiles = (a.M + BQ - 1) / BQ;
+  const int hb = blockIdx.x % (a.Hq * a.B);
+  const int h = hb % a.Hq;
+  const int b = hb / a.Hq;
+  const int qp0 =
+      (n_tiles - 1 - static_cast<int>(blockIdx.x) / (a.Hq * a.B)) * BQ;
+  const int nq = min(BQ, a.M - qp0);
   const int kvh = h / a.group;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4;   // this thread's rows: r0, r0 + 8
   const Live lv = make_live(a);
+  const bool drop = EXTRA && a.dp.enabled;
+  const float slope = EXTRA && a.slopes ? a.slopes[b * a.Hq + h] : 0.0f;
+  const uint32_t bh = fa::dropout_bh(b, h, a.dp);
+  int qp[2];
+  float lse[2], delta[2];
+  uint32_t rw[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    qp[i] = qp0 + r;
+    const long long row = (static_cast<long long>(b) * a.Hq + h) * a.M + qp[i];
+    lse[i] = r < nq ? a.lse[row] : 0.0f;
+    delta[i] = r < nq ? a.delta[row] : 0.0f;
+    if (drop) rw[i] = fa::dropout_row_word(qp[i] + a.dp.q0, bh, a.dp);
+  }
   const int blk_lo = lv.key_lo(qp0);
   const int blk_hi = lv.key_hi(qp0 + nq - 1);
-  const float slope = a.slopes ? a.slopes[b * a.Hq + h] : 0.0f;
-  const bool drop = a.dp.enabled != 0;
-  const uint32_t bh = fa::dropout_bh(b, h, a.dp);
+  const int kt0 = blk_lo / BK;
+  const int n_steps = blk_hi >= blk_lo ? blk_hi / BK - kt0 + 1 : 0;
 
-  load_rows<T, D, kDqThreads>(q_s, DQ, a.q, b, qp0, kBQ, a.M, a.Hq, h);
-  load_rows<T, D, kDqThreads>(do_s, DQ, a.dout, b, qp0, kBQ, a.M, a.Hq, h);
-  for (int r = threadIdx.x; r < kBQ; r += kDqThreads) {
-    const long long row = (static_cast<long long>(b) * a.Hq + h) * a.M + qp0 + r;
-    lse_s[r] = r < nq ? a.lse[row] : 0.0f;
-    delta_s[r] = r < nq ? a.delta[row] : 0.0f;
-    if (drop) rw_s[r] = fa::dropout_row_word(qp0 + r + a.dp.q0, bh, a.dp);
-  }
-  for (int e = lane; e < 16 * OP; e += 32) acc_s[warp * 16 * OP + e] = 0.0f;
+  float dq[D / 8][4] = {};
 
-  if (blk_hi >= blk_lo) {
-    for (int k0 = (blk_lo / BK) * BK; k0 <= blk_hi; k0 += BK) {
-      __syncthreads();  // previous tile consumed; q/do/lse/delta ready
-      load_rows<T, D, kDqThreads>(k_s, DQ, a.k, b, k0, BK, a.N, a.Hk, kvh);
-      load_rows<T, D, kDqThreads>(v_s, DQ, a.v, b, k0, BK, a.N, a.Hk, kvh);
-      if (drop)
-        for (int c = threadIdx.x; c < BK; c += kDqThreads)
-          cw_s[c] = fa::dropout_col_word(k0 + c + a.dp.k0, bh, a.dp);
-      __syncthreads();
+  auto prefetch = [&](int s) {
+    unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
+    const int k0 = (kt0 + s) * BK;
+    load_tile_async<T, D, BK, P>(st + L::k_off, a.k, b, k0, a.N, a.Hk, kvh);
+    load_tile_async<T, D, BK, P>(st + L::v_off, a.v, b, k0, a.N, a.Hk, kvh);
+    cp_async_commit();
+    if (drop) {
+      uint32_t* cw = reinterpret_cast<uint32_t*>(st + L::cw_off);
+      for (int c = threadIdx.x; c < BK; c += kThreads)
+        cw[c] = fa::dropout_col_word(k0 + c + a.dp.k0, bh, a.dp);
+    }
+  };
 
-      // S = Q K^T and dP = dO V^T for this warp's 16 rows
-      warp_mma<T, wmma::col_major, BK / 16, D / 16, false>(
-          q_s + warp * 16 * DQ, DQ, k_s, DQ, s_s + warp * 16 * SP, SP);
-      warp_mma<T, wmma::col_major, BK / 16, D / 16, false>(
-          do_s + warp * 16 * DQ, DQ, v_s, DQ, dp_s + warp * 16 * SP, SP);
-      __syncwarp();
+  if (n_steps > 0) {
+    load_tile_async<T, D, BQ, P>(q_s, a.q, b, qp0, a.M, a.Hq, h);
+    load_tile_async<T, D, BQ, P>(do_s, a.dout, b, qp0, a.M, a.Hq, h);
+    prefetch(0);   // one group: Q, dO and the first K/V stage
+    for (int s = 0; s < n_steps; ++s) {
+      cp_async_wait<0>();
+      P::copies_landed();
+      __syncthreads();   // stage s landed for all; stage s + 1 is free
+      if (s + 1 < n_steps) prefetch(s + 1);
+      const unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
+      const unsigned char* k_s = st + L::k_off;
+      const uint32_t* cw_s = reinterpret_cast<const uint32_t*>(st + L::cw_off);
+      const int k0 = (kt0 + s) * BK;
 
-      for (int i = 0; i < 16; ++i) {
-        const int r = warp * 16 + i;
-        const int qp = qp0 + r;
-        for (int c = lane; c < BK; c += 32) {
-          const int kp = k0 + c;
-          const bool valid = r < nq && lv.valid(qp, kp);
-          const bool keep = drop && fa::dropout_keep(rw_s[r], cw_s[c], a.dp);
-          float pd;
-          const float ds = grad_score(s_s[r * SP + c], dp_s[r * SP + c], qp,
-                                      kp, valid, lse_s[r], delta_s[r], keep,
-                                      slope, a, &pd);
-          ds_s[r * PP + c] = fa::from_float<T>(ds);
-        }
-      }
-      __syncwarp();
+      // S = Q K^T and dP = dO V^T
+      float sc[BK / 8][4], dp[BK / 8][4];
+      P::begin();
+      P::template abt<BQ, BK>(sc, q_s, warp * 16, k_s, lane);
+      P::template abt<BQ, BK>(dp, do_s, warp * 16, st + L::v_off, lane);
+      P::commit_wait();
+      P::settle(sc);
+      P::settle(dp);
+
+      // dS in place of dP, from the fragments' (row, col)
+      auto scores = [&](auto masked) {
+        constexpr bool MASK = decltype(masked)::value;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e / 2;
+            const int c = j * 8 + (lane % 4) * 2 + e % 2;
+            grad_score<MASK, EXTRA>(sc[j][e], dp[j][e], qp[i], k0 + c, lse[i],
+                                    delta[i], rw[i], drop ? cw_s[c] : 0u,
+                                    slope, lv, a);
+          }
+      };
+      if (nq == BQ && lv.full(qp0, BQ, k0, BK))
+        scores(std::false_type{});
+      else
+        scores(std::true_type{});
 
       // dQ += dS K
-      warp_mma<T, wmma::row_major, D / 16, BK / 16, true>(
-          ds_s + warp * 16 * PP, PP, k_s, DQ, acc_s + warp * 16 * OP, OP);
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        pack_a<T>(da[kk], dp[2 * kk], dp[2 * kk + 1]);
+      P::begin();
+      P::template ab<BK, D>(dq, da, k_s, 0, lane);
+      P::commit_wait();
     }
+    P::settle(dq);
   }
-  __syncwarp();
 
   T* dqg = static_cast<T*>(a.dq);
-  for (int i = 0; i < 16; ++i) {
-    const int r = warp * 16 + i;
-    if (r >= nq) continue;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (r0 + 8 * i >= nq) continue;
     const long long row =
-        (static_cast<long long>(b) * a.M + qp0 + r) * a.Hq + h;
-    for (int d = lane; d < D; d += 32)
-      dqg[row * D + d] = fa::from_float<T>(acc_s[r * OP + d]);
+        (static_cast<long long>(b) * a.M + qp[i]) * a.Hq + h;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<uint32_t*>(dqg + row * D + nb * 8 + (lane % 4) * 2) =
+          pack2<T>(dq[nb][2 * i], dq[nb][2 * i + 1]);
   }
 }
 
@@ -277,190 +471,224 @@ __global__ void __launch_bounds__(kDqThreads) dq_kernel(BwdArgs a) {
 
 template <typename T, int D>
 struct DkvSmem {
-  static constexpr int BK = KeyTile<D>::BK;
-  static constexpr int DQ = D + 8;
-  static constexpr int SP = kBQ + 4;
-  static constexpr int PP = kBQ + 8;
-  static constexpr int OP = D + 4;
+  using P = PathOf<T, D>;
+  static constexpr int BK = Tiles<D>::kDkvBK, BQ = Tiles<D>::kDkvBQ;
   static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + sizeof(T) * BK * DQ;
-  static constexpr size_t q_off = v_off + sizeof(T) * BK * DQ;
-  static constexpr size_t do_off = q_off + sizeof(T) * kBQ * DQ;
-  static constexpr size_t st_off = do_off + sizeof(T) * kBQ * DQ;
-  static constexpr size_t dpt_off = st_off + sizeof(float) * BK * SP;
-  static constexpr size_t pt_off = dpt_off + sizeof(float) * BK * SP;
-  static constexpr size_t dst_off = pt_off + sizeof(T) * BK * PP;
-  static constexpr size_t dk_off = dst_off + sizeof(T) * BK * PP;
-  static constexpr size_t dv_off = dk_off + sizeof(float) * BK * OP;
-  static constexpr size_t lse_off = dv_off + sizeof(float) * BK * OP;
-  static constexpr size_t delta_off = lse_off + sizeof(float) * kBQ;
-  static constexpr size_t rw_off = delta_off + sizeof(float) * kBQ;
-  static constexpr size_t cw_off = rw_off + sizeof(uint32_t) * kBQ;
-  static constexpr size_t bytes = cw_off + sizeof(uint32_t) * BK;
+  static constexpr size_t v_off = P::template tile_bytes<BK>();
+  static constexpr size_t stage_off = align1k(2 * v_off);
+  // a stage: the Q and dO tiles, lse, delta and the dropout row words
+  static constexpr size_t q_off = 0;
+  static constexpr size_t do_off = P::template tile_bytes<BQ>();
+  static constexpr size_t lse_off = 2 * do_off;
+  static constexpr size_t delta_off = lse_off + sizeof(float) * BQ;
+  static constexpr size_t rw_off = delta_off + sizeof(float) * BQ;
+  static constexpr size_t stage_bytes = align1k(rw_off + sizeof(uint32_t) * BQ);
+  static constexpr size_t bytes = stage_off + 2 * stage_bytes + 1024;
 };
 
-template <int D>
-struct DkvThreads {
-  static constexpr int value = (KeyTile<D>::BK / 16) * 32;
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(DkvThreads<D>::value) dkv_kernel(BwdArgs a) {
+template <typename T, int D, bool EXTRA>
+__global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
   using L = DkvSmem<T, D>;
-  constexpr int BK = L::BK, DQ = L::DQ, SP = L::SP, PP = L::PP, OP = L::OP;
-  constexpr int kThreads = DkvThreads<D>::value;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem + L::k_off);
-  T* v_s = reinterpret_cast<T*>(smem + L::v_off);
-  T* q_s = reinterpret_cast<T*>(smem + L::q_off);
-  T* do_s = reinterpret_cast<T*>(smem + L::do_off);
-  float* st_s = reinterpret_cast<float*>(smem + L::st_off);
-  float* dpt_s = reinterpret_cast<float*>(smem + L::dpt_off);
-  T* pt_s = reinterpret_cast<T*>(smem + L::pt_off);
-  T* dst_s = reinterpret_cast<T*>(smem + L::dst_off);
-  float* dk_s = reinterpret_cast<float*>(smem + L::dk_off);
-  float* dv_s = reinterpret_cast<float*>(smem + L::dv_off);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta_off);
-  uint32_t* rw_s = reinterpret_cast<uint32_t*>(smem + L::rw_off);
-  uint32_t* cw_s = reinterpret_cast<uint32_t*>(smem + L::cw_off);
+  using P = typename L::P;
+  constexpr int BK = L::BK, BQ = L::BQ;
+  constexpr int kKeyWarps = Tiles<D>::kKeyWarps;
+  constexpr int DW = D / Tiles<D>::kSplit;   // dK/dV columns a warp holds
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_base(smem_raw);
+  unsigned char* k_s = smem + L::k_off;
+  unsigned char* v_s = smem + L::v_off;
 
-  const int b = blockIdx.z;
-  const int kvh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
+  // heaviest first: key tiles from the first (under causal masking an
+  // earlier key tile is seen by more q rows), each over all kv heads and
+  // batch rows
+  const int hb = blockIdx.x % (a.Hk * a.B);
+  const int kvh = hb % a.Hk;
+  const int b = hb / a.Hk;
+  const int k0 = static_cast<int>(blockIdx.x) / (a.Hk * a.B) * BK;
   const int nk = min(BK, a.N - k0);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int kr0 = (warp % kKeyWarps) * 16;   // this warp's 16 key rows
+  const int d0 = (warp / kKeyWarps) * DW;    // and its dK/dV columns
+  const int kp = k0 + kr0 + lane / 4;        // this thread's keys: kp, kp + 8
   const Live lv = make_live(a);
-  const bool drop = a.dp.enabled != 0;
+  const bool drop = EXTRA && a.dp.enabled;
   // q rows that see any key of this tile: [q_lo, q_hi]
   const int k_last = k0 + nk - 1;
   const int q_lo = lv.wr >= 0 ? max(0, k0 - lv.offs - lv.wr) : 0;
   const int q_hi = lv.wl >= 0 ? min(a.M - 1, k_last - lv.offs + lv.wl)
                               : a.M - 1;
+  const int qt0 = q_lo / BQ;
+  const int n_qt = q_hi >= q_lo ? q_hi / BQ - qt0 + 1 : 0;
+  const int n_steps = a.group * n_qt;   // (q head, q tile), head-major
 
-  load_rows<T, D, kThreads>(k_s, DQ, a.k, b, k0, BK, a.N, a.Hk, kvh);
-  load_rows<T, D, kThreads>(v_s, DQ, a.v, b, k0, BK, a.N, a.Hk, kvh);
-  for (int e = lane; e < 16 * OP; e += 32) {
-    dk_s[warp * 16 * OP + e] = 0.0f;
-    dv_s[warp * 16 * OP + e] = 0.0f;
-  }
+  float dk[DW / 8][4] = {}, dv[DW / 8][4] = {};
 
-  for (int g = 0; g < a.group && q_hi >= q_lo; ++g) {
-    const int h = kvh * a.group + g;
-    const float slope = a.slopes ? a.slopes[b * a.Hq + h] : 0.0f;
-    const uint32_t bh = fa::dropout_bh(b, h, a.dp);
-    for (int t0 = (q_lo / kBQ) * kBQ; t0 <= q_hi; t0 += kBQ) {
-      __syncthreads();  // previous tile consumed; k/v ready
-      load_rows<T, D, kThreads>(q_s, DQ, a.q, b, t0, kBQ, a.M, a.Hq, h);
-      load_rows<T, D, kThreads>(do_s, DQ, a.dout, b, t0, kBQ, a.M, a.Hq, h);
-      for (int c = threadIdx.x; c < kBQ; c += kThreads) {
-        const long long row =
-            (static_cast<long long>(b) * a.Hq + h) * a.M + t0 + c;
-        const bool in = t0 + c < a.M;
-        lse_s[c] = in ? a.lse[row] : 0.0f;
-        delta_s[c] = in ? a.delta[row] : 0.0f;
-        if (drop) rw_s[c] = fa::dropout_row_word(t0 + c + a.dp.q0, bh, a.dp);
-      }
-      if (drop)
-        for (int kk = threadIdx.x; kk < BK; kk += kThreads)
-          cw_s[kk] = fa::dropout_col_word(k0 + kk + a.dp.k0, bh, a.dp);
-      __syncthreads();
+  auto prefetch = [&](int s) {
+    unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
+    const int h = kvh * a.group + s / n_qt;
+    const int t0 = (qt0 + s % n_qt) * BQ;
+    load_tile_async<T, D, BQ, P>(st + L::q_off, a.q, b, t0, a.M, a.Hq, h);
+    load_tile_async<T, D, BQ, P>(st + L::do_off, a.dout, b, t0, a.M, a.Hq, h);
+    const long long base = (static_cast<long long>(b) * a.Hq + h) * a.M + t0;
+    float* lse = reinterpret_cast<float*>(st + L::lse_off);
+    float* delta = reinterpret_cast<float*>(st + L::delta_off);
+    for (int c = threadIdx.x; c < BQ; c += kThreads) {
+      const bool in = t0 + c < a.M;
+      cp_async4(lse + c, in ? a.lse + base + c : a.lse, in);
+      cp_async4(delta + c, in ? a.delta + base + c : a.delta, in);
+    }
+    cp_async_commit();
+    if (drop) {
+      uint32_t* rw = reinterpret_cast<uint32_t*>(st + L::rw_off);
+      const uint32_t bh = fa::dropout_bh(b, h, a.dp);
+      for (int c = threadIdx.x; c < BQ; c += kThreads)
+        rw[c] = fa::dropout_row_word(t0 + c + a.dp.q0, bh, a.dp);
+    }
+  };
 
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 key rows
-      warp_mma<T, wmma::col_major, kBQ / 16, D / 16, false>(
-          k_s + warp * 16 * DQ, DQ, q_s, DQ, st_s + warp * 16 * SP, SP);
-      warp_mma<T, wmma::col_major, kBQ / 16, D / 16, false>(
-          v_s + warp * 16 * DQ, DQ, do_s, DQ, dpt_s + warp * 16 * SP, SP);
-      __syncwarp();
-
-      for (int i = 0; i < 16; ++i) {
-        const int kr = warp * 16 + i;
-        const int kp = k0 + kr;
-        for (int c = lane; c < kBQ; c += 32) {
-          const int qp = t0 + c;
-          const bool valid = kr < nk && qp < a.M && lv.valid(qp, kp);
-          const bool keep = drop && fa::dropout_keep(rw_s[c], cw_s[kr], a.dp);
-          float pd;
-          const float ds = grad_score(st_s[kr * SP + c], dpt_s[kr * SP + c],
-                                      qp, kp, valid, lse_s[c], delta_s[c],
-                                      keep, slope, a, &pd);
-          pt_s[kr * PP + c] = fa::from_float<T>(pd);
-          dst_s[kr * PP + c] = fa::from_float<T>(ds);
+  if (n_steps > 0) {
+    load_tile_async<T, D, BK, P>(k_s, a.k, b, k0, a.N, a.Hk, kvh);
+    load_tile_async<T, D, BK, P>(v_s, a.v, b, k0, a.N, a.Hk, kvh);
+    prefetch(0);   // one group: K, V and the first Q/dO stage
+    int cur_h = -1;
+    float slope = 0.0f;
+    uint32_t cw[2] = {0u, 0u};
+    for (int s = 0; s < n_steps; ++s) {
+      cp_async_wait<0>();
+      P::copies_landed();
+      __syncthreads();   // stage s landed for all; stage s + 1 is free
+      if (s + 1 < n_steps) prefetch(s + 1);
+      const int h = kvh * a.group + s / n_qt;
+      const int t0 = (qt0 + s % n_qt) * BQ;
+      if (EXTRA && h != cur_h) {
+        cur_h = h;
+        slope = a.slopes ? a.slopes[b * a.Hq + h] : 0.0f;
+        if (drop) {
+          const uint32_t bh = fa::dropout_bh(b, h, a.dp);
+          cw[0] = fa::dropout_col_word(kp + a.dp.k0, bh, a.dp);
+          cw[1] = fa::dropout_col_word(kp + 8 + a.dp.k0, bh, a.dp);
         }
       }
-      __syncwarp();
+      const unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
+      const unsigned char* q_s = st + L::q_off;
+      const unsigned char* do_s = st + L::do_off;
+      const float* lse_s = reinterpret_cast<const float*>(st + L::lse_off);
+      const float* delta_s = reinterpret_cast<const float*>(st + L::delta_off);
+      const uint32_t* rw_s = reinterpret_cast<const uint32_t*>(st + L::rw_off);
 
-      // dV += P_drop^T dO, dK += dS^T Q
-      warp_mma<T, wmma::row_major, D / 16, kBQ / 16, true>(
-          pt_s + warp * 16 * PP, PP, do_s, DQ, dv_s + warp * 16 * OP, OP);
-      warp_mma<T, wmma::row_major, D / 16, kBQ / 16, true>(
-          dst_s + warp * 16 * PP, PP, q_s, DQ, dk_s + warp * 16 * OP, OP);
+      // S^T = K Q^T and dP^T = V dO^T
+      float sc[BQ / 8][4], dp[BQ / 8][4];
+      P::begin();
+      P::template abt<BK, BQ>(sc, k_s, kr0, q_s, lane);
+      P::template abt<BK, BQ>(dp, v_s, kr0, do_s, lane);
+      P::commit_wait();
+      P::settle(sc);
+      P::settle(dp);
+
+      // P_drop^T in place of S^T and dS^T in place of dP^T
+      auto scores = [&](auto masked) {
+        constexpr bool MASK = decltype(masked)::value;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e / 2;
+            const int c = j * 8 + (lane % 4) * 2 + e % 2;
+            grad_score<MASK, EXTRA>(sc[j][e], dp[j][e], t0 + c, kp + 8 * i,
+                                    lse_s[c], delta_s[c],
+                                    drop ? rw_s[c] : 0u, cw[i], slope, lv, a);
+          }
+      };
+      if (t0 + BQ <= a.M && nk == BK && lv.full(t0, BQ, k0, BK))
+        scores(std::false_type{});
+      else
+        scores(std::true_type{});
+
+      // dV += P_drop^T dO and dK += dS^T Q on this warp's columns
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        pack_a<T>(pa[kk], sc[2 * kk], sc[2 * kk + 1]);
+        pack_a<T>(da[kk], dp[2 * kk], dp[2 * kk + 1]);
+      }
+      P::begin();
+      P::template ab<BQ, DW>(dv, pa, do_s, d0, lane);
+      P::template ab<BQ, DW>(dk, da, q_s, d0, lane);
+      P::commit_wait();
     }
+    P::settle(dk);
+    P::settle(dv);
   }
-  __syncwarp();
 
   T* dkg = static_cast<T*>(a.dk);
   T* dvg = static_cast<T*>(a.dv);
-  for (int i = 0; i < 16; ++i) {
-    const int kr = warp * 16 + i;
-    if (kr >= nk) continue;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kp + 8 * i - k0 >= nk) continue;
     const long long row =
-        (static_cast<long long>(b) * a.N + k0 + kr) * a.Hk + kvh;
-    for (int d = lane; d < D; d += 32) {
-      dkg[row * D + d] = fa::from_float<T>(dk_s[kr * OP + d]);
-      dvg[row * D + d] = fa::from_float<T>(dv_s[kr * OP + d]);
+        ((static_cast<long long>(b) * a.N + kp + 8 * i) * a.Hk + kvh) * D + d0 +
+        (lane % 4) * 2;
+#pragma unroll
+    for (int nb = 0; nb < DW / 8; ++nb) {
+      *reinterpret_cast<uint32_t*>(dkg + row + nb * 8) =
+          pack2<T>(dk[nb][2 * i], dk[nb][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dvg + row + nb * 8) =
+          pack2<T>(dv[nb][2 * i], dv[nb][2 * i + 1]);
     }
   }
 }
 
 // ---------------------------------------------------------------- launch
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes, bool* configured) {
-  if (*configured) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (e == cudaSuccess) *configured = true;
-  return e;
+// one kernel variant: its entry, dynamic shared memory a block and rows a
+// block (key rows in K3, q rows in K2)
+struct Kernel {
+  void (*fn)(BwdArgs);
+  int smem;
+  int rows;
+};
+
+// the variant, its shared-memory limit set on first use
+template <bool DKV, typename T, int D, bool EXTRA>
+cudaError_t variant(Kernel* k) {
+  k->fn = DKV ? dkv_kernel<T, D, EXTRA> : dq_kernel<T, D, EXTRA>;
+  k->smem = static_cast<int>(DKV ? DkvSmem<T, D>::bytes
+                                : DqSmem<T, D>::bytes);
+  k->rows = DKV ? DkvSmem<T, D>::BK : DqSmem<T, D>::BQ;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        k->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k->smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int D>
-cudaError_t launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
-  static bool configured = false;
-  const size_t smem = DqSmem<T, D>::bytes;
-  cudaError_t e = set_smem(dq_kernel<T, D>, smem, &configured);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.M + kBQ - 1) / kBQ, a.Hq, B);
-  dq_kernel<T, D><<<grid, kDqThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const BwdArgs& a, int B, cudaStream_t stream) {
-  static bool configured = false;
-  const size_t smem = DkvSmem<T, D>::bytes;
-  cudaError_t e = set_smem(dkv_kernel<T, D>, smem, &configured);
-  if (e != cudaSuccess) return e;
-  constexpr int BK = KeyTile<D>::BK;
-  dim3 grid((a.N + BK - 1) / BK, a.Hk, B);
-  dkv_kernel<T, D><<<grid, DkvThreads<D>::value, smem, stream>>>(a);
-  return cudaGetLastError();
+cudaError_t variant_d(bool dkv, bool extra, Kernel* k) {
+  if (dkv)
+    return extra ? variant<true, T, D, true>(k) : variant<true, T, D, false>(k);
+  return extra ? variant<false, T, D, true>(k) : variant<false, T, D, false>(k);
 }
 
 template <typename T>
-cudaError_t dispatch(bool dkv, int D, const BwdArgs& a, int B,
-                     cudaStream_t s) {
+cudaError_t find_t(bool dkv, bool extra, int D, Kernel* k) {
   switch (D) {
-    case 32: return dkv ? launch_dkv<T, 32>(a, B, s) : launch_dq<T, 32>(a, B, s);
-    case 64: return dkv ? launch_dkv<T, 64>(a, B, s) : launch_dq<T, 64>(a, B, s);
-    case 128:
-      return dkv ? launch_dkv<T, 128>(a, B, s) : launch_dq<T, 128>(a, B, s);
-    case 256:
-      return dkv ? launch_dkv<T, 256>(a, B, s) : launch_dq<T, 256>(a, B, s);
+    case 32: return variant_d<T, 32>(dkv, extra, k);
+    case 64: return variant_d<T, 64>(dkv, extra, k);
+    case 128: return variant_d<T, 128>(dkv, extra, k);
+    case 256: return variant_d<T, 256>(dkv, extra, k);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// dtype 0 = bf16, 1 = fp16
+cudaError_t find_variant(bool dkv, int dtype, bool extra, int D,
+                         Kernel* k) {
+  return dtype == 0 ? find_t<__nv_bfloat16>(dkv, extra, D, k)
+                    : find_t<__half>(dkv, extra, D, k);
 }
 
 int launch(bool dkv, int dtype, const void* q, const void* k, const void* v,
@@ -477,7 +705,7 @@ int launch(bool dkv, int dtype, const void* q, const void* k, const void* v,
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
   a.slopes = has_alibi ? slopes : nullptr;
   a.dq = dq; a.dk = dk; a.dv = dv;
-  a.M = M; a.N = N; a.Hq = Hq; a.Hk = Hk; a.group = Hq / Hk;
+  a.B = B; a.M = M; a.N = N; a.Hq = Hq; a.Hk = Hk; a.group = Hq / Hk;
   a.offset = offset; a.scale = scale;
   a.mp_.causal = causal; a.mp_.window_left = window_left;
   a.mp_.window_right = window_right; a.mp_.softcap = softcap;
@@ -486,10 +714,14 @@ int launch(bool dkv, int dtype, const void* q, const void* k, const void* v,
   a.dp.threshold = threshold; a.dp.scale = drop_scale;
   a.dp.q0 = q0; a.dp.k0 = k0; a.dp.b0 = b0; a.dp.h0 = h0;
   a.dp.num_heads = num_heads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dtype == 0 ? dispatch<__nv_bfloat16>(dkv, D, a, B, s)
-                             : dispatch<__half>(dkv, D, a, B, s);
-  return static_cast<int>(e);
+  Kernel kn;
+  cudaError_t e = find_variant(
+      dkv, dtype, has_alibi || softcap > 0.0f || dropout, D, &kn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = ((dkv ? N : M) + kn.rows - 1) / kn.rows;
+  kn.fn<<<tiles * (dkv ? Hk : Hq) * B, kThreads, kn.smem,
+          static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -512,3 +744,23 @@ int launch(bool dkv, int dtype, const void* q, const void* k, const void* v,
 // K2 writes dq (dk, dv unused); K3 writes dk and dv (dq unused).
 extern "C" int fa_dq_launch(FA_BWD_PARAMS) { return launch(false, FA_BWD_ARGS); }
 extern "C" int fa_dkv_launch(FA_BWD_PARAMS) { return launch(true, FA_BWD_ARGS); }
+
+// The occupancy of K2 (dkv 0) or K3 (dkv 1) for (dtype, D), in the variant
+// without bias and dropout (extra 0) or with (extra 1): out[0] resident
+// blocks a multiprocessor, out[1] dynamic shared memory a block (bytes),
+// out[2] threads a block, out[3] registers a thread, out[4] local memory a
+// thread (bytes: spills and stack).  Returns a cudaError_t.
+extern "C" int fa_bwd_occupancy(int dkv, int dtype, int D, int extra,
+                                int* out) {
+  Kernel kn;
+  cudaFuncAttributes attr;
+  cudaError_t e = find_variant(dkv != 0, dtype, extra != 0, D, &kn);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kn.fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[1] = kn.smem;
+  out[2] = kThreads;
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kn.fn, kThreads, kn.smem));
+}

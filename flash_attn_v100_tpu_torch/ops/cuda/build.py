@@ -63,8 +63,11 @@ SIGNATURES = {
                                  + _MASK_DROPOUT + [_P], _I),
     },
     "bwd": {
-        name: ([_I] + [_P] * 10 + [_I] * 7 + [_F] + _MASK_DROPOUT + [_P], _I)
-        for name in ("fa_dq_launch", "fa_dkv_launch")
+        **{name: ([_I] + [_P] * 10 + [_I] * 7 + [_F] + _MASK_DROPOUT + [_P],
+                  _I)
+           for name in ("fa_dq_launch", "fa_dkv_launch")},
+        # (dkv, dtype, D, extra, int out[5]): occupancy of K2 / K3
+        "fa_bwd_occupancy": ([_I, _I, _I, _I, _P], _I),
     },
     # the varlen entries take no dropout position bases
     "varlen_bwd": {
