@@ -10,9 +10,10 @@ PyTorch library call computing the same function:
   * K1 dense forward, K2 dQ and K3 dK/dV at the training shape (B 4,
     S 2048, 32/4 heads x 64, causal, bf16), with and without dropout, the
     dropout keep mask read back from K1 and compared bit for bit, two
-    backward calls compared bit for bit, and K2's and K3's registers,
-    spills, shared memory and resident warps a multiprocessor at D 64 and
-    128;
+    backward calls compared bit for bit, K1 at the headline prefill shape
+    (B 4, S 4096, 32/8 heads x 128) against SDPA, and the three kernels'
+    registers, spills, shared memory and resident warps a multiprocessor
+    at D 64 and 128;
   * K5 varlen forward, K6 dQ and K7 dK/dV at the same width through
     flash_attn_varlen_func: 4 x 2048 equal lengths bit-equal to
     flash_attn_func (with dropout: K5's keep mask read back), a padded
@@ -36,8 +37,12 @@ without the package beside it, it exits non-zero and prints no result.
     python3 chip_smoke.py --dense-times TREE
 
 instead times K1-K3 of the port found in the directory TREE (a checkout,
-e.g. of a parent commit) at the training shape and prints a digest of
-their outputs, to compare two trees on one card in one call.
+e.g. of a parent commit) at the training shape and prints a digest of each
+kernel's outputs, to compare two trees on one card in one call;
+
+    python3 chip_smoke.py --varlen-times TREE
+
+does the same for K5-K7 at the varlen phase's packed documents.
 
     python3 chip_smoke.py --serve-times ROUNDS
 
@@ -651,23 +656,25 @@ def dense_work(B, S, Hq, Hk, D):
     }
 
 
-def bwd_occupancy(build) -> dict:
-    """K2 and K3 in bf16 at D 64 and 128, in the variant without bias or
+def occupancy(build) -> dict:
+    """K1, K2 and K3 in bf16 at D 64 and 128, in the variant without bias or
     dropout (extra 0, the training path's) and with (extra 1): registers,
     local memory (spills and stack), dynamic shared memory, threads and
-    resident blocks a multiprocessor, from the library's
-    `fa_bwd_occupancy` (cudaFuncGetAttributes and
+    resident blocks a multiprocessor, from the libraries'
+    `fa_fwd_occupancy` and `fa_bwd_occupancy` (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     import ctypes
-    lib = build.load("bwd")
+    fwd, bwd = build.load("fwd"), build.load("bwd")
     res = {}
-    for name, dkv in (("K2", 0), ("K3", 1)):
+    for name in ("K1", "K2", "K3"):
         for D in (64, 128):
             for extra in (0, 1):
                 out = (ctypes.c_int * 5)()
-                build.check(lib.fa_bwd_occupancy(dkv, 0, D, extra,
-                                                 ctypes.addressof(out)),
-                            "fa_bwd_occupancy")
+                at = ctypes.addressof(out)
+                rc = (fwd.fa_fwd_occupancy(0, D, extra, at) if name == "K1"
+                      else bwd.fa_bwd_occupancy(int(name == "K3"), 0, D,
+                                                extra, at))
+                build.check(rc, f"{name} occupancy")
                 blocks, smem, threads, regs, local = out
                 res[(name, D, extra)] = dict(
                     registers=regs, local_bytes=local, smem_bytes=smem,
@@ -866,9 +873,13 @@ def phase_dense(torch, flush):
               f"{flops / ms[name] / 1e9:.1f} TFLOP/s = "
               f"{100 * bms / ms[name]:.1f}% of the bound", flush=True)
 
-    # K2 / K3: what a block holds and how many fit on a multiprocessor
+    # K1 at the repo's headline prefill shape (head_dim 128), against the
+    # plain version's gate and SDPA's time
+    res["K1"]["bench_shape"] = k1_bench_shape(torch, flush)
+
+    # K1-K3: what a block holds and how many fit on a multiprocessor
     from flash_attn_v100_tpu_torch.ops.cuda import build
-    for (name, d, extra), o in bwd_occupancy(build).items():
+    for (name, d, extra), o in occupancy(build).items():
         print(f"{name} occupancy (bf16, D {d}, "
               f"{'bias/dropout' if extra else 'no bias/dropout'} variant): "
               f"{o['registers']} registers, local memory (spills, stack) "
@@ -882,6 +893,50 @@ def phase_dense(torch, flush):
         if d == D and not extra:
             res[name]["occupancy"] = o
     return res
+
+
+# the repo's headline prefill shape (bench.py:71-78): B 4 x 4096, 32 / 8
+# heads x 128, causal, bf16
+BENCH_B, BENCH_S, BENCH_HQ, BENCH_HK, BENCH_D = 4, 4096, 32, 8, 128
+
+
+def k1_bench_shape(torch, flush):
+    """K1 at the headline prefill shape: out and LSE against the plain
+    version's max-abs gate, then K1's and SDPA's forward times and the
+    bound."""
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+
+    dev = torch.device("cuda")
+    B, S, Hq, Hk, D = BENCH_B, BENCH_S, BENCH_HQ, BENCH_HK, BENCH_D
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+               for s in ((B, S, Hq, D), (B, S, Hk, D), (B, S, Hk, D)))
+    params = masklib.MaskParams(causal=True)
+    scale = D ** -0.5
+    out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params)
+    torch.cuda.synchronize()
+    o32, l32 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params)
+    o16, l16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params,
+                                             upcast=False)
+    err, gate = gated(torch, out, o32, o16, "K1 D 128 out")
+    lse_err, lse_gate = gated(torch, lse, l32, l16, "K1 D 128 lse")
+    del o32, o16, l32, l16, out, lse
+    ms = time_ms(torch, lambda: dfwd.flash_attn_dense_fwd(q, k, v, scale,
+                                                          params), flush=flush)
+    F = torch.nn.functional
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), flush=flush)
+    flops, nbytes = dense_work(B, S, Hq, Hk, D)["K1"]
+    bms, by = bound_ms(nbytes, flops)
+    print(f"K1 B={B} S={S} Hq={Hq} Hk={Hk} D={D} causal (the headline "
+          f"prefill shape): out err {err:.3e} <= {gate:.3e}, lse {lse_err:.3e}"
+          f" <= {lse_gate:.3e}; kernel {ms:.4f} ms, sdpa fwd {lib:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}, {flops:.3e} flop), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    return dict(shape=[B, S, Hq, Hk, D], max_abs_err=err, gate=gate, ms=ms,
+                library_ms=lib, bound_ms=bms, bound_by=by)
 
 
 # ------------------------------------------------- K5-K7 (varlen phase)
@@ -1812,12 +1867,25 @@ def profile_decode(torch, eng, cfg, prompt_len=64, n_new=17):
 
 # --------------------------------------------- dense kernels, two trees
 
+def digest(torch, *tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
 def dense_times(torch) -> dict:
     """K1, K2 and K3 of the `flash_attn_v100_tpu_torch` on sys.path at the
-    training shape: a SHA-256 digest of their outputs (p 0 and 0.1) and
-    their times, to compare two trees of the port in one call:
-        python3 chip_smoke.py --dense-times TREE"""
-    import hashlib
+    training shape: a SHA-256 digest of each kernel's outputs at p 0 and
+    0.1 (K1: out and LSE; K2: dq; K3: dk and dv) and their times, and K1's
+    time at the headline prefill shape, to compare two trees of the port
+    in one call:
+        python3 chip_smoke.py --dense-times TREE
+    K2 and K3 take the plain forward's out and LSE in bf16, not K1's, so
+    their inputs are the same in every tree."""
     from flash_attn_v100_tpu_torch.config import NEG_INF
     from flash_attn_v100_tpu_torch.ops import masks as masklib
     from flash_attn_v100_tpu_torch.ops.cuda import build
@@ -1834,26 +1902,94 @@ def dense_times(torch) -> dict:
     params = masklib.MaskParams(causal=True)
     scale = D ** -0.5
     seed = torch.tensor([0x13579BDF, 0x80000001], dtype=torch.int64)
-    h = hashlib.sha256()
+    outs = {"K1": [], "K2": [], "K3": []}
     for p in (0.0, DENSE_DROPOUT):
         kw = dict(dropout_p=p, dropout_seed=seed if p else None)
-        out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params, **kw)
-        grads = dbwd.flash_attn_dense_bwd(q, k, v, out, do, lse, scale,
-                                          params, **kw)
-        for t in (out, lse, *grads):
-            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
-                     .tobytes())
+        outs["K1"] += dfwd.flash_attn_dense_fwd(q, k, v, scale, params, **kw)
+        o16, l16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params,
+                                                 upcast=False, **kw)
+        dq, dk, dv = dbwd.flash_attn_dense_bwd(q, k, v, o16, do, l16, scale,
+                                               params, **kw)
+        outs["K2"].append(dq)
+        outs["K3"] += [dk, dv]
+    digests = {name: digest(torch, *ts) for name, ts in outs.items()}
+    del outs
     flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
-    out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params)
-    delta = dbwd.softmax_delta(out, do)
-    lse_c = lse.clamp_min(NEG_INF).contiguous()
+    o16, l16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params,
+                                             upcast=False)
+    delta = dbwd.softmax_delta(o16, do)
+    lse_c = l16.clamp_min(NEG_INF).contiguous()
     kargs = (q, k, v, do, lse_c, delta, None, scale, params, 0.0, None, 0,
              None, Hq)
     ms = {"K1": time_ms(torch, lambda: dfwd.flash_attn_dense_fwd(
               q, k, v, scale, params), flush=flush),
           "K2": time_ms(torch, lambda: dbwd.dq_kernel(*kargs), flush=flush),
           "K3": time_ms(torch, lambda: dbwd.dkv_kernel(*kargs), flush=flush)}
-    return {"digest": h.hexdigest()[:16], "ms": ms}
+    # K1 at the headline prefill shape (head_dim 128)
+    del q, k, v, do, o16, l16, delta, lse_c, kargs
+    q, k, v = (torch.randn(s, generator=ggen, device=dev).to(torch.bfloat16)
+               for s in ((BENCH_B, BENCH_S, BENCH_HQ, BENCH_D),
+                         (BENCH_B, BENCH_S, BENCH_HK, BENCH_D),
+                         (BENCH_B, BENCH_S, BENCH_HK, BENCH_D)))
+    ms["K1 D 128"] = time_ms(torch, lambda: dfwd.flash_attn_dense_fwd(
+        q, k, v, BENCH_D ** -0.5, params), flush=flush)
+    return {"digest": digests, "ms": ms}
+
+
+def varlen_times(torch) -> dict:
+    """K5, K6 and K7 of the `flash_attn_v100_tpu_torch` on sys.path at
+    `phase_varlen`'s case (c) (its packed documents and inputs): a digest
+    of each kernel's outputs at p 0 and 0.1 (K5: out and LSE; K6: dq; K7:
+    dk and dv, fed the plain varlen forward's out and LSE in bf16) and
+    their times:
+        python3 chip_smoke.py --varlen-times TREE"""
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops import padding as padlib
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+
+    build.build_all(["fwd", "varlen_bwd"])
+    dev = torch.device("cuda")
+    B, S, Hq, Hk, D = DENSE_B, DENSE_S, DENSE_HQ, DENSE_HK, DENSE_D
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 5)   # as (c)
+    x = [torch.randn((B, S, h, D), generator=ggen, device=dev).to(
+        torch.bfloat16) for h in (Hq, Hk, Hk, Hq)]
+    aml = torch.zeros((B, S), dtype=torch.int32)
+    for r, d in enumerate(packed_doc_lengths(B, S, SEED)):
+        aml[r, :len(d)] = torch.tensor(d, dtype=torch.int32)
+    un = [padlib.unpad_input_for_concatenated_sequences(t, aml.to(dev))
+          for t in x]
+    (qc, kc, vc, doc), cu, ms_c = [u[0] for u in un], un[0][2], un[0][3]
+    params = masklib.MaskParams(causal=True)
+    scale = D ** -0.5
+    args = (qc, kc, vc, cu, cu, ms_c, ms_c, scale, params)
+    seed = torch.tensor([0x0F1E2D3C, 0x4B5A6978], dtype=torch.int64)
+    outs = {"K5": [], "K6": [], "K7": []}
+    for p in (0.0, DENSE_DROPOUT):
+        kw = dict(dropout_p=p, dropout_seed=seed if p else None)
+        outs["K5"] += vl.flash_attn_varlen_fwd(*args, **kw)
+        o16, l16 = vl.flash_attn_varlen_fwd_ref(*args, upcast=False, **kw)
+        dq, dk, dv = vl.flash_attn_varlen_bwd(qc, kc, vc, o16, doc, l16, cu,
+                                              cu, ms_c, ms_c, scale, params,
+                                              **kw)
+        outs["K6"].append(dq)
+        outs["K7"] += [dk, dv]
+    digests = {name: digest(torch, *ts) for name, ts in outs.items()}
+    del outs
+    flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+    o16, l16 = vl.flash_attn_varlen_fwd_ref(*args, upcast=False)
+    delta = vl.varlen_delta(o16, doc)
+    lse_c = l16.clamp_min(NEG_INF).contiguous()
+    kargs = (qc, kc, vc, doc, lse_c, delta, None, cu, cu, None, None, ms_c,
+             ms_c, scale, params, 0.0, None)
+    ms = {"K5": time_ms(torch, lambda: vl.flash_attn_varlen_fwd(*args),
+                        flush=flush),
+          "K6": time_ms(torch, lambda: vl.varlen_dq_kernel(*kargs),
+                        flush=flush),
+          "K7": time_ms(torch, lambda: vl.varlen_dkv_kernel(*kargs),
+                        flush=flush)}
+    return {"digest": digests, "ms": ms}
 
 
 # ------------------------------------------ serving, all four pools in turns
@@ -1908,9 +2044,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--dense-times"]:
+    times = {"--dense-times": dense_times, "--varlen-times": varlen_times}
+    if sys.argv[1:2] and sys.argv[1] in times:
         sys.path.insert(0, sys.argv[2])
-        res = dense_times(torch)
+        res = times[sys.argv[1]](torch)
         print(json.dumps(dict(res, tree=sys.argv[2], card=card_line())))
         return 0
     if sys.argv[1:2] == ["--serve-times"]:
@@ -2006,7 +2143,7 @@ def main() -> int:
             ms=res["ms"], plain_ms=res["plain_ms"],
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=res["library_ms"])
-        for key in ("ms_repeats", "occupancy"):
+        for key in ("ms_repeats", "occupancy", "bench_shape"):
             if key in res:
                 row[key] = res[key]
         if "oracle_err" in res:

@@ -19,7 +19,8 @@
 // the ~295 flop/byte ridge.
 //
 // What the design does about it (the FlashAttention-2 shape with Hopper's
-// warpgroup products; helpers in csrc/mma_sm90.cuh):
+// warpgroup products; helpers in csrc/mma_sm90.cuh, products and live-key
+// intervals in csrc/attn_tiles.cuh):
 //   * Work.  K2 is q-centric: one block of 4 warps per (64-row q tile, q
 //     head, batch row), each warp owning 16 q rows, looping over the key
 //     tiles its rows' intervals touch.  K3 is key-centric: one block of 4
@@ -71,13 +72,13 @@
 
 #include <type_traits>
 
+#include "attn_tiles.cuh"
 #include "masks.cuh"
-#include "mma_sm90.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using namespace fa::sm90;
+using namespace fa::attn;
 
 constexpr int kThreads = 128;   // 4 warps, both kernels
 constexpr float kLog2e = 1.4426950408889634f;
@@ -107,24 +108,6 @@ struct Tiles {
   static constexpr int kSplit = 4 / kKeyWarps;        // K3: warps a slab
   static constexpr int kDkvBK = 16 * kKeyWarps;       // K3: keys a block
   static constexpr int kDkvBQ = D <= 64 ? 64 : 32;    // K3: q rows a step
-};
-
-// live keys of q row qp: [key_lo, key_hi]
-struct Live {
-  int N, offs, wl, wr;
-  __device__ int key_lo(int qp) const {
-    return wl >= 0 ? max(qp + offs - wl, 0) : 0;
-  }
-  __device__ int key_hi(int qp) const {
-    return wr >= 0 ? min(N - 1, qp + offs + wr) : N - 1;
-  }
-  __device__ bool valid(int qp, int kp) const {
-    return kp >= key_lo(qp) && kp <= key_hi(qp);
-  }
-  // every key of [kp0, kp0 + nk) is live for every q row of [qp0, qp0 + nq)
-  __device__ bool full(int qp0, int nq, int kp0, int nk) const {
-    return key_lo(qp0 + nq - 1) <= kp0 && key_hi(qp0) >= kp0 + nk - 1;
-  }
 };
 
 __device__ __forceinline__ Live make_live(const BwdArgs& a) {
@@ -159,144 +142,6 @@ __device__ __forceinline__ void grad_score(float& s, float& dp, int qp, int kp,
   }
   s = pd;
   dp = ds;
-}
-
-// ------------------------------------------------------ the two products
-
-// The products of a block, on one of two paths with the same per-thread
-// accumulator layout (a warp's 16 rows in mma C fragments):
-//   abt: acc = A B^T, A the block's rows of tile a (R_A rows x D), B the N
-//        rows of tile b (N x D): S = Q K^T, S^T = K Q^T and the dP's;
-//   ab:  acc += A B, A this warp's rows in registers (k = the K rows of
-//        tile b), B the columns [n0, n0 + N) of tile b (K x D): dQ = dS K,
-//        dV = P_drop^T dO, dK = dS^T Q.
-// SyncPath (D 32 and 256): mma.sync, each warp its own 16 rows (a_row),
-// operands through ldmatrix from rows padded by 16 bytes.  WgPath (D 64 and
-// 128): wgmma, the block's four warps one warpgroup over all 64 rows of A,
-// B read by the tensor cores from 128-byte-swizzled tiles; a batch of
-// products starts with begin() and its results are readable after
-// commit_wait() and settle().
-
-template <typename T, int D>
-struct SyncPath {
-  static constexpr int LD = D + 8;
-  template <int R>
-  static constexpr size_t tile_bytes() {
-    return static_cast<size_t>(R) * LD * sizeof(T);
-  }
-  template <int R>
-  __device__ static int chunk(int r, int c8) {
-    return (r * LD + c8 * 8) * static_cast<int>(sizeof(T));
-  }
-  __device__ static void copies_landed() {}
-  __device__ static void begin() {}
-  __device__ static void commit_wait() {}
-  template <int NB>
-  __device__ static void settle(float (&)[NB][4]) {}
-
-  template <int RA, int N>
-  __device__ static void abt(float (&acc)[N / 8][4], const unsigned char* a,
-                             int a_row, const unsigned char* b, int lane) {
-    const T* as = reinterpret_cast<const T*>(a) + a_row * LD;
-    const T* bs = reinterpret_cast<const T*>(b);
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t af[4];
-      load_a<LD>(af, as + kk * 16, lane);
-#pragma unroll
-      for (int nb = 0; nb < N / 16; ++nb) {
-        uint32_t bf[4];
-        load_b_nk<LD>(bf, bs + nb * 16 * LD + kk * 16, lane);
-        mma16816<T>(acc[2 * nb], af, bf[0], bf[1]);
-        mma16816<T>(acc[2 * nb + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-
-  template <int K, int N>
-  __device__ static void ab(float (&acc)[N / 8][4],
-                            const uint32_t (&af)[K / 16][4],
-                            const unsigned char* b, int n0, int lane) {
-    const T* bs = reinterpret_cast<const T*>(b) + n0;
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk)
-#pragma unroll
-      for (int nb = 0; nb < N / 16; ++nb) {
-        uint32_t bf[4];
-        load_b_kn<LD>(bf, bs + kk * 16 * LD + nb * 16, lane);
-        mma16816<T>(acc[2 * nb], af[kk], bf[0], bf[1]);
-        mma16816<T>(acc[2 * nb + 1], af[kk], bf[2], bf[3]);
-      }
-  }
-};
-
-template <typename T, int D>
-struct WgPath {
-  template <int R>
-  static constexpr size_t tile_bytes() {
-    return static_cast<size_t>(R) * D * sizeof(T);
-  }
-  template <int R>
-  __device__ static int chunk(int r, int c8) {
-    return sw128_chunk<R>(r, c8);
-  }
-  // this thread's cp.async writes, landed, made visible to wgmma
-  __device__ static void copies_landed() { fence_proxy_async(); }
-  __device__ static void begin() { wgmma_fence(); }
-  __device__ static void commit_wait() {
-    wgmma_commit();
-    wgmma_wait<0>();
-  }
-  template <int NB>
-  __device__ static void settle(float (&acc)[NB][4]) {
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) fence_operand(acc[j][e]);
-  }
-
-  template <int RA, int N>
-  __device__ static void abt(float (&acc)[N / 8][4], const unsigned char* a,
-                             int, const unsigned char* b, int) {
-    static_assert(RA == 64, "one warpgroup: 64 rows of A");
-    const uint32_t sa = smem_u32(a), sb = smem_u32(b);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<N, T>::ss(&acc[0][0],
-                      sw128_desc(sa + (kk / 4) * RA * 128 + (kk % 4) * 32, 0,
-                                 1024),
-                      sw128_desc(sb + (kk / 4) * N * 128 + (kk % 4) * 32, 0,
-                                 1024),
-                      kk > 0);
-  }
-
-  template <int K, int N>
-  __device__ static void ab(float (&acc)[N / 8][4],
-                            const uint32_t (&af)[K / 16][4],
-                            const unsigned char* b, int, int) {
-    static_assert(N == D, "one warpgroup: all D columns");
-    const uint32_t sb = smem_u32(b);
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk)
-      Wgmma<N, T>::rs(&acc[0][0], af[kk],
-                      sw128_desc(sb + kk * 16 * 128, K * 128, 1024), 1);
-  }
-};
-
-template <typename T, int D>
-using PathOf = typename std::conditional<D == 64 || D == 128, WgPath<T, D>,
-                                         SyncPath<T, D>>::type;
-
-constexpr size_t align1k(size_t x) { return (x + 1023) / 1024 * 1024; }
-
-// the dynamic shared memory from its first 1024-byte boundary (swizzled
-// tiles need it; every layout below reserves the slack)
-__device__ __forceinline__ unsigned char* smem_base(unsigned char* smem) {
-  return smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
 }
 
 // ROWS rows of a (B, L, H, D) tensor at (b, row0, h) into a tile in P's

@@ -61,6 +61,8 @@ SIGNATURES = {
                           + [_P], _I),
         "fa_varlen_fwd_launch": ([_I] + [_P] * 10 + [_I] * 6 + [_F]
                                  + _MASK_DROPOUT + [_P], _I),
+        # (dtype, D, extra, int out[5]): occupancy of K1
+        "fa_fwd_occupancy": ([_I, _I, _I, _P], _I),
     },
     "bwd": {
         **{name: ([_I] + [_P] * 10 + [_I] * 7 + [_F] + _MASK_DROPOUT + [_P],

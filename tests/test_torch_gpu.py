@@ -98,6 +98,14 @@ DENSE_CASES = {
     "causal_m_lt_n": (1, 4, 2, 300, 700, dict(causal=True), False, 0.0, {}),
     "causal_m_gt_n": (1, 4, 2, 700, 300, dict(causal=True), False, 0.0, {}),
     "multi_wave": (2, 32, 4, 2048, 2048, dict(causal=True), False, 0.0, {}),
+    # the forward's 128-row q tiles: M one short of, one past and half a
+    # tile past a tile edge, causal with M != N
+    "m127_n200_causal": (2, 4, 2, 127, 200, dict(causal=True), False, 0.0,
+                         {}),
+    "m129_n100_causal": (2, 4, 2, 129, 100, dict(causal=True), False, 0.0,
+                         {}),
+    "m193_n300_causal_dropout": (1, 4, 1, 193, 300, dict(causal=True), False,
+                                 0.1, {}),
 }
 DENSE_SEED = torch.tensor([0x2468ACE0, 0x80000007], dtype=torch.int64)
 
@@ -431,6 +439,11 @@ PACKED_CASES = {
     "seqused_leftpad_uncovered": ([64, 40, 90], [100, 60, 120], 9, 7, 4, 2,
                                   dict(causal=True), False, 0.0,
                                   [80, 0, 110], [5, 3, 17]),
+    # one token, a sequence with seqused_k = 0 and 2000 tokens: blocks that
+    # leave at once among the heaviest-first ones
+    "mixed_1_empty_2000": ([1, 300, 2000, 1], None, 0, 0, 8, 2,
+                           dict(causal=True), False, 0.0, [1, 0, 2000, 1],
+                           None),
 }
 
 
@@ -510,6 +523,20 @@ def test_varlen_backward_bitwise_deterministic(cuda):
     g2 = vl.flash_attn_varlen_bwd(*bargs, **kw)
     for a, b in zip(g1, g2):
         assert torch.equal(a, b)
+
+
+def test_forward_bitwise_deterministic(cuda):
+    """K1 and K5 give the same out and LSE bits on two calls."""
+    args, _, kw = _dense_inputs("m193_n300_causal_dropout", torch.bfloat16,
+                                64, cuda)
+    one = dfwd.flash_attn_dense_fwd(*args, **kw)
+    two = dfwd.flash_attn_dense_fwd(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    args, _, kw = _packed_inputs("mixed_1_empty_2000", torch.bfloat16, 128,
+                                 cuda)
+    one = vl.flash_attn_varlen_fwd(*args, **kw)
+    two = vl.flash_attn_varlen_fwd(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
