@@ -14,11 +14,13 @@ PyTorch library call computing the same function:
     (B 4, S 4096, 32/8 heads x 128) against SDPA, and the three kernels'
     registers, spills, shared memory and resident warps a multiprocessor
     at D 64 and 128;
-  * K5 varlen forward, K6 dQ and K7 dK/dV at the same width through
+  * K5 varlen forward, K6 dQ and K7 dK/dV (K1's, K2's and K3's bodies
+    instantiated for packed sequences) at the same width through
     flash_attn_varlen_func: 4 x 2048 equal lengths bit-equal to
-    flash_attn_func (with dropout: K5's keep mask read back), a padded
-    batch through unpad_input / pad_input, and packed documents, where
-    each kernel is held against its plain version;
+    flash_attn_func, gradients included (with dropout: K5's keep mask read
+    back), a padded batch through unpad_input / pad_input, each sequence
+    bit-equal to flash_attn_func on it alone, and packed documents, where
+    each kernel is held against its plain version; K6/K7's occupancy;
   * K4 decode and K8 paged prefill at the serving engine's shapes;
   * their quantized variants K4q and K8q over int8, fp8 (e4m3) and int4
     pools at the same shapes, against their plain twins and the fp32
@@ -204,30 +206,6 @@ def gated_rows(torch, out, ref32, ref_native, name, mult, check=True):
         f"{float(e_n.flatten()[i]):.3e}, row RMS "
         f"{float(rms.flatten()[i]):.3e})")
     return float(ratio[i]), float(ref.abs().median()), float(gate.median())
-
-
-# flash_attn_varlen_func's gradients against flash_attn_func's on the same
-# sequences: K6/K7 keep the summation order K2/K3 had before K2/K3 were
-# redesigned, so the two differ by bf16 roundings (by many ulps of an
-# element only where its sum cancels). Each row over the head dim is held
-# to two bf16 unit roundoffs of its RMS, + 1e-3 of the tensor's RMS for
-# rows near 0
-CROSS_ROW_REL, CROSS_ABS = 2.0 ** -7, 1e-3
-
-
-def cross_path(torch, g, gd, name):
-    """Asserts, for each row over the head dim, RMS(g - gd) <= CROSS_ROW_REL
-    x RMS(gd's row) + CROSS_ABS x RMS(gd); returns the worst ratio of a
-    row's RMS difference to its gate."""
-    g, gd = g.float(), gd.float()
-    err = (g - gd).pow(2).mean(-1).sqrt()
-    gate = (CROSS_ROW_REL * gd.pow(2).mean(-1).sqrt()
-            + CROSS_ABS * float(gd.pow(2).mean().sqrt()))
-    ratio = float((err / gate).max())
-    assert ratio <= 1.0, (
-        f"{name}: varlen vs flash_attn_func, worst row RMS difference / "
-        f"gate {ratio:.3f}, max |diff| {float((g - gd).abs().max()):.3e}")
-    return ratio
 
 
 def phase_k4(torch, flush):
@@ -656,24 +634,27 @@ def dense_work(B, S, Hq, Hk, D):
     }
 
 
-def occupancy(build) -> dict:
-    """K1, K2 and K3 in bf16 at D 64 and 128, in the variant without bias or
-    dropout (extra 0, the training path's) and with (extra 1): registers,
-    local memory (spills and stack), dynamic shared memory, threads and
-    resident blocks a multiprocessor, from the libraries'
-    `fa_fwd_occupancy` and `fa_bwd_occupancy` (cudaFuncGetAttributes and
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+def occupancy(build, names=("K1", "K2", "K3"), dims=(64, 128)) -> dict:
+    """K1, K2 and K3 (or K6 and K7, the varlen instantiation of K2/K3) in
+    bf16 at the head dims `dims`, in the variant without bias or dropout
+    (extra 0, the training path's) and with (extra 1): registers, local
+    memory (spills and stack), dynamic shared memory, threads and resident
+    blocks a multiprocessor, from the libraries' `fa_fwd_occupancy`,
+    `fa_bwd_occupancy` and `fa_varlen_bwd_occupancy` (cudaFuncGetAttributes
+    and cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     import ctypes
     fwd, bwd = build.load("fwd"), build.load("bwd")
     res = {}
-    for name in ("K1", "K2", "K3"):
-        for D in (64, 128):
+    for name in names:
+        for D in dims:
             for extra in (0, 1):
                 out = (ctypes.c_int * 5)()
                 at = ctypes.addressof(out)
+                dkv = int(name in ("K3", "K7"))
                 rc = (fwd.fa_fwd_occupancy(0, D, extra, at) if name == "K1"
-                      else bwd.fa_bwd_occupancy(int(name == "K3"), 0, D,
-                                                extra, at))
+                      else bwd.fa_bwd_occupancy(dkv, 0, D, extra, at)
+                      if name in ("K2", "K3")
+                      else bwd.fa_varlen_bwd_occupancy(dkv, 0, D, extra, at))
                 build.check(rc, f"{name} occupancy")
                 blocks, smem, threads, regs, local = out
                 res[(name, D, extra)] = dict(
@@ -879,7 +860,15 @@ def phase_dense(torch, flush):
 
     # K1-K3: what a block holds and how many fit on a multiprocessor
     from flash_attn_v100_tpu_torch.ops.cuda import build
-    for (name, d, extra), o in occupancy(build).items():
+    print_occupancy(res, occupancy(build), D)
+    return res
+
+
+def print_occupancy(res, occ, D):
+    """Prints each kernel variant's occupancy and asserts no local memory
+    and >= 8 resident warps a multiprocessor; the D, no-bias variant goes
+    into the kernel's result."""
+    for (name, d, extra), o in occ.items():
         print(f"{name} occupancy (bf16, D {d}, "
               f"{'bias/dropout' if extra else 'no bias/dropout'} variant): "
               f"{o['registers']} registers, local memory (spills, stack) "
@@ -892,7 +881,6 @@ def phase_dense(torch, flush):
             f"{name} D {d} extra {extra}: under 8 warps/SM"
         if d == D and not extra:
             res[name]["occupancy"] = o
-    return res
 
 
 # the repo's headline prefill shape (bench.py:71-78): B 4 x 4096, 32 / 8
@@ -1131,11 +1119,10 @@ def phase_varlen(torch, flush):
           f"{counts['K6']}, K7 {counts['K7']}; plain calls "
           f"{counts['plain_fwd']} / {counts['plain_bwd']}", flush=True)
 
-    # ---- (a): against flash_attn_func on the same tensors: out, LSE and
-    # dmask bit for bit (K5 is K1's body); K6/K7 add in another order than
-    # K2/K3, so both paths' gradients are held to the plain backward's gate
-    # and to each other within a few bf16 ulps (cross_path)
-    n_exact, worst = 0, 0.0
+    # ---- (a): against flash_attn_func on the same tensors: out, LSE,
+    # dmask and the gradients bit for bit (K5 is K1's body, K6/K7 K2/K3's);
+    # both paths' gradients also within the plain backward's gate
+    n_exact = 0
     for p, (out, lse, dmask, dq, dk, dv) in run_a.items():
         ld = [x[n].clone().requires_grad_() for n in ("q", "k", "v")]
         out_d, lse_d, dmask_d = flash_attn_func(
@@ -1161,8 +1148,10 @@ def phase_varlen(torch, flush):
                   tt.BWD_MULT, tt.BWD_ATOL)
             gated(torch, gd, r32, r16, f"(a) p={p} flash_attn_func {what}",
                   tt.BWD_MULT, tt.BWD_ATOL)
-            worst = max(worst, cross_path(torch, g, gd, f"(a) p={p} {what}"))
-            n_exact += int(torch.equal(g, gd))
+            assert torch.equal(g, gd), (
+                f"(a) p={p} {what}: varlen differs from flash_attn_func, max "
+                f"|diff| {float((g.float() - gd.float()).abs().max()):.3e}")
+            n_exact += 1
         del out_d, lse_d, dmask_d, ld, g32, g16
     # K5's keep mask read back: q = k = 0 and v one-hot on 64 keys at a time
     q0 = torch.zeros((B * S, Hq, D), device=dev, dtype=torch.bfloat16)
@@ -1180,22 +1169,19 @@ def phase_varlen(torch, flush):
     assert torch.equal(keep, run_a[DENSE_DROPOUT][2] > 0), "K5's mask"
     rate = float(keep.float().mean())
     print(f"varlen (a): out, LSE bit-equal to flash_attn_func at p 0 and "
-          f"{DENSE_DROPOUT}, dmask too; dq, dk, dv of both paths within the "
-          f"plain backward's gate and of each other within 2^-7 of each "
-          f"row's RMS + 1e-3 of the tensor's (worst row {worst:.3f} of its "
-          f"gate; bit-equal in {n_exact} of 6); K5's keep "
+          f"{DENSE_DROPOUT}, dmask too; dq, dk, dv bit-equal in {n_exact} "
+          f"of 6 and both paths' within the plain backward's gate; K5's keep "
           f"mask read back over {keep.numel()} positions bit-equal to the "
           f"dmask (keep rate {rate:.5f})", flush=True)
     del run_a, keep, q0, k0, v1
 
-    # ---- (b): each sequence against flash_attn_func on it alone: out bit
-    # for bit; the gradients within the gate of the plain backward on that
-    # sequence alone and within a few bf16 ulps of flash_attn_func's
-    # (K6/K7 and K2/K3 add in different orders)
+    # ---- (b): each sequence against flash_attn_func on it alone: out and
+    # the gradients bit for bit, the gradients also within the gate of the
+    # plain backward on that sequence alone
     assert not out_b[mask_b.logical_not()].any()
     for t in lv_b:
         assert not t.grad[mask_b.logical_not()].any()
-    n_exact, worst = 0, 0.0
+    n_exact = 0
     for r, n in enumerate(VARLEN_PAD_LENS):
         ld = [x[nm][r:r + 1, :n].clone().requires_grad_()
               for nm in ("q", "k", "v")]
@@ -1212,15 +1198,15 @@ def phase_varlen(torch, flush):
             g = t.grad[r:r + 1, :n]
             gated(torch, g, r32, r16, f"(b) row {r} {what}", tt.BWD_MULT,
                   tt.BWD_ATOL)
-            worst = max(worst, cross_path(torch, g, td.grad,
-                                          f"(b) row {r} {what}"))
-            n_exact += int(torch.equal(g, td.grad))
+            assert torch.equal(g, td.grad), (
+                f"(b) row {r} {what}: varlen differs from flash_attn_func on "
+                f"the sequence alone, max |diff| "
+                f"{float((g.float() - td.grad.float()).abs().max()):.3e}")
+            n_exact += 1
     print(f"varlen (b): padded rows and their gradients 0; each sequence's "
-          f"out bit-equal to flash_attn_func on it alone, dq/dk/dv within "
-          f"the plain backward's gate on it alone and within 2^-7 of each "
-          f"row's RMS + 1e-3 of the tensor's of flash_attn_func's (worst row "
-          f"{worst:.3f} of its gate; "
-          f"bit-equal in {n_exact} of {3 * len(VARLEN_PAD_LENS)})",
+          f"out and dq/dk/dv bit-equal to flash_attn_func on it alone "
+          f"({n_exact} of {3 * len(VARLEN_PAD_LENS)} gradients), the "
+          f"gradients within the plain backward's gate on it alone",
           flush=True)
     del out_b, lv_b
 
@@ -1343,8 +1329,26 @@ def phase_varlen(torch, flush):
                                  ms=ms[name], plain_ms=plain,
                                  library_ms=lib, library=label,
                                  bound_ms=bms, bound_by=by)
+            else:
+                res[name]["case_b"] = dict(ms=ms[name], library_ms=lib,
+                                           bound_ms=bms, bound_by=by)
+        # the max_seqlen grids: blocks, and blocks that leave at once (their
+        # tile lies past their sequence); 128 q rows a tile in K5, 64 in
+        # K6, 64 keys in K7 (D 64)
+        grids = []
+        for name, rows, heads in (("K5", 128, Hq), ("K6", 64, Hq),
+                                  ("K7", 64, Hk)):
+            total = len(lens_w) * -(-ms_w // rows) * heads
+            live = sum(-(-n // rows) for n in lens_w) * heads
+            grids.append(f"{name} {total} / {total - live}")
+        print(f"varlen ({case}) grids (blocks / leaving at once): "
+              + ", ".join(grids), flush=True)
         del ql, kl, vl_, o_lib
     res["launches"] = counts
+
+    # K6/K7: what a block holds and how many fit on a multiprocessor
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    print_occupancy(res, occupancy(build, ("K6", "K7")), D)
     return res
 
 
@@ -1949,7 +1953,10 @@ def varlen_times(torch) -> dict:
     from flash_attn_v100_tpu_torch.ops.cuda import build
     from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
 
-    build.build_all(["fwd", "varlen_bwd"])
+    # K6/K7's library is that tree's own: "bwd" here, "varlen_bwd" before
+    # K6/K7 became bwd.cu's varlen instantiation
+    build.build_all([n for n in ("fwd", "bwd", "varlen_bwd")
+                     if n in build.SOURCES])
     dev = torch.device("cuda")
     B, S, Hq, Hk, D = DENSE_B, DENSE_S, DENSE_HQ, DENSE_HK, DENSE_D
     ggen = torch.Generator(device=dev).manual_seed(SEED + 5)   # as (c)
@@ -2110,11 +2117,10 @@ def main() -> int:
             ("K5 flash_attn_varlen_fwd", varlen["K5"], "fwd.cu",
              "flash_attn_v100_tpu/ops/pallas/varlen.py:289",
              varlen["launches"]["K5"]),
-            ("K6 flash_attn_varlen_bwd (dq)", varlen["K6"], "varlen_bwd.cu",
+            ("K6 flash_attn_varlen_bwd (dq)", varlen["K6"], "bwd.cu",
              "flash_attn_v100_tpu/ops/pallas/varlen.py:1160",
              varlen["launches"]["K6"]),
-            ("K7 flash_attn_varlen_bwd (dk, dv)", varlen["K7"],
-             "varlen_bwd.cu",
+            ("K7 flash_attn_varlen_bwd (dk, dv)", varlen["K7"], "bwd.cu",
              "flash_attn_v100_tpu/ops/pallas/varlen.py:1343",
              varlen["launches"]["K7"]),
             ("K4 paged_decode_attention", k4, "decode.cu",
@@ -2143,7 +2149,7 @@ def main() -> int:
             ms=res["ms"], plain_ms=res["plain_ms"],
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=res["library_ms"])
-        for key in ("ms_repeats", "occupancy", "bench_shape"):
+        for key in ("ms_repeats", "occupancy", "bench_shape", "case_b"):
             if key in res:
                 row[key] = res[key]
         if "oracle_err" in res:

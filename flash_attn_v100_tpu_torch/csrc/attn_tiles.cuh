@@ -1,4 +1,4 @@
-// Tile machinery shared by the forward (csrc/fwd.cu) and dense backward
+// Tile machinery shared by the forward (csrc/fwd.cu) and backward
 // (csrc/bwd.cu) attention kernels: the live-key interval of a q row, the
 // two product paths (mma.sync at head_dim 32/256, wgmma at 64/128) and the
 // dynamic shared memory's 1024-byte alignment.

@@ -1,12 +1,24 @@
-// K2 (dQ) and K3 (dK, dV): dense attention backward for Hopper (sm_90a).
+// K2 (dQ) and K3 (dK, dV), dense, and K6 (dQ) and K7 (dK, dV), packed
+// varlen: attention backward for Hopper (sm_90a), one body of each kernel
+// instantiated for both (csrc/seq.cuh), as csrc/fwd.cu does for K1 and K5.
 //
-// Replace flash_attn_v100_tpu/ops/pallas/bwd.py::_dq_kernel and
+// K2 and K3 replace flash_attn_v100_tpu/ops/pallas/bwd.py::_dq_kernel and
 // ::_dkv_kernel, the two TPU kernels behind flash_attn_dense_bwd and the
-// backward of flash_attn_func.  Same contract: q/dout (B, M, Hq, D), k/v
-// (B, N, Hk, D) contiguous, GQA kv_head = h / group, the forward's masks,
-// bias and dropout keying (csrc/fwd.cu); lse (B, Hq, M) clamped to >= NEG_INF
-// and delta = rowsum(O * dO) - dlse (B, Hq, M), both fp32 and computed by
-// the caller.  Per score:
+// backward of flash_attn_func: q/dout (B, M, Hq, D), k/v (B, N, Hk, D)
+// contiguous, GQA kv_head = h / group, the forward's masks, bias and
+// dropout keying (csrc/fwd.cu); lse and delta (B, Hq, M).
+//
+// K6 and K7 replace flash_attn_v100_tpu/ops/pallas/varlen.py::
+// _varlen_dq_kernel and ::_varlen_dkv_kernel, the TPU kernels behind
+// flash_attn_varlen_bwd and the backward of flash_attn_varlen_func: q/dout
+// (Tq, Hq, D) packed by cu_q, k/v (Tk, Hk, D) by cu_k, optional seqused_k /
+// leftpad_k; the masks aligned per sequence and dropout keyed as K5 keys
+// it; lse and delta (Hq, Tq).  Rows and keys no block covers (past cu_q[B]
+// / cu_k[B], before leftpad_k, past seqused_k) are left to the caller,
+// which zeroes them.  On equal lengths K6/K7 give K2/K3's bits.
+//
+// All four: lse clamped to >= NEG_INF and delta = rowsum(O * dO) - dlse,
+// both fp32 and computed by the caller.  Per score:
 //     P      = exp(min(S - lse, 0)) where the position is valid, else 0
 //     P_drop = keep ? P / (1 - p) : 0
 //     dS     = (P_drop * dO.V^T - P * delta) * scale  [* (1 - (S/cap)^2)]
@@ -22,12 +34,15 @@
 // warpgroup products; helpers in csrc/mma_sm90.cuh, products and live-key
 // intervals in csrc/attn_tiles.cuh):
 //   * Work.  K2 is q-centric: one block of 4 warps per (64-row q tile, q
-//     head, batch row), each warp owning 16 q rows, looping over the key
-//     tiles its rows' intervals touch.  K3 is key-centric: one block of 4
-//     warps per (key tile, kv head, batch row), each warp owning 16 key
-//     rows (at D 256 two warps share them, each holding half of D), looping
-//     over the `group` q heads of its kv head and, for each, over the live
-//     q tiles.
+//     head, batch row or sequence), each warp owning 16 q rows, looping
+//     over the key tiles its rows' intervals touch.  K3 is key-centric:
+//     one block of 4 warps per (key tile, kv head, batch row or sequence),
+//     each warp owning 16 key rows (at D 256 two warps share them, each
+//     holding half of D), looping over the `group` q heads of its kv head
+//     and, for each, over the live q tiles.  A varlen block reads its
+//     sequence's bounds from device memory and leaves at once, before any
+//     copy or product, if its tile lies past the sequence (the grid covers
+//     max_seqlen).
 //   * Products.  At D 64 and 128 the 4 warps are one warpgroup and every
 //     product is a wgmma over the block's 64 rows: S = Q K^T and dP =
 //     dO V^T (K3: S^T = K Q^T, dP^T = V dO^T) with both operands read from
@@ -51,9 +66,9 @@
 //   * In flight.  While a stage is computed on, the next tile's copies run;
 //     one block barrier a tile.
 //   * Masks.  Only tiles that straddle a row's causal/window edge or the
-//     ragged end of M or N run the per-element mask test.  ALiBi, softcap
-//     and dropout are compiled only into the kernel variant for the calls
-//     that use them.
+//     ragged end of M or N (each sequence's, in varlen) run the
+//     per-element mask test.  ALiBi, softcap and dropout are compiled only
+//     into the kernel variant for the calls that use them.
 //   * Order.  The linear block index maps to the tile heaviest first under
 //     causal masking (K3's low key tiles, K2's high q tiles); the map is a
 //     permutation, so every tile is visited once under any mask.
@@ -75,6 +90,7 @@
 #include "attn_tiles.cuh"
 #include "masks.cuh"
 #include "philox.cuh"
+#include "seq.cuh"
 
 namespace {
 
@@ -84,17 +100,18 @@ constexpr int kThreads = 128;   // 4 warps, both kernels
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
-  const void* q;          // (B, M, Hq, D)
-  const void* k;          // (B, N, Hk, D)
+  const void* q;          // dense (B, M, Hq, D); varlen (Tq, Hq, D)
+  const void* k;          // dense (B, N, Hk, D); varlen (Tk, Hk, D)
   const void* v;
-  const void* dout;       // (B, M, Hq, D)
-  const float* lse;       // (B, Hq, M), >= NEG_INF
-  const float* delta;     // (B, Hq, M)
+  const void* dout;       // q's shape
+  const float* lse;       // dense (B, Hq, M); varlen (Hq, Tq); >= NEG_INF
+  const float* delta;     // lse's shape
   const float* slopes;    // (B, Hq) or nullptr
-  void* dq;               // (B, M, Hq, D)
-  void* dk;               // (B, N, Hk, D)
+  void* dq;               // q's shape
+  void* dk;               // k's shape
   void* dv;
-  int B, M, N, Hq, Hk, group, offset;
+  fa::SeqArgs seq;
+  int B, Hq, Hk, group;
   float scale;
   fa::MaskParams mp_;
   fa::DropoutParams dp;
@@ -110,28 +127,47 @@ struct Tiles {
   static constexpr int kDkvBQ = D <= 64 ? 64 : 32;    // K3: q rows a step
 };
 
-__device__ __forceinline__ Live make_live(const BwdArgs& a) {
+__device__ __forceinline__ Live make_live(const BwdArgs& a,
+                                          const fa::Seq& sq) {
   Live lv;
-  lv.N = a.N;
-  lv.offs = a.offset;
+  lv.N = sq.slk;
+  lv.offs = sq.offs;
   lv.wl = a.mp_.window_left;
   lv.wr = a.mp_.effective_window_right();
   return lv;
 }
 
+// The block's sequence, seq_info's r.  A dense block's bounds are
+// arithmetic on the kernel's arguments, which the compiler re-derives where
+// it needs them.  A varlen block's come from device memory: the block puts
+// them in shared memory, s, and reads them there where it needs them,
+// rather than holding them in registers across its loop (held, they made
+// K3's bias/dropout variant spill at D 64).
+template <bool kVarlen>
+__device__ __forceinline__ const fa::Seq& block_seq(const fa::Seq& r,
+                                                    fa::Seq& s) {
+  if constexpr (!kVarlen) {
+    return r;
+  } else {
+    if (threadIdx.x == 0) s = r;
+    __syncthreads();
+    return s;
+  }
+}
+
 // One score of a fragment: s holds S on entry and P_drop on return, dp
-// holds dO.V^T on entry and dS on return.
+// holds dO.V^T on entry and dS on return; M is the sequence's q rows.
 template <bool MASK, bool EXTRA>
 __device__ __forceinline__ void grad_score(float& s, float& dp, int qp, int kp,
                                            float lse, float delta,
                                            uint32_t rw, uint32_t cw,
-                                           float slope, const Live& lv,
+                                           float slope, const Live& lv, int M,
                                            const BwdArgs& a) {
   const float sb =
-      EXTRA ? fa::score_bias(s, qp + a.offset, kp, a.scale, slope, a.mp_)
+      EXTRA ? fa::score_bias(s, qp + lv.offs, kp, a.scale, slope, a.mp_)
             : s * a.scale;
   float p = exp2f(fminf(sb - lse, 0.0f) * kLog2e);
-  if (MASK && !(qp < a.M && lv.valid(qp, kp))) p = 0.0f;
+  if (MASK && !(qp < M && lv.valid(qp, kp))) p = 0.0f;
   float pd = p;
   if (EXTRA && a.dp.enabled)
     pd = fa::dropout_keep(rw, cw, a.dp) ? p * a.dp.scale : 0.0f;
@@ -144,12 +180,12 @@ __device__ __forceinline__ void grad_score(float& s, float& dp, int qp, int kp,
   dp = ds;
 }
 
-// ROWS rows of a (B, L, H, D) tensor at (b, row0, h) into a tile in P's
-// layout, 16 bytes a copy; rows at or past L are zero
+// ROWS rows of a (rows, H, D) tensor from packed row row0, head h, into a
+// tile in P's layout, 16 bytes a copy; tile rows at or past n are zero
 template <typename T, int D, int ROWS, class P>
 __device__ __forceinline__ void load_tile_async(unsigned char* dst,
-                                                const void* src, int b,
-                                                int row0, int L, int H,
+                                                const void* src,
+                                                long long row0, int n, int H,
                                                 int h) {
   constexpr int kChunks = D / 8;
   constexpr int kTotal = ROWS * kChunks;
@@ -160,10 +196,8 @@ __device__ __forceinline__ void load_tile_async(unsigned char* dst,
     if (kTotal % kThreads == 0 || idx < kTotal) {
       const int r = idx / kChunks;
       const int c8 = idx % kChunks;
-      const bool in = row0 + r < L;
-      const T* p = in ? g + ((static_cast<long long>(b) * L + row0 + r) * H +
-                             h) * D + c8 * 8
-                      : g;
+      const bool in = r < n;
+      const T* p = in ? g + ((row0 + r) * H + h) * D + c8 * 8 : g;
       cp_async16(dst + P::template chunk<ROWS>(r, c8), p, in);
     }
   }
@@ -186,7 +220,7 @@ struct DqSmem {
   static constexpr size_t bytes = stage_off + 2 * stage_bytes + 1024;
 };
 
-template <typename T, int D, bool EXTRA>
+template <typename T, int D, bool kVarlen, bool EXTRA>
 __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   using L = DqSmem<T, D>;
   using P = typename L::P;
@@ -197,19 +231,23 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   unsigned char* do_s = smem + L::do_off;
 
   // heaviest first: q tiles from the last (under causal masking a later q
-  // tile sees more keys), each over all heads and batch rows
-  const int n_tiles = (a.M + BQ - 1) / BQ;
+  // tile sees more keys), each over all heads and batch rows / sequences
+  const int n_tiles = (a.seq.M + BQ - 1) / BQ;
   const int hb = blockIdx.x % (a.Hq * a.B);
   const int h = hb % a.Hq;
   const int b = hb / a.Hq;
   const int qp0 =
       (n_tiles - 1 - static_cast<int>(blockIdx.x) / (a.Hq * a.B)) * BQ;
-  const int nq = min(BQ, a.M - qp0);
+  const fa::Seq seq_r = fa::seq_info<kVarlen>(a.seq, b, a.Hq);
+  if (kVarlen && qp0 >= seq_r.slq) return;  // uniform over the block
+  __shared__ fa::Seq seq_s;
+  const fa::Seq& sq = block_seq<kVarlen>(seq_r, seq_s);
+  const int nq = min(BQ, sq.slq - qp0);
   const int kvh = h / a.group;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r0 = warp * 16 + lane / 4;   // this thread's rows: r0, r0 + 8
-  const Live lv = make_live(a);
+  const Live lv = make_live(a, sq);
   const bool drop = EXTRA && a.dp.enabled;
   const float slope = EXTRA && a.slopes ? a.slopes[b * a.Hq + h] : 0.0f;
   const uint32_t bh = fa::dropout_bh(b, h, a.dp);
@@ -220,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     qp[i] = qp0 + r;
-    const long long row = (static_cast<long long>(b) * a.Hq + h) * a.M + qp[i];
+    const long long row = sq.lse_index(h, qp[i]);
     lse[i] = r < nq ? a.lse[row] : 0.0f;
     delta[i] = r < nq ? a.delta[row] : 0.0f;
     if (drop) rw[i] = fa::dropout_row_word(qp[i] + a.dp.q0, bh, a.dp);
@@ -235,8 +273,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   auto prefetch = [&](int s) {
     unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
     const int k0 = (kt0 + s) * BK;
-    load_tile_async<T, D, BK, P>(st + L::k_off, a.k, b, k0, a.N, a.Hk, kvh);
-    load_tile_async<T, D, BK, P>(st + L::v_off, a.v, b, k0, a.N, a.Hk, kvh);
+    load_tile_async<T, D, BK, P>(st + L::k_off, a.k, sq.k_base + k0,
+                                 sq.slk - k0, a.Hk, kvh);
+    load_tile_async<T, D, BK, P>(st + L::v_off, a.v, sq.k_base + k0,
+                                 sq.slk - k0, a.Hk, kvh);
     cp_async_commit();
     if (drop) {
       uint32_t* cw = reinterpret_cast<uint32_t*>(st + L::cw_off);
@@ -246,8 +286,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   };
 
   if (n_steps > 0) {
-    load_tile_async<T, D, BQ, P>(q_s, a.q, b, qp0, a.M, a.Hq, h);
-    load_tile_async<T, D, BQ, P>(do_s, a.dout, b, qp0, a.M, a.Hq, h);
+    load_tile_async<T, D, BQ, P>(q_s, a.q, sq.q_base + qp0, nq, a.Hq, h);
+    load_tile_async<T, D, BQ, P>(do_s, a.dout, sq.q_base + qp0, nq, a.Hq, h);
     prefetch(0);   // one group: Q, dO and the first K/V stage
     for (int s = 0; s < n_steps; ++s) {
       cp_async_wait<0>();
@@ -268,7 +308,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
       P::settle(sc);
       P::settle(dp);
 
-      // dS in place of dP, from the fragments' (row, col)
+      // dS in place of dP, from the fragments' (row, col); the live-key
+      // bounds made again each step, so that a varlen block reads them from
+      // shared memory rather than holding them in registers
+      const Live lv_s = make_live(a, sq);
       auto scores = [&](auto masked) {
         constexpr bool MASK = decltype(masked)::value;
 #pragma unroll
@@ -279,10 +322,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
             const int c = j * 8 + (lane % 4) * 2 + e % 2;
             grad_score<MASK, EXTRA>(sc[j][e], dp[j][e], qp[i], k0 + c, lse[i],
                                     delta[i], rw[i], drop ? cw_s[c] : 0u,
-                                    slope, lv, a);
+                                    slope, lv_s, sq.slq, a);
           }
       };
-      if (nq == BQ && lv.full(qp0, BQ, k0, BK))
+      if (nq == BQ && lv_s.full(qp0, BQ, k0, BK))
         scores(std::false_type{});
       else
         scores(std::true_type{});
@@ -303,8 +346,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (r0 + 8 * i >= nq) continue;
-    const long long row =
-        (static_cast<long long>(b) * a.M + qp[i]) * a.Hq + h;
+    const long long row = (sq.q_base + qp[i]) * a.Hq + h;
 #pragma unroll
     for (int nb = 0; nb < D / 8; ++nb)
       *reinterpret_cast<uint32_t*>(dqg + row * D + nb * 8 + (lane % 4) * 2) =
@@ -331,7 +373,7 @@ struct DkvSmem {
   static constexpr size_t bytes = stage_off + 2 * stage_bytes + 1024;
 };
 
-template <typename T, int D, bool EXTRA>
+template <typename T, int D, bool kVarlen, bool EXTRA>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
   using L = DkvSmem<T, D>;
   using P = typename L::P;
@@ -345,24 +387,28 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
 
   // heaviest first: key tiles from the first (under causal masking an
   // earlier key tile is seen by more q rows), each over all kv heads and
-  // batch rows
+  // batch rows / sequences
   const int hb = blockIdx.x % (a.Hk * a.B);
   const int kvh = hb % a.Hk;
   const int b = hb / a.Hk;
   const int k0 = static_cast<int>(blockIdx.x) / (a.Hk * a.B) * BK;
-  const int nk = min(BK, a.N - k0);
+  const fa::Seq seq_r = fa::seq_info<kVarlen>(a.seq, b, a.Hq);
+  if (kVarlen && k0 >= seq_r.slk) return;  // uniform over the block
+  __shared__ fa::Seq seq_s;
+  const fa::Seq& sq = block_seq<kVarlen>(seq_r, seq_s);
+  const int nk = min(BK, sq.slk - k0);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int kr0 = (warp % kKeyWarps) * 16;   // this warp's 16 key rows
   const int d0 = (warp / kKeyWarps) * DW;    // and its dK/dV columns
   const int kp = k0 + kr0 + lane / 4;        // this thread's keys: kp, kp + 8
-  const Live lv = make_live(a);
+  const Live lv = make_live(a, sq);
   const bool drop = EXTRA && a.dp.enabled;
   // q rows that see any key of this tile: [q_lo, q_hi]
   const int k_last = k0 + nk - 1;
   const int q_lo = lv.wr >= 0 ? max(0, k0 - lv.offs - lv.wr) : 0;
-  const int q_hi = lv.wl >= 0 ? min(a.M - 1, k_last - lv.offs + lv.wl)
-                              : a.M - 1;
+  const int q_hi = lv.wl >= 0 ? min(sq.slq - 1, k_last - lv.offs + lv.wl)
+                              : sq.slq - 1;
   const int qt0 = q_lo / BQ;
   const int n_qt = q_hi >= q_lo ? q_hi / BQ - qt0 + 1 : 0;
   const int n_steps = a.group * n_qt;   // (q head, q tile), head-major
@@ -373,13 +419,15 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
     unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
     const int h = kvh * a.group + s / n_qt;
     const int t0 = (qt0 + s % n_qt) * BQ;
-    load_tile_async<T, D, BQ, P>(st + L::q_off, a.q, b, t0, a.M, a.Hq, h);
-    load_tile_async<T, D, BQ, P>(st + L::do_off, a.dout, b, t0, a.M, a.Hq, h);
-    const long long base = (static_cast<long long>(b) * a.Hq + h) * a.M + t0;
+    load_tile_async<T, D, BQ, P>(st + L::q_off, a.q, sq.q_base + t0,
+                                 sq.slq - t0, a.Hq, h);
+    load_tile_async<T, D, BQ, P>(st + L::do_off, a.dout, sq.q_base + t0,
+                                 sq.slq - t0, a.Hq, h);
+    const long long base = sq.lse_index(h, t0);
     float* lse = reinterpret_cast<float*>(st + L::lse_off);
     float* delta = reinterpret_cast<float*>(st + L::delta_off);
     for (int c = threadIdx.x; c < BQ; c += kThreads) {
-      const bool in = t0 + c < a.M;
+      const bool in = t0 + c < sq.slq;
       cp_async4(lse + c, in ? a.lse + base + c : a.lse, in);
       cp_async4(delta + c, in ? a.delta + base + c : a.delta, in);
     }
@@ -393,8 +441,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
   };
 
   if (n_steps > 0) {
-    load_tile_async<T, D, BK, P>(k_s, a.k, b, k0, a.N, a.Hk, kvh);
-    load_tile_async<T, D, BK, P>(v_s, a.v, b, k0, a.N, a.Hk, kvh);
+    load_tile_async<T, D, BK, P>(k_s, a.k, sq.k_base + k0, nk, a.Hk, kvh);
+    load_tile_async<T, D, BK, P>(v_s, a.v, sq.k_base + k0, nk, a.Hk, kvh);
     prefetch(0);   // one group: K, V and the first Q/dO stage
     int cur_h = -1;
     float slope = 0.0f;
@@ -431,7 +479,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
       P::settle(sc);
       P::settle(dp);
 
-      // P_drop^T in place of S^T and dS^T in place of dP^T
+      // P_drop^T in place of S^T and dS^T in place of dP^T (lv_s as in K2)
+      const Live lv_s = make_live(a, sq);
       auto scores = [&](auto masked) {
         constexpr bool MASK = decltype(masked)::value;
 #pragma unroll
@@ -442,10 +491,11 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
             const int c = j * 8 + (lane % 4) * 2 + e % 2;
             grad_score<MASK, EXTRA>(sc[j][e], dp[j][e], t0 + c, kp + 8 * i,
                                     lse_s[c], delta_s[c],
-                                    drop ? rw_s[c] : 0u, cw[i], slope, lv, a);
+                                    drop ? rw_s[c] : 0u, cw[i], slope, lv_s,
+                                    sq.slq, a);
           }
       };
-      if (t0 + BQ <= a.M && nk == BK && lv.full(t0, BQ, k0, BK))
+      if (t0 + BQ <= sq.slq && nk == BK && lv_s.full(t0, BQ, k0, BK))
         scores(std::false_type{});
       else
         scores(std::true_type{});
@@ -472,8 +522,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
   for (int i = 0; i < 2; ++i) {
     if (kp + 8 * i - k0 >= nk) continue;
     const long long row =
-        ((static_cast<long long>(b) * a.N + kp + 8 * i) * a.Hk + kvh) * D + d0 +
-        (lane % 4) * 2;
+        ((sq.k_base + kp + 8 * i) * a.Hk + kvh) * D + d0 + (lane % 4) * 2;
 #pragma unroll
     for (int nb = 0; nb < DW / 8; ++nb) {
       *reinterpret_cast<uint32_t*>(dkg + row + nb * 8) =
@@ -495,9 +544,10 @@ struct Kernel {
 };
 
 // the variant, its shared-memory limit set on first use
-template <bool DKV, typename T, int D, bool EXTRA>
+template <bool DKV, bool kVarlen, typename T, int D, bool EXTRA>
 cudaError_t variant(Kernel* k) {
-  k->fn = DKV ? dkv_kernel<T, D, EXTRA> : dq_kernel<T, D, EXTRA>;
+  k->fn = DKV ? dkv_kernel<T, D, kVarlen, EXTRA>
+              : dq_kernel<T, D, kVarlen, EXTRA>;
   k->smem = static_cast<int>(DKV ? DkvSmem<T, D>::bytes
                                 : DqSmem<T, D>::bytes);
   k->rows = DKV ? DkvSmem<T, D>::BK : DqSmem<T, D>::BQ;
@@ -511,62 +561,128 @@ cudaError_t variant(Kernel* k) {
   return cudaSuccess;
 }
 
-template <typename T, int D>
+template <bool kVarlen, typename T, int D>
 cudaError_t variant_d(bool dkv, bool extra, Kernel* k) {
   if (dkv)
-    return extra ? variant<true, T, D, true>(k) : variant<true, T, D, false>(k);
-  return extra ? variant<false, T, D, true>(k) : variant<false, T, D, false>(k);
+    return extra ? variant<true, kVarlen, T, D, true>(k)
+                 : variant<true, kVarlen, T, D, false>(k);
+  return extra ? variant<false, kVarlen, T, D, true>(k)
+               : variant<false, kVarlen, T, D, false>(k);
 }
 
-template <typename T>
+template <bool kVarlen, typename T>
 cudaError_t find_t(bool dkv, bool extra, int D, Kernel* k) {
   switch (D) {
-    case 32: return variant_d<T, 32>(dkv, extra, k);
-    case 64: return variant_d<T, 64>(dkv, extra, k);
-    case 128: return variant_d<T, 128>(dkv, extra, k);
-    case 256: return variant_d<T, 256>(dkv, extra, k);
+    case 32: return variant_d<kVarlen, T, 32>(dkv, extra, k);
+    case 64: return variant_d<kVarlen, T, 64>(dkv, extra, k);
+    case 128: return variant_d<kVarlen, T, 128>(dkv, extra, k);
+    case 256: return variant_d<kVarlen, T, 256>(dkv, extra, k);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // dtype 0 = bf16, 1 = fp16
-cudaError_t find_variant(bool dkv, int dtype, bool extra, int D,
+cudaError_t find_variant(bool dkv, bool varlen, int dtype, bool extra, int D,
                          Kernel* k) {
-  return dtype == 0 ? find_t<__nv_bfloat16>(dkv, extra, D, k)
-                    : find_t<__half>(dkv, extra, D, k);
+  if (varlen)
+    return dtype == 0 ? find_t<true, __nv_bfloat16>(dkv, extra, D, k)
+                      : find_t<true, __half>(dkv, extra, D, k);
+  return dtype == 0 ? find_t<false, __nv_bfloat16>(dkv, extra, D, k)
+                    : find_t<false, __half>(dkv, extra, D, k);
 }
 
-int launch(bool dkv, int dtype, const void* q, const void* k, const void* v,
-           const void* dout, const float* lse, const float* delta,
-           const float* slopes, void* dq, void* dk, void* dv, int B, int M,
-           int N, int Hq, int Hk, int D, int offset, float scale, int causal,
-           int window_left, int window_right, float softcap, int has_alibi,
-           int dropout, unsigned int seed_lo, unsigned int seed_hi,
-           unsigned int threshold, float drop_scale, int q0, int k0, int b0,
-           int h0, int num_heads, void* stream) {
-  if (Hk <= 0 || Hq % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || Hq == 0 || (dkv ? N : M) == 0) return 0;
-  BwdArgs a;
-  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
-  a.slopes = has_alibi ? slopes : nullptr;
-  a.dq = dq; a.dk = dk; a.dv = dv;
-  a.B = B; a.M = M; a.N = N; a.Hq = Hq; a.Hk = Hk; a.group = Hq / Hk;
-  a.offset = offset; a.scale = scale;
-  a.mp_.causal = causal; a.mp_.window_left = window_left;
-  a.mp_.window_right = window_right; a.mp_.softcap = softcap;
-  a.mp_.has_alibi = has_alibi;
-  a.dp.enabled = dropout; a.dp.seed_lo = seed_lo; a.dp.seed_hi = seed_hi;
-  a.dp.threshold = threshold; a.dp.scale = drop_scale;
-  a.dp.q0 = q0; a.dp.k0 = k0; a.dp.b0 = b0; a.dp.h0 = h0;
-  a.dp.num_heads = num_heads;
+// varlen: a.seq.M / a.seq.N are max_seqlen_q / max_seqlen_k; blocks past
+// their sequence leave at once
+int launch(bool dkv, bool varlen, int dtype, int D, const BwdArgs& a,
+           void* stream) {
   Kernel kn;
   cudaError_t e = find_variant(
-      dkv, dtype, has_alibi || softcap > 0.0f || dropout, D, &kn);
+      dkv, varlen, dtype,
+      a.mp_.has_alibi || a.mp_.softcap > 0.0f || a.dp.enabled, D, &kn);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles = ((dkv ? N : M) + kn.rows - 1) / kn.rows;
-  kn.fn<<<tiles * (dkv ? Hk : Hq) * B, kThreads, kn.smem,
+  const int tiles = ((dkv ? a.seq.N : a.seq.M) + kn.rows - 1) / kn.rows;
+  kn.fn<<<tiles * (dkv ? a.Hk : a.Hq) * a.B, kThreads, kn.smem,
           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+void set_common(BwdArgs* a, const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                const float* slopes, void* dq, void* dk, void* dv, int B,
+                int Hq, int Hk, float scale, int causal, int window_left,
+                int window_right, float softcap, int has_alibi, int dropout,
+                unsigned int seed_lo, unsigned int seed_hi,
+                unsigned int threshold, float drop_scale) {
+  a->q = q; a->k = k; a->v = v; a->dout = dout; a->lse = lse;
+  a->delta = delta; a->slopes = has_alibi ? slopes : nullptr;
+  a->dq = dq; a->dk = dk; a->dv = dv;
+  a->B = B; a->Hq = Hq; a->Hk = Hk; a->group = Hq / Hk; a->scale = scale;
+  a->mp_.causal = causal; a->mp_.window_left = window_left;
+  a->mp_.window_right = window_right; a->mp_.softcap = softcap;
+  a->mp_.has_alibi = has_alibi;
+  a->dp.enabled = dropout; a->dp.seed_lo = seed_lo; a->dp.seed_hi = seed_hi;
+  a->dp.threshold = threshold; a->dp.scale = drop_scale;
+}
+
+int dense_launch(bool dkv, int dtype, const void* q, const void* k,
+                 const void* v, const void* dout, const float* lse,
+                 const float* delta, const float* slopes, void* dq, void* dk,
+                 void* dv, int B, int M, int N, int Hq, int Hk, int D,
+                 int offset, float scale, int causal, int window_left,
+                 int window_right, float softcap, int has_alibi, int dropout,
+                 unsigned int seed_lo, unsigned int seed_hi,
+                 unsigned int threshold, float drop_scale, int q0, int k0,
+                 int b0, int h0, int num_heads, void* stream) {
+  if (Hk <= 0 || Hq % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Hq == 0 || (dkv ? N : M) == 0) return 0;
+  BwdArgs a = {};
+  set_common(&a, q, k, v, dout, lse, delta, slopes, dq, dk, dv, B, Hq, Hk,
+             scale, causal, window_left, window_right, softcap, has_alibi,
+             dropout, seed_lo, seed_hi, threshold, drop_scale);
+  a.seq.M = M; a.seq.N = N; a.seq.offset = offset;
+  a.dp.q0 = q0; a.dp.k0 = k0; a.dp.b0 = b0; a.dp.h0 = h0;
+  a.dp.num_heads = num_heads;
+  return launch(dkv, false, dtype, D, a, stream);
+}
+
+int varlen_launch(bool dkv, int dtype, const void* q, const void* k,
+                  const void* v, const void* dout, const float* lse,
+                  const float* delta, const float* slopes, void* dq,
+                  void* dk, void* dv, const int* cu_q, const int* cu_k,
+                  const int* seqused_k, const int* leftpad_k, int B, int Tq,
+                  int max_seqlen_q, int max_seqlen_k, int Hq, int Hk, int D,
+                  float scale, int causal, int window_left, int window_right,
+                  float softcap, int has_alibi, int dropout,
+                  unsigned int seed_lo, unsigned int seed_hi,
+                  unsigned int threshold, float drop_scale, void* stream) {
+  if (Hk <= 0 || Hq % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Hq == 0 || (dkv ? max_seqlen_k : max_seqlen_q) <= 0)
+    return 0;
+  BwdArgs a = {};
+  set_common(&a, q, k, v, dout, lse, delta, slopes, dq, dk, dv, B, Hq, Hk,
+             scale, causal, window_left, window_right, softcap, has_alibi,
+             dropout, seed_lo, seed_hi, threshold, drop_scale);
+  a.seq.M = max_seqlen_q; a.seq.N = max_seqlen_k; a.seq.Tq = Tq;
+  a.seq.cu_q = cu_q; a.seq.cu_k = cu_k; a.seq.seqused_k = seqused_k;
+  a.seq.leftpad_k = leftpad_k;
+  // dropout keyed as K5 keys it: (within-sequence q position,
+  // leftpad-relative key position, bh = b * Hq + h)
+  a.dp.num_heads = Hq;
+  return launch(dkv, true, dtype, D, a, stream);
+}
+
+int occupancy(bool dkv, bool varlen, int dtype, int D, int extra, int* out) {
+  Kernel kn;
+  cudaFuncAttributes attr;
+  cudaError_t e = find_variant(dkv, varlen, dtype, extra != 0, D, &kn);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kn.fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[1] = kn.smem;
+  out[2] = kThreads;
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kn.fn, kThreads, kn.smem));
 }
 
 }  // namespace
@@ -584,11 +700,39 @@ int launch(bool dkv, int dtype, const void* q, const void* k, const void* v,
       offset, scale, causal, window_left, window_right, softcap, has_alibi,  \
       dropout, seed_lo, seed_hi, threshold, drop_scale, q0, k0, b0, h0,      \
       num_heads, stream
+#define FA_VARLEN_BWD_PARAMS                                                 \
+  int dtype, const void *q, const void *k, const void *v, const void *dout,  \
+      const float *lse, const float *delta, const float *slopes, void *dq,   \
+      void *dk, void *dv, const int *cu_q, const int *cu_k,                   \
+      const int *seqused_k, const int *leftpad_k, int B, int Tq,             \
+      int max_seqlen_q, int max_seqlen_k, int Hq, int Hk, int D, float scale, \
+      int causal, int window_left, int window_right, float softcap,          \
+      int has_alibi, int dropout, unsigned int seed_lo, unsigned int seed_hi, \
+      unsigned int threshold, float drop_scale, void *stream
+#define FA_VARLEN_BWD_ARGS                                                   \
+  dtype, q, k, v, dout, lse, delta, slopes, dq, dk, dv, cu_q, cu_k,          \
+      seqused_k, leftpad_k, B, Tq, max_seqlen_q, max_seqlen_k, Hq, Hk, D,    \
+      scale, causal, window_left, window_right, softcap, has_alibi, dropout, \
+      seed_lo, seed_hi, threshold, drop_scale, stream
 
 // dtype: 0 = bf16, 1 = fp16.  Each returns cudaGetLastError() of its launch.
 // K2 writes dq (dk, dv unused); K3 writes dk and dv (dq unused).
-extern "C" int fa_dq_launch(FA_BWD_PARAMS) { return launch(false, FA_BWD_ARGS); }
-extern "C" int fa_dkv_launch(FA_BWD_PARAMS) { return launch(true, FA_BWD_ARGS); }
+extern "C" int fa_dq_launch(FA_BWD_PARAMS) {
+  return dense_launch(false, FA_BWD_ARGS);
+}
+extern "C" int fa_dkv_launch(FA_BWD_PARAMS) {
+  return dense_launch(true, FA_BWD_ARGS);
+}
+
+// K6 writes dq (dk, dv unused); K7 writes dk and dv (dq unused).  cu_q and
+// cu_k are (B + 1,), seqused_k / leftpad_k (B,) or null; the grids cover
+// max_seqlen_q rows (K6) or max_seqlen_k keys (K7) of each sequence.
+extern "C" int fa_varlen_dq_launch(FA_VARLEN_BWD_PARAMS) {
+  return varlen_launch(false, FA_VARLEN_BWD_ARGS);
+}
+extern "C" int fa_varlen_dkv_launch(FA_VARLEN_BWD_PARAMS) {
+  return varlen_launch(true, FA_VARLEN_BWD_ARGS);
+}
 
 // The occupancy of K2 (dkv 0) or K3 (dkv 1) for (dtype, D), in the variant
 // without bias and dropout (extra 0) or with (extra 1): out[0] resident
@@ -597,15 +741,11 @@ extern "C" int fa_dkv_launch(FA_BWD_PARAMS) { return launch(true, FA_BWD_ARGS); 
 // thread (bytes: spills and stack).  Returns a cudaError_t.
 extern "C" int fa_bwd_occupancy(int dkv, int dtype, int D, int extra,
                                 int* out) {
-  Kernel kn;
-  cudaFuncAttributes attr;
-  cudaError_t e = find_variant(dkv != 0, dtype, extra != 0, D, &kn);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kn.fn);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  out[1] = kn.smem;
-  out[2] = kThreads;
-  out[3] = attr.numRegs;
-  out[4] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, kn.fn, kThreads, kn.smem));
+  return occupancy(dkv != 0, false, dtype, D, extra, out);
+}
+
+// The same for K6 (dkv 0) or K7 (dkv 1), the varlen instantiation.
+extern "C" int fa_varlen_bwd_occupancy(int dkv, int dtype, int D, int extra,
+                                       int* out) {
+  return occupancy(dkv != 0, true, dtype, D, extra, out);
 }

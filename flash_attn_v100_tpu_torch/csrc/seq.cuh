@@ -1,7 +1,7 @@
 // Per-sequence bookkeeping of the attention kernels: dense (batch row b)
 // or packed varlen (sequence b), the dense case being the varlen one with
 // cu_seqlens = b * M.  K1 and K5 are one forward body instantiated for both
-// (csrc/fwd.cu); K6/K7 (csrc/varlen_bwd.cu) use the varlen case.
+// (csrc/fwd.cu), K2/K3 and K6/K7 one backward body each (csrc/bwd.cu).
 //
 // A block reads its sequence's row bases and lengths here once, as the
 // reference CUDA kernels' BlockInfo does (include/template.h:55-69 of the

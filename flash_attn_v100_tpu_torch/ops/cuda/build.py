@@ -29,7 +29,7 @@ BUILD_DIR = PKG_ROOT / "build"
 
 # kernel name -> source file in csrc/
 SOURCES = {"decode": "decode.cu", "varlen_paged": "varlen_paged.cu",
-           "fwd": "fwd.cu", "bwd": "bwd.cu", "varlen_bwd": "varlen_bwd.cu",
+           "fwd": "fwd.cu", "bwd": "bwd.cu",
            "decode_quant": "decode_quant.cu",
            "varlen_paged_quant": "varlen_paged_quant.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -68,14 +68,13 @@ SIGNATURES = {
         **{name: ([_I] + [_P] * 10 + [_I] * 7 + [_F] + _MASK_DROPOUT + [_P],
                   _I)
            for name in ("fa_dq_launch", "fa_dkv_launch")},
-        # (dkv, dtype, D, extra, int out[5]): occupancy of K2 / K3
-        "fa_bwd_occupancy": ([_I, _I, _I, _I, _P], _I),
-    },
-    # the varlen entries take no dropout position bases
-    "varlen_bwd": {
-        name: ([_I] + [_P] * 14 + [_I] * 7 + [_F] + _MASK_DROPOUT[:10]
-               + [_P], _I)
-        for name in ("fa_varlen_dq_launch", "fa_varlen_dkv_launch")
+        # K6 / K7, the varlen instantiation: no dropout position bases
+        **{name: ([_I] + [_P] * 14 + [_I] * 7 + [_F] + _MASK_DROPOUT[:10]
+                  + [_P], _I)
+           for name in ("fa_varlen_dq_launch", "fa_varlen_dkv_launch")},
+        # (dkv, dtype, D, extra, int out[5]): occupancy of K2 / K3 (K6 / K7)
+        **{name: ([_I, _I, _I, _I, _P], _I)
+           for name in ("fa_bwd_occupancy", "fa_varlen_bwd_occupancy")},
     },
     # (kind, dtype) first; payload then scale strides
     "decode_quant": {

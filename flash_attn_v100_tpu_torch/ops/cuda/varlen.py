@@ -1,7 +1,8 @@
 """Packed varlen attention kernels and their plain twins: K5 forward (the
 dense forward's body instantiated for varlen, `csrc/fwd.cu`), K6 dQ and K7
-dK/dV (`csrc/varlen_bwd.cu`) on contiguous packed K/V, and K8 forward with
-K/V read through a block table from a page pool (`csrc/varlen_paged.cu`).
+dK/dV (the dense backward's bodies instantiated for varlen, `csrc/bwd.cu`)
+on contiguous packed K/V, and K8 forward with K/V read through a block
+table from a page pool (`csrc/varlen_paged.cu`).
 
 `flash_attn_varlen_fwd` / `flash_attn_varlen_bwd` have the signatures and
 returns of flash_attn_v100_tpu/ops/pallas/varlen.py's (without the TPU
@@ -248,7 +249,7 @@ def _launch_bwd(fn_name: str, q, k, v, dout, lse, delta, slopes, dq, dk,
                          "flash_attn_varlen_bwd takes the plain version for "
                          "CPU tensors")
     Tq, Hq, D = q.shape
-    lib = build.load("varlen_bwd")
+    lib = build.load("bwd")
     rc = getattr(lib, fn_name)(
         DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(slopes),
