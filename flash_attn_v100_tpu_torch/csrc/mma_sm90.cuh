@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy helpers for the attention kernels of
 // this package (sm_90a): warp-level mma.sync m16n8k16 and ldmatrix,
 // warpgroup-level wgmma m64nNk16 (N 32, 64, 128), both with 16-bit inputs
-// and fp32 accumulators, and cp.async with zero fill.
+// and fp32 accumulators, warp-level mma.sync m16n8k32 with int8 inputs and
+// int32 accumulators, and cp.async with zero fill.
 //
 // Fragment layouts of m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4; each 32-bit register
@@ -132,6 +133,23 @@ __device__ __forceinline__ void mma16816<__half>(
       "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b, 16x8x32, int8 inputs, int32 accumulate.  The fragments are
+// m16n8k16's with each 32-bit register holding four 8-bit values (PTX ISA,
+// "Matrix fragments for mma.m16n8k32"): a[0] (row g, k 4t..4t+3), a[1]
+// (row g+8), a[2] (row g, k 4t+16..), a[3] (row g+8, k 4t+16..); b[0] (k
+// 4t..4t+3, col g), b[1] (k 4t+16.., col g); c as m16n8k16's.  So the
+// 16-bit ldmatrix loads give them from byte rows: load_a's addresses for A
+// (16 rows x 32 bytes) and load_b_nk's for B stored [n][k].
+__device__ __forceinline__ void mma16832_s8(int (&c)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

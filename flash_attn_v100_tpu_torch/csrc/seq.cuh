@@ -1,7 +1,9 @@
-// Per-sequence bookkeeping of the attention kernels: dense (batch row b)
-// or packed varlen (sequence b), the dense case being the varlen one with
-// cu_seqlens = b * M.  K1 and K5 are one forward body instantiated for both
-// (csrc/fwd.cu), K2/K3 and K6/K7 one backward body each (csrc/bwd.cu).
+// Per-sequence bookkeeping of the attention kernels: dense (batch row b),
+// packed varlen (sequence b), the dense case being the varlen one with
+// cu_seqlens = b * M, or paged (sequence b, keys in pages of a pool).  K1,
+// K5 and K8 are one forward body instantiated for the three
+// (csrc/fwd_body.cuh), K2/K3 and K6/K7 one backward body each
+// (csrc/bwd.cu).
 //
 // A block reads its sequence's row bases and lengths here once, as the
 // reference CUDA kernels' BlockInfo does (include/template.h:55-69 of the
@@ -14,6 +16,15 @@
 // and the key at leftpad-relative position j is packed row
 // cu_k[b] + leftpad_k[b] + j.  The dense case has slq = M, slk = N, the
 // caller's offset, q row b * M + i and key row b * N + j.
+//
+// The paged case (K8, K8q) is flash_attn_v100_tpu/ops/pallas/varlen.py's
+// paged rule, which caps the keys at the block table's mp pages:
+//     used = min(seqlens_k, seqused_k)
+//     slk  = (used > 0 ? min(mp * ps, used) : 0) - leftpad_k
+//     offs = slk - len_q
+// and the key at leftpad-relative position j is cache row leftpad_k[b] + j
+// of the sequence's pages.  It differs from the varlen rule (no cu_k, the
+// cap, seqused_k taken as it is), so the two stay apart.
 #pragma once
 
 namespace fa {
@@ -32,7 +43,7 @@ struct SeqArgs {
 
 struct Seq {
   long long q_base;  // packed q row of q position 0
-  long long k_base;  // packed k row of key position 0
+  long long k_base;  // packed k row of key position 0 (paged: cache row)
   long long lse_b;   // LSE / delta index of (head 0, q position 0)
   long long lse_h;   // LSE / delta stride of one head
   int slq, slk, offs;
@@ -71,6 +82,25 @@ __device__ __forceinline__ Seq seq_info(const SeqArgs& s, int b, int Hq) {
     r.lse_b = static_cast<long long>(b) * Hq * s.M;
     r.lse_h = s.M;
   }
+  return r;
+}
+
+// the paged rule above for sequence b; cap = mp * page_size
+__device__ __forceinline__ Seq paged_seq_info(const SeqArgs& s,
+                                              const int* seqlens_k, int cap,
+                                              int b) {
+  Seq r;
+  const int q0 = s.cu_q[b];
+  int used = seqlens_k[b];
+  if (s.seqused_k) used = min(used, s.seqused_k[b]);
+  const int lp = s.leftpad_k ? s.leftpad_k[b] : 0;
+  r.slq = s.cu_q[b + 1] - q0;
+  r.slk = (used > 0 ? min(cap, used) : 0) - lp;
+  r.offs = r.slk - r.slq;
+  r.q_base = q0;
+  r.k_base = lp;
+  r.lse_b = q0;
+  r.lse_h = s.Tq;
   return r;
 }
 

@@ -55,6 +55,8 @@ SIGNATURES = {
         "fa_varlen_paged_launch": ([_I, _P, _P, _P, _P, _I] + [_P] * 6
                                    + [_P] + [_LL] * 3 + [_I] * 8
                                    + [_F, _I, _I, _I, _F, _I, _P], _I),
+        # (dtype, D, extra, int out[5]): occupancy of K8
+        "fa_varlen_paged_occupancy": ([_I, _I, _I, _P], _I),
     },
     "fwd": {
         "fa_fwd_launch": ([_I] + [_P] * 6 + [_I] * 7 + [_F] + _MASK_DROPOUT
@@ -86,6 +88,8 @@ SIGNATURES = {
         "fa_varlen_paged_quant_launch": (
             [_I, _I] + [_P] * 6 + [_I] + [_P] * 7 + [_LL] * 6 + [_I] * 8
             + [_F, _F] + [_I] * 4 + [_F, _I, _P], _I),
+        # (kind, dtype, D, extra, int out[5]): occupancy of K8q
+        "fa_varlen_paged_quant_occupancy": ([_I, _I, _I, _I, _P], _I),
     },
 }
 

@@ -2,7 +2,8 @@
 dense forward's body instantiated for varlen, `csrc/fwd.cu`), K6 dQ and K7
 dK/dV (the dense backward's bodies instantiated for varlen, `csrc/bwd.cu`)
 on contiguous packed K/V, and K8 forward with K/V read through a block
-table from a page pool (`csrc/varlen_paged.cu`).
+table from a page pool (the same forward body instantiated for pages,
+`csrc/varlen_paged.cu`).
 
 `flash_attn_varlen_fwd` / `flash_attn_varlen_bwd` have the signatures and
 returns of flash_attn_v100_tpu/ops/pallas/varlen.py's (without the TPU
@@ -68,7 +69,7 @@ from flash_attn_v100_tpu_torch.ops.cuda.fwd import (
     kernel_head_dim, pad_head_dim, slopes_bh)
 from flash_attn_v100_tpu_torch.ops.quant import FP8, payload_bytes
 
-P_TILE = 64       # K8q's key tile: P's int8 group (kBK)
+P_TILE = 64       # K8q's key step: P's int8 group (BK in the kernels)
 LOG2E = math.log2(math.e)
 
 
@@ -483,12 +484,12 @@ def flash_attn_varlen_fwd_paged(
         build.check(rc, "flash_attn_varlen_fwd_paged")
         flash_attn_varlen_fwd_paged.launches += 1
     else:
-        exp2, scale, slope_mult = _exp2_domain(softmax_scale, params)
+        exp2, _, slope_mult = _exp2_domain(softmax_scale, params)
         rc = build.load("varlen_paged_quant").fa_varlen_paged_quant_launch(
             KIND_CODE[kind], DTYPE_CODE[q.dtype], q.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), k_scales.data_ptr(),
             v_scales.data_ptr(), *head, *k_scales.stride()[:3], *dims,
-            float(scale), float(slope_mult), int(exp2), *mask)
+            float(softmax_scale), float(slope_mult), int(exp2), *mask)
         build.check(rc, "flash_attn_varlen_fwd_paged (quantized)")
         flash_attn_varlen_fwd_paged.quant_launches[kind] += 1
     return out, lse

@@ -361,15 +361,17 @@ VARLEN_CASES = {
 }
 
 
-def _varlen_inputs(name, dtype, D, dev):
-    qlens, prefix, lp, cut, ps, mkw, alibi = VARLEN_CASES[name]
+def _varlen_inputs(name, dtype, D, dev, cases=VARLEN_CASES):
+    qlens, prefix, lp, cut, ps, mkw, alibi = cases[name]
     rng = np.random.default_rng(11)
     Hq, Hk = 8, 2
     qlens, prefix = np.asarray(qlens), np.asarray(prefix)
     B = len(qlens)
     lp = np.zeros(B, np.int64) if lp is None else np.asarray(lp)
     seqlens = lp + prefix + qlens
-    seqused = None if cut is None else seqlens - np.asarray(cut)
+    # a cut past a sequence's length leaves it seqused_k = 0
+    seqused = None if cut is None else np.maximum(seqlens - np.asarray(cut),
+                                                  0)
     max_k = int(seqlens.max())
     mp = -(-max_k // ps)
     P = B * mp + 1
@@ -391,7 +393,7 @@ def _varlen_inputs(name, dtype, D, dev):
             masklib.MaskParams(has_alibi=alibi, **mkw))
     kw = dict(alibi_slopes=t(slopes) if alibi else None,
               seqused_k=i32(seqused),
-              leftpad_k=None if VARLEN_CASES[name][2] is None else i32(lp))
+              leftpad_k=None if cases[name][2] is None else i32(lp))
     return args, kw
 
 
@@ -1039,8 +1041,9 @@ def test_decode_quant_kernel_matches_plain(cuda, dt, D, name, kind):
         assert torch.isneginf(lse[0]).all() and not o[0].any()
 
 
-def _varlen_quant_inputs(name, kind, dtype, D, dev):
-    (q, k, v, *rest), kw = _varlen_inputs(name, torch.float32, D, "cpu")
+def _varlen_quant_inputs(name, kind, dtype, D, dev, cases=VARLEN_CASES):
+    (q, k, v, *rest), kw = _varlen_inputs(name, torch.float32, D, "cpu",
+                                          cases)
     (kq, ks), (vq, vs) = (_quantize(x, kind, dev) for x in (k, v))
     args = (q.to(dev, dtype), kq, vq,
             *(x.to(dev) if isinstance(x, torch.Tensor) else x for x in rest))
@@ -1217,3 +1220,130 @@ def test_engine_quant_runs_both_kernels(cuda, kind):
         assert launches[route] == cfg.n_layers * calls[route]
     assert (dec.paged_decode_attention_ref.calls,
             vl.flash_attn_varlen_fwd_paged_ref.calls) == plain0
+
+
+# ------------------------------------- K8 and K8q on the forward body
+
+# K8's tiles start at cache-row multiples of the key step and its q tiles
+# hold 128 rows (64 at D 32/256): q lens one short of, one past and half a
+# tile past a q tile, leftpads one short of and one past a key step, a
+# 256-row page and a sequence with seqused_k = 0 (a cut past its length)
+EDGE_CASES = {
+    "q127_129_193_leftpad63_65": ([127, 129, 193], [40, 0, 300], [63, 65, 0],
+                                  None, 128,
+                                  dict(causal=True, window_right=0), False),
+    "ps256_seqused0_leftpad65": ([129, 193, 127], [10, 70, 200], [65, 0, 63],
+                                 [0, 10 ** 6, 5], 256,
+                                 dict(causal=True, window_right=0), False),
+}
+
+
+def _empty_rows(args, kw):
+    """Packed q rows of the sequences whose seqused_k is 0."""
+    cu = args[4].tolist()
+    used = kw["seqused_k"]
+    rows = torch.zeros(cu[-1], dtype=torch.bool)
+    for b in range(len(cu) - 1):
+        if used is not None and int(used[b]) == 0:
+            rows[cu[b]:cu[b + 1]] = True
+    return rows
+
+
+@pytest.mark.parametrize("name", list(EDGE_CASES))
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_varlen_kernel_tile_edges(cuda, dt, D, name):
+    args, kw = _varlen_inputs(name, DTYPES[dt], D, cuda, EDGE_CASES)
+    out, lse = vl.flash_attn_varlen_fwd_paged(*args, **kw)
+    torch.cuda.synchronize()
+    o32, lse32 = vl.flash_attn_varlen_fwd_paged_ref(*args, **kw)
+    onat, lsenat = vl.flash_attn_varlen_fwd_paged_ref(*args, upcast=False,
+                                                      **kw)
+    assert_fwd_close(out, o32, onat, name=f"K8 {name} out")
+    _gate_lse(lse, lse32, lsenat, f"K8 {name} lse")
+    empty = _empty_rows(args, kw).to(cuda)
+    assert not out[empty].any() and torch.isneginf(lse[:, empty]).all()
+
+
+@pytest.mark.parametrize("kind", list(QUANT_KINDS))
+@pytest.mark.parametrize("name", list(EDGE_CASES))
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_varlen_quant_kernel_tile_edges(cuda, dt, D, name, kind):
+    args, kw = _varlen_quant_inputs(name, kind, DTYPES[dt], D, cuda,
+                                    EDGE_CASES)
+    out, lse = vl.flash_attn_varlen_fwd_paged(*args, **kw)
+    torch.cuda.synchronize()
+    ref, lse_ref = vl.flash_attn_varlen_fwd_paged_ref(*args, **kw)
+    unr = vl.flash_attn_varlen_fwd_paged_ref(*args, round_p=False, **kw)[0]
+    _gate_quant(out, lse, ref, unr, lse_ref, f"K8q {kind} {name}")
+    empty = _empty_rows(args, kw).to(cuda)
+    assert not out[empty].any() and torch.isneginf(lse[:, empty]).all()
+
+
+def _gathered(args, kw):
+    """K8's inputs as K5's: each sequence's cache rows gathered from the
+    pools into packed (Tk, Hk, D) K/V split by cu_seqlens_k."""
+    q, kp, vp, tbl, cu_q, lens, max_q, max_k, scale, params = args
+    ps = kp.shape[2]
+    ks, vs = [], []
+    for b, n in enumerate(lens.tolist()):
+        pages = tbl[b, :-(-n // ps)].long()
+        ks.append(kp[:, pages].reshape(kp.shape[0], -1, kp.shape[3])[:, :n])
+        vs.append(vp[:, pages].reshape(vp.shape[0], -1, vp.shape[3])[:, :n])
+    k = torch.cat(ks, dim=1).transpose(0, 1).contiguous()
+    v = torch.cat(vs, dim=1).transpose(0, 1).contiguous()
+    cu_k = torch.zeros(len(lens) + 1, dtype=torch.int32, device=q.device)
+    cu_k[1:] = torch.cumsum(lens, 0)
+    return (q, k, v, cu_q, cu_k, max_q, max_k, scale, params), dict(
+        alibi_slopes=kw["alibi_slopes"])
+
+
+@pytest.mark.parametrize("name", ["causal_prefix", "window_softcap_alibi"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_varlen_paged_bit_equal_to_varlen_fwd(cuda, dt, D, name):
+    """With leftpad 0, K8 over the pools and K5 over the same cache rows
+    gathered into packed K/V run one body over the same tiles: out and
+    LSE bit-equal."""
+    args, kw = _varlen_inputs(name, DTYPES[dt], D, cuda)
+    out8, lse8 = vl.flash_attn_varlen_fwd_paged(*args, **kw)
+    args5, kw5 = _gathered(args, kw)
+    out5, lse5 = vl.flash_attn_varlen_fwd(*args5, **kw5)
+    assert torch.equal(out8, out5) and torch.equal(lse8, lse5)
+
+
+@pytest.mark.parametrize("kind", [None] + list(QUANT_KINDS))
+def test_varlen_paged_bitwise_deterministic(cuda, kind):
+    """K8 and K8q give the same out and LSE bits on two calls."""
+    name = "q127_129_193_leftpad63_65"
+    if kind is None:
+        args, kw = _varlen_inputs(name, torch.bfloat16, 128, cuda,
+                                  EDGE_CASES)
+    else:
+        args, kw = _varlen_quant_inputs(name, kind, torch.bfloat16, 128,
+                                        cuda, EDGE_CASES)
+    one = vl.flash_attn_varlen_fwd_paged(*args, **kw)
+    two = vl.flash_attn_varlen_fwd_paged(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_varlen_paged_kernels_use_no_local_memory(cuda, D):
+    """K8 and K8q (each payload kind) in bf16 and fp16, with and without
+    bias: no spills or stack (local memory) and at least 8 warps resident
+    a multiprocessor."""
+    import ctypes
+    k8, k8q = build.load("varlen_paged"), build.load("varlen_paged_quant")
+    calls = [(f"K8 dtype {dt} extra {ex}", k8.fa_varlen_paged_occupancy,
+              (dt, D, ex)) for dt in (0, 1) for ex in (0, 1)]
+    calls += [(f"K8q {kind} dtype {dt} extra {ex}",
+               k8q.fa_varlen_paged_quant_occupancy, (code, dt, D, ex))
+              for kind, code in dec.KIND_CODE.items()
+              for dt in (0, 1) for ex in (0, 1)]
+    for what, fn, a in calls:
+        out = (ctypes.c_int * 5)()
+        assert fn(*a, ctypes.addressof(out)) == 0, what
+        blocks, _, threads, _, local = out
+        assert local == 0, f"{what}: {local} B of local memory"
+        assert blocks * threads // 32 >= 8, f"{what}: {blocks} blocks"
