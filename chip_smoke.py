@@ -21,15 +21,18 @@ PyTorch library call computing the same function:
     back), a padded batch through unpad_input / pad_input, each sequence
     bit-equal to flash_attn_func on it alone, and packed documents, where
     each kernel is held against its plain version; K6/K7's occupancy;
-  * K4 decode and K8 paged prefill (K1/K5's body instantiated for a page
-    pool) at the serving engine's shapes, K8 also per row with a wrong-tile
-    check, and K8/K8q's registers, spills, shared memory and resident
+  * K4 decode (its splits merged in the launch) and K8 paged prefill
+    (K1/K5's body instantiated for a page pool) at the serving engine's
+    shapes, both also per row with a wrong-tile check (K4: one late
+    32-key chunk), K4's merged output against merge_partials of its
+    partials, K4 at a 32k-context decode against its bound, and
+    K4/K4q's and K8/K8q's registers, spills, shared memory and resident
     warps a multiprocessor at D 64 and 128;
   * their quantized variants K4q and K8q over int8, fp8 (e4m3) and int4
     pools at the same shapes, against their plain twins and the fp32
     oracle over the dequantized pool, all eight timed in turns over
-    5 x 100 launches (the spread of each), K8 and K8q also as CUDA-graph
-    replays (their device time without the wrapper's host time).
+    5 x 100 launches (the spread of each), also as CUDA-graph replays
+    (their device time without the wrapper's host time).
 Then it trains TinyLlama-1.1B at full width (22 layers, bf16, random weights
 from a seed) for three AdamW steps at B 4 x S 2048 through K1-K3, and
 drives the paged serving engine at the same width through K4 and K8, then
@@ -53,7 +56,14 @@ does the same for K5-K7 at the varlen phase's packed documents, and
     python3 chip_smoke.py --paged-times TREE
 
 for K8 and K8q (int8, fp8, int4) at the K8 phase's shape and K8 at the
-headline head shape (32 / 8 heads x 128), timed in turns.
+headline head shape (32 / 8 heads x 128), timed in turns;
+
+    python3 chip_smoke.py --decode-times TREE
+
+for K4 and K4q (int8, fp8, int4) through flash_attn_with_kvcache and
+paged_decode_attention at the engine's decode step, its short-prompt
+prefill and a 32k-context decode, with the SM clock and power around
+each round.
 
     python3 chip_smoke.py --serve-times ROUNDS
 
@@ -232,8 +242,72 @@ def gated_rows(torch, out, ref32, ref_native, name, mult, check=True):
     return float(ratio[i]), float(ref.abs().median()), float(gate.median())
 
 
+def check_merged(torch, om, lsem, o, lse, name):
+    """The merged entry (one launch) against merge_partials of the same
+    kernel's partials: each row's RMS error within 2^-8 of its RMS (the
+    rounding to q's 16-bit type) + 1e-6, the LSE within 1e-5."""
+    o = o.float()
+    err = (om.float() - o).pow(2).mean(-1).sqrt()
+    ratio = float((err / (2.0 ** -8 * o.pow(2).mean(-1).sqrt() + 1e-6)).max())
+    fin = torch.isfinite(lse)
+    assert torch.equal(fin, torch.isfinite(lsem)), f"{name}: -inf rows"
+    lse_err = float((lsem[fin] - lse[fin]).abs().max()) if fin.any() else 0.0
+    assert ratio <= 1.0 and lse_err <= 1e-5, (name, ratio, lse_err)
+    return ratio, lse_err
+
+
+def k4_occupancy(build) -> dict:
+    """K4 and K4q (each payload kind) in bf16 at D 64 / 128, in 16-row
+    blocks (Rq <= 16: the warps split the keys) and 64-row ones:
+    registers, local memory, dynamic shared memory (without the page
+    table), threads and resident blocks a multiprocessor, from
+    `fa_decode_occupancy` / `fa_decode_quant_occupancy`.  Asserts no local
+    memory, and >= 8 resident warps at 16 rows."""
+    import ctypes
+    from flash_attn_v100_tpu_torch.ops.cuda.decode import KIND_CODE
+    res = {}
+    for name in ("K4",) + tuple(f"K4q {kind}" for kind in QUANT_KINDS):
+        for D in (64, 128):
+            for rows in (16, 64):
+                out = (ctypes.c_int * 5)()
+                at = ctypes.addressof(out)
+                if name == "K4":
+                    rc = build.load("decode").fa_decode_occupancy(0, D, rows,
+                                                                  at)
+                else:
+                    rc = build.load("decode_quant").fa_decode_quant_occupancy(
+                        KIND_CODE[name.split()[1]], 0, D, rows, at)
+                build.check(rc, f"{name} occupancy")
+                blocks, smem, threads, regs, local = out
+                o = res[(name, D, rows)] = dict(
+                    registers=regs, local_bytes=local, smem_bytes=smem,
+                    threads=threads, blocks_per_sm=blocks,
+                    warps_per_sm=blocks * threads // 32)
+                print(f"{name} occupancy (bf16, D {D}, {rows}-row blocks): "
+                      f"{regs} registers, local memory {local} B, {smem} B "
+                      f"dynamic shared memory and {threads} threads a block, "
+                      f"{blocks} blocks = {o['warps_per_sm']} warps resident "
+                      f"a multiprocessor", flush=True)
+                assert local == 0, f"{name} D {D} rows {rows} spills"
+                assert rows > 16 or o["warps_per_sm"] >= 8, \
+                    f"{name} D {D}: under 8 warps/SM"
+    return res
+
+
+def wrong_chunk_pool(torch, vp, tbl, lens, ps, b):
+    """V's pool with sequence b's last whole 32-key group read one token off
+    (each of its rows takes the row before): one late chunk made wrong."""
+    j0 = (int(lens[b]) // 32 - 1) * 32
+    page, off = int(tbl[b, j0 // ps]), j0 % ps
+    vw = vp.clone()
+    vw[:, page, off:off + 32] = torch.roll(vp[:, page, off:off + 32], 1, 1)
+    return vw
+
+
 def phase_k4(torch, flush):
+    from flash_attn_v100_tpu_torch.ops import kvcache as kv
     from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import build
     from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
 
     dev = torch.device("cuda")
@@ -285,24 +359,48 @@ def phase_k4(torch, flush):
         lp = torch.zeros(n_b, dtype=torch.int32, device=dev)
         args = (q, kview, vview, tbl_c, lens_d, lp)
         o, lse = dec.merge_partials(*dec.paged_decode_attention(*args, **kw))
+        om, lsem = dec.paged_decode_attention_merged(*args, **kw)
         torch.cuda.synchronize()
         o32, lse32 = dec.merge_partials(*dec.paged_decode_attention_ref(
             *args, **kw))
         onat, lsenat = dec.merge_partials(*dec.paged_decode_attention_ref(
             *args, upcast=False, **kw))
         err, gate = gated(torch, o, o32, onat, f"K4 {name} out")
+        ratio = gated_rows(torch, o, o32, onat, f"K4 {name} out", 2.0)[0]
         fin = torch.isfinite(lse32)
         assert torch.equal(fin, torch.isfinite(lse)), f"K4 {name}: lse -inf rows"
         lse_err, lse_gate = gated(torch, lse[fin], lse32[fin], lsenat[fin],
                                   f"K4 {name} lse")
-        res[name] = dict(max_abs_err=err, gate=gate)
+        m_ratio, m_lse = check_merged(torch, om, lsem, o, lse,
+                                      f"K4 {name} merged")
+        res[name] = dict(max_abs_err=err, gate=gate, row_ratio=ratio)
+        line = ""
+        if name == "decode":
+            # the last sequence's last whole 32-key group with V read one
+            # token off
+            vw = wrong_chunk_pool(torch, vp, tbl, lens, ps, B - 1)
+            o_w = dec.merge_partials(*dec.paged_decode_attention(
+                q, kview, vw[None], *args[3:], **kw))[0]
+            wrong = o.clone()
+            wrong[B - 1] = o_w[B - 1]
+            w_ratio = gated_rows(torch, wrong, o32, onat, "K4 wrong", 2.0,
+                                 check=False)[0]
+            assert w_ratio > 1.0, "the per-row gate passed a wrong K4"
+            res[name]["wrong_ratio"] = w_ratio
+            del vw, o_w, wrong
+            line = (f"; a late 32-key chunk with V read one token off: row "
+                    f"err/gate {w_ratio:.2f}")
         print(f"K4 {name} (B={n_b}, T_new={t_new}, Rq={Rq}, lens="
               f"{c['lens'].tolist() if n_b <= 2 else 'as decode'}): out "
-              f"max_abs_err {err:.3e} <= gate {gate:.3e}, lse {lse_err:.3e} "
-              f"<= {lse_gate:.3e} (gate: 2 x bf16 plain err vs fp32 plain "
-              f"+ 1e-5)")
+              f"max_abs_err {err:.3e} <= gate {gate:.3e}, worst row err/gate "
+              f"{ratio:.3f}, lse {lse_err:.3e} <= {lse_gate:.3e} (gate: 2 x "
+              f"bf16 plain err vs fp32 plain + 1e-5, and per row (gated_rows, "
+              f"mult 2)); merged in the launch vs merge_partials: worst row "
+              f"err / 2^-8 row RMS {m_ratio:.3f}, lse {m_lse:.1e}{line}",
+              flush=True)
+    occ = k4_occupancy(build)
 
-    # timings at the engine decode shape
+    # timings at the engine decode shape, through the route's merged entry
     c = cases["decode"]
     Rq = 8
     lens_d = lens.to(dev, torch.int32)
@@ -312,30 +410,55 @@ def phase_k4(torch, flush):
     kw = dict(qpos_vec=lens_d - 1, softmax_scale=D ** -0.5,
               params=c["params"], t_new=1, group=group, num_splits=0)
     args = (q, kview, vview, tbl, lens_d, lp)
-    kernel_ms = time_ms(torch, lambda: dec.paged_decode_attention(*args, **kw),
-                        flush=flush)
-    plain_ms = time_ms(torch, lambda: dec.paged_decode_attention_ref(
-        *args, **kw), reps=5, flush=flush)
+
+    def call():
+        return dec.paged_decode_attention_merged(*args, **kw)
+    kernel_ms = time_ms(torch, call, flush=flush)
+    graph = graph_ms(torch, call, flush=flush)
+    plain_ms = time_ms(torch, lambda: dec.merge_partials(
+        *dec.paged_decode_attention_ref(*args, **kw)), reps=5, flush=flush)
     # library yardstick: SDPA over the K/V already gathered to contiguous
     kc, vc = gather_kv(torch, kp, vp, tbl, lens, ps)
     library_ms = time_ms(torch, decode_sdpa(torch, q, kc, vc, lens_d, group),
                          flush=flush)
     S = dec.resolve_num_splits(0, B, Hk, Rq, max_pages, dev)
     live = int(lens.sum())
-    # inputs once, and the output as one fp32 partial + LSE per row (S = 1):
-    # the split count is the kernel's choice, not part of the function
+    # inputs once, the merged output (bf16) and its LSE once
     nbytes = (q.numel() * 2 + 2 * live * Hk * D * 2 + tbl.numel() * 4 + B * 12
-              + B * Hk * Rq * (D + 1) * 4)
+              + B * Hk * Rq * (2 * D + 4))
     flops = 4 * live * Hk * group * D
     bms, by = bound_ms(nbytes, flops)
     print(f"K4 decode B={B} Hk={Hk} group={group} D={D} ps={ps} "
-          f"lens={lens.tolist()} splits={S}: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-          f"bound {bms:.5f} ms ({by})")
+          f"lens={lens.tolist()} splits={S}: kernel {kernel_ms:.4f} ms a "
+          f"call, {graph:.4f} ms device (graph replay), plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.5f} ms "
+          f"({by})", flush=True)
+    del kc, vc
+    # (L) the 32k-context decode, bf16, once, through the public call
+    lq, lk, lv, lkw, lbytes = long_decode_case(torch, ggen)
+
+    def long_call():
+        return kv.flash_attn_with_kvcache(lq, lk, lv, **lkw)
+    long_res = dict(ms=time_ms(torch, long_call, flush=flush),
+                    graph_ms=graph_ms(torch, long_call, flush=flush),
+                    bound_ms=lbytes / HBM_BYTES_PER_S * 1e3)
+    print(f"K4 32k-context decode (B {LONG_B}, {LONG_HQ}/{LONG_HK} heads x "
+          f"{LONG_D}, page 512, bf16, flash_attn_with_kvcache): "
+          f"{long_res['ms']:.4f} ms a call, {long_res['graph_ms']:.4f} ms "
+          f"device, bound {long_res['bound_ms']:.4f} ms (bytes): "
+          f"{long_res['bound_ms'] / long_res['graph_ms']:.1%} of 3.35 TB/s",
+          flush=True)
+    del lq, lk, lv, lkw
     worst = max(res.values(), key=lambda r: r["max_abs_err"])
     return dict(max_abs_err=worst["max_abs_err"], gate=worst["gate"],
-                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bms, bound_by=by)
+                ms=kernel_ms, graph_ms=graph, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bms, bound_by=by,
+                row_ratio=max(r["row_ratio"] for r in res.values()),
+                wrong_ratio=res["decode"]["wrong_ratio"],
+                occupancy=occ[("K4", D, 16)],
+                quant_occupancy={kind: occ[(f"K4q {kind}", D, 16)]
+                                 for kind in QUANT_KINDS},
+                long_context=long_res)
 
 
 # ---------------------------------------------------------------- K8 phase
@@ -518,7 +641,8 @@ def quant_k4(torch, flush):
               group=group, num_splits=0)
     S = dec.resolve_num_splits(0, B, Hk, Rq, max_pages, dev)
     live = int(lens.sum())
-    timed = {"K4 (bf16)": lambda: dec.paged_decode_attention(
+    # timed: the route's merged entry (one launch)
+    timed = {"K4 (bf16)": lambda: dec.paged_decode_attention_merged(
         q, kp[None], vp[None], tbl, lens_d, lp, **kw)}
     res = {}
     for kind in QUANT_KINDS:
@@ -528,19 +652,26 @@ def quant_k4(torch, flush):
                    int4=kind == "int4")
 
         def run(qkw=qkw, args=args):
-            return dec.paged_decode_attention(*args, **qkw)
-        o, lse = dec.merge_partials(*run())
+            return dec.paged_decode_attention_merged(*args, **qkw)
+        o, lse = dec.merge_partials(*dec.paged_decode_attention(*args, **qkw))
+        om, lsem = run()
         torch.cuda.synchronize()
+        m_ratio, m_lse = check_merged(torch, om, lsem, o, lse,
+                                      f"K4q {kind} merged")
+        print(f"K4q {kind} decode merged in the launch vs merge_partials: "
+              f"worst row err / 2^-8 row RMS {m_ratio:.3f}, lse {m_lse:.1e}",
+              flush=True)
         twin, lse_twin = dec.merge_partials(*dec.paged_decode_attention_ref(
             *args, **qkw))
         unr = dec.merge_partials(*dec.paged_decode_attention_ref(
             *args, round_p=False, **qkw))[0]
         oracle = dec.merge_partials(*dec.paged_decode_attention_ref(
             q, kd[None], vd[None], tbl, lens_d, lp, **kw))[0]
-        # the last batch row ("one late tile") with V's scales read one
-        # token off
+        # the last batch row's last whole 32-key group ("one late tile")
+        # with V's scales read one token off
+        vsw = wrong_chunk_pool(torch, vs, tbl, lens, ps, B - 1)
         o_w = dec.merge_partials(*dec.paged_decode_attention(
-            *args, **dict(qkw, v_scales=torch.roll(vs, 1, dims=2)[None])))[0]
+            *args, **dict(qkw, v_scales=vsw[None])))[0]
         wrong = o.clone()
         wrong[B - 1] = o_w[B - 1]
         r = gate_quant(torch, f"K4q {kind} decode", kind, o, lse, twin, unr,
@@ -555,7 +686,7 @@ def quant_k4(torch, flush):
         del kc, vc
         row_bytes = D // 2 if kind == "int4" else D
         nbytes = (q.numel() * 2 + 2 * live * Hk * (row_bytes + 4)
-                  + tbl.numel() * 4 + B * 12 + B * Hk * Rq * (D + 1) * 4)
+                  + tbl.numel() * 4 + B * 12 + B * Hk * Rq * (2 * D + 4))
         r["bound_ms"], r["bound_by"] = bound_ms(
             nbytes, 4 * live * Hk * group * D, quant_ops_per_s(kind))
         res[kind] = r
@@ -630,9 +761,9 @@ def phase_quant(torch, flush):
     k8q, timed8 = quant_k8(torch, flush)
     timed.update(timed8)
     spread = {name: [] for name in timed}
-    # K8 / K8q also as CUDA-graph replays: their kernels' device time
-    # without the wrapper's host time, which these short kernels wait on
-    graph = {name: [] for name in timed if name.startswith("K8")}
+    # also as CUDA-graph replays: the kernels' device time without the
+    # wrapper's host time, which these short kernels wait on
+    graph = {name: [] for name in timed}
     for _ in range(SPREAD_REPEATS):
         for name, fn in timed.items():
             spread[name].append(time_ms(torch, fn, reps=SPREAD_REPS,
@@ -1816,15 +1947,18 @@ def phase_engine(torch, cfg, kind=None):
 
     # each captured prefill step again, with the plain attention versions
     def replay(c, decode_fn, varlen_fn):
-        saved = (kv_mod.paged_decode_attention,
+        def merged(*a, **k):   # the K4 route's merged entry from partials
+            o, lse = dec.merge_partials(*decode_fn(*a, **k))
+            return o.to(a[0].dtype), lse
+        saved = (kv_mod.paged_decode_attention_merged,
                  kv_mod.flash_attn_varlen_fwd_paged)
-        kv_mod.paged_decode_attention = decode_fn
+        kv_mod.paged_decode_attention_merged = merged
         kv_mod.flash_attn_varlen_fwd_paged = varlen_fn
         try:
             return real_pf(params, c["k"].clone(), c["v"].clone(),
                            *c["args"], cfg, **_scale_clones(c["kw"]))[0]
         finally:
-            (kv_mod.paged_decode_attention,
+            (kv_mod.paged_decode_attention_merged,
              kv_mod.flash_attn_varlen_fwd_paged) = saved
 
     # the yardstick: 16-bit pools, products in bf16; quantized pools, P
@@ -2115,6 +2249,154 @@ def paged_times(torch) -> dict:
             "ms_repeats": spread, "graph_ms_repeats": graph}
 
 
+def gpu_clocks() -> str:
+    """The card's SM clock and power draw now, as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# the JAX package's long-context decode metric (bench.py:157-220): B 8,
+# context 32768, 32 / 8 heads x 128, HND pools, table arange, page 512
+# (int4: 2048)
+LONG_B, LONG_CTX, LONG_HQ, LONG_HK, LONG_D = 8, 32768, 32, 8, 128
+
+
+def long_decode_case(torch, ggen, kind=None):
+    """(L): q (B, 1, Hq, D) and the pools of one kind over the full
+    context; returns (q, k_cache, v_cache, kwargs of flash_attn_with_kvcache,
+    the bytes the call must read)."""
+    from flash_attn_v100_tpu_torch.ops import quant
+    dev = torch.device("cuda")
+    B, ctx, Hq, Hk, D = LONG_B, LONG_CTX, LONG_HQ, LONG_HK, LONG_D
+    ps = 2048 if kind == "int4" else 512
+    P = B * ctx // ps
+    q = torch.randn((B, 1, Hq, D), generator=ggen, device=dev).to(
+        torch.bfloat16)
+    kw = dict(cache_seqlens=torch.full((B,), ctx, dtype=torch.int32,
+                                       device=dev),
+              block_table=torch.arange(P, dtype=torch.int32,
+                                       device=dev).reshape(B, -1),
+              causal=True, kv_cache_layout="HND")
+    pools = []
+    for _ in range(2):
+        x = torch.randn((Hk, P, ps, D), generator=ggen, device=dev).to(
+            torch.bfloat16)
+        if kind is not None:
+            x = quant.quantize_kv(x, quant_dtype(torch, kind))
+        pools.append(x)
+    if kind is None:
+        kc, vc = pools
+        nbytes = 2 * B * ctx * Hk * D * 2
+    else:
+        (kc, ks), (vc, vs) = pools
+        kw.update(k_scales=ks, v_scales=vs)
+        nbytes = 2 * B * ctx * Hk * ((D // 2 if kind == "int4" else D) + 4)
+    return q, kc, vc, kw, nbytes
+
+
+def decode_times(torch) -> dict:
+    """K4 and K4q of the `flash_attn_v100_tpu_torch` on sys.path, through
+    the public decode call flash_attn_with_kvcache(q, k_cache, v_cache,
+    cache_seqlens=, block_table=, causal=True, kv_cache_layout="HND") (no
+    append; scales for K4q) and through paged_decode_attention alone
+    (`core`, partials unmerged), at
+      (e) phase_k4's engine decode step (B 8, 32 / 4 heads x 64, page 128,
+          lens 600-2000): K4 and K4q x 3;
+      (p) the engine's short-prompt prefill on the K4 route (B 2, T_new
+          64, lens 64 / 364): K4;
+      (L) the 32k-context decode of LONG_*: bf16, int8, fp8 (page 512)
+          and int4 (page 2048).
+    Each call is timed as a call (`ms`) and as CUDA-graph replays
+    (`graph_ms`), SPREAD_REPEATS rounds in turns of SPREAD_REPS launches,
+    the L2 flushed before each; a digest of each call's out, and the SM
+    clock and power draw before and after each round:
+        python3 chip_smoke.py --decode-times TREE"""
+    from flash_attn_v100_tpu_torch.ops import kvcache as kv
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+
+    build.build_all(["decode", "decode_quant"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    ggen = torch.Generator(device=dev).manual_seed(SEED)
+    calls, bounds = {}, {}
+
+    def add(name, q, kc, vc, lens, tbl, t_new, group, scales=None):
+        skw = {} if scales is None else dict(k_scales=scales[0],
+                                             v_scales=scales[1])
+        calls[f"{name} api"] = lambda: kv.flash_attn_with_kvcache(
+            q, kc, vc, cache_seqlens=lens, block_table=tbl, causal=True,
+            kv_cache_layout="HND", **skw)
+        B, _, Hq, D = q.shape
+        Hk = kc.shape[0]
+        Rq = max(-(-group * t_new // 8) * 8, 8)
+        rows = q.transpose(1, 2).reshape(B, Hk, group * t_new, D)
+        if Rq != group * t_new:
+            rows = torch.cat([rows, rows.new_zeros(
+                B, Hk, Rq - group * t_new, D)], dim=2)
+        params = masklib.MaskParams(causal=t_new > 1, window_right=0)
+        int4 = scales is not None and kc.dtype == torch.int8 and \
+            scales[0].shape[-2] == 2 * kc.shape[-2]
+        calls[f"{name} core"] = lambda: dec.paged_decode_attention(
+            rows, kc[None], vc[None], tbl, lens, None,
+            qpos_vec=lens - t_new, softmax_scale=D ** -0.5, params=params,
+            t_new=t_new, group=group,
+            k_scales=None if scales is None else scales[0][None],
+            v_scales=None if scales is None else scales[1][None], int4=int4)
+
+    # (e) and (p): phase_k4's pool and tables (same seeds)
+    B, Hk, group, D, ps, max_pages = 8, 4, 8, 64, 128, 16
+    lens = torch.randint(600, 2001, (B,), generator=gen)
+    tbl, n_pages = paged_tables(torch, gen, lens, ps, max_pages, dev)
+    kp, vp = make_pool(torch, ggen, dev, Hk, n_pages, ps, D, torch.bfloat16)
+    q = torch.randn((B, 1, Hk * group, D), generator=ggen, device=dev).to(
+        torch.bfloat16)
+    lens_d = lens.to(dev, torch.int32)
+    add("e K4 bf16", q, kp, vp, lens_d, tbl, 1, group)
+    for kind in QUANT_KINDS:
+        (kq, vq, ks, vs), _ = quant_pools(torch, kp, vp, kind)
+        add(f"e K4q {kind}", q, kq, vq, lens_d, tbl, 1, group, (ks, vs))
+    plens = torch.tensor([64, 364])
+    ptbl = paged_tables(torch, gen, plens, ps, max_pages, dev)[0]
+    pq = torch.randn((2, 64, Hk * group, D), generator=ggen,
+                     device=dev).to(torch.bfloat16)
+    add("p K4 bf16", pq, kp, vp, plens.to(dev, torch.int32), ptbl, 64, group)
+    # (L)
+    for kind in (None,) + QUANT_KINDS:
+        lq, lk, lv, lkw, nbytes = long_decode_case(torch, ggen, kind)
+        name = f"L K4{'q ' + kind if kind else ' bf16'}"
+        sc = ((lkw["k_scales"], lkw["v_scales"]) if kind else None)
+        add(name, lq, lk, lv, lkw["cache_seqlens"], lkw["block_table"], 1,
+            LONG_HQ // LONG_HK, sc)
+        bounds[name] = nbytes / HBM_BYTES_PER_S * 1e3
+    digests = {}
+    for name, fn in calls.items():
+        out = fn()
+        digests[name] = digest(torch, *(out if isinstance(out, tuple)
+                                        else (out,)))
+    flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+    spread = {name: [] for name in calls}
+    graph = {name: [] for name in calls}
+    clocks = []
+    for _ in range(SPREAD_REPEATS):
+        before = gpu_clocks()
+        for name, fn in calls.items():
+            spread[name].append(time_ms(torch, fn, reps=SPREAD_REPS,
+                                        flush=flush))
+            graph[name].append(graph_ms(torch, fn, reps=SPREAD_REPS,
+                                        flush=flush))
+        clocks.append((before, gpu_clocks()))
+    return {"digest": digests,
+            "ms": {n: statistics.median(t) for n, t in spread.items()},
+            "graph_ms": {n: statistics.median(t) for n, t in graph.items()},
+            "bound_ms": bounds, "ms_repeats": spread,
+            "graph_ms_repeats": graph, "clocks": clocks}
+
+
 # ------------------------------------------ serving, all four pools in turns
 
 def quartiles(xs):
@@ -2168,7 +2450,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     times = {"--dense-times": dense_times, "--varlen-times": varlen_times,
-             "--paged-times": paged_times}
+             "--paged-times": paged_times, "--decode-times": decode_times}
     if sys.argv[1:2] and sys.argv[1] in times:
         sys.path.insert(0, sys.argv[2])
         res = times[sys.argv[1]](torch)
@@ -2211,12 +2493,16 @@ def main() -> int:
     k8 = phase_k8(torch, flush)
     quant = phase_quant(torch, flush)
     k4["ms_repeats"] = quant["spread"]["K4 (bf16)"]
+    # K4's time as K4q's: the median of the repeats timed in turns
+    k4["ms"] = statistics.median(k4["ms_repeats"])
+    k4["graph_ms"] = quant["graph"]["K4 (bf16)"]
     k8["ms_repeats"] = quant["spread"]["K8 (bf16)"]
     # K8's time as K8q's: the median of the repeats timed in turns
     k8["ms"] = statistics.median(k8["ms_repeats"])
     k8["graph_ms"] = quant["graph"]["K8 (bf16)"]
     for kind in QUANT_KINDS:
         quant["K8q"][kind]["occupancy"] = k8["quant_occupancy"][kind]
+        quant["K4q"][kind]["occupancy"] = k4["quant_occupancy"][kind]
     del flush
     from flash_attn_v100_tpu_torch import ModelConfig
     cfg = ModelConfig.tinyllama_1b()
@@ -2272,7 +2558,7 @@ def main() -> int:
             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
             library_ms=res["library_ms"])
         for key in ("ms_repeats", "graph_ms", "occupancy", "bench_shape",
-                    "case_b"):
+                    "case_b", "long_context"):
             if key in res:
                 row[key] = res[key]
         if "oracle_err" in res:

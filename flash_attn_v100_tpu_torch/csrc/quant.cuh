@@ -32,15 +32,11 @@ __device__ __forceinline__ float e4m3_to_float(uint8_t x) {
 // four int4-packed bytes -> the four even tokens' int8 values (low nibbles,
 // bias removed) and the four odd tokens' (high nibbles, sign-extended),
 // each packed four to a word in byte order
+// (per-byte SIMD: a low nibble v is v - 8, a high nibble h is (h ^ 8) - 8)
 __device__ __forceinline__ void unpack_int4x4(uint32_t w, uint32_t& lo,
                                               uint32_t& hi) {
-  lo = hi = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = static_cast<int8_t>((w >> (8 * i)) & 0xFFu);
-    lo |= (static_cast<uint32_t>((b & 15) - 8) & 0xFFu) << (8 * i);
-    hi |= (static_cast<uint32_t>(b >> 4) & 0xFFu) << (8 * i);
-  }
+  lo = __vsub4(w & 0x0F0F0F0Fu, 0x08080808u);
+  hi = __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
 // sixteen int4-packed bytes -> sixteen int8 values of the even token and

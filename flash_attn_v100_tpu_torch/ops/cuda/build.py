@@ -47,9 +47,12 @@ _MASK_DROPOUT = [_I, _I, _I, _F, _I] + [_I, _U, _U, _U, _F] + [_I] * 5
 
 # C signatures of the entry points of each library
 SIGNATURES = {
+    # partials, then the merged outputs and their arrival counters
     "decode": {
-        "fa_decode_launch": ([_I] + [_P] * 10 + [_LL] * 4 + [_I] * 11
+        "fa_decode_launch": ([_I] + [_P] * 13 + [_LL] * 4 + [_I] * 11
                              + [_F, _I, _I, _I, _F, _I, _P], _I),
+        # (dtype, D, rows, int out[5]): occupancy of K4
+        "fa_decode_occupancy": ([_I, _I, _I, _P], _I),
     },
     "varlen_paged": {
         "fa_varlen_paged_launch": ([_I, _P, _P, _P, _P, _I] + [_P] * 6
@@ -80,9 +83,11 @@ SIGNATURES = {
     },
     # (kind, dtype) first; payload then scale strides
     "decode_quant": {
-        "fa_decode_quant_launch": ([_I, _I] + [_P] * 12 + [_LL] * 8
+        "fa_decode_quant_launch": ([_I, _I] + [_P] * 15 + [_LL] * 8
                                    + [_I] * 11
                                    + [_F, _I, _I, _I, _F, _I, _P], _I),
+        # (kind, dtype, D, rows, int out[5]): occupancy of K4q
+        "fa_decode_quant_occupancy": ([_I, _I, _I, _I, _P], _I),
     },
     "varlen_paged_quant": {
         "fa_varlen_paged_quant_launch": (

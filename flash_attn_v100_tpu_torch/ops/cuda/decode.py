@@ -6,7 +6,11 @@ q rows (B, Hk, Rq, D), a page pool view (C1, Hk, C2, ps, D) in which page id
 p lives at [p // C2, :, p % C2] (any strides with a contiguous last axis),
 a block table (B, max_pages) int32; it returns fp32 normalized partials
 o_part (B, Hk, S, Rq, D) and lse_part (B, Hk, S, Rq, 1), one per KV split,
-combined by `merge_partials`.
+combined by `merge_partials`.  `paged_decode_attention_merged` takes the
+same arguments and returns what `merge_partials` of those partials gives,
+o (B, Hk, Rq, D) in q's dtype and lse (B, Hk, Rq, 1), from one launch: the
+kernel's last block of each (batch row, kv head, q-row tile) merges its
+splits (the route of `flash_attn_with_kvcache`).
 
 With `k_scales` / `v_scales` ((C1, Hk, C2, page_size, 1) fp32) the pools
 are quantized (ops/quant.py): int8, fp8 (e4m3), or with `int4=True`
@@ -15,7 +19,7 @@ int4-packed int8 whose pool view holds page_size / 2 rows.  That is K4q
 quantized to int8 on the fly for int8/int4 pools, P rounded to bf16 for
 fp8 (see the kernel's note).  P's int8 scale is taken per group of `p_tile`
 consecutive cache rows counted from each split's first row: P_TILE (the
-kernel's 32-key chunk) in the kernel and on the CPU path; the TPU kernel's
+kernel's 32-key group) in the kernel and on the CPU path; the TPU kernel's
 grouping is one page (`p_tile=None` in the plain version).
 
 For CUDA tensors it launches the kernel (q in bf16 or fp16; anything else
@@ -25,7 +29,8 @@ PyTorch version of the same function.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,10 +40,12 @@ from flash_attn_v100_tpu_torch.ops.cuda import build
 from flash_attn_v100_tpu_torch.ops.quant import (
     INT8_MAX, ieee_div, payload_bytes, quant_kind, unpack_int4_tokens)
 
-ROW_TILE = 8         # q rows per block (kRowTile in decode.cu)
+ROW_TILE = 8         # q rows come padded to a multiple of this (Rq)
+KEY_SPLIT_ROWS = 16  # up to this Rq a block's warps split the keys
+KEY_WARPS = 4        # warps a block: the key streams at Rq <= KEY_SPLIT_ROWS
 SM_COUNT_H100 = 132  # the split rule's target when no device is at hand
-BLOCKS_PER_SM = 4    # auto splits aim at this many blocks per SM
-P_TILE = 32          # K4q's key chunk: P's int8 group (kKeyTile)
+BLOCKS_PER_SM = 2    # auto splits fill one wave of this many blocks an SM
+P_TILE = 32          # K4q's key group: P's int8 group (kGroup)
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 KIND_CODE = {"int8": 0, "fp8": 1, "int4": 2}
@@ -48,23 +55,147 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def block_rows(Rq: int) -> int:
+    """q rows a kernel block takes: 16 (an m16 tile whose warps split the
+    keys) up to Rq 16, else 64 (16 rows a warp)."""
+    return KEY_SPLIT_ROWS if Rq <= KEY_SPLIT_ROWS else 64
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _sm_count(device: torch.device) -> int:
     if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).multi_processor_count
+        return _cuda_sm_count(device.index if device.index is not None
+                              else torch.cuda.current_device())
     return SM_COUNT_H100
 
 
 def resolve_num_splits(num_splits: int, B: int, Hk: int, Rq: int,
                        max_pages: int, device: torch.device) -> int:
-    """num_splits <= 0 means auto: enough KV splits that B * Hk * S blocks
-    (times the q-row tiles) put BLOCKS_PER_SM blocks on every SM, so that
-    each block walks a short key range (the kernel is latency-bound per
-    block).  Never more splits than table slots."""
+    """num_splits <= 0 means auto: as many KV splits as B * Hk * S blocks
+    (times the q-row tiles) fit in one wave of BLOCKS_PER_SM blocks on
+    every SM (the kernel's residency at D 64 / 128), at least one: every
+    SM streams its share of the keys, and no second wave waits on the
+    first.  Never more splits than table slots."""
     S = num_splits
     if S <= 0:
-        blocks = B * Hk * _cdiv(Rq, ROW_TILE)
-        S = _cdiv(BLOCKS_PER_SM * _sm_count(device), max(blocks, 1))
+        blocks = B * Hk * _cdiv(Rq, block_rows(Rq))
+        S = BLOCKS_PER_SM * _sm_count(device) // max(blocks, 1)
     return max(1, min(S, max_pages))
+
+
+def _key_streams(Rq: int, p_tile: Optional[int]) -> int:
+    """How many running maxima P's rounding is taken against: the kernel's
+    warps at Rq <= KEY_SPLIT_ROWS each keep their own over the groups
+    g % KEY_WARPS == w of a split; one where P is grouped per page (the
+    TPU kernel's order, p_tile None)."""
+    return KEY_WARPS if p_tile is not None and Rq <= KEY_SPLIT_ROWS else 1
+
+
+def _i32(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    if x is None or (x.dtype == torch.int32 and x.is_contiguous()):
+        return x
+    return x.to(torch.int32).contiguous()
+
+
+# per device: the merge's arrival counters, one per (batch row, kv head, q
+# row tile), zero between launches (the last block of each resets its
+# own), so calls and CUDA-graph replays reuse one buffer; launches on one
+# stream (the engine's) may share it, launches on concurrent streams may
+# not
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = c
+    return c
+
+
+def _launch(q_rows, k_pages, v_pages, block_table, cache_seqlens, leftpad,
+            qpos_vec, softmax_scale, params, t_new, group, num_splits,
+            alibi_slopes_rows, k_scales, v_scales, int4, merged):
+    """K4 or K4q on CUDA tensors: the partials (o_part, lse_part), or with
+    `merged` the merged (o in q's dtype, lse).  A None `qpos_vec` is
+    cache_seqlens - t_new, computed in the kernel."""
+    if q_rows.dtype not in _DTYPE_CODE:
+        raise TypeError(f"decode kernel takes bf16/fp16 q, got {q_rows.dtype}")
+    if k_scales is None:
+        kind = None
+        if k_pages.dtype != q_rows.dtype or v_pages.dtype != q_rows.dtype:
+            raise TypeError("q rows and the page pools must share one dtype")
+    else:
+        kind = _check_quant(k_pages, v_pages, k_scales, v_scales, int4)
+    B, Hk, Rq, D = q_rows.shape
+    C1, Hk2, C2, rows, Dk = k_pages.shape
+    ps = rows if kind is None else k_scales.shape[-2]
+    dev = q_rows.device
+    if Hk2 != Hk or Dk != D or v_pages.shape != k_pages.shape or (
+            kind is not None and k_scales.shape != (C1, Hk, C2, ps, 1)):
+        raise ValueError(f"pool view {tuple(k_pages.shape)} does not match "
+                         f"q rows {tuple(q_rows.shape)} (or its scales)")
+    if D not in (32, 64, 128, 256) or Rq % ROW_TILE:
+        raise ValueError(f"decode kernel takes head_dim 32/64/128/256 and Rq "
+                         f"a multiple of {ROW_TILE}, got {D}, {Rq}")
+    esz = k_pages.element_size()
+    if k_pages.stride() != v_pages.stride() or k_pages.stride(-1) != 1 or \
+            any(s * esz % 16 for s in k_pages.stride()[:-1]) or \
+            (k_pages.data_ptr() | v_pages.data_ptr()) % 16:
+        raise ValueError("k/v pool views need equal strides, a contiguous "
+                         "last axis, 16-byte strides and 16-byte alignment")
+    if any(t is not None and t.device != dev
+           for t in (k_pages, v_pages, k_scales, v_scales, block_table,
+                     cache_seqlens, leftpad, qpos_vec)):
+        raise ValueError("all decode inputs must be on one device")
+    max_pages = block_table.shape[1]
+    S = resolve_num_splits(num_splits, B, Hk, Rq, max_pages, dev)
+    q_rows = q_rows.contiguous()
+    tbl, lens, lp, qpos = (_i32(x) for x in (block_table, cache_seqlens,
+                                             leftpad, qpos_vec))
+    slopes = None
+    if params.has_alibi:
+        slopes = alibi_slopes_rows.to(torch.float32).reshape(
+            B, Hk, Rq).contiguous()
+    o_part = lse_part = o = lse = counters = None
+    if not merged or S > 1:
+        o_part = torch.empty((B, Hk, S, Rq, D), dtype=torch.float32,
+                             device=dev)
+        lse_part = torch.empty((B, Hk, S, Rq, 1), dtype=torch.float32,
+                               device=dev)
+    if merged:
+        o = torch.empty((B, Hk, Rq, D), dtype=q_rows.dtype, device=dev)
+        lse = torch.empty((B, Hk, Rq, 1), dtype=torch.float32, device=dev)
+        counters = _counters(dev, B * Hk * _cdiv(Rq, block_rows(Rq)))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    ptrs = (q_rows.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    tail = tuple(ptr(t) for t in (tbl, lens, lp, qpos, slopes, o_part,
+                                  lse_part, o, lse, counters))
+    dims = (C2, B, Hk, Rq, D, S, max_pages, ps, _cdiv(max_pages, S), t_new,
+            group, float(softmax_scale), int(params.causal),
+            int(params.window_left), int(params.window_right),
+            float(params.softcap), int(params.has_alibi),
+            torch.cuda.current_stream(dev).cuda_stream)
+    code = _DTYPE_CODE[q_rows.dtype]
+    if kind is None:
+        rc = build.load("decode").fa_decode_launch(
+            code, *ptrs, *tail, *k_pages.stride()[:4], *dims)
+        build.check(rc, "paged_decode_attention")
+        paged_decode_attention.launches += 1
+    else:
+        rc = build.load("decode_quant").fa_decode_quant_launch(
+            KIND_CODE[kind], code, *ptrs, k_scales.data_ptr(),
+            v_scales.data_ptr(), *tail, *k_pages.stride()[:4],
+            *k_scales.stride()[:4], *dims)
+        build.check(rc, "paged_decode_attention (quantized)")
+        paged_decode_attention.quant_launches[kind] += 1
+    return (o, lse) if merged else (o_part, lse_part)
 
 
 def paged_decode_attention(
@@ -91,8 +222,6 @@ def paged_decode_attention(
     frame (default cache_seqlens - t_new); `leftpad` (B,) or None for
     none; `alibi_slopes_rows` is (B, Hk, Rq[, 1]) fp32 per folded row;
     `k_scales` / `v_scales` mark quantized pools (K4q)."""
-    if qpos_vec is None:
-        qpos_vec = cache_seqlens.to(torch.int32) - t_new
     if q_rows.device.type == "cpu":
         return paged_decode_attention_ref(
             q_rows, k_pages, v_pages, block_table, cache_seqlens, leftpad,
@@ -100,82 +229,52 @@ def paged_decode_attention(
             t_new=t_new, group=group, num_splits=num_splits,
             alibi_slopes_rows=alibi_slopes_rows, k_scales=k_scales,
             v_scales=v_scales, int4=int4, p_tile=P_TILE)
-    if q_rows.dtype not in _DTYPE_CODE:
-        raise TypeError(f"decode kernel takes bf16/fp16 q, got {q_rows.dtype}")
-    kind = None
-    if k_scales is None:
-        if k_pages.dtype != q_rows.dtype or v_pages.dtype != q_rows.dtype:
-            raise TypeError("q rows and the page pools must share one dtype")
-    else:
-        kind = _check_quant(k_pages, v_pages, k_scales, v_scales, int4)
-    B, Hk, Rq, D = q_rows.shape
-    C1, Hk2, C2, rows, Dk = k_pages.shape
-    ps = rows if kind is None else k_scales.shape[-2]
-    dev = q_rows.device
-    if Hk2 != Hk or Dk != D or v_pages.shape != k_pages.shape:
-        raise ValueError(f"pool view {tuple(k_pages.shape)} does not match "
-                         f"q rows {tuple(q_rows.shape)}")
-    if kind is not None and k_scales.shape != (C1, Hk, C2, ps, 1):
-        raise ValueError(f"scales {tuple(k_scales.shape)} do not match the "
-                         f"pool view {tuple(k_pages.shape)}")
-    if D not in (32, 64, 128, 256):
-        raise ValueError(f"decode kernel takes head_dim 32/64/128/256, got {D}")
-    if Rq % ROW_TILE:
-        raise ValueError(f"Rq ({Rq}) must be a multiple of {ROW_TILE}")
-    if k_pages.stride() != v_pages.stride() or k_pages.stride(-1) != 1:
-        raise ValueError("k/v pool views need equal strides and a "
-                         "contiguous last axis")
-    if any(s * k_pages.element_size() % 16 for s in k_pages.stride()[:-1]) or \
-            any(t.data_ptr() % 16 for t in (k_pages, v_pages)):
-        raise ValueError("pool strides must be multiples of 16 bytes and "
-                         "the pools 16-byte aligned (16-byte loads)")
-    for t in (k_pages, v_pages, k_scales, v_scales, block_table,
-              cache_seqlens, leftpad, qpos_vec):
-        if t is not None and t.device != dev:
-            raise ValueError("all decode inputs must be on one device")
-    max_pages = block_table.shape[1]
-    S = resolve_num_splits(num_splits, B, Hk, Rq, max_pages, dev)
-    nb = _cdiv(max_pages, S)
-
-    q_rows = q_rows.contiguous()
-    tbl = block_table.to(torch.int32).contiguous()
-    lens = cache_seqlens.to(torch.int32).contiguous()
-    lp = None if leftpad is None else leftpad.to(torch.int32).contiguous()
-    qpos = qpos_vec.to(torch.int32).contiguous()
-    slopes = None
-    if params.has_alibi:
-        slopes = alibi_slopes_rows.to(torch.float32).reshape(B, Hk, Rq).contiguous()
-    o_part = torch.empty((B, Hk, S, Rq, D), dtype=torch.float32, device=dev)
-    lse_part = torch.empty((B, Hk, S, Rq, 1), dtype=torch.float32, device=dev)
-    ptrs = (q_rows.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
-    tail = (tbl.data_ptr(), lens.data_ptr(),
-            lp.data_ptr() if lp is not None else None, qpos.data_ptr(),
-            slopes.data_ptr() if slopes is not None else None,
-            o_part.data_ptr(), lse_part.data_ptr())
-    dims = (C2, B, Hk, Rq, D, S, max_pages, ps, nb, t_new, group,
-            float(softmax_scale), int(params.causal),
-            int(params.window_left), int(params.window_right),
-            float(params.softcap), int(params.has_alibi),
-            torch.cuda.current_stream(dev).cuda_stream)
-    code = _DTYPE_CODE[q_rows.dtype]
-    if kind is None:
-        rc = build.load("decode").fa_decode_launch(
-            code, *ptrs, *tail, *k_pages.stride()[:4], *dims)
-        build.check(rc, "paged_decode_attention")
-        paged_decode_attention.launches += 1
-    else:
-        rc = build.load("decode_quant").fa_decode_quant_launch(
-            KIND_CODE[kind], code, *ptrs, k_scales.data_ptr(),
-            v_scales.data_ptr(), *tail, *k_pages.stride()[:4],
-            *k_scales.stride()[:4], *dims)
-        build.check(rc, "paged_decode_attention (quantized)")
-        paged_decode_attention.quant_launches[kind] += 1
-    return o_part, lse_part
+    return _launch(q_rows, k_pages, v_pages, block_table, cache_seqlens,
+                   leftpad, qpos_vec, softmax_scale, params, t_new, group,
+                   num_splits, alibi_slopes_rows, k_scales, v_scales, int4,
+                   merged=False)
 
 
+# the kernel's launches (either entry), K4 and K4q per payload kind
 paged_decode_attention.launches = 0
-# K4q launches, per payload kind
 paged_decode_attention.quant_launches = {k: 0 for k in KIND_CODE}
+
+
+def paged_decode_attention_merged(
+    q_rows: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,
+    cache_seqlens: torch.Tensor,
+    leftpad: Optional[torch.Tensor],
+    *,
+    qpos_vec: Optional[torch.Tensor] = None,
+    softmax_scale: float,
+    params: masklib.MaskParams,
+    t_new: int,
+    group: int,
+    num_splits: int = 0,
+    alibi_slopes_rows: Optional[torch.Tensor] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    int4: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`paged_decode_attention` (same arguments) with its splits merged in
+    the same launch: o (B, Hk, Rq, D) in q's dtype and lse (B, Hk, Rq, 1)
+    fp32, as `merge_partials` of the partials gives them.  On CPU tensors,
+    merge_partials of the plain version at the kernel's P grouping."""
+    if q_rows.device.type == "cpu":
+        o, lse = merge_partials(*paged_decode_attention(
+            q_rows, k_pages, v_pages, block_table, cache_seqlens, leftpad,
+            qpos_vec=qpos_vec, softmax_scale=softmax_scale, params=params,
+            t_new=t_new, group=group, num_splits=num_splits,
+            alibi_slopes_rows=alibi_slopes_rows, k_scales=k_scales,
+            v_scales=v_scales, int4=int4))
+        return o.to(q_rows.dtype), lse
+    return _launch(q_rows, k_pages, v_pages, block_table, cache_seqlens,
+                   leftpad, qpos_vec, softmax_scale, params, t_new, group,
+                   num_splits, alibi_slopes_rows, k_scales, v_scales, int4,
+                   merged=True)
 
 
 def _quant_kind(k_pages, k_scales, int4: bool) -> str:
@@ -203,14 +302,15 @@ def _check_quant(k_pages, v_pages, k_scales, v_scales, int4: bool) -> str:
     return kind
 
 
-def _pad_dim(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
-    """x with zeros appended along `dim` up to length n."""
+def _pad_dim(x: torch.Tensor, dim: int, n: int,
+             value: float = 0.0) -> torch.Tensor:
+    """x with `value` appended along `dim` up to length n."""
     extra = n - x.shape[dim]
     if extra <= 0:
         return x
     shape = list(x.shape)
     shape[dim] = extra
-    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+    return torch.cat([x, x.new_full(shape, value)], dim=dim)
 
 
 def _quantize_rows(x: torch.Tensor):
@@ -255,8 +355,10 @@ def _decode_quant_ref(q_rows, k_pages, v_pages, k_scales, v_scales, int4,
                       alibi_slopes_rows, p_tile, round_p):
     """The K4q arithmetic (module docstring), split by split, with P's
     int8 scale per group of p_tile rows from each split's first row and
-    the online softmax's running max taken per group, as the kernels take
-    it."""
+    the online softmax's running max taken per group, as the kernel takes
+    it: where its warps split the keys (Rq <= KEY_SPLIT_ROWS), group g is
+    warp g % KEY_WARPS's and P is taken relative to the running max of
+    that warp's groups so far (`_key_streams`)."""
     B, Hk, Rq, D = q_rows.shape
     kind = _quant_kind(k_pages, k_scales, int4)
     C2, ps = k_pages.shape[2], k_scales.shape[-2]
@@ -313,13 +415,17 @@ def _decode_quant_ref(q_rows, k_pages, v_pages, k_scales, v_scales, int4,
                                      offset=0, params=params, valid=valid,
                                      alibi_slope=slope)
 
-    # online softmax over the groups of each split: m runs per group
+    # online softmax over the groups of each split: m runs per group, over
+    # each key stream's groups (g % W) where the kernel's warps split them
     shape = (B, Hk, Rq, S, ng, G)
     s, valid = s.reshape(shape), valid.expand(B, Hk, Rq, S, ng * G).reshape(shape)
-    m_run = torch.cummax(s.amax(dim=-1), dim=-1).values   # (B, Hk, Rq, S, ng)
+    W = _key_streams(Rq, p_tile)
+    gmax = _pad_dim(s.amax(dim=-1), 4, _cdiv(ng, W) * W, float("-inf"))
+    m_run = torch.cummax(gmax.unflatten(4, (-1, W)), dim=4).values.flatten(
+        4)[..., :ng]                                      # (B, Hk, Rq, S, ng)
     p = torch.exp(torch.clamp(s - m_run[..., None], min=EXP_CLAMP))
     p = torch.where(valid, p, torch.zeros_like(p))
-    m = m_run[..., -1:]
+    m = m_run.amax(dim=-1, keepdim=True)
     w = torch.exp(m_run - m)                              # rescale to the end
     l = (p.sum(dim=-1) * w).sum(dim=-1)                   # (B, Hk, Rq, S)
     pv = p * vs.reshape(B, Hk, 1, S, ng, G)

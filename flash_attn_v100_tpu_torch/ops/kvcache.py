@@ -44,7 +44,7 @@ import torch
 
 from flash_attn_v100_tpu_torch.ops import masks as masklib
 from flash_attn_v100_tpu_torch.ops.cuda.decode import (
-    merge_partials, paged_decode_attention)
+    paged_decode_attention_merged)
 from flash_attn_v100_tpu_torch.ops.cuda.varlen import (
     flash_attn_varlen_fwd_paged)
 from flash_attn_v100_tpu_torch.ops.quant import (
@@ -271,7 +271,9 @@ def flash_attn_with_kvcache(
                                                       dtype=torch.int32))
     appended = k is not None
     # positions of the new tokens (B, T): rotary and the append share them
-    pos = qlens[:, None] + torch.arange(T_new, dtype=torch.int32, device=dev)
+    if appended or rotary_cos is not None:
+        pos = qlens[:, None] + torch.arange(T_new, dtype=torch.int32,
+                                            device=dev)
 
     # ---- rotary on q and new k ----
     local = window_size[0] >= 0 or window_size[1] >= 0
@@ -330,7 +332,7 @@ def flash_attn_with_kvcache(
             if quantized:
                 ksc[idx], vsc[idx] = k_s.transpose(1, 2), v_s.transpose(1, 2)
 
-    lens_total = cache_seqlens + (T_new if appended else 0)
+    lens_total = cache_seqlens + T_new if appended else cache_seqlens
 
     # ---- page pool view + table ----
     pool_ks = pool_vs = None
@@ -402,17 +404,17 @@ def flash_attn_with_kvcache(
                 sr = torch.cat([sr, sr.new_zeros(B, Hk, Rq - n_rows)], dim=2)
             slopes_rows = sr[..., None]
         # first new token's position in the live frame: the pre-append
-        # length when appending, else lens - T_new
-        o_part, lse_part = paged_decode_attention(
+        # length when appending, else lens - T_new (the kernel's default);
+        # one launch, the splits merged in it, o in q's dtype
+        o, lse = paged_decode_attention_merged(
             q_rows, pool_k, pool_v, tbl, lens_total, leftpad,
-            qpos_vec=qlens if appended else qlens - T_new,
+            qpos_vec=qlens if appended else None,
             softmax_scale=float(softmax_scale), params=params, t_new=T_new,
             group=group, num_splits=num_splits,
             alibi_slopes_rows=slopes_rows, k_scales=pool_ks,
             v_scales=pool_vs, int4=int4)
-        o, lse = merge_partials(o_part, lse_part)
         o = o[:, :, :n_rows].reshape(B, Hk, group, T_new, D)
-        out = o.permute(0, 3, 1, 2, 4).to(dtype_og).reshape(B, T_new, Hq, D)
+        out = o.permute(0, 3, 1, 2, 4).reshape(B, T_new, Hq, D)
         if return_softmax_lse:
             lse = lse[:, :, :n_rows, 0].reshape(B, Hq, T_new)
 

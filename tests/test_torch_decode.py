@@ -121,3 +121,31 @@ def test_auto_splits_merge_matches_single_split():
     assert tdec.resolve_num_splits(0, 2, 2, 8, 6, torch.device("cpu")) > 1
     torch.testing.assert_close(o0, o1, rtol=0, atol=ATOL)
     torch.testing.assert_close(l0, l1, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_merged_entry_equals_merge_partials(name):
+    """paged_decode_attention_merged on CPU tensors is merge_partials of the
+    plain version, bit for bit, all-empty rows (O = 0, LSE = -inf)
+    included; its O keeps q's dtype."""
+    t_new, splits, leftpad, causal, wl, softcap, alibi, first_len = CASES[name]
+    x = _inputs(np.random.default_rng(5), t_new, leftpad, first_len)
+    args = [torch.from_numpy(x[n]) for n in ("q", "k", "v", "tbl", "lens",
+                                             "lp")]
+    kw = dict(qpos_vec=torch.from_numpy(
+                  np.maximum(x["lens"] - t_new, 0).astype(np.int32)),
+              softmax_scale=32 ** -0.5,
+              params=tmasks.MaskParams(causal=causal and t_new > 1,
+                                       window_left=wl,
+                                       window_right=0 if causal else -1,
+                                       softcap=softcap, has_alibi=alibi),
+              t_new=t_new, group=x["group"], num_splits=splits,
+              alibi_slopes_rows=torch.from_numpy(x["slopes"]) if alibi
+              else None)
+    o, lse = tdec.paged_decode_attention_merged(*args, **kw)
+    ro, rlse = tdec.merge_partials(*tdec.paged_decode_attention_ref(
+        *args, **kw))
+    assert o.dtype == args[0].dtype and o.shape == ro.shape
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    if first_len == 0:
+        assert torch.isneginf(lse[0]).all() and not o[0].any()

@@ -806,9 +806,16 @@ def test_varlen_kernels_reject_fp32(cuda):
 
 # ------------------------------------------------- flash_attn_with_kvcache
 
+def _merged(o_part, lse_part, dtype):
+    """The K4 route's merged (o in q's dtype, lse) from plain partials."""
+    o, lse = dec.merge_partials(o_part, lse_part)
+    return o.to(dtype), lse
+
+
 def _plain(upcast):
     def decode(*a, **k):
-        return dec.paged_decode_attention_ref(*a, upcast=upcast, **k)
+        return _merged(*dec.paged_decode_attention_ref(*a, upcast=upcast,
+                                                       **k), a[0].dtype)
 
     def varlen(*a, **k):
         return vl.flash_attn_varlen_fwd_paged_ref(*a, upcast=upcast, **k)
@@ -899,7 +906,7 @@ def test_kvcache_kernels_match_plain(cuda, name, monkeypatch):
     for upcast in (True, False):
         with monkeypatch.context() as m:
             fd, fv = _plain(upcast)
-            m.setattr(kv, "paged_decode_attention", fd)
+            m.setattr(kv, "paged_decode_attention_merged", fd)
             m.setattr(kv, "flash_attn_varlen_fwd_paged", fv)
             plain[upcast] = _kvcache_call(cuda, dtype, q, kc, vc, new, cs,
                                           kw)[0]
@@ -951,7 +958,7 @@ def test_decode_step_contiguous_matches_plain(cuda, monkeypatch):
     plain = {}
     for upcast in (True, False):
         with monkeypatch.context() as m:
-            m.setattr(kv, "paged_decode_attention", _plain(upcast)[0])
+            m.setattr(kv, "paged_decode_attention_merged", _plain(upcast)[0])
             plain[upcast] = run()
     for i, logits in enumerate(got):
         assert_close_rel(logits, plain[True][i], plain[False][i], 2.0, 1e-5,
@@ -1096,7 +1103,8 @@ def test_ieee_div_is_correctly_rounded(cuda):
 
 def _plain_quant(round_p):
     def decode(*a, **k):
-        return dec.paged_decode_attention_ref(*a, round_p=round_p, **k)
+        return _merged(*dec.paged_decode_attention_ref(*a, round_p=round_p,
+                                                       **k), a[0].dtype)
 
     def varlen(*a, **k):
         return vl.flash_attn_varlen_fwd_paged_ref(*a, round_p=round_p, **k)
@@ -1174,7 +1182,7 @@ def test_kvcache_quant_kernels_match_plain(cuda, name, kind, monkeypatch):
     for round_p in (True, False):
         with monkeypatch.context() as m:
             fd, fv = _plain_quant(round_p)
-            m.setattr(kv, "paged_decode_attention", fd)
+            m.setattr(kv, "paged_decode_attention_merged", fd)
             m.setattr(kv, "flash_attn_varlen_fwd_paged", fv)
             plain[round_p] = call(cuda, torch.bfloat16)[0]
     _gate_quant(res[0], res[1], plain[True][0], plain[False][0],
@@ -1347,3 +1355,166 @@ def test_varlen_paged_kernels_use_no_local_memory(cuda, D):
         blocks, _, threads, _, local = out
         assert local == 0, f"{what}: {local} B of local memory"
         assert blocks * threads // 32 >= 8, f"{what}: {blocks} blocks"
+
+
+# ------------------------------------------- K4 and K4q: stage and split edges
+
+# K4's stages hold 128 keys at D 64 and 64 at D 128, its warps 32-key
+# groups; rows > 16 take 64-row blocks.  name: (lens, leftpad, t_new,
+# group, page size, table slots, num_splits, mask kwargs)
+DECODE_EDGE_CASES = {
+    "lens_1_63_64_65_127_129": ([1, 63, 64, 65, 127, 129], None, 1, 8, 32,
+                                8, 0, dict(window_right=0)),
+    # splits of 4 pages x 32 = 128 rows: lengths at a split boundary +-1
+    "split_edge": ([127, 128, 129, 255, 256, 257], None, 1, 4, 32, 12, 3,
+                   dict(window_right=0)),
+    "leftpad_63_65": ([200, 300], [63, 65], 1, 8, 64, 8, 2,
+                      dict(window_right=0)),
+    # a window edge inside a stage, 4 new tokens
+    "window_in_stage": ([300, 150], [0, 7], 4, 8, 128, 4, 0,
+                        dict(causal=True, window_left=40, window_right=0)),
+    # the short-prompt prefill (Rq 512) and the largest K4 route (Rq 1016)
+    "rq512": ([64, 364], None, 64, 8, 128, 4, 0,
+              dict(causal=True, window_right=0)),
+    "rq1016": ([127, 500], None, 127, 8, 128, 5, 0,
+               dict(causal=True, window_right=0)),
+}
+
+
+def _decode_edge_inputs(name, kind, D, dev, dtype=torch.bfloat16):
+    lens, lp, t_new, group, ps, mp, splits, mkw = DECODE_EDGE_CASES[name]
+    rng = np.random.default_rng(11)
+    B, Hk = len(lens), 2
+    Rq = max(-(-group * t_new // 8) * 8, 8)
+    P = B * mp + 1
+    q = torch.from_numpy(rng.standard_normal((B, Hk, Rq, D)).astype(
+        np.float32))
+    q[:, :, group * t_new:] = 0
+    k, v = (torch.from_numpy(rng.standard_normal((1, Hk, P, ps, D)).astype(
+        np.float32)) for _ in range(2))
+    tbl = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(
+        B, mp).astype(np.int32))
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    lp_t = torch.tensor(lp or [0] * B, dtype=torch.int32)
+    kw = dict(qpos_vec=(lens_t - t_new).to(dev), softmax_scale=D ** -0.5,
+              params=masklib.MaskParams(**mkw), t_new=t_new, group=group,
+              num_splits=splits)
+    if kind is None:
+        pools = (k.to(dev, dtype), v.to(dev, dtype))
+    else:
+        (kq, ks), (vq, vs) = (_quantize(x, kind, dev) for x in (k, v))
+        pools = (kq, vq)
+        kw.update(k_scales=ks, v_scales=vs, int4=kind == "int4")
+    args = (q.to(dev, dtype), *pools, tbl.to(dev), lens_t.to(dev),
+            lp_t.to(dev))
+    return args, kw
+
+
+def _assert_merged(om, lsem, o, lse, name):
+    """The merged entry against merge_partials of the partials, per row:
+    RMS error within 2^-8 of the row's RMS (q's 16-bit rounding) + 1e-6;
+    LSE within 1e-5, -inf rows equal."""
+    o = o.float()
+    err = (om.float() - o).pow(2).mean(-1).sqrt()
+    gate = 2.0 ** -8 * o.pow(2).mean(-1).sqrt() + 1e-6
+    assert bool((err <= gate).all()), (
+        f"{name}: merged row err {float((err / gate).max()):.3f} x gate")
+    fin = torch.isfinite(lse)
+    assert torch.equal(fin, torch.isfinite(lsem)), f"{name}: -inf rows"
+    torch.testing.assert_close(lsem[fin], lse[fin], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", [None] + list(QUANT_KINDS))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("name", list(DECODE_EDGE_CASES))
+def test_decode_kernel_edges(cuda, name, D, kind):
+    """K4 / K4q at stage, group, split and window edges and at Rq 512 /
+    1016, against the plain version (K4q: its twin at P_TILE), and the
+    merged entry against merge_partials of the partials."""
+    args, kw = _decode_edge_inputs(name, kind, D, cuda)
+    o, lse = dec.merge_partials(*dec.paged_decode_attention(*args, **kw))
+    om, lsem = dec.paged_decode_attention_merged(*args, **kw)
+    torch.cuda.synchronize()
+    label = f"K4{'' if kind is None else 'q ' + kind} {name}"
+    if kind is None:
+        o32, lse32 = dec.merge_partials(*dec.paged_decode_attention_ref(
+            *args, **kw))
+        onat, lsenat = dec.merge_partials(*dec.paged_decode_attention_ref(
+            *args, upcast=False, **kw))
+        assert_fwd_close(o, o32, onat, name=f"{label} out")
+        _gate_lse(lse, lse32, lsenat, f"{label} lse")
+    else:
+        ref, lse_ref = dec.merge_partials(*dec.paged_decode_attention_ref(
+            *args, **kw))
+        unr = dec.merge_partials(*dec.paged_decode_attention_ref(
+            *args, round_p=False, **kw))[0]
+        _gate_quant(o, lse, ref, unr, lse_ref, label)
+    assert om.dtype == args[0].dtype
+    _assert_merged(om, lsem, o, lse, label)
+
+
+@pytest.mark.parametrize("kind", [None] + list(QUANT_KINDS))
+def test_decode_merged_deterministic_and_graph_replay(cuda, kind):
+    """Two merged calls give the same bits (the merge sums the splits in
+    order whatever block arrives last), and a CUDA-graph replay of the
+    call, reusing the arrival counters, gives the eager call's bits."""
+    args, kw = _decode_edge_inputs("split_edge", kind, 128, cuda)
+    one = dec.paged_decode_attention_merged(*args, **kw)
+    two = dec.paged_decode_attention_merged(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = dec.paged_decode_attention_merged(*args, **kw)
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, one))
+
+
+def test_decode_long_context_bf16(cuda):
+    """K4 at the 32k-context decode shape at B 1 (32 / 8 heads x 128, page
+    512, table arange), merged in the launch, against the plain version."""
+    Hk, group, D, ctx, ps = 8, 4, 128, 32768, 512
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((1, Hk, 8, D), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    q[:, :, group:] = 0
+    k, v = (torch.randn((1, Hk, ctx // ps, ps, D), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    tbl = torch.arange(ctx // ps, dtype=torch.int32, device=cuda)[None]
+    lens = torch.full((1,), ctx, dtype=torch.int32, device=cuda)
+    kw = dict(softmax_scale=D ** -0.5,
+              params=masklib.MaskParams(window_right=0), t_new=1,
+              group=group)
+    args = (q, k, v, tbl, lens, None)
+    om, lsem = dec.paged_decode_attention_merged(*args, **kw)
+    o32, lse32 = dec.merge_partials(*dec.paged_decode_attention_ref(
+        *args, **kw))
+    onat, lsenat = dec.merge_partials(*dec.paged_decode_attention_ref(
+        *args, upcast=False, **kw))
+    assert_fwd_close(om[:, :, :group], o32[:, :, :group],
+                     onat[:, :, :group], name="K4 32k")
+    _gate_lse(lsem[:, :, :group], lse32[:, :, :group],
+              lsenat[:, :, :group], "K4 32k lse")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_kernels_use_no_local_memory(cuda, D):
+    """K4 and K4q (each payload kind) in bf16 and fp16, at 16- and 64-row
+    blocks: no spills or stack (local memory); at 16 rows (every decode
+    step) at least 8 warps resident a multiprocessor."""
+    import ctypes
+    k4, k4q = build.load("decode"), build.load("decode_quant")
+    calls = [(f"K4 dtype {dt} rows {rows}", k4.fa_decode_occupancy,
+              (dt, D, rows)) for dt in (0, 1) for rows in (16, 64)]
+    calls += [(f"K4q {kind} dtype {dt} rows {rows}",
+               k4q.fa_decode_quant_occupancy, (code, dt, D, rows))
+              for kind, code in dec.KIND_CODE.items()
+              for dt in (0, 1) for rows in (16, 64)]
+    for what, fn, a in calls:
+        out = (ctypes.c_int * 5)()
+        assert fn(*a, ctypes.addressof(out)) == 0, what
+        blocks, _, threads, _, local = out
+        assert local == 0, f"{what}: {local} B of local memory"
+        if a[-1] == 16:
+            assert blocks * threads // 32 >= 8, f"{what}: {blocks} blocks"
