@@ -34,10 +34,14 @@ PyTorch library call computing the same function:
     5 x 100 launches (the spread of each), also as CUDA-graph replays
     (their device time without the wrapper's host time).
 Then it trains TinyLlama-1.1B at full width (22 layers, bf16, random weights
-from a seed) for three AdamW steps at B 4 x S 2048 through K1-K3, and
-drives the paged serving engine at the same width through K4 and K8, then
-once from each quantized pool through K4q and K8q, checking each path's
-output and launch counts.  Prints the card, a
+from a seed) for three AdamW steps at B 4 x S 2048 through K1-K3, fine-tunes
+LoRA adapters on the frozen base at the same shape through K1-K3
+(integrations/lora.py), drives the paged serving engine at the same width
+through K4 and K8, again from the same weights imported as an HF Llama
+checkpoint (integrations/huggingface.py, with TinyLlama's config.json
+fields), then once from each quantized pool through K4q and K8q, checking
+each path's output and launch counts; the training, LoRA and decode steps
+are profiled through utils/profiling.py.  Prints the card, a
 `kernels` JSON line, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 Any failed phase raises and the script exits non-zero; with no GPU, or
@@ -1594,6 +1598,13 @@ def _plain_attention(fa_mod, dfwd, dbwd, upcast):
     return ctx()
 
 
+def train_tokens(torch, cfg, dev):
+    """The training runs' batch: B TRAIN_B x TRAIN_S + 1 random tokens."""
+    gen = torch.Generator().manual_seed(SEED)
+    return torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                         generator=gen).to(dev)
+
+
 def phase_train(torch, cfg):
     """Three AdamW steps of TinyLlama-1.1B at B 4 x S 2048 through K1-K3."""
     from flash_attn_v100_tpu_torch.models import transformer as tm
@@ -1606,9 +1617,7 @@ def phase_train(torch, cfg):
     params = tm.init_params(cfg, seed=SEED, device=dev, lm_head=True)
     for t in tm.param_leaves(params):
         t.requires_grad_(True)
-    gen = torch.Generator().manual_seed(SEED)
-    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
-                           generator=gen).to(dev)
+    tokens = train_tokens(torch, cfg, dev)
     step, init_opt = tm.make_train_step(cfg)
     opt = init_opt(params)
     n_params = sum(t.numel() for t in tm.param_leaves(params))
@@ -1647,7 +1656,7 @@ def phase_train(torch, cfg):
           f"K3 {counts['K3'] // TRAIN_STEPS}; plain calls "
           f"{counts['plain_fwd']} / {counts['plain_bwd']}", flush=True)
 
-    prof = profile_train(torch, step, params, opt, tokens)
+    prof = profile_train(torch, lambda: step(params, opt, tokens))
 
     # layer 0's attention, captured from a forward/backward at the training
     # shape, replayed through the plain versions
@@ -1766,44 +1775,45 @@ def replay_layer0(torch, tm, dfwd, dbwd, tt, params, tokens, cfg):
     return res
 
 
-def profile_train(torch, step, params, opt, tokens):
-    """Where a training step's time goes: one more step under
-    torch.profiler (CPU + CUDA activities)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_train(torch, run_step, tag="train"):
+    """Where a training step's time goes: `run_step()` once, then once more
+    under torch.profiler (CPU + CUDA activities) through the package's
+    utils.profiling, which labels the port's kernels by id; the id table
+    (each port kernel's CUDA name) is printed beside."""
+    import tempfile
+    from flash_attn_v100_tpu_torch.utils import profiling
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def one():
         t0 = time.perf_counter()
-        loss, params, opt = step(params, opt, tokens)
+        run_step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # user annotations (the optimizer's step region) also show on the
-    # device timeline, overlapping the kernels they enclose
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    share = {}
-    for key, pat in (("K1", "fwd_kernel"), ("K2", "dq_kernel"),
-                     ("K3", "dkv_kernel")):
-        share[key] = sum(us for n, us in by_name.items() if pat in n) / \
-            max(busy_us, 1e-9)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        walls.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory(prefix="fa_trace_") as d:
+        profiling.capture_trace(one, iters=1, trace_dir=d)
+        rows = profiling.summarize_trace(d)
+        ids = profiling.kernel_ids(d)
+    wall = walls[-1]
+    busy_us = sum(us for _, us, _ in rows)
+    launches = sum(n for _, _, n in rows)
+    by_label = {lab: us for lab, us, _ in rows}
+    share = {key: by_label.get(key, 0.0) / max(busy_us, 1e-9)
+             for key in ("K1", "K2", "K3")}
     res = dict(wall_ms=wall * 1e3, busy_ms=busy_us / 1e3,
                busy_share=busy_us / 1e3 / max(wall * 1e3, 1e-9),
-               launches=len(kernels), share=share)
-    print(f"train profile (torch.profiler, one step): wall "
+               launches=launches, share=share)
+    print(f"{tag} profile (torch.profiler, one step): wall "
           f"{res['wall_ms']:.1f} ms, device busy {res['busy_ms']:.1f} ms "
-          f"({100 * res['busy_share']:.1f}%), {len(kernels)} kernel "
+          f"({100 * res['busy_share']:.1f}%), {launches} kernel "
           f"launches; shares of device time: K1 {100 * share['K1']:.1f}%, "
           f"K2 {100 * share['K2']:.1f}%, K3 {100 * share['K3']:.1f}%",
           flush=True)
-    for name, us in top:
+    for name, us, _ in rows[:8]:
         print(f"  {us / 1e3:9.3f} ms  {name[:90]}")
+    for name, kid in sorted(ids.items(), key=lambda kv: kv[1]):
+        print(f"  id {kid} <- {name}")
     return res
 
 
@@ -1902,35 +1912,18 @@ def phase_engine(torch, cfg, kind=None):
         return out
 
     def counts():
-        if kind is None:
-            return {"decode": dec.paged_decode_attention.launches,
-                    "varlen": vl.flash_attn_varlen_fwd_paged.launches}
-        return {"decode": dec.paged_decode_attention.quant_launches[kind],
-                "varlen": vl.flash_attn_varlen_fwd_paged.quant_launches[kind]}
+        return serving_counts(kind)[0]
 
     twins = (dec.paged_decode_attention_ref, vl.flash_attn_varlen_fwd_paged_ref)
-    dec.paged_decode_attention.launches = 0
-    vl.flash_attn_varlen_fwd_paged.launches = 0
-    for k in QUANT_KINDS:
-        dec.paged_decode_attention.quant_launches[k] = 0
-        vl.flash_attn_varlen_fwd_paged.quant_launches[k] = 0
-    for twin in twins:
-        twin.calls = 0
-    eng_mod.paged_forward.calls.update(decode=0, varlen=0)
+    reset_serving_counts()
     eng_mod.paged_forward = spy
     try:
         out, rids, (t0, t_a, t_b), (tok_a, tok_b) = serve_traffic(
             torch, eng, cfg)
     finally:
         eng_mod.paged_forward = real_pf
-    launches = counts()
+    launches, twin_calls, other = serving_counts(kind)
     calls = dict(eng_mod.paged_forward.calls)
-    twin_calls = [twin.calls for twin in twins]
-    other = (dec.paged_decode_attention.launches
-             + vl.flash_attn_varlen_fwd_paged.launches
-             + sum(dec.paged_decode_attention.quant_launches.values())
-             + sum(vl.flash_attn_varlen_fwd_paged.quant_launches.values())
-             - sum(launches.values()))
 
     assert sorted(out) == sorted(rids), "every request must finish"
     for rid in rids:
@@ -2004,7 +1997,43 @@ def phase_engine(torch, cfg, kind=None):
     prof = profile_decode(torch, eng, cfg)
     return dict(launches=launches, ttft_p50_ms=ttft_p50_ms,
                 decode_tok_s=decode_tok_s, logits_err=errs, profile=prof,
-                pool_bytes=pool_bytes)
+                pool_bytes=pool_bytes, tokens=[out[r] for r in rids])
+
+
+def reset_serving_counts():
+    """Zero the serving kernels' launch counters (K4, K8 and each payload's
+    K4q / K8q), their plain twins' call counters and paged_forward's
+    calls per route."""
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    from flash_attn_v100_tpu_torch.runtime import engine as eng_mod
+    dec.paged_decode_attention.launches = 0
+    vl.flash_attn_varlen_fwd_paged.launches = 0
+    for k in QUANT_KINDS:
+        dec.paged_decode_attention.quant_launches[k] = 0
+        vl.flash_attn_varlen_fwd_paged.quant_launches[k] = 0
+    dec.paged_decode_attention_ref.calls = 0
+    vl.flash_attn_varlen_fwd_paged_ref.calls = 0
+    eng_mod.paged_forward.calls.update(decode=0, varlen=0)
+
+
+def serving_counts(kind=None):
+    """({"decode": K4 (K4q of payload `kind`) launches, "varlen": K8 (K8q)
+    launches}, [the plain twins' calls], the launches of any other
+    payload's kernels) since reset_serving_counts."""
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    dk, vk = dec.paged_decode_attention, vl.flash_attn_varlen_fwd_paged
+    if kind is None:
+        launches = {"decode": dk.launches, "varlen": vk.launches}
+    else:
+        launches = {"decode": dk.quant_launches[kind],
+                    "varlen": vk.quant_launches[kind]}
+    every = (dk.launches + vk.launches + sum(dk.quant_launches.values())
+             + sum(vk.quant_launches.values()))
+    twin_calls = [dec.paged_decode_attention_ref.calls,
+                  vl.flash_attn_varlen_fwd_paged_ref.calls]
+    return launches, twin_calls, every - sum(launches.values())
 
 
 def phase_engine_quant(torch, cfg, bf16):
@@ -2030,11 +2059,230 @@ def phase_engine_quant(torch, cfg, bf16):
     return res
 
 
-def profile_decode(torch, eng, cfg, prompt_len=64, n_new=17):
+# ------------------------------------------------------ integrations
+
+# TinyLlama-1.1B's published config.json (huggingface.co/TinyLlama/
+# TinyLlama-1.1B-intermediate-step-1431k-3T), the fields an HF checkpoint
+# carries; the HF-import run reads them from a plain object
+TINYLLAMA_CONFIG_JSON = dict(
+    architectures=["LlamaForCausalLM"], attention_bias=False, bos_token_id=1,
+    eos_token_id=2, hidden_act="silu", hidden_size=2048,
+    initializer_range=0.02, intermediate_size=5632,
+    max_position_embeddings=2048, model_type="llama",
+    num_attention_heads=32, num_hidden_layers=22, num_key_value_heads=4,
+    pretraining_tp=1, rms_norm_eps=1e-05, rope_scaling=None,
+    rope_theta=10000.0, tie_word_embeddings=False, torch_dtype="bfloat16",
+    use_cache=True, vocab_size=32000)
+# the port's parameter names -> HF Llama's module names
+HF_PROJ = dict(wq="self_attn.q_proj", wk="self_attn.k_proj",
+               wv="self_attn.v_proj", wo="self_attn.o_proj",
+               w1="mlp.gate_proj", w3="mlp.up_proj", w2="mlp.down_proj")
+HF_NORM = dict(ln1="input_layernorm", ln2="post_attention_layernorm")
+
+
+def hf_state_dict(torch, params):
+    """The port's params as an HF LlamaForCausalLM state dict on the CPU:
+    HF's names, each projection transposed back to (out, in), contiguous,
+    as a checkpoint loads."""
+    def host(t, transpose=False):
+        return (t.t() if transpose else t).contiguous().cpu()
+
+    state = {"model.embed_tokens.weight": host(params["embed"]),
+             "model.norm.weight": host(params["ln_f"]),
+             "lm_head.weight": host(params["lm_head"], True)}
+    for i, lp in enumerate(params["layers"]):
+        for k, name in HF_PROJ.items():
+            state[f"model.layers.{i}.{name}.weight"] = host(lp[k], True)
+        for k, name in HF_NORM.items():
+            state[f"model.layers.{i}.{name}.weight"] = host(lp[k])
+    return state
+
+
+def phase_hf_serve(torch, cfg, bf16):
+    """HF import, then serving: init_params' weights as an HF state dict on
+    the CPU and TinyLlama's config.json fields in a plain object go through
+    convert_hf_model onto the card; every tensor must equal init_params',
+    and the engine runs' traffic served from them (K8, then K4) must give
+    `bf16`'s (phase_engine's) greedy tokens and launch counts."""
+    import types
+    from flash_attn_v100_tpu_torch.integrations.huggingface import (
+        convert_hf_model)
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+
+    params = tm.init_params(cfg, seed=SEED, device="cuda", lm_head=True)
+    state = hf_state_dict(torch, params)
+    hf_config = types.SimpleNamespace(**TINYLLAMA_CONFIG_JSON)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params_hf, cfg_hf = convert_hf_model(state, hf_config, device="cuda")
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    del state
+    assert cfg_hf == cfg, (cfg_hf, cfg)
+    assert sorted(params_hf) == sorted(params)
+    assert all(sorted(a) == sorted(b) for a, b in zip(params_hf["layers"],
+                                                      params["layers"]))
+    leaves = list(zip(tm.param_leaves(params_hf), tm.param_leaves(params)))
+    for a, b in leaves:
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b), "a converted tensor differs"
+    del params
+
+    eng = make_engine(torch, params_hf, cfg_hf)
+    reset_serving_counts()
+    out, rids, (_, t_a, t_b), (tok_a, tok_b) = serve_traffic(
+        torch, eng, cfg_hf)
+    launches, twin_calls, other = serving_counts()
+    tokens = [out[r] for r in rids]
+    same = sum(a == b for a, b in zip(tokens, bf16["tokens"]))
+    assert tokens == bf16["tokens"], (
+        f"{len(tokens) - same} of {len(tokens)} requests' greedy tokens "
+        "differ from phase_engine's")
+    assert launches == bf16["launches"], (launches, bf16["launches"])
+    assert launches["decode"] > 0 and launches["varlen"] > 0, launches
+    assert twin_calls == [0, 0] and other == 0, (twin_calls, other)
+    ttft_p50_ms = statistics.median(eng.ttft(r) for r in rids) * 1e3
+    decode_tok_s = (tok_b - tok_a) / (t_b - t_a)
+    print(f"hf_serve: convert_hf_model of a {len(TINYLLAMA_CONFIG_JSON)}-field "
+          f"TinyLlama config.json namespace and a {n_bytes / 1e9:.2f} GB HF "
+          f"state dict on the CPU -> the card in {conv_s:.2f} s; "
+          f"{len(leaves)} tensors torch.equal to init_params'; ModelConfig "
+          f"equal to ModelConfig.tinyllama_1b()", flush=True)
+    print(f"hf_serve: {len(rids)} requests, greedy tokens identical to "
+          f"phase_engine's ({same} of {len(rids)} x {N_NEW}); kernel "
+          f"launches {launches} (phase_engine's {bf16['launches']}), plain "
+          f"twin calls {twin_calls}; TTFT p50 {ttft_p50_ms:.2f} ms, steady "
+          f"decode {decode_tok_s:.1f} tok/s", flush=True)
+
+
+LORA_STEPS = 4
+
+
+def phase_lora(torch, cfg, train):
+    """LoRA fine-tuning at TinyLlama-1.1B width (rank 8, alpha 16 on wq,
+    wk, wv, wo; AdamW lr 2e-4, no weight decay) for LORA_STEPS steps at
+    the training run's B 4 x S 2048 through K1-K3, then one profiled step.
+    The base is frozen (digests before and after), A stays bit-equal at
+    the first step (B = 0 makes dL/dA exactly 0), every B moves, and the
+    first step's adapter gradients pass the gradient gate against the same
+    gradients through the plain attention versions (fp32 and bf16).
+    `train` is phase_train's result, printed beside."""
+    from flash_attn_v100_tpu_torch.integrations import lora as lora_mod
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.utils import testing as tt
+
+    dev = torch.device("cuda")
+    params = tm.init_params(cfg, seed=SEED, device=dev, lm_head=True)
+    base = tm.param_leaves(params)
+    assert not any(t.requires_grad for t in base)
+    digests = [digest(torch, t) for t in base]
+    lcfg = lora_mod.LoraConfig()
+    lora = lora_mod.lora_init(params, lcfg, seed=SEED, device=dev)
+    leaves = lora_mod.lora_leaves(lora)
+    start = [t.detach().clone() for t in leaves]
+    tokens = train_tokens(torch, cfg, dev)
+    step, init_opt = lora_mod.make_lora_train_step(cfg, lcfg)
+    opt = init_opt(lora)
+    n_adapter = sum(t.numel() for t in leaves)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(dfwd, dbwd)
+    losses, secs = [], []
+    for i in range(LORA_STEPS):
+        t0 = time.perf_counter()
+        loss, lora, opt = step(lora, opt, params, tokens)
+        losses.append(float(loss))            # syncs
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == 0:
+            grads = [t.grad.detach().clone() for t in leaves]
+            a_kept = all(torch.equal(a, a0) for a, a0 in
+                         zip(leaves[0::2], start[0::2]))
+    counts = _kernel_counts(dfwd, dbwd)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    L = cfg.n_layers
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    for name in ("K1", "K2", "K3"):
+        assert counts[name] == L * LORA_STEPS, counts
+    assert counts["plain_fwd"] == 0 and counts["plain_bwd"] == 0, counts
+    assert a_kept, "an A moved at the first step (dL/dA must be 0 there)"
+    assert all(torch.count_nonzero(g) == 0 for g in grads[0::2])
+    moved = [bool(torch.count_nonzero(b)) for b in leaves[1::2]]
+    assert all(moved), f"{moved.count(False)} B's did not move"
+    assert all(t.grad is None and not t.requires_grad for t in base)
+    after = [digest(torch, t) for t in base]
+    assert after == digests, (f"{sum(a != b for a, b in zip(after, digests))}"
+                              " base leaves changed")
+    step_ms = statistics.median(secs[1:]) * 1e3
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+
+    # the first step's adapter gradients again, from the initial adapters
+    # (lora_init is deterministic), through the plain attention versions
+    ref = lora_mod.lora_init(params, lcfg, seed=SEED, device=dev)
+    assert all(torch.equal(a, b) for a, b in
+               zip(lora_mod.lora_leaves(ref), start))
+
+    def adapter_grads():
+        return torch.autograd.grad(
+            lora_mod.lora_loss(ref, params, tokens, cfg, lcfg),
+            lora_mod.lora_leaves(ref))
+
+    with _plain_attention(fa_mod, dfwd, dbwd, True):
+        g32 = adapter_grads()
+    with _plain_attention(fa_mod, dfwd, dbwd, False):
+        g16 = adapter_grads()
+    # the gradients of a loss averaged over B x S tokens are small: the atol
+    # is scaled by the largest |ref| where that is below 1, as in
+    # replay_layer0
+    names = [f"layer {i} {n}.{k}" for i, ad in enumerate(ref["layers"])
+             for n in sorted(ad) for k in ("a", "b")]
+    worst = (0.0, None, 0.0, 0.0)
+    for name, g, r32, r16 in zip(names, grads, g32, g16):
+        ref_max = float(r32.abs().max())
+        err, gate = gated(torch, g, r32, r16, f"lora first-step grad {name}",
+                          tt.BWD_MULT, tt.BWD_ATOL * min(1.0, ref_max))
+        if gate > 0 and err / gate >= worst[0]:
+            worst = (err / gate, name, err, gate)
+    del g32, g16, ref, grads
+
+    print(f"lora: {L} layers, dim {cfg.dim}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads x {cfg.head_dim}, untied lm_head, {cfg.dtype}; base frozen; "
+          f"adapters rank {lcfg.rank}, alpha {lcfg.alpha} on "
+          f"{'/'.join(lcfg.targets)} ({n_adapter / 1e6:.2f} M fp32 "
+          f"parameters); AdamW(lr 2e-4, wd 0); B {TRAIN_B} x S {TRAIN_S} "
+          f"tokens", flush=True)
+    print(f"lora: losses {[round(x, 5) for x in losses]}, step times "
+          f"{[round(x * 1e3, 1) for x in secs]} ms; step {step_ms:.1f} ms "
+          f"(median of steps 2-{LORA_STEPS}), {tok_s:.0f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB (training run: {train['step_ms']:.1f} "
+          f"ms, {train['tokens_s']:.0f} tokens/s, {train['peak_gb']:.2f} GB); "
+          f"launches per step K1 {counts['K1'] // LORA_STEPS}, K2 "
+          f"{counts['K2'] // LORA_STEPS}, K3 {counts['K3'] // LORA_STEPS}; "
+          f"plain calls {counts['plain_fwd']} / {counts['plain_bwd']}",
+          flush=True)
+    print(f"lora: {len(base)} base leaves bit-unchanged (SHA-256 digests); "
+          f"every A bit-equal after step 1, every B moved; first-step "
+          f"adapter grads vs the plain attention's (fp32 reference, bf16 "
+          f"yardstick) within 3x + 1e-4 x min(1, max |ref|): "
+          f"{len(names)} leaves, worst err/gate {worst[0]:.3f} at "
+          f"{worst[1]} ({worst[2]:.3e} <= {worst[3]:.3e})", flush=True)
+    profile_train(torch, lambda: step(lora, opt, params, tokens), tag="lora")
+
+
+def profile_decode(torch, eng, cfg, prompt_len=64, n_new=25):
     """Where a steady decode step's time goes: one fused window of decode
-    steps at full batch under torch.profiler (CPU + CUDA activities)."""
+    steps at full batch, then one more under torch.profiler (CPU + CUDA
+    activities) through the package's utils.profiling."""
+    import tempfile
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from flash_attn_v100_tpu_torch.utils import profiling
 
     rng = np.random.default_rng(SEED + 2)
     for _ in range(eng.max_batch):
@@ -2042,32 +2290,33 @@ def profile_decode(torch, eng, cfg, prompt_len=64, n_new=17):
                    max_new_tokens=n_new)
     eng.step()                                  # prefill
     eng.step()                                  # first (unfused) decode
-    torch.cuda.synchronize()
-    tok0 = eng.metrics["tokens_generated"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    windows = []
+
+    def window():
+        tok0 = eng.metrics["tokens_generated"]
         t0 = time.perf_counter()
         eng.step()                              # one fused window
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    n_steps = (eng.metrics["tokens_generated"] - tok0) // eng.max_batch
+        windows.append((time.perf_counter() - t0,
+                        eng.metrics["tokens_generated"] - tok0))
+
+    with tempfile.TemporaryDirectory(prefix="fa_trace_") as d:
+        profiling.capture_trace(window, iters=1, trace_dir=d)
+        rows = profiling.summarize_trace(d)
     eng.run_to_completion()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    wall, n_tok = windows[-1]
+    n_steps = n_tok // eng.max_batch
+    busy_us = sum(us for _, us, _ in rows)
     res = dict(steps=n_steps, wall_ms_per_step=wall * 1e3 / max(n_steps, 1),
                busy_ms_per_step=busy_us / 1e3 / max(n_steps, 1),
-               launches_per_step=len(kernels) / max(n_steps, 1))
+               launches_per_step=sum(n for _, _, n in rows)
+               / max(n_steps, 1))
     print(f"decode profile (torch.profiler, batch {eng.max_batch}, one fused "
           f"window of {n_steps} steps): wall {res['wall_ms_per_step']:.3f} "
           f"ms/step, device busy {res['busy_ms_per_step']:.3f} ms/step "
           f"({100 * busy_us / 1e3 / max(wall * 1e3, 1e-9):.1f}%), "
           f"{res['launches_per_step']:.0f} kernel launches/step")
-    for name, us in top:
+    for name, us, _ in rows[:6]:
         print(f"  {us / 1e3 / max(n_steps, 1):8.3f} ms/step  {name[:90]}")
     return res
 
@@ -2508,7 +2757,11 @@ def main() -> int:
     cfg = ModelConfig.tinyllama_1b()
     train = phase_train(torch, cfg)
     torch.cuda.empty_cache()
+    phase_lora(torch, cfg, train)
+    torch.cuda.empty_cache()
     eng = phase_engine(torch, cfg)
+    torch.cuda.empty_cache()
+    phase_hf_serve(torch, cfg, eng)
     torch.cuda.empty_cache()
     eng_q = phase_engine_quant(torch, cfg, eng)
 

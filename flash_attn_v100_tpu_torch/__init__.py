@@ -15,13 +15,22 @@ beside it slice by slice.  It holds
     K8, and their int8/fp8/int4 variants K4q and K8q over quantized pools),
     the model's serving path, and the continuous-batching runtime;
   * the KV-cache formats: `quantize_kv` / `dequantize_kv` and the cache
-    constructors of `cache/`.
+    constructors of `cache/`;
+  * integrations: HF Llama / Mistral / Qwen2 checkpoint import
+    (`convert_hf_model`) and LoRA fine-tuning (`LoraConfig`,
+    `integrations/lora.py`), and the measuring tools of `utils/`
+    (benchmarking, profiling, debugging, the dist-info masquerade).
 Entry points run on the GPU unless the caller passes device="cpu" (or CPU
 tensors), where every kernel is replaced by its plain PyTorch version.
 """
 
+__version__ = "2.8.3"  # the JAX package's flash_attn version masquerade
+
 from flash_attn_v100_tpu_torch.cache import (
     ContiguousCache, PagedCache, init_contiguous, init_paged, kvcache_kwargs)
+from flash_attn_v100_tpu_torch.integrations.huggingface import (
+    convert_hf_model)
+from flash_attn_v100_tpu_torch.integrations.lora import LoraConfig
 from flash_attn_v100_tpu_torch.models.transformer import (
     ModelConfig, params_from_jax)
 from flash_attn_v100_tpu_torch.ops.flash_attention import flash_attn_func
@@ -40,4 +49,5 @@ __all__ = ["flash_attn_func", "flash_attn_varlen_func",
            "flash_attn_varlen_gpu", "flash_attn_with_kvcache_gpu",
            "ServingEngine", "ModelConfig", "params_from_jax", "quantize_kv",
            "dequantize_kv", "ContiguousCache", "PagedCache",
-           "init_contiguous", "init_paged", "kvcache_kwargs"]
+           "init_contiguous", "init_paged", "kvcache_kwargs",
+           "convert_hf_model", "LoraConfig"]

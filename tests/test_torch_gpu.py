@@ -1518,3 +1518,117 @@ def test_decode_kernels_use_no_local_memory(cuda, D):
         assert local == 0, f"{what}: {local} B of local memory"
         if a[-1] == 16:
             assert blocks * threads // 32 >= 8, f"{what}: {blocks} blocks"
+
+
+# ------------------------------------------------ integrations and utils
+
+def test_hf_conversion_on_the_card_bit_equal_to_the_cpu(cuda):
+    """An fp32 HF-named state dict (chip_smoke.hf_state_dict of random
+    weights) converted to bf16 on the card and on the CPU: the same bytes
+    (both round to nearest even)."""
+    import types
+    import chip_smoke
+    from flash_attn_v100_tpu_torch.integrations.huggingface import (
+        convert_hf_model)
+    cfg = _tiny(torch.float32)
+    params = tmodel.init_params(cfg, seed=9, device="cpu", lm_head=True)
+    state = chip_smoke.hf_state_dict(torch, params)
+    hf_cfg = types.SimpleNamespace(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.dim,
+        intermediate_size=cfg.ffn_dim, num_hidden_layers=cfg.n_layers,
+        num_attention_heads=cfg.n_heads, num_key_value_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, max_position_embeddings=cfg.max_seq_len,
+        model_type="llama")
+    on_card, cfg_card = convert_hf_model(state, hf_cfg, device=cuda)
+    on_cpu, cfg_cpu = convert_hf_model(state, hf_cfg, device="cpu")
+    assert cfg_card == cfg_cpu == ModelConfig(**dict(
+        vars(cfg), dtype=torch.bfloat16))
+    for a, b in zip(tmodel.param_leaves(on_card),
+                    tmodel.param_leaves(on_cpu)):
+        assert a.is_cuda and a.dtype == torch.bfloat16
+        assert torch.equal(a.cpu(), b)
+
+
+def test_lora_step_on_the_card_within_the_gradient_gate(cuda):
+    """One LoRA step of a small bf16 model through K1-K3 against the same
+    step on the CPU through the plain attention (fp32 reference, bf16
+    yardstick): loss within 2x + 1e-5, each adapter gradient within
+    3x + 1e-4, dL/dA exactly 0 (B = 0), and one K1/K2/K3 launch a layer."""
+    from flash_attn_v100_tpu_torch.integrations import lora as lora_mod
+    cfg = _tiny(torch.bfloat16)
+    lcfg = lora_mod.LoraConfig()
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 129)))
+
+    def run(dev):
+        params = tmodel.init_params(cfg, seed=6, device="cpu")
+        params = tmodel._map_params(params, lambda t: t.to(dev))
+        lora = lora_mod.lora_init(params, lcfg, seed=7, device="cpu")
+        lora = dict(layers=[{n: {k: w.detach().to(dev).requires_grad_()
+                                 for k, w in ab.items()}
+                             for n, ab in ad.items()}
+                            for ad in lora["layers"]])
+        step, init_opt = lora_mod.make_lora_train_step(cfg, lcfg)
+        loss, lora, _ = step(lora, init_opt(lora), params, tokens.to(dev))
+        return loss, [t.grad.cpu() for t in lora_mod.lora_leaves(lora)]
+
+    before = (dfwd.flash_attn_dense_fwd.launches, dbwd.dq_kernel.launches,
+              dbwd.dkv_kernel.launches)
+    loss, grads = run(cuda)
+    assert (dfwd.flash_attn_dense_fwd.launches - before[0],
+            dbwd.dq_kernel.launches - before[1],
+            dbwd.dkv_kernel.launches - before[2]) == (cfg.n_layers,) * 3
+    plain = {}
+    for upcast in (True, False):
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(fa_mod, "flash_attn_dense_fwd", lambda *a, **k_: (
+                dfwd.flash_attn_dense_fwd_ref(*a, upcast=upcast, **k_)))
+            m.setattr(fa_mod, "flash_attn_dense_bwd", lambda *a, **k_: (
+                dbwd.flash_attn_dense_bwd_ref(*a, upcast=upcast, **k_)))
+            plain[upcast] = run("cpu")
+    assert torch.isfinite(loss)
+    assert_close_rel(loss.cpu(), plain[True][0], plain[False][0], 2.0, 1e-5,
+                     name="lora loss")
+    for i, (g, g32, g16) in enumerate(zip(grads, plain[True][1],
+                                          plain[False][1])):
+        if i % 2 == 0:
+            assert torch.count_nonzero(g) == 0, f"dL/dA {i // 2}"
+        assert_bwd_close(g, g32, g16, name=f"adapter grad {i}")
+
+
+def test_profile_ops_labels_the_dense_kernels(cuda):
+    from flash_attn_v100_tpu_torch.utils import profiling
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 256, h, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16).requires_grad_()
+        for h in (8, 2, 2))
+
+    def fwd_bwd():
+        fa_mod.flash_attn_func(q, k, v, causal=True).sum().backward()
+
+    rows = profiling.profile_ops(fwd_bwd, iters=2, top=0)
+    counts = {label: n for label, _, n in rows}
+    assert counts.get("K1") == 2 and counts.get("K2") == 2 \
+        and counts.get("K3") == 2, counts
+
+
+def test_measure_of_k1_agrees_with_chip_smoke_time_ms(cuda):
+    """utils.benchmarking.measure (queue-delta over CUDA events) against
+    chip_smoke.time_ms (CUDA events around each call) for K1 at the
+    headline prefill shape (B 4, S 4096, 32/8 heads x 128, causal), where
+    a call's host time is a few percent of its device time: within 20%."""
+    import chip_smoke
+    from flash_attn_v100_tpu_torch.utils import benchmarking
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(4, 4096, 32, 128, generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(4, 4096, 8, 128, generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    mp = masklib.MaskParams(causal=True)
+
+    def k1():
+        return dfwd.flash_attn_dense_fwd(q, k, v, 128 ** -0.5, mp)
+
+    s = benchmarking.measure(k1, device=cuda)
+    ms = chip_smoke.time_ms(torch, k1)
+    assert abs(s * 1e3 - ms) <= 0.2 * ms, (s * 1e3, ms)
