@@ -41,7 +41,13 @@ through K4 and K8, again from the same weights imported as an HF Llama
 checkpoint (integrations/huggingface.py, with TinyLlama's config.json
 fields), then once from each quantized pool through K4q and K8q, checking
 each path's output and launch counts; the training, LoRA and decode steps
-are profiled through utils/profiling.py.  Prints the card, a
+are profiled through utils/profiling.py.  Last, the sharded paths
+(parallel/) on four gloo processes sharing the card: the 32k-context
+decode with its context sharded four ways (bf16 and int8) against the
+unsharded call and the fp32 oracle, head-sharded K1 at the headline shape
+bit for bit per head, and the sharded serving engine at TinyLlama width
+(seq 2 x model 2 from bf16 and int8 pools, model 2 alone) against the
+unsharded run, with each rank's K4 / K4q / K8 launch counts.  Prints the card, a
 `kernels` JSON line, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 Any failed phase raises and the script exits non-zero; with no GPU, or
@@ -78,6 +84,7 @@ each pool's decode tok/s and TTFT p50 with their medians and quartiles.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -1957,7 +1964,7 @@ def phase_engine(torch, cfg, kind=None):
     # the yardstick: 16-bit pools, products in bf16; quantized pools, P
     # left unrounded
     yard = dict(upcast=False) if kind is None else dict(round_p=False)
-    errs = {}
+    errs, first = {}, {}
     for route in ("varlen", "decode"):
         c = cap[route]
         plain = replay(c, *twins)
@@ -1968,6 +1975,9 @@ def phase_engine(torch, cfg, kind=None):
                           f"{tag}: first {route}-route prefill logits",
                           ENGINE_LOGITS_MULT, ENGINE_LOGITS_ATOL)
         errs[route] = err
+        if route == "varlen":   # the first prefill step, its real rows
+            first = {n: t[:N_LONG].cpu() for n, t in (
+                ("logits", logits), ("plain", plain), ("plain_y", plain_y))}
         tokens = c["args"][0]
         print(f"{tag}: first {route}-route prefill (tokens "
               f"{tuple(tokens.shape)}) logits max_abs_err {err:.4e} <= gate "
@@ -1997,7 +2007,8 @@ def phase_engine(torch, cfg, kind=None):
     prof = profile_decode(torch, eng, cfg)
     return dict(launches=launches, ttft_p50_ms=ttft_p50_ms,
                 decode_tok_s=decode_tok_s, logits_err=errs, profile=prof,
-                pool_bytes=pool_bytes, tokens=[out[r] for r in rids])
+                pool_bytes=pool_bytes, tokens=[out[r] for r in rids],
+                first_prefill=first)
 
 
 def reset_serving_counts():
@@ -2056,6 +2067,388 @@ def phase_engine_quant(torch, cfg, bf16):
               f"{r['profile']['busy_ms_per_step']:.3f} vs "
               f"{bf16['profile']['busy_ms_per_step']:.3f} ms per decode step",
               flush=True)
+    return res
+
+
+# ------------------------------------------------------------ parallel phase
+
+# The sharded paths (flash_attn_v100_tpu_torch/parallel/) run as SPMD ranks:
+# PAR_WORLD processes on the one card, joined by gloo (NCCL refuses two ranks
+# on one device); every time measured here is of four processes sharing one
+# card, and a collective's time is gloo's through the host, no measure of a
+# multi-card system.
+PAR_WORLD = 4
+PAR_TIMEOUT_S = 420
+# (c) serves at TinyLlama width with max_seq_len cut to 1024: on seq 2 the
+# shard boundary is then at 512 tokens, so the 512-token prompts fill shard
+# 0 and their decode appends land on shard 1
+PAR_MAX_SEQ = 1024
+# (c)'s logits gate, derived: the unsharded kernel path is held to 2 d of
+# the fp32-plain-attention logits (ENGINE_LOGITS_GATE; d: the bf16-plain
+# logits' distance, two bf16-rounded attention products a layer); the
+# model-axis all-reduce rounds each of the 2 partial sums of the o- and
+# down-projections to bf16 before adding them, one more bf16 rounding of
+# each of the 2 sublayer outputs a layer, no more roundings than d counts:
+# another 2 d.  Quantized pools: d is the twins' distance with P unrounded.
+PAR_LOGITS_MULT, PAR_LOGITS_ATOL = 4.0, 1e-5
+PAR_SERVE_RUNS = (("seq 2 x model 2, bf16 pool", (1, 2, 2), None),
+                  ("seq 2 x model 2, int8 pool", (1, 2, 2), "int8"),
+                  ("model 2 (tensor parallel only), bf16 pool", (1, 1, 2),
+                   None))
+
+
+def _par_turns(torch, dist, fn):
+    """fn() on each rank in turn, the others waiting at a barrier: a time
+    taken alone on the card.  Returns this rank's result."""
+    out = None
+    for r in range(dist.get_world_size()):
+        dist.barrier()
+        if dist.get_rank() == r:
+            out = fn()
+            torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+@contextlib.contextmanager
+def _plain_kvcache():
+    """flash_attn_with_kvcache's K4 call routed to the plain twin (fp32
+    products), merged as the kernel merges."""
+    from flash_attn_v100_tpu_torch.ops import kvcache as kv
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+
+    def merged(*a, **k):
+        o, lse = dec.merge_partials(*dec.paged_decode_attention_ref(*a, **k))
+        return o.to(a[0].dtype), lse
+    saved = kv.paged_decode_attention_merged
+    kv.paged_decode_attention_merged = merged
+    try:
+        yield
+    finally:
+        kv.paged_decode_attention_merged = saved
+
+
+def _par_decode(torch, dist):
+    """(a) The 32k-context decode (B 8, 32 / 8 heads x 128, page 512) with
+    the context sharded over seq 4: each rank holds a quarter of every
+    sequence's pages; rank 0 also runs the unsharded call and the fp32
+    oracle."""
+    from flash_attn_v100_tpu_torch.ops import kvcache as kv
+    from flash_attn_v100_tpu_torch.ops import quant
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+    from flash_attn_v100_tpu_torch.parallel import (
+        SEQ_AXIS, flash_attn_with_kvcache_sharded, make_mesh,
+        merge_lse_across)
+    rank = dist.get_rank()
+    mesh = make_mesh(seq=PAR_WORLD)
+    s = mesh.index(SEQ_AXIS)
+    res = {}
+    for kind in (None, "int8"):
+        ggen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        q, kc, vc, kw, nbytes = long_decode_case(torch, ggen, kind)
+        tbl, lens = kw["block_table"], kw["cache_seqlens"]
+        mp = tbl.shape[1] // PAR_WORLD
+        B = tbl.shape[0]
+        # this rank's pages (table columns [s mp, (s + 1) mp)), renumbered
+        cols = tbl[:, s * mp:(s + 1) * mp].reshape(-1).long()
+        local = [x[:, cols].contiguous() for x in (kc, vc)]
+        sc = {}
+        if kind is not None:
+            sc = dict(k_scales=kw["k_scales"][:, cols].contiguous(),
+                      v_scales=kw["v_scales"][:, cols].contiguous())
+        tbl_l = torch.arange(B * mp, dtype=torch.int32,
+                             device="cuda").reshape(B, mp)
+        launches0 = (dec.paged_decode_attention.launches,
+                     dict(dec.paged_decode_attention.quant_launches))
+        out, lse = flash_attn_with_kvcache_sharded(
+            q, *local, mesh, lens, block_table=tbl_l, causal=True,
+            return_softmax_lse=True, **sc)
+        torch.cuda.synchronize()
+        n_launch = (dec.paged_decode_attention.launches - launches0[0]
+                    if kind is None else
+                    dec.paged_decode_attention.quant_launches[kind]
+                    - launches0[1][kind])
+        # this rank's K4 call alone, as flash_attn_with_kvcache_sharded
+        # makes it (no append: cache_seqlens is the shard's live rows)
+        N_shard = mp * kc.shape[2]
+        cs_l = (lens - s * N_shard).clamp(0, N_shard)
+
+        def local_call():
+            return kv.flash_attn_with_kvcache(
+                q, *local, cache_seqlens=cs_l, block_table=tbl_l,
+                causal=True, kv_cache_layout="HND", return_softmax_lse=True,
+                q_position_lens=lens - s * N_shard, **sc)
+        t_local = _par_turns(torch, dist, lambda: graph_ms(torch, local_call))
+        o_l, lse_l = local_call()
+        lse_t = lse_l.permute(0, 2, 1)[..., None].contiguous()
+        o_f = o_l.float()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            merge_lse_across(o_f, lse_t, mesh, SEQ_AXIS)
+        torch.cuda.synchronize()
+        t_merge = (time.perf_counter() - t0) / 20 * 1e3
+        r = dict(local_ms=t_local, merge_ms=t_merge, launches=n_launch,
+                 local_bound_ms=nbytes / PAR_WORLD / HBM_BYTES_PER_S * 1e3)
+        if rank == 0:
+            full = dict(kw, return_softmax_lse=True)
+            out_u, lse_u = kv.flash_attn_with_kvcache(q, kc, vc, **full)
+            r["unsharded_ms"] = graph_ms(
+                torch, lambda: kv.flash_attn_with_kvcache(q, kc, vc, **full))
+            r["unsharded_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            # the fp32 oracle: the plain twin in fp32 over the float (or
+            # dequantized) pools
+            if kind is None:
+                fk, fv = kc.float(), vc.float()
+            else:
+                fk = quant.dequantize_kv(kc, kw["k_scales"], torch.float32)
+                fv = quant.dequantize_kv(vc, kw["v_scales"], torch.float32)
+            okw = {n: x for n, x in full.items()
+                   if n not in ("k_scales", "v_scales")}
+            with _plain_kvcache():
+                o32, lse32 = kv.flash_attn_with_kvcache(q.float(), fk, fv,
+                                                        **okw)
+            del fk, fv
+            name = f"parallel (a) seq-sharded 32k decode, {kind or 'bf16'}"
+            err, gate = gated(torch, out, o32, out_u, f"{name} out")
+            row = gated_rows(torch, out, o32, out_u, f"{name} out", 2.0)[0]
+            lerr, lgate = gated(torch, lse, lse32, lse_u, f"{name} lse")
+            oracle_err = float((out.float() - o32).abs().max())
+            if kind is not None:
+                assert oracle_err <= QUANT_ORACLE_GATE[kind], oracle_err
+            r.update(max_abs_err=err, gate=gate, row_ratio=row, lse_err=lerr,
+                     lse_gate=lgate, oracle_err=oracle_err,
+                     unsharded_err=float((out_u.float() - o32).abs().max()))
+        res[kind or "bf16"] = r
+        del q, kc, vc, kw, local, sc, out, lse
+        torch.cuda.empty_cache()
+    return res
+
+
+def _par_dense(torch, dist):
+    """(b) flash_attn_func_sharded at the headline prefill shape on model
+    4: each rank's 8 heads bit-equal to the unsharded K1's same heads."""
+    from flash_attn_v100_tpu_torch import flash_attn_func
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.parallel import (
+        MODEL_AXIS, flash_attn_func_sharded, make_mesh)
+    mesh = make_mesh(model=PAR_WORLD)
+    c = mesh.index(MODEL_AXIS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    B, S, Hq, Hk, D = 4, 4096, 32, 8, 128
+    q = torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, S, Hk, D), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    n0 = dfwd.flash_attn_dense_fwd.launches
+    out = flash_attn_func_sharded(q, k, v, mesh, causal=True)
+    torch.cuda.synchronize()
+    launches = dfwd.flash_attn_dense_fwd.launches - n0
+    hl = Hq // PAR_WORLD
+    ref = flash_attn_func(q, k, v, causal=True)[:, :, c * hl:(c + 1) * hl]
+    t = _par_turns(torch, dist, lambda: time_ms(
+        torch, lambda: flash_attn_func_sharded(q, k, v, mesh, causal=True)))
+    return dict(bit_equal=bool(torch.equal(out, ref)), launches=launches,
+                heads=(c * hl, (c + 1) * hl), ms=t)
+
+
+def _par_serve(torch, dist):
+    """(c) ServingEngine(mesh=) at TinyLlama width (22 layers, random
+    weights from SEED) serving phase_engine's traffic on each of
+    PAR_SERVE_RUNS; ranks outside a run's mesh wait for it."""
+    from flash_attn_v100_tpu_torch import ModelConfig, ServingEngine
+    from flash_attn_v100_tpu_torch.models.transformer import (
+        init_params, shard_params)
+    from flash_attn_v100_tpu_torch.parallel import make_mesh
+    from flash_attn_v100_tpu_torch.runtime import engine as eng_mod
+    cfg = ModelConfig.tinyllama_1b(max_seq_len=PAR_MAX_SEQ)
+    res = {}
+    for label, shape, kind in PAR_SERVE_RUNS:
+        mesh = make_mesh(*shape)
+        if mesh.is_member:
+            full = init_params(cfg, seed=SEED, device="cuda", lm_head=True)
+            params = shard_params(full, cfg, mesh)
+            del full
+            torch.cuda.empty_cache()
+            eng = ServingEngine(
+                params, cfg, max_batch=N_LONG + len(SHORT_LENS),
+                num_pages=NUM_PAGES, page_size=PAGE_SIZE, device="cuda",
+                mesh=mesh,
+                kv_dtype=None if kind is None else quant_dtype(torch, kind))
+            real_pf, cap = eng_mod.paged_forward, {}
+
+            def spy(*a, **kw):
+                out = real_pf(*a, **kw)
+                if "logits" not in cap and a[3].shape[1] > 1:
+                    cap["logits"] = out[0][:N_LONG].cpu()
+                return out
+            reset_serving_counts()
+            eng_mod.paged_forward = spy
+            try:
+                out, rids, (t0, t_a, t_b), (tok_a, tok_b) = serve_traffic(
+                    torch, eng, cfg)
+            finally:
+                eng_mod.paged_forward = real_pf
+            launches, twins, other = serving_counts(kind)
+            ttfts = [eng.ttft(r) for r in rids]
+            res[label] = dict(
+                coords=mesh.coords, launches=launches, twin_calls=twins,
+                other=other, calls=dict(eng_mod.paged_forward.calls),
+                tokens=[out[r] for r in rids], logits=cap["logits"],
+                ttft_p50_ms=statistics.median(ttfts) * 1e3,
+                decode_tok_s=(tok_b - tok_a) / (t_b - t_a),
+                pool_shape=tuple(eng.k_pool.shape))
+            del eng, params
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return res
+
+
+def _parallel_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase_parallel: (a), (b) and (c) in turn; its results
+    go to tmp/rank<rank>.pkl."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            world_size=world, rank=rank)
+    try:
+        res = dict(decode=_par_decode(torch, dist),
+                   dense=_par_dense(torch, dist),
+                   serve=_par_serve(torch, dist))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def phase_parallel(torch, eng, eng_q):
+    """The sharded paths on PAR_WORLD ranks sharing the card (gloo): (a)
+    the seq-sharded 32k decode, bf16 and int8, against the unsharded call
+    and the fp32 oracle; (b) head-sharded K1 at the headline shape, bit
+    for bit per head; (c) the sharded serving engine at TinyLlama width
+    against phase_engine's run (`eng`; `eng_q`: phase_engine_quant's).
+    The kernels are the parent's build; a rank that fails fails the
+    phase."""
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_parallel_rank, args=(PAR_WORLD, tmp),
+                                 nprocs=PAR_WORLD, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + PAR_TIMEOUT_S
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"phase_parallel: ranks still running "
+                                   f"after {PAR_TIMEOUT_S} s")
+        ranks = []
+        for r in range(PAR_WORLD):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    tag = (f"parallel ({PAR_WORLD} processes on one card, gloo; times "
+           f"are theirs, not a multi-card system's)")
+    print(f"{tag}: ranks done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    res = dict(decode={}, serve={})
+    for kind in ("bf16", "int8"):
+        r0 = ranks[0]["decode"][kind]
+        per = [r["decode"][kind] for r in ranks]
+        assert all(p["launches"] == 1 for p in per), [p["launches"]
+                                                      for p in per]
+        print(f"parallel (a) seq-sharded 32k decode, {kind} (B {LONG_B}, "
+              f"{LONG_HQ}/{LONG_HK} heads x {LONG_D}, page 512, seq "
+              f"{PAR_WORLD} x model 1): merged out max_abs_err vs the fp32 "
+              f"oracle {r0['max_abs_err']:.3e} <= gate {r0['gate']:.3e} (2 x "
+              f"the unsharded call's {r0['unsharded_err']:.3e} + 1e-5; each "
+              f"shard's output is rounded to bf16 before the merge, as the "
+              f"JAX package's), worst row err/gate {r0['row_ratio']:.3f} "
+              f"(gated_rows, mult 2), lse "
+              f"{r0['lse_err']:.3e} <= {r0['lse_gate']:.3e}"
+              + ("" if kind == "bf16" else
+                 f", oracle gate {QUANT_ORACLE_GATE[kind]}"), flush=True)
+        print(f"parallel (a) {kind}: per rank K4{'' if kind == 'bf16' else 'q'}"
+              f" device ms (graph replay, alone on the card) "
+              f"{[round(p['local_ms'], 4) for p in per]}, bound "
+              f"{r0['local_bound_ms']:.4f} ms each (bytes); unsharded "
+              f"{r0['unsharded_ms']:.4f} ms, bound "
+              f"{r0['unsharded_bound_ms']:.4f} ms; LSE merge (gloo, host "
+              f"clock) ms {[round(p['merge_ms'], 3) for p in per]}",
+              flush=True)
+        res["decode"][kind] = dict(r0, local_ms=[p["local_ms"] for p in per],
+                                   merge_ms=[p["merge_ms"] for p in per])
+    dense = [r["dense"] for r in ranks]
+    for d in dense:
+        assert d["bit_equal"], f"heads {d['heads']}: not bit-equal to K1"
+        assert d["launches"] == 1, d
+    print(f"parallel (b) head-sharded K1 (B 4 x S 4096, 32/8 heads x 128, "
+          f"causal, bf16, model {PAR_WORLD}): every rank's heads "
+          f"{[d['heads'] for d in dense]} bit-equal to the unsharded K1's, "
+          f"1 launch a rank; ms a call alone on the card "
+          f"{[round(d['ms'], 4) for d in dense]}", flush=True)
+    res["dense_ms"] = [d["ms"] for d in dense]
+    for label, shape, kind in PAR_SERVE_RUNS:
+        runs = [r["serve"][label] for r in ranks if label in r["serve"]]
+        assert len(runs) == shape[0] * shape[1] * shape[2], label
+        ref = eng if kind is None else eng_q[kind]
+        seq_sharded = shape[1] > 1
+        for r in runs:
+            assert len(r["tokens"]) == len(ref["tokens"]) and all(
+                len(t) == N_NEW for t in r["tokens"]), label
+            assert r["twin_calls"] == [0, 0], (label, r["twin_calls"])
+            assert r["other"] == 0, (label, r["other"])
+            assert r["launches"]["decode"] > 0, (label, r["launches"])
+            if seq_sharded:
+                assert r["launches"]["varlen"] == 0, (label, r["launches"])
+            else:
+                assert r["launches"]["varlen"] > 0, (label, r["launches"])
+            assert r["tokens"] == runs[0]["tokens"], "ranks disagree"
+        first = ref["first_prefill"]
+        err, gate = gated(torch, runs[0]["logits"], first["plain"],
+                          first["plain_y"],
+                          f"parallel (c) {label} first prefill logits",
+                          PAR_LOGITS_MULT, PAR_LOGITS_ATOL)
+        vs_kernel = float((runs[0]["logits"] - first["logits"]).abs().max())
+        same = sum(a == b for x, y in zip(runs[0]["tokens"], ref["tokens"])
+                   for a, b in zip(x, y))
+        total = sum(len(x) for x in ref["tokens"])
+        # each request's tokens up to its first difference: greedy decoding
+        # of random weights (flat logits) forks on a rounding, after which
+        # the rest of the request differs
+        prefix = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                       len(x)) for x, y in zip(runs[0]["tokens"],
+                                                ref["tokens"])]
+        print(f"parallel (c) TinyLlama width, {label}, max_seq_len "
+              f"{PAR_MAX_SEQ}: first prefill logits max_abs_err vs the "
+              f"fp32-plain-attention logits {err:.3e} <= gate {gate:.3e} "
+              f"({PAR_LOGITS_MULT:g} x the "
+              f"{'bf16-plain' if kind is None else 'P-unrounded twin'} "
+              f"distance + {PAR_LOGITS_ATOL:g}), vs the unsharded kernel "
+              f"path's logits {vs_kernel:.3e}; greedy tokens identical to "
+              f"phase_engine's {same}/{total}, each request's up to its first "
+              f"difference {prefix}; TTFT p50 "
+              f"{statistics.median(r['ttft_p50_ms'] for r in runs):.2f} ms, "
+              f"decode {statistics.median(r['decode_tok_s'] for r in runs):.1f}"
+              f" tok/s ({PAR_WORLD} processes on one card)", flush=True)
+        for r in runs:
+            print(f"parallel (c) {label} rank {r['coords']}: launches "
+                  f"{r['launches']} (K4{'' if kind is None else 'q'} decode "
+                  f"route, K8{'' if kind is None else 'q'} varlen route), "
+                  f"plain twin calls {r['twin_calls']}, forward calls "
+                  f"{r['calls']}, pool {r['pool_shape']}", flush=True)
+        res["serve"][label] = dict(
+            logits_err=err, gate=gate, vs_kernel=vs_kernel,
+            tokens_same=same, tokens_total=total, same_prefix=prefix,
+            launches=[r["launches"] for r in runs],
+            ttft_p50_ms=[r["ttft_p50_ms"] for r in runs],
+            decode_tok_s=[r["decode_tok_s"] for r in runs])
+    print(f"{tag}: {time.perf_counter() - t0:.1f} s in all", flush=True)
     return res
 
 
@@ -2764,6 +3157,8 @@ def main() -> int:
     phase_hf_serve(torch, cfg, eng)
     torch.cuda.empty_cache()
     eng_q = phase_engine_quant(torch, cfg, eng)
+    torch.cuda.empty_cache()
+    phase_parallel(torch, eng, eng_q)
 
     rows = [
             ("K1 flash_attn_dense_fwd", dense["K1"], "fwd.cu",

@@ -161,13 +161,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
 
 
 def qkv_proj(h, lp, cfg: ModelConfig, B: int, T: int):
-    """Projections for one block; Qwen2-family checkpoints carry biases."""
+    """Projections for one block; Qwen2-family checkpoints carry biases.
+    The head counts follow the weights: a rank's column shard
+    (shard_params) gives its own heads."""
     q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
     if "bq" in lp:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    return (q.reshape(B, T, cfg.n_heads, cfg.head_dim),
-            k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim))
+    return tuple(x.reshape(B, T, -1, cfg.head_dim) for x in (q, k, v))
 
 
 def mlp(x, lp):
@@ -193,6 +193,51 @@ def param_leaves(params: Dict) -> List[torch.Tensor]:
     return leaves
 
 
+def param_shardings(params: Dict, cfg: ModelConfig, mesh) -> Dict:
+    """Tensor-parallel placement, the JAX package's: which mesh axis shards
+    each dimension of each parameter (None: replicated), in the parameter
+    dict's structure.  wq/wk/wv (and their biases) column-sharded on
+    "model", one block of heads a rank; wo row-sharded (the all-reduce after
+    it is paged_forward's); w1/w3 column-, w2 row-sharded; norms, embed and
+    an untied lm_head replicated."""
+    from flash_attn_v100_tpu_torch.parallel.mesh import MODEL_AXIS
+    del cfg, mesh   # the specs name axes; shard_params checks the sizes
+    col, row, rep = (None, MODEL_AXIS), (MODEL_AXIS, None), ()
+
+    def layer_spec(lp):
+        spec = dict(wq=col, wk=col, wv=col, wo=row, w1=col, w3=col, w2=row,
+                    ln1=rep, ln2=rep)
+        if "bq" in lp:
+            spec.update(bq=(MODEL_AXIS,), bk=(MODEL_AXIS,), bv=(MODEL_AXIS,))
+        return spec
+
+    out = dict(embed=rep, layers=[layer_spec(lp) for lp in params["layers"]],
+               ln_f=rep)
+    if "lm_head" in params:
+        out["lm_head"] = rep
+    return out
+
+
+def shard_params(params: Dict, cfg: ModelConfig, mesh) -> Dict:
+    """This rank's slices of `params` (init_params' or convert_hf_model's
+    dict) under `param_shardings`, contiguous copies.  The kv heads must
+    divide the model axis, so that each rank's q heads find their kv heads
+    on the same rank."""
+    from flash_attn_v100_tpu_torch.parallel.mesh import MODEL_AXIS, local_shard
+    tp = mesh.shape[MODEL_AXIS]
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.ffn_dim % tp:
+        raise ValueError(f"heads {cfg.n_heads}/{cfg.n_kv_heads} and ffn "
+                         f"{cfg.ffn_dim} must divide the model axis ({tp})")
+    specs = param_shardings(params, cfg, mesh)
+
+    def cut(x, spec):
+        return local_shard(x, spec, mesh).contiguous() if spec else x
+    out = {k: cut(v, specs[k]) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: cut(v, sp[k]) for k, v in lp.items()}
+                     for lp, sp in zip(params["layers"], specs["layers"])]
+    return out
+
+
 def _map_params(params: Dict, fn: Callable) -> Dict:
     out = {k: fn(v) for k, v in params.items() if k != "layers"}
     out["layers"] = [{k: fn(v) for k, v in lp.items()}
@@ -213,8 +258,9 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, mesh=None,
     e.g. JAX's key_data(fold_in(rng_key, i))[:2]), else by two words drawn
     from `generator`."""
     if mesh is not None:
-        raise NotImplementedError("mesh= (sharded training) comes with the "
-                                  "parallel slice")
+        raise NotImplementedError("mesh= (sharded training: ring and "
+                                  "Ulysses attention) comes with the next "
+                                  "port slice")
     B, S = tokens.shape
     dev = tokens.device
     cos, sin = rope_tables(cfg, cfg.max_seq_len, device=dev)
@@ -269,8 +315,9 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None):
     generator=None) -> (loss, params, opt)` updates the parameters in
     place."""
     if mesh is not None:
-        raise NotImplementedError("mesh= (sharded training) comes with the "
-                                  "parallel slice")
+        raise NotImplementedError("mesh= (sharded training: ring and "
+                                  "Ulysses attention) comes with the next "
+                                  "port slice")
     if optimizer is None:
         def optimizer(leaves):
             return torch.optim.AdamW(leaves, lr=3e-4, weight_decay=0.01)

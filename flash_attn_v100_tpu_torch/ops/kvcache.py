@@ -12,6 +12,11 @@ Surface of flash_attn_v100_tpu/ops/kvcache.py:
   * causal implies window_right = 0, and `causal` itself only matters when
     T_new > 1;
   * num_splits (0 = auto), return_softmax_lse;
+  * the sequence-sharded form (parallel/sharded.py): `q_position_lens`
+    (B,) puts the new tokens at q_position_lens + t for rotary, the masks
+    and the append (cache_seqlens then only counts the live rows), and
+    `append_window=(start, length)` appends only the tokens whose position
+    lies in [start, start + length), at position - start;
   * quantized caches (ops/quant.py): int8 or fp8 (float8_e4m3fn) payloads
     with `k_scales` / `v_scales` in the caches' layout, head_dim collapsed
     to 1; an int8 cache whose token dimension is half its scales' is
@@ -48,7 +53,7 @@ from flash_attn_v100_tpu_torch.ops.cuda.decode import (
 from flash_attn_v100_tpu_torch.ops.cuda.varlen import (
     flash_attn_varlen_fwd_paged)
 from flash_attn_v100_tpu_torch.ops.quant import (
-    FP8, quantize_int4_values, quantize_kv, scatter_payload_)
+    FP8, payload_bytes, quantize_int4_values, quantize_kv)
 from flash_attn_v100_tpu_torch.ops.rotary import apply_rotary_emb
 
 # Paged prefills with at least this many q rows (group * T_new) route to the
@@ -62,6 +67,29 @@ def _pick_page_size(N: int) -> int:
         if N % ps == 0:
             return ps
     return N
+
+
+def _put(pool, idx, val, keep=None) -> None:
+    """pool[idx] = val, in place.  With `keep` (bool, broadcastable to the
+    index shape) only the marked entries are written, with no host sync:
+    every other entry repeats the write of the first marked one, or where
+    none is marked writes back what it reads, so duplicate targets agree
+    (the JAX package's scatter mode "drop")."""
+    val = payload_bytes(val.to(pool.dtype))
+    pool = payload_bytes(pool)
+    if keep is None:
+        pool[idx] = val
+        return
+    *idx, keep = torch.broadcast_tensors(*idx, keep)
+    trail = pool.shape[len(idx):]
+    n = keep.numel()
+    val = val.expand(*keep.shape, *trail).reshape(n, *trail)
+    idx = tuple(i.reshape(n) for i in idx)
+    keep = keep.reshape(n)
+    val = torch.where(keep.view(n, *[1] * len(trail)), val, pool[idx])
+    src = torch.where(keep, torch.arange(n, device=keep.device),
+                      keep.to(torch.int32).argmax())
+    pool[tuple(i[src] for i in idx)] = val[src]
 
 
 # ---- int4 appends into token-packed pools (ops/quant.py layout) ----
@@ -82,7 +110,7 @@ def _tokens(idx, sl: slice):
     return tuple(i[:, sl] if i.shape[1] > 1 else i for i in idx)
 
 
-def _int4_rmw(pool, idx, vals, parity) -> None:
+def _int4_rmw(pool, idx, vals, parity, keep=None) -> None:
     """Read-modify-write: each new token merges its nibble into its byte,
     keeping the other nibble; even offsets in one round, odd in a second
     (JAX's _int4_rmw_paged).  A token whose partner writes in the round
@@ -92,23 +120,23 @@ def _int4_rmw(pool, idx, vals, parity) -> None:
     T = vals.shape[1]
     if T == 1:
         old = pool[idx].to(torch.int32)
-        pool[idx] = torch.where(even, (old & 0xF0) | lo,
-                                (old & 0x0F) | hi).to(torch.int8)
+        _put(pool, idx, torch.where(even, (old & 0xF0) | lo,
+                                    (old & 0x0F) | hi), keep)
         return
     t = torch.arange(T, device=pool.device)[None, :, None, None]
     old = pool[idx].to(torch.int32)
     lo_prev = torch.cat([lo[:, :1], lo[:, :-1]], dim=1)
-    pool[idx] = torch.where(
+    _put(pool, idx, torch.where(
         even, (old & 0xF0) | lo,
-        torch.where(t >= 1, (old & 0xF0) | lo_prev, old)).to(torch.int8)
+        torch.where(t >= 1, (old & 0xF0) | lo_prev, old)), keep)
     old = pool[idx].to(torch.int32)
     hi_next = torch.cat([hi[:, 1:], hi[:, -1:]], dim=1)
-    pool[idx] = torch.where(
+    _put(pool, idx, torch.where(
         ~even, (old & 0x0F) | hi,
-        torch.where(t < T - 1, (old & 0x0F) | hi_next, old)).to(torch.int8)
+        torch.where(t < T - 1, (old & 0x0F) | hi_next, old)), keep)
 
 
-def _int4_append(pool, idx, vals, parity) -> None:
+def _int4_append(pool, idx, vals, parity, keep=None) -> None:
     """Multi-token append that reads the pool only at the two possible
     boundary tokens (JAX's _int4_append_paged): each pair (t, t + 1) with t
     at an even offset is one whole new byte; a first token at an odd offset
@@ -116,7 +144,7 @@ def _int4_append(pool, idx, vals, parity) -> None:
     and merge into it.  T == 1 is the read-modify-write."""
     T = vals.shape[1]
     if T < 2:
-        _int4_rmw(pool, idx, vals, parity)
+        _int4_rmw(pool, idx, vals, parity, keep)
         return
     lo, hi = _nibbles(vals)
     even = (parity == 0)[..., None, None]
@@ -125,7 +153,7 @@ def _int4_append(pool, idx, vals, parity) -> None:
     old_last = pool[_tokens(idx, slice(T - 1, T))].to(torch.int32)
     as_even = torch.cat([pair, (old_last & 0xF0) | lo[:, -1:]], dim=1)
     as_odd = torch.cat([(old_first & 0x0F) | hi[:, :1], pair], dim=1)
-    pool[idx] = torch.where(even, as_even, as_odd).to(torch.int8)
+    _put(pool, idx, torch.where(even, as_even, as_odd), keep)
 
 
 def _paged_index(pool, page_ids, off):
@@ -138,33 +166,37 @@ def _contig_index(pool, b_ix, rows):
     return b_ix.long()[:, None, None], h, (rows // 2)[..., None].long()
 
 
-def _int4_rmw_paged(pool, vals, page_ids, off) -> None:
+def _int4_rmw_paged(pool, vals, page_ids, off, keep=None) -> None:
     """int4 values (B, T, Hk, D) into the packed paged pool (Hk, P,
-    page_size / 2, D) at page page_ids[b, t], token offset off[b, t]."""
-    _int4_rmw(pool, _paged_index(pool, page_ids, off), vals, off % 2)
+    page_size / 2, D) at page page_ids[b, t], token offset off[b, t]; with
+    `keep` (B, T, 1) only the tokens it marks."""
+    _int4_rmw(pool, _paged_index(pool, page_ids, off), vals, off % 2, keep)
 
 
-def _int4_append_paged(pool, vals, page_ids, off) -> None:
-    _int4_append(pool, _paged_index(pool, page_ids, off), vals, off % 2)
+def _int4_append_paged(pool, vals, page_ids, off, keep=None) -> None:
+    _int4_append(pool, _paged_index(pool, page_ids, off), vals, off % 2,
+                 keep)
 
 
-def _int4_rmw_contig(pool, vals, b_ix, rows) -> None:
+def _int4_rmw_contig(pool, vals, b_ix, rows, keep=None) -> None:
     """Contiguous analog: pool (Bc, Hk, N / 2, D), vals (B, Hk, T, D),
     rows (B, T) absolute token indices, b_ix (B,) cache rows."""
     _int4_rmw(pool, _contig_index(pool, b_ix, rows), vals.transpose(1, 2),
-              rows % 2)
+              rows % 2, keep)
 
 
-def _int4_append_contig(pool, vals, b_ix, rows) -> None:
+def _int4_append_contig(pool, vals, b_ix, rows, keep=None) -> None:
     _int4_append(pool, _contig_index(pool, b_ix, rows), vals.transpose(1, 2),
-                 rows % 2)
+                 rows % 2, keep)
 
 
-def uses_varlen_route(paged: bool, group: int, t_new: int,
-                      page_size: int) -> bool:
-    """Whether a call of this shape runs K8 (else K4)."""
+def uses_varlen_route(paged: bool, group: int, t_new: int, page_size: int,
+                      q_position_lens=None, append_window=None) -> bool:
+    """Whether a call of this shape runs K8 (else K4); the sequence-sharded
+    form (either kwarg given) always runs K4."""
     return (paged and group * t_new >= VARLEN_PREFILL_MIN_ROWS
-            and page_size % 128 == 0)
+            and page_size % 128 == 0 and q_position_lens is None
+            and append_window is None)
 
 
 def flash_attn_with_kvcache(
@@ -195,10 +227,6 @@ def flash_attn_with_kvcache(
     append_window: Optional[Tuple] = None,
 ):
     """See the module docstring."""
-    if q_position_lens is not None or append_window is not None:
-        raise NotImplementedError(
-            "q_position_lens/append_window (sequence-sharded decode) come "
-            "with port slice 5 (parallel)")
     B, T_new, Hq, D_og = q.shape
     dev = q.device
     paged = block_table is not None
@@ -265,7 +293,10 @@ def flash_attn_with_kvcache(
                                    device=dev)
     cache_seqlens = torch.as_tensor(cache_seqlens).to(device=dev,
                                                        dtype=torch.int32)
-    qlens = cache_seqlens
+    # the new tokens' positions start at qlens: the live length, or in the
+    # sequence-sharded form the global one, shard-local origin
+    qlens = cache_seqlens if q_position_lens is None else torch.as_tensor(
+        q_position_lens).to(device=dev, dtype=torch.int32)
     leftpad = (None if cache_leftpad is None
                else torch.as_tensor(cache_leftpad).to(device=dev,
                                                       dtype=torch.int32))
@@ -295,7 +326,14 @@ def flash_attn_with_kvcache(
     # Duplicate targets (e.g. padded engine rows that all point at the
     # scratch page with cache_seqlens 0) give an undefined winner; callers
     # only let that happen where nobody reads the slot.
+    keep = None
     if appended:
+        if append_window is not None:
+            # the window's tokens only, at shard-local positions; the others
+            # are dropped (their writes repeat a kept one, see _put)
+            start, length = append_window
+            pos = pos - start
+            keep = ((pos >= 0) & (pos < length))[..., None]      # (B, T, 1)
         if quantized:
             # quantized after rotary, per (token, head); int4 stays
             # unpacked here and merges into its nibble below
@@ -309,28 +347,34 @@ def flash_attn_with_kvcache(
             idx = (torch.arange(Hk, device=dev)[None, None, :],
                    page_ids[..., None], off[..., None])
             if int4:
-                _int4_append_paged(kc, k, page_ids, off)
-                _int4_append_paged(vc, v, page_ids, off)
+                _int4_append_paged(kc, k, page_ids, off, keep)
+                _int4_append_paged(vc, v, page_ids, off, keep)
             else:
-                scatter_payload_(kc, idx, k)
-                scatter_payload_(vc, idx, v)
+                _put(kc, idx, k, keep)
+                _put(vc, idx, v, keep)
             if quantized:
-                ksc[idx], vsc[idx] = k_s, v_s
+                _put(ksc, idx, k_s, keep)
+                _put(vsc, idx, v_s, keep)
         else:
             rows = pos if leftpad is None else pos + leftpad[:, None]
+            if keep is not None:
+                # dropped tokens still need rows that index the cache
+                rows = rows.clamp(0, N - 1)
             b_ix = (torch.arange(B, device=dev) if cache_batch_idx is None
                     else torch.as_tensor(cache_batch_idx).to(dev))
             idx = (b_ix[:, None, None],
                    torch.arange(Hk, device=dev)[None, :, None],
                    rows[:, None, :])
             if int4:
-                _int4_append_contig(kc, k.transpose(1, 2), b_ix, rows)
-                _int4_append_contig(vc, v.transpose(1, 2), b_ix, rows)
-            else:
-                scatter_payload_(kc, idx, k.transpose(1, 2))
-                scatter_payload_(vc, idx, v.transpose(1, 2))
+                _int4_append_contig(kc, k.transpose(1, 2), b_ix, rows, keep)
+                _int4_append_contig(vc, v.transpose(1, 2), b_ix, rows, keep)
+            keep_t = None if keep is None else keep.transpose(1, 2)
+            if not int4:
+                _put(kc, idx, k.transpose(1, 2), keep_t)
+                _put(vc, idx, v.transpose(1, 2), keep_t)
             if quantized:
-                ksc[idx], vsc[idx] = k_s.transpose(1, 2), v_s.transpose(1, 2)
+                _put(ksc, idx, k_s.transpose(1, 2), keep_t)
+                _put(vsc, idx, v_s.transpose(1, 2), keep_t)
 
     lens_total = cache_seqlens + T_new if appended else cache_seqlens
 
@@ -373,7 +417,8 @@ def flash_attn_with_kvcache(
             slopes = slopes[None].expand(B, Hq)
 
     dtype_og = q.dtype
-    if uses_varlen_route(paged, group, T_new, page_size):
+    if uses_varlen_route(paged, group, T_new, page_size, q_position_lens,
+                         append_window):
         # uniform cu_q = b * T_new and seqlens_k = lens_total reproduce the
         # decode alignment (first new token at lens_total - T_new)
         qp = q.reshape(B * T_new, Hq, D)
@@ -403,12 +448,15 @@ def flash_attn_with_kvcache(
             if Rq != n_rows:
                 sr = torch.cat([sr, sr.new_zeros(B, Hk, Rq - n_rows)], dim=2)
             slopes_rows = sr[..., None]
-        # first new token's position in the live frame: the pre-append
-        # length when appending, else lens - T_new (the kernel's default);
-        # one launch, the splits merged in it, o in q's dtype
+        # first new token's position: qlens when appending, else
+        # qlens - T_new (None: the kernel's default lens_total - T_new, the
+        # same without q_position_lens); one launch, the splits merged in
+        # it, o in q's dtype
+        qpos = qlens if appended else (
+            None if q_position_lens is None else qlens - T_new)
         o, lse = paged_decode_attention_merged(
             q_rows, pool_k, pool_v, tbl, lens_total, leftpad,
-            qpos_vec=qlens if appended else None,
+            qpos_vec=qpos,
             softmax_scale=float(softmax_scale), params=params, t_new=T_new,
             group=group, num_splits=num_splits,
             alibi_slopes_rows=slopes_rows, k_scales=pool_ks,

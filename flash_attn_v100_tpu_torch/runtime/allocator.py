@@ -22,19 +22,34 @@ from flash_attn_v100_tpu_torch.runtime import native
 
 class PagedAllocator:
     """Fixed pool of `num_pages` KV pages of `page_size` tokens each.
-    (The JAX package's seq-mesh page sharding comes with port slice 5.)"""
 
-    def __init__(self, num_pages: int, page_size: int, use_native: bool = True):
+    With `num_shards > 1` (the engine's seq-sharded mode) the pool is
+    sharded: block-table slot columns are split contiguously over the seq
+    mesh axis, `slots_per_shard` columns each, and the page backing slot j
+    comes from the pool shard of the rank owning that column, shard
+    min(j // slots_per_shard, num_shards - 1).  Page ids are shard-local
+    and `num_pages` counts per shard, so the KV capacity grows with the
+    seq axis at the same memory a rank."""
+
+    def __init__(self, num_pages: int, page_size: int, use_native: bool = True,
+                 num_shards: int = 1, slots_per_shard: int = 2**31 - 1):
         if num_pages <= 0 or page_size <= 0:
             raise ValueError("num_pages and page_size must be positive")
+        if num_shards <= 0 or slots_per_shard <= 0:
+            raise ValueError("num_shards and slots_per_shard must be positive")
         self.num_pages = num_pages
         self.page_size = page_size
+        self.num_shards = num_shards
+        self.slots_per_shard = slots_per_shard
         self._lib = native.load() if use_native else None
         if self._lib is not None:
-            self._h = self._lib.fa_alloc_create(num_pages, page_size)
+            self._h = self._lib.fa_alloc_create_sharded(
+                num_pages, page_size, num_shards, slots_per_shard)
         else:
-            # popped from the end: pages are handed out in ascending order
-            self._free: List[int] = list(range(num_pages - 1, -1, -1))
+            # one free list a shard, popped from the end: pages are handed
+            # out in ascending order
+            self._free: List[List[int]] = [
+                list(range(num_pages - 1, -1, -1)) for _ in range(num_shards)]
             self._seq: Dict[int, List[int]] = {}
 
     @property
@@ -44,19 +59,28 @@ class PagedAllocator:
     def num_free(self) -> int:
         if self._lib is not None:
             return self._lib.fa_alloc_num_free(self._h)
-        return len(self._free)
+        return sum(len(f) for f in self._free)
+
+    def _shard_of(self, slot: int) -> int:
+        return min(slot // self.slots_per_shard, self.num_shards - 1)
 
     def can_extend(self, seq_id: int, n: int) -> bool:
-        """Can n more pages be handed to seq_id?"""
+        """Can slots [held, held + n) of seq_id all be covered by the
+        shards that own them?"""
         if n <= 0:
             return True
         if self._lib is not None:
             return bool(self._lib.fa_alloc_can_extend(self._h, seq_id, n))
-        return len(self._free) >= n
+        base = len(self._seq.get(seq_id, ()))
+        need: Dict[int, int] = {}
+        for slot in range(base, base + n):
+            s = self._shard_of(slot)
+            need[s] = need.get(s, 0) + 1
+        return all(len(self._free[s]) >= k for s, k in need.items())
 
     def extend(self, seq_id: int, n: int) -> List[int]:
         """Append n pages to seq_id's list (all-or-nothing).  Returns the new
-        page ids; [] if the pool can't cover the request."""
+        (shard-local) page ids; [] if the pool can't cover the request."""
         if n <= 0:
             return []
         if self._lib is not None:
@@ -65,8 +89,11 @@ class PagedAllocator:
             return list(out[:n]) if got else []
         if not self.can_extend(seq_id, n):
             return []
-        pages = [self._free.pop() for _ in range(n)]
-        self._seq.setdefault(seq_id, []).extend(pages)
+        held = self._seq.setdefault(seq_id, [])
+        pages = []
+        for _ in range(n):
+            pages.append(self._free[self._shard_of(len(held))].pop())
+            held.append(pages[-1])
         return pages
 
     def pages_of(self, seq_id: int) -> List[int]:
@@ -83,7 +110,8 @@ class PagedAllocator:
         if self._lib is not None:
             self._lib.fa_alloc_release(self._h, seq_id)
             return
-        self._free.extend(self._seq.pop(seq_id, []))
+        for slot, p in enumerate(self._seq.pop(seq_id, [])):
+            self._free[self._shard_of(slot)].append(p)
 
     def __del__(self):
         lib = getattr(self, "_lib", None)

@@ -27,6 +27,17 @@ Design (the JAX package's engine, in eager PyTorch):
     reuses its device block table, device cache_seqlens and sampling
     arrays, and `decode_fuse` runs up to n decode steps back to back with no
     host read between them.
+  * Sharded serving (`mesh`, a parallel/mesh.py Mesh) runs SPMD: every rank
+    of the mesh runs this engine with the same submit / step calls, holds
+    its own parameter shards (models/transformer.py::shard_params) and its
+    own pool shard, and takes the sampled tokens from the mesh's rank 0, so
+    the ranks' schedulers cannot fork.  Heads and their pools split over
+    "model" (tensor parallel: an all-reduce after the o-projection and
+    after the MLP); with a "seq" axis > 1 the pools split too: block-table
+    slot j is served by the pool of the seq rank that owns it (the
+    scheduler's sharded allocator, ids shard-local, `num_pages` a shard),
+    and attention runs parallel/sharded.py's sequence-sharded form (K4,
+    never K8) with its LSE merge over "seq".
 """
 
 from __future__ import annotations
@@ -42,6 +53,10 @@ from flash_attn_v100_tpu_torch.config import (
     DeviceLike, as_torch_dtype, resolve_device)
 from flash_attn_v100_tpu_torch.models.transformer import (
     ModelConfig, logits_head, mlp, qkv_proj, rmsnorm, rope_tables)
+from flash_attn_v100_tpu_torch.parallel.mesh import (
+    MODEL_AXIS, SEQ_AXIS, Mesh, all_reduce, broadcast, local_shard)
+from flash_attn_v100_tpu_torch.parallel.sharded import (
+    flash_attn_with_kvcache_sharded)
 from flash_attn_v100_tpu_torch.ops.kvcache import (
     flash_attn_with_kvcache, uses_varlen_route)
 from flash_attn_v100_tpu_torch.ops.quant import FP8, is_int4, payload_bytes
@@ -60,10 +75,14 @@ def paged_forward(params, k_pool, v_pool, tokens, cache_seqlens, block_table,
     are updated in place and returned too.  block_table (B, max_pages)
     holds UNFOLDED page ids.  `rope` is an optional precomputed (cos, sin)
     on the pool's device; `last_idx` (B,) computes the logits at those
-    positions only ((B, 1, vocab))."""
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded serving comes with port "
-                                  "slice 5 (parallel)")
+    positions only ((B, 1, vocab)).
+
+    With `mesh` every rank of the mesh calls it with the same tokens, its
+    shard_params slices and its pools' shards (its heads; with a "seq" axis
+    > 1 also its pages, whose shard-local ids fill its columns of the
+    global block table): attention runs on the local heads, through the
+    sequence-sharded form when "seq" > 1, and the o-projection's and the
+    MLP's partial sums are all-reduced over "model"."""
     quantized = k_scales is not None
     B, T = tokens.shape
     L = cfg.n_layers
@@ -71,19 +90,31 @@ def paged_forward(params, k_pool, v_pool, tokens, cache_seqlens, block_table,
     cos, sin = rope if rope is not None else rope_tables(
         cfg, cfg.max_seq_len, device=dev)
     page_size = (k_scales if quantized else k_pool).shape[2]
-    _FORWARD_CALLS[_route(cfg, T, page_size)] += 1
+    seq_sharded = mesh is not None and mesh.shape[SEQ_AXIS] > 1
+    _FORWARD_CALLS[_route(cfg, T, page_size, seq_sharded)] += 1
+    kw = dict(rotary_cos=cos, rotary_sin=sin, causal=True,
+              rotary_interleaved=False, window_size=cfg.window_size(),
+              k_scales=k_scales, v_scales=v_scales)
+    if seq_sharded:
+        block_table = local_shard(block_table, (None, SEQ_AXIS), mesh)
+
+    def reduce(y):   # the tensor-parallel partial sums, in y's dtype
+        return y if mesh is None else all_reduce(y, mesh, MODEL_AXIS)
     x = params["embed"][tokens]
     for li, lp in enumerate(params["layers"]):
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = qkv_proj(h, lp, cfg, B, T)
-        attn, _ = flash_attn_with_kvcache(
-            q, k_pool, v_pool, k=k, v=v, rotary_cos=cos, rotary_sin=sin,
-            cache_seqlens=cache_seqlens, block_table=block_table * L + li,
-            causal=True, rotary_interleaved=False,
-            window_size=cfg.window_size(), kv_cache_layout="HND",
-            k_scales=k_scales, v_scales=v_scales)
-        x = x + attn.reshape(B, T, -1) @ lp["wo"]
-        x = x + mlp(rmsnorm(x, lp["ln2"], cfg.norm_eps), lp)
+        tbl = block_table * L + li       # folded page ids of this layer
+        if seq_sharded:
+            attn, _ = flash_attn_with_kvcache_sharded(
+                q, k_pool, v_pool, mesh, cache_seqlens, k=k, v=v,
+                block_table=tbl, **kw)
+        else:
+            attn, _ = flash_attn_with_kvcache(
+                q, k_pool, v_pool, k=k, v=v, cache_seqlens=cache_seqlens,
+                block_table=tbl, kv_cache_layout="HND", **kw)
+        x = x + reduce(attn.reshape(B, T, -1) @ lp["wo"])
+        x = x + reduce(mlp(rmsnorm(x, lp["ln2"], cfg.norm_eps), lp))
     if last_idx is not None:
         x = x[torch.arange(B, device=dev), last_idx.to(torch.long)][:, None]
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
@@ -99,9 +130,11 @@ _FORWARD_CALLS = {"decode": 0, "varlen": 0}
 paged_forward.calls = _FORWARD_CALLS
 
 
-def _route(cfg: ModelConfig, T: int, page_size: int) -> str:
+def _route(cfg: ModelConfig, T: int, page_size: int,
+           seq_sharded: bool = False) -> str:
     group = cfg.n_heads // cfg.n_kv_heads
-    return "varlen" if uses_varlen_route(True, group, T, page_size) else "decode"
+    return "varlen" if not seq_sharded and uses_varlen_route(
+        True, group, T, page_size) else "decode"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,11 +242,27 @@ class ServingEngine:
         quantized pool (appended KV quantizes on the fly, the kernels
         dequantize in their tiles; "int4" packs two tokens a byte); any
         other `kv_dtype` than `cfg.dtype` raises TypeError (16/32-bit pools
-        are read in the model dtype).  `mesh` comes with a later port slice
-        and raises NotImplementedError."""
+        are read in the model dtype).  `mesh`: a parallel.mesh.Mesh this
+        rank belongs to, for sharded serving (see the module docstring);
+        `params` are then this rank's shard_params slices and `num_pages`
+        counts a seq shard's pages."""
+        sp = tp = 1
         if mesh is not None:
-            raise NotImplementedError("mesh-sharded / multi-process serving "
-                                      "comes with port slice 5 (parallel)")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+            if not mesh.is_member:
+                raise ValueError(f"rank {mesh.rank} is not in the mesh")
+            sp, tp = mesh.shape[SEQ_AXIS], mesh.shape[MODEL_AXIS]
+            if cfg.n_kv_heads % tp:
+                raise ValueError(f"{cfg.n_kv_heads} kv heads do not divide "
+                                 f"the model axis ({tp})")
+            want = cfg.n_heads // tp * cfg.head_dim
+            if params["layers"][0]["wq"].shape[1] != want:
+                raise ValueError("params must be this rank's shard_params "
+                                 "slices")
+        self.mesh = mesh
+        self.seq_shards = sp
         self.kv_int4 = is_int4(kv_dtype)
         kv_dt = torch.int8 if self.kv_int4 else as_torch_dtype(
             kv_dtype or cfg.dtype)
@@ -237,14 +286,22 @@ class ServingEngine:
         self.page_size = page_size
         self.max_batch = max_batch
         self.max_pages_per_seq = cfg.max_seq_len // page_size
+        if self.max_pages_per_seq % sp:
+            raise ValueError(
+                f"max_seq_len/page_size = {self.max_pages_per_seq} pages a "
+                f"sequence must divide the seq axis ({sp})")
         # one scratch page (local id 0) backs inactive batch rows; the
-        # scheduler hands out pages 1..num_pages
-        self.sched = Scheduler(max_batch, num_pages, page_size,
-                               use_native=use_native)
+        # scheduler hands out pages 1..num_pages (a shard's, with sp > 1:
+        # slot j from the pool of seq rank j // slots_per_shard)
+        self.sched = Scheduler(
+            max_batch, num_pages, page_size, use_native=use_native,
+            num_shards=sp, slots_per_shard=(self.max_pages_per_seq // sp
+                                            if sp > 1 else 2**31 - 1))
         if self.kv_int4 and page_size % 2:
             raise ValueError("int4 pools pack two tokens a byte: page_size "
                              "must be even")
-        pool_shape = (cfg.n_kv_heads, (num_pages + 1) * cfg.n_layers,
+        # this rank's heads and (with sp > 1) its shard's pages
+        pool_shape = (cfg.n_kv_heads // tp, (num_pages + 1) * cfg.n_layers,
                       page_size // 2 if self.kv_int4 else page_size,
                       cfg.head_dim)
         self.k_pool = torch.zeros(pool_shape, dtype=kv_dt, device=self.device)
@@ -304,12 +361,18 @@ class ServingEngine:
         # the pools (and scales) are appended in place
         return paged_forward(
             self.params, self.k_pool, self.v_pool, toks, cs, bt, self.cfg,
-            k_scales=self.k_scales, v_scales=self.v_scales, rope=self._rope,
-            last_idx=last_idx)[0]
+            k_scales=self.k_scales, v_scales=self.v_scales, mesh=self.mesh,
+            rope=self._rope, last_idx=last_idx)[0]
+
+    def _sample(self, logits, ctr, sampling):
+        """The next tokens; sharded, the mesh's rank 0's, so that a bit
+        difference in a rank's logits cannot fork the schedulers."""
+        tok = _sample_rows(logits[:, 0], self._seed(ctr), sampling)
+        return tok if self.mesh is None else broadcast(tok, self.mesh)
 
     def _prefill_fn(self, toks, cs, bt, last_idx, ctr, sampling):
         logits = self._forward(toks, cs, bt, last_idx=last_idx)
-        tok = _sample_rows(logits[:, 0], self._seed(ctr), sampling)
+        tok = self._sample(logits, ctr, sampling)
         # padded to the full batch width: the decode step gathers from it
         if tok.shape[0] < self.max_batch:
             tok = torch.cat([tok, tok.new_zeros(self.max_batch - tok.shape[0])])
@@ -324,10 +387,21 @@ class ServingEngine:
         out = []
         for i in range(n):
             logits = self._forward(tok[:, None], cs, bt)
-            tok = _sample_rows(logits[:, 0], self._seed(ctr + i), sampling)
+            tok = self._sample(logits, ctr + i, sampling)
             cs = cs + 1
             out.append(tok)
         return torch.stack(out), tok, cs
+
+    def _pool_ids(self, pages: List[int]) -> List[Optional[int]]:
+        """A sequence's pages (slot j holds pages[j], a shard-local id with
+        sp > 1) -> their ids in this rank's pool (+1: page 0 is the
+        scratch page), None for a slot another seq rank's pool holds."""
+        if self.seq_shards == 1:
+            return [p + 1 for p in pages]
+        spp = self.max_pages_per_seq // self.seq_shards
+        mine = self.mesh.index(SEQ_AXIS)
+        return [p + 1 if j // spp == mine else None
+                for j, p in enumerate(pages)]
 
     def _copy_pages(self, src, dst):
         """Prefix-cache page copy on the layer-folded page axis: a page id
@@ -572,9 +646,14 @@ class ServingEngine:
                     continue            # mid-chunk: prefix already handled
                 src_pages, npg = self._prefix_lookup(sid, batch_set)
                 if npg:
+                    # source and destination cover the same slots, so each
+                    # copy stays inside one seq rank's pool
                     dst_pages = self.sched.pages_of(sid)[:npg]
-                    src_idx += [p + 1 for p in src_pages]    # +1: scratch
-                    dst_idx += [p + 1 for p in dst_pages]
+                    for a, b in zip(self._pool_ids(src_pages),
+                                    self._pool_ids(dst_pages)):
+                        if a is not None:
+                            src_idx.append(a)
+                            dst_idx.append(b)
                     cached[sid] = npg * self.page_size
                     self.metrics["prefix_hits"] += 1
                     self.metrics["prefix_tokens_reused"] += npg * self.page_size

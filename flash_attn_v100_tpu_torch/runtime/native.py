@@ -29,6 +29,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     i64p = ctypes.POINTER(ctypes.c_int64)
     sigs = {
         "fa_alloc_create": ([ctypes.c_int32, ctypes.c_int32], ctypes.c_void_p),
+        "fa_alloc_create_sharded": ([ctypes.c_int32] * 4, ctypes.c_void_p),
         "fa_alloc_can_extend": ([ctypes.c_void_p, ctypes.c_int64,
                                  ctypes.c_int32], ctypes.c_int32),
         "fa_alloc_destroy": ([ctypes.c_void_p], None),
@@ -40,6 +41,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "fa_alloc_release": ([ctypes.c_void_p, ctypes.c_int64], None),
         "fa_sched_create": ([ctypes.c_int32, ctypes.c_int32, ctypes.c_int32],
                             ctypes.c_void_p),
+        "fa_sched_create_sharded": ([ctypes.c_int32] * 5, ctypes.c_void_p),
         "fa_sched_destroy": ([ctypes.c_void_p], None),
         "fa_sched_add": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
                           ctypes.c_int32], ctypes.c_int32),

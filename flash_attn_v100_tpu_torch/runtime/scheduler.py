@@ -43,7 +43,10 @@ class Scheduler:
     """See module docstring.  `step()` returns [(seq_id, needs_prefill)]."""
 
     def __init__(self, max_batch: int, num_pages: int, page_size: int,
-                 use_native: bool = True):
+                 use_native: bool = True, num_shards: int = 1,
+                 slots_per_shard: int = 2**31 - 1):
+        """`num_shards` / `slots_per_shard`: the seq-sharded page pool of
+        allocator.PagedAllocator; `num_pages` then counts per shard."""
         if max_batch <= 0:
             raise ValueError("max_batch must be positive")
         self.max_batch = max_batch
@@ -51,11 +54,13 @@ class Scheduler:
         self.num_pages = num_pages
         self._lib = native.load() if use_native else None
         if self._lib is not None:
-            self._h = self._lib.fa_sched_create(max_batch, num_pages,
-                                                page_size)
+            self._h = self._lib.fa_sched_create_sharded(
+                max_batch, num_pages, page_size, num_shards, slots_per_shard)
         else:
             from flash_attn_v100_tpu_torch.runtime.allocator import PagedAllocator
-            self._alloc = PagedAllocator(num_pages, page_size, use_native=False)
+            self._alloc = PagedAllocator(num_pages, page_size, use_native=False,
+                                         num_shards=num_shards,
+                                         slots_per_shard=slots_per_shard)
             self._waiting: deque = deque()
             self._running: List[int] = []
             self._reqs: Dict[int, _Req] = {}

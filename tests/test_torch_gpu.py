@@ -1632,3 +1632,158 @@ def test_measure_of_k1_agrees_with_chip_smoke_time_ms(cuda):
     s = benchmarking.measure(k1, device=cuda)
     ms = chip_smoke.time_ms(torch, k1)
     assert abs(s * 1e3 - ms) <= 0.2 * ms, (s * 1e3, ms)
+
+
+# ------------------------------------------------ the sequence-sharded call
+
+# name: (T_new, append, kwargs).  The rows are one rank's of a 4-way seq
+# sharding with SHARD tokens a shard, on shard 1 (global rows [SHARD,
+# 2 SHARD)): appends inside, straddling the start, straddling the end, a
+# row wholly before the shard (no live key there: lens_total 0, a
+# negative q position) and one past it (q positions past the shard's end)
+SHARD = 128
+SHARD_LENS = [SHARD + 41, SHARD - 1, 2 * SHARD - 2, 10, 3 * SHARD + 5]
+SHARD_CASES = {
+    "t3_causal_append": (3, True, {}),
+    "t1_window_append": (1, True, dict(window_size=(60, -1))),
+    "t3_causal_no_append": (3, False, {}),
+}
+
+
+def _shard_call_inputs(name, paged, kind, rng):
+    T, append, extra = SHARD_CASES[name]
+    B, Hq, Hk, D = len(SHARD_LENS), 8, 2, 64
+    lens = np.asarray(SHARD_LENS, np.int32)
+    total = lens + (T if append else 0)
+    cs = np.clip(total - SHARD, 0, SHARD) - (T if append else 0)
+    kw = dict(causal=True, kv_cache_layout="HND", return_softmax_lse=True,
+              cache_seqlens=torch.from_numpy(cs.astype(np.int32)),
+              q_position_lens=torch.from_numpy(lens - SHARD),
+              append_window=(0, SHARD) if append else None, **extra)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    if paged:
+        ps = 32
+        mp = SHARD // ps
+        P = 1 + B * mp
+        shape = (Hk, P, ps, D)
+        kw["block_table"] = torch.from_numpy(rng.permutation(
+            np.arange(1, P)).reshape(B, mp).astype(np.int32))
+    else:
+        shape = (B, Hk, SHARD, D)
+    k, v = mk(*shape), mk(*shape)
+    caches = ([k, v] if kind is None else
+              [x for pair in zip(*(quant.quantize_kv(c, QUANT_KINDS[kind])
+                                   for c in (k, v))) for x in pair])
+    new = [mk(B, T, Hk, D), mk(B, T, Hk, D)] if append else [None, None]
+    return mk(B, T, Hq, D), caches, new, kw, cs + (T if append else 0)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
+@pytest.mark.parametrize("name", list(SHARD_CASES))
+@pytest.mark.parametrize("kind", [None] + list(QUANT_KINDS))
+def test_kvcache_shard_call_kernels_match_plain(cuda, kind, name, paged,
+                                                monkeypatch):
+    """flash_attn_with_kvcache as one rank of the sequence-sharded decode
+    calls it (q_position_lens, append_window) through K4 / K4q against the
+    plain versions on the card; a row with no live key on the shard gives
+    O = 0 and LSE = -inf, and the appends (out-of-window ones dropped) are
+    bit-equal to the CPU's."""
+    q, caches, new, kw, live = _shard_call_inputs(
+        name, paged, kind, np.random.default_rng(31))
+    dt = torch.bfloat16
+
+    def call(dev):
+        c = [x.clone().to(dev) for x in caches]
+        sc = {} if kind is None else dict(k_scales=c[2], v_scales=c[3])
+        res = kv.flash_attn_with_kvcache(
+            q.to(dev, dt), c[0].to(dt) if kind is None else c[0],
+            c[1].to(dt) if kind is None else c[1],
+            k=None if new[0] is None else new[0].to(dev, dt),
+            v=None if new[1] is None else new[1].to(dev, dt), **sc,
+            **{n: (x.to(dev) if isinstance(x, torch.Tensor) else x)
+               for n, x in kw.items()})
+        return res
+
+    counter = dec.paged_decode_attention
+    before = (counter.launches, dict(counter.quant_launches))
+    res = call(cuda)
+    torch.cuda.synchronize()
+    if kind is None:
+        assert counter.launches == before[0] + 1
+    else:
+        assert counter.quant_launches[kind] == before[1][kind] + 1
+    label = f"shard call {kind or 'bf16'} {name} {'paged' if paged else ''}"
+    plain = {}
+    for flag in (True, False):
+        with monkeypatch.context() as m:
+            fd, fv = _plain(flag) if kind is None else _plain_quant(flag)
+            m.setattr(kv, "paged_decode_attention_merged", fd)
+            plain[flag] = call(cuda)
+    if kind is None:
+        assert_fwd_close(res[0], plain[True][0], plain[False][0],
+                         name=f"{label} out")
+        _gate_lse(res[1], plain[True][1], plain[False][1], f"{label} lse")
+    else:
+        _gate_quant(res[0], res[1], plain[True][0], plain[False][0],
+                    plain[True][1], label)
+    for b in np.flatnonzero(live == 0):
+        assert not res[0][b].any() and torch.isneginf(res[1][b]).all()
+    if new[0] is not None:
+        cpu = call(torch.device("cpu"))
+        for got, want in zip(res[2], cpu[2]):
+            assert torch.equal(quant.payload_bytes(got).cpu(),
+                               quant.payload_bytes(want))
+
+
+def test_four_shard_merge_matches_unsharded_decode(cuda, monkeypatch):
+    """Four shards of one contiguous bf16 cache attended one by one on the
+    card through flash_attn_with_kvcache_sharded, as the four ranks of the
+    sequence-sharded decode attend them (each appending in its window),
+    their partials merged by LSE: the output within the forward gate of
+    the unsharded call's fp32 plain version, the LSE within 1e-4 of the
+    unsharded K4 call's, and the shards' appended caches bit-equal to the
+    unsharded call's."""
+    from flash_attn_v100_tpu_torch.parallel.mesh import Mesh
+    from flash_attn_v100_tpu_torch.parallel.sharded import (
+        flash_attn_with_kvcache_sharded)
+    rng = np.random.default_rng(37)
+    S, B, Hq, Hk, D, n = 4, 3, 8, 2, 128, 256
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, kn, vn = mk(B, 1, Hq, D), mk(B, 1, Hk, D), mk(B, 1, Hk, D)
+    kc, vc = mk(B, Hk, S * n, D), mk(B, Hk, S * n, D)
+    lens = torch.tensor([700, 255, 5], dtype=torch.int32, device=cuda)
+
+    def unsharded():
+        k, v = kc.clone(), vc.clone()
+        out, lse, _ = kv.flash_attn_with_kvcache(
+            q, k, v, kn, vn, cache_seqlens=lens, causal=True,
+            kv_cache_layout="HND", return_softmax_lse=True)
+        return out, lse, k, v
+    out, lse, ref_k, ref_v = unsharded()
+    plain = {}
+    for upcast in (True, False):
+        with monkeypatch.context() as m:
+            m.setattr(kv, "paged_decode_attention_merged",
+                      _plain(upcast)[0])
+            plain[upcast] = unsharded()[0]
+    parts, lses, shards = [], [], []
+    for s in range(S):
+        # rank s of a seq axis of 4, its merge over the axis left out (no
+        # process group: the identity) and done by merge_partials below
+        mesh = Mesh(np.arange(S).reshape(1, S, 1), s, {"seq": None})
+        ks = kc[:, :, s * n:(s + 1) * n].clone()
+        vs = vc[:, :, s * n:(s + 1) * n].clone()
+        o_s, l_s, _ = flash_attn_with_kvcache_sharded(
+            q, ks, vs, mesh, lens, k=kn, v=vn, causal=True,
+            return_softmax_lse=True)
+        parts.append(o_s.float().permute(0, 2, 1, 3))      # (B, Hq, 1, D)
+        lses.append(l_s[..., None])                        # (B, Hq, 1, 1)
+        shards.append((ks, vs))
+    om, lm = dec.merge_partials(torch.stack(parts, 2), torch.stack(lses, 2))
+    assert_fwd_close(om.permute(0, 2, 1, 3).to(torch.bfloat16), plain[True],
+                     plain[False], name="4-shard merge")
+    torch.testing.assert_close(lm[..., 0], lse, rtol=0, atol=1e-4)
+    assert torch.equal(torch.cat([k for k, _ in shards], 2), ref_k)
+    assert torch.equal(torch.cat([v for _, v in shards], 2), ref_v)

@@ -161,10 +161,6 @@ def test_kvcache_rejections():
     with pytest.raises(ValueError):
         torch_kvcache(q, pool, pool, block_table=bt,
                       cache_leftpad=torch.zeros(1, dtype=torch.int32))
-    for kw in (dict(q_position_lens=torch.zeros(1)),
-               dict(append_window=(0, 8))):
-        with pytest.raises(NotImplementedError):
-            torch_kvcache(q, pool, pool, block_table=bt, **kw)
     # as the JAX package's test_quant_errors: scales on a float cache, and
     # k_scales without v_scales
     scales = torch.ones(4, 8, 2, 1)
