@@ -41,13 +41,19 @@ through K4 and K8, again from the same weights imported as an HF Llama
 checkpoint (integrations/huggingface.py, with TinyLlama's config.json
 fields), then once from each quantized pool through K4q and K8q, checking
 each path's output and launch counts; the training, LoRA and decode steps
-are profiled through utils/profiling.py.  Last, the sharded paths
+are profiled through utils/profiling.py.  Then the sharded paths
 (parallel/) on four gloo processes sharing the card: the 32k-context
 decode with its context sharded four ways (bf16 and int8) against the
 unsharded call and the fp32 oracle, head-sharded K1 at the headline shape
 bit for bit per head, and the sharded serving engine at TinyLlama width
 (seq 2 x model 2 from bf16 and int8 pools, model 2 alone) against the
-unsharded run, with each rank's K4 / K4q / K8 launch counts.  Prints the card, a
+unsharded run, with each rank's K4 / K4q / K8 launch counts.  Last, the
+sequence-parallel training path on four more such processes: ring
+attention at the headline head shape over seq 4 (contiguous, zigzag, and
+with a window; forward and backward) against the fp32 oracle, Ulysses
+bit for bit against the unsharded kernels, and make_train_step(mesh=) at
+TinyLlama width on seq 2 x model 2 against the unsharded run, with each
+rank's K1-K3 launch counts.  Prints the card, a
 `kernels` JSON line, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 Any failed phase raises and the script exits non-zero; with no GPU, or
@@ -85,6 +91,7 @@ each pool's decode tok/s and TTFT p50 with their medians and quartiles.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -2452,6 +2459,597 @@ def phase_parallel(torch, eng, eng_q):
     return res
 
 
+# ------------------------------------------------ sequence-parallel training
+
+# phase_ring runs on its own RING_WORLD gloo processes on the one card, as
+# phase_parallel does; its times are four processes sharing one card.
+RING_WORLD = 4
+RING_TIMEOUT_S = 480
+# (a), (b): the headline head shape over seq 4 (2048 rows a rank), bf16
+RING_B, RING_S, RING_HQ, RING_HK, RING_D = 1, 8192, 32, 8, 128
+RING_WINDOW = (4096, 0)
+RING_LAYOUTS = (("contiguous causal", dict(causal=True)),
+                ("zigzag causal", dict(causal=True, layout="zigzag")),
+                ("contiguous causal, window (4096, 0)",
+                 dict(causal=True, window_size=RING_WINDOW)))
+# (c): TinyLlama-1.1B width, B 2 x 2049 tokens (1024 rows a rank after the
+# shift), three AdamW steps through make_train_step(mesh=) on seq 2 x
+# model 2
+RT_MESH, RT_B, RT_S, RT_STEPS, RT_LAYERS = (1, 2, 2), 2, 2048, 3, 22
+# (c)'s step-1 loss gate, derived before the first chip run (PERF.md §6):
+# phase_train holds the unsharded kernel path's mean loss to max(2
+# d + 1e-5, 3 s / sqrt(n)) of the fp32-plain-attention mean (d: the
+# bf16-plain-attention mean's distance from it; s: the std of the bf16
+# token errors, n tokens), and the sharded path gets twice that.  The
+# reasoning behind the factor, that the sharded path adds no more bf16
+# roundings than d counts, proved wrong on the chip (PERF.md §6): d counts
+# attention's precision alone, while a model axis splits the o- and
+# down-projections' sums into bf16 partial products summed in bf16 (the
+# cause split RT_SPLIT puts the gap on the model axis), so the floor term
+# sets this gate.
+RT_LOSS_MULT, RT_LOSS_ATOL, RT_FLOOR_MULT = 4.0, 1e-5, 2.0
+# (c)'s step-1 gradient gate, derived the same way before the chip run that
+# first tested it (PERF.md §6): the reference's gates hold a kernel's
+# gradients to 3x (utils/testing.py BWD_MULT) the bf16 plain version's
+# error, and the sharded path gets twice the kernel's allowance.  Per leaf,
+# on each rank's shard: |G - G32| <= 6 |G16 - G32| (Frobenius norms), with
+# G32 / G16 the unsharded step-1 gradients through the plain attention in
+# fp32 / bf16.
+RT_GRAD_MULT = 6.0
+# (c)'s cause split: the same step on a seq-only and a model-only mesh of
+# the first two ranks
+RT_SPLIT = ((1, 2, 1), (1, 1, 2))
+# (c)'s negative controls: one step under each planted fault, which the
+# gates must catch
+RT_FAULTS = ("past chunk dropped", "gradient sum skipped")
+
+
+def ring_launches(kw, r, n=RING_WORLD, c=RING_S // RING_WORLD) -> int:
+    """K1 (and K2, K3) launches of rank r in one causal ring pass: zigzag
+    one a step; contiguous one for each step s <= r (the chunk lies in the
+    past), less the chunks wholly behind a left window w (s c > c - 1 + w,
+    parallel/ring.py::_step_plan)."""
+    if kw.get("layout") == "zigzag":
+        return n
+    w = kw.get("window_size", (-1, -1))[0]
+    return sum(1 for s in range(r + 1) if w < 0 or s * c <= c - 1 + w)
+
+
+def ring_inputs(torch):
+    """(a) and (b)'s global q, k, v, dout: bf16 on the card, from SEED."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    B, S, Hq, Hk, D = RING_B, RING_S, RING_HQ, RING_HK, RING_D
+    return [torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((B, S, Hq, D), (B, S, Hk, D),
+                                      (B, S, Hk, D), (B, S, Hq, D))]
+
+
+def ring_train_tokens(torch, cfg):
+    gen = torch.Generator().manual_seed(SEED + 22)
+    return torch.randint(0, cfg.vocab_size, (RT_B, RT_S + 1),
+                         generator=gen).to("cuda")
+
+
+def _ring_attn(torch, dist):
+    """(a) ring_attention on seq RING_WORLD, each layout forward and
+    backward twice: the first pass's launch counts and this rank's blocks
+    (output, dq, dk, dv rows), the second pass's host times."""
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.parallel import (
+        SEQ_AXIS, local_shard, make_mesh, ring_attention, zigzag_shard)
+    mesh = make_mesh(seq=RING_WORLD)
+    s = mesh.index(SEQ_AXIS)
+    m = RING_S // RING_WORLD
+    rows = slice(s * m, (s + 1) * m)
+    q, k, v, do = ring_inputs(torch)
+    res = {}
+    for label, kw in RING_LAYOUTS:
+        xs = [zigzag_shard(t, RING_WORLD) if kw.get("layout") == "zigzag"
+              else t for t in (q, k, v, do)]
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in xs[:3])
+        dol = local_shard(xs[3], (None, SEQ_AXIS), mesh)
+        r = dict(times=[])
+        for it in range(2):
+            for t in (qg, kg, vg):
+                t.grad = None
+            torch.cuda.synchronize()
+            dist.barrier()
+            _reset_counts(dfwd, dbwd)
+            t0 = time.perf_counter()
+            out = ring_attention(qg, kg, vg, mesh, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fwd = _kernel_counts(dfwd, dbwd)
+            _reset_counts(dfwd, dbwd)
+            out.backward(dol)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            bwd = _kernel_counts(dfwd, dbwd)
+            r["times"].append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+            if it == 0:
+                r.update(fwd=fwd, bwd=bwd, out=out.detach().cpu(),
+                         grads=[t.grad[:, rows].cpu() for t in (qg, kg, vg)])
+        res[label] = r
+        del qg, kg, vg, out
+    return res
+
+
+def _ring_ulysses(torch, dist):
+    """(b) ulysses_attention on seq RING_WORLD: this rank's output rows
+    and gradient rows against the unsharded flash_attn_func's, bit for
+    bit, and its K1-K3 launches."""
+    from flash_attn_v100_tpu_torch import flash_attn_func
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.parallel import (
+        SEQ_AXIS, local_shard, make_mesh, ulysses_attention)
+    mesh = make_mesh(seq=RING_WORLD)
+    s = mesh.index(SEQ_AXIS)
+    m = RING_S // RING_WORLD
+    rows = slice(s * m, (s + 1) * m)
+    q, k, v, do = ring_inputs(torch)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    torch.cuda.synchronize()
+    dist.barrier()
+    _reset_counts(dfwd, dbwd)
+    t0 = time.perf_counter()
+    out = ulysses_attention(qg, kg, vg, mesh, causal=True)
+    out.backward(local_shard(do, (None, SEQ_AXIS), mesh))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _kernel_counts(dfwd, dbwd)
+    qu, ku, vu = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref = flash_attn_func(qu, ku, vu, causal=True)
+    ref.backward(do)
+    equal = [torch.equal(out, ref[:, rows])] + [
+        torch.equal(a.grad[:, rows], b.grad[:, rows])
+        for a, b in zip((qg, kg, vg), (qu, ku, vu))]
+    return dict(counts=counts, bit_equal=equal, ms=ms)
+
+
+def _rt_leaf_names(params):
+    """param_leaves' order, by name."""
+    names = [k for k in ("embed", "ln_f", "lm_head") if k in params]
+    for i, lp in enumerate(params["layers"]):
+        names += [f"layers.{i}.{k}" for k in sorted(lp)]
+    return names
+
+
+def _rt_as_params(params, leaves):
+    """`leaves` (param_leaves' order) in `params`' dict structure."""
+    it = iter(leaves)
+    out = {k: next(it) for k in ("embed", "ln_f", "lm_head") if k in params}
+    out["layers"] = [{k: next(it) for k in sorted(lp)}
+                     for lp in params["layers"]]
+    return out
+
+
+@contextlib.contextmanager
+def _patched(obj, attr, value):
+    saved = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        setattr(obj, attr, saved)
+
+
+def _rt_fault(name):
+    """One of RT_FAULTS, patched in this process alone: the ring's past
+    chunks dropped (each rank attends its own chunk only), or the
+    gradients' sum over data and seq skipped."""
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.parallel import ring as ring_mod
+    if name is None:
+        return contextlib.nullcontext()
+    if name == RT_FAULTS[0]:
+        plan = ring_mod._step_plan
+        return _patched(ring_mod, "_step_plan",
+                        lambda cfg, s, c: (None, plan(cfg, s, c)[1]))
+    return _patched(tm, "all_reduce_flat", lambda *a: None)
+
+
+def _ring_train(torch, dist, tmp):
+    """(c) make_train_step(mesh=) at TinyLlama-1.1B width.  First one step
+    at learning rate 0 under each of RT_FAULTS on RT_MESH and on each mesh
+    of RT_SPLIT: its loss and each leaf's step-1 gradient error against the
+    unsharded fp32-attention gradient (tmp/g32.pt, this rank's shard of
+    it).  Then RT_STEPS AdamW steps on RT_MESH: each step's loss, host time
+    and K1-K3 launches, the step-1 gradient errors, and the peak memory."""
+    from flash_attn_v100_tpu_torch import ModelConfig
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.parallel import make_mesh
+    cfg = ModelConfig.tinyllama_1b()
+    full = tm.init_params(cfg, seed=SEED, device="cuda", lm_head=True)
+    g32 = torch.load(f"{tmp}/g32.pt", mmap=True)
+    tokens = ring_train_tokens(torch, cfg)
+
+    def shard(mesh):
+        params = tm.shard_params(full, cfg, mesh)
+        for t in tm.param_leaves(params):
+            t.requires_grad_(True)
+        return params
+
+    def grad_errs(params, mesh):
+        """Each leaf's |G - G32| / |G32| on this rank's shard."""
+        errs = []
+        for t, r in zip(tm.param_leaves(params),
+                        tm.param_leaves(tm.shard_params(g32, cfg, mesh))):
+            r = r.to("cuda", torch.float32)
+            errs.append(float((t.grad.float() - r).norm() / r.norm()))
+        return errs
+
+    def probe(mesh, fault=None):
+        """One step at learning rate 0 (the parameters stay as they are)."""
+        if not mesh.is_member:
+            return None
+        params = shard(mesh)
+        step, init_opt = tm.make_train_step(
+            cfg, optimizer=lambda lv: torch.optim.SGD(lv, lr=0.0), mesh=mesh)
+        with _rt_fault(fault):
+            loss = float(step(params, init_opt(params), tokens)[0])
+        res = dict(loss=loss, grad_err=grad_errs(params, mesh),
+                   coords=mesh.coords)
+        for t in tm.param_leaves(params):
+            t.grad = None
+        return res
+
+    mesh = make_mesh(*RT_MESH)
+    out = dict(faults={f: probe(mesh, f) for f in RT_FAULTS})
+    out["split"] = {}
+    for shape in RT_SPLIT:
+        out["split"][shape] = probe(make_mesh(*shape))
+        dist.barrier()
+    # the AdamW run last: it updates the replicated leaves, which its shard
+    # shares with `full`, in place
+    params = shard(mesh)
+    del full
+    torch.cuda.empty_cache()
+    step, init_opt = tm.make_train_step(cfg, mesh=mesh)
+    opt = init_opt(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, counts = [], [], []
+    for i in range(RT_STEPS):
+        dist.barrier()
+        _reset_counts(dfwd, dbwd)
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, tokens)
+        losses.append(float(loss))            # syncs
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append(_kernel_counts(dfwd, dbwd))
+        if i == 0:    # the check's own copies stay out of the peak
+            peak = torch.cuda.max_memory_allocated()
+            out["grad_err"] = grad_errs(params, mesh)
+            torch.cuda.reset_peak_memory_stats()
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    return dict(out, coords=mesh.coords, losses=losses, step_s=secs,
+                counts=counts, peak_gb=peak / 1e9)
+
+
+def _ring_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase_ring: (a), (b) and (c) in turn; its results go
+    to tmp/rank<rank>.pkl."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            world_size=world, rank=rank)
+    try:
+        res = dict(attn=_ring_attn(torch, dist))
+        torch.cuda.empty_cache()
+        res["ulysses"] = _ring_ulysses(torch, dist)
+        torch.cuda.empty_cache()
+        res["train"] = _ring_train(torch, dist, tmp)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def _ring_oracle(torch, q, k, v, do, params, upcast):
+    """The plain forward and backward one kv head's group at a time (a
+    full 8192^2 fp32 score matrix for 32 heads does not fit the card):
+    upcast, in fp32 over fp32 copies of the inputs; else in their bf16."""
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    g = q.shape[2] // k.shape[2]
+    scale = q.shape[-1] ** -0.5
+    parts = []
+    for j in range(k.shape[2]):
+        xs = (q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1],
+              v[:, :, j:j + 1], do[:, :, j * g:(j + 1) * g])
+        if upcast:
+            xs = [t.float() for t in xs]
+        o, lse = dfwd.flash_attn_dense_fwd_ref(*xs[:3], scale, params,
+                                               upcast=upcast)
+        grads = dbwd.flash_attn_dense_bwd_ref(*xs[:3], o, xs[3], lse, scale,
+                                              params, upcast=upcast)
+        parts.append([o, *grads])
+        del o, lse, grads
+    return [torch.cat([p[i] for p in parts], dim=2) for i in range(4)]
+
+
+def _ring_train_reference(torch, tmp):
+    """(c)'s unsharded run in this process, before the spawn: the first
+    batch's token losses and step-1 gradients through the kernels and
+    through the plain attention in fp32 and bf16 (the gates; the fp32
+    gradients go to tmp/g32.pt for the ranks, and each leaf's errors are
+    taken on every shard of a model axis of RT_MESH or RT_SPLIT), then
+    RT_STEPS AdamW steps of make_train_step on the same weights and
+    batch."""
+    import numpy as np
+    from flash_attn_v100_tpu_torch import ModelConfig
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.parallel.mesh import AXES, Mesh
+    cfg = ModelConfig.tinyllama_1b()
+    params = tm.init_params(cfg, seed=SEED, device="cuda", lm_head=True)
+    leaves = tm.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    tokens = ring_train_tokens(torch, cfg)
+
+    def token_losses_and_grads():
+        logp = torch.log_softmax(tm.forward(params, tokens[:, :-1], cfg),
+                                 dim=-1)
+        tok = -logp.gather(-1, tokens[:, 1:, None].to(torch.long))[..., 0]
+        return tok.detach(), torch.autograd.grad(tok.mean(), leaves)
+
+    tok_k, g_k = token_losses_and_grads()
+    with _plain_attention(fa_mod, dfwd, dbwd, True):
+        tok32, g32 = token_losses_and_grads()
+    with _plain_attention(fa_mod, dfwd, dbwd, False):
+        tok16, g16 = token_losses_and_grads()
+    torch.save(_rt_as_params(params, [g.cpu() for g in g32]),
+               f"{tmp}/g32.pt")
+
+    def cut(grads, mesh):
+        return tm.param_leaves(tm.shard_params(
+            _rt_as_params(params, grads), cfg, mesh))
+
+    def rel(grads, refs):
+        return [float((g.float() - r.float()).norm() / r.float().norm())
+                for g, r in zip(grads, refs)]
+
+    # {(model axis size, model index): each leaf's error on that shard}
+    e16, e_k = {}, {}
+    for tp in sorted({shape[2] for shape in (RT_MESH,) + RT_SPLIT}):
+        for j in range(tp):
+            mesh = Mesh(np.arange(tp).reshape(1, 1, tp), j,
+                        dict.fromkeys(AXES))
+            r = cut(g32, mesh)
+            e16[tp, j], e_k[tp, j] = rel(cut(g16, mesh), r), rel(
+                cut(g_k, mesh), r)
+    del g_k, g32, g16
+    step, init_opt = tm.make_train_step(cfg)
+    opt = init_opt(params)
+    losses, secs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RT_STEPS):
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, tokens)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    e16_tok = (tok16 - tok32).double()
+    res = dict(losses=losses, step_s=secs,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               mean_k=float(tok_k.double().mean()),
+               mean32=float(tok32.double().mean()),
+               mean16=float(tok16.double().mean()),
+               floor=3.0 * float(e16_tok.std()) / e16_tok.numel() ** 0.5,
+               e16=e16, e_k=e_k, names=_rt_leaf_names(params))
+    del params, opt, tokens, tok_k, tok32, tok16, e16_tok, leaves
+    return res
+
+
+def phase_ring(torch):
+    """The sequence-parallel training path on RING_WORLD gloo ranks sharing
+    the card: (a) ring_attention at the headline head shape over seq 4,
+    three layouts, forward and backward, against the fp32 oracle within
+    the reference's gates, with each rank's exact K1-K3 launches; (b)
+    ulysses_attention at the same shape, bit-equal to the unsharded K1-K3
+    per head; (c) make_train_step(mesh=) at TinyLlama-1.1B width on seq 2 x
+    model 2 against the unsharded run (made here first): the step-1 loss
+    and each leaf's step-1 gradient within their derived gates, K1-K3
+    launches a step; the same step on a seq-only and a model-only mesh
+    (the cause split) within the same gates; and one step under each
+    planted fault of RT_FAULTS, which the gates must catch.  Plain twins
+    are never called in a rank.  Returns the launch counts for the kernels
+    line."""
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.parallel import zigzag_unshard
+    from flash_attn_v100_tpu_torch.utils import testing as tt
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = _ring_train_reference(torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"ring: unsharded (c) reference done in "
+              f"{time.perf_counter() - t0:.1f} s; card memory before the "
+              f"spawn: {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB",
+              flush=True)
+        ctx = mp.start_processes(_ring_rank, args=(RING_WORLD, tmp),
+                                 nprocs=RING_WORLD, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + RING_TIMEOUT_S
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"phase_ring: ranks still running after "
+                                   f"{RING_TIMEOUT_S} s")
+        ranks = []
+        for r in range(RING_WORLD):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    tag = (f"ring ({RING_WORLD} processes on one card, gloo; times are "
+           f"theirs, not a multi-card system's)")
+    print(f"{tag}: ranks done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = {"K1": {}, "K2": {}, "K3": {}}
+
+    # (a): each layout's blocks put together, against the oracles
+    q, k, v, do = ring_inputs(torch)
+    oracles = {}
+    shape = (f"B {RING_B} x {RING_S}, {RING_HQ}/{RING_HK} heads x "
+             f"{RING_D}, bf16, seq {RING_WORLD}")
+    for label, kw in RING_LAYOUTS:
+        w = kw.get("window_size", (-1, -1))
+        key = tuple(w)
+        if key not in oracles:
+            params = masklib.MaskParams(causal=True, window_left=w[0],
+                                        window_right=w[1])
+            oracles.clear()
+            torch.cuda.empty_cache()
+            oracles[key] = (_ring_oracle(torch, q, k, v, do, params, True),
+                            _ring_oracle(torch, q, k, v, do, params, False))
+        r32, r16 = oracles[key]
+        per = [r["attn"][label] for r in ranks]
+        for i, p in enumerate(per):
+            want = ring_launches(kw, i)
+            assert (p["fwd"]["K1"], p["bwd"]["K2"], p["bwd"]["K3"]) == (
+                want, want, want), (label, i, p["fwd"], p["bwd"], want)
+            assert p["fwd"]["K2"] == p["fwd"]["K3"] == p["bwd"]["K1"] == 0
+            assert all(p[d][n] == 0 for d in ("fwd", "bwd")
+                       for n in ("plain_fwd", "plain_bwd")), (label, p)
+        got = [torch.cat([p["out"] for p in per], 1).cuda()] + [
+            torch.cat([p["grads"][i] for p in per], 1).cuda()
+            for i in range(3)]
+        if kw.get("layout") == "zigzag":
+            got = [zigzag_unshard(t, RING_WORLD) for t in got]
+        errs = []
+        for name, g, a, b, mult, atol in zip(
+                ("out", "dq", "dk", "dv"), got, r32, r16,
+                (tt.FWD_MULT,) + (tt.BWD_MULT,) * 3,
+                (tt.FWD_ATOL,) + (tt.BWD_ATOL,) * 3):
+            e, gate = gated(torch, g, a, b, f"ring (a) {label} {name}", mult,
+                            atol)
+            errs.append(f"{name} {e:.3e} <= {gate:.3e} ({e / gate:.2f} of "
+                        f"the gate)")
+        del got
+        for n, d in (("K1", "fwd"), ("K2", "bwd"), ("K3", "bwd")):
+            launches[n][f"(a) {label}"] = [p[d][n] for p in per]
+        counts = launches["K1"][f"(a) {label}"]
+        print(f"ring (a) {label} ({shape}): vs the fp32 oracle (head groups "
+              f"in turn), gates 2x / 3x the bf16 oracle's error + 1e-5 / "
+              f"1e-4: {'; '.join(errs)}; K1 = K2 = K3 launches per rank "
+              f"{counts} (exact), plain twins 0; ms fwd / bwd per rank "
+              f"(host clock, synchronised, 2nd pass) "
+              f"{[tuple(round(x, 1) for x in p['times'][-1]) for p in per]}",
+              flush=True)
+    del oracles, q, k, v, do
+    torch.cuda.empty_cache()
+
+    # (b) Ulysses
+    uly = [r["ulysses"] for r in ranks]
+    for i, u in enumerate(uly):
+        assert all(u["bit_equal"]), (i, u["bit_equal"])
+        c = u["counts"]
+        assert (c["K1"], c["K2"], c["K3"]) == (1, 1, 1), (i, c)
+        assert c["plain_fwd"] == c["plain_bwd"] == 0, (i, c)
+    for n in launches:
+        launches[n]["(b) ulysses"] = [u["counts"][n] for u in uly]
+    print(f"ring (b) ulysses_attention ({shape}, causal): every rank's "
+          f"output and dq, dk, dv rows bit-equal to the unsharded "
+          f"flash_attn_func's (K1-K3 on {RING_HQ // RING_WORLD} q / "
+          f"{RING_HK // RING_WORLD} kv heads a rank over the full sequence); "
+          f"K1 = K2 = K3 = 1 launch a rank, plain twins 0; ms fwd + bwd per "
+          f"rank (host clock) {[round(u['ms'], 1) for u in uly]}",
+          flush=True)
+
+    # (c) the sharded training step against the unsharded run
+    runs = [r["train"] for r in ranks]
+    for r in runs:
+        want = RT_LAYERS * ring_launches(dict(causal=True),
+                                         r["coords"]["seq"], n=RT_MESH[1])
+        for c in r["counts"]:
+            assert (c["K1"], c["K2"], c["K3"]) == (want,) * 3, (
+                r["coords"], c)
+            assert c["plain_fwd"] == c["plain_bwd"] == 0, (r["coords"], c)
+        assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+        assert r["losses"] == runs[0]["losses"], "ranks disagree on the loss"
+    d16 = abs(ref["mean16"] - ref["mean32"])
+    gate = max(RT_LOSS_MULT * d16 + RT_LOSS_ATOL, RT_FLOOR_MULT * ref["floor"])
+
+    def held(label, tp, res):
+        """One step-1 run's member ranks (loss, grad_err, coords) against
+        the loss gate and each leaf's gradient gate; prints and returns
+        whether each gate held."""
+        assert len({r["loss"] for r in res}) == 1, (label, res)
+        err = abs(res[0]["loss"] - ref["mean32"])
+        ratios = [(e / (RT_GRAD_MULT * e16), name, r["coords"], e, e16)
+                  for r in res for name, e, e16 in zip(
+                      ref["names"], r["grad_err"],
+                      ref["e16"][tp, r["coords"]["model"]])]
+        w = max(ratios, key=lambda x: x[0])
+        ok = (err <= gate, all(x[0] <= 1.0 for x in ratios))
+        print(f"ring (c) {label}: step-1 loss {res[0]['loss']:.6f}, err "
+              f"{err:.3e} {'<=' if ok[0] else '>'} gate {gate:.3e}; "
+              f"gradients {'held' if ok[1] else 'NOT held'}: worst leaf "
+              f"{w[1]} on {w[2]}, |G - G32| / |G32| {w[3]:.3e} against "
+              f"{RT_GRAD_MULT:g} x the bf16-plain's {w[4]:.3e} "
+              f"({w[0]:.2f} of the gate; median over leaves and ranks "
+              f"{statistics.median(x[0] for x in ratios):.2f})", flush=True)
+        return ok
+
+    print(f"ring (c) make_train_step(mesh=) at TinyLlama-1.1B width (22 "
+          f"layers, bf16), B {RT_B} x {RT_S + 1} tokens: the step-1 loss "
+          f"against the fp32-plain-attention mean {ref['mean32']:.6f}, gate "
+          f"max({RT_LOSS_MULT:g} x the bf16-plain mean's distance "
+          f"{d16:.3e} + {RT_LOSS_ATOL:g}, {RT_FLOOR_MULT:g} x 3 std / "
+          f"sqrt(n) {ref['floor']:.3e}); unsharded kernel path "
+          f"{ref['mean_k']:.6f} (its step-1 loss {ref['losses'][0]:.6f}, "
+          f"err {abs(ref['mean_k'] - ref['mean32']):.3e}; its worst leaf "
+          f"gradient error "
+          f"{max(a / b for a, b in zip(ref['e_k'][1, 0], ref['e16'][1, 0])):.2f}"
+          f" x the bf16-plain's)", flush=True)
+    main_ok = held(f"seq {RT_MESH[1]} x model {RT_MESH[2]}", RT_MESH[2],
+                   [dict(loss=r["losses"][0], grad_err=r["grad_err"],
+                         coords=r["coords"]) for r in runs])
+    assert all(main_ok), f"ring (c) step-1 gates {main_ok}"
+    for shape in RT_SPLIT:
+        res = [r["train"]["split"][shape] for r in ranks]
+        ok = held(f"cause split, seq {shape[1]} x model {shape[2]} (ranks "
+                  f"0-1)", shape[2], [x for x in res if x is not None])
+        assert all(ok), f"ring (c) seq {shape[1]} x model {shape[2]}: {ok}"
+    for fault in RT_FAULTS:
+        ok = held(f"negative control, {fault} (planted in the ranks)",
+                  RT_MESH[2], [r["train"]["faults"][fault] for r in ranks])
+        assert not all(ok), f"ring (c): the gates missed '{fault}'"
+    for n in launches:
+        launches[n]["(c) a step, per rank (seq, model)"] = [
+            [r["coords"]["seq"], r["coords"]["model"], r["counts"][0][n]]
+            for r in runs]
+    print(f"ring (c) losses sharded {[round(x, 6) for x in runs[0]['losses']]}"
+          f" vs unsharded {[round(x, 6) for x in ref['losses']]}; unsharded "
+          f"step {[round(x * 1e3, 1) for x in ref['step_s']]} ms, peak "
+          f"{ref['peak_gb']:.2f} GB", flush=True)
+    for r in runs:
+        print(f"ring (c) rank {r['coords']}: K1 = K2 = K3 = "
+              f"{r['counts'][0]['K1']} launches a step ({RT_LAYERS} layers x "
+              f"{r['coords']['seq'] + 1} ring steps), plain twins 0; step "
+              f"times {[round(x * 1e3, 1) for x in r['step_s']]} ms, peak "
+              f"memory {r['peak_gb']:.2f} GB", flush=True)
+    print(f"{tag}: {time.perf_counter() - t0:.1f} s in all", flush=True)
+    return dict(launches=launches)
+
+
 # ------------------------------------------------------ integrations
 
 # TinyLlama-1.1B's published config.json (huggingface.co/TinyLlama/
@@ -3159,17 +3757,26 @@ def main() -> int:
     eng_q = phase_engine_quant(torch, cfg, eng)
     torch.cuda.empty_cache()
     phase_parallel(torch, eng, eng_q)
+    # what the kernels line needs; the rest of the engines' and models'
+    # results leave the card before phase_ring's ranks start
+    path_launches = dict(train=train["launches"], decode=eng["launches"],
+                         quant={kind: eng_q[kind]["launches"]
+                                for kind in QUANT_KINDS})
+    del train, eng, eng_q
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring = phase_ring(torch)
 
     rows = [
             ("K1 flash_attn_dense_fwd", dense["K1"], "fwd.cu",
              "flash_attn_v100_tpu/ops/pallas/fwd.py:152",
-             train["launches"]["K1"]),
+             path_launches["train"]["K1"]),
             ("K2 flash_attn_dense_bwd (dq)", dense["K2"], "bwd.cu",
              "flash_attn_v100_tpu/ops/pallas/bwd.py:122",
-             train["launches"]["K2"]),
+             path_launches["train"]["K2"]),
             ("K3 flash_attn_dense_bwd (dk, dv)", dense["K3"], "bwd.cu",
              "flash_attn_v100_tpu/ops/pallas/bwd.py:330",
-             train["launches"]["K3"]),
+             path_launches["train"]["K3"]),
             ("K5 flash_attn_varlen_fwd", varlen["K5"], "fwd.cu",
              "flash_attn_v100_tpu/ops/pallas/varlen.py:289",
              varlen["launches"]["K5"]),
@@ -3181,20 +3788,20 @@ def main() -> int:
              varlen["launches"]["K7"]),
             ("K4 paged_decode_attention", k4, "decode.cu",
              "flash_attn_v100_tpu/ops/pallas/decode.py:72",
-             eng["launches"]["decode"]),
+             path_launches["decode"]["decode"]),
             ("K8 flash_attn_varlen_fwd_paged", k8, "varlen_paged.cu",
              "flash_attn_v100_tpu/ops/pallas/varlen.py:947",
-             eng["launches"]["varlen"])]
+             path_launches["decode"]["varlen"])]
     for kind in QUANT_KINDS:
         rows.append((f"K4q paged_decode_attention ({kind} pool)",
                      quant["K4q"][kind], "decode_quant.cu",
                      "flash_attn_v100_tpu/ops/pallas/decode.py:72",
-                     eng_q[kind]["launches"]["decode"]))
+                     path_launches["quant"][kind]["decode"]))
     for kind in QUANT_KINDS:
         rows.append((f"K8q flash_attn_varlen_fwd_paged ({kind} pool)",
                      quant["K8q"][kind], "varlen_paged_quant.cu",
                      "flash_attn_v100_tpu/ops/pallas/varlen.py:947",
-                     eng_q[kind]["launches"]["varlen"]))
+                     path_launches["quant"][kind]["varlen"]))
     kernels = []
     for name, res, src, replaces, launches in rows:
         row = dict(
@@ -3209,6 +3816,8 @@ def main() -> int:
                     "case_b", "long_context"):
             if key in res:
                 row[key] = res[key]
+        if name[:2] in ring["launches"]:
+            row["ring_launches"] = ring["launches"][name[:2]]
         if "oracle_err" in res:
             row["oracle_err"] = res["oracle_err"]
             row["library"] = "SDPA over the dequantized, pre-gathered KV"

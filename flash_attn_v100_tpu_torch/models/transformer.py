@@ -6,7 +6,9 @@ Parameters are a plain dict with the JAX package's names (`embed`,
 `ln_f`, optional `lm_head`); `params_from_jax` carries a JAX parameter tree
 across.  Training (`forward`, `loss_fn`, `sgd_train_step`,
 `make_train_step`) runs attention through `flash_attn_func` (K1 forward,
-K2/K3 backward); decode through `flash_attn_with_kvcache`.
+K2/K3 backward), or with `mesh=` SPMD over parallel/mesh.py's axes
+through ring attention (parallel/ring.py, the same kernels); decode
+through `flash_attn_with_kvcache`.
 """
 
 from __future__ import annotations
@@ -20,9 +22,13 @@ import torch
 from flash_attn_v100_tpu_torch.config import (
     DeviceLike, as_torch_dtype, resolve_device)
 from flash_attn_v100_tpu_torch.ops.flash_attention import (
-    flash_attn_func, normalize_seed)
+    _attend, flash_attn_func, normalize_seed)
 from flash_attn_v100_tpu_torch.ops.kvcache import flash_attn_with_kvcache
 from flash_attn_v100_tpu_torch.ops.rotary import apply_rotary_emb
+from flash_attn_v100_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, SEQ_AXIS, all_reduce_flat, copy_to_model,
+    local_shard, reduce_from_model, reduce_sum)
+from flash_attn_v100_tpu_torch.parallel.ring import ring_attention_local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,7 +206,6 @@ def param_shardings(params: Dict, cfg: ModelConfig, mesh) -> Dict:
     "model", one block of heads a rank; wo row-sharded (the all-reduce after
     it is paged_forward's); w1/w3 column-, w2 row-sharded; norms, embed and
     an untied lm_head replicated."""
-    from flash_attn_v100_tpu_torch.parallel.mesh import MODEL_AXIS
     del cfg, mesh   # the specs name axes; shard_params checks the sizes
     col, row, rep = (None, MODEL_AXIS), (MODEL_AXIS, None), ()
 
@@ -223,7 +228,6 @@ def shard_params(params: Dict, cfg: ModelConfig, mesh) -> Dict:
     dict) under `param_shardings`, contiguous copies.  The kv heads must
     divide the model axis, so that each rank's q heads find their kv heads
     on the same rank."""
-    from flash_attn_v100_tpu_torch.parallel.mesh import MODEL_AXIS, local_shard
     tp = mesh.shape[MODEL_AXIS]
     if cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.ffn_dim % tp:
         raise ValueError(f"heads {cfg.n_heads}/{cfg.n_kv_heads} and ffn "
@@ -256,50 +260,98 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, mesh=None,
     parameters.  With cfg.dropout_p > 0, layer i's attention dropout is
     keyed by `dropout_seeds[i]` (an (n_layers, 2) array of (lo, hi) words,
     e.g. JAX's key_data(fold_in(rng_key, i))[:2]), else by two words drawn
-    from `generator`."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharded training: ring and "
-                                  "Ulysses attention) comes with the next "
-                                  "port slice")
-    B, S = tokens.shape
+    from `generator`.
+
+    With `mesh` (parallel/mesh.py), SPMD over its (data, seq, model) axes:
+    every rank passes the global `tokens` and its own parameter shard
+    (`shard_params`) and gets its block of the logits, (B / data, S / seq,
+    vocab).  Rotary positions are global; attention is ring attention over
+    "seq" when that axis is over 1 (the JAX package's, which then drops
+    attention dropout), else `flash_attn_func`'s on the rank's heads with
+    the dropout keyed by the global (batch, head) ids; the projections are
+    tensor-parallel over "model" (Megatron's copy / reduce pair)."""
     dev = tokens.device
+    s0, b0, h0 = 0, 0, 0
+    if mesh is not None:
+        tp = mesh.shape[MODEL_AXIS]
+        if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+            raise ValueError(f"heads {cfg.n_heads}/{cfg.n_kv_heads} must "
+                             f"divide the model axis ({tp})")
+        tokens = local_shard(tokens, (DATA_AXIS, SEQ_AXIS), mesh)
+        s0 = mesh.index(SEQ_AXIS) * tokens.shape[1]
+        b0 = mesh.index(DATA_AXIS) * tokens.shape[0]
+        h0 = mesh.index(MODEL_AXIS) * (cfg.n_heads // tp)
+    Bl, m = tokens.shape
     cos, sin = rope_tables(cfg, cfg.max_seq_len, device=dev)
-    pos = torch.arange(S, device=dev)[None, :]
+    pos = (s0 + torch.arange(m, device=dev))[None, :]
     x = params["embed"][tokens]
     for i, lp in enumerate(params["layers"]):
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv_proj(h, lp, cfg, B, S)
+        h = copy_to_model(rmsnorm(x, lp["ln1"], cfg.norm_eps), mesh)
+        q, k, v = qkv_proj(h, lp, cfg, Bl, m)
         q = apply_rotary_emb(q, cos, sin, pos, interleaved=False)
         k = apply_rotary_emb(k, cos, sin, pos, interleaved=False)
         seed = normalize_seed(
             cfg.dropout_p,
             None if dropout_seeds is None else dropout_seeds[i], generator)
-        attn = flash_attn_func(q, k, v, causal=True, dropout_p=cfg.dropout_p,
-                               window_size=cfg.window_size(),
-                               dropout_seed=seed)
-        x = x + attn.reshape(B, S, -1) @ lp["wo"]
-        x = x + mlp(rmsnorm(x, lp["ln2"], cfg.norm_eps), lp)
+        if mesh is None:
+            attn = flash_attn_func(q, k, v, causal=True,
+                                   dropout_p=cfg.dropout_p,
+                                   window_size=cfg.window_size(),
+                                   dropout_seed=seed)
+        elif mesh.shape[SEQ_AXIS] > 1:
+            attn = ring_attention_local(
+                q, k, v, mesh=mesh, axis_name=SEQ_AXIS, causal=True,
+                window_size=cfg.window_size(), batch_offset=b0,
+                head_offset=h0, num_heads_total=cfg.n_heads)
+        else:
+            attn = _attend(q, k, v, cfg.dropout_p, causal=True,
+                           window_size=cfg.window_size(), dropout_seed=seed,
+                           pos_base=(0, 0, b0, h0),
+                           num_heads_total=cfg.n_heads)[0]
+        x = x + reduce_from_model(attn.reshape(Bl, m, -1) @ lp["wo"], mesh)
+        h2 = copy_to_model(rmsnorm(x, lp["ln2"], cfg.norm_eps), mesh)
+        x = x + reduce_from_model(mlp(h2, lp), mesh)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return logits_head(x, params)
 
 
 def loss_fn(params, tokens: torch.Tensor, cfg: ModelConfig, **kw
             ) -> torch.Tensor:
-    """Next-token cross entropy, the mean over B * (S - 1) positions."""
+    """Next-token cross entropy, the mean over B * (S - 1) positions.  With
+    `mesh=`, every rank passes the global tokens (shifted before they are
+    sharded) and gets the global mean."""
+    mesh = kw.get("mesh")
     logits = forward(params, tokens[:, :-1], cfg, **kw)
+    targets = tokens[:, 1:]
+    n = targets.numel()
+    if mesh is not None:
+        targets = local_shard(targets, (DATA_AXIS, SEQ_AXIS), mesh)
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, tokens[:, 1:, None].to(torch.long))[..., 0]
-    return nll.mean()
+    nll = -logp.gather(-1, targets[..., None].to(torch.long))[..., 0]
+    if mesh is None:
+        return nll.mean()
+    return reduce_sum(nll.sum(), mesh, (DATA_AXIS, SEQ_AXIS)) / n
+
+
+def _reduce_grads(grads, mesh) -> None:
+    """A rank's gradients hold its own tokens' part: the sum over "data"
+    and "seq" makes the whole (never over "model": the copy / reduce pair
+    already gives the replicated parameters equal gradients there)."""
+    if mesh is not None:
+        all_reduce_flat(grads, mesh, (DATA_AXIS, SEQ_AXIS))
 
 
 def sgd_train_step(params, tokens: torch.Tensor, cfg: ModelConfig,
                    lr: float = 1e-2, **kw):
     """One plain-SGD step; returns (loss, new_params) with p - lr * g in p's
-    dtype.  `params` is left as it is."""
+    dtype.  `params` is left as it is.  `mesh=` as in loss_fn: each rank
+    updates its own shard."""
     leaves = _map_params(params, lambda t: t.detach().requires_grad_(True))
     flat = param_leaves(leaves)
     loss = loss_fn(leaves, tokens, cfg, **kw)
-    grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
+    grads = torch.autograd.grad(loss, flat)
+    _reduce_grads(grads, kw.get("mesh"))
+    grads = dict(zip(map(id, flat), grads))
     new = _map_params(leaves, lambda t: (t - lr * grads[id(t)].to(t.dtype))
                       .detach())
     return loss.detach(), new
@@ -313,11 +365,10 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None):
     defaults of optax.adamw, unless `optimizer` (leaves -> torch optimizer)
     is given.  `step(params, opt, tokens, dropout_seeds=None,
     generator=None) -> (loss, params, opt)` updates the parameters in
-    place."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharded training: ring and "
-                                  "Ulysses attention) comes with the next "
-                                  "port slice")
+    place.  With `mesh`, every rank passes its parameter shard
+    (`shard_params`) and the global tokens: the gradients are summed over
+    "data" and "seq" before the update, and AdamW, elementwise, updates
+    each shard as the global step would."""
     if optimizer is None:
         def optimizer(leaves):
             return torch.optim.AdamW(leaves, lr=3e-4, weight_decay=0.01)
@@ -327,9 +378,10 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None):
 
     def step(params, opt, tokens, dropout_seeds=None, generator=None):
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, cfg, dropout_seeds=dropout_seeds,
-                       generator=generator)
+        loss = loss_fn(params, tokens, cfg, mesh=mesh,
+                       dropout_seeds=dropout_seeds, generator=generator)
         loss.backward()
+        _reduce_grads([t.grad for t in param_leaves(params)], mesh)
         opt.step()
         return loss.detach(), params, opt
 

@@ -46,6 +46,10 @@ class _Cfg:
     softmax_scale: float
     params: masklib.MaskParams
     dropout_p: float
+    # the dropout keying's global (row, col, batch, head) bases and head
+    # count, for a caller holding a shard of the batch or heads
+    pos_base: Optional[Tuple[int, int, int, int]] = None
+    num_heads_total: Optional[int] = None
 
 
 class _FlashAttnFn(torch.autograd.Function):
@@ -53,7 +57,8 @@ class _FlashAttnFn(torch.autograd.Function):
     def forward(ctx, q, k, v, slopes, seed, cfg: _Cfg):
         out, lse = flash_attn_dense_fwd(
             q, k, v, cfg.softmax_scale, cfg.params, alibi_slopes=slopes,
-            dropout_p=cfg.dropout_p, dropout_seed=seed)
+            dropout_p=cfg.dropout_p, dropout_seed=seed,
+            pos_base=cfg.pos_base, num_heads_total=cfg.num_heads_total)
         ctx.save_for_backward(q, k, v, out, lse, slopes, seed)
         ctx.cfg = cfg
         ctx.set_materialize_grads(False)
@@ -68,7 +73,8 @@ class _FlashAttnFn(torch.autograd.Function):
         dq, dk, dv = flash_attn_dense_bwd(
             q, k, v, out, dout.contiguous(), lse, cfg.softmax_scale,
             cfg.params, alibi_slopes=slopes, dropout_p=cfg.dropout_p,
-            dropout_seed=seed, dlse=dlse)
+            dropout_seed=seed, dlse=dlse, pos_base=cfg.pos_base,
+            num_heads_total=cfg.num_heads_total)
         return dq, dk, dv, None, None, None
 
 
@@ -114,10 +120,34 @@ def flash_attn_func(
     """Dense flash attention, (B, M, H, D) -> (B, M, H, D); differentiable
     in q, k and v.  With `return_attn_probs` returns (out, lse, dmask)."""
     del deterministic  # always deterministic (module docstring)
+    out, lse, seed = _attend(q, k, v, dropout_p, softmax_scale, causal,
+                             window_size, softcap, alibi_slopes,
+                             dropout_seed, generator)
+    if return_attn_probs:
+        B, M, Hq, _ = q.shape
+        dmask = None
+        if dropout_p > 0.0:
+            keep = torch.stack([dense_keep_mask(b, Hq, M, k.shape[1],
+                                                dropout_p, seed,
+                                                device=q.device)
+                                for b in range(B)])
+            dmask = torch.where(keep, 1.0, -1.0).to(q.dtype)
+        return out, lse, dmask
+    return out
+
+
+def _attend(q, k, v, dropout_p=0.0, softmax_scale=None, causal=False,
+            window_size=(-1, -1), softcap=0.0, alibi_slopes=None,
+            dropout_seed=None, generator=None, pos_base=None,
+            num_heads_total=None):
+    """flash_attn_func's checks and autograd call -> (out, lse, seed).
+    `pos_base` / `num_heads_total` key the dropout by global (batch, head)
+    ids, for a caller that holds a shard of the heads or the batch (the
+    sharded model forward)."""
     if softcap > 0.0 and dropout_p > 0.0:
         raise ValueError("softcap and dropout are mutually exclusive")
     B, M, Hq, D = q.shape
-    N, Hk = k.shape[1], k.shape[2]
+    Hk = k.shape[2]
     if Hq % Hk != 0:
         raise ValueError("number of q heads must be divisible by number of "
                          "kv heads")
@@ -132,15 +162,8 @@ def flash_attn_func(
               else slopes_bh(alibi_slopes, B, Hq, q.device))
     seed = normalize_seed(dropout_p, dropout_seed, generator)
     cfg = _Cfg(softmax_scale=float(softmax_scale), params=params,
-               dropout_p=float(dropout_p))
+               dropout_p=float(dropout_p),
+               pos_base=None if pos_base is None else tuple(pos_base),
+               num_heads_total=num_heads_total)
     out, lse = _FlashAttnFn.apply(q, k, v, slopes, seed, cfg)
-
-    if return_attn_probs:
-        dmask = None
-        if dropout_p > 0.0:
-            keep = torch.stack([dense_keep_mask(b, Hq, M, N, dropout_p, seed,
-                                                device=q.device)
-                                for b in range(B)])
-            dmask = torch.where(keep, 1.0, -1.0).to(q.dtype)
-        return out, lse, dmask
-    return out
+    return out, lse, seed

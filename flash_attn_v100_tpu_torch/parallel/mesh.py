@@ -5,7 +5,8 @@ shard, every rank running the same Python on its own local tensors, with
 explicit collectives on one process group per mesh axis.  Axis convention:
 
   "data"  — batch (data parallel; no collective inside attention)
-  "seq"   — KV / context sharding (the LSE merge of parallel/sharded.py)
+  "seq"   — KV / context sharding (the LSE merge of parallel/sharded.py,
+            the ring's shifts and Ulysses' all-to-alls of parallel/ring.py)
   "model" — attention heads (tensor parallel; an all-reduce after the
             o-projection and the MLP's down projection)
 
@@ -16,7 +17,7 @@ process group at all.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -155,3 +156,181 @@ def broadcast(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     if mesh.group is not None:
         dist.broadcast(t, src=src, group=mesh.group)
     return t
+
+
+# elements of one flat buffer of `all_reduce_flat` (256 MiB in fp32)
+_BUCKET_NUMEL = 1 << 26
+
+
+def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh: Mesh,
+                    axes: Sequence[str]) -> None:
+    """Sum each of `tensors` in place over the ranks of this rank's plane
+    of `axes`, through a few flat buffers of at most `_BUCKET_NUMEL`
+    elements (one dtype and device each) rather than a collective a
+    tensor."""
+    axes = [ax for ax in axes if mesh.groups[ax] is not None]
+    if not axes:
+        return
+    buckets: Dict[tuple, List[List[torch.Tensor]]] = {}
+    for t in tensors:
+        key = (t.dtype, t.device)
+        runs = buckets.setdefault(key, [[]])
+        if runs[-1] and (sum(x.numel() for x in runs[-1]) + t.numel()
+                         > _BUCKET_NUMEL):
+            runs.append([])
+        runs[-1].append(t)
+    for runs in buckets.values():
+        for run in runs:
+            flat = torch.cat([t.reshape(-1) for t in run])
+            for ax in axes:
+                all_reduce(flat, mesh, ax)
+            for t, part in zip(run, flat.split([t.numel() for t in run])):
+                t.copy_(part.view_as(t))
+
+
+def _staged(t: torch.Tensor, g) -> bool:
+    """gloo's point-to-point takes host buffers only (given a CUDA tensor,
+    its TCP transport aborts the process: "writev ... Bad address", on an
+    H100 with torch 2.11), so `ring_shift` stages CUDA tensors through the
+    host for it; its all-reduce, broadcast and all-to-all take them as
+    they are.  The kernels run on the card either way."""
+    return t.is_cuda and dist.get_backend(g) == "gloo"
+
+
+class _Shift:
+    """A ring shift in flight; `wait()` returns the received tensors.  It
+    holds the packed send buffer until then."""
+
+    def __init__(self, works, sent, recv, shapes, device):
+        self.works, self.sent, self.recv = works, sent, recv
+        self.shapes, self.device = shapes, device
+
+    def wait(self) -> List[torch.Tensor]:
+        for w in self.works:
+            w.wait()
+        flat = self.recv.to(self.device)
+        parts = flat.split([int(np.prod(s)) for s in self.shapes])
+        return [p.view(s) for p, s in zip(parts, self.shapes)]
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+               tag: int = 0) -> _Shift:
+    """Start sending `tensors` (one dtype and device) to the next rank of
+    this rank's `axis` line and receiving the previous rank's, as JAX's
+    `ppermute` with perm [(i, (i + 1) % n)]: one message of the tensors
+    packed together, sent and received by one `batch_isend_irecv`, so that
+    neighbours never wait on each other.  The packed copy is what is in
+    flight, so the caller may reuse `tensors` at once.  Returns a handle
+    whose `wait()` gives the received tensors; an axis of size 1 returns
+    them as they are."""
+    shapes = [t.shape for t in tensors]
+    dev = tensors[0].device
+    g = mesh.groups[axis]
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    if g is None:
+        return _Shift([], flat, flat, shapes, dev)
+    if _staged(flat, g):
+        flat = flat.cpu()
+    line = np.moveaxis(mesh.ranks, AXES.index(axis), -1)[
+        tuple(mesh.coords[a] for a in AXES if a != axis)]
+    i, n = mesh.index(axis), len(line)
+    recv = torch.empty_like(flat)
+    ops = [dist.P2POp(dist.isend, flat, int(line[(i + 1) % n]), g, tag),
+           dist.P2POp(dist.irecv, recv, int(line[(i - 1) % n]), g, tag)]
+    return _Shift(dist.batch_isend_irecv(ops), flat, recv, shapes, dev)
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """JAX's `all_to_all(x, axis, split_axis, concat_axis, tiled=True)`
+    over this rank's `axis` line: `x` cut into n blocks along
+    `split_axis`, block j sent to the line's rank j, the n blocks received
+    joined along `concat_axis` in rank order.  Differentiable: its adjoint
+    is the all-to-all with the two axes swapped.  Identity on an axis of
+    size 1."""
+    if mesh.groups[axis] is None:
+        return x
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
+
+
+def _all_to_all(x, mesh, axis, split_axis, concat_axis):
+    g = mesh.groups[axis]
+    n = mesh.shape[axis]
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dimension {split_axis} ({x.shape[split_axis]}) "
+                         f"does not divide the {axis!r} axis ({n})")
+    send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=g)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return _all_to_all(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return (_all_to_all(dy, mesh, axis, concat_axis, split_axis),
+                None, None, None, None)
+
+
+# ---- tensor parallelism (Megatron's pair) and sums with a gradient ----
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient summed over "model" in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return all_reduce(dy.contiguous().clone(), ctx.mesh, MODEL_AXIS), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Sum over `axes` forward; the gradient passes through unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        y = x.contiguous().clone()
+        for ax in axes:
+            all_reduce(y, mesh, ax)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Megatron's "copy to the model-parallel region": `x` as it is, its
+    gradient summed over "model" (the input of a column-sharded
+    projection, whose ranks each give a part of the gradient).  Identity
+    without a mesh or a model axis."""
+    if mesh is None or mesh.groups[MODEL_AXIS] is None:
+        return x
+    return _CopyTo.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Optional[Mesh]
+                      ) -> torch.Tensor:
+    """Megatron's "reduce from the model-parallel region": the sum over
+    "model" of a row-sharded projection's partial outputs, its gradient
+    passed to each rank as it is.  Identity without a mesh."""
+    return x if mesh is None else reduce_sum(x, mesh, (MODEL_AXIS,))
+
+
+def reduce_sum(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
+               ) -> torch.Tensor:
+    """`x` summed over the ranks of this rank's plane of `axes`, with the
+    gradient passed through: each rank's backward then gives its own part
+    of the parameters' gradients (as for a loss summed over the "data" and
+    "seq" shards of a batch)."""
+    axes = tuple(ax for ax in axes if mesh.groups[ax] is not None)
+    return _ReduceFrom.apply(x, mesh, axes) if axes else x

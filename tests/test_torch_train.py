@@ -3,7 +3,8 @@ forward, loss_fn) against the JAX package's, on ModelConfig.tiny() (fp32,
 2 layers) with the same weights (params_from_jax) and the same tokens
 (2, 33).  Attention runs through K1-K3's plain versions here and through the
 Pallas kernels in interpret mode on the JAX side.  The optimizer steps are
-in test_torch_train_steps.py.
+in test_torch_train_steps.py, the sharded ones (mesh=) in
+test_torch_parallel_train*.py.
 
 Tolerances (fp32): logits 1e-4, loss 1e-5, gradients 1e-4."""
 
@@ -82,12 +83,22 @@ def test_forward_dropout_matches_jax_seeds(setup):
 
 
 def test_training_entry_points_reject_mesh(setup):
+    """forward / loss_fn and make_train_step take `mesh=`
+    (test_torch_parallel_train*.py hold them to JAX) and refuse a model
+    axis that the kv heads do not divide, as JAX's partition specs do
+    (test_torch_parallel_ring_errors.py holds the two refusals side by
+    side): seq 2 x model 4 with 2 kv heads, before any collective (a
+    one-process mesh standing at rank 0 of the 8-rank grid)."""
+    from flash_attn_v100_tpu_torch.parallel.mesh import Mesh
     params_j, tokens = setup
-    with pytest.raises(NotImplementedError):
-        tt.forward(_torch_params(params_j), torch.from_numpy(tokens), CFG_T,
-                   mesh=object())
-    with pytest.raises(NotImplementedError):
-        tt.make_train_step(CFG_T, mesh=object())
+    mesh = Mesh(np.arange(8).reshape(1, 2, 4), 0,
+                {"data": None, "seq": None, "model": None})
+    params_t = _torch_params(params_j, requires_grad=True)
+    with pytest.raises(ValueError, match="divide the model axis"):
+        tt.forward(params_t, torch.from_numpy(tokens), CFG_T, mesh=mesh)
+    step, init_opt = tt.make_train_step(CFG_T, mesh=mesh)
+    with pytest.raises(ValueError, match="divide the model axis"):
+        step(params_t, init_opt(params_t), torch.from_numpy(tokens))
 
 
 def test_rope_tables_match_jax_on_the_named_device():

@@ -15,6 +15,7 @@ the JAX package.  The inputs are numpy arrays made from seeds by the
 
 from __future__ import annotations
 
+import importlib
 import pickle
 import time
 from pathlib import Path
@@ -38,26 +39,39 @@ SPAWN_TIMEOUT_S = 120
 
 
 def spawn(body: str, world: int, tmp_path: Path, inputs=None) -> list:
-    """Run the rank body named `body` on `world` gloo ranks; returns the
+    """Run the rank body named `body` (a function of this module, or
+    "module.function" of another) on `world` gloo ranks; returns the
     ranks' results in rank order.  A rank that raises fails the spawn."""
-    tmp_path = Path(tmp_path)
-    with open(tmp_path / "inputs.pkl", "wb") as f:
-        pickle.dump(inputs, f)
-    ctx = mp.start_processes(
-        _rank_main, args=(world, str(tmp_path), body), nprocs=world,
-        join=False, start_method="spawn")
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    while not ctx.join(timeout=1):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"{body} on {world} ranks took over "
-                               f"{SPAWN_TIMEOUT_S} s")
-    out = []
-    for r in range(world):
-        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
-            out.append(pickle.load(f))
-    return out
+    return Spawned(body, world, tmp_path, inputs).results()
+
+
+class Spawned:
+    """`spawn` in two halves: the ranks start at construction, and
+    `results()` waits for them, so the caller can work meanwhile (the
+    JAX side of a test file)."""
+
+    def __init__(self, body: str, world: int, tmp_path: Path, inputs=None):
+        self.body, self.world = body, world
+        self.tmp_path = Path(tmp_path)
+        with open(self.tmp_path / "inputs.pkl", "wb") as f:
+            pickle.dump(inputs, f)
+        self.ctx = mp.start_processes(
+            _rank_main, args=(world, str(self.tmp_path), body),
+            nprocs=world, join=False, start_method="spawn")
+        self.deadline = time.monotonic() + SPAWN_TIMEOUT_S
+
+    def results(self) -> list:
+        while not self.ctx.join(timeout=1):
+            if time.monotonic() > self.deadline:
+                for p in self.ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{self.body} on {self.world} ranks took "
+                                   f"over {SPAWN_TIMEOUT_S} s")
+        out = []
+        for r in range(self.world):
+            with open(self.tmp_path / f"rank{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
 
 
 def _rank_main(rank: int, world: int, tmp: str, body: str) -> None:
@@ -67,7 +81,9 @@ def _rank_main(rank: int, world: int, tmp: str, body: str) -> None:
     try:
         with open(f"{tmp}/inputs.pkl", "rb") as f:
             inputs = pickle.load(f)
-        res = globals()[body](inputs)
+        mod, _, name = body.rpartition(".")
+        res = (getattr(importlib.import_module(mod), name) if mod
+               else globals()[name])(inputs)
         dist.barrier()
     finally:
         dist.destroy_process_group()
