@@ -53,8 +53,17 @@ attention at the headline head shape over seq 4 (contiguous, zigzag, and
 with a window; forward and backward) against the fp32 oracle, Ulysses
 bit for bit against the unsharded kernels, and make_train_step(mesh=) at
 TinyLlama width on seq 2 x model 2 against the unsharded run, with each
-rank's K1-K3 launch counts.  Prints the card, a
-`kernels` JSON line, and as its last line
+rank's K1-K3 launch counts.  Then the cost probes P1-P4 (`phase_probes`,
+run after the quantized kernels): each probe variant's SASS holds the
+tensor-core (HGMMA) and exp2 (MUFU.EX2) instructions its stages claim,
+the four probe scripts (`python -m flash_attn_v100_tpu_torch.benchmarks.*`)
+run as the probes' main path, and every variant is held against its plain
+twin at the TPU scripts' shapes and timed in turns beside SDPA (P1-P3) or
+torch._int_mm (P4).  Last, `phase_bench` runs the port's bench
+(`python -m flash_attn_v100_tpu_torch.bench`: its headline JSON line must
+carry a value > 0) and the three examples as subprocesses on the card
+(train_seq_parallel on 2 gloo ranks).  Prints the card, a `kernels` JSON
+line, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 Any failed phase raises and the script exits non-zero; with no GPU, or
 without the package beside it, it exits non-zero and prints no result.
@@ -91,6 +100,7 @@ each pool's decode tok/s and TTFT p50 with their medians and quartiles.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -102,6 +112,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 SEED = 0
+BENCH_TIMEOUT_S = 480         # the port's bench in phase_bench
+EXAMPLE_TIMEOUT_S = 180
 
 
 def card_line() -> str:
@@ -3312,6 +3324,274 @@ def profile_decode(torch, eng, cfg, prompt_len=64, n_new=25):
     return res
 
 
+# ------------------------------------------------- P1-P4 (cost probes)
+
+PROBE_SHAPES = {
+    # (B, Hq, Hk, M, N): the 3-D variants run (B * Hq, M, D) heads
+    "P1 own": (1, 1, 1, 1024, 16384),     # one 1024-row block, 16 tiles
+    "P2": (4, 32, 8, 4096, 4096),         # K1's headline heads, non-causal
+    "P3": (1, 128, 32, 4096, 4096),       # BH 128, kv heads BH / 4
+}
+INT4_LARGE = 4096
+S4_PEAK = "none listed"   # the H100 data sheet lists no int4 rate
+PROBE_ROUNDS, PROBE_REPS = 3, 10
+
+
+def probe_replaces(suite: str, probe) -> str:
+    """The TPU kernel a probe variant replaces, by the features it has."""
+    if suite == "P1":
+        return f"benchmarks/prof_softmax_cost.py:{118 if probe.wide else 25}"
+    if suite == "P2":
+        line = 200 if probe.strided else 147 if probe.pairs else (
+            91 if probe.lse else 52)
+        return f"benchmarks/prof_fwd_gap.py:{line}"
+    line = 129 if probe.dynamic else 171 if probe.branches else 53
+    return f"benchmarks/prof_small_streams.py:{line}"
+
+
+def probe_cases(probes):
+    """(suite, name, probe, shape key) of every row: P1's variants at its
+    own shape and at P2's, P2's and P3's at theirs."""
+    cases = [("P1", n, p, "P1 own") for n, p in probes.P1_VARIANTS.items()]
+    cases += [("P1", n, p, "P2") for n, p in probes.P1_VARIANTS.items()]
+    cases += [("P2", n, p, "P2") for n, p in probes.P2_VARIANTS.items()]
+    cases += [("P3", n, p, "P3") for n, p in probes.P3_VARIANTS.items()]
+    return cases
+
+
+def run_probe_scripts(torch):
+    """The probes' main path: the four `python -m` scripts' main()s in this
+    process, the launch counts reset just before and read just after."""
+    from flash_attn_v100_tpu_torch.benchmarks import (
+        prof_fwd_gap, prof_int4_native, prof_small_streams,
+        prof_softmax_cost)
+    from flash_attn_v100_tpu_torch.ops.cuda import probe_int4 as p4
+    from flash_attn_v100_tpu_torch.ops.cuda import probes
+
+    probes.flash_step.launches = 0
+    probes.flash_step.variant_launches = {}
+    p4.int4_matmul.launches = p4.int8_int4_matmul.launches = 0
+    probes.flash_step_ref.calls = 0
+    t0 = time.perf_counter()
+    for script in (prof_softmax_cost, prof_fwd_gap, prof_small_streams,
+                   prof_int4_native):
+        script.main()
+    torch.cuda.synchronize()
+    launches = dict(variants=dict(probes.flash_step.variant_launches),
+                    int4=p4.int4_matmul.launches,
+                    int8=p4.int8_int4_matmul.launches)
+    # (P4's script checks its products against the twin, as the TPU
+    # script against numpy)
+    assert probes.flash_step_ref.calls == 0, "a probe script ran the twin"
+    print(f"probe scripts: {time.perf_counter() - t0:.1f} s, launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def phase_probes(torch, flush):
+    """P1-P3 (csrc/probes.cu) and P4 (csrc/probe_int4.cu): each variant's
+    SASS holds the tensor-core and exp2 instructions its stages claim;
+    every variant against its plain twin at its shapes (out rows within 2
+    bf16 ulps of the row's largest |out|, LSE 1e-5 relative, NaN / inf
+    masks equal; P4 exactly), timed beside its twin, SDPA (the full
+    function at P2's shape) or torch._int_mm (P4) and its bound; the four
+    probe scripts run as their main path."""
+    import re
+
+    from flash_attn_v100_tpu_torch.benchmarks import common
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    from flash_attn_v100_tpu_torch.ops.cuda import probe_int4 as p4
+    from flash_attn_v100_tpu_torch.ops.cuda import probes
+
+    counts = probes.sass_counts()
+    for flags in probes.VARIANT_FLAGS:
+        probe = next(p for d in (probes.P1_VARIANTS, probes.P2_VARIANTS,
+                                 probes.P3_VARIANTS)
+                     for p in d.values() if p.flags == flags)
+        c, (ss, rs) = counts[flags], probes.expected_hgmma(probe)
+        print(f"probe SASS F={flags:5d} {'+'.join(probe.stages) or 'qk'}: "
+              f"HGMMA ss {c['hgmma_ss']} (S; {ss} claimed), rs "
+              f"{c['hgmma_rs']} (P V; {rs}), MUFU.EX2 {c['ex2']} (>= "
+              f"{probes.expected_ex2(probe)}); {probes.occupancy(probe)}",
+              flush=True)
+        assert (c["hgmma_ss"], c["hgmma_rs"]) == (ss, rs), \
+            f"F={flags}: tensor-core work deleted or duplicated"
+        assert c["ex2"] >= probes.expected_ex2(probe), \
+            f"F={flags}: exp2 work deleted"
+    sass4 = subprocess.run(
+        [str(build.Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
+         str(build.library_path("probe_int4"))], capture_output=True,
+        text=True, check=True, timeout=300).stdout
+    imma = {k: sass4.count(k) for k in sorted(set(re.findall(
+        r"IMMA\.\S+", sass4)))}
+    print(f"probe_int4 SASS tensor-core instructions: {imma} (an s4 IMMA "
+          f"{'present' if any('S4' in k for k in imma) else 'absent'})",
+          flush=True)
+
+    launches = run_probe_scripts(torch)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    data, cases, sdpa_ms = {}, [], {}
+    for suite, name, probe, key in probe_cases(probes):
+        B, Hq, Hk, M, N = PROBE_SHAPES[key]
+        if key not in data:
+            data[key] = [torch.randn((B * h, n, 128), generator=gen,
+                                     device=dev).to(torch.bfloat16)
+                         for h, n in ((Hq, M), (Hk, N), (Hk, N))]
+        q, k, v = common.operands(probe, *data[key], B)
+        kw = common.stream_kwargs(probe, M, N, dev)
+        scale = probes.SCALE if suite == "P1" else probes.SCALE_LOG2
+        pairs = (probes.rect_pairs(M // probes.BLOCK_Q, N // probe.bk)
+                 if probe.pairs else None)
+        call = functools.partial(probes.flash_step, q, k, v, probe, scale,
+                                 **kw)
+        twin = functools.partial(probes.flash_step_ref, q, k, v, probe,
+                                 scale, bk=probe.bk, pairs=pairs, **kw)
+        out = call()
+        torch.cuda.synchronize()
+        ref = twin()
+        res = (probes.compare(out[0], ref[0], out[1], ref[1]) if probe.lse
+               else probes.compare(out, ref))
+        del out, ref
+        assert res["ok"], f"{suite} {name} at {key}: {res}"
+        plain_ms = time_ms(torch, twin, reps=2, warmup=0)
+        library_ms = None
+        if probe.full and key != "P1 own":
+            if key not in sdpa_ms:
+                qs, ks, vs = (x.view(B, -1, *x.shape[-2:])
+                              for x in data[key])
+                sdpa_ms[key] = time_ms(
+                    torch, lambda: torch.nn.functional.
+                    scaled_dot_product_attention(qs, ks, vs,
+                                                 enable_gqa=True),
+                    reps=PROBE_REPS)
+            library_ms = sdpa_ms[key]
+        flops, nbytes = probes.work(probe, B * Hq, B * Hk, M, N)
+        bms, by = bound_ms(nbytes, flops)
+        n_launch = launches["variants"].get(probe.flags, 0)
+        assert n_launch > 0, f"{suite} {name}: no launch on the probe path"
+        cases.append((call, dict(
+            name=f"{suite} {name} ({key} shape)", suite=suite,
+            flags=probe.flags, source="probes.cu",
+            replaces=probe_replaces(suite, probe), launches=n_launch,
+            max_abs_err=res["max_abs_err"], gate=res["gate"],
+            row_ratio=res["ratio"], lse_rel=res["lse_rel"],
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+            bound_by=by,
+            shape=dict(zip("B Hq Hk M N".split(), PROBE_SHAPES[key])),
+            sass=counts[probe.flags])))
+    # every variant timed in turns: PROBE_ROUNDS rounds of PROBE_REPS
+    # launches each (CUDA events around each), the median of the rounds'
+    # medians; the spread shows the card's drift
+    for _ in range(PROBE_ROUNDS):
+        for call, row in cases:
+            row.setdefault("ms_repeats", []).append(
+                time_ms(torch, call, reps=PROBE_REPS))
+    rows = []
+    for _, row in cases:
+        row["ms"] = statistics.median(row["ms_repeats"])
+        print(f"{row['name']}: kernel {row['ms']:.4f} ms (rounds "
+              f"{min(row['ms_repeats']):.4f}-{max(row['ms_repeats']):.4f}), "
+              f"plain {row['plain_ms']:.1f} ms, sdpa {row['library_ms']}, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); out err "
+              f"{row['max_abs_err']:.3e} (row err/gate {row['row_ratio']:.2f}"
+              f", gate 2 bf16 ulps of the row's top), lse rel "
+              f"{row['lse_rel']:.2e}, non-finite masks equal", flush=True)
+        rows.append(row)
+    del data
+    torch.cuda.empty_cache()
+
+    # P4: exact at the TPU script's shape, timed at 4096^3
+    from flash_attn_v100_tpu_torch.benchmarks import prof_int4_native
+    small = prof_int4_native.operands(dev, 128, 256, 128)
+    large = prof_int4_native.operands(dev, INT4_LARGE, INT4_LARGE,
+                                      INT4_LARGE)
+    lib_a, lib_b = large[0], p4.unpack_int4(large[1])
+    library_ms = time_ms(torch, lambda: torch._int_mm(lib_a, lib_b.t()),
+                         flush=flush)
+    for name, fn, twin_fn, pack in (
+            ("int4xint4", p4.int4_matmul, p4.int4_matmul_ref, True),
+            ("int8xint4", p4.int8_int4_matmul, p4.int8_int4_matmul_ref,
+             False)):
+        errs = []
+        for q8, kp in (small, large):
+            a = p4.pack_int4(q8) if pack else q8
+            out = fn(a, kp)
+            torch.cuda.synchronize()
+            errs.append(int((out - twin_fn(a, kp)).abs().max()))
+        assert errs == [0, 0], f"P4 {name}: not exact {errs}"
+        a = p4.pack_int4(large[0]) if pack else large[0]
+        ms = time_ms(torch, lambda: fn(a, large[1]), flush=flush)
+        small_a = p4.pack_int4(small[0]) if pack else small[0]
+        small_ms = graph_ms(torch, lambda: fn(small_a, small[1]))
+        plain_ms = time_ms(torch, lambda: twin_fn(a, large[1]), reps=5)
+        ops, nbytes = p4.work(INT4_LARGE, INT4_LARGE, INT4_LARGE,
+                              4 if pack else 8)
+        if pack:   # no int4 rate to bound the operations by
+            bms, by = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+            s8_bound = bound_ms(nbytes, ops, INT8_OPS_PER_S)[0]
+        else:
+            bms, by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+            s8_bound = bms
+        n_launch = launches["int4" if pack else "int8"]
+        assert n_launch > 0, f"P4 {name}: no launch on the probe path"
+        print(f"P4 {name}: exact at 128x256x128 and {INT4_LARGE}^3; "
+              f"{INT4_LARGE}^3 kernel {ms:.4f} ms ({ops / ms / 1e9:.0f} "
+              f"TOP/s), plain {plain_ms:.3f} ms, torch._int_mm on the int8 "
+              f"unpacked operands {library_ms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}; at the int8 rate {s8_bound:.4f}); 128x256x128 "
+              f"{small_ms * 1e3:.2f} us as a graph replay", flush=True)
+        rows.append(dict(
+            name=f"P4 {name} ({INT4_LARGE}^3)", suite="P4",
+            source="probe_int4.cu",
+            replaces="benchmarks/prof_int4_native.py:20",
+            launches=n_launch, max_abs_err=0.0, gate=0.0, ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+            bound_by=by, bound_ms_int8_rate=s8_bound,
+            ops_peak=S4_PEAK if pack else "1979 TOP/s int8",
+            small_graph_ms=small_ms, sass_imma=imma))
+    return rows
+
+
+def phase_bench(torch):
+    """The port's bench (`python -m flash_attn_v100_tpu_torch.bench`) and
+    the three examples, each a subprocess on the card: the bench must exit
+    0 with its JSON line's value > 0, each example 0 with its shapes
+    printed; train_seq_parallel spawns 2 gloo ranks sharing the card."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "flash_attn_v100_tpu_torch.bench"],
+                       capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    for line in r.stderr.strip().splitlines()[-40:]:
+        print(f"bench stderr: {line}", flush=True)
+    head = [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{") and '"metric"' in ln]
+    assert r.returncode == 0, f"bench exited {r.returncode}: {r.stdout[-2000:]}"
+    assert head and head[-1]["value"] > 0, f"bench printed {r.stdout!r}"
+    print(f"bench: {json.dumps(head[-1])} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    want = {"attention_basics": ["dense: (2, 256, 8, 64)",
+                                 "varlen: (436, 8, 64) -> (2, 256, 8, 64)",
+                                 "decode: (2, 1, 8, 64)"],
+            "serve_engine": ["native C++ scheduler: True",
+                             "{0: 24, 1: 24, 2: 24, 3: 24, 4: 24, 5: 24}"],
+            "train_seq_parallel": ["'seq': 2", "global dq: (2, 1024, 8, 64) "
+                                   "finite: True"]}
+    secs = {}
+    for name, lines in want.items():
+        t1 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", f"flash_attn_v100_tpu_torch.examples.{name}"],
+            capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+        secs[name] = time.perf_counter() - t1
+        assert r.returncode == 0, f"{name} exited {r.returncode}: {r.stderr[-2000:]}"
+        for want_line in lines:
+            assert want_line in r.stdout, f"{name}: no {want_line!r} in {r.stdout!r}"
+        print(f"example {name} ({secs[name]:.1f} s): "
+              f"{' | '.join(r.stdout.strip().splitlines())}", flush=True)
+    return dict(headline=head[-1], bench_s=time.perf_counter() - t0,
+                example_s=secs)
+
+
 # --------------------------------------------- dense kernels, two trees
 
 def digest(torch, *tensors) -> str:
@@ -3743,6 +4023,8 @@ def main() -> int:
     for kind in QUANT_KINDS:
         quant["K8q"][kind]["occupancy"] = k8["quant_occupancy"][kind]
         quant["K4q"][kind]["occupancy"] = k4["quant_occupancy"][kind]
+    probes = phase_probes(torch, flush)
+    torch.cuda.empty_cache()
     del flush
     from flash_attn_v100_tpu_torch import ModelConfig
     cfg = ModelConfig.tinyllama_1b()
@@ -3766,6 +4048,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ring = phase_ring(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench = phase_bench(torch)
 
     rows = [
             ("K1 flash_attn_dense_fwd", dense["K1"], "fwd.cu",
@@ -3822,6 +4107,25 @@ def main() -> int:
             row["oracle_err"] = res["oracle_err"]
             row["library"] = "SDPA over the dequantized, pre-gathered KV"
         kernels.append(row)
+    for res in probes:
+        row = dict(name=res["name"], route="cuda",
+                   source=f"flash_attn_v100_tpu_torch/csrc/{res['source']}",
+                   replaces=res["replaces"], launches=res["launches"],
+                   max_abs_err=res["max_abs_err"],
+                   max_abs_err_gate=res["gate"], ms=res["ms"],
+                   plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+                   bound_by=res["bound_by"], library_ms=res["library_ms"])
+        for key in ("ms_repeats", "row_ratio", "lse_rel", "shape", "sass",
+                    "flags", "bound_ms_int8_rate", "ops_peak",
+                    "small_graph_ms", "sass_imma"):
+            if key in res:
+                row[key] = res[key]
+        if res["library_ms"] is not None:
+            row["library"] = ("torch._int_mm on the int8-unpacked operands"
+                              if res["suite"] == "P4" else
+                              "SDPA, enable_gqa, non-causal")
+        kernels.append(row)
+    print(f"bench headline: {json.dumps(bench['headline'])}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build "
           f"on", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -31,7 +31,8 @@ BUILD_DIR = PKG_ROOT / "build"
 SOURCES = {"decode": "decode.cu", "varlen_paged": "varlen_paged.cu",
            "fwd": "fwd.cu", "bwd": "bwd.cu",
            "decode_quant": "decode_quant.cu",
-           "varlen_paged_quant": "varlen_paged_quant.cu"}
+           "varlen_paged_quant": "varlen_paged_quant.cu",
+           "probes": "probes.cu", "probe_int4": "probe_int4.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -96,6 +97,19 @@ SIGNATURES = {
         # (kind, dtype, D, extra, int out[5]): occupancy of K8q
         "fa_varlen_paged_quant_occupancy": ([_I, _I, _I, _I, _P], _I),
     },
+    # P1-P3: (flags, q, k, v, out, lse, strides[14], B, Hq, Hk, M, N,
+    # key tiles, trip, pairs, n_pairs, 3 q-side, 3 k-side, qseg, kseg,
+    # scale, stream)
+    "probes": {
+        "fa_probe_launch": ([_I] + [_P] * 6 + [_I] * 6 + [_P] * 2 + [_I]
+                            + [_P] * 8 + [_F, _P], _I),
+        # (flags, int out[4]): registers, local bytes, shared bytes, blocks
+        "fa_probe_occupancy": ([_I, _P], _I),
+    },
+    # P4: (kind, a, b, c, M, N, K, stream)
+    "probe_int4": {
+        "fa_int4_mma_launch": ([_I, _P, _P, _P, _I, _I, _I, _P], _I),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -120,6 +134,11 @@ def _lib_path(name: str) -> Path:
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def library_path(name: str) -> Path:
+    """Where library `name` of the current sources is (or will be) built."""
+    return _lib_path(name)
 
 
 def _start(name: str):

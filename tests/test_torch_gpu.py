@@ -1787,3 +1787,113 @@ def test_four_shard_merge_matches_unsharded_decode(cuda, monkeypatch):
     torch.testing.assert_close(lm[..., 0], lse, rtol=0, atol=1e-4)
     assert torch.equal(torch.cat([k for k, _ in shards], 2), ref_k)
     assert torch.equal(torch.cat([v for _, v in shards], 2), ref_v)
+
+
+# ------------------------------------------------- P1-P4 (cost probes)
+
+from flash_attn_v100_tpu_torch.ops.cuda import probe_int4 as p4  # noqa: E402
+from flash_attn_v100_tpu_torch.ops.cuda import probes  # noqa: E402
+
+PROBE_VARIANTS = {f"{suite} {name}": probe for suite, d in (
+    ("P1", probes.P1_VARIANTS), ("P2", probes.P2_VARIANTS),
+    ("P3", probes.P3_VARIANTS)) for name, probe in d.items()}
+
+
+def _probe_inputs(B, Hq, Hk, M, N, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((B * h, n, 128), generator=g, device="cuda").to(
+        torch.bfloat16) for h, n in ((Hq, M), (Hk, N), (Hk, N))]
+
+
+def _probe_check(probe, q, k, v, B, scale, **kw):
+    if probe.strided:
+        q, k, v = (x.view(B, -1, *x.shape[1:]) for x in (q, k, v))
+    M, N = q.shape[-2], k.shape[-2]
+    before = probes.flash_step.launches
+    out = probes.flash_step(q, k, v, probe, scale, **kw)
+    torch.cuda.synchronize()
+    assert probes.flash_step.launches == before + 1
+    pairs = (probes.rect_pairs(M // 128, N // probe.bk) if probe.pairs
+             else None)
+    ref = probes.flash_step_ref(q, k, v, probe, scale, bk=probe.bk,
+                                pairs=pairs, **kw)
+    res = (probes.compare(out[0], ref[0], out[1], ref[1]) if probe.lse
+           else probes.compare(out, ref))
+    assert res["ok"], res
+    return out, ref
+
+
+@pytest.mark.parametrize("name", list(PROBE_VARIANTS))
+@pytest.mark.parametrize("shape", [(2, 4, 2, 256, 512), (1, 2, 1, 384, 128)],
+                         ids=["gqa", "m_gt_n"])
+def test_probe_kernels_match_their_twin(cuda, name, shape):
+    """Every P1-P3 variant against its twin (NaN masks of the exp-without-
+    max variant included) at two small shapes."""
+    probe = PROBE_VARIANTS[name]
+    B, Hq, Hk, M, N = shape
+    if N % probe.bk:
+        N = probe.bk * 2
+    q, k, v = _probe_inputs(B, Hq, Hk, M, N)
+    zq = torch.zeros(M, dtype=torch.int32, device="cuda")
+    zk = torch.zeros(N, dtype=torch.int32, device="cuda")
+    out, _ = _probe_check(
+        probe, q, k, v, B,
+        probes.SCALE if name.startswith("P1") else probes.SCALE_LOG2,
+        qside=[zq + i for i in range(probe.n_qside)],
+        kside=[zk + i for i in range(probe.n_kside)], qseg=zq, kseg=zk)
+    if "exp" in probe.stages and "max" not in probe.stages:
+        assert torch.isnan(out.float()).all()
+
+
+def test_probe_branches_on_ragged_segments(cuda):
+    """The branch variant's three paths and its skipped tiles: segment
+    words that change inside q blocks and key tiles."""
+    probe = probes.P3_VARIANTS["seg-reduce + 3 branches"]
+    q, k, v = _probe_inputs(1, 2, 1, 512, 512, seed=1)
+    rows = torch.arange(512, device="cuda", dtype=torch.int32)
+    qseg, kseg = rows // 200, rows // 96
+    out, ref = _probe_check(probe, q, k, v, 1, probes.SCALE_LOG2,
+                            qseg=qseg, kseg=kseg)
+    full = probes.flash_step(q, k, v, probes.Probe(), probes.SCALE_LOG2)
+    assert not torch.equal(out, full), "no tile was skipped"
+
+
+def test_probe_kernels_are_deterministic_and_raise_on_bad_shapes(cuda):
+    q, k, v = _probe_inputs(1, 4, 1, 256, 256)
+    probe = probes.P2_VARIANTS["+prefetch pairs"]
+    a = probes.flash_step(q, k, v, probe, probes.SCALE_LOG2)
+    b = probes.flash_step(q, k, v, probe, probes.SCALE_LOG2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        probes.flash_step(q[:, :200].contiguous(), k, v, probe,
+                          probes.SCALE_LOG2)
+    with pytest.raises(TypeError, match="bf16"):
+        probes.flash_step(q.half(), k.half(), v.half(), probe,
+                          probes.SCALE_LOG2)
+
+
+def test_probe_sass_holds_every_stage(cuda):
+    """The tensor-core and exp2 instructions each variant's stages claim
+    are in its SASS: nvcc deleted no unread stage."""
+    counts = probes.sass_counts()
+    for name, probe in PROBE_VARIANTS.items():
+        c = counts[probe.flags]
+        assert (c["hgmma_ss"], c["hgmma_rs"]) == probes.expected_hgmma(
+            probe), name
+        assert c["ex2"] >= probes.expected_ex2(probe), name
+
+
+@pytest.mark.parametrize("MNK", [(128, 256, 128), (256, 384, 512)])
+def test_int4_products_are_exact(cuda, MNK):
+    M, N, K = MNK
+    g = torch.Generator().manual_seed(M + N + K)
+    a = torch.randint(-8, 8, (M, K), generator=g, dtype=torch.int8)
+    b = torch.randint(-8, 8, (N, K), generator=g, dtype=torch.int8)
+    ref = a.long() @ b.long().T
+    bp = p4.pack_int4(b).cuda()
+    c8 = p4.int8_int4_matmul(a.cuda(), bp)
+    c4 = p4.int4_matmul(p4.pack_int4(a).cuda(), bp)
+    assert torch.equal(c8.cpu().long(), ref)
+    assert torch.equal(c4.cpu().long(), ref)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        p4.int8_int4_matmul(a[:, :64].cuda(), p4.pack_int4(b[:, :64]).cuda())
