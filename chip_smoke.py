@@ -56,6 +56,7 @@ TinyLlama width on seq 2 x model 2 against the unsharded run, with each
 rank's K1-K3 launch counts.  Then the cost probes P1-P4 (`phase_probes`,
 run after the quantized kernels): each probe variant's SASS holds the
 tensor-core (HGMMA) and exp2 (MUFU.EX2) instructions its stages claim,
+P4's kernels integer wgmma (IGMMA .S8.S8) and no mma.sync (IMMA),
 the four probe scripts (`python -m flash_attn_v100_tpu_torch.benchmarks.*`)
 run as the probes' main path, and every variant is held against its plain
 twin at the TPU scripts' shapes and timed in turns beside SDPA (P1-P3) or
@@ -89,6 +90,12 @@ for K4 and K4q (int8, fp8, int4) through flash_attn_with_kvcache and
 paged_decode_attention at the engine's decode step, its short-prompt
 prefill and a 32k-context decode, with the SM clock and power around
 each round.
+
+    python3 chip_smoke.py --probe-times TREE
+
+for every P1-P3 probe row of the probe phase and both P4 kernels at
+4096^3 (three rounds in turns: medians and output digests), with P4's
+host time a call.
 
     python3 chip_smoke.py --serve-times ROUNDS
 
@@ -3333,8 +3340,21 @@ PROBE_SHAPES = {
     "P3": (1, 128, 32, 4096, 4096),       # BH 128, kv heads BH / 4
 }
 INT4_LARGE = 4096
+INT4_EDGE = (256, 384, 640)       # a half-empty N tile, K over 5 chunks
+INT4_EXTREME = (136, 72, 96)      # partial M, N and K tiles
 S4_PEAK = "none listed"   # the H100 data sheet lists no int4 rate
 PROBE_ROUNDS, PROBE_REPS = 3, 10
+
+
+def int4_extremes(torch, dev, M: int, N: int, K: int, seed: int = 2):
+    """(a int8 (M, K), b packed int4 (N, K / 2)) with every value -8 or 7,
+    so that the int32 sums reach their largest."""
+    from flash_attn_v100_tpu_torch.ops.cuda import probe_int4 as p4
+
+    g = torch.Generator().manual_seed(seed)
+    a, b = (torch.where(torch.rand(shape, generator=g) < 0.5, -8, 7).to(
+        torch.int8) for shape in ((M, K), (N, K)))
+    return a.to(dev), p4.pack_int4(b).to(dev)
 
 
 def probe_replaces(suite: str, probe) -> str:
@@ -3395,9 +3415,8 @@ def phase_probes(torch, flush):
     bf16 ulps of the row's largest |out|, LSE 1e-5 relative, NaN / inf
     masks equal; P4 exactly), timed beside its twin, SDPA (the full
     function at P2's shape) or torch._int_mm (P4) and its bound; the four
-    probe scripts run as their main path."""
-    import re
-
+    probe scripts run as their main path.  P4's two kernels must hold
+    integer wgmma (IGMMA S8.S8) and no mma.sync IMMA in their SASS."""
     from flash_attn_v100_tpu_torch.benchmarks import common
     from flash_attn_v100_tpu_torch.ops.cuda import build
     from flash_attn_v100_tpu_torch.ops.cuda import probe_int4 as p4
@@ -3418,15 +3437,24 @@ def phase_probes(torch, flush):
             f"F={flags}: tensor-core work deleted or duplicated"
         assert c["ex2"] >= probes.expected_ex2(probe), \
             f"F={flags}: exp2 work deleted"
-    sass4 = subprocess.run(
-        [str(build.Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
-         str(build.library_path("probe_int4"))], capture_output=True,
-        text=True, check=True, timeout=300).stdout
-    imma = {k: sass4.count(k) for k in sorted(set(re.findall(
-        r"IMMA\.\S+", sass4)))}
-    print(f"probe_int4 SASS tensor-core instructions: {imma} (an s4 IMMA "
-          f"{'present' if any('S4' in k for k in imma) else 'absent'})",
-          flush=True)
+    sass4 = p4.sass_counts()
+    for kind, name in ((p4.KIND_INT4, "int4xint4"), (p4.KIND_INT8,
+                                                     "int8xint4")):
+        c = sass4.get(kind, dict(igmma_s8=0, igmma=0, imma=0))
+        print(f"probe_int4 SASS {name}: IGMMA S8.S8 {c['igmma_s8']} (integer "
+              f"wgmma), IGMMA {c['igmma']}, IMMA {c['imma']}", flush=True)
+        assert c["igmma_s8"] > 0, f"P4 {name}: no integer wgmma in its SASS"
+        assert c["imma"] == 0, f"P4 {name}: an mma.sync (IMMA) is left"
+    # ptxas's wgmma notes: C7520 (wgmma serialized) or C7508 (setmaxnreg
+    # ignored) would undo the design; C7519 (a warpgroup.arrive injected
+    # before a register-fed wgmma) is counted
+    for lib in ("probes", "probe_int4"):
+        log = build.build_log(lib).splitlines()
+        notes = [ln.strip() for ln in log
+                 if ("C75" in ln and "C7519" not in ln) or "serializ" in ln]
+        print(f"build {lib}: ptxas wgmma / setmaxnreg notes: "
+              f"{notes or 'none'}; C7519 x{sum('C7519' in ln for ln in log)}",
+              flush=True)
 
     launches = run_probe_scripts(torch)
     dev = torch.device("cuda")
@@ -3509,17 +3537,19 @@ def phase_probes(torch, flush):
     lib_a, lib_b = large[0], p4.unpack_int4(large[1])
     library_ms = time_ms(torch, lambda: torch._int_mm(lib_a, lib_b.t()),
                          flush=flush)
+    edges = [prof_int4_native.operands(dev, *INT4_EDGE, seed=1),
+             int4_extremes(torch, dev, *INT4_EXTREME)]
     for name, fn, twin_fn, pack in (
             ("int4xint4", p4.int4_matmul, p4.int4_matmul_ref, True),
             ("int8xint4", p4.int8_int4_matmul, p4.int8_int4_matmul_ref,
              False)):
         errs = []
-        for q8, kp in (small, large):
+        for q8, kp in (small, large, *edges):
             a = p4.pack_int4(q8) if pack else q8
             out = fn(a, kp)
             torch.cuda.synchronize()
             errs.append(int((out - twin_fn(a, kp)).abs().max()))
-        assert errs == [0, 0], f"P4 {name}: not exact {errs}"
+        assert errs == [0] * 4, f"P4 {name}: not exact {errs}"
         a = p4.pack_int4(large[0]) if pack else large[0]
         ms = time_ms(torch, lambda: fn(a, large[1]), flush=flush)
         small_a = p4.pack_int4(small[0]) if pack else small[0]
@@ -3535,7 +3565,9 @@ def phase_probes(torch, flush):
             s8_bound = bms
         n_launch = launches["int4" if pack else "int8"]
         assert n_launch > 0, f"P4 {name}: no launch on the probe path"
-        print(f"P4 {name}: exact at 128x256x128 and {INT4_LARGE}^3; "
+        print(f"P4 {name}: exact at 128x256x128, {INT4_LARGE}^3, "
+              f"{'x'.join(map(str, INT4_EDGE))} and "
+              f"{'x'.join(map(str, INT4_EXTREME))} (every value -8 or 7); "
               f"{INT4_LARGE}^3 kernel {ms:.4f} ms ({ops / ms / 1e9:.0f} "
               f"TOP/s), plain {plain_ms:.3f} ms, torch._int_mm on the int8 "
               f"unpacked operands {library_ms:.4f} ms, bound {bms:.4f} ms "
@@ -3549,7 +3581,8 @@ def phase_probes(torch, flush):
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
             bound_by=by, bound_ms_int8_rate=s8_bound,
             ops_peak=S4_PEAK if pack else "1979 TOP/s int8",
-            small_graph_ms=small_ms, sass_imma=imma))
+            small_graph_ms=small_ms,
+            sass=sass4.get(p4.KIND_INT4 if pack else p4.KIND_INT8)))
     return rows
 
 
@@ -3769,6 +3802,71 @@ def paged_times(torch) -> dict:
             "ms_repeats": spread, "graph_ms_repeats": graph}
 
 
+def probe_times(torch) -> dict:
+    """P1-P3 and P4 of the `flash_attn_v100_tpu_torch` on sys.path: every
+    row of `phase_probes` (each P1-P3 variant at its shapes, the same
+    seeded inputs) and both P4 kernels at 4096^3, a digest of each row's
+    outputs and the median of PROBE_ROUNDS rounds of PROBE_REPS launches,
+    the rows timed in turns within a round (P4 with the L2 flushed, as in
+    `phase_probes`); and P4's host time a call at 128 x 256 x 128 (the
+    wrapper, its tensor maps and the launch, unsynchronised), to compare
+    two trees of the port in one call:
+        python3 chip_smoke.py --probe-times TREE"""
+    from flash_attn_v100_tpu_torch.benchmarks import common, prof_int4_native
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    from flash_attn_v100_tpu_torch.ops.cuda import probe_int4 as p4
+    from flash_attn_v100_tpu_torch.ops.cuda import probes
+
+    build.build_all(["probes", "probe_int4"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    data, calls, digests, flushed = {}, {}, {}, set()
+    for suite, name, probe, key in probe_cases(probes):
+        B, Hq, Hk, M, N = PROBE_SHAPES[key]
+        if key not in data:
+            data[key] = [torch.randn((B * h, n, 128), generator=gen,
+                                     device=dev).to(torch.bfloat16)
+                         for h, n in ((Hq, M), (Hk, N), (Hk, N))]
+        q, k, v = common.operands(probe, *data[key], B)
+        scale = probes.SCALE if suite == "P1" else probes.SCALE_LOG2
+        call = functools.partial(probes.flash_step, q, k, v, probe, scale,
+                                 **common.stream_kwargs(probe, M, N, dev))
+        label = f"{suite} {name} ({key} shape)"
+        out = call()
+        digests[label] = digest(torch, *(out if probe.lse else (out,)))
+        calls[label] = call
+    large = prof_int4_native.operands(dev, INT4_LARGE, INT4_LARGE,
+                                      INT4_LARGE)
+    small = prof_int4_native.operands(dev, 128, 256, 128)
+    host_us = {}
+    for name, fn, pack in (("int4xint4", p4.int4_matmul, True),
+                           ("int8xint4", p4.int8_int4_matmul, False)):
+        label = f"P4 {name} ({INT4_LARGE}^3)"
+        a = p4.pack_int4(large[0]) if pack else large[0]
+        calls[label] = functools.partial(fn, a, large[1])
+        digests[label] = digest(torch, calls[label]())
+        flushed.add(label)
+        a_s = p4.pack_int4(small[0]) if pack else small[0]
+        for _ in range(10):
+            fn(a_s, small[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn(a_s, small[1])
+        host_us[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+    ms = {label: [] for label in calls}
+    for _ in range(PROBE_ROUNDS):
+        for label, fn in calls.items():
+            ms[label].append(time_ms(torch, fn, reps=PROBE_REPS,
+                                     flush=flush if label in flushed
+                                     else None))
+    return {"digest": digests,
+            "ms": {n: statistics.median(t) for n, t in ms.items()},
+            "ms_repeats": ms, "host_us": host_us}
+
+
 def gpu_clocks() -> str:
     """The card's SM clock and power draw now, as nvidia-smi prints them."""
     out = subprocess.run(
@@ -3970,7 +4068,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     times = {"--dense-times": dense_times, "--varlen-times": varlen_times,
-             "--paged-times": paged_times, "--decode-times": decode_times}
+             "--paged-times": paged_times, "--decode-times": decode_times,
+             "--probe-times": probe_times}
     if sys.argv[1:2] and sys.argv[1] in times:
         sys.path.insert(0, sys.argv[2])
         res = times[sys.argv[1]](torch)
@@ -4117,7 +4216,7 @@ def main() -> int:
                    bound_by=res["bound_by"], library_ms=res["library_ms"])
         for key in ("ms_repeats", "row_ratio", "lse_rel", "shape", "sass",
                     "flags", "bound_ms_int8_rate", "ops_peak",
-                    "small_graph_ms", "sass_imma"):
+                    "small_graph_ms"):
             if key in res:
                 row[key] = res[key]
         if res["library_ms"] is not None:

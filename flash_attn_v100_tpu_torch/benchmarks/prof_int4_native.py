@@ -1,17 +1,18 @@
 """P4: does the H100 take packed int4 operands in its tensor cores?  The
 TPU probe (the JAX repository's benchmarks/prof_int4_native.py) asks it of
-Mosaic; here `mma.sync` m16n8k64 .s4.s4 (int4 x int4) is held against the
-way the quantized decode and prefill kernels go, K's nibbles unpacked to
-int8 and m16n8k32 .s8.s8 (int8 x int4), both in csrc/probe_int4.cu.
+Mosaic.  On the H100 only wgmma reaches the int8 rate and it takes no s4
+operand, so both products in csrc/probe_int4.cu unpack the nibbles to int8
+in shared memory and multiply on wgmma .s8.s8: int4 x int4 (both operands
+unpacked) against the way the quantized decode and prefill kernels go,
+int8 x int4 (K's nibbles unpacked).
 
     python -m flash_attn_v100_tpu_torch.benchmarks.prof_int4_native
 
 At the TPU script's shape (q (128, 128), k (256, 128), values in [-8, 8)
 from default_rng(0)) each product is checked exactly against the plain
 twin and timed; a launch dominates there, so both are timed again at
-4096^3 with their rate.  A kernel that does not build (ptxas refusing the
-s4 mma for sm_90a) or disagrees prints FAILED with the first line of the
-error, as the TPU script does.
+4096^3 with their rate.  A kernel that does not build or disagrees prints
+FAILED with the first line of the error, as the TPU script does.
 """
 
 from __future__ import annotations

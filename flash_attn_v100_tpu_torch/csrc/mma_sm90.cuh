@@ -1,8 +1,9 @@
 // Tensor-core and asynchronous-copy helpers for the attention kernels of
 // this package (sm_90a): warp-level mma.sync m16n8k16 and ldmatrix,
 // warpgroup-level wgmma m64nNk16 (N 32, 64, 128), both with 16-bit inputs
-// and fp32 accumulators, warp-level mma.sync m16n8k32 with int8 inputs and
-// int32 accumulators, and cp.async with zero fill.
+// and fp32 accumulators, warp-level mma.sync m16n8k32 and warpgroup-level
+// wgmma m64n256k32 with int8 inputs and int32 accumulators, and cp.async
+// with zero fill.
 //
 // Fragment layouts of m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4; each 32-bit register
@@ -284,6 +285,50 @@ FA_WG_N(32, FA_WG_R16, FA_WG_D16, "16", "17", "18", "19", "20", "21")
 FA_WG_N(64, FA_WG_R32, FA_WG_D32, "32", "33", "34", "35", "36", "37")
 FA_WG_N(128, FA_WG_R64, FA_WG_D64, "64", "65", "66", "67", "68", "69")
 
+// d (+)= A B over one k32 step of 8-bit integers, m64nNk32, int32
+// accumulators d[N / 2] in the fp32 accumulators' layout (acc 0:
+// overwrite).  A and B both from shared memory and K-major, the only
+// layout integer wgmma reads: 128-byte-swizzled tiles of 128 int8 k values
+// a row, a k32 step 32 bytes into the row (sw128_desc(addr + 32 kk, 0,
+// 1024)), as a bf16 k16 step.
+template <int N>
+struct WgmmaS8;
+
+#define FA_WGI_D4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define FA_WGI_D16(i) \
+  FA_WGI_D4(i), FA_WGI_D4(i + 4), FA_WGI_D4(i + 8), FA_WGI_D4(i + 12)
+#define FA_WGI_D32(i) FA_WGI_D16(i), FA_WGI_D16(i + 16)
+#define FA_WGI_D64(i) FA_WGI_D32(i), FA_WGI_D32(i + 32)
+#define FA_WGI_D128(i) FA_WGI_D64(i), FA_WGI_D64(i + 64)
+#define FA_WG_R128                                                          \
+  FA_WG_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, "     \
+            "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "  \
+            "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "  \
+            "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "   \
+            "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "  \
+            "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define FA_WGI_SPEC(N, REGS, OUTS, O0, O1, O2)                             \
+  template <>                                                              \
+  struct WgmmaS8<N> {                                                      \
+    __device__ static void ss(int* d, uint64_t a, uint64_t b, int acc) {   \
+      asm volatile(                                                        \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" O2 ", 0;\n"                 \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8\n"         \
+          "{" REGS "}, %" O0 ", %" O1 ", p;\n}\n"                          \
+          : OUTS(0)                                                        \
+          : "l"(a), "l"(b), "r"(acc));                                     \
+    }                                                                      \
+  };
+
+FA_WGI_SPEC(256, FA_WG_R128, FA_WGI_D128, "128", "129", "130")
+
+#undef FA_WGI_SPEC
+#undef FA_WG_R128
+#undef FA_WGI_D128
+#undef FA_WGI_D64
+#undef FA_WGI_D32
+#undef FA_WGI_D16
+#undef FA_WGI_D4
 #undef FA_WG_N
 #undef FA_WG_SPEC
 #undef FA_WG_D64

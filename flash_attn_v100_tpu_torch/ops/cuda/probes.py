@@ -4,10 +4,14 @@ The TPU probes of the JAX repository's benchmark folder
 (`prof_softmax_cost.py`, `prof_fwd_gap.py`, `prof_small_streams.py`) time
 a minimal flash-attention forward step with one feature toggled at a time.
 Here each variant is one instantiation of a templated CUDA kernel on K1's
-tile shape at D 128 (two warpgroups, 128 q rows a block, 64 keys a step,
-wgmma products, a two-stage cp.async ring), named by a `Probe` and its
-`flags`; `flash_step` launches it and `flash_step_ref` is its plain
-PyTorch version.  bf16 in, D 128.
+tile shape at D 128 (128 q rows a block, 64 keys a step, wgmma products)
+under FA3's schedule (a TMA producer warpgroup, a ring of K and V stages
+with mbarriers, two ping-ponging consumer warpgroups), named by a `Probe`
+and its `flags`; `flash_step` launches it and `flash_step_ref` is its
+plain PyTorch version.  bf16 in, D 128.  The kernel reads q, k and v
+through TMA maps: each starts 16-byte aligned and its row, head and batch
+strides are multiples of 8 elements; the k-side and k segment streams,
+copied in bulk, start 16-byte aligned too.  `_check` raises otherwise.
 
 The function (per q row, over key tiles of `bk` keys; the kernel's bk is
 64, 128 for the wide variant):
@@ -175,7 +179,20 @@ def _cached(key, make) -> torch.Tensor:
     return t
 
 
-def _check(q, k, v, probe: Probe) -> None:
+TMA_ALIGN = 16        # bytes: where q, k, v and the bulk-copied streams start
+
+
+def _aligned(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"flash_step: {name} must start {TMA_ALIGN}-byte "
+                         "aligned (TMA)")
+
+
+def _check(q, k, v, probe: Probe, kside=(), kseg=None) -> None:
+    """Raise unless the kernel takes these operands: bf16, D 128, rows
+    16-byte aligned, M a multiple of 128 and N of the variant's key step,
+    q, k, v and the bulk-copied k-side and k segment streams starting
+    16-byte aligned."""
     nd = 4 if probe.strided else 3
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
@@ -191,6 +208,7 @@ def _check(q, k, v, probe: Probe) -> None:
         if any(s % 8 for s in t.stride()[:-1]):
             raise ValueError(f"flash_step: {name}'s rows must be 16-byte "
                              "aligned")
+        _aligned(t, name)
     if k.shape != v.shape or k.shape[:-3] != q.shape[:-3]:
         raise ValueError(f"flash_step: k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} against q {tuple(q.shape)}")
@@ -200,6 +218,10 @@ def _check(q, k, v, probe: Probe) -> None:
         raise ValueError(f"flash_step: heads {Hq}/{Hk} must divide, M {M} "
                          f"be a multiple of {BLOCK_Q} and N {N} of "
                          f"{probe.bk}")
+    for i, t in enumerate(kside):
+        _aligned(t, f"k-side stream {i}")
+    if kseg is not None:
+        _aligned(kseg, "kseg")
 
 
 def _streams(given, n: int, length: int, what: str):
@@ -237,7 +259,7 @@ def flash_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_step_ref(q, k, v, probe, scale, bk=probe.bk,
                               bq=BLOCK_Q, qside=qside, kside=kside,
                               qseg=qseg, kseg=kseg, pairs=pairs)
-    _check(q, k, v, probe)
+    _check(q, k, v, probe, kside, kseg if probe.branches else None)
     if probe.flags not in VARIANT_FLAGS:
         raise ValueError(f"flash_step: no kernel instantiates {probe}")
     dev = q.device

@@ -1883,17 +1883,148 @@ def test_probe_sass_holds_every_stage(cuda):
         assert c["ex2"] >= probes.expected_ex2(probe), name
 
 
+def _int4_exact(a, b):
+    """Both P4 kernels on int8 values a (M, K), b (N, K) in [-8, 7] against
+    their twins and the exact int64 product."""
+    ref = a.long() @ b.long().T
+    bp = p4.pack_int4(b).cuda()
+    launches = (p4.int4_matmul.launches, p4.int8_int4_matmul.launches)
+    c8 = p4.int8_int4_matmul(a.cuda(), bp)
+    c4 = p4.int4_matmul(p4.pack_int4(a).cuda(), bp)
+    assert (p4.int4_matmul.launches, p4.int8_int4_matmul.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert torch.equal(c8.cpu().long(), ref)
+    assert torch.equal(c4.cpu().long(), ref)
+    assert torch.equal(c8.cpu(), p4.int8_int4_matmul_ref(a, p4.pack_int4(b)))
+
+
 @pytest.mark.parametrize("MNK", [(128, 256, 128), (256, 384, 512)])
 def test_int4_products_are_exact(cuda, MNK):
     M, N, K = MNK
     g = torch.Generator().manual_seed(M + N + K)
     a = torch.randint(-8, 8, (M, K), generator=g, dtype=torch.int8)
     b = torch.randint(-8, 8, (N, K), generator=g, dtype=torch.int8)
-    ref = a.long() @ b.long().T
-    bp = p4.pack_int4(b).cuda()
-    c8 = p4.int8_int4_matmul(a.cuda(), bp)
-    c4 = p4.int4_matmul(p4.pack_int4(a).cuda(), bp)
-    assert torch.equal(c8.cpu().long(), ref)
-    assert torch.equal(c4.cpu().long(), ref)
-    with pytest.raises(ValueError, match="multiples of 128"):
-        p4.int8_int4_matmul(a[:, :64].cuda(), p4.pack_int4(b[:, :64]).cuda())
+    _int4_exact(a, b)
+    with pytest.raises(ValueError, match="multiples of"):
+        p4.int8_int4_matmul(a[:, :48].cuda(), p4.pack_int4(b[:, :48]).cuda())
+
+
+# the TMA pipeline's edges: non-square tiles, N of one consumer's half
+# (128) or one block (256), K of one partial chunk (32, 96), K over more
+# chunks than the ring has stages (640: 5 chunks, 3-4 stages), partial M,
+# N and K tiles (136 x 72 x 96), the smallest shape (8 x 8 x 32), and
+# more tiles than the card has multiprocessors (the persistent grid)
+@pytest.mark.parametrize("MNK", [
+    (256, 384, 640), (128, 128, 128), (128, 256, 32), (136, 72, 96),
+    (8, 8, 32), (64, 520, 1056), (2304, 2048, 256)],
+    ids=lambda m: "x".join(map(str, m)))
+def test_int4_products_are_exact_at_the_pipeline_edges(cuda, MNK):
+    M, N, K = MNK
+    g = torch.Generator().manual_seed(M * 7 + N * 3 + K)
+    a = torch.randint(-8, 8, (M, K), generator=g, dtype=torch.int8)
+    b = torch.randint(-8, 8, (N, K), generator=g, dtype=torch.int8)
+    _int4_exact(a, b)
+
+
+@pytest.mark.parametrize("MNK", [(128, 256, 4096), (136, 72, 8192)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_int4_products_are_exact_at_the_largest_sums(cuda, MNK):
+    """Every value -8 or 7: sums up to 64 K (2**19 at K 8192)."""
+    M, N, K = MNK
+    g = torch.Generator().manual_seed(K)
+    a, b = (torch.where(torch.rand(s, generator=g) < 0.5, -8, 7).to(
+        torch.int8) for s in ((M, K), (N, K)))
+    _int4_exact(a, b)
+    _int4_exact(torch.full((M, K), -8, dtype=torch.int8),
+                torch.full((N, K), -8, dtype=torch.int8))
+
+
+def test_int4_launcher_refuses_what_tma_cannot_take(cuda):
+    """The C entry point itself (under the wrapper's checks) returns an
+    error for a shape off the kernels' multiples or a pointer off TMA's
+    16-byte alignment, and the wrapper raises on either."""
+    lib = build.load("probe_int4")
+    a = torch.zeros((256, 128), dtype=torch.int8, device="cuda")
+    b = torch.zeros((256, 64), dtype=torch.uint8, device="cuda")
+    c = torch.empty((256, 256), dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.fa_int4_mma_launch(1, a.data_ptr(), b.data_ptr(),
+                                  c.data_ptr(), 256, 256, 128, stream) == 0
+    for M, N, K, da in ((12, 256, 128, 0), (256, 256, 48, 0),
+                        (256, 256, 128, 8)):
+        assert lib.fa_int4_mma_launch(1, a.data_ptr() + da, b.data_ptr(),
+                                      c.data_ptr(), M, N, K, stream) != 0
+    torch.cuda.synchronize()
+    flat = torch.zeros(256 * 128 + 16, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        p4.int8_int4_matmul(flat[8:8 + 256 * 128].view(256, 128), b)
+
+
+# every P1-P3 variant over one key tile (the ring's prologue meets its
+# epilogue), two, and more tiles than the ring has stages
+@pytest.mark.parametrize("name", list(PROBE_VARIANTS))
+@pytest.mark.parametrize("tiles", [1, 2, 7])
+def test_probe_kernels_at_the_ring_edges(cuda, name, tiles):
+    probe = PROBE_VARIANTS[name]
+    M, N = 256, tiles * probe.bk
+    q, k, v = _probe_inputs(2, 4, 2, M, N, seed=tiles)
+    g = torch.Generator(device="cuda").manual_seed(tiles)
+    zq = torch.randint(-3, 3, (M,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    zk = torch.randint(-3, 3, (N,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    _probe_check(
+        probe, q, k, v, 2,
+        probes.SCALE if name.startswith("P1") else probes.SCALE_LOG2,
+        qside=[zq + i for i in range(probe.n_qside)],
+        kside=[zk - i for i in range(probe.n_kside)],
+        qseg=torch.zeros_like(zq), kseg=torch.zeros_like(zk))
+
+
+def test_probe_branches_skip_a_tile_with_no_overlap(cuda):
+    """Uniform q segments, key tiles whose segment words leave one tile
+    with no overlap (skipped: P = 0, alpha = 1) and one straddling."""
+    probe = probes.P3_VARIANTS["seg-reduce + 3 branches"]
+    M, N = 256, 6 * probe.bk
+    q, k, v = _probe_inputs(1, 2, 1, M, N, seed=3)
+    qseg = torch.full((M,), 2, dtype=torch.int32, device="cuda")
+    kseg = torch.full((N,), 2, dtype=torch.int32, device="cuda")
+    kseg[2 * probe.bk:3 * probe.bk] = 9          # tile 2: no overlap
+    kseg[4 * probe.bk + 5:5 * probe.bk] = 9      # tile 4: ragged
+    out, ref = _probe_check(probe, q, k, v, 1, probes.SCALE_LOG2,
+                            qseg=qseg, kseg=kseg)
+    full = probes.flash_step(q, k, v, probes.Probe(), probes.SCALE_LOG2)
+    assert not torch.equal(out, full), "no tile was skipped"
+
+
+def test_probe_launcher_raises_on_a_map_tma_refuses(cuda):
+    """q off TMA's 16-byte alignment: the wrapper raises before the
+    launch, and the C entry point (its tensor-map encoding) returns an
+    error rather than launching."""
+    import ctypes
+
+    probe = probes.P2_VARIANTS["minimal 3d rect"]
+    q, k, v = _probe_inputs(1, 2, 1, 128, 128)
+    flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16, device="cuda")
+    q_off = flat[1:1 + q.numel()].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        probes.flash_step(q_off, k, v, probe, probes.SCALE_LOG2)
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 14)()
+    rc = build.load("probes").fa_probe_launch(
+        probe.flags, q_off.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), None, ctypes.addressof(strides), 1, 2, 1, 128, 128,
+        2, None, None, 0, *([None] * 8), probes.SCALE_LOG2,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("tiles", [1, 3, 8])
+def test_probe_pairs_and_device_trip_count(cuda, tiles):
+    """The pair table (the producer's tiles, the consumers' last words) and
+    the device trip count at a few key tiles, over 3 q tiles."""
+    for probe in (probes.P2_VARIANTS["+prefetch pairs"],
+                  probes.P3_VARIANTS["dynamic inner grid"]):
+        q, k, v = _probe_inputs(1, 4, 1, 384, tiles * probe.bk, seed=tiles)
+        _probe_check(probe, q, k, v, 1, probes.SCALE_LOG2)
