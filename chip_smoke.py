@@ -33,6 +33,16 @@ PyTorch library call computing the same function:
     oracle over the dequantized pool, all eight timed in turns over
     5 x 100 launches (the spread of each), also as CUDA-graph replays
     (their device time without the wrapper's host time).
+Then the drop-in phase: in a fresh process the port takes the canonical
+`flash_attn` import name (`utils/distinfo.install_canonical_name`, no JAX
+imported) and HF transformers' padded-attention pattern (unpad_input ->
+flash_attn_varlen_func -> pad_input, forward and backward), flash_attn_func,
+one decode step and one paged prefill run through that name at
+TinyLlama-1.1B's width against the fp32 oracle (K5-K7, K1-K3, K4, K8, one
+launch each, the plain twins never called); then the hardware oracle
+suite (`benchmarks/hw_oracle.py --quick`: the dense, varlen and decode
+sweeps, the decode fast-path cases and the fuzz) in this process, every
+case within its gate.
 Then it trains TinyLlama-1.1B at full width (22 layers, bf16, random weights
 from a seed) for three AdamW steps at B 4 x S 2048 through K1-K3, fine-tunes
 LoRA adapters on the frozen base at the same shape through K1-K3
@@ -1587,6 +1597,272 @@ def phase_varlen(torch, flush):
     from flash_attn_v100_tpu_torch.ops.cuda import build
     print_occupancy(res, occupancy(build, ("K6", "K7")), D)
     return res
+
+
+# ------------------------------------------------------- drop-in phase
+
+DROPIN_TIMEOUT_S = 300
+# the engine's decode step (phase_k4) and prefill wave (k8_case)
+DROPIN_DECODE = dict(B=8, Hk=4, group=8, D=64, ps=128, max_pages=16)
+DROPIN_PREFILL = dict(prefix=(0, 300, 0, 300), T=512, Hk=4, group=8, D=64,
+                      ps=128)
+
+
+def kernel_counts():
+    """({K1 .. K8, "K4q kind", "K8q kind": launches}, {plain twin: calls})
+    of every kernel wrapper and every plain twin."""
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    dk, pk = dec.paged_decode_attention, vl.flash_attn_varlen_fwd_paged
+    launches = {"K1": dfwd.flash_attn_dense_fwd.launches,
+                "K2": dbwd.dq_kernel.launches,
+                "K3": dbwd.dkv_kernel.launches, "K4": dk.launches,
+                "K5": vl.flash_attn_varlen_fwd.launches,
+                "K6": vl.varlen_dq_kernel.launches,
+                "K7": vl.varlen_dkv_kernel.launches, "K8": pk.launches}
+    for kind in QUANT_KINDS:
+        launches[f"K4q {kind}"] = dk.quant_launches[kind]
+        launches[f"K8q {kind}"] = pk.quant_launches[kind]
+    twins = {fn.__name__: fn.calls for fn in (
+        dfwd.flash_attn_dense_fwd_ref, dbwd.flash_attn_dense_bwd_ref,
+        dec.paged_decode_attention_ref, vl.flash_attn_varlen_fwd_ref,
+        vl.flash_attn_varlen_bwd_ref, vl.flash_attn_varlen_fwd_paged_ref)}
+    return launches, twins
+
+
+def reset_kernel_counts():
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    for fn in (dfwd.flash_attn_dense_fwd, dbwd.dq_kernel, dbwd.dkv_kernel,
+               dec.paged_decode_attention, vl.flash_attn_varlen_fwd,
+               vl.varlen_dq_kernel, vl.varlen_dkv_kernel,
+               vl.flash_attn_varlen_fwd_paged):
+        fn.launches = 0
+    for fn in (dec.paged_decode_attention, vl.flash_attn_varlen_fwd_paged):
+        fn.quant_launches = {k: 0 for k in fn.quant_launches}
+    for fn in (dfwd.flash_attn_dense_fwd_ref, dbwd.flash_attn_dense_bwd_ref,
+               dec.paged_decode_attention_ref, vl.flash_attn_varlen_fwd_ref,
+               vl.flash_attn_varlen_bwd_ref,
+               vl.flash_attn_varlen_fwd_paged_ref):
+        fn.calls = 0
+
+
+def dropin_cache(torch, gen, ggen, B, Hk, D, ps, max_pages):
+    """A contiguous bf16 cache (B, max_pages * ps, Hk, D) pair and the same
+    rows as HND pools (Hk, pages, ps, D) through shuffled block tables
+    (page 0 unused)."""
+    dev = torch.device("cuda")
+    N = max_pages * ps
+    kc, vc = (torch.randn((B, N, Hk, D), generator=ggen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    n_pages = B * max_pages + 1
+    perm = torch.randperm(n_pages - 1, generator=gen)[None] + 1
+    tbl = perm.view(B, max_pages).to(dev, torch.int32)
+    kp, vp = (x.new_zeros((Hk, n_pages, ps, D)) for x in (kc, vc))
+    for pool, c in ((kp, kc), (vp, vc)):
+        pool[:, tbl.reshape(-1).long()] = c.reshape(
+            B * max_pages, ps, Hk, D).permute(2, 0, 1, 3)
+    return kc, vc, kp, vp, tbl
+
+
+def dropin_child(torch, tmp: str) -> dict:
+    """Phase (a), in a fresh process: the port takes the `flash_attn` name
+    and HF transformers' padded-attention pattern, flash_attn_func, one
+    decode step and one paged prefill run through it at TinyLlama-1.1B's
+    width, each against the fp32 oracle; returns the errors, gates and
+    every kernel's launches."""
+    import importlib
+    import importlib.metadata
+    import importlib.util
+
+    from flash_attn_v100_tpu_torch.utils.distinfo import (
+        install_canonical_name)
+    install_canonical_name(tmp)
+    # `import flash_attn` and `from flash_attn.bert_padding import ...`
+    # through the import system: the names installed just above, which the
+    # asserts below hold to the port's objects
+    flash_attn = importlib.import_module("flash_attn")
+    bert_padding = importlib.import_module("flash_attn.bert_padding")
+    pad_input, unpad_input = bert_padding.pad_input, bert_padding.unpad_input
+
+    from flash_attn_v100_tpu_torch.benchmarks.common import oracle
+    from flash_attn_v100_tpu_torch.benchmarks.sweep_varlen import (
+        packed_oracle)
+    from flash_attn_v100_tpu_torch.ops import flash_attention, kvcache
+    from flash_attn_v100_tpu_torch.ops import padding, varlen
+    from flash_attn_v100_tpu_torch.ops.reference import (
+        mha_reference_kvcache)
+    from flash_attn_v100_tpu_torch.utils import testing as tt
+
+    spec = importlib.util.find_spec("flash_attn")
+    assert spec.name == "flash_attn" and spec.origin == flash_attn.__file__
+    assert importlib.metadata.version("flash_attn") == "2.8.3"
+    assert flash_attn.flash_attn_func is flash_attention.flash_attn_func
+    assert flash_attn.flash_attn_varlen_func is varlen.flash_attn_varlen_func
+    assert flash_attn.flash_attn_with_kvcache is (
+        kvcache.flash_attn_with_kvcache)
+    assert unpad_input is padding.unpad_input
+    assert pad_input is padding.pad_input
+    assert "jax" not in sys.modules, "jax imported"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 15)
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    budget = torch.cuda.mem_get_info()[0] // 2
+    B, S, Hq, Hk, D = DENSE_B, DENSE_S, DENSE_HQ, DENSE_HK, DENSE_D
+    x = {n: torch.randn((B, S, h, D), generator=ggen, device=dev).to(
+        torch.bfloat16) for n, h in (("q", Hq), ("k", Hk), ("v", Hk),
+                                     ("do", Hq))}
+    mask = (torch.arange(S, device=dev)[None, :]
+            < torch.tensor(VARLEN_PAD_LENS, device=dev)[:, None])
+    res, steps = {}, {}
+
+    def gate_all(name, outs, refs32, refsnat, mults):
+        errs = []
+        for what, o, r32, rn, (mult, atol) in zip(("out", "dq", "dk", "dv"),
+                                                   outs, refs32, refsnat,
+                                                   mults):
+            errs.append(gated(torch, o, r32, rn, f"{name} {what}", mult,
+                              atol))
+        res[name] = errs
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches, twins = kernel_counts()
+        steps[name] = dict(s=time.perf_counter() - t0, twins=twins,
+                           launches={k: n for k, n in launches.items() if n})
+        assert not any(twins.values()), (name, twins)
+        return out
+
+    fb = [(tt.FWD_MULT, tt.FWD_ATOL)] + [(tt.BWD_MULT, tt.BWD_ATOL)] * 3
+
+    # HF transformers' padded pattern: unpad q, k, v -> varlen -> pad
+    def hf():
+        leaves = [x[n].clone().requires_grad_() for n in ("q", "k", "v")]
+        qu, idx, cu, ms, _ = unpad_input(leaves[0], mask)
+        ku, vu = (unpad_input(t, mask)[0] for t in leaves[1:])
+        out = pad_input(flash_attn.flash_attn_varlen_func(
+            qu, ku, vu, cu, cu, ms, ms, causal=True), idx, B, S)
+        out.backward(x["do"])
+        return out.detach(), [t.grad for t in leaves], idx
+    out, grads, idx = counted("hf_padded", hf)
+    assert steps["hf_padded"]["launches"] == {"K5": 1, "K6": 1, "K7": 1}
+    assert not out[~mask].any() and not any(g[~mask].any() for g in grads)
+    packed = [padding.index_first_axis(x[n].reshape(B * S, *x[n].shape[2:]),
+                                       idx) for n in ("q", "k", "v", "do")]
+    lens = list(VARLEN_PAD_LENS)
+    o32, g32 = packed_oracle(*packed, lens, lens, True, budget, causal=True)
+    onat, gnat = packed_oracle(*packed, lens, lens, False, budget,
+                               causal=True)
+    got = [padding.index_first_axis(t.reshape(B * S, *t.shape[2:]), idx)
+           for t in (out, *grads)]
+    gate_all("hf_padded", got, [o32, *g32], [onat, *gnat], fb)
+    del o32, g32, onat, gnat, packed, got, out, grads
+
+    # flash_attn_func at the training shape
+    def dense():
+        leaves = [x[n].clone().requires_grad_() for n in ("q", "k", "v")]
+        out = flash_attn.flash_attn_func(*leaves, causal=True)
+        out.backward(x["do"])
+        return out.detach(), [t.grad for t in leaves]
+    out, grads = counted("dense", dense)
+    assert steps["dense"]["launches"] == {"K1": 1, "K2": 1, "K3": 1}
+    o32, g32 = oracle(x["q"], x["k"], x["v"], x["do"], True, budget,
+                      causal=True)
+    onat, gnat = oracle(x["q"], x["k"], x["v"], x["do"], False, budget,
+                        causal=True)
+    gate_all("dense", [out, *grads], [o32, *g32], [onat, *gnat], fb)
+    del o32, g32, onat, gnat, out, grads, x
+
+    # one decode step from a bf16 page pool (K4), then one paged prefill of
+    # 512 new tokens a row (K8): both append their new k / v
+    for name, c in (("decode", DROPIN_DECODE), ("prefill", DROPIN_PREFILL)):
+        Hk_, D_, ps = c["Hk"], c["D"], c["ps"]
+        Hq_ = Hk_ * c["group"]
+        if name == "decode":
+            T, n_b = 1, c["B"]
+            lens_c = torch.randint(600, 2001, (n_b,), generator=gen)
+            max_pages = c["max_pages"]
+        else:
+            T, n_b = c["T"], len(c["prefix"])
+            lens_c = torch.tensor(c["prefix"])
+            max_pages = -(-(int(lens_c.max()) + T) // ps)
+        kc, vc, kp, vp, tbl = dropin_cache(torch, gen, ggen, n_b, Hk_, D_,
+                                           ps, max_pages)
+        q, kn, vn = (torch.randn((n_b, T, h, D_), generator=ggen,
+                                 device=dev).to(torch.bfloat16)
+                     for h in (Hq_, Hk_, Hk_))
+        cs = lens_c.to(dev, torch.int32)
+        kw = dict(k_new=kn, v_new=vn, cache_seqlens=cs, causal=True)
+        o32 = mha_reference_kvcache(q, kc, vc, upcast=True, **kw)[0]
+        onat = mha_reference_kvcache(q, kc, vc, upcast=False, **kw)[0]
+        out, (kp2, _) = counted(name, lambda: flash_attn.flash_attn_with_kvcache(
+            q, kp, vp, k=kn, v=vn, cache_seqlens=cs, block_table=tbl,
+            causal=True, kv_cache_layout="HND"))
+        want = "K4" if name == "decode" else "K8"
+        assert kvcache.uses_varlen_route(True, c["group"], T, ps) == (
+            want == "K8")
+        assert steps[name]["launches"] == {want: 1}, steps[name]
+        assert kp2 is kp
+        res[name] = [gated(torch, out, o32, onat, f"{name} out")]
+    return dict(gates=res, steps=steps)
+
+
+def phase_dropin(torch) -> dict:
+    """(a) `dropin_child` in a fresh process (the `flash_attn` name must
+    not leak into later phases; no JAX there either); (b) the hardware
+    oracle suite, `hw_oracle --quick`, in this process.  Returns each
+    kernel's launches over (a) and (b) together."""
+    import tempfile
+
+    from flash_attn_v100_tpu_torch.benchmarks import hw_oracle
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run([sys.executable, __file__, "--dropin-child", tmp],
+                           capture_output=True, text=True,
+                           timeout=DROPIN_TIMEOUT_S)
+    print(r.stdout, end="", flush=True)
+    if r.returncode != 0:
+        print(r.stderr, end="", file=sys.stderr, flush=True)
+        raise RuntimeError(f"dropin (a): the child exited {r.returncode}")
+    child = json.loads(r.stdout.splitlines()[-1][len("dropin-child: "):])
+    t_a = time.perf_counter() - t0
+    for name, errs in child["gates"].items():
+        print(f"dropin (a) {name}: max abs err vs fp32 oracle <= gate: "
+              + ", ".join(f"{w} {e:.3e} <= {g:.3e}" for w, (e, g) in zip(
+                  ("out", "dq", "dk", "dv"), errs))
+              + f"; launches {child['steps'][name]['launches']}, "
+              f"plain twins {sum(child['steps'][name]['twins'].values())}, "
+              f"{child['steps'][name]['s']:.3f} s", flush=True)
+
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t1 = time.perf_counter()
+    fails = hw_oracle.main(quick=True)
+    torch.cuda.synchronize()
+    launches, twins = kernel_counts()
+    assert not sum(fails.values()), f"hw_oracle --quick failed: {fails}"
+    assert not any(twins.values()), twins
+    total = dict(launches)
+    for step in child["steps"].values():
+        for k, n in step["launches"].items():
+            total[k] += n
+    print(f"dropin: (a) {t_a:.1f} s, (b) hw_oracle --quick "
+          f"{time.perf_counter() - t1:.1f} s, every case passed; launches "
+          f"over (a) and (b): {total}", flush=True)
+    missing = [k for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+               if not total[k]]
+    assert not missing, f"not launched in the drop-in phase: {missing}"
+    return total
 
 
 # ------------------------------------------------------- training phase
@@ -4075,6 +4351,9 @@ def main() -> int:
         res = times[sys.argv[1]](torch)
         print(json.dumps(dict(res, tree=sys.argv[2], card=card_line())))
         return 0
+    if sys.argv[1:2] == ["--dropin-child"]:
+        print("dropin-child: " + json.dumps(dropin_child(torch, sys.argv[2])))
+        return 0
     if sys.argv[1:2] == ["--serve-times"]:
         res = serve_times(torch, int(sys.argv[2]))
         print(json.dumps(dict(res, card=card_line())))
@@ -4107,6 +4386,8 @@ def main() -> int:
     dense = phase_dense(torch, flush)
     torch.cuda.empty_cache()
     varlen = phase_varlen(torch, flush)
+    torch.cuda.empty_cache()
+    dropin = phase_dropin(torch)
     torch.cuda.empty_cache()
     k4 = phase_k4(torch, flush)
     k8 = phase_k8(torch, flush)
@@ -4202,6 +4483,11 @@ def main() -> int:
                 row[key] = res[key]
         if name[:2] in ring["launches"]:
             row["ring_launches"] = ring["launches"][name[:2]]
+        # launches of the drop-in phase: (a) through the `flash_attn` name,
+        # (b) the oracle suite
+        row["oracle_launches"] = dropin[
+            name[:2] if name[2] == " " else
+            f"{name[:3]} {name.split('(')[1].split()[0]}"]
         if "oracle_err" in res:
             row["oracle_err"] = res["oracle_err"]
             row["library"] = "SDPA over the dequantized, pre-gathered KV"

@@ -1,5 +1,5 @@
-"""Cost probes of the port on one NVIDIA H100, each run as
-`python -m flash_attn_v100_tpu_torch.benchmarks.<name>`:
+"""Cost probes and the hardware oracle suite of the port on one NVIDIA
+H100, each run as `python -m flash_attn_v100_tpu_torch.benchmarks.<name>`:
 
   prof_softmax_cost   P1: a flash step's stages (QK^T, max, exp2, sum, PV)
                       toggled one at a time;
@@ -12,6 +12,21 @@
 
 The counterparts of the JAX repository's TPU probes of the same names
 (its benchmark folder), with the same variants and printed lines, on the
-hand-written kernels of csrc/probes.cu and csrc/probe_int4.cu.  They
-measure on the card and refuse to run without one.
+hand-written kernels of csrc/probes.cu and csrc/probe_int4.cu.
+
+  hw_oracle           the oracle suite: the four scripts below, then the
+                      fuzz, each case gated against the fp32 oracle;
+  sweep_dense         the reference's dense shape matrix, D 16-256, up to
+                      8192^2, forward and backward, timed beside SDPA;
+  sweep_varlen        mixed, equal, cross, window, softcap and ALiBi packed
+                      batches, and the paged prefill;
+  sweep_decode        a 32k paged decode with rotary and an append from
+                      bf16, int8, int4 and fp8 pools, contiguous cases and
+                      split-KV consistency, and the 32k decode's rate;
+  verify_decode_fastpath  the decode's interior and boundary tiles;
+  fuzz_oracle         random unaligned and ragged configurations, drawn as
+                      the JAX repository's script draws them.
+
+Each is the counterpart of the JAX repository's script of the same name.
+They run on the card and refuse to run without one.
 """

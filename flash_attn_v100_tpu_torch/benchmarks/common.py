@@ -1,5 +1,6 @@
-"""What the probe scripts share: the card line, seeded inputs, a timer and
-one printed line a variant."""
+"""What the benchmark scripts share: the card line and the device; for the
+probes seeded inputs, a timer and one printed line a variant; for the
+oracle suite seeded draws, the gate and the sliced oracle."""
 
 from __future__ import annotations
 
@@ -11,8 +12,14 @@ import torch
 
 from flash_attn_v100_tpu_torch.config import resolve_device
 from flash_attn_v100_tpu_torch.ops.cuda import probes
+from flash_attn_v100_tpu_torch.ops.reference import mha_reference
 from flash_attn_v100_tpu_torch.utils.benchmarking import measure
+from flash_attn_v100_tpu_torch.utils.testing import max_abs_err
 
+# fp32 bytes an oracle keeps a score element, forward and backward (scores,
+# masked scores, exponentials, probabilities and their gradients)
+ORACLE_BYTES_PER_SCORE = 48
+CPU_ORACLE_BUDGET = 2 << 30
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 TILE_WORK = 1024 * 1024       # the TPU scripts' unit: a 1024 x 1024 tile
@@ -27,6 +34,73 @@ def card() -> torch.device:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {line}", flush=True)
     return dev
+
+
+def run_device(device: str = "cuda") -> torch.device:
+    """The device a script runs on: the card (its line printed first) unless
+    the caller asks for the CPU, where the kernels' plain versions run."""
+    dev = resolve_device(device)
+    return card() if dev.type == "cuda" else dev
+
+
+def normal(rng: np.random.Generator, shape, dev,
+           dtype=torch.bfloat16) -> torch.Tensor:
+    """rng.standard_normal(shape) in `dtype` on `dev`, rounded on the host
+    from float64 through fp32 as the JAX scripts' jnp.asarray rounds, so
+    both draw the same bits."""
+    return torch.from_numpy(rng.standard_normal(shape)).to(dtype).to(dev)
+
+
+def gate(x, x32, xnat, mult: float, atol: float):
+    """The reference's relative gate: (error against the fp32 oracle, the
+    same-dtype oracle's error, error <= mult x that + atol)."""
+    e, e_nat = max_abs_err(x, x32), max_abs_err(xnat, x32)
+    return e, e_nat, e <= mult * e_nat + atol
+
+
+def oracle_budget(dev: torch.device) -> int:
+    """Bytes an oracle slice may take: half the device's free memory."""
+    if dev.type == "cuda":
+        return torch.cuda.mem_get_info(dev)[0] // 2
+    return CPU_ORACLE_BUDGET
+
+
+def oracle(q, k, v, do, upcast: bool, budget: int, alibi_slopes=None,
+           **kw):
+    """mha_reference's output (q (B, M, Hq, D), k/v (B, N, Hk, D)) and,
+    given the output gradient `do`, its gradients (dq, dk, dv), computed
+    over slices of (batch row, kv heads with their q heads) whose score
+    tensors fit `budget` bytes; in fp32 when `upcast`, else in q's dtype.
+    `alibi_slopes` is (Hq,) or (B, Hq); `kw` are mha_reference's masks."""
+    B, M, Hq, D = q.shape
+    N, Hk = k.shape[1], k.shape[2]
+    group = Hq // Hk
+    step = max(1, min(Hk, budget // (ORACLE_BYTES_PER_SCORE * M * N
+                                     * group)))
+    cd = torch.float32 if upcast else q.dtype
+    out = q.new_empty(q.shape, dtype=cd)
+    grads = (None if do is None
+             else [x.new_empty(x.shape, dtype=cd) for x in (q, k, v)])
+    for b in range(B):
+        for h in range(0, Hk, step):
+            hq = slice(h * group, min(h + step, Hk) * group)
+            hk = slice(h, min(h + step, Hk))
+            leaves = [x[b:b + 1, :, hs].to(cd).requires_grad_(do is not None)
+                      for x, hs in ((q, hq), (k, hk), (v, hk))]
+            slopes = None
+            if alibi_slopes is not None:
+                slopes = (alibi_slopes[hq] if alibi_slopes.dim() == 1
+                          else alibi_slopes[b:b + 1, hq])
+            with torch.set_grad_enabled(do is not None):
+                o = mha_reference(*leaves, upcast=upcast,
+                                  alibi_slopes=slopes, **kw)
+                if do is not None:
+                    gs = torch.autograd.grad(o, leaves,
+                                             do[b:b + 1, :, hq].to(cd))
+                    for g, dst, hs in zip(gs, grads, (hq, hk, hk)):
+                        dst[b:b + 1, :, hs] = g
+            out[b:b + 1, :, hq] = o.detach()
+    return out, grads
 
 
 def inputs(dev, BH: int, BHk: int, M: int, N: int, seed: int = 0):

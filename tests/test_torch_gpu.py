@@ -2028,3 +2028,91 @@ def test_probe_pairs_and_device_trip_count(cuda, tiles):
                   probes.P3_VARIANTS["dynamic inner grid"]):
         q, k, v = _probe_inputs(1, 4, 1, 384, tiles * probe.bk, seed=tiles)
         _probe_check(probe, q, k, v, 1, probes.SCALE_LOG2)
+
+
+# ------------------------------------------ the drop-in name and the fuzz
+
+CANONICAL_ON_CARD = """
+import sys, torch
+from flash_attn_v100_tpu_torch.utils.distinfo import install_canonical_name
+install_canonical_name(sys.argv[1])
+import flash_attn
+from flash_attn.bert_padding import pad_input, unpad_input
+from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn((2, 96, h, 64), generator=g, device="cuda").to(
+    torch.bfloat16).requires_grad_() for h in (8, 2, 2))
+mask = torch.arange(96, device="cuda")[None, :] < torch.tensor(
+    [96, 33], device="cuda")[:, None]
+qu, idx, cu, ms, _ = unpad_input(q, mask)
+out = pad_input(flash_attn.flash_attn_varlen_func(
+    qu, unpad_input(k, mask)[0], unpad_input(v, mask)[0], cu, cu, ms, ms,
+    causal=True), idx, 2, 96)
+out.float().sum().backward()
+torch.cuda.synchronize()
+counts = (vl.flash_attn_varlen_fwd.launches, vl.varlen_dq_kernel.launches,
+          vl.varlen_dkv_kernel.launches, vl.flash_attn_varlen_fwd_ref.calls,
+          vl.flash_attn_varlen_bwd_ref.calls)
+assert counts == (1, 1, 1, 0, 0), counts
+assert torch.isfinite(out).all() and not out[1, 33:].any()
+assert "jax" not in sys.modules
+print("canonical name on the card")
+"""
+
+
+def test_canonical_name_runs_the_kernels_in_a_fresh_process(cuda, tmp_path):
+    """install_canonical_name in a new process on the card: `import
+    flash_attn` and its bert_padding reach K5-K7, with no JAX."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", CANONICAL_ON_CARD,
+                        str(tmp_path)], cwd=root, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "canonical name" in r.stdout, r.stderr
+
+
+def _fuzz_trials(kind, n=3, seed=0):
+    """The first n trials of `kind` that the fuzz draws for `seed`."""
+    from flash_attn_v100_tpu_torch.benchmarks import fuzz_oracle
+    kinds = ("dense", "varlen", "kvcache")
+    ids = [i for i in range(60) if kinds[int(np.random.default_rng(
+        seed * 100003 + i).integers(0, 3))] == kind][:n]
+    assert len(ids) == n and fuzz_oracle.TRIALS[kind]
+    return ids
+
+
+FUZZ_KERNELS = {"dense": "K1", "varlen": "K5", "kvcache": "K4"}
+
+
+@pytest.mark.parametrize("kind,trial", [
+    (kind, i) for kind in ("dense", "varlen", "kvcache")
+    for i in _fuzz_trials(kind)])
+def test_fuzz_trial_on_the_card(cuda, kind, trial):
+    """A fuzz trial (benchmarks/fuzz_oracle.py, seed 0) through the
+    kernels, gated against the fp32 oracle inside the trial; its kernel
+    launched, no plain twin called."""
+    from flash_attn_v100_tpu_torch.benchmarks import fuzz_oracle
+    from flash_attn_v100_tpu_torch.benchmarks.common import normal
+    r = np.random.default_rng(trial)
+    r.integers(0, 3)
+
+    def mk(*s):
+        return normal(r, s, cuda)
+    before = (dfwd.flash_attn_dense_fwd.launches,
+              vl.flash_attn_varlen_fwd.launches,
+              dec.paged_decode_attention.launches)
+    twins = (dfwd.flash_attn_dense_fwd_ref.calls,
+             vl.flash_attn_varlen_fwd_ref.calls,
+             dec.paged_decode_attention_ref.calls)
+    fuzz_oracle.TRIALS[kind](r, mk, cuda)
+    torch.cuda.synchronize()
+    after = (dfwd.flash_attn_dense_fwd.launches,
+             vl.flash_attn_varlen_fwd.launches,
+             dec.paged_decode_attention.launches)
+    k = ("K1", "K5", "K4").index(FUZZ_KERNELS[kind])
+    assert after[k] == before[k] + 1
+    assert twins == (dfwd.flash_attn_dense_fwd_ref.calls,
+                     vl.flash_attn_varlen_fwd_ref.calls,
+                     dec.paged_decode_attention_ref.calls)
