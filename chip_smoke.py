@@ -70,7 +70,17 @@ P4's kernels integer wgmma (IGMMA .S8.S8) and no mma.sync (IMMA),
 the four probe scripts (`python -m flash_attn_v100_tpu_torch.benchmarks.*`)
 run as the probes' main path, and every variant is held against its plain
 twin at the TPU scripts' shapes and timed in turns beside SDPA (P1-P3) or
-torch._int_mm (P4).  Last, `phase_bench` runs the port's bench
+torch._int_mm (P4).  Then `phase_fp32`: the fp32 bodies of K1-K8
+(csrc/fwd_f32.cu, bwd_f32.cu, decode_f32.cu) at the same shapes in fp32,
+each against its plain twin and an fp64 oracle (forward within 2 x the
+twin's error + 1e-5, gradients 3 x + 1e-4) and timed beside it and fp32
+SDPA; TinyLlama-1.1B's widths in fp32 trained for three AdamW steps
+through K1-K3 (step 1's loss and every gradient against the plain path's)
+and serving 8 requests through K8 and K4 (logits against the plain
+twins', greedy tokens against a plain run's), and the same for
+ModelConfig.tiny(); the ring phase also takes one
+make_lora_train_step(mesh=) step on seq 2 x model 2 against the unsharded
+LoRA step, with a planted fault.  Last, `phase_bench` runs the port's bench
 (`python -m flash_attn_v100_tpu_torch.bench`: its headline JSON line must
 carry a value > 0) and the three examples as subprocesses on the card
 (train_seq_parallel on 2 gloo ranks).  Prints the card, a `kernels` JSON
@@ -510,10 +520,10 @@ def phase_k4(torch, flush):
 
 # ---------------------------------------------------------------- K8 phase
 
-def k8_case(torch):
+def k8_case(torch, dtype=None):
     """The engine's prefill wave as K8 sees it: 4 sequences of 512 new
     tokens behind cached prefixes 0/300/0/300, 32/4 heads x 64, page 128,
-    bf16, from fixed seeds.  Returns (sizes (B, T, Hq, Hk, D, ps), prefix,
+    bf16 (or `dtype`), from fixed seeds.  Returns (sizes (B, T, Hq, Hk, D, ps), prefix,
     seqlens, q, kp, vp, the call's arguments after the pools, the CUDA
     generator for more inputs)."""
     from flash_attn_v100_tpu_torch.ops import masks as masklib
@@ -527,9 +537,9 @@ def k8_case(torch):
     max_k = int(seqlens.max())
     tbl, n_pages = paged_tables(torch, gen, seqlens, ps, -(-max_k // ps),
                                 dev)
-    kp, vp = make_pool(torch, ggen, dev, Hk, n_pages, ps, D, torch.bfloat16)
-    q = torch.randn((B * T, Hq, D), generator=ggen, device=dev).to(
-        torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    kp, vp = make_pool(torch, ggen, dev, Hk, n_pages, ps, D, dtype)
+    q = torch.randn((B * T, Hq, D), generator=ggen, device=dev).to(dtype)
     cu_q = torch.arange(B + 1, dtype=torch.int32, device=dev) * T
     params = masklib.MaskParams(causal=True, window_right=0)
     tail = (tbl, cu_q, seqlens.to(dev, torch.int32), T, max_k, D ** -0.5,
@@ -853,13 +863,14 @@ def spliced(x, y, lo, n=64):
     return z
 
 
-def dense_work(B, S, Hq, Hk, D):
+def dense_work(B, S, Hq, Hk, D, esize=2):
     """(flops, bytes) of K1, K2 and K3 for a causal B x S x Hq x D call:
     4, 6 and 8 flops x D per live (q row, key) pair (2, 3 and 4 products),
-    each input read once and each output written once."""
+    each input read once and each output written once (`esize` bytes an
+    element)."""
     pairs = B * Hq * S * (S + 1) // 2
-    q_bytes, kv_bytes, row_bytes = B * S * Hq * D * 2, B * S * Hk * D * 2, \
-        B * Hq * S * 4
+    q_bytes, kv_bytes, row_bytes = B * S * Hq * D * esize, \
+        B * S * Hk * D * esize, B * Hq * S * 4
     return {
         "K1": (4 * D * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
         "K2": (6 * D * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
@@ -1198,14 +1209,15 @@ def packed_doc_lengths(rows: int, S: int, seed: int = 0):
     return out
 
 
-def varlen_work(lens, Hq, Hk, D):
+def varlen_work(lens, Hq, Hk, D, esize=2):
     """(flops, bytes) of K5, K6 and K7 for causal self-attention over
     sequences of `lens`: dense_work's rule per sequence (4, 6 and 8 flops x
     D per live (q row, key) pair), each input read once and each output
     written once."""
     pairs = Hq * sum(n * (n + 1) // 2 for n in lens)
     T = sum(lens)
-    q_bytes, kv_bytes, row_bytes = T * Hq * D * 2, T * Hk * D * 2, T * Hq * 4
+    q_bytes, kv_bytes, row_bytes = (T * Hq * D * esize, T * Hk * D * esize,
+                                    T * Hq * 4)
     return {
         "K5": (4 * D * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
         "K6": (6 * D * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
@@ -2379,6 +2391,675 @@ def phase_engine_quant(torch, cfg, bf16):
 # on one device); every time measured here is of four processes sharing one
 # card, and a collective's time is gloo's through the host, no measure of a
 # multi-card system.
+# ---------------------------------------------------------------- fp32
+
+TF32_OPS_PER_S = 494.7e12     # H100 SXM dense TF32 tensor-core peak: the
+                              # fp32 bound's operations rate
+FFMA_OPS_PER_S = 66.9e12      # H100 SXM fp32 FMA on the CUDA cores: the
+                              # fp32 bodies' own ceiling (csrc/f32_tiles.cuh)
+FP32_GATES = {"fwd": (2.0, 1e-5), "bwd": (3.0, 1e-4)}
+FP32_GATE = ("err vs the fp64 oracle <= 2 x the fp32 plain twin's + 1e-5 "
+             "(out, LSE), 3 x + 1e-4 (gradients)")
+FP32_PATH_ATOL = 1e-4         # kernel path vs plain path: loss, gradients,
+                              # engine logits (the twins are the fp32 oracle)
+FP32_TRAIN_B = 4              # cut to 2 if the activations do not fit
+
+
+def attn64(torch, q, k, v, valid, scale, do=None):
+    """The fp64 oracle of one slice: q (H, M, D) against k/v (1 or H, N,
+    D) under `valid` (broadcast to (H, M, N)); returns (out, lse, grads or
+    None), dk/dv summed over the heads that share them."""
+    leaves = [x.double().requires_grad_(do is not None) for x in (q, k, v)]
+    with torch.set_grad_enabled(do is not None):
+        qd, kd, vd = leaves
+        H = qd.shape[0]
+        s = (qd @ kd.expand(H, -1, -1).transpose(1, 2)) * scale
+        s = s.masked_fill(~valid, float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        o = (p @ vd.expand(H, -1, -1)) / torch.where(l == 0,
+                                                     torch.ones_like(l), l)
+        lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
+                          m + torch.log(l))[..., 0]
+        grads = (None if do is None
+                 else torch.autograd.grad(o, leaves, do.double()))
+    return o.detach(), lse.detach(), grads
+
+
+def gate64(torch, name, got, twin, ref, kind):
+    """The fp32 gate: got's max abs error against the fp64 oracle `ref`
+    within FP32_GATES[kind] of the fp32 plain twin's; -inf entries (rows
+    with no live key) must match exactly."""
+    mult, atol = FP32_GATES[kind]
+    got, twin = got.double(), twin.double()
+    fin = torch.isfinite(ref)
+    assert torch.equal(fin, torch.isfinite(got)), f"{name}: -inf rows differ"
+    e = float((got[fin] - ref[fin]).abs().max()) if fin.any() else 0.0
+    et = float((twin[fin] - ref[fin]).abs().max()) if fin.any() else 0.0
+    gate = mult * et + atol
+    assert e <= gate, f"{name}: err {e:.3e} > gate {gate:.3e} ({FP32_GATE})"
+    return dict(err=e, twin_err=et, gate=gate,
+                vs_twin=float((got[fin] - twin[fin]).abs().max())
+                if fin.any() else 0.0)
+
+
+def dense_oracle64(torch, q, k, v, do, scale):
+    """attn64 over (batch row, kv head) slices of a causal dense call:
+    (out (B, M, Hq, D), lse (B, Hq, M), (dq, dk, dv))."""
+    B, M, Hq, D = q.shape
+    N, Hk = k.shape[1], k.shape[2]
+    g = Hq // Hk
+    dev = q.device
+    valid = (torch.arange(N, device=dev)[None, :]
+             <= torch.arange(M, device=dev)[:, None] + (N - M))
+    out = torch.empty(q.shape, dtype=torch.float64, device=dev)
+    lse = torch.empty((B, Hq, M), dtype=torch.float64, device=dev)
+    grads = [torch.empty(x.shape, dtype=torch.float64, device=dev)
+             for x in (q, k, v)]
+    for b in range(B):
+        for h in range(Hk):
+            hq = slice(h * g, (h + 1) * g)
+            o, l, gr = attn64(
+                torch, q[b, :, hq].transpose(0, 1),
+                k[b, :, h:h + 1].transpose(0, 1),
+                v[b, :, h:h + 1].transpose(0, 1), valid, scale,
+                do[b, :, hq].transpose(0, 1))
+            out[b, :, hq] = o.transpose(0, 1)
+            lse[b, hq] = l
+            for dst, x, hs in zip(grads, gr, (hq, slice(h, h + 1),
+                                              slice(h, h + 1))):
+                dst[b, :, hs] = x.transpose(0, 1)
+    return out, lse, grads
+
+
+def fp32_dense(torch, B, S, Hq, Hk, D, seed):
+    """K1-K3 on fp32 inputs (causal) against their plain twins and the
+    fp64 oracle; returns the gates, the launches and the inputs."""
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((B, S, h, D), generator=gen, device=dev)
+                   for h in (Hq, Hk, Hk, Hq))
+    scale, params = D ** -0.5, masklib.MaskParams(causal=True)
+    _reset_counts(dfwd, dbwd)
+    out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params)
+    grads = dbwd.flash_attn_dense_bwd(q, k, v, out, do, lse, scale, params)
+    torch.cuda.synchronize()
+    counts = _kernel_counts(dfwd, dbwd)
+    assert (counts["K1"], counts["K2"], counts["K3"], counts["plain_fwd"],
+            counts["plain_bwd"]) == (1, 1, 1, 0, 0), counts
+    assert out.dtype == lse.dtype == torch.float32
+    o_t, lse_t = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params)
+    g_t = dbwd.flash_attn_dense_bwd_ref(q, k, v, o_t, do, lse_t, scale,
+                                        params)
+    o64, lse64, g64 = dense_oracle64(torch, q, k, v, do, scale)
+    tag = f"fp32 B {B} x {S}, {Hq}/{Hk} x {D}"
+    res = {"K1": gate64(torch, f"K1 {tag} out", out, o_t, o64, "fwd"),
+           "K1 lse": gate64(torch, f"K1 {tag} lse", lse, lse_t, lse64,
+                            "fwd")}
+    for name, g, gt, gr in zip(("K2 dq", "K3 dk", "K3 dv"), grads, g_t, g64):
+        res[name] = gate64(torch, f"{name} {tag}", g, gt, gr, "bwd")
+    print(f"fp32 K1-K3 {tag} causal: " + ", ".join(
+        f"{n} err {r['err']:.3e} (twin {r['twin_err']:.3e}, gate "
+        f"{r['gate']:.3e}, vs twin {r['vs_twin']:.3e})"
+        for n, r in res.items()), flush=True)
+    return res, (q, k, v, do, out, lse, scale, params)
+
+
+def fp32_varlen(torch, B, S, Hq, Hk, D):
+    """K5-K7 on fp32 inputs through flash_attn_varlen_func at
+    phase_varlen's packed documents (c), forward and backward, against the
+    plain twins and the fp64 oracle (per document); returns the gates, the
+    launches and the inputs."""
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    from flash_attn_v100_tpu_torch.ops.varlen import flash_attn_varlen_func
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    lens = [n for row in packed_doc_lengths(B, S, SEED) for n in row]
+    T = sum(lens)
+    cu = torch.tensor([0] + lens, device=dev).cumsum(0).to(torch.int32)
+    ms = max(lens)
+    q, k, v, do = (torch.randn((T, h, D), generator=gen, device=dev)
+                   for h in (Hq, Hk, Hk, Hq))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    vl.flash_attn_varlen_fwd.launches = 0
+    vl.varlen_dq_kernel.launches = vl.varlen_dkv_kernel.launches = 0
+    vl.flash_attn_varlen_fwd_ref.calls = vl.flash_attn_varlen_bwd_ref.calls = 0
+    out = flash_attn_varlen_func(*leaves, cu, cu, ms, ms, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts = _varlen_counts(vl)
+    launches = {n: counts[n] for n in ("K5", "K6", "K7")}
+    assert launches == {"K5": 1, "K6": 1, "K7": 1}, launches
+    assert counts["plain_fwd"] == counts["plain_bwd"] == 0, counts
+    scale, params = D ** -0.5, masklib.MaskParams(causal=True)
+    args = (q, k, v, cu, cu, ms, ms, scale, params)
+    o_t, lse_t = vl.flash_attn_varlen_fwd_ref(*args)
+    g_t = vl.flash_attn_varlen_bwd_ref(q, k, v, o_t, do, lse_t, cu, cu, ms,
+                                       ms, scale, params)
+    g = Hq // Hk
+    o64 = torch.empty(q.shape, dtype=torch.float64, device=dev)
+    g64 = [torch.empty(x.shape, dtype=torch.float64, device=dev)
+           for x in (q, k, v)]
+    at = 0
+    for n in lens:
+        valid = (torch.arange(n, device=dev)[None, :]
+                 <= torch.arange(n, device=dev)[:, None])
+        rows = slice(at, at + n)
+        for h in range(Hk):
+            hq = slice(h * g, (h + 1) * g)
+            o, _, gr = attn64(torch, q[rows, hq].transpose(0, 1),
+                              k[rows, h:h + 1].transpose(0, 1),
+                              v[rows, h:h + 1].transpose(0, 1), valid,
+                              scale, do[rows, hq].transpose(0, 1))
+            o64[rows, hq] = o.transpose(0, 1)
+            for dst, x, hs in zip(g64, gr, (hq, slice(h, h + 1),
+                                            slice(h, h + 1))):
+                dst[rows, hs] = x.transpose(0, 1)
+        at += n
+    tag = f"fp32 {len(lens)} packed documents, {T} tokens"
+    res = {"K5": gate64(torch, f"K5 {tag} out", out.detach(), o_t, o64,
+                        "fwd")}
+    for name, x, gt, gr in zip(("K6 dq", "K7 dk", "K7 dv"), leaves, g_t,
+                               g64):
+        res[name] = gate64(torch, f"{name} {tag}", x.grad, gt, gr, "bwd")
+    print(f"fp32 K5-K7 {tag} (flash_attn_varlen_func, {Hq}/{Hk} x {D}, "
+          f"causal): " + ", ".join(
+              f"{n} err {r['err']:.3e} (twin {r['twin_err']:.3e}, gate "
+              f"{r['gate']:.3e})" for n, r in res.items()), flush=True)
+    return res, launches, (q, k, v, do, cu, ms, lens, scale, params)
+
+
+def fp32_k8(torch):
+    """K8 on fp32 at k8_case's engine prefill wave against its twin and
+    the fp64 oracle over the gathered cache."""
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    (B, T, Hq, Hk, D, ps), prefix, seqlens, q, kp, vp, tail, _ = k8_case(
+        torch, torch.float32)
+    twins0 = vl.flash_attn_varlen_fwd_paged_ref.calls
+    n0 = vl.flash_attn_varlen_fwd_paged.launches
+    out, lse = vl.flash_attn_varlen_fwd_paged(q, kp, vp, *tail)
+    torch.cuda.synchronize()
+    assert vl.flash_attn_varlen_fwd_paged.launches == n0 + 1
+    assert vl.flash_attn_varlen_fwd_paged_ref.calls == twins0
+    o_t, lse_t = vl.flash_attn_varlen_fwd_paged_ref(q, kp, vp, *tail)
+    kc, vc = gather_kv(torch, kp, vp, tail[0], seqlens, ps)
+    g, dev, scale = Hq // Hk, q.device, tail[5]
+    o64 = torch.empty(q.shape, dtype=torch.float64, device=dev)
+    lse64 = torch.empty(lse.shape, dtype=torch.float64, device=dev)
+    for b in range(B):
+        n, rows = int(seqlens[b]), slice(b * T, (b + 1) * T)
+        valid = (torch.arange(n, device=dev)[None, :]
+                 <= torch.arange(T, device=dev)[:, None] + int(prefix[b]))
+        for h in range(Hk):
+            hq = slice(h * g, (h + 1) * g)
+            o, l, _ = attn64(torch, q[rows, hq].transpose(0, 1),
+                             kc[b, h:h + 1, :n], vc[b, h:h + 1, :n], valid,
+                             scale)
+            o64[rows, hq] = o.transpose(0, 1)
+            lse64[hq, rows] = l
+    tag = f"fp32 {B} x {T} new tokens over prefixes {prefix.tolist()}"
+    res = {"K8": gate64(torch, f"K8 {tag} out", out, o_t, o64, "fwd"),
+           "K8 lse": gate64(torch, f"K8 {tag} lse", lse, lse_t, lse64,
+                            "fwd")}
+    print(f"fp32 K8 {tag}, {Hq}/{Hk} x {D}, page {ps}: " + ", ".join(
+        f"{n} err {r['err']:.3e} (twin {r['twin_err']:.3e}, gate "
+        f"{r['gate']:.3e})" for n, r in res.items()), flush=True)
+    return res, (B, T, Hq, Hk, D, ps, prefix, seqlens, q, kp, vp, tail, kc,
+                 vc)
+
+
+def fp32_k4(torch):
+    """K4 (the merged entry, the engine's route) on fp32 at the engine's
+    decode step, B 8, 32/4 x 64, page 128, lengths 600-2000, against its
+    twin and the fp64 oracle."""
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    ggen = torch.Generator(device=dev).manual_seed(SEED)
+    B, Hk, group, D, ps, max_pages = 8, 4, 8, 64, 128, 16
+    lens = torch.randint(600, 2001, (B,), generator=gen)
+    tbl, n_pages = paged_tables(torch, gen, lens, ps, max_pages, dev)
+    kp, vp = make_pool(torch, ggen, dev, Hk, n_pages, ps, D, torch.float32)
+    q = torch.randn((B, Hk, group, D), generator=ggen, device=dev)
+    lens_d = lens.to(dev, torch.int32)
+    kw = dict(qpos_vec=lens_d - 1, softmax_scale=D ** -0.5,
+              params=masklib.MaskParams(window_right=0), t_new=1,
+              group=group, num_splits=0)
+    args = (q, kp[None], vp[None], tbl, lens_d,
+            torch.zeros(B, dtype=torch.int32, device=dev))
+    twins0 = dec.paged_decode_attention_ref.calls
+    n0 = dec.paged_decode_attention.launches
+    o, lse = dec.paged_decode_attention_merged(*args, **kw)
+    torch.cuda.synchronize()
+    assert dec.paged_decode_attention.launches == n0 + 1
+    assert dec.paged_decode_attention_ref.calls == twins0
+    assert o.dtype == torch.float32
+    o_t, lse_t = dec.merge_partials(*dec.paged_decode_attention_ref(*args,
+                                                                     **kw))
+    kc, vc = gather_kv(torch, kp, vp, tbl, lens, ps)
+    o64 = torch.empty(o.shape, dtype=torch.float64, device=dev)
+    lse64 = torch.empty(lse.shape, dtype=torch.float64, device=dev)
+    for b in range(B):
+        n = int(lens[b])
+        for h in range(Hk):
+            ob, lb, _ = attn64(torch, q[b, h][:, None], kc[b, h, :n][None],
+                               vc[b, h, :n][None], torch.ones(
+                                   (1, n), dtype=torch.bool, device=dev),
+                               D ** -0.5)
+            o64[b, h] = ob[:, 0]
+            lse64[b, h, :, 0] = lb[:, 0]
+    res = {"K4": gate64(torch, "K4 fp32 decode step out", o, o_t, o64,
+                        "fwd"),
+           "K4 lse": gate64(torch, "K4 fp32 decode step lse", lse, lse_t,
+                            lse64, "fwd")}
+    print(f"fp32 K4 decode step B {B}, {Hk * group}/{Hk} x {D}, page {ps}, "
+          f"lengths {int(lens.min())}-{int(lens.max())} (merged entry): "
+          + ", ".join(f"{n} err {r['err']:.3e} (twin {r['twin_err']:.3e}, "
+                      f"gate {r['gate']:.3e})" for n, r in res.items()),
+          flush=True)
+    return res, (q, kp, vp, tbl, lens, lens_d, args, kw, kc, vc, group)
+
+
+def fp32_train(torch, cfg, B, tag):
+    """One fp32 model's training check: the step-1 loss and every leaf's
+    gradient through the kernels against the same through the plain
+    attention versions (within FP32_PATH_ATOL), then `steps` AdamW steps
+    of make_train_step through K1-K3 with their launches counted and the
+    plain twins never called.  Returns what phase_fp32 prints."""
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    dev = torch.device("cuda")
+    params = tm.init_params(cfg, seed=SEED, device=dev, lm_head=True)
+    leaves = tm.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    gen = torch.Generator().manual_seed(SEED)
+    S = min(TRAIN_S, cfg.max_seq_len)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                           generator=gen).to(dev)
+    with _plain_attention(fa_mod, dfwd, dbwd, True):
+        loss_p = tm.loss_fn(params, tokens, cfg)
+        grads_p = torch.autograd.grad(loss_p, leaves)
+    loss_p = float(loss_p.detach())
+    step, init_opt = tm.make_train_step(cfg)
+    opt = init_opt(params)
+    steps = TRAIN_STEPS if cfg.n_layers > 2 else 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(dfwd, dbwd)
+    losses, secs, grad_err = [], [], 0.0
+    for i in range(steps):
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, tokens)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == 0:   # step 1's gradients are still in .grad
+            for t, gp in zip(leaves, grads_p):
+                grad_err = max(grad_err, float((t.grad - gp).abs().max()))
+    del grads_p
+    counts = _kernel_counts(dfwd, dbwd)
+    L = cfg.n_layers
+    assert all(counts[n] == L * steps for n in ("K1", "K2", "K3")), counts
+    assert counts["plain_fwd"] == counts["plain_bwd"] == 0, counts
+    loss_err = abs(losses[0] - loss_p)
+    assert loss_err <= FP32_PATH_ATOL, (tag, losses[0], loss_p)
+    assert grad_err <= FP32_PATH_ATOL, (tag, grad_err)
+    assert all(math.isfinite(x) for x in losses), losses
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"fp32 {tag} train: {L} layers, dim {cfg.dim}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads x {cfg.head_dim}, B {B} x S {S}, {steps} "
+          f"AdamW step(s): losses {[round(x, 6) for x in losses]}, step "
+          f"times {[round(x * 1e3, 1) for x in secs]} ms, peak {peak:.2f} "
+          f"GB; step-1 loss vs the plain path's {loss_p:.6f}: err "
+          f"{loss_err:.3e}, every leaf's gradient: max err {grad_err:.3e} "
+          f"(gate {FP32_PATH_ATOL:.0e}); launches K1/K2/K3 {counts['K1']}/"
+          f"{counts['K2']}/{counts['K3']}, plain calls 0", flush=True)
+    return dict(launches=counts, losses=losses, step_ms=statistics.median(
+        secs) * 1e3, peak_gb=peak, loss_err=loss_err, grad_err=grad_err,
+        B=B), params
+
+
+def fp32_serve(torch, params, cfg, tag, prompts, n_new, page_size=PAGE_SIZE,
+               num_pages=NUM_PAGES):
+    """One fp32 engine run through K8 and K4, its first K8-route prefill
+    step and first decode step (T = 1) replayed through the plain twins
+    (logits within FP32_PATH_ATOL), and the same traffic served again on
+    the plain twins: greedy tokens equal.  At a first difference the
+    top-two logit margin there is printed; the run fails unless that
+    margin is within the logits gate (a tie the gate cannot order)."""
+    from flash_attn_v100_tpu_torch import ServingEngine
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops import kvcache as kv_mod
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    from flash_attn_v100_tpu_torch.runtime import engine as eng_mod
+
+    def plain_merged(*a, **k):
+        o, lse = dec.merge_partials(*dec.paged_decode_attention_ref(*a, **k))
+        return o.to(a[0].dtype), lse
+
+    @contextlib.contextmanager
+    def plain_twins():
+        saved = (kv_mod.paged_decode_attention_merged,
+                 kv_mod.flash_attn_varlen_fwd_paged)
+        kv_mod.paged_decode_attention_merged = plain_merged
+        kv_mod.flash_attn_varlen_fwd_paged = vl.flash_attn_varlen_fwd_paged_ref
+        try:
+            yield
+        finally:
+            (kv_mod.paged_decode_attention_merged,
+             kv_mod.flash_attn_varlen_fwd_paged) = saved
+
+    def run(spy=None):
+        eng = ServingEngine(params, cfg, max_batch=len(prompts),
+                            num_pages=num_pages, page_size=page_size,
+                            device="cuda")
+        real = eng_mod.paged_forward
+        if spy is not None:
+            eng_mod.paged_forward = spy(real)
+        try:
+            rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+            out = eng.run_to_completion()
+        finally:
+            eng_mod.paged_forward = real
+        return [out[r] for r in rids], eng
+
+    cap = {}
+
+    def spy(real):
+        def f(params_, k_pool, v_pool, tokens, cs, bt, cfg_, **kw):
+            T = tokens.shape[1]
+            key = ("decode step" if T == 1 else
+                   "varlen prefill" if eng_mod._route(
+                       cfg_, T, k_pool.shape[2]) == "varlen" else None)
+            if key is None or key in cap:
+                return real(params_, k_pool, v_pool, tokens, cs, bt, cfg_,
+                            **kw)
+            c = cap[key] = dict(k=k_pool.clone(), v=v_pool.clone(), kw=kw,
+                                args=(tokens.clone(), cs.clone(),
+                                      bt.clone()))
+            out = real(params_, k_pool, v_pool, tokens, cs, bt, cfg_, **kw)
+            c["logits"] = out[0].clone()
+            return out
+        return f
+
+    reset_serving_counts()
+    toks, eng = run(spy)
+    launches, twin_calls, _ = serving_counts()
+    assert twin_calls == [0, 0], twin_calls
+    assert launches["decode"] > 0 and launches["varlen"] > 0, launches
+    assert sorted(cap) == ["decode step", "varlen prefill"], sorted(cap)
+    errs = {}
+    for key, c in cap.items():
+        with plain_twins():
+            plain = eng_mod.paged_forward(params, c["k"].clone(),
+                                          c["v"].clone(), *c["args"], cfg,
+                                          **c["kw"])[0]
+        errs[key] = float((c["logits"] - plain).abs().max())
+        assert errs[key] <= FP32_PATH_ATOL, (tag, key, errs[key])
+    del cap, eng
+    with plain_twins():
+        toks_p, _ = run()
+    diff = [(i, j) for i, (a, b) in enumerate(zip(toks, toks_p))
+            for j in range(len(a)) if a[j] != b[j]][:1]
+    same = "equal to the plain run's"
+    if diff:
+        i, j = diff[0]
+        seq = torch.tensor(prompts[i] + toks[i][:j], device="cuda")[None]
+        with torch.no_grad():
+            top = tm.forward(params, seq, cfg)[0, -1].topk(2).values
+        margin = float(top[0] - top[1])
+        same = (f"equal to the plain run's up to request {i} token {j} "
+                f"(kernel {toks[i][j]}, plain {toks_p[i][j]}), where the "
+                f"top-two logit margin is {margin:.3e}")
+        print(f"fp32 {tag} serve: tokens {same}", flush=True)
+        assert margin <= FP32_PATH_ATOL, (
+            f"fp32 {tag}: greedy tokens differ from the plain run at a "
+            f"margin above the logits gate")
+    print(f"fp32 {tag} serve: {len(prompts)} requests (prompts "
+          f"{sorted(len(p) for p in prompts)}, {n_new} new each, greedy), "
+          f"fp32 pool, page {page_size}: launches {launches}, plain twin "
+          f"calls 0; first K8-route prefill logits err "
+          f"{errs['varlen prefill']:.3e}, first decode step logits err "
+          f"{errs['decode step']:.3e} (gate {FP32_PATH_ATOL:.0e}) vs the "
+          f"plain twins; tokens {same}", flush=True)
+    return dict(launches=launches, logits_err=errs)
+
+
+def fp32_times(torch, flush, dense, varlen, k8, k4):
+    """Kernel, plain twin and library (fp32 SDPA, enable_gqa; pre-gathered
+    KV for K4 / K8) times of each fp32 kernel at its main shape, with the
+    bound (bytes over 3.35 TB/s or operations over the TF32 rate) and the
+    FFMA ceiling."""
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    F = torch.nn.functional
+    out = {}
+
+    def row(name, ms, plain, lib, flops, nbytes, library):
+        bms, by = bound_ms(nbytes, flops, TF32_OPS_PER_S)
+        ceil = bound_ms(nbytes, flops, FFMA_OPS_PER_S)[0]
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                         bound_by=by, ffma_bound_ms=ceil, library=library)
+        print(f"fp32 {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"{library} {lib:.4f} ms, bound {bms:.4f} ms ({by}, "
+              f"{flops:.3e} flop at TF32), FFMA ceiling {ceil:.4f} ms; "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bms / ms:.1f}% of the "
+              f"bound, {100 * ceil / ms:.1f}% of the FFMA ceiling",
+              flush=True)
+
+    # K1-K3 at the training shape
+    q, k, v, do, o, lse, scale, params = dense
+    B, S, Hq, D = q.shape
+    Hk = k.shape[2]
+    delta = dbwd.softmax_delta(o, do)
+    lse_c = lse.clamp_min(NEG_INF).contiguous()
+    kargs = (q, k, v, do, lse_c, delta, None, scale, params, 0.0, None, 0,
+             None, Hq)
+    ms = {"K1": time_ms(torch, lambda: dfwd.flash_attn_dense_fwd(
+              q, k, v, scale, params), reps=10, flush=flush),
+          "K2": time_ms(torch, lambda: dbwd.dq_kernel(*kargs), reps=10,
+                        flush=flush),
+          "K3": time_ms(torch, lambda: dbwd.dkv_kernel(*kargs), reps=10,
+                        flush=flush)}
+    p_fwd = time_ms(torch, lambda: dfwd.flash_attn_dense_fwd_ref(
+        q, k, v, scale, params), reps=3, warmup=1, flush=flush)
+    p_bwd = time_ms(torch, lambda: dbwd.flash_attn_dense_bwd_ref(
+        q, k, v, o, do, lse, scale, params), reps=3, warmup=1, flush=flush)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    l_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), reps=5, flush=flush)
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+    do_s = do.transpose(1, 2).contiguous()
+    l_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qs, ks, vs), do_s, retain_graph=True), reps=5, flush=flush)
+    del o_lib, qs, ks, vs
+    work = dense_work(B, S, Hq, Hk, D, esize=4)
+    for name, plain, lib in (("K1", p_fwd, l_fwd), ("K2", p_bwd, l_bwd),
+                             ("K3", p_bwd, l_bwd)):
+        row(name, ms[name], plain, lib, *work[name],
+            "sdpa fp32 " + ("fwd" if name == "K1" else "bwd (K2 + K3)"))
+
+    # K5-K7 at the packed documents
+    q, k, v, do, cu, mx, lens, scale, params = varlen
+    o, lse = vl.flash_attn_varlen_fwd(q, k, v, cu, cu, mx, mx, scale, params)
+    delta = vl.varlen_delta(o, do)
+    lse_c = lse.clamp_min(NEG_INF).contiguous()
+    bk = (q, k, v, do, lse_c, delta, None, cu, cu, None, None, mx, mx,
+          scale, params, 0.0, None)
+    ms = {"K5": time_ms(torch, lambda: vl.flash_attn_varlen_fwd(
+              q, k, v, cu, cu, mx, mx, scale, params), reps=10, flush=flush),
+          "K6": time_ms(torch, lambda: vl.varlen_dq_kernel(*bk), reps=10,
+                        flush=flush),
+          "K7": time_ms(torch, lambda: vl.varlen_dkv_kernel(*bk), reps=10,
+                        flush=flush)}
+    p_fwd = time_ms(torch, lambda: vl.flash_attn_varlen_fwd_ref(
+        q, k, v, cu, cu, mx, mx, scale, params), reps=3, warmup=1,
+        flush=flush)
+    p_bwd = time_ms(torch, lambda: vl.flash_attn_varlen_bwd_ref(
+        q, k, v, o, do, lse, cu, cu, mx, mx, scale, params), reps=3,
+        warmup=1, flush=flush)
+    lv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    label, fn, o_lib = varlen_library(torch, *lv, cu, mx)
+    l_fwd = time_ms(torch, fn, reps=3, warmup=1, flush=flush)
+    l_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, lv, do.view_as(o_lib) if o_lib.shape == do.shape else
+        do.transpose(0, 1)[None], retain_graph=True), reps=3, warmup=1,
+        flush=flush)
+    del o_lib, lv
+    work = varlen_work(lens, Hq, Hk, D, esize=4)
+    for name, plain, lib in (("K5", p_fwd, l_fwd), ("K6", p_bwd, l_bwd),
+                             ("K7", p_bwd, l_bwd)):
+        row(name, ms[name], plain, lib, *work[name],
+            f"{label} fp32 " + ("fwd" if name == "K5" else "bwd (K6 + K7)"))
+
+    # K8 at the engine's prefill wave
+    B, T, Hq, Hk, D, ps, prefix, seqlens, q, kp, vp, tail, kc, vc = k8
+    kms = time_ms(torch, lambda: vl.flash_attn_varlen_fwd_paged(
+        q, kp, vp, *tail), flush=flush)
+    plain = time_ms(torch, lambda: vl.flash_attn_varlen_fwd_paged_ref(
+        q, kp, vp, *tail), reps=3, warmup=1, flush=flush)
+    lib = time_ms(torch, prefill_sdpa(torch, q, kc, vc, prefix, T),
+                  flush=flush)
+    pairs = Hq * sum(T * int(p) + T * (T + 1) // 2 for p in prefix)
+    nbytes = (2 * q.numel() * 4 + 2 * int(seqlens.sum()) * Hk * D * 4
+              + q.shape[0] * Hq * 4)
+    row("K8", kms, plain, lib, 4 * D * pairs, nbytes,
+        "sdpa fp32 (pre-gathered KV)")
+
+    # K4 at the engine's decode step, through the merged entry
+    q, kp, vp, tbl, lens, lens_d, args, kw, kc, vc, group = k4
+    kms = time_ms(torch, lambda: dec.paged_decode_attention_merged(
+        *args, **kw), flush=flush)
+    plain = time_ms(torch, lambda: dec.merge_partials(
+        *dec.paged_decode_attention_ref(*args, **kw)), reps=5, flush=flush)
+    lib = time_ms(torch, decode_sdpa(torch, q, kc, vc, lens_d, group),
+                  flush=flush)
+    n_kv = int(lens.sum()) * q.shape[1]
+    nbytes = 2 * n_kv * q.shape[-1] * 4 + 2 * q.numel() * 4
+    row("K4", kms, plain, lib, 4 * q.shape[-1] * group * n_kv, nbytes,
+        "sdpa fp32 (pre-gathered KV)")
+    return out
+
+
+def phase_fp32(torch, flush):
+    """fp32 through K1-K8's fp32 bodies: (1) each kernel against its plain
+    twin and the fp64 oracle at its main shape (K1-K3 at the training
+    shape, ModelConfig.tiny's heads and D 128 / 256; K5-K7 at the packed
+    documents; K8 at the engine's prefill wave; K4 at its decode step);
+    (2) the path at full width: TinyLlama-1.1B's widths in fp32, three
+    AdamW steps through K1-K3 (step 1's loss and every leaf's gradient
+    against the plain path's) and phase_engine's 8 requests through K8
+    and K4 (the first prefill's and decode step's logits against the plain
+    twins', greedy tokens equal to a plain run's); the same for
+    ModelConfig.tiny(); (3) each kernel's times beside its plain twin, fp32
+    SDPA, the TF32 bound and the FFMA ceiling."""
+    import numpy as np
+    from flash_attn_v100_tpu_torch import ModelConfig
+    from flash_attn_v100_tpu_torch.ops import kvcache as kv_mod
+    t0 = time.perf_counter()
+    errs = {}
+    dense = None
+    for i, shape in enumerate(((TRAIN_B, TRAIN_S, 32, 4, 64),
+                               (2, 256, 4, 2, 32), (1, 512, 8, 2, 128),
+                               (1, 256, 4, 2, 256))):
+        res, inputs = fp32_dense(torch, *shape, seed=SEED + 10 + i)
+        if i == 0:
+            errs.update(res)
+            dense = inputs
+        else:
+            for n, r in res.items():   # the worst over the shapes
+                if r["err"] - r["gate"] > errs[n]["err"] - errs[n]["gate"]:
+                    errs[n] = r
+    v_res, v_launches, varlen = fp32_varlen(torch, TRAIN_B, TRAIN_S, 32, 4,
+                                            64)
+    errs.update(v_res)
+    k8_res, k8 = fp32_k8(torch)
+    k4_res, k4 = fp32_k4(torch)
+    errs.update(k8_res)
+    errs.update(k4_res)
+    t_check = time.perf_counter() - t0
+    times = fp32_times(torch, flush, dense, varlen, k8, k4)
+    del dense, varlen, k8, k4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) the path at full width, then ModelConfig.tiny()
+    t1 = time.perf_counter()
+    cfg = ModelConfig.tinyllama_1b(dtype=torch.float32)
+    train = None
+    try:
+        train, params = fp32_train(torch, cfg, FP32_TRAIN_B, "TinyLlama-1.1B")
+    except torch.cuda.OutOfMemoryError:
+        pass
+    if train is None:   # outside the handler, so its frames are freed
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"fp32 TinyLlama-1.1B train: B {FP32_TRAIN_B} x {TRAIN_S} "
+              f"does not fit; cut to B {FP32_TRAIN_B // 2}", flush=True)
+        train, params = fp32_train(torch, cfg, FP32_TRAIN_B // 2,
+                                   "TinyLlama-1.1B")
+    rng = np.random.default_rng(SEED)
+    prompts = ([rng.integers(1, cfg.vocab_size, LONG_LEN).tolist()
+                for _ in range(N_LONG)]
+               + [rng.integers(1, cfg.vocab_size, n).tolist()
+                  for n in SHORT_LENS])
+    with torch.no_grad():
+        params = {k_: (v_.detach() if k_ != "layers" else
+                       [{n: t.detach() for n, t in lp.items()} for lp in v_])
+                  for k_, v_ in params.items()}
+        serve = fp32_serve(torch, params, cfg, "TinyLlama-1.1B", prompts,
+                           N_NEW)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny = ModelConfig.tiny()
+    tiny_train, tparams = fp32_train(torch, tiny, 2, "ModelConfig.tiny")
+    trng = np.random.default_rng(SEED + 1)
+    tprompts = [trng.integers(1, tiny.vocab_size, n).tolist()
+                for n in (100, 70, 9)]
+    # the tiny model's prefills reach K8 at this many q rows (group 2 x 64
+    # tokens); the engine's route rule is otherwise unchanged
+    saved = kv_mod.VARLEN_PREFILL_MIN_ROWS
+    kv_mod.VARLEN_PREFILL_MIN_ROWS = 128
+    try:
+        with torch.no_grad():
+            tparams = {k_: (v_.detach() if k_ != "layers" else
+                            [{n: t.detach() for n, t in lp.items()}
+                             for lp in v_]) for k_, v_ in tparams.items()}
+            tiny_serve = fp32_serve(torch, tparams, tiny, "ModelConfig.tiny",
+                                    tprompts, 8, page_size=128,
+                                    num_pages=16)
+    finally:
+        kv_mod.VARLEN_PREFILL_MIN_ROWS = saved
+    del tparams
+    t_path = time.perf_counter() - t1
+    print(f"fp32: kernel checks {t_check:.1f} s, times "
+          f"{t1 - t0 - t_check:.1f} s, paths {t_path:.1f} s, total "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {"K1": train["launches"]["K1"], "K2": train["launches"]["K2"],
+                "K3": train["launches"]["K3"], **v_launches,
+                "K4": serve["launches"]["decode"],
+                "K8": serve["launches"]["varlen"]}
+    return dict(errs=errs, times=times, launches=launches, train=train,
+                serve=serve, tiny_train=tiny_train, tiny_serve=tiny_serve)
+
+
 PAR_WORLD = 4
 PAR_TIMEOUT_S = 420
 # (c) serves at TinyLlama width with max_seq_len cut to 1024: on seq 2 the
@@ -2797,6 +3478,13 @@ RT_SPLIT = ((1, 2, 1), (1, 1, 2))
 # (c)'s negative controls: one step under each planted fault, which the
 # gates must catch
 RT_FAULTS = ("past chunk dropped", "gradient sum skipped")
+# (d): one make_lora_train_step(mesh=) step on RT_MESH at (c)'s width,
+# batch and base weights: rank-8 adapters on wq/wk/wv/wo (phase_lora's),
+# B drawn N(0, RL_B_STD) so that A has a gradient too; the loss and each
+# adapter's gradient against the unsharded LoRA step's under (c)'s gates,
+# and the planted fault: the adapter gradients' sum over "model" dropped
+RL_B_STD = 0.01
+RL_FAULT = "adapter gradients' model sum dropped"
 
 
 def ring_launches(kw, r, n=RING_WORLD, c=RING_S // RING_WORLD) -> int:
@@ -3026,6 +3714,119 @@ def _ring_train(torch, dist, tmp):
                 counts=counts, peak_gb=peak / 1e9)
 
 
+def _rl_setup(torch, tmp):
+    """(d)'s model, adapter config and tokens, and the adapters of
+    tmp/lora.pt on the card, requiring grad."""
+    from flash_attn_v100_tpu_torch import ModelConfig
+    from flash_attn_v100_tpu_torch.integrations import lora as lora_mod
+    cfg = ModelConfig.tinyllama_1b()
+    lora = torch.load(f"{tmp}/lora.pt")
+    lora = dict(layers=[{n: {k: t.cuda().requires_grad_(True)
+                             for k, t in ab.items()} for n, ab in ad.items()}
+                        for ad in lora["layers"]])
+    return cfg, lora_mod.LoraConfig(), lora, ring_train_tokens(torch, cfg)
+
+
+def _ring_lora(torch, dist, tmp):
+    """(d) one make_lora_train_step(mesh=) AdamW step on RT_MESH: the loss,
+    each adapter's gradient (on the host), the K1-K3 launches; then the
+    same step with RL_FAULT planted: its loss and gradients."""
+    from flash_attn_v100_tpu_torch.integrations import lora as lora_mod
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.parallel import make_mesh
+    from flash_attn_v100_tpu_torch.parallel.mesh import (
+        DATA_AXIS, SEQ_AXIS, all_reduce_flat)
+    mesh = make_mesh(*RT_MESH)
+    cfg, lcfg, _, tokens = _rl_setup(torch, tmp)
+    shard = tm.shard_params(tm.init_params(cfg, seed=SEED, device="cuda",
+                                           lm_head=True), cfg, mesh)
+
+    def no_model_sum(lora, mesh_):
+        all_reduce_flat([t.grad for t in lora_mod.lora_leaves(lora)], mesh_,
+                        (DATA_AXIS, SEQ_AXIS))
+
+    out = {}
+    for label, fault in (("step", None), ("fault", no_model_sum)):
+        lora = _rl_setup(torch, tmp)[2]
+        step, init_opt = lora_mod.make_lora_train_step(cfg, lcfg, mesh=mesh)
+        opt = init_opt(lora)
+        dist.barrier()
+        _reset_counts(dfwd, dbwd)
+        t0 = time.perf_counter()
+        with (contextlib.nullcontext() if fault is None else
+              _patched(lora_mod, "reduce_lora_grads", fault)):
+            loss = float(step(lora, opt, shard, tokens)[0])
+        torch.cuda.synchronize()
+        out[label] = dict(loss=loss, s=time.perf_counter() - t0,
+                          counts=_kernel_counts(dfwd, dbwd),
+                          grads=[t.grad.cpu() for t in
+                                 lora_mod.lora_leaves(lora)])
+        del lora, opt
+    return dict(out, coords=mesh.coords)
+
+
+def _ring_lora_reference(torch, tmp):
+    """(d)'s unsharded reference, in this process before the spawn: the
+    adapters (lora_init's, B drawn N(0, RL_B_STD)) go to tmp/lora.pt; the
+    token losses and adapter gradients of lora_loss through the kernels
+    and through the plain attention in fp32 and bf16; then one unsharded
+    make_lora_train_step AdamW step."""
+    from flash_attn_v100_tpu_torch import ModelConfig
+    from flash_attn_v100_tpu_torch.integrations import lora as lora_mod
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    cfg = ModelConfig.tinyllama_1b()
+    lcfg = lora_mod.LoraConfig()
+    params = tm.init_params(cfg, seed=SEED, device="cuda", lm_head=True)
+    lora = lora_mod.lora_init(params, lcfg, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    with torch.no_grad():
+        for ad in lora["layers"]:
+            for ab in ad.values():
+                ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen,
+                                          device="cuda") * RL_B_STD)
+    torch.save(dict(layers=[{n: {k: t.detach().cpu() for k, t in ab.items()}
+                             for n, ab in ad.items()}
+                            for ad in lora["layers"]]), f"{tmp}/lora.pt")
+    leaves = lora_mod.lora_leaves(lora)
+    tokens = ring_train_tokens(torch, cfg)
+
+    def losses_and_grads():
+        eff = lora_mod.materialize(params, lora, lcfg)
+        logp = torch.log_softmax(tm.forward(eff, tokens[:, :-1], cfg),
+                                 dim=-1)
+        tok = -logp.gather(-1, tokens[:, 1:, None].to(torch.long))[..., 0]
+        return tok.detach(), torch.autograd.grad(tok.mean(), leaves)
+
+    tok_k, g_k = losses_and_grads()
+    with _plain_attention(fa_mod, dfwd, dbwd, True):
+        tok32, g32 = losses_and_grads()
+    with _plain_attention(fa_mod, dfwd, dbwd, False):
+        tok16, g16 = losses_and_grads()
+
+    def rel(grads):
+        return [float((g.float() - r.float()).norm() / r.float().norm())
+                for g, r in zip(grads, g32)]
+
+    step, init_opt = lora_mod.make_lora_train_step(cfg, lcfg)
+    loss = float(step(lora, init_opt(lora), params, tokens)[0])
+    e16_tok = (tok16 - tok32).double()
+    names = [f"layers.{i}.{n}.{k}" for i, ad in enumerate(lora["layers"])
+             for n in sorted(ad) for k in ("a", "b")]
+    res = dict(loss=loss, mean_k=float(tok_k.double().mean()),
+               mean32=float(tok32.double().mean()),
+               mean16=float(tok16.double().mean()),
+               floor=3.0 * float(e16_tok.std()) / e16_tok.numel() ** 0.5,
+               e16=rel(g16), e_k=rel(g_k), g32=[g.cpu() for g in g32],
+               names=names)
+    del params, lora, leaves, g_k, g32, g16
+    return res
+
+
 def _ring_rank(rank: int, world: int, tmp: str) -> None:
     """One rank of phase_ring: (a), (b) and (c) in turn; its results go
     to tmp/rank<rank>.pkl."""
@@ -3042,6 +3843,8 @@ def _ring_rank(rank: int, world: int, tmp: str) -> None:
         res["ulysses"] = _ring_ulysses(torch, dist)
         torch.cuda.empty_cache()
         res["train"] = _ring_train(torch, dist, tmp)
+        torch.cuda.empty_cache()
+        res["lora"] = _ring_lora(torch, dist, tmp)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -3149,6 +3952,65 @@ def _ring_train_reference(torch, tmp):
     return res
 
 
+def ring_lora_check(torch, ranks, ref, t_ref, launches):
+    """(d): every rank's LoRA step against the unsharded reference: the
+    loss within (c)'s loss gate rule of the fp32-plain-attention mean, each
+    adapter's gradient within RT_GRAD_MULT x the bf16-plain gradient's
+    distance from the fp32-plain one; the planted RL_FAULT must fail the
+    gradient gate.  Adds (d)'s K1-K3 launches to `launches`."""
+    runs = [r["lora"] for r in ranks]
+    d16 = abs(ref["mean16"] - ref["mean32"])
+    gate = max(RT_LOSS_MULT * d16 + RT_LOSS_ATOL,
+               RT_FLOOR_MULT * ref["floor"])
+
+    def held(label):
+        losses = {r[label]["loss"] for r in runs}
+        assert len(losses) == 1, (label, losses)
+        err = abs(runs[0][label]["loss"] - ref["mean32"])
+        ratios = [((g.float() - r).norm().item() / r.norm().item()
+                   / (RT_GRAD_MULT * e16), name, run["coords"])
+                  for run in runs
+                  for g, r, e16, name in zip(run[label]["grads"], ref["g32"],
+                                             ref["e16"], ref["names"])]
+        w = max(ratios, key=lambda x: x[0])
+        ok = (err <= gate, all(x[0] <= 1.0 for x in ratios))
+        print(f"ring (d) LoRA {label}: loss {runs[0][label]['loss']:.6f}, "
+              f"err {err:.3e} {'<=' if ok[0] else '>'} gate {gate:.3e}; "
+              f"adapter gradients {'held' if ok[1] else 'NOT held'}: worst "
+              f"{w[1]} on {w[2]} at {w[0]:.2f} of its gate (median "
+              f"{statistics.median(x[0] for x in ratios):.2f})", flush=True)
+        return ok
+
+    for r in runs:
+        want = RT_LAYERS * ring_launches(dict(causal=True),
+                                         r["coords"]["seq"], n=RT_MESH[1])
+        c = r["step"]["counts"]
+        assert (c["K1"], c["K2"], c["K3"]) == (want,) * 3, (r["coords"], c)
+        assert c["plain_fwd"] == c["plain_bwd"] == 0, (r["coords"], c)
+    print(f"ring (d) make_lora_train_step(mesh=) on seq {RT_MESH[1]} x model "
+          f"{RT_MESH[2]}, TinyLlama-1.1B width (bf16), B {RT_B} x "
+          f"{RT_S + 1}, rank 8 on wq/wk/wv/wo ({len(ref['names'])} adapter "
+          f"tensors, B ~ N(0, {RL_B_STD:g})): the unsharded LoRA step's "
+          f"loss {ref['loss']:.6f}, fp32-plain mean {ref['mean32']:.6f}, "
+          f"kernel mean {ref['mean_k']:.6f}, its worst adapter gradient "
+          f"{max(a / b for a, b in zip(ref['e_k'], ref['e16'])):.2f} x the "
+          f"bf16-plain's; reference {t_ref:.1f} s", flush=True)
+    ok = held("step")
+    assert all(ok), f"ring (d) LoRA step gates {ok}"
+    bad = held("fault")
+    assert not bad[1], f"ring (d): the gradient gate missed '{RL_FAULT}'"
+    print(f"ring (d) negative control '{RL_FAULT}' (planted in the ranks): "
+          f"caught by the gradient gate", flush=True)
+    for n in ("K1", "K2", "K3"):
+        launches[n]["(d) a LoRA step, per rank (seq, model)"] = [
+            [r["coords"]["seq"], r["coords"]["model"], r["step"]["counts"][n]]
+            for r in runs]
+    for r in runs:
+        print(f"ring (d) rank {r['coords']}: K1 = K2 = K3 = "
+              f"{r['step']['counts']['K1']} launches, plain twins 0; step "
+              f"{r['step']['s'] * 1e3:.1f} ms (host clock)", flush=True)
+
+
 def phase_ring(torch):
     """The sequence-parallel training path on RING_WORLD gloo ranks sharing
     the card: (a) ring_attention at the headline head shape over seq 4,
@@ -3160,9 +4022,11 @@ def phase_ring(torch):
     and each leaf's step-1 gradient within their derived gates, K1-K3
     launches a step; the same step on a seq-only and a model-only mesh
     (the cause split) within the same gates; and one step under each
-    planted fault of RT_FAULTS, which the gates must catch.  Plain twins
-    are never called in a rank.  Returns the launch counts for the kernels
-    line."""
+    planted fault of RT_FAULTS, which the gates must catch; (d) one
+    make_lora_train_step(mesh=) step on the same mesh, weights and batch
+    against the unsharded LoRA step (ring_lora_check), with its planted
+    fault.  Plain twins are never called in a rank.  Returns the launch
+    counts for the kernels line."""
     import pickle
     import tempfile
     import torch.multiprocessing as mp
@@ -3172,6 +4036,11 @@ def phase_ring(torch):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ref = _ring_train_reference(torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_rl = time.perf_counter()
+        rl_ref = _ring_lora_reference(torch, tmp)
+        t_rl = time.perf_counter() - t_rl
         gc.collect()
         torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info()
@@ -3331,6 +4200,7 @@ def phase_ring(torch):
         launches[n]["(c) a step, per rank (seq, model)"] = [
             [r["coords"]["seq"], r["coords"]["model"], r["counts"][0][n]]
             for r in runs]
+    ring_lora_check(torch, ranks, rl_ref, t_rl, launches)
     print(f"ring (c) losses sharded {[round(x, 6) for x in runs[0]['losses']]}"
           f" vs unsharded {[round(x, 6) for x in ref['losses']]}; unsharded "
           f"step {[round(x * 1e3, 1) for x in ref['step_s']]} ms, peak "
@@ -4405,6 +5275,9 @@ def main() -> int:
         quant["K4q"][kind]["occupancy"] = k4["quant_occupancy"][kind]
     probes = phase_probes(torch, flush)
     torch.cuda.empty_cache()
+    fp32 = phase_fp32(torch, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
     del flush
     from flash_attn_v100_tpu_torch import ModelConfig
     cfg = ModelConfig.tinyllama_1b()
@@ -4492,6 +5365,37 @@ def main() -> int:
             row["oracle_err"] = res["oracle_err"]
             row["library"] = "SDPA over the dequantized, pre-gathered KV"
         kernels.append(row)
+    # the fp32 bodies: each instantiation's worst output against its gate
+    for name, outs, src, replaces in (
+            ("K1 flash_attn_dense_fwd", ("K1", "K1 lse"), "fwd_f32.cu",
+             "flash_attn_v100_tpu/ops/pallas/fwd.py:152"),
+            ("K2 flash_attn_dense_bwd (dq)", ("K2 dq",), "bwd_f32.cu",
+             "flash_attn_v100_tpu/ops/pallas/bwd.py:122"),
+            ("K3 flash_attn_dense_bwd (dk, dv)", ("K3 dk", "K3 dv"),
+             "bwd_f32.cu", "flash_attn_v100_tpu/ops/pallas/bwd.py:330"),
+            ("K5 flash_attn_varlen_fwd", ("K5",), "fwd_f32.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:289"),
+            ("K6 flash_attn_varlen_bwd (dq)", ("K6 dq",), "bwd_f32.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:1160"),
+            ("K7 flash_attn_varlen_bwd (dk, dv)", ("K7 dk", "K7 dv"),
+             "bwd_f32.cu", "flash_attn_v100_tpu/ops/pallas/varlen.py:1343"),
+            ("K4 paged_decode_attention", ("K4", "K4 lse"), "decode_f32.cu",
+             "flash_attn_v100_tpu/ops/pallas/decode.py:72"),
+            ("K8 flash_attn_varlen_fwd_paged", ("K8", "K8 lse"),
+             "fwd_f32.cu", "flash_attn_v100_tpu/ops/pallas/varlen.py:947")):
+        kid = name[:2]
+        worst = max((fp32["errs"][o] for o in outs),
+                    key=lambda r: r["err"] / r["gate"])
+        t = fp32["times"][kid]
+        kernels.append(dict(
+            name=f"{name} (fp32)", route="cuda",
+            source=f"flash_attn_v100_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=fp32["launches"][kid],
+            max_abs_err=worst["err"], max_abs_err_gate=worst["gate"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            library=t["library"], ffma_bound_ms=t["ffma_bound_ms"],
+            error_vs="the fp64 oracle", gate=FP32_GATE))
     for res in probes:
         row = dict(name=res["name"], route="cuda",
                    source=f"flash_attn_v100_tpu_torch/csrc/{res['source']}",

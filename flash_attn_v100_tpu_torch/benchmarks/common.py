@@ -75,9 +75,9 @@ def oracle(q, k, v, do, upcast: bool, budget: int, alibi_slopes=None,
     B, M, Hq, D = q.shape
     N, Hk = k.shape[1], k.shape[2]
     group = Hq // Hk
-    step = max(1, min(Hk, budget // (ORACLE_BYTES_PER_SCORE * M * N
-                                     * group)))
     cd = torch.float32 if upcast else q.dtype
+    per_score = ORACLE_BYTES_PER_SCORE * (2 if cd == torch.float64 else 1)
+    step = max(1, min(Hk, budget // (per_score * M * N * group)))
     out = q.new_empty(q.shape, dtype=cd)
     grads = (None if do is None
              else [x.new_empty(x.shape, dtype=cd) for x in (q, k, v)])

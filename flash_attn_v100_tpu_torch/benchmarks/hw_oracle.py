@@ -1,5 +1,6 @@
 """The hardware oracle suite on the card: the port's counterpart of the
-JAX repository's `run.sh --tpu` stage.  Runs, in order, the dense sweep,
+JAX repository's `run.sh --tpu` stage.  Runs, in order, the dense sweep
+(bf16, then fp32 through the fp32 kernel bodies: one shape with --quick),
 the varlen sweep, the decode sweep, the decode fast-path cases and the
 randomized fuzz (12 trials with --quick, else 40), each gated against the
 fp32 oracle by the reference's tolerance model, and exits non-zero if any
@@ -27,6 +28,8 @@ def main(quick: bool = False, device: str = "cuda") -> dict:
     run_device(device)
     stages = (
         ("sweep_dense", lambda: sweep_dense.main(quick, device=device)),
+        ("sweep_dense fp32",
+         lambda: sweep_dense.main(quick, dtype="fp32", device=device)),
         ("sweep_varlen", lambda: sweep_varlen.main(quick, device=device)),
         ("sweep_decode", lambda: sweep_decode.main(quick, device=device)),
         ("verify_decode_fastpath",

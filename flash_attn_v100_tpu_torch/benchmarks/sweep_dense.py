@@ -12,9 +12,13 @@ so every shape gets its forward and backward gates; shapes of at least
 2**26 (B Hq M N) are timed (`utils/benchmarking.measure`), beside SDPA on
 the same inputs and, up to M N = 4096**2, the plain same-dtype oracle.
 
-    python -m flash_attn_v100_tpu_torch.benchmarks.sweep_dense [--quick] [--dtype bf16|fp16] [--no-bwd]
+    python -m flash_attn_v100_tpu_torch.benchmarks.sweep_dense [--quick] [--dtype bf16|fp16|fp32] [--no-bwd]
 
-The kernels take bf16 and fp16 (fp32 inputs have no kernel instantiation).
+With `--dtype fp32` (the JAX script's third dtype) the inputs are fp32 and
+run on the fp32 kernel bodies; the oracle is then fp64 and the same-dtype
+oracle fp32, so each gate reads: error against the fp64 oracle <= 2 x
+(3 x) the fp32 oracle's + 1e-5 (1e-4).  `--quick` with fp32 runs one
+shape (QUICK_FP32).
 """
 
 from __future__ import annotations
@@ -49,8 +53,10 @@ SHAPES = [
     (1, 32, 8192, 8192, 256),
 ]
 QUICK = SHAPES[:5] + [(4, 16, 1024, 1024, 64), (1, 32, 4096, 4096, 128)]
+QUICK_FP32 = [(4, 16, 1024, 1024, 64)]
 SEED = 421                      # the reference's seed (test.py:151)
-DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
+          "fp32": torch.float32}
 PLAIN_TIMED_MAX_MN = 4096 * 4096   # the JAX script's einsum-oracle limit
 
 
@@ -66,12 +72,21 @@ def run_case(rng, B, Hq, M, N, D, causal, dtype, do_bwd=True, do_time=True,
     q, k, v = mk(B, M, Hq, D), mk(B, N, Hq, D), mk(B, N, Hq, D)
     budget = oracle_budget(dev)
 
+    def refs(do):
+        """(the oracle, the same-dtype oracle): fp32 and the inputs' dtype,
+        or for fp32 inputs fp64 and fp32."""
+        if dtype != torch.float32:
+            return (oracle(q, k, v, do, True, budget, causal=causal),
+                    oracle(q, k, v, do, False, budget, causal=causal))
+        hi = [None if x is None else x.double() for x in (q, k, v, do)]
+        return (oracle(*hi, False, budget, causal=causal),
+                oracle(q, k, v, do, False, budget, causal=causal))
+
     def fwd():
         return flash_attn_func(q, k, v, causal=causal)
     with torch.no_grad():
         out = fwd()
-        ref32, _ = oracle(q, k, v, None, True, budget, causal=causal)
-        refnat, _ = oracle(q, k, v, None, False, budget, causal=causal)
+        (ref32, _), (refnat, _) = refs(None)
     e, e_nat, fwd_ok = gate(out, ref32, refnat, FWD_MULT, FWD_ATOL)
     row = dict(fwd_err=e, fwd_err_native=e_nat, fwd_ok=fwd_ok)
     del ref32, refnat
@@ -80,8 +95,7 @@ def run_case(rng, B, Hq, M, N, D, causal, dtype, do_bwd=True, do_time=True,
         do = mk(*out.shape)
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         flash_attn_func(*leaves, causal=causal).backward(do)
-        _, g32 = oracle(q, k, v, do, True, budget, causal=causal)
-        _, gnat = oracle(q, k, v, do, False, budget, causal=causal)
+        (_, g32), (_, gnat) = refs(do)
         bwd_ok = True
         for x, r32, rn, nm in zip(leaves, g32, gnat, ("dq", "dk", "dv")):
             ge, gn, ok = gate(x.grad, r32, rn, BWD_MULT, BWD_ATOL)
@@ -110,6 +124,15 @@ def run_case(rng, B, Hq, M, N, D, causal, dtype, do_bwd=True, do_time=True,
     return row
 
 
+def over_gate(r) -> float:
+    """The row's largest error over its gate (<= 1 passes)."""
+    out = [r["fwd_err"] / (FWD_MULT * r["fwd_err_native"] + FWD_ATOL)]
+    if "bwd_ok" in r:
+        out += [r[f"{nm}_err"] / (BWD_MULT * r[f"{nm}_err_native"]
+                                  + BWD_ATOL) for nm in ("dq", "dk", "dv")]
+    return max(out)
+
+
 def format_row(r) -> str:
     s = (f"fwd_err={r['fwd_err']:.2e} (native {r['fwd_err_native']:.2e})")
     if "bwd_ok" in r:
@@ -131,10 +154,11 @@ def main(quick: bool = False, dtype: str = "bf16", no_bwd: bool = False,
     """Run the matrix (QUICK with `quick`); returns the number of failed
     cases."""
     dev = run_device(device)
-    shapes = QUICK if quick else SHAPES
+    shapes = ((QUICK_FP32 if dtype == "fp32" else QUICK) if quick
+              else SHAPES)
     rng = np.random.default_rng(SEED)
     print(f"sweep_dense: device={dev} dtype={dtype}", flush=True)
-    n_fail = 0
+    n_fail, worst = 0, 0.0
     for (B, Hq, M, N, D) in shapes:
         for causal in (False, True):
             t0 = time.time()
@@ -166,11 +190,12 @@ def main(quick: bool = False, dtype: str = "bf16", no_bwd: bool = False,
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
             n_fail += 0 if ok else 1
+            worst = max(worst, over_gate(r))
             print(f"  {B}x{Hq}x{M}x{N}x{D} causal={int(causal)}: "
                   f"{'PASS' if ok else 'FAIL'} {format_row(r)} "
                   f"[{time.time() - t0:.1f}s]", flush=True)
-    print(f"sweep_dense: {'ALL PASS' if n_fail == 0 else f'{n_fail} FAILURES'}",
-          flush=True)
+    print(f"sweep_dense: {'ALL PASS' if n_fail == 0 else f'{n_fail} FAILURES'}"
+          f" (worst error over gate {worst:.3f})", flush=True)
     return n_fail
 
 

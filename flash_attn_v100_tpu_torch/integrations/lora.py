@@ -13,6 +13,14 @@ Adapters live in a dict of their own (`lora`: `layers[i][name]` with fp32
 the wrapped matrices, the product rounded to W's dtype before the add (the
 JAX package's order), so every consumer (the training forward, decode, the
 serving engine) runs unchanged.
+
+On a mesh (`mesh=`, parallel/mesh.py) each rank holds its base shard
+(`shard_params`) and the whole adapters, replicated: `materialize` cuts
+each rank's delta as `param_shardings` cuts the base leaf (A @ B[:, cols]
+for the column-sharded wq/wk/wv/w1/w3, A[rows, :] @ B for the row-sharded
+wo/w2), and the train step sums the adapter gradients over "data" and
+"seq" (the rank's tokens) and over "model" (the rank's slice of A or B),
+so every rank holds the global gradient and takes the global step.
 """
 
 from __future__ import annotations
@@ -25,7 +33,9 @@ import torch
 
 from flash_attn_v100_tpu_torch.config import DeviceLike, resolve_device
 from flash_attn_v100_tpu_torch.models.transformer import (
-    ModelConfig, _map_params, loss_fn)
+    ModelConfig, _map_params, loss_fn, param_shardings)
+from flash_attn_v100_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, SEQ_AXIS, all_reduce_flat, local_shard)
 
 DEFAULT_TARGETS = ("wq", "wk", "wv", "wo")
 
@@ -85,13 +95,24 @@ def lora_leaves(lora) -> List[torch.Tensor]:
             for k in ("a", "b")]
 
 
-def materialize(params, lora, lcfg: LoraConfig):
-    """Effective params: W_eff = W + (scale * A @ B cast to W's dtype)."""
+def materialize(params, lora, lcfg: LoraConfig, mesh=None):
+    """Effective params: W_eff = W + (scale * A @ B cast to W's dtype).
+    With `mesh`, `params` is this rank's shard and each delta is cut as
+    its base leaf is: A's rows by the leaf's first spec entry, B's columns
+    by its second."""
+    specs = (param_shardings(params, None, mesh)["layers"] if mesh is not None
+             else [{} for _ in params["layers"]])
     out_layers = []
-    for lp, ad in zip(params["layers"], lora["layers"]):
+    for lp, ad, sp in zip(params["layers"], lora["layers"], specs):
         new = dict(lp)
         for name, w in ad.items():
-            delta = (w["a"] @ w["b"]) * lcfg.scale
+            a, b = w["a"], w["b"]
+            spec = tuple(sp.get(name, ())) + (None, None)
+            if spec[0] is not None:
+                a = local_shard(a, (spec[0], None), mesh)
+            if spec[1] is not None:
+                b = local_shard(b, (None, spec[1]), mesh)
+            delta = (a @ b) * lcfg.scale
             new[name] = lp[name] + delta.to(lp[name].dtype)
         out_layers.append(new)
     out = dict(params)
@@ -109,20 +130,36 @@ def merge(params, lora, lcfg: LoraConfig):
 def lora_loss(lora, params, tokens, cfg: ModelConfig, lcfg: LoraConfig,
               **kw) -> torch.Tensor:
     """loss_fn of the materialized params; the base is a frozen operand
-    (detached), so gradients reach the adapters only."""
+    (detached), so gradients reach the adapters only.  `kw` goes to
+    loss_fn; with `mesh=` `params` is this rank's shard."""
     frozen = _map_params(params, torch.Tensor.detach)
-    return loss_fn(materialize(frozen, lora, lcfg), tokens, cfg, **kw)
+    return loss_fn(materialize(frozen, lora, lcfg, kw.get("mesh")), tokens,
+                   cfg, **kw)
+
+
+def reduce_lora_grads(lora, mesh) -> None:
+    """Each rank's adapter gradients hold its tokens' part of its slice's
+    share: summed in place over "data", "seq" and "model" they are the
+    global gradient on every rank."""
+    if mesh is not None:
+        all_reduce_flat([t.grad for t in lora_leaves(lora)], mesh,
+                        (DATA_AXIS, SEQ_AXIS, MODEL_AXIS))
 
 
 def make_lora_train_step(cfg: ModelConfig, lcfg: LoraConfig,
-                         optimizer: Optional[Callable] = None
+                         optimizer: Optional[Callable] = None, **fwd_kw
                          ) -> Tuple[Any, Any]:
     """-> (step, init_opt).  `init_opt(lora)` builds the optimizer over the
     adapter leaves: AdamW(lr 2e-4, weight_decay 0, betas 0.9/0.999, eps
     1e-8), optax.adamw's defaults otherwise, unless `optimizer` (leaves ->
     torch optimizer) is given.  `step(lora, opt, params, tokens,
     dropout_seeds=None, generator=None) -> (loss, lora, opt)` updates the
-    adapters in place; the base params never require grad."""
+    adapters in place; the base params never require grad.  `fwd_kw` goes
+    to lora_loss, as the JAX package passes it: with `mesh=`, every rank
+    passes its base shard (`shard_params`), the whole adapters and the
+    global tokens, and the adapter gradients are summed over the mesh
+    (`reduce_lora_grads`) before the update."""
+    mesh = fwd_kw.get("mesh")
     if optimizer is None:
         def optimizer(leaves):
             return torch.optim.AdamW(leaves, lr=2e-4, weight_decay=0.0)
@@ -133,8 +170,10 @@ def make_lora_train_step(cfg: ModelConfig, lcfg: LoraConfig,
     def step(lora, opt, params, tokens, dropout_seeds=None, generator=None):
         opt.zero_grad(set_to_none=True)
         loss = lora_loss(lora, params, tokens, cfg, lcfg,
-                         dropout_seeds=dropout_seeds, generator=generator)
+                         dropout_seeds=dropout_seeds, generator=generator,
+                         **fwd_kw)
         loss.backward()
+        reduce_lora_grads(lora, mesh)
         opt.step()
         return loss.detach(), lora, opt
 

@@ -32,7 +32,10 @@ SOURCES = {"decode": "decode.cu", "varlen_paged": "varlen_paged.cu",
            "fwd": "fwd.cu", "bwd": "bwd.cu",
            "decode_quant": "decode_quant.cu",
            "varlen_paged_quant": "varlen_paged_quant.cu",
-           "probes": "probes.cu", "probe_int4": "probe_int4.cu"}
+           "probes": "probes.cu", "probe_int4": "probe_int4.cu",
+           # the fp32 bodies: K1, K5, K8; K2/K3, K6/K7; K4
+           "fwd_f32": "fwd_f32.cu", "bwd_f32": "bwd_f32.cu",
+           "decode_f32": "decode_f32.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -96,6 +99,29 @@ SIGNATURES = {
             + [_F, _F] + [_I] * 4 + [_F, _I, _P], _I),
         # (kind, dtype, D, extra, int out[5]): occupancy of K8q
         "fa_varlen_paged_quant_occupancy": ([_I, _I, _I, _I, _P], _I),
+    },
+    # the fp32 bodies take the arguments of the 16-bit entries (dtype 2)
+    "fwd_f32": {
+        "fa_fwd_f32_launch": ([_I] + [_P] * 6 + [_I] * 7 + [_F]
+                              + _MASK_DROPOUT + [_P], _I),
+        "fa_varlen_fwd_f32_launch": ([_I] + [_P] * 10 + [_I] * 6 + [_F]
+                                     + _MASK_DROPOUT + [_P], _I),
+        "fa_varlen_paged_f32_launch": ([_I, _P, _P, _P, _P, _I] + [_P] * 6
+                                       + [_P] + [_LL] * 3 + [_I] * 8
+                                       + [_F, _I, _I, _I, _F, _I, _P], _I),
+    },
+    "bwd_f32": {
+        **{name: ([_I] + [_P] * 10 + [_I] * 7 + [_F] + _MASK_DROPOUT + [_P],
+                  _I)
+           for name in ("fa_dq_f32_launch", "fa_dkv_f32_launch")},
+        **{name: ([_I] + [_P] * 14 + [_I] * 7 + [_F] + _MASK_DROPOUT[:10]
+                  + [_P], _I)
+           for name in ("fa_varlen_dq_f32_launch",
+                        "fa_varlen_dkv_f32_launch")},
+    },
+    "decode_f32": {
+        "fa_decode_f32_launch": ([_I] + [_P] * 13 + [_LL] * 4 + [_I] * 11
+                                 + [_F, _I, _I, _I, _F, _I, _P], _I),
     },
     # P1-P3: (flags, q, k, v, out, lse, strides[14], B, Hq, Hk, M, N,
     # key tiles, trip, pairs, n_pairs, 3 q-side, 3 k-side, qseg, kseg,

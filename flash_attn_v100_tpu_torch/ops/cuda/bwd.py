@@ -6,7 +6,8 @@ flash_attn_v100_tpu/ops/pallas/bwd.py::flash_attn_dense_bwd without the TPU
 tiling knobs: the forward's inputs, its out and lse, dout, and optionally
 `dlse`, the cotangent of lse (it folds in as delta - dlse); it returns
 (dq, dk, dv) in the inputs' layouts and dtypes.  `offset`, `pos_base` and
-`num_heads_total` are those of ops/cuda/fwd.py.
+`num_heads_total` are those of ops/cuda/fwd.py.  fp32 inputs run on the
+fp32 body `csrc/bwd_f32.cu`, 16-bit ones on `csrc/bwd.cu`.
 
 delta = rowsum(O * dO) - dlse is computed here in plain torch, outside the
 kernels, as the JAX package leaves it to XLA.  The LSE of a row with no
@@ -37,17 +38,19 @@ def softmax_delta(out, dout, dlse=None) -> torch.Tensor:
     return delta.contiguous()
 
 
-def _launch(fn_name: str, q, k, v, dout, lse, delta, slopes, dq, dk, dv,
-            softmax_scale, params, dropout_p, dropout_seed, offset, pos_base,
-            num_heads_total) -> None:
+def _launch(fn_names: Tuple[str, str], q, k, v, dout, lse, delta, slopes,
+            dq, dk, dv, softmax_scale, params, dropout_p, dropout_seed,
+            offset, pos_base, num_heads_total) -> None:
+    """`fn_names`: the 16-bit entry point and its fp32 twin."""
     if q.device.type != "cuda":
-        raise ValueError(f"{fn_name} launches on CUDA tensors only; "
+        raise ValueError(f"{fn_names[0]} launches on CUDA tensors only; "
                          "flash_attn_dense_bwd takes the plain version for "
                          "CPU tensors")
     B, M, Hq, D = q.shape
     N, Hk = k.shape[1], k.shape[2]
-    lib = build.load("bwd")
-    rc = getattr(lib, fn_name)(
+    lib = (build.load("bwd_f32") if q.dtype == torch.float32
+           else build.load("bwd"))
+    rc = getattr(lib, fn_names[q.dtype == torch.float32])(
         DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         None if slopes is None else slopes.data_ptr(),
@@ -58,16 +61,16 @@ def _launch(fn_name: str, q, k, v, dout, lse, delta, slopes, dq, dk, dv,
         *c_mask_args(params),
         *c_dropout_args(dropout_p, dropout_seed, pos_base, num_heads_total),
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, fn_name)
+    build.check(rc, fn_names[0])
 
 
 def dq_kernel(q, k, v, dout, lse, delta, slopes, softmax_scale, params,
               dropout_p, dropout_seed, offset, pos_base, num_heads_total):
     """K2 on contiguous CUDA tensors at a kernel head dim -> dq."""
     dq = torch.empty_like(q)
-    _launch("fa_dq_launch", q, k, v, dout, lse, delta, slopes, dq, None,
-            None, softmax_scale, params, dropout_p, dropout_seed, offset,
-            pos_base, num_heads_total)
+    _launch(("fa_dq_launch", "fa_dq_f32_launch"), q, k, v, dout, lse, delta,
+            slopes, dq, None, None, softmax_scale, params, dropout_p,
+            dropout_seed, offset, pos_base, num_heads_total)
     dq_kernel.launches += 1
     return dq
 
@@ -79,9 +82,9 @@ def dkv_kernel(q, k, v, dout, lse, delta, slopes, softmax_scale, params,
                dropout_p, dropout_seed, offset, pos_base, num_heads_total):
     """K3 on contiguous CUDA tensors at a kernel head dim -> (dk, dv)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("fa_dkv_launch", q, k, v, dout, lse, delta, slopes, None, dk,
-            dv, softmax_scale, params, dropout_p, dropout_seed, offset,
-            pos_base, num_heads_total)
+    _launch(("fa_dkv_launch", "fa_dkv_f32_launch"), q, k, v, dout, lse,
+            delta, slopes, None, dk, dv, softmax_scale, params, dropout_p,
+            dropout_seed, offset, pos_base, num_heads_total)
     dkv_kernel.launches += 1
     return dk, dv
 

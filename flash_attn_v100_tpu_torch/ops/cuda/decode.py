@@ -22,9 +22,11 @@ consecutive cache rows counted from each split's first row: P_TILE (the
 kernel's 32-key group) in the kernel and on the CPU path; the TPU kernel's
 grouping is one page (`p_tile=None` in the plain version).
 
-For CUDA tensors it launches the kernel (q in bf16 or fp16; anything else
-raises); for CPU tensors it computes `paged_decode_attention_ref`, the plain
-PyTorch version of the same function.
+For CUDA tensors it launches the kernel (q in bf16 or fp16, or fp32 on the
+fp32 body `csrc/decode_f32.cu`, whose merged o is fp32; anything else
+raises, and so does fp32 q over quantized pools); for CPU tensors it
+computes `paged_decode_attention_ref`, the plain PyTorch version of the
+same function.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ SM_COUNT_H100 = 132  # the split rule's target when no device is at hand
 BLOCKS_PER_SM = 2    # auto splits fill one wave of this many blocks an SM
 P_TILE = 32          # K4q's key group: P's int8 group (kGroup)
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 KIND_CODE = {"int8": 0, "fp8": 1, "int4": 2}
 
 
@@ -124,11 +126,15 @@ def _launch(q_rows, k_pages, v_pages, block_table, cache_seqlens, leftpad,
     `merged` the merged (o in q's dtype, lse).  A None `qpos_vec` is
     cache_seqlens - t_new, computed in the kernel."""
     if q_rows.dtype not in _DTYPE_CODE:
-        raise TypeError(f"decode kernel takes bf16/fp16 q, got {q_rows.dtype}")
+        raise TypeError(f"decode kernel takes bf16/fp16/fp32 q, got "
+                        f"{q_rows.dtype}")
     if k_scales is None:
         kind = None
         if k_pages.dtype != q_rows.dtype or v_pages.dtype != q_rows.dtype:
             raise TypeError("q rows and the page pools must share one dtype")
+    elif q_rows.dtype == torch.float32:
+        raise TypeError("quantized decode (K4q) takes bf16/fp16 q; fp32 q "
+                        "over a quantized pool is not ported")
     else:
         kind = _check_quant(k_pages, v_pages, k_scales, v_scales, int4)
     B, Hk, Rq, D = q_rows.shape
@@ -184,8 +190,10 @@ def _launch(q_rows, k_pages, v_pages, block_table, cache_seqlens, leftpad,
             torch.cuda.current_stream(dev).cuda_stream)
     code = _DTYPE_CODE[q_rows.dtype]
     if kind is None:
-        rc = build.load("decode").fa_decode_launch(
-            code, *ptrs, *tail, *k_pages.stride()[:4], *dims)
+        launch = (build.load("decode_f32").fa_decode_f32_launch
+                  if q_rows.dtype == torch.float32
+                  else build.load("decode").fa_decode_launch)
+        rc = launch(code, *ptrs, *tail, *k_pages.stride()[:4], *dims)
         build.check(rc, "paged_decode_attention")
         paged_decode_attention.launches += 1
     else:

@@ -15,6 +15,10 @@ global head count in bh = (b + b0) * num_heads_total + (h + h0).
 The kernel takes head_dim 32/64/128/256; other head dims up to 256 are
 zero-padded to the next of those (the scores and the real output columns
 do not change) and sliced back.
+
+bf16 and fp16 inputs run on `csrc/fwd.cu`, fp32 inputs on the fp32 body
+`csrc/fwd_f32.cu` (the same entry arguments, dtype code 2); other dtypes
+raise TypeError.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from flash_attn_v100_tpu_torch.ops import masks as masklib
 from flash_attn_v100_tpu_torch.ops import philox
 from flash_attn_v100_tpu_torch.ops.cuda import build
 
-DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 
 
@@ -99,7 +103,7 @@ def slopes_bh(alibi_slopes, B: int, Hq: int, dev) -> torch.Tensor:
 
 def check_dense_inputs(q, k, v, what: str) -> None:
     if q.dtype not in DTYPE_CODE:
-        raise TypeError(f"{what} kernel takes bf16/fp16, got {q.dtype}")
+        raise TypeError(f"{what} kernel takes bf16/fp16/fp32, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k and v must share one dtype")
     B, M, Hq, D = q.shape
@@ -144,8 +148,9 @@ def flash_attn_dense_fwd(
     offset = N - M if offset is None else int(offset)
     nh = Hq if num_heads_total is None else int(num_heads_total)
 
-    lib = build.load("fwd")
-    rc = lib.fa_fwd_launch(
+    launch = (build.load("fwd_f32").fa_fwd_f32_launch
+              if q.dtype == torch.float32 else build.load("fwd").fa_fwd_launch)
+    rc = launch(
         DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, M, N, Hq, Hk, Dk, offset, float(softmax_scale),

@@ -48,6 +48,10 @@ and the key at leftpad-relative position j is packed row
 cu_k[b] + leftpad_k[b] + j (K8: cache row leftpad + j of the sequence's
 pages).  The kernels evaluate it as index math (`csrc/seq.cuh`); the plain
 versions with `seq_bounds` and torch ops.
+
+fp32 inputs run on the fp32 bodies: K5 and K8 on `csrc/fwd_f32.cu`, K6/K7
+on `csrc/bwd_f32.cu`; K8q takes 16-bit q only (fp32 q over a quantized
+pool raises TypeError).
 """
 
 from __future__ import annotations
@@ -127,7 +131,8 @@ def _ragged_device_args(cu_seqlens_q, cu_seqlens_k, seqused_k, leftpad_k,
 
 def _check_packed_inputs(q, k, v, what: str) -> None:
     if q.dtype not in DTYPE_CODE:
-        raise TypeError(f"{what} kernel takes bf16/fp16, got {q.dtype}")
+        raise TypeError(f"{what} kernel takes bf16/fp16/fp32, got "
+                        f"{q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k and v must share one dtype")
     if (q.dim() != 3 or k.dim() != 3 or k.shape[2] != q.shape[2]
@@ -179,8 +184,10 @@ def flash_attn_varlen_fwd(
     out = torch.zeros_like(q)
     lse = torch.full((Hq, Tq), float("-inf"), dtype=torch.float32,
                      device=dev)
-    lib = build.load("fwd")
-    rc = lib.fa_varlen_fwd_launch(
+    launch = (build.load("fwd_f32").fa_varlen_fwd_f32_launch
+              if q.dtype == torch.float32
+              else build.load("fwd").fa_varlen_fwd_launch)
+    rc = launch(
         DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         cu_q.data_ptr(), cu_k.data_ptr(), _ptr(used), _ptr(lp),
         _ptr(slopes), out.data_ptr(), lse.data_ptr(), B, Tq,
@@ -242,16 +249,19 @@ def varlen_delta(out, dout, dlse=None) -> torch.Tensor:
     return delta.contiguous()
 
 
-def _launch_bwd(fn_name: str, q, k, v, dout, lse, delta, slopes, dq, dk,
-                dv, cu_q, cu_k, used, lp, max_seqlen_q, max_seqlen_k,
-                softmax_scale, params, dropout_p, dropout_seed) -> None:
+def _launch_bwd(fn_names: Tuple[str, str], q, k, v, dout, lse, delta,
+                slopes, dq, dk, dv, cu_q, cu_k, used, lp, max_seqlen_q,
+                max_seqlen_k, softmax_scale, params, dropout_p,
+                dropout_seed) -> None:
+    """`fn_names`: the 16-bit entry point and its fp32 twin."""
     if q.device.type != "cuda":
-        raise ValueError(f"{fn_name} launches on CUDA tensors only; "
+        raise ValueError(f"{fn_names[0]} launches on CUDA tensors only; "
                          "flash_attn_varlen_bwd takes the plain version for "
                          "CPU tensors")
     Tq, Hq, D = q.shape
-    lib = build.load("bwd")
-    rc = getattr(lib, fn_name)(
+    f32 = q.dtype == torch.float32
+    lib = build.load("bwd_f32") if f32 else build.load("bwd")
+    rc = getattr(lib, fn_names[f32])(
         DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(slopes),
         _ptr(dq), _ptr(dk), _ptr(dv), cu_q.data_ptr(), cu_k.data_ptr(),
@@ -260,7 +270,7 @@ def _launch_bwd(fn_name: str, q, k, v, dout, lse, delta, slopes, dq, dk,
         *c_mask_args(params),
         *c_dropout_args(dropout_p, dropout_seed, None, Hq)[:5],
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, fn_name)
+    build.check(rc, fn_names[0])
 
 
 def varlen_dq_kernel(q, k, v, dout, lse, delta, slopes, cu_q, cu_k, used,
@@ -269,8 +279,8 @@ def varlen_dq_kernel(q, k, v, dout, lse, delta, slopes, cu_q, cu_k, used,
     """K6 on contiguous CUDA tensors at a kernel head dim and int32
     bookkeeping on the device -> dq (rows past cu_q[B] are 0)."""
     dq = torch.zeros_like(q)
-    _launch_bwd("fa_varlen_dq_launch", q, k, v, dout, lse, delta, slopes, dq,
-                None, None, cu_q, cu_k, used, lp, max_seqlen_q, max_seqlen_k,
+    _launch_bwd(("fa_varlen_dq_launch", "fa_varlen_dq_f32_launch"), q, k, v,
+                dout, lse, delta, slopes, dq, None, None, cu_q, cu_k, used, lp, max_seqlen_q, max_seqlen_k,
                 softmax_scale, params, dropout_p, dropout_seed)
     varlen_dq_kernel.launches += 1
     return dq
@@ -285,8 +295,8 @@ def varlen_dkv_kernel(q, k, v, dout, lse, delta, slopes, cu_q, cu_k, used,
     """K7 on contiguous CUDA tensors at a kernel head dim and int32
     bookkeeping on the device -> (dk, dv) (keys no sequence uses are 0)."""
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    _launch_bwd("fa_varlen_dkv_launch", q, k, v, dout, lse, delta, slopes,
-                None, dk, dv, cu_q, cu_k, used, lp, max_seqlen_q,
+    _launch_bwd(("fa_varlen_dkv_launch", "fa_varlen_dkv_f32_launch"), q, k,
+                v, dout, lse, delta, slopes, None, dk, dv, cu_q, cu_k, used, lp, max_seqlen_q,
                 max_seqlen_k, softmax_scale, params, dropout_p, dropout_seed)
     varlen_dkv_kernel.launches += 1
     return dk, dv
@@ -413,11 +423,14 @@ def flash_attn_varlen_fwd_paged(
             leftpad_k=leftpad_k, k_scales=k_scales, v_scales=v_scales,
             p_tile=P_TILE)
     if q.dtype not in DTYPE_CODE:
-        raise TypeError(f"varlen kernel takes bf16/fp16 q, got {q.dtype}")
+        raise TypeError(f"varlen kernel takes bf16/fp16/fp32 q, got {q.dtype}")
     kind = None
     if k_scales is None:
         if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
             raise TypeError("q and the page pools must share one dtype")
+    elif q.dtype == torch.float32:
+        raise TypeError("quantized paged prefill (K8q) takes bf16/fp16 q; "
+                        "fp32 q over a quantized pool is not ported")
     else:
         kind = _check_quant(k_pool, v_pool, k_scales, v_scales,
                             paged_quant_kind(k_pool, k_scales) == "int4")
@@ -478,7 +491,10 @@ def flash_attn_varlen_fwd_paged(
             int(params.has_alibi), torch.cuda.current_stream(dev).cuda_stream)
     dims = (B, Tq, Hq, Hk, D, ps, mp, int(max_seqlen_q))
     if kind is None:
-        rc = build.load("varlen_paged").fa_varlen_paged_launch(
+        launch = (build.load("fwd_f32").fa_varlen_paged_f32_launch
+                  if q.dtype == torch.float32
+                  else build.load("varlen_paged").fa_varlen_paged_launch)
+        rc = launch(
             DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), *head, *dims, float(softmax_scale), *mask)
         build.check(rc, "flash_attn_varlen_fwd_paged")

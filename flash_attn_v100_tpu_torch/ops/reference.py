@@ -49,7 +49,9 @@ def mha_reference(q, k, v, softmax_scale: Optional[float] = None,
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2).repeat_interleave(group, dim=1)
     vt = v.transpose(1, 2).repeat_interleave(group, dim=1)
-    s = torch.einsum("bhmd,bhnd->bhmn", qt, kt).float() * softmax_scale
+    # fp32 scores (fp64 for fp64 inputs: the fp32 kernels' oracle)
+    s = torch.einsum("bhmd,bhnd->bhmn", qt, kt).to(
+        torch.promote_types(qt.dtype, torch.float32)) * softmax_scale
 
     dev = q.device
     i = torch.arange(M, device=dev)[:, None]

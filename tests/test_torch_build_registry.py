@@ -89,3 +89,26 @@ def test_wrappers_name_registered_entry_points(path):
     named = set(re.findall(r'[."](fa_\w+)', text))
     assert named and named <= known, \
         f"{path.name} names {sorted(named - known)} outside {sorted(libs)}"
+
+
+# each 16-bit entry point of K1-K8 and its fp32 twin (csrc/*_f32.cu), which
+# takes the same arguments (dtype code 2)
+FP32_TWINS = {
+    ("fwd", "fa_fwd_launch"): ("fwd_f32", "fa_fwd_f32_launch"),
+    ("fwd", "fa_varlen_fwd_launch"): ("fwd_f32", "fa_varlen_fwd_f32_launch"),
+    ("varlen_paged", "fa_varlen_paged_launch"):
+        ("fwd_f32", "fa_varlen_paged_f32_launch"),
+    ("bwd", "fa_dq_launch"): ("bwd_f32", "fa_dq_f32_launch"),
+    ("bwd", "fa_dkv_launch"): ("bwd_f32", "fa_dkv_f32_launch"),
+    ("bwd", "fa_varlen_dq_launch"): ("bwd_f32", "fa_varlen_dq_f32_launch"),
+    ("bwd", "fa_varlen_dkv_launch"): ("bwd_f32", "fa_varlen_dkv_f32_launch"),
+    ("decode", "fa_decode_launch"): ("decode_f32", "fa_decode_f32_launch"),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(FP32_TWINS), ids=lambda e: e[1])
+def test_fp32_entries_take_the_16bit_arguments(entry):
+    lib32, fn32 = FP32_TWINS[entry]
+    lib, fn = entry
+    assert build.SIGNATURES[lib32][fn32] == build.SIGNATURES[lib][fn]
+    assert _entries(lib32)[fn32] == _entries(lib)[fn]

@@ -12,7 +12,11 @@ Gates: kernel outputs and LSEs by the tolerance model of utils/testing.py
 (error against the fp32 plain version within 2x the same-dtype plain
 version's error + 1e-5; gradients 3x + 1e-4); an LSE of -inf (no live key)
 must match exactly; dropout keep masks and two backward calls bit-equal;
-appended cache payloads without rotary bit-equal to the CPU append.
+appended cache payloads without rotary bit-equal to the CPU append.  The
+fp32 cases (K1-K8's fp32 bodies) hold the kernel against the plain
+version on fp64 copies of the inputs, gated by the fp32 plain version's
+own error, and check that the kernel's call left the plain versions'
+counts alone.
 """
 
 import numpy as np
@@ -41,6 +45,8 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
 
 DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+# K1-K8 also have fp32 bodies
+KERNEL_DTYPES = {**DTYPES, "fp32": torch.float32}
 HEAD_DIMS = (32, 64, 128, 256)
 
 
@@ -51,6 +57,29 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()          # every kernel, nvcc processes in parallel
     return torch.device("cuda")
+
+
+def _hi(x):
+    return (x.double() if torch.is_tensor(x) and x.dtype == torch.float32
+            else x)
+
+
+def _refs(fn, args, kw):
+    """(oracle, same-dtype plain version) of the plain version `fn` on the
+    kernel's inputs: for 16-bit inputs `fn` in fp32 and in their dtype; for
+    fp32 inputs `fn` on fp64 copies of the float arguments and in fp32."""
+    if args[0].dtype != torch.float32:
+        return fn(*args, **kw), fn(*args, upcast=False, **kw)
+    return fn(*(_hi(a) for a in args), upcast=False, **kw), fn(*args, **kw)
+
+
+PLAIN_TWINS = (dfwd.flash_attn_dense_fwd_ref, dbwd.flash_attn_dense_bwd_ref,
+               dec.paged_decode_attention_ref, vl.flash_attn_varlen_fwd_ref,
+               vl.flash_attn_varlen_bwd_ref, vl.flash_attn_varlen_fwd_paged_ref)
+
+
+def _twin_calls():
+    return tuple(f.calls for f in PLAIN_TWINS)
 
 
 def _gate_lse(lse, lse32, lse_nat, name):
@@ -130,27 +159,27 @@ def _dense_inputs(name, dtype, D, dev):
 
 @pytest.mark.parametrize("name", list(DENSE_CASES))
 @pytest.mark.parametrize("D", HEAD_DIMS)
-@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
 def test_dense_kernels_match_plain(cuda, dt, D, name):
-    args, do, kw = _dense_inputs(name, DTYPES[dt], D, cuda)
+    args, do, kw = _dense_inputs(name, KERNEL_DTYPES[dt], D, cuda)
     launches = (dfwd.flash_attn_dense_fwd.launches, dbwd.dq_kernel.launches,
                 dbwd.dkv_kernel.launches)
+    twins = _twin_calls()
     out, lse = dfwd.flash_attn_dense_fwd(*args, **kw)
     grads = dbwd.flash_attn_dense_bwd(*args[:3], out, do, lse, *args[3:],
                                       **kw)
     torch.cuda.synchronize()
     assert (dfwd.flash_attn_dense_fwd.launches, dbwd.dq_kernel.launches,
             dbwd.dkv_kernel.launches) == tuple(n + 1 for n in launches)
-    o32, lse32 = dfwd.flash_attn_dense_fwd_ref(*args, **kw)
-    onat, lsenat = dfwd.flash_attn_dense_fwd_ref(*args, upcast=False, **kw)
+    assert _twin_calls() == twins
+    (o32, lse32), (onat, lsenat) = _refs(dfwd.flash_attn_dense_fwd_ref, args,
+                                         kw)
     assert_fwd_close(out, o32, onat, name=f"K1 {name} out")
     _gate_lse(lse, lse32, lsenat, f"K1 {name} lse")
     # the backward from the kernel's own out and lse, against the plain
     # backward from the same out and lse
-    g32 = dbwd.flash_attn_dense_bwd_ref(*args[:3], out, do, lse, *args[3:],
-                                        **kw)
-    gnat = dbwd.flash_attn_dense_bwd_ref(*args[:3], out, do, lse, *args[3:],
-                                         upcast=False, **kw)
+    g32, gnat = _refs(dbwd.flash_attn_dense_bwd_ref,
+                      (*args[:3], out, do, lse, *args[3:]), kw)
     for g, gr32, grn, what in zip(grads, g32, gnat, ("K2 dq", "K3 dk",
                                                      "K3 dv")):
         assert g.dtype == args[0].dtype and g.shape == gr32.shape
@@ -173,13 +202,13 @@ def test_dense_backward_bitwise_deterministic(cuda):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
 def test_dense_kernels_dropout_masks_bit_equal(cuda, dt):
     """Read the kernels' keep masks back: with q = 0 every live score is 0,
     so with v = I (N = D = 64) K1 gives out[i, j] = keep(i, j) / (64 (1-p))
     and, with dout = I, K3 gives dv[j, i] = keep(i, j) / (64 (1-p))."""
     B, H, n, p = 2, 4, 64, 0.3
-    dtype = DTYPES[dt]
+    dtype = KERNEL_DTYPES[dt]
     eye = torch.eye(n, device=cuda, dtype=dtype)
     q = torch.zeros((B, n, H, n), device=cuda, dtype=dtype)
     v = eye[None, :, None, :].expand(B, n, H, n).contiguous()
@@ -197,9 +226,15 @@ def test_dense_kernels_dropout_masks_bit_equal(cuda, dt):
 
 
 def test_dense_kernels_reject_fp32(cuda):
-    args, do, kw = _dense_inputs("causal_gqa", torch.float32, 64, cuda)
+    """fp32 has a kernel body (csrc/fwd_f32.cu); fp64 and mixed dtypes
+    raise."""
+    args, do, kw = _dense_inputs("causal_gqa", torch.float64, 64, cuda)
     with pytest.raises(TypeError):
         dfwd.flash_attn_dense_fwd(*args, **kw)
+    args, do, kw = _dense_inputs("causal_gqa", torch.float32, 64, cuda)
+    with pytest.raises(TypeError):
+        dfwd.flash_attn_dense_fwd(args[0], args[1].bfloat16(), *args[2:],
+                                  **kw)
 
 
 def test_flash_attn_func_padded_head_dim(cuda):
@@ -327,17 +362,21 @@ def _decode_inputs(name, dtype, D, dev):
 
 @pytest.mark.parametrize("name", list(DECODE_CASES))
 @pytest.mark.parametrize("D", HEAD_DIMS)
-@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
 def test_decode_kernel_matches_plain(cuda, dt, D, name):
-    args, kw = _decode_inputs(name, DTYPES[dt], D, cuda)
+    args, kw = _decode_inputs(name, KERNEL_DTYPES[dt], D, cuda)
     before = dec.paged_decode_attention.launches
+    twins = _twin_calls()
     o, lse = dec.merge_partials(*dec.paged_decode_attention(*args, **kw))
+    om, lsem = dec.paged_decode_attention_merged(*args, **kw)
     torch.cuda.synchronize()
-    assert dec.paged_decode_attention.launches == before + 1
-    o32, lse32 = dec.merge_partials(*dec.paged_decode_attention_ref(
-        *args, **kw))
-    onat, lsenat = dec.merge_partials(*dec.paged_decode_attention_ref(
-        *args, upcast=False, **kw))
+    assert dec.paged_decode_attention.launches == before + 2
+    assert _twin_calls() == twins
+    refs = _refs(dec.paged_decode_attention_ref, args, kw)
+    (o32, lse32), (onat, lsenat) = (dec.merge_partials(*r) for r in refs)
+    # the merged entry writes O in q's dtype
+    assert om.dtype == args[0].dtype
+    assert_fwd_close(om, o32, onat.to(om.dtype), name=f"K4 {name} merged")
     assert_fwd_close(o, o32, onat, name=f"K4 {name} out")
     _gate_lse(lse, lse32, lsenat, f"K4 {name} lse")
     if name.startswith("t1_empty_row"):
@@ -399,30 +438,47 @@ def _varlen_inputs(name, dtype, D, dev, cases=VARLEN_CASES):
 
 @pytest.mark.parametrize("name", list(VARLEN_CASES))
 @pytest.mark.parametrize("D", HEAD_DIMS)
-@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
 def test_varlen_kernel_matches_plain(cuda, dt, D, name):
-    args, kw = _varlen_inputs(name, DTYPES[dt], D, cuda)
+    args, kw = _varlen_inputs(name, KERNEL_DTYPES[dt], D, cuda)
     before = vl.flash_attn_varlen_fwd_paged.launches
+    twins = _twin_calls()
     out, lse = vl.flash_attn_varlen_fwd_paged(*args, **kw)
     torch.cuda.synchronize()
     assert vl.flash_attn_varlen_fwd_paged.launches == before + 1
-    o32, lse32 = vl.flash_attn_varlen_fwd_paged_ref(*args, **kw)
-    onat, lsenat = vl.flash_attn_varlen_fwd_paged_ref(*args, upcast=False,
-                                                      **kw)
+    assert _twin_calls() == twins
+    (o32, lse32), (onat, lsenat) = _refs(vl.flash_attn_varlen_fwd_paged_ref,
+                                         args, kw)
     assert_fwd_close(out, o32, onat, name=f"K8 {name} out")
     _gate_lse(lse, lse32, lsenat, f"K8 {name} lse")
 
 
 def test_kernels_reject_fp32_and_bad_shapes(cuda):
-    args, kw = _decode_inputs("t1", torch.float32, 64, cuda)
+    """fp32 has K4 / K8 bodies (csrc/*_f32.cu); fp64, mixed dtypes
+    and fp32 q over quantized pools raise."""
+    args, kw = _decode_inputs("t1", torch.float64, 64, cuda)
     with pytest.raises(TypeError):
         dec.paged_decode_attention(*args, **kw)
+    args, kw = _decode_inputs("t1", torch.float32, 64, cuda)
+    with pytest.raises(TypeError):
+        dec.paged_decode_attention(args[0], args[1].half(), *args[2:], **kw)
+    kq, ks = quant.quantize_kv(args[1])
+    vq, vs = quant.quantize_kv(args[2])
+    with pytest.raises(TypeError):
+        dec.paged_decode_attention(args[0], kq, vq, *args[3:], k_scales=ks,
+                                   v_scales=vs, **kw)
     args, kw = _decode_inputs("t1", torch.bfloat16, 48, cuda)
     with pytest.raises(ValueError):
         dec.paged_decode_attention(*args, **kw)
-    args, kw = _varlen_inputs("causal_prefix", torch.float32, 64, cuda)
+    args, kw = _varlen_inputs("causal_prefix", torch.float64, 64, cuda)
     with pytest.raises(TypeError):
         vl.flash_attn_varlen_fwd_paged(*args, **kw)
+    args, kw = _varlen_inputs("causal_prefix", torch.float32, 64, cuda)
+    kq, ks = quant.quantize_kv(args[1])
+    vq, vs = quant.quantize_kv(args[2])
+    with pytest.raises(TypeError):
+        vl.flash_attn_varlen_fwd_paged(args[0], kq, vq, *args[3:],
+                                       k_scales=ks, v_scales=vs, **kw)
 
 
 # ------------------------------------------------------------ K5, K6, K7
@@ -482,23 +538,24 @@ def _varlen_counts():
 
 @pytest.mark.parametrize("name", list(PACKED_CASES))
 @pytest.mark.parametrize("D", HEAD_DIMS)
-@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
 def test_varlen_kernels_match_plain(cuda, dt, D, name):
-    args, do, kw = _packed_inputs(name, DTYPES[dt], D, cuda)
+    args, do, kw = _packed_inputs(name, KERNEL_DTYPES[dt], D, cuda)
     q, k, v, cu_q, cu_k, msq, msk, scale, params = args
     before = _varlen_counts()
+    twins = _twin_calls()
     out, lse = vl.flash_attn_varlen_fwd(*args, **kw)
     grads = vl.flash_attn_varlen_bwd(q, k, v, out, do, lse, cu_q, cu_k, msq,
                                      msk, scale, params, **kw)
     torch.cuda.synchronize()
     assert _varlen_counts() == tuple(n + 1 for n in before)
-    o32, lse32 = vl.flash_attn_varlen_fwd_ref(*args, **kw)
-    onat, lsenat = vl.flash_attn_varlen_fwd_ref(*args, upcast=False, **kw)
+    assert _twin_calls() == twins
+    (o32, lse32), (onat, lsenat) = _refs(vl.flash_attn_varlen_fwd_ref, args,
+                                         kw)
     assert_fwd_close(out, o32, onat, name=f"K5 {name} out")
     _gate_lse(lse, lse32, lsenat, f"K5 {name} lse")
     bargs = (q, k, v, out, do, lse, cu_q, cu_k, msq, msk, scale, params)
-    g32 = vl.flash_attn_varlen_bwd_ref(*bargs, **kw)
-    gnat = vl.flash_attn_varlen_bwd_ref(*bargs, upcast=False, **kw)
+    g32, gnat = _refs(vl.flash_attn_varlen_bwd_ref, bargs, kw)
     for g, gr32, grn, what in zip(grads, g32, gnat, ("K6 dq", "K7 dk",
                                                      "K7 dv")):
         assert g.dtype == q.dtype and g.shape == gr32.shape
@@ -541,13 +598,13 @@ def test_forward_bitwise_deterministic(cuda):
     assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
-@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
 def test_varlen_kernels_dropout_masks_bit_equal(cuda, dt):
     """Read K5's and K7's keep masks back as in the dense test: 64 keys
     and 64 q rows a sequence, q = 0, v = I (K5: out[i, j] = keep(i, j) /
     (64 (1 - p))) and dout = I (K7: dv[j, i] likewise)."""
     B, H, n, p = 3, 4, 64, 0.3
-    dtype = DTYPES[dt]
+    dtype = KERNEL_DTYPES[dt]
     eye = torch.eye(n, device=cuda, dtype=dtype)
     q = torch.zeros((B * n, H, n), device=cuda, dtype=dtype)
     v = eye[None, :, None, :].expand(B, n, H, n).reshape(B * n, H, n)
@@ -798,10 +855,16 @@ def test_varlen_paged_rows_past_the_last_sequence_read_zero(cuda):
 
 
 def test_varlen_kernels_reject_fp32(cuda):
-    args, do, kw = _packed_inputs("causal_gqa_ragged", torch.float32, 64,
+    """fp32 has K5-K7 bodies (csrc/*_f32.cu); fp64 and mixed dtypes
+    raise."""
+    args, do, kw = _packed_inputs("causal_gqa_ragged", torch.float64, 64,
                                   cuda)
     with pytest.raises(TypeError):
         vl.flash_attn_varlen_fwd(*args, **kw)
+    args, do, kw = _packed_inputs("causal_gqa_ragged", torch.float32, 64,
+                                  cuda)
+    with pytest.raises(TypeError):
+        vl.flash_attn_varlen_fwd(args[0], args[1].half(), *args[2:], **kw)
 
 
 # ------------------------------------------------- flash_attn_with_kvcache

@@ -56,6 +56,26 @@ def test_sweep_dense_tiniest_cases_pass(shape, causal):
     assert r["fwd_ok"] and r["bwd_ok"], r
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_sweep_dense_fp32_tiniest_case_passes_against_fp64(causal):
+    """--dtype fp32: the oracle is fp64, the same-dtype one fp32."""
+    r = sweep_dense.run_case(np.random.default_rng(sweep_dense.SEED),
+                             *sweep_dense.SHAPES[1], causal, torch.float32,
+                             do_time=False, device=CPU)
+    assert r["fwd_ok"] and r["bwd_ok"], r
+    assert 0.0 < r["fwd_err_native"] < 1e-5, r
+    assert sweep_dense.over_gate(r) <= 1.0
+
+
+def test_sweep_dense_fp32_gates_catch_a_scaled_output(monkeypatch):
+    monkeypatch.setattr(sweep_dense, "flash_attn_func",
+                        _scaled(sweep_dense.flash_attn_func, 1.001))
+    r = sweep_dense.run_case(np.random.default_rng(sweep_dense.SEED),
+                             1, 2, 128, 128, 64, True, torch.float32,
+                             do_time=False, device=CPU)
+    assert not r["fwd_ok"] and not r["bwd_ok"], r
+
+
 def test_sweep_dense_gates_catch_a_scaled_output(monkeypatch):
     monkeypatch.setattr(sweep_dense, "flash_attn_func",
                         _scaled(sweep_dense.flash_attn_func, 1.01))

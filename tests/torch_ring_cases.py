@@ -279,3 +279,40 @@ def gpu_ring_body(inputs):
                 for a, b in zip((q, k, v), (qu, ku, vu))]
         res[name] = r
     return res
+
+
+# ---------------------------------------------------------------------------
+# LoRA on a mesh (tests/test_torch_lora_mesh*.py): the base sharded by
+# shard_params, the adapters replicated
+
+def lora_body(inputs):
+    """make_lora_train_step(mesh=) on inputs["mesh"]: whether materialize
+    on this rank's shard equals the shard of the unsharded materialize (and
+    their largest difference), the step's loss, the adapters' gradients
+    (summed over the mesh) and the adapters after the AdamW step."""
+    from flash_attn_v100_tpu_torch.integrations import lora as tl
+    cfg = tt.ModelConfig.tiny(n_layers=inputs["n_layers"])
+    lcfg = tl.LoraConfig(rank=inputs["rank"], targets=inputs["targets"])
+    mesh = make_mesh(*inputs["mesh"])
+    if not mesh.is_member:
+        return None
+    tokens = _t(inputs["tokens"])
+    full = _params(inputs["params"])
+    shard = tt.shard_params(full, cfg, mesh)
+    lora = tl.lora_from_jax(inputs["lora"], device="cpu")
+    res = dict(coords=mesh.coords)
+    with torch.no_grad():
+        cut = tt.param_leaves(tl.materialize(shard, lora, lcfg, mesh))
+        whole = tt.param_leaves(tt.shard_params(
+            tl.materialize(full, lora, lcfg), cfg, mesh))
+        res["materialize_equal"] = all(torch.equal(a, b)
+                                       for a, b in zip(cut, whole))
+        res["materialize_err"] = max(float((a - b).abs().max())
+                                     for a, b in zip(cut, whole))
+    step, init_opt = tl.make_lora_train_step(cfg, lcfg, mesh=mesh)
+    opt = init_opt(lora)
+    loss, lora, opt = step(lora, opt, shard, tokens)
+    leaves = tl.lora_leaves(lora)
+    res.update(loss=float(loss), grads=[_np(t.grad) for t in leaves],
+               adam=[_np(t) for t in leaves])
+    return res
