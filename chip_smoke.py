@@ -78,12 +78,20 @@ SDPA; TinyLlama-1.1B's widths in fp32 trained for three AdamW steps
 through K1-K3 (step 1's loss and every gradient against the plain path's)
 and serving 8 requests through K8 and K4 (logits against the plain
 twins', greedy tokens against a plain run's), and the same for
-ModelConfig.tiny(); the ring phase also takes one
+ModelConfig.tiny(); then fp32 q over int8, fp8 and int4 pools on K4q's
+and K8q's fp32 instantiations: each against its plain twin and the fp32
+oracle over the dequantized pool at the decode step and the prefill wave,
+timed beside fp32 SDPA, ModelConfig.tiny() served from each pool with the
+tokens of a direct paged_forward loop, and the TinyLlama fp32 serve again
+from an int8 pool; the ring phase also takes one
 make_lora_train_step(mesh=) step on seq 2 x model 2 against the unsharded
 LoRA step, with a planted fault.  Last, `phase_bench` runs the port's bench
 (`python -m flash_attn_v100_tpu_torch.bench`: its headline JSON line must
 carry a value > 0) and the three examples as subprocesses on the card
-(train_seq_parallel on 2 gloo ranks).  Prints the card, a `kernels` JSON
+(train_seq_parallel on 2 gloo ranks), and `phase_scripts` the port's
+bench scripts (bench_serving, bench_decode, bench_lora_sft at 3 steps)
+and the multi-process dryrun (8 gloo ranks on the card), each exiting 0
+with finite numbers.  Prints the card, a `kernels` JSON
 line, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 Any failed phase raises and the script exits non-zero; with no GPU, or
@@ -2667,6 +2675,262 @@ def fp32_k4(torch):
     return res, (q, kp, vp, tbl, lens, lens_d, args, kw, kc, vc, group)
 
 
+# fp32 q over quantized pools (K4q / K8q's fp32 instantiations): the bound's
+# operations rate is the design's products': int8 tensor cores for int8 /
+# int4 (S and P V), bf16 for fp8, whose S is three bf16 products (q split
+# in three exact parts) and P V one
+FP32_QUANT_PRODUCTS = {"int8": 2, "int4": 2, "fp8": 4}
+
+
+def fp32_quant_ops(kind, pairs, D):
+    """(operations, their rate) of the fp32-q K4q / K8q designs over
+    `pairs` live (q row, key) pairs at head dim D."""
+    return (FP32_QUANT_PRODUCTS[kind] * 2 * D * pairs,
+            BF16_FLOPS_PER_S if kind == "fp8" else INT8_OPS_PER_S)
+
+
+def fp32_quant_occupancy(build) -> dict:
+    """K4q's and K8q's fp32-q instantiations at D 32 / 64 / 128 / 256:
+    registers, local memory, dynamic shared memory and resident warps a
+    multiprocessor (K4q in 16-row and 64-row blocks, K8q without and with
+    bias), from the libraries' occupancy entries with dtype code 2."""
+    import ctypes
+    from flash_attn_v100_tpu_torch.ops.cuda.decode import KIND_CODE
+    res = {}
+    for kind in QUANT_KINDS:
+        for D in (32, 64, 128, 256):
+            for name, var in (("K4q", 16), ("K4q", 64), ("K8q", 0),
+                              ("K8q", 1)):
+                out = (ctypes.c_int * 5)()
+                at = ctypes.addressof(out)
+                if name == "K4q":
+                    rc = build.load("decode_quant").fa_decode_quant_occupancy(
+                        KIND_CODE[kind], 2, D, var, at)
+                else:
+                    rc = build.load("varlen_paged_quant") \
+                        .fa_varlen_paged_quant_occupancy(KIND_CODE[kind], 2,
+                                                         D, var, at)
+                build.check(rc, f"{name} fp32 {kind} occupancy")
+                blocks, smem, threads, regs, local = out
+                res[(name, kind, D, var)] = dict(
+                    registers=regs, local_bytes=local, smem_bytes=smem,
+                    blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32)
+    for name, var_name in (("K4q", "rows"), ("K8q", "extra")):
+        for kind in QUANT_KINDS:
+            cells = [f"D {D} {var_name} {var}: {r['registers']} regs, "
+                     f"local {r['local_bytes']} B, smem {r['smem_bytes']} B, "
+                     f"{r['warps_per_sm']} warps/SM"
+                     for (n, k, D, var), r in res.items()
+                     if n == name and k == kind]
+            print(f"{name} fp32 {kind} occupancy: " + "; ".join(cells),
+                  flush=True)
+    return res
+
+
+def fp32_quant(torch, flush):
+    """K4q and K8q on fp32 q, per payload kind: K4q through the merged
+    entry (the engine's route) at fp32_k4's decode step (B 8, 32/4 x 64,
+    page 128, lengths 600-2000), K8q at k8_case's 4 x 512 new tokens over
+    prefixes 0/300/0/300; each against its plain twin at the kernel's P
+    grouping and the fp32 oracle over the dequantized pool (QUANT_GATE),
+    with one launch of its kind counted and no plain call; then kernel,
+    plain and fp32 SDPA times (SDPA over the dequantized, pre-gathered KV)
+    beside the bound (bytes over 3.35 TB/s or the design's operations
+    over its products' rate).  Returns {"K4q": {kind: result}, "K8q":
+    {kind: result}}."""
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    ggen = torch.Generator(device=dev).manual_seed(SEED)
+    B, Hk, group, D, ps, max_pages = 8, 4, 8, 64, 128, 16
+    lens = torch.randint(600, 2001, (B,), generator=gen)
+    tbl, n_pages = paged_tables(torch, gen, lens, ps, max_pages, dev)
+    kp, vp = make_pool(torch, ggen, dev, Hk, n_pages, ps, D, torch.float32)
+    q = torch.randn((B, Hk, group, D), generator=ggen, device=dev)
+    lens_d = lens.to(dev, torch.int32)
+    lp = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(qpos_vec=lens_d - 1, softmax_scale=D ** -0.5,
+              params=masklib.MaskParams(window_right=0), t_new=1,
+              group=group, num_splits=0)
+    live = int(lens.sum())
+    res = {"K4q": {}, "K8q": {}}
+    for kind in QUANT_KINDS:
+        (kq, vq, ks, vs), (kd, vd) = quant_pools(torch, kp, vp, kind)
+        args = (q, kq[None], vq[None], tbl, lens_d, lp)
+        qkw = dict(kw, k_scales=ks[None], v_scales=vs[None],
+                   int4=kind == "int4")
+
+        def run(qkw=qkw, args=args):
+            return dec.paged_decode_attention_merged(*args, **qkw)
+        n0 = dec.paged_decode_attention.quant_launches[kind]
+        twins0 = dec.paged_decode_attention_ref.calls
+        o, lse = run()
+        torch.cuda.synchronize()
+        assert dec.paged_decode_attention.quant_launches[kind] == n0 + 1
+        assert dec.paged_decode_attention_ref.calls == twins0
+        assert o.dtype == torch.float32 and lse.dtype == torch.float32
+        twin, lse_twin = dec.merge_partials(*dec.paged_decode_attention_ref(
+            *args, **qkw))
+        unr = dec.merge_partials(*dec.paged_decode_attention_ref(
+            *args, round_p=False, **qkw))[0]
+        oracle = dec.merge_partials(*dec.paged_decode_attention_ref(
+            q, kd[None], vd[None], tbl, lens_d, lp, **kw))[0]
+        vsw = wrong_chunk_pool(torch, vs, tbl, lens, ps, B - 1)
+        o_w = dec.paged_decode_attention_merged(
+            *args, **dict(qkw, v_scales=vsw[None]))[0]
+        wrong = o.clone()
+        wrong[B - 1] = o_w[B - 1]
+        r = gate_quant(torch, f"K4q fp32 {kind} decode", kind, o, lse, twin,
+                       unr, lse_twin, oracle, wrong)
+        del twin, unr, oracle, o_w, wrong
+        r["ms"] = time_ms(torch, run, flush=flush)
+        r["plain_ms"] = time_ms(torch, lambda: dec.paged_decode_attention_ref(
+            *args, **qkw), reps=3, warmup=1, flush=flush)
+        kc, vc = gather_kv(torch, kd, vd, tbl, lens, ps)
+        r["library_ms"] = time_ms(
+            torch, decode_sdpa(torch, q, kc, vc, lens_d, group), flush=flush)
+        del kc, vc
+        row_bytes = D // 2 if kind == "int4" else D
+        nbytes = (q.numel() * 4 + 2 * live * Hk * (row_bytes + 4)
+                  + tbl.numel() * 4 + B * 12 + B * Hk * group * (4 * D + 4))
+        ops, rate = fp32_quant_ops(kind, live * Hk * group, D)
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, ops, rate)
+        res["K4q"][kind] = r
+    del kp, vp
+
+    (B, T, Hq, Hk, D, ps), prefix, seqlens, q, kp, vp, tail, _ = k8_case(
+        torch, torch.float32)
+    tbl = tail[0]
+    pairs = Hq * sum(T * int(p) + T * (T + 1) // 2 for p in prefix)
+    for kind in QUANT_KINDS:
+        (kq, vq, ks, vs), (kd, vd) = quant_pools(torch, kp, vp, kind)
+        args = (q, kq, vq, *tail)
+        skw = dict(k_scales=ks, v_scales=vs)
+
+        def run(args=args, skw=skw):
+            return vl.flash_attn_varlen_fwd_paged(*args, **skw)
+        n0 = vl.flash_attn_varlen_fwd_paged.quant_launches[kind]
+        twins0 = vl.flash_attn_varlen_fwd_paged_ref.calls
+        out, lse = run()
+        torch.cuda.synchronize()
+        assert vl.flash_attn_varlen_fwd_paged.quant_launches[kind] == n0 + 1
+        assert vl.flash_attn_varlen_fwd_paged_ref.calls == twins0
+        assert out.dtype == torch.float32
+        twin, lse_twin = vl.flash_attn_varlen_fwd_paged_ref(*args, **skw)
+        unr = vl.flash_attn_varlen_fwd_paged_ref(*args, round_p=False,
+                                                 **skw)[0]
+        oracle = vl.flash_attn_varlen_fwd_paged_ref(q, kd, vd, *tail)[0]
+        o_w = vl.flash_attn_varlen_fwd_paged(
+            *args, k_scales=ks, v_scales=torch.roll(vs, 1, dims=2))[0]
+        wrong = spliced0(out, o_w, B * T - 64)
+        r = gate_quant(torch, f"K8q fp32 {kind} prefill", kind, out, lse,
+                       twin, unr, lse_twin, oracle, wrong)
+        del twin, unr, oracle, o_w, wrong
+        r["ms"] = time_ms(torch, run, flush=flush)
+        r["plain_ms"] = time_ms(
+            torch, lambda: vl.flash_attn_varlen_fwd_paged_ref(*args, **skw),
+            reps=3, warmup=1, flush=flush)
+        kc, vc = gather_kv(torch, kd, vd, tbl, seqlens, ps)
+        r["library_ms"] = time_ms(
+            torch, prefill_sdpa(torch, q, kc, vc, prefix, T), flush=flush)
+        del kc, vc
+        row_bytes = D // 2 if kind == "int4" else D
+        nbytes = (2 * q.numel() * 4 + Hq * B * T * 4
+                  + 2 * int(seqlens.sum()) * Hk * (row_bytes + 4)
+                  + tbl.numel() * 4)
+        ops, rate = fp32_quant_ops(kind, pairs, D)
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, ops, rate)
+        res["K8q"][kind] = r
+    for kid in ("K4q", "K8q"):
+        for kind, r in res[kid].items():
+            print(f"{kid} fp32 {kind}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, SDPA fp32 over the dequantized "
+                  f"pre-gathered KV {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+    print(f"fp32 q over quantized pools: checks and times "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return res
+
+
+def fp32_quant_tiny(torch, kind, prompts=(100, 9), n_new=8):
+    """ModelConfig.tiny() (fp32) served from a `kind` pool, one
+    max_batch-1 engine a prompt (page 128: the 100-token prompt's prefill
+    takes the K8 route, the 9-token one's the K4 route), against a direct
+    paged_forward loop through the same kernels (the engine's shapes,
+    bucketed prefill, full block table): greedy tokens equal.  Returns the
+    engine runs' launches (K4q, K8q of `kind`; the direct loops' are not
+    counted)."""
+    import numpy as np
+    from flash_attn_v100_tpu_torch import ModelConfig, ServingEngine
+    from flash_attn_v100_tpu_torch.models.transformer import init_params
+    from flash_attn_v100_tpu_torch.ops import kvcache as kv_mod
+    from flash_attn_v100_tpu_torch.runtime import engine as eng_mod
+    cfg = ModelConfig.tiny()
+    params = init_params(cfg, seed=SEED, device="cuda")
+    ps, num_pages = 128, 16
+    rows = ps // 2 if kind == "int4" else ps
+    pdt = torch.int8 if kind == "int4" else quant_dtype(torch, kind)
+    rng = np.random.default_rng(SEED + 2)
+    saved = kv_mod.VARLEN_PREFILL_MIN_ROWS
+    kv_mod.VARLEN_PREFILL_MIN_ROWS = 128   # the tiny model's K8 route
+    total = {"decode": 0, "varlen": 0}
+    try:
+        for n in prompts:
+            prompt = rng.integers(1, cfg.vocab_size, n).tolist()
+            shape = (cfg.n_kv_heads, (num_pages + 1) * cfg.n_layers, rows,
+                     cfg.head_dim)
+            pools = [torch.zeros(shape, dtype=pdt, device="cuda")
+                     for _ in range(2)]
+            scales = dict(k_scales=torch.ones((*shape[:2], ps, 1),
+                                              device="cuda"),
+                          v_scales=torch.ones((*shape[:2], ps, 1),
+                                              device="cuda"))
+            bt = torch.arange(1, cfg.max_seq_len // ps + 1, dtype=torch.int32,
+                              device="cuda")[None]
+            T = ServingEngine._bucket(n)
+            toks = torch.zeros((1, T), dtype=torch.long, device="cuda")
+            toks[0, :n] = torch.tensor(prompt, device="cuda")
+            with torch.no_grad():
+                logits = eng_mod.paged_forward(
+                    params, *pools, toks,
+                    torch.zeros(1, dtype=torch.int32, device="cuda"), bt,
+                    cfg, **scales)[0]
+                ref = [int(logits[0, n - 1].argmax())]
+                for i in range(n_new - 1):
+                    cs = torch.tensor([n + i], dtype=torch.int32,
+                                      device="cuda")
+                    logits = eng_mod.paged_forward(
+                        params, *pools,
+                        torch.tensor([[ref[-1]]], device="cuda"), cs, bt,
+                        cfg, **scales)[0]
+                    ref.append(int(logits[0, 0].argmax()))
+            eng = ServingEngine(params, cfg, max_batch=1, num_pages=num_pages,
+                                page_size=ps, device="cuda",
+                                kv_dtype=quant_dtype(torch, kind))
+            reset_serving_counts()
+            rid = eng.submit(prompt, max_new_tokens=n_new)
+            got = eng.run_to_completion()[rid]
+            launches, twin_calls, other = serving_counts(kind)
+            assert twin_calls == [0, 0], twin_calls
+            assert other == 0, f"{other} launches of another kernel"
+            assert got == ref, (kind, n, got, ref)
+            for k in total:
+                total[k] += launches[k]
+    finally:
+        kv_mod.VARLEN_PREFILL_MIN_ROWS = saved
+    assert total["decode"] > 0 and total["varlen"] > 0, total
+    print(f"fp32 ModelConfig.tiny served from an {kind} pool (page {ps}, "
+          f"prompts {list(prompts)}, {n_new} new each, one max_batch-1 "
+          f"engine a prompt): greedy tokens equal to a direct paged_forward "
+          f"loop's; engine launches K4q {total['decode']}, K8q "
+          f"{total['varlen']}, plain twin calls 0", flush=True)
+    return total
+
+
 def fp32_train(torch, cfg, B, tag):
     """One fp32 model's training check: the step-1 loss and every leaf's
     gradient through the kernels against the same through the plain
@@ -2730,13 +2994,18 @@ def fp32_train(torch, cfg, B, tag):
 
 
 def fp32_serve(torch, params, cfg, tag, prompts, n_new, page_size=PAGE_SIZE,
-               num_pages=NUM_PAGES):
-    """One fp32 engine run through K8 and K4, its first K8-route prefill
-    step and first decode step (T = 1) replayed through the plain twins
-    (logits within FP32_PATH_ATOL), and the same traffic served again on
-    the plain twins: greedy tokens equal.  At a first difference the
-    top-two logit margin there is printed; the run fails unless that
-    margin is within the logits gate (a tie the gate cannot order)."""
+               num_pages=NUM_PAGES, kind=None):
+    """One fp32 engine run through K8 and K4 (K8q and K4q over a pool of
+    payload `kind`), its first K8-route prefill step and first decode step
+    (T = 1) replayed through the plain twins (logits within
+    FP32_PATH_ATOL; over a quantized pool within ENGINE_QUANT_GATE: an
+    ulp of P's exponential flips an int8 value of P where its quotient
+    lies at a half, in kernel or twin, and 22 layers carry those flips to
+    the logits), and the same
+    traffic served again on the plain twins: greedy tokens equal.  At a
+    first difference the top-two logit margin there is printed; over an
+    fp32 pool the run fails unless that margin is within the logits gate
+    (a tie the gate cannot order)."""
     from flash_attn_v100_tpu_torch import ServingEngine
     from flash_attn_v100_tpu_torch.models import transformer as tm
     from flash_attn_v100_tpu_torch.ops import kvcache as kv_mod
@@ -2744,16 +3013,17 @@ def fp32_serve(torch, params, cfg, tag, prompts, n_new, page_size=PAGE_SIZE,
     from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
     from flash_attn_v100_tpu_torch.runtime import engine as eng_mod
 
-    def plain_merged(*a, **k):
-        o, lse = dec.merge_partials(*dec.paged_decode_attention_ref(*a, **k))
-        return o.to(a[0].dtype), lse
-
     @contextlib.contextmanager
-    def plain_twins():
+    def plain_twins(**yard):
+        def plain_merged(*a, **k):
+            o, lse = dec.merge_partials(*dec.paged_decode_attention_ref(
+                *a, **yard, **k))
+            return o.to(a[0].dtype), lse
         saved = (kv_mod.paged_decode_attention_merged,
                  kv_mod.flash_attn_varlen_fwd_paged)
         kv_mod.paged_decode_attention_merged = plain_merged
-        kv_mod.flash_attn_varlen_fwd_paged = vl.flash_attn_varlen_fwd_paged_ref
+        kv_mod.flash_attn_varlen_fwd_paged = functools.partial(
+            vl.flash_attn_varlen_fwd_paged_ref, **yard)
         try:
             yield
         finally:
@@ -2763,7 +3033,9 @@ def fp32_serve(torch, params, cfg, tag, prompts, n_new, page_size=PAGE_SIZE,
     def run(spy=None):
         eng = ServingEngine(params, cfg, max_batch=len(prompts),
                             num_pages=num_pages, page_size=page_size,
-                            device="cuda")
+                            device="cuda",
+                            kv_dtype=None if kind is None else quant_dtype(
+                                torch, kind))
         real = eng_mod.paged_forward
         if spy is not None:
             eng_mod.paged_forward = spy(real)
@@ -2785,7 +3057,8 @@ def fp32_serve(torch, params, cfg, tag, prompts, n_new, page_size=PAGE_SIZE,
             if key is None or key in cap:
                 return real(params_, k_pool, v_pool, tokens, cs, bt, cfg_,
                             **kw)
-            c = cap[key] = dict(k=k_pool.clone(), v=v_pool.clone(), kw=kw,
+            c = cap[key] = dict(k=k_pool.clone(), v=v_pool.clone(),
+                                kw=_scale_clones(kw),
                                 args=(tokens.clone(), cs.clone(),
                                       bt.clone()))
             out = real(params_, k_pool, v_pool, tokens, cs, bt, cfg_, **kw)
@@ -2795,18 +3068,29 @@ def fp32_serve(torch, params, cfg, tag, prompts, n_new, page_size=PAGE_SIZE,
 
     reset_serving_counts()
     toks, eng = run(spy)
-    launches, twin_calls, _ = serving_counts()
+    launches, twin_calls, other = serving_counts(kind)
     assert twin_calls == [0, 0], twin_calls
+    assert other == 0, f"{other} launches of another payload's kernels"
     assert launches["decode"] > 0 and launches["varlen"] > 0, launches
     assert sorted(cap) == ["decode step", "varlen prefill"], sorted(cap)
     errs = {}
     for key, c in cap.items():
-        with plain_twins():
-            plain = eng_mod.paged_forward(params, c["k"].clone(),
-                                          c["v"].clone(), *c["args"], cfg,
-                                          **c["kw"])[0]
+        def replay(**yard):
+            with plain_twins(**yard):
+                return eng_mod.paged_forward(params, c["k"].clone(),
+                                             c["v"].clone(), *c["args"], cfg,
+                                             **_scale_clones(c["kw"]))[0]
+        plain = replay()
         errs[key] = float((c["logits"] - plain).abs().max())
-        assert errs[key] <= FP32_PATH_ATOL, (tag, key, errs[key])
+        if kind is None:
+            assert errs[key] <= FP32_PATH_ATOL, (tag, key, errs[key])
+        else:
+            err, gate = gated(torch, c["logits"], plain,
+                              replay(round_p=False),
+                              f"fp32 {tag} {kind}: first {key} logits",
+                              ENGINE_LOGITS_MULT, ENGINE_LOGITS_ATOL)
+            print(f"fp32 {tag} {kind}: first {key} logits err {err:.3e} <= "
+                  f"gate {gate:.3e} ({ENGINE_QUANT_GATE})", flush=True)
     del cap, eng
     with plain_twins():
         toks_p, _ = run()
@@ -2823,17 +3107,18 @@ def fp32_serve(torch, params, cfg, tag, prompts, n_new, page_size=PAGE_SIZE,
                 f"(kernel {toks[i][j]}, plain {toks_p[i][j]}), where the "
                 f"top-two logit margin is {margin:.3e}")
         print(f"fp32 {tag} serve: tokens {same}", flush=True)
-        assert margin <= FP32_PATH_ATOL, (
+        assert kind is not None or margin <= FP32_PATH_ATOL, (
             f"fp32 {tag}: greedy tokens differ from the plain run at a "
             f"margin above the logits gate")
     print(f"fp32 {tag} serve: {len(prompts)} requests (prompts "
           f"{sorted(len(p) for p in prompts)}, {n_new} new each, greedy), "
-          f"fp32 pool, page {page_size}: launches {launches}, plain twin "
-          f"calls 0; first K8-route prefill logits err "
+          f"{kind or 'fp32'} pool, page {page_size}: launches {launches}, "
+          f"plain twin calls 0; first K8-route prefill logits err "
           f"{errs['varlen prefill']:.3e}, first decode step logits err "
-          f"{errs['decode step']:.3e} (gate {FP32_PATH_ATOL:.0e}) vs the "
-          f"plain twins; tokens {same}", flush=True)
-    return dict(launches=launches, logits_err=errs)
+          f"{errs['decode step']:.3e} (max abs; gate "
+          f"{'ENGINE_QUANT_GATE' if kind else f'{FP32_PATH_ATOL:.0e}'}) vs "
+          f"the plain twins; tokens {same}", flush=True)
+    return dict(launches=launches, logits_err=errs, tokens_equal=not diff)
 
 
 def fp32_times(torch, flush, dense, varlen, k8, k4):
@@ -2968,7 +3253,11 @@ def phase_fp32(torch, flush):
     and K4 (the first prefill's and decode step's logits against the plain
     twins', greedy tokens equal to a plain run's); the same for
     ModelConfig.tiny(); (3) each kernel's times beside its plain twin, fp32
-    SDPA, the TF32 bound and the FFMA ceiling."""
+    SDPA, the TF32 bound and the FFMA ceiling; then fp32 q over int8, fp8
+    and int4 pools (K4q / K8q's fp32 instantiations: fp32_quant's checks
+    and times, ModelConfig.tiny() served from each pool against a direct
+    paged_forward loop, and the TinyLlama serve again from an int8
+    pool)."""
     import numpy as np
     from flash_attn_v100_tpu_torch import ModelConfig
     from flash_attn_v100_tpu_torch.ops import kvcache as kv_mod
@@ -2998,6 +3287,12 @@ def phase_fp32(torch, flush):
     del dense, varlen, k8, k4
     gc.collect()
     torch.cuda.empty_cache()
+    # fp32 q over quantized pools: K4q / K8q's fp32 instantiations
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    quant_occ = fp32_quant_occupancy(build)
+    quant = fp32_quant(torch, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # (2) the path at full width, then ModelConfig.tiny()
     t1 = time.perf_counter()
@@ -3025,6 +3320,8 @@ def phase_fp32(torch, flush):
                   for k_, v_ in params.items()}
         serve = fp32_serve(torch, params, cfg, "TinyLlama-1.1B", prompts,
                            N_NEW)
+        serve_int8 = fp32_serve(torch, params, cfg, "TinyLlama-1.1B",
+                                prompts, N_NEW, kind="int8")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3048,6 +3345,8 @@ def phase_fp32(torch, flush):
     finally:
         kv_mod.VARLEN_PREFILL_MIN_ROWS = saved
     del tparams
+    quant_launches = {kind: fp32_quant_tiny(torch, kind)
+                      for kind in QUANT_KINDS}
     t_path = time.perf_counter() - t1
     print(f"fp32: kernel checks {t_check:.1f} s, times "
           f"{t1 - t0 - t_check:.1f} s, paths {t_path:.1f} s, total "
@@ -3057,7 +3356,9 @@ def phase_fp32(torch, flush):
                 "K4": serve["launches"]["decode"],
                 "K8": serve["launches"]["varlen"]}
     return dict(errs=errs, times=times, launches=launches, train=train,
-                serve=serve, tiny_train=tiny_train, tiny_serve=tiny_serve)
+                serve=serve, tiny_train=tiny_train, tiny_serve=tiny_serve,
+                quant=quant, quant_launches=quant_launches,
+                quant_occupancy=quant_occ, serve_int8=serve_int8)
 
 
 PAR_WORLD = 4
@@ -4771,6 +5072,88 @@ def phase_bench(torch):
                 example_s=secs)
 
 
+# ----------------------------------------- the bench scripts and the dryrun
+
+SCRIPT_TIMEOUT_S = 300
+# (script, arguments): bench_serving at its defaults (page 64: the JAX
+# route rule sends a prefill to K8 only at pages of a multiple of 128, so
+# its prefills take K4's route) and again at page 128, cut to 8 requests of
+# 16 new tokens (its 512-token prefills on K8), bench_decode at its
+# defaults, bench_lora_sft
+# at its config with 3 steps, the dryrun at 2 x 4 gloo ranks on the card
+SCRIPT_RUNS = (("bench_serving", ()),
+               ("bench_serving", ("--page-size", "128", "--requests", "8",
+                                  "--max-batch", "8", "--gen-len", "16")),
+               ("bench_decode", ()),
+               ("bench_lora_sft", ("--steps", "3")),
+               ("dryrun_multiprocess", ()))
+_NUM = r"([-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?)"
+
+
+def _script_numbers(name, out):
+    """The numbers each script's lines report, by name."""
+    import re
+
+    def grab(pat, keys):
+        found = re.findall(pat, out)
+        assert found, f"{name}: no {pat!r} in {out!r}"
+        return [dict(zip(keys, map(float, f if isinstance(f, tuple)
+                                   else (f,)))) for f in found]
+    if name == "bench_serving":
+        r = grab(rf"decode: {_NUM} tok/s/chip steady \({_NUM} toks\), "
+                 rf"{_NUM} tok/s/chip e2e", ("decode_tok_s", "dec_toks",
+                                             "e2e_tok_s"))[0]
+        r.update(grab(rf"TTFT p50={_NUM}ms p99={_NUM}ms",
+                      ("ttft_p50_ms", "ttft_p99_ms"))[0])
+        r.update(grab(rf"launches: K4 {_NUM}, K8 {_NUM}", ("K4", "K8"))[0])
+        return r
+    if name == "bench_decode":
+        return dict(rows=grab(
+            rf"ctx=\s*{_NUM} kv=\w+\s+splits={_NUM}: \s*{_NUM} us\s+"
+            rf"{_NUM} tok/s/chip\s+{_NUM} GB/s \({_NUM}% of roofline\)",
+            ("ctx", "splits", "us", "tok_s", "gbps", "pct")))
+    if name == "bench_lora_sft":
+        return grab(rf"\d+ steps: {_NUM} ms/step, {_NUM} tok/s, final loss "
+                    rf"{_NUM}", ("ms_per_step", "tok_s", "final_loss"))[0]
+    assert "dryrun_multiprocess: OK" in out, out
+    return grab(rf"step-1 loss {_NUM}, equal", ("loss",))[0]
+
+
+def phase_scripts(torch):
+    """The port's bench scripts (bench_serving, bench_decode,
+    bench_lora_sft) and the multi-process dryrun as subprocesses on the
+    card (SCRIPT_RUNS): each must exit 0 with finite numbers on its lines;
+    the serving runs' launch counts must show K4, and the page-128 run's
+    K8 too; no decode rate may pass 3.35 TB/s; the dryrun must print OK.  Returns each run's numbers and
+    seconds."""
+    res = []
+    t0 = time.perf_counter()
+    for name, args in SCRIPT_RUNS:
+        t1 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", f"flash_attn_v100_tpu_torch.benchmarks."
+             f"{name}", *args], capture_output=True, text=True,
+            timeout=SCRIPT_TIMEOUT_S)
+        secs = time.perf_counter() - t1
+        tag = " ".join((name,) + tuple(args))
+        for line in r.stdout.strip().splitlines():
+            print(f"script {tag}: {line}", flush=True)
+        assert r.returncode == 0, (
+            f"{tag} exited {r.returncode}: {r.stderr[-3000:]}")
+        nums = _script_numbers(name, r.stdout)
+        flat = [v for row in nums.get("rows", [nums]) for v in row.values()]
+        assert all(math.isfinite(v) for v in flat), (tag, nums)
+        if name == "bench_serving":
+            assert nums["K4"] > 0, (tag, nums)
+            assert "--page-size" not in args or nums["K8"] > 0, (tag, nums)
+        if name == "bench_decode":   # a rate past the card's would miscount
+            assert all(r["pct"] <= 100 for r in nums["rows"]), (tag, nums)
+        res.append(dict(script=tag, seconds=secs, **nums))
+        print(f"script {tag}: {secs:.1f} s", flush=True)
+    print(f"scripts: {time.perf_counter() - t0:.1f} s", flush=True)
+    return res
+
+
 # --------------------------------------------- dense kernels, two trees
 
 def digest(torch, *tensors) -> str:
@@ -5239,8 +5622,8 @@ def main() -> int:
 
     t_start = t0 = time.perf_counter()
     built = build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc per source, "
-          f"concurrent: {built})", flush=True)
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc per translation "
+          f"unit, concurrent: {built})", flush=True)
     for name in build.SOURCES:
         log = build.build_log(name).splitlines()
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in log
@@ -5252,16 +5635,28 @@ def main() -> int:
               f"{min(regs)}-{max(regs)}, stack/spills: {stack or 'none'}",
               flush=True)
 
+    laps = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - laps[-1]:.1f} s ({now - t_start:.1f} s "
+              f"from the build on)", flush=True)
+        laps.append(now)
+
     flush = torch.empty(64 * 2 ** 20 // 4, device="cuda")   # > 50 MB L2
     dense = phase_dense(torch, flush)
+    lap("dense")
     torch.cuda.empty_cache()
     varlen = phase_varlen(torch, flush)
+    lap("varlen")
     torch.cuda.empty_cache()
     dropin = phase_dropin(torch)
+    lap("dropin")
     torch.cuda.empty_cache()
     k4 = phase_k4(torch, flush)
     k8 = phase_k8(torch, flush)
     quant = phase_quant(torch, flush)
+    lap("k4, k8, quant")
     k4["ms_repeats"] = quant["spread"]["K4 (bf16)"]
     # K4's time as K4q's: the median of the repeats timed in turns
     k4["ms"] = statistics.median(k4["ms_repeats"])
@@ -5274,8 +5669,10 @@ def main() -> int:
         quant["K8q"][kind]["occupancy"] = k8["quant_occupancy"][kind]
         quant["K4q"][kind]["occupancy"] = k4["quant_occupancy"][kind]
     probes = phase_probes(torch, flush)
+    lap("probes")
     torch.cuda.empty_cache()
     fp32 = phase_fp32(torch, flush)
+    lap("fp32")
     gc.collect()
     torch.cuda.empty_cache()
     del flush
@@ -5284,14 +5681,17 @@ def main() -> int:
     train = phase_train(torch, cfg)
     torch.cuda.empty_cache()
     phase_lora(torch, cfg, train)
+    lap("train, lora")
     torch.cuda.empty_cache()
     eng = phase_engine(torch, cfg)
     torch.cuda.empty_cache()
     phase_hf_serve(torch, cfg, eng)
     torch.cuda.empty_cache()
     eng_q = phase_engine_quant(torch, cfg, eng)
+    lap("engine, hf_serve, engine_quant")
     torch.cuda.empty_cache()
     phase_parallel(torch, eng, eng_q)
+    lap("parallel")
     # what the kernels line needs; the rest of the engines' and models'
     # results leave the card before phase_ring's ranks start
     path_launches = dict(train=train["launches"], decode=eng["launches"],
@@ -5301,9 +5701,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ring = phase_ring(torch)
+    lap("ring")
     gc.collect()
     torch.cuda.empty_cache()
     bench = phase_bench(torch)
+    lap("bench")
+    scripts = phase_scripts(torch)
+    lap("scripts")
 
     rows = [
             ("K1 flash_attn_dense_fwd", dense["K1"], "fwd.cu",
@@ -5396,6 +5800,25 @@ def main() -> int:
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             library=t["library"], ffma_bound_ms=t["ffma_bound_ms"],
             error_vs="the fp64 oracle", gate=FP32_GATE))
+    # K4q / K8q's fp32-q instantiations: launches from the tiny model's
+    # engine runs over each pool
+    for kid, name, src, replaces, route in (
+            ("K4q", "paged_decode_attention", "decode_quant.cu",
+             "flash_attn_v100_tpu/ops/pallas/decode.py:72", "decode"),
+            ("K8q", "flash_attn_varlen_fwd_paged", "varlen_paged_quant.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:947", "varlen")):
+        for kind in QUANT_KINDS:
+            r = fp32["quant"][kid][kind]
+            kernels.append(dict(
+                name=f"{kid} fp32 {kind} {name} (fp32 q, {kind} pool)",
+                route="cuda", source=f"flash_attn_v100_tpu_torch/csrc/{src}",
+                replaces=replaces,
+                launches=fp32["quant_launches"][kind][route],
+                max_abs_err=r["max_abs_err"], max_abs_err_gate=r["gate"],
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                library="fp32 SDPA over the dequantized, pre-gathered KV",
+                oracle_err=r["oracle_err"], gate=QUANT_GATE))
     for res in probes:
         row = dict(name=res["name"], route="cuda",
                    source=f"flash_attn_v100_tpu_torch/csrc/{res['source']}",
@@ -5415,6 +5838,7 @@ def main() -> int:
                               "SDPA, enable_gqa, non-causal")
         kernels.append(row)
     print(f"bench headline: {json.dumps(bench['headline'])}", flush=True)
+    print(f"scripts: {json.dumps(scripts)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build "
           f"on", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -27,6 +27,16 @@ hand-written kernels of csrc/probes.cu and csrc/probe_int4.cu.
   fuzz_oracle         random unaligned and ragged configurations, drawn as
                       the JAX repository's script draws them.
 
+  bench_serving       the engine under a request mix: TTFT p50/p99 and
+                      steady decode tokens/s;
+  bench_decode        the decode's GB/s from bf16 and int8 pools across
+                      contexts and split counts, against 3.35 TB/s;
+  bench_lora_sft      LoRA fine-tuning: ms a step, tokens/s, the loss;
+  dryrun_multiprocess the multi-host path as local processes: 2 x 4 ranks,
+                      initialize(), a hybrid mesh, one sharded SGD step and
+                      a sharded engine against a single-process one.
+
 Each is the counterpart of the JAX repository's script of the same name.
-They run on the card and refuse to run without one.
+They run on the card and refuse to run without one; the last four also
+take `--device cpu` (the kernels' plain versions).
 """

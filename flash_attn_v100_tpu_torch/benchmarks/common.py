@@ -25,15 +25,28 @@ HBM_BYTES_PER_S = 3.35e12
 TILE_WORK = 1024 * 1024       # the TPU scripts' unit: a 1024 x 1024 tile
 
 
-def card() -> torch.device:
-    """The GPU, its name and power limit printed (nvidia-smi's line)."""
-    dev = resolve_device("cuda")
-    line = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"card: {line}", flush=True)
+
+
+def card() -> torch.device:
+    """The GPU, its name and power limit printed (nvidia-smi's line)."""
+    dev = resolve_device("cuda")
+    print(f"card: {card_line()}", flush=True)
     return dev
+
+
+def backend(device: str = "cuda") -> tuple:
+    """(the device a bench script runs on, what it prints as `backend=`):
+    the card and its nvidia-smi line, or the CPU (the kernels' plain
+    versions) and "cpu"."""
+    dev = resolve_device(device)
+    return dev, card_line() if dev.type == "cuda" else "cpu"
 
 
 def run_device(device: str = "cuda") -> torch.device:

@@ -52,6 +52,13 @@
 //     p_scale) run on the fragments of one group, with one exact-division
 //     branch per eight values (the reciprocal fast path of
 //     csrc/varlen_paged_quant.cu).
+//   * fp32 q (K4q only).  int8 / int4 quantize the fp32 rows as they do
+//     16-bit ones.  For fp8 the TPU kernel's S is the fp32 q . k, which
+//     one bf16 (or TF32) rounding of q misses: q is split into three bf16
+//     tiles whose sum is q exactly (fa::split_bf16x3) and S is three
+//     m16n8k16 products against the same converted K fragments, fp32
+//     accumulation (three times the S work, which is a small share of a
+//     bytes-bound step); P V is the 16-bit path's.  O comes out in fp32.
 //   * The merge.  Given merged outputs, a block writes its normalized
 //     partial, fences, and bumps its (b, kv head, row tile)'s arrival
 //     counter; the last of the S blocks to arrive merges their partials in
@@ -85,7 +92,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct DecodeArgs {
-  const void* q;          // (B, Hk, Rq, D) contiguous, bf16 or fp16
+  const void* q;          // (B, Hk, Rq, D) contiguous, bf16 or fp16 (K4q:
+                          // or fp32)
   const unsigned char* k; // pool view base; strides below in bytes
   const unsigned char* v;
   const float* ks;        // K4q: scale pool views, float strides below
@@ -118,6 +126,9 @@ template <typename T, int D, int KIND, int ROWS>
 struct Smem {
   static constexpr bool kByte = KIND != kK16;
   static constexpr bool kInt = KIND == fa::kInt8 || KIND == fa::kInt4;
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  // bf16 Q tiles: one, or fp32 q's three parts over an fp8 pool
+  static constexpr int QP = KIND == fa::kFp8 && kF32 ? 3 : 1;
   // keys a stage and stages: 3 stages of 128 keys at D 32 / 64 and of 64
   // at D 128 for 16-bit pools (two blocks an SM, about 128 KB in flight),
   // 2 of 128 for payload bytes at D 128 (every warp a group of each
@@ -131,7 +142,7 @@ struct Smem {
   static constexpr int NG = BK / G;
   static constexpr int QLD = kInt ? D + 16 : (D + 8) * 2;   // bytes a row
   static constexpr size_t q_bytes =
-      static_cast<size_t>(ROWS) * QLD + (kInt ? 4 * ROWS : 0);
+      static_cast<size_t>(QP) * ROWS * QLD + (kInt ? 4 * ROWS : 0);
   // payload rows of 128 bytes (D 128) are 128-byte swizzled (16-byte chunk
   // c of row r at c ^ (r % 8): ldmatrix without bank conflicts or
   // padding), others padded by 16 bytes
@@ -219,14 +230,6 @@ __device__ __forceinline__ uint32_t pack_s8(uint32_t a, uint32_t b,
                                             uint32_t c, uint32_t d) {
   return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
                      0x5410);
-}
-
-// Q's column for head-dim index d in the fp8 path: within each 16, dim
-// 4 t + i sits where an m16n8k16 A fragment expects k 2 t + i (i < 2) or
-// 2 t + 8 + i - 2, the dims an e4m3 K register from ldmatrix holds
-__device__ __forceinline__ int fp8_q_col(int d) {
-  const int x = d % 16, t = x / 4, i = x % 4;
-  return d - x + (i < 2 ? 2 * t + i : 2 * t + 6 + i);
 }
 
 // 16-byte chunk c of row r in a payload tile, swizzled or not
@@ -436,14 +439,24 @@ __global__ void __launch_bounds__(kThreads, 2)
       cp_async16(smem + r * L::QLD + c * 16,
                  in ? qg + ((q_row0 + r) * D + c * 8) * 2 : qg, in);
     }
+  } else if constexpr (KIND == fa::kFp8 && L::kF32) {
+    // fp32 q: its three bf16 parts, tile p at p * ROWS rows
+    const float* qg = static_cast<const float*>(a.q);
+    __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(smem);
+    for (int idx = tid; idx < ROWS * D; idx += kThreads) {
+      const int r = idx / D, d = idx % D;
+      const float x = row0 + r < a.Rq ? qg[(q_row0 + r) * D + d] : 0.0f;
+      __nv_bfloat16* t = qt + r * LDE + fa::fp8_q_col(d);
+      fa::split_bf16x3(x, t[0], t[ROWS * LDE], t[2 * ROWS * LDE]);
+    }
   } else if constexpr (KIND == fa::kFp8) {
     const T* qg = static_cast<const T*>(a.q);
     T* qt = reinterpret_cast<T*>(smem);
     for (int idx = tid; idx < ROWS * D; idx += kThreads) {
       const int r = idx / D, d = idx % D;
-      qt[r * LDE + fp8_q_col(d)] = row0 + r < a.Rq
-                                       ? qg[(q_row0 + r) * D + d]
-                                       : fa::from_float<T>(0.0f);
+      qt[r * LDE + fa::fp8_q_col(d)] = row0 + r < a.Rq
+                                           ? qg[(q_row0 + r) * D + d]
+                                           : fa::from_float<T>(0.0f);
     }
   } else {
     const T* qg = static_cast<const T*>(a.q);
@@ -535,6 +548,38 @@ __global__ void __launch_bounds__(kThreads, 2)
     float sc[NJ][4];
     if constexpr (KIND == kK16) {
       SyncPath<T, D>::template abt<16, G>(sc, smem, wrow, kg, lane);
+    } else if constexpr (KIND == fa::kFp8 && L::kF32) {
+      // fp32 q: the three bf16 parts against the same K fragments, the
+      // smallest part first
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+      using B16 = __nv_bfloat16;
+      const B16* qs = reinterpret_cast<const B16*>(smem) + wrow * LDE;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk) {
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          uint32_t bf[4], b[4][2];
+          ldsm_x4(bf, b_addr<SWZ>(kg + nb * 16 * KLD, KLD, lane, kk));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            b[i][0] = e4m3x2_to<B16>(bf[i]);
+            b[i][1] = e4m3x2_to<B16>(bf[i] >> 16);
+          }
+#pragma unroll
+          for (int p = L::QP - 1; p >= 0; --p) {
+            uint32_t af0[4], af1[4];
+            load_a<LDE>(af0, qs + p * ROWS * LDE + kk * 32, lane);
+            load_a<LDE>(af1, qs + p * ROWS * LDE + kk * 32 + 16, lane);
+            mma16816<B16>(sc[2 * nb], af0, b[0][0], b[0][1]);
+            mma16816<B16>(sc[2 * nb + 1], af0, b[2][0], b[2][1]);
+            mma16816<B16>(sc[2 * nb], af1, b[1][0], b[1][1]);
+            mma16816<B16>(sc[2 * nb + 1], af1, b[3][0], b[3][1]);
+          }
+        }
+      }
     } else if constexpr (KIND == fa::kFp8) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -794,8 +839,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bool direct = a.o != nullptr && a.S == 1;
   auto put = [&](int r, int d, float x0, float x1) {
     if (direct) {
-      *reinterpret_cast<uint32_t*>(static_cast<T*>(a.o) +
-                                   (bh * a.Rq + r) * D + d) = pack2<T>(x0, x1);
+      if constexpr (L::kF32)
+        *reinterpret_cast<float2*>(static_cast<float*>(a.o) +
+                                   (bh * a.Rq + r) * D + d) =
+            make_float2(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<T*>(a.o) +
+                                     (bh * a.Rq + r) * D + d) =
+            pack2<T>(x0, x1);
     } else {
       *reinterpret_cast<float2*>(
           a.o_part + ((bh * a.S + split) * a.Rq + r) * D + d) =
@@ -923,9 +974,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       const float inv = 1.0f / sw;
       acc = make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
     }
-    *reinterpret_cast<uint2*>(static_cast<T*>(a.o) + (bh * a.Rq + r) * D +
-                              d) =
-        make_uint2(pack2<T>(acc.x, acc.y), pack2<T>(acc.z, acc.w));
+    if constexpr (L::kF32)
+      *reinterpret_cast<float4*>(static_cast<float*>(a.o) +
+                                 (bh * a.Rq + r) * D + d) = acc;
+    else
+      *reinterpret_cast<uint2*>(static_cast<T*>(a.o) + (bh * a.Rq + r) * D +
+                                d) =
+          make_uint2(pack2<T>(acc.x, acc.y), pack2<T>(acc.z, acc.w));
     if (d == 0) a.lse[bh * a.Rq + r] = mx == -INFINITY ? -INFINITY
                                                        : mx + logf(sw);
   }
@@ -1027,6 +1082,31 @@ inline void set_common(DecodeArgs& a, const void* q, const void* k,
   a.mp.causal = causal; a.mp.window_left = window_left;
   a.mp.window_right = window_right; a.mp.softcap = softcap;
   a.mp.has_alibi = has_alibi;
+}
+
+// K4q (csrc/decode_quant.cu) for q of type T, each payload kind.  Each q
+// type is instantiated in a translation unit of its own
+// (decode_quant.cu bf16, decode_quant_f16.cu, decode_quant_f32.cu), so
+// the library's kernels compile in parallel.
+template <typename T>
+cudaError_t launch_quant(int kind, const DecodeArgs& a, int D,
+                         cudaStream_t st) {
+  switch (kind) {
+    case fa::kInt8: return launch<T, fa::kInt8>(a, D, st);
+    case fa::kFp8: return launch<T, fa::kFp8>(a, D, st);
+    case fa::kInt4: return launch<T, fa::kInt4>(a, D, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t occupancy_quant(int kind, int D, int rows, int* out) {
+  switch (kind) {
+    case fa::kInt8: return occupancy<T, fa::kInt8>(D, rows, out);
+    case fa::kFp8: return occupancy<T, fa::kFp8>(D, rows, out);
+    case fa::kInt4: return occupancy<T, fa::kInt4>(D, rows, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace dec

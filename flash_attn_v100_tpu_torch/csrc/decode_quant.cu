@@ -21,6 +21,10 @@
 //   fp8: K and V are converted exactly (K to q's type, V to bf16); the
 //     score is the fp32 dot, times k_scale, then the pipeline; P times V's
 //     scales is rounded to bf16 before the P V product.
+// q may be bf16, fp16 or fp32 (the JAX package serves its fp32 test model
+// from quantized pools): an fp32 q is quantized as a 16-bit one for int8
+// and int4, and for fp8 its S is the fp32 dot (three exact bf16 parts of q,
+// csrc/decode_body.cuh); the merged O is in q's type.
 // P's grouping: the TPU kernel takes P's int8 scale per page; this kernel
 // per (q row, group of 32 consecutive cache rows counted from its split's
 // first row).  Where the warps split the keys (Rq <= 16) group g is warp
@@ -39,35 +43,23 @@
 
 using namespace fa::dec;
 
-namespace {
+// the fp16 and fp32 q types' kernels: decode_quant_f16.cu and
+// decode_quant_f32.cu, compiled beside this file
+namespace fa {
+namespace dec {
+extern template cudaError_t launch_quant<__half>(int, const DecodeArgs&, int,
+                                                 cudaStream_t);
+extern template cudaError_t launch_quant<float>(int, const DecodeArgs&, int,
+                                                cudaStream_t);
+extern template cudaError_t occupancy_quant<__half>(int, int, int, int*);
+extern template cudaError_t occupancy_quant<float>(int, int, int, int*);
+}  // namespace dec
+}  // namespace fa
 
-template <typename T>
-cudaError_t launch_kind(int kind, const DecodeArgs& a, int D,
-                        cudaStream_t st) {
-  switch (kind) {
-    case fa::kInt8: return launch<T, fa::kInt8>(a, D, st);
-    case fa::kFp8: return launch<T, fa::kFp8>(a, D, st);
-    case fa::kInt4: return launch<T, fa::kInt4>(a, D, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t occupancy_kind(int kind, int D, int rows, int* out) {
-  switch (kind) {
-    case fa::kInt8: return occupancy<T, fa::kInt8>(D, rows, out);
-    case fa::kFp8: return occupancy<T, fa::kFp8>(D, rows, out);
-    case fa::kInt4: return occupancy<T, fa::kInt4>(D, rows, out);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-// kind: 0 = int8, 1 = fp8 (e4m3), 2 = int4; dtype (of q): 0 = bf16,
-// 1 = fp16; payload strides in bytes, scale strides in floats; o / lse /
-// counters null for partials only.  Returns cudaGetLastError() of the
-// launch.
+// kind: 0 = int8, 1 = fp8 (e4m3), 2 = int4; dtype (of q and of the merged
+// o): 0 = bf16, 1 = fp16, 2 = fp32, any other cudaErrorInvalidValue;
+// payload strides in bytes, scale strides in floats; o / lse / counters
+// null for partials only.  Returns cudaGetLastError() of the launch.
 extern "C" int fa_decode_quant_launch(
     int kind, int dtype, const void* q, const void* k, const void* v,
     const float* ks, const float* vs, const int* table, const int* lens,
@@ -90,17 +82,27 @@ extern "C" int fa_decode_quant_launch(
   a.s_c1 = s_c1; a.s_h = s_h; a.s_c2 = s_c2; a.s_tok = s_tok;
   a.sc_c1 = sc_c1; a.sc_h = sc_h; a.sc_c2 = sc_c2; a.sc_tok = sc_tok;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dtype == 0 ? launch_kind<__nv_bfloat16>(kind, a, D, st)
-                             : launch_kind<__half>(kind, a, D, st);
-  return static_cast<int>(e);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(launch_quant<__nv_bfloat16>(kind, a, D, st));
+    case 1: return static_cast<int>(launch_quant<__half>(kind, a, D, st));
+    case 2: return static_cast<int>(launch_quant<float>(kind, a, D, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K4q's occupancy for (kind, dtype, D) at `rows` q rows a block, as
 // fa_decode_occupancy.  Returns a cudaError_t.
 extern "C" int fa_decode_quant_occupancy(int kind, int dtype, int D,
                                          int rows, int* out) {
-  return static_cast<int>(dtype == 0
-                              ? occupancy_kind<__nv_bfloat16>(kind, D, rows,
-                                                              out)
-                              : occupancy_kind<__half>(kind, D, rows, out));
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(occupancy_quant<__nv_bfloat16>(kind, D, rows,
+                                                             out));
+    case 1:
+      return static_cast<int>(occupancy_quant<__half>(kind, D, rows, out));
+    case 2:
+      return static_cast<int>(occupancy_quant<float>(kind, D, rows, out));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -11,6 +11,7 @@
 // e4m3 exactly (no subnormal flush).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
@@ -27,6 +28,30 @@ constexpr int kInt4 = 2;
 __device__ __forceinline__ float e4m3_to_float(uint8_t x) {
   return __half2float(__half(__nv_cvt_fp8_to_halfraw(
       static_cast<__nv_fp8_storage_t>(x), __NV_E4M3)));
+}
+
+// An fp32 q over an fp8 pool (the TPU kernel's S is the fp32 q . k): x as
+// three bf16 values whose sum is x exactly (hi the nearest bf16, mid and lo
+// the nearest to what is left; each remainder is exact in fp32 and the
+// last has at most 8 significant bits).  Every e4m3 value is a bf16 value,
+// so three bf16 products of the parts with converted K, accumulated in
+// fp32, give the fp32 dot product's terms exactly.
+__device__ __forceinline__ void split_bf16x3(float x, __nv_bfloat16& hi,
+                                             __nv_bfloat16& mid,
+                                             __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(r - __bfloat162float(mid));
+}
+
+// Q's column for head-dim index d where S = Q K^T runs on m16n8k16 against
+// e4m3 K bytes loaded by 16-bit ldmatrix: within each 16, dim 4 t + i sits
+// where an A fragment expects k 2 t + i (i < 2) or 2 t + 8 + i - 2, the
+// dims an e4m3 K register holds
+__device__ __forceinline__ int fp8_q_col(int d) {
+  const int x = d % 16, t = x / 4, i = x % 4;
+  return d - x + (i < 2 ? 2 * t + i : 2 * t + 6 + i);
 }
 
 // four int4-packed bytes -> the four even tokens' int8 values (low nibbles,

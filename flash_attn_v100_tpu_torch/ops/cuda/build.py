@@ -1,7 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 Each `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` into its own shared
-library with a plain C interface, at first use, into
+library with a plain C interface (two libraries have further translation
+units, `PARTS`, compiled by nvccs of their own and linked in), at first
+use, into
 `flash_attn_v100_tpu_torch/build/` (git-ignored).  The libraries are loaded
 with ctypes; pointers and the stream are passed as `c_void_p`.  A library's
 file name carries a hash of its sources and flags, so an edited source is
@@ -36,6 +38,13 @@ SOURCES = {"decode": "decode.cu", "varlen_paged": "varlen_paged.cu",
            # the fp32 bodies: K1, K5, K8; K2/K3, K6/K7; K4
            "fwd_f32": "fwd_f32.cu", "bwd_f32": "bwd_f32.cu",
            "decode_f32": "decode_f32.cu"}
+# further translation units of a library, each compiled by an nvcc of its
+# own beside the library's source and linked with it: the quantized
+# kernels' q types (fp16, fp32), which would otherwise make those two
+# libraries the build's longest by far
+PARTS = {"decode_quant": ("decode_quant_f16.cu", "decode_quant_f32.cu"),
+         "varlen_paged_quant": ("varlen_paged_quant_f16.cu",
+                                "varlen_paged_quant_f32.cu")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -153,9 +162,13 @@ def nvcc_path() -> str:
     return found
 
 
+def _sources(name: str) -> List[Path]:
+    return [CSRC / f for f in (SOURCES[name], *PARTS.get(name, ()))]
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name]]:
+    for f in sorted(CSRC.glob("*.cuh")) + _sources(name):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -168,27 +181,52 @@ def library_path(name: str) -> Path:
 
 
 def _start(name: str):
+    """nvcc for each of the library's translation units, all at once: one
+    that writes the library, or (several units) one object file each."""
     out = _lib_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / SOURCES[name])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    srcs = _sources(name)
+    objs = ([tmp.with_suffix(f".{i}.o") for i in range(len(srcs))]
+            if len(srcs) > 1 else [])
+    flags = ([f for f in NVCC_FLAGS if f != "-shared"] + ["-c"] if objs
+             else NVCC_FLAGS)
+    procs = [subprocess.Popen(
+        [nvcc_path(), *flags, "-I", str(CSRC), "-o", str(dst), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for dst, src in zip(objs or [tmp], srcs)]
+    return procs, objs, tmp, out
 
 
-def _finish(name: str, proc, tmp: Path, out: Path, timeout: float) -> str:
+def _finish(name: str, procs, objs: List[Path], tmp: Path, out: Path,
+            timeout: float) -> str:
+    logs = []
     try:
-        log, _ = proc.communicate(timeout=timeout)
+        for proc in procs:
+            log, _ = proc.communicate(timeout=timeout)
+            logs.append(log)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed building {name}:\n{log}")
+        if objs:   # the units' objects into the library
+            link = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *map(str, objs)],
+                capture_output=True, text=True, timeout=timeout)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc failed linking {name}:\n{logs[-1]}")
+        os.replace(tmp, out)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        raise RuntimeError(f"nvcc timed out building {name}")
-    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc timed out building {name}") from None
+    finally:
+        for proc in procs:   # a unit still compiling after a failure
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {name}:\n{log}")
-    os.replace(tmp, out)
+        for o in objs:
+            o.unlink(missing_ok=True)
+    log = "".join(logs)
     (BUILD_DIR / f"{name}.log").write_text(log)
     return log
 
@@ -201,8 +239,8 @@ def build_all(names: Optional[List[str]] = None,
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names if not _lib_path(n).exists()}
     secs = {}
-    for n, (proc, tmp, out) in started.items():
-        _finish(n, proc, tmp, out, timeout)
+    for n, job in started.items():
+        _finish(n, *job, timeout)
         secs[n] = time.perf_counter() - t0
     return secs
 

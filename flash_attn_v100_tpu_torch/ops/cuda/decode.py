@@ -22,11 +22,11 @@ consecutive cache rows counted from each split's first row: P_TILE (the
 kernel's 32-key group) in the kernel and on the CPU path; the TPU kernel's
 grouping is one page (`p_tile=None` in the plain version).
 
-For CUDA tensors it launches the kernel (q in bf16 or fp16, or fp32 on the
-fp32 body `csrc/decode_f32.cu`, whose merged o is fp32; anything else
-raises, and so does fp32 q over quantized pools); for CPU tensors it
-computes `paged_decode_attention_ref`, the plain PyTorch version of the
-same function.
+For CUDA tensors it launches the kernel (q in bf16, fp16 or fp32: fp32
+over 32-bit pools on the fp32 body `csrc/decode_f32.cu`, over quantized
+pools on K4q's fp32 instantiations; the merged o is in q's dtype; anything
+else raises); for CPU tensors it computes `paged_decode_attention_ref`,
+the plain PyTorch version of the same function.
 """
 
 from __future__ import annotations
@@ -132,9 +132,6 @@ def _launch(q_rows, k_pages, v_pages, block_table, cache_seqlens, leftpad,
         kind = None
         if k_pages.dtype != q_rows.dtype or v_pages.dtype != q_rows.dtype:
             raise TypeError("q rows and the page pools must share one dtype")
-    elif q_rows.dtype == torch.float32:
-        raise TypeError("quantized decode (K4q) takes bf16/fp16 q; fp32 q "
-                        "over a quantized pool is not ported")
     else:
         kind = _check_quant(k_pages, v_pages, k_scales, v_scales, int4)
     B, Hk, Rq, D = q_rows.shape

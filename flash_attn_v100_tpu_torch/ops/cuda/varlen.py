@@ -50,8 +50,8 @@ pages).  The kernels evaluate it as index math (`csrc/seq.cuh`); the plain
 versions with `seq_bounds` and torch ops.
 
 fp32 inputs run on the fp32 bodies: K5 and K8 on `csrc/fwd_f32.cu`, K6/K7
-on `csrc/bwd_f32.cu`; K8q takes 16-bit q only (fp32 q over a quantized
-pool raises TypeError).
+on `csrc/bwd_f32.cu`; fp32 q over a quantized pool on K8q's fp32
+instantiations (out in fp32).
 """
 
 from __future__ import annotations
@@ -428,9 +428,6 @@ def flash_attn_varlen_fwd_paged(
     if k_scales is None:
         if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
             raise TypeError("q and the page pools must share one dtype")
-    elif q.dtype == torch.float32:
-        raise TypeError("quantized paged prefill (K8q) takes bf16/fp16 q; "
-                        "fp32 q over a quantized pool is not ported")
     else:
         kind = _check_quant(k_pool, v_pool, k_scales, v_scales,
                             paged_quant_kind(k_pool, k_scales) == "int4")

@@ -33,7 +33,10 @@ callers port one to one:
     (out, lse, (k_cache, v_cache))    # both
 with (k_cache, v_cache, k_scales, v_scales) in the last slot for a
 quantized cache, all the caller's own tensors.  Every layout reaches the
-kernels as a strided view, without a copy.
+kernels as a strided view, without a copy, except a head dim the kernels
+do not take (they take 32/64/128/256): on CUDA q and a copy of the pool
+views are padded with zeros up to the next one (`pad_pool_head_dim`), as
+flash_attn_varlen_func pads its block-table route.
 
 Attention runs in one of two kernels: the split-KV decode kernel (K4, or
 K4q for quantized caches, ops/cuda/decode.py) or, for paged prefills with
@@ -50,6 +53,8 @@ import torch
 from flash_attn_v100_tpu_torch.ops import masks as masklib
 from flash_attn_v100_tpu_torch.ops.cuda.decode import (
     paged_decode_attention_merged)
+from flash_attn_v100_tpu_torch.ops.cuda.fwd import (
+    KERNEL_HEAD_DIMS, kernel_head_dim)
 from flash_attn_v100_tpu_torch.ops.cuda.varlen import (
     flash_attn_varlen_fwd_paged)
 from flash_attn_v100_tpu_torch.ops.quant import (
@@ -60,6 +65,26 @@ from flash_attn_v100_tpu_torch.ops.rotary import apply_rotary_emb
 # paged varlen forward instead of the decode-shaped kernel.  Module-level so
 # tests and benchmarks can pin either path.
 VARLEN_PREFILL_MIN_ROWS = 1024
+
+
+# an int4 payload byte whose two nibbles both hold 0 (low nibble biased by
+# +8, high nibble two's complement: ops/quant.py)
+INT4_ZERO_BYTE = 0x08
+
+
+def pad_pool_head_dim(pool: torch.Tensor, Dk: int, int4: bool = False):
+    """A K/V pool (any payload) with zeros appended to its last (head) axis
+    up to Dk: a copy.  Zero q and K columns add nothing to a score and zero
+    V columns give output columns that are cut off, so the kernels (head
+    dims 32/64/128/256) serve a model of another head dim; per-token
+    scales are unchanged."""
+    D = pool.shape[-1]
+    if D == Dk:
+        return pool
+    raw = payload_bytes(pool)
+    pad = raw.new_full((*raw.shape[:-1], Dk - D),
+                       INT4_ZERO_BYTE if int4 else 0)
+    return torch.cat([raw, pad], dim=-1).view(pool.dtype)
 
 
 def _pick_page_size(N: int) -> int:
@@ -417,6 +442,12 @@ def flash_attn_with_kvcache(
             slopes = slopes[None].expand(B, Hq)
 
     dtype_og = q.dtype
+    if dev.type == "cuda" and D not in KERNEL_HEAD_DIMS:
+        # the kernels' head dims: q and the pool views padded with zeros
+        D = kernel_head_dim(D)
+        q = torch.nn.functional.pad(q, (0, D - D_og))
+        pool_k, pool_v = (pad_pool_head_dim(x, D, int4)
+                          for x in (pool_k, pool_v))
     if uses_varlen_route(paged, group, T_new, page_size, q_position_lens,
                          append_window):
         # uniform cu_q = b * T_new and seqlens_k = lens_total reproduce the
@@ -429,7 +460,7 @@ def flash_attn_with_kvcache(
             alibi_slopes=slopes,
             k_scales=None if pool_ks is None else pool_ks[0],
             v_scales=None if pool_vs is None else pool_vs[0])
-        out = out.reshape(B, T_new, Hq, D).to(dtype_og)
+        out = out.reshape(B, T_new, Hq, D)[..., :D_og].to(dtype_og)
         lse = None
         if return_softmax_lse:
             lse = lse_v.reshape(Hq, B, T_new).permute(1, 0, 2)
@@ -461,8 +492,8 @@ def flash_attn_with_kvcache(
             group=group, num_splits=num_splits,
             alibi_slopes_rows=slopes_rows, k_scales=pool_ks,
             v_scales=pool_vs, int4=int4)
-        o = o[:, :, :n_rows].reshape(B, Hk, group, T_new, D)
-        out = o.permute(0, 3, 1, 2, 4).reshape(B, T_new, Hq, D)
+        o = o[:, :, :n_rows, :D_og].reshape(B, Hk, group, T_new, D_og)
+        out = o.permute(0, 3, 1, 2, 4).reshape(B, T_new, Hq, D_og)
         if return_softmax_lse:
             lse = lse[:, :, :n_rows, 0].reshape(B, Hq, T_new)
 

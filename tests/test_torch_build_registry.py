@@ -1,6 +1,7 @@
 """The kernel libraries' registry in flash_attn_v100_tpu_torch/ops/cuda/
 build.py against the CUDA sources and the wrappers, read as text (no nvcc,
-no GPU): every registered source exists and every source is registered,
+no GPU): every registered source exists and every source is registered
+(as a library's source or one of its further translation units),
 every entry point in `SIGNATURES` is an `extern "C" int` function of its
 library's source with as many parameters as its ctypes signature, every
 such function is registered, and every entry point a wrapper module names
@@ -56,8 +57,20 @@ def test_registered_source_exists(lib):
 @pytest.mark.parametrize("path", sorted(build.CSRC.glob("*.cu")),
                          ids=lambda p: p.name)
 def test_every_source_is_registered(path):
-    assert path.name in build.SOURCES.values(), \
-        f"csrc/{path.name} is built by no entry of build.SOURCES"
+    units = set(build.SOURCES.values()).union(*build.PARTS.values())
+    assert path.name in units, \
+        f"csrc/{path.name} is built by no entry of build.SOURCES / PARTS"
+
+
+@pytest.mark.parametrize("lib", sorted(build.PARTS))
+def test_parts_belong_to_a_library_and_define_no_entry(lib):
+    """A library's further translation units exist, belong to one library
+    and hold none of its C entry points (the library's source does)."""
+    assert lib in build.SOURCES
+    for part in build.PARTS[lib]:
+        text = (build.CSRC / part).read_text()
+        assert not EXTERN.findall(text), part
+        assert sum(part in p for p in build.PARTS.values()) == 1
 
 
 @pytest.mark.parametrize("lib", sorted(build.SOURCES))

@@ -2,12 +2,16 @@
 the kernels' plain versions through flash_attn_func, flash_attn_varlen_func
 (packed K/V and the block-table route), flash_attn_with_kvcache (the
 decode and the paged-prefill routes), paged_forward and the serving
-engine, and no kernel launch is counted; fp64, mixed dtypes and fp32 q over
-quantized pools raise TypeError before any launch (inputs on the meta
-device, which takes the wrappers' kernel path without a card); and each
-forward wrapper (K1, K5, K8, K4) calls the fp32 body's entry point for
-fp32 inputs and the 16-bit library's for bf16, with as many arguments as
-the entry's ctypes signature (a stand-in library records the call).  The
+engine, and no kernel launch is counted; fp32 q over int8 / fp8 / int4
+pools reaches K4q's and K8q's plain twins with fp32 outputs; fp64 (also
+over quantized pools) and mixed dtypes raise TypeError before any launch
+(inputs on the meta device, which takes the wrappers' kernel path without
+a card); each forward wrapper (K1, K5, K8, K4) calls the fp32 body's entry
+point for fp32 inputs and the 16-bit library's for bf16, and the K4q / K8q
+wrappers their quant library's entry with dtype code 2 for fp32 q, with as
+many arguments as the entry's ctypes signature (a stand-in library
+records the call); and the zero padding that takes a head dim the kernels
+do not take (16) to theirs keeps every pool payload's values.  The
 fp32 numbers against the JAX package are the other test_torch_* files'
 (ModelConfig.tiny is fp32)."""
 
@@ -21,6 +25,7 @@ from flash_attn_v100_tpu_torch import ModelConfig, ServingEngine
 from flash_attn_v100_tpu_torch.models import transformer as tt
 from flash_attn_v100_tpu_torch.ops import kvcache as kv
 from flash_attn_v100_tpu_torch.ops import masks as masklib
+from flash_attn_v100_tpu_torch.ops import quant
 from flash_attn_v100_tpu_torch.ops.cuda import build
 from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
 from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
@@ -264,21 +269,80 @@ def test_mixed_dtypes_raise(entry):
         _call(entry, torch.float32, torch.bfloat16)
 
 
-def test_fp32_q_over_quantized_pools_raises():
-    q, kp, vp, tbl, lens = _decode_meta(torch.float32, torch.int8)
-    sc = torch.empty((*kp.shape[:-1], 1), device=META)
-    with pytest.raises(TypeError, match="not ported"):
-        dec.paged_decode_attention(q, kp, vp, tbl, lens, None,
-                                   softmax_scale=0.125, params=PARAMS,
-                                   t_new=1, group=4, k_scales=sc,
-                                   v_scales=sc.clone())
-    q, kp, vp, tbl, cu = _paged_meta(torch.float32, torch.int8)
-    sc = torch.empty((*kp.shape[:-1], 1), device=META)
-    lens = torch.tensor([256], dtype=torch.int32, device=META)
-    with pytest.raises(TypeError, match="not ported"):
-        vl.flash_attn_varlen_fwd_paged(q, kp, vp, tbl, cu, lens, 64, 256,
-                                       0.125, PARAMS, k_scales=sc,
-                                       v_scales=sc.clone())
+# ------------------------------------ fp32 q over quantized pools (K4q, K8q)
+
+QUANT_KINDS = ("int8", "fp8", "int4")
+QUANT_ENTRIES = {"K4q": ("decode_quant", "fa_decode_quant_launch"),
+                 "K8q": ("varlen_paged_quant", "fa_varlen_paged_quant_launch")}
+
+
+def _quant_pool(kind, shape, device):
+    """A payload pool of `kind` for the 16-bit-shaped `shape` (tokens on
+    axis -2) and its (..., page_size, 1) fp32 scales: quantized from
+    seeded values on the CPU, or empty on the meta device."""
+    if device == META:
+        rows = shape[-2] // 2 if kind == "int4" else shape[-2]
+        dt = torch.float8_e4m3fn if kind == "fp8" else torch.int8
+        pool = torch.empty((*shape[:-2], rows, shape[-1]), device=META,
+                           dtype=dt)
+        return pool, torch.empty((*shape[:-1], 1), device=META)
+    x = torch.from_numpy(np.random.default_rng(len(kind)).standard_normal(
+        shape).astype(np.float32))
+    return quant.quantize_kv(x, {"int8": torch.int8, "int4": "int4",
+                                 "fp8": torch.float8_e4m3fn}[kind])
+
+
+def _quant_call(entry, kind, dtype, device):
+    """K4q (paged_decode_attention) or K8q (flash_attn_varlen_fwd_paged) on
+    q of `dtype` over `kind` pools on `device`."""
+    rng = np.random.default_rng(7)
+    if entry == "K4q":
+        q = torch.from_numpy(rng.standard_normal((1, 2, 8, 64))).to(
+            device=device, dtype=dtype)
+        (kp, ks), (vp, vs) = (_quant_pool(kind, (1, 2, 4, 32, 64), device)
+                              for _ in range(2))
+        tbl = torch.tensor([[2, 0, 3, 1]], dtype=torch.int32, device=device)
+        lens = torch.tensor([100], dtype=torch.int32, device=device)
+        return dec.paged_decode_attention(
+            q, kp, vp, tbl, lens, None, softmax_scale=0.125, params=PARAMS,
+            t_new=1, group=4, k_scales=ks, v_scales=vs, int4=kind == "int4")
+    q = torch.from_numpy(rng.standard_normal((64, 4, 64))).to(
+        device=device, dtype=dtype)
+    (kp, ks), (vp, vs) = (_quant_pool(kind, (2, 2, 128, 64), device)
+                          for _ in range(2))
+    tbl = torch.tensor([[1, 0]], dtype=torch.int32, device=device)
+    cu = torch.tensor([0, 64], dtype=torch.int32, device=device)
+    lens = torch.tensor([200], dtype=torch.int32, device=device)
+    return vl.flash_attn_varlen_fwd_paged(q, kp, vp, tbl, cu, lens, 64, 256,
+                                          0.125, PARAMS, k_scales=ks,
+                                          v_scales=vs)
+
+
+def _quant_launches():
+    return (sum(dec.paged_decode_attention.quant_launches.values()),
+            sum(vl.flash_attn_varlen_fwd_paged.quant_launches.values()))
+
+
+@pytest.mark.parametrize("kind", QUANT_KINDS)
+@pytest.mark.parametrize("entry", list(QUANT_ENTRIES))
+def test_fp32_q_over_quantized_pools_reaches_the_twins(entry, kind):
+    """fp32 CPU q over an int8 / fp8 / int4 pool: the plain twin at the
+    kernel's P grouping, fp32 out and LSE, finite, no launch counted."""
+    twin = TWINS["K4" if entry == "K4q" else "K8"]
+    calls, before = twin.calls, _quant_launches()
+    out, lse = _quant_call(entry, kind, torch.float32, "cpu")
+    assert twin.calls == calls + 1 and _quant_launches() == before
+    assert out.dtype == torch.float32 and lse.dtype == torch.float32
+    assert torch.isfinite(out).all() and out.abs().sum() > 0
+    again = _quant_call(entry, kind, torch.float32, "cpu")
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.parametrize("kind", QUANT_KINDS)
+@pytest.mark.parametrize("entry", list(QUANT_ENTRIES))
+def test_fp64_q_over_quantized_pools_raises(entry, kind):
+    with pytest.raises(TypeError):
+        _quant_call(entry, kind, torch.float64, META)
 
 
 # ------------------------------- the kernel path: which entry is called
@@ -319,3 +383,70 @@ def test_forward_wrappers_call_the_dtype_s_entry(monkeypatch, entry, lib16,
     lib, fn = (lib32, fn32) if dtype == torch.float32 else (lib16, fn16)
     assert log == [(lib, fn, len(build.SIGNATURES[lib][fn][0]))]
     assert sum(_launches()) == sum(before) + 1
+
+
+class _ArgsLibrary(_Library):
+    """_Library that records the arguments themselves."""
+
+    def __getattr__(self, fn):
+        def call(*args):
+            self.log.append((self.name, fn, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("kind", QUANT_KINDS)
+@pytest.mark.parametrize("entry", list(QUANT_ENTRIES))
+def test_quant_wrappers_pass_dtype_code_2_for_fp32_q(monkeypatch, entry,
+                                                     kind):
+    """On the kernel path, fp32 q over a quantized pool calls the quant
+    library's entry with dtype code 2 and as many arguments as codes 0
+    (bf16) and 1 (fp16) give it and its ctypes signature says, and counts
+    one launch of its kind."""
+    log = []
+    monkeypatch.setattr(build, "load", lambda name: _ArgsLibrary(name, log))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    lib, fn = QUANT_ENTRIES[entry]
+    launches = (dec.paged_decode_attention if entry == "K4q"
+                else vl.flash_attn_varlen_fwd_paged).quant_launches
+    for dtype, code in ((torch.bfloat16, 0), (torch.float16, 1),
+                        (torch.float32, 2)):
+        before = launches[kind]
+        log.clear()
+        out, lse = _quant_call(entry, kind, dtype, META)
+        assert launches[kind] == before + 1
+        (name, called, args), = log
+        assert (name, called) == (lib, fn)
+        assert len(args) == len(build.SIGNATURES[lib][fn][0])
+        assert args[:2] == (dec.KIND_CODE[kind], code)
+        assert lse.dtype == torch.float32
+        if entry == "K8q":   # (K4q's partials are fp32 for any q)
+            assert out.dtype == dtype
+
+
+@pytest.mark.parametrize("kind", [None] + list(QUANT_KINDS))
+def test_pad_pool_head_dim_adds_zero_columns(kind):
+    """flash_attn_with_kvcache pads a head dim the kernels do not take (16)
+    to theirs on CUDA: the padded pool's payload reads as the original in
+    the first columns and as zeros past them (int4: a byte of two zero
+    nibbles), its scales untouched."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 3, 8, 16)).astype(np.float32))
+    if kind is None:
+        pool, scales = x, None
+    else:
+        pool, scales = _quant_pool(kind, x.shape, "cpu")
+    padded = kv.pad_pool_head_dim(pool, 32, int4=kind == "int4")
+    assert padded.shape == (*pool.shape[:-1], 32)
+    assert padded.dtype == pool.dtype
+    if kind is None:
+        assert torch.equal(padded[..., :16], pool) and not padded[..., 16:].any()
+        return
+    deq = quant.dequantize_kv(padded, scales, torch.float32,
+                              int4=kind == "int4")
+    want = quant.dequantize_kv(pool, scales, torch.float32,
+                               int4=kind == "int4")
+    assert torch.equal(deq[..., :16], want)
+    assert not deq[..., 16:].any()
+    assert kv.pad_pool_head_dim(pool, 16) is pool

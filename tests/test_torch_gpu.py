@@ -454,8 +454,9 @@ def test_varlen_kernel_matches_plain(cuda, dt, D, name):
 
 
 def test_kernels_reject_fp32_and_bad_shapes(cuda):
-    """fp32 has K4 / K8 bodies (csrc/*_f32.cu); fp64, mixed dtypes
-    and fp32 q over quantized pools raise."""
+    """fp32 has K4 / K8 bodies (csrc/*_f32.cu) and K4q / K8q fp32
+    instantiations; fp64, mixed dtypes and fp64 q over quantized pools
+    raise."""
     args, kw = _decode_inputs("t1", torch.float64, 64, cuda)
     with pytest.raises(TypeError):
         dec.paged_decode_attention(*args, **kw)
@@ -465,8 +466,8 @@ def test_kernels_reject_fp32_and_bad_shapes(cuda):
     kq, ks = quant.quantize_kv(args[1])
     vq, vs = quant.quantize_kv(args[2])
     with pytest.raises(TypeError):
-        dec.paged_decode_attention(args[0], kq, vq, *args[3:], k_scales=ks,
-                                   v_scales=vs, **kw)
+        dec.paged_decode_attention(args[0].double(), kq, vq, *args[3:],
+                                   k_scales=ks, v_scales=vs, **kw)
     args, kw = _decode_inputs("t1", torch.bfloat16, 48, cuda)
     with pytest.raises(ValueError):
         dec.paged_decode_attention(*args, **kw)
@@ -477,7 +478,7 @@ def test_kernels_reject_fp32_and_bad_shapes(cuda):
     kq, ks = quant.quantize_kv(args[1])
     vq, vs = quant.quantize_kv(args[2])
     with pytest.raises(TypeError):
-        vl.flash_attn_varlen_fwd_paged(args[0], kq, vq, *args[3:],
+        vl.flash_attn_varlen_fwd_paged(args[0].double(), kq, vq, *args[3:],
                                        k_scales=ks, v_scales=vs, **kw)
 
 
@@ -1095,13 +1096,23 @@ def _decode_quant_inputs(name, kind, dtype, D, dev):
 @pytest.mark.parametrize("kind", list(QUANT_KINDS))
 @pytest.mark.parametrize("name", list(DECODE_CASES))
 @pytest.mark.parametrize("D", HEAD_DIMS)
-@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
 def test_decode_quant_kernel_matches_plain(cuda, dt, D, name, kind):
-    args, kw = _decode_quant_inputs(name, kind, DTYPES[dt], D, cuda)
+    args, kw = _decode_quant_inputs(name, kind, KERNEL_DTYPES[dt], D, cuda)
     before = dec.paged_decode_attention.quant_launches[kind]
+    twin_calls = dec.paged_decode_attention_ref.calls
     o, lse = dec.merge_partials(*dec.paged_decode_attention(*args, **kw))
     torch.cuda.synchronize()
     assert dec.paged_decode_attention.quant_launches[kind] == before + 1
+    assert dec.paged_decode_attention_ref.calls == twin_calls
+    if dt == "fp32":   # the merged entry's o in q's dtype
+        om, lsem = dec.paged_decode_attention_merged(*args, **kw)
+        assert om.dtype == torch.float32
+        assert dec.paged_decode_attention_ref.calls == twin_calls
+        torch.testing.assert_close(om, o, rtol=0, atol=1e-5)
+        fin = torch.isfinite(lse)
+        assert torch.equal(fin, torch.isfinite(lsem))
+        torch.testing.assert_close(lsem[fin], lse[fin], rtol=0, atol=1e-5)
     ref, lse_ref = dec.merge_partials(*dec.paged_decode_attention_ref(
         *args, **kw))
     unr = dec.merge_partials(*dec.paged_decode_attention_ref(
@@ -1126,13 +1137,16 @@ def _varlen_quant_inputs(name, kind, dtype, D, dev, cases=VARLEN_CASES):
 @pytest.mark.parametrize("kind", list(QUANT_KINDS))
 @pytest.mark.parametrize("name", list(VARLEN_CASES))
 @pytest.mark.parametrize("D", HEAD_DIMS)
-@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
 def test_varlen_quant_kernel_matches_plain(cuda, dt, D, name, kind):
-    args, kw = _varlen_quant_inputs(name, kind, DTYPES[dt], D, cuda)
+    args, kw = _varlen_quant_inputs(name, kind, KERNEL_DTYPES[dt], D, cuda)
     before = vl.flash_attn_varlen_fwd_paged.quant_launches[kind]
+    twin_calls = vl.flash_attn_varlen_fwd_paged_ref.calls
     out, lse = vl.flash_attn_varlen_fwd_paged(*args, **kw)
     torch.cuda.synchronize()
     assert vl.flash_attn_varlen_fwd_paged.quant_launches[kind] == before + 1
+    assert vl.flash_attn_varlen_fwd_paged_ref.calls == twin_calls
+    assert out.dtype == args[0].dtype
     ref, lse_ref = vl.flash_attn_varlen_fwd_paged_ref(*args, **kw)
     unr = vl.flash_attn_varlen_fwd_paged_ref(*args, round_p=False, **kw)[0]
     _gate_quant(out, lse, ref, unr, lse_ref, f"K8q {kind} {name}")
@@ -1140,8 +1154,8 @@ def test_varlen_quant_kernel_matches_plain(cuda, dt, D, name, kind):
 
 def test_quant_kernels_reject_bad_inputs(cuda):
     args, kw = _decode_quant_inputs("t1", "int8", torch.bfloat16, 64, cuda)
-    with pytest.raises(TypeError):                       # fp32 q
-        dec.paged_decode_attention(args[0].float(), *args[1:], **kw)
+    with pytest.raises(TypeError):                       # fp64 q
+        dec.paged_decode_attention(args[0].double(), *args[1:], **kw)
     with pytest.raises(ValueError):                      # int4 rows
         dec.paged_decode_attention(*args, **dict(kw, int4=True))
     args, kw = _varlen_quant_inputs("causal_prefix", "int4", torch.bfloat16,
@@ -1150,6 +1164,43 @@ def test_quant_kernels_reject_bad_inputs(cuda):
         vl.flash_attn_varlen_fwd_paged(
             args[0], *(x.to(torch.bfloat16) for x in args[1:3]), *args[3:],
             **kw)
+
+
+def test_quant_entries_reject_an_unknown_dtype_code(cuda, monkeypatch):
+    """K4q's and K8q's C entries dispatch dtype codes 0, 1, 2 and return
+    cudaErrorInvalidValue (1) for any other before launching anything;
+    the wrappers turn that into an exception."""
+    import ctypes
+    out = (ctypes.c_int * 5)()
+    at = ctypes.addressof(out)
+    dq = build.load("decode_quant")
+    vq = build.load("varlen_paged_quant")
+    for code in (3, -1):
+        for kind in dec.KIND_CODE.values():
+            assert dq.fa_decode_quant_occupancy(kind, code, 64, 16, at) == 1
+            assert vq.fa_varlen_paged_quant_occupancy(kind, code, 64, 0,
+                                                      at) == 1
+            # B 1, Hk 1, Rq 8, D 64, one split and page: rejected before
+            # any pointer is read
+            assert dq.fa_decode_quant_launch(
+                kind, code, *[None] * 15, *[0] * 8, 1, 1, 1, 8, 64, 1, 1,
+                128, 1, 1, 1, 0.125, 0, -1, -1, 0.0, 0, None) == 1
+            assert vq.fa_varlen_paged_quant_launch(
+                kind, code, *[None] * 6, 1, *[None] * 7, *[0] * 6, 1, 1, 1,
+                1, 64, 128, 1, 1, 0.125, 1.0, 1, 0, -1, -1, 0.0, 0,
+                None) == 1
+    for code in (0, 1, 2):
+        assert dq.fa_decode_quant_occupancy(0, code, 64, 16, at) == 0
+        assert vq.fa_varlen_paged_quant_occupancy(0, code, 64, 0, at) == 0
+    args, kw = _decode_quant_inputs("t1", "int8", torch.float32, 64, cuda)
+    monkeypatch.setitem(dec._DTYPE_CODE, torch.float32, 3)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        dec.paged_decode_attention(*args, **kw)
+    args, kw = _varlen_quant_inputs("causal_prefix", "fp8", torch.float32,
+                                    64, cuda)
+    monkeypatch.setitem(vl.DTYPE_CODE, torch.float32, 3)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        vl.flash_attn_varlen_fwd_paged(*args, **kw)
 
 
 def test_ieee_div_is_correctly_rounded(cuda):
@@ -1254,6 +1305,65 @@ def test_kvcache_quant_kernels_match_plain(cuda, name, kind, monkeypatch):
     for got, want in zip(res[2], cpu_res[2]):
         assert torch.equal(quant.payload_bytes(got).cpu(),
                            quant.payload_bytes(want))
+
+
+@pytest.mark.parametrize("T", [1, 64])
+@pytest.mark.parametrize("kind", [None] + list(QUANT_KINDS))
+def test_kvcache_head_dim_16_pads_to_the_kernels(cuda, kind, T,
+                                                 monkeypatch):
+    """A head dim the kernels do not take (16: the multi-process dryrun's
+    model) runs on them through flash_attn_with_kvcache, q and the pool
+    views padded with zeros to 32: fp32 q over an fp32 / int8 / fp8 / int4
+    paged cache, a decode step (K4 / K4q) and a 64-token prefill on the K8
+    route (K8 / K8q), against the same call on the CPU (the plain versions
+    at D 16): fp32 within 1e-5, quantized pools by the twin gate."""
+    monkeypatch.setattr(kv, "VARLEN_PREFILL_MIN_ROWS", 128)
+    rng = np.random.default_rng(16)
+    B, Hq, Hk, D, ps, mp = 2, 4, 2, 16, 128, 2
+    P = 1 + B * mp
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    if kind is None:
+        kc, vc = mk(Hk, P, ps, D), mk(Hk, P, ps, D)
+        scales = {}
+    else:
+        (kc, ks), (vc, vs) = (quant.quantize_kv(mk(Hk, P, ps, D),
+                                                QUANT_KINDS[kind])
+                              for _ in range(2))
+        scales = dict(k_scales=ks, v_scales=vs)
+    tbl = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(
+        B, mp).astype(np.int32))
+    cs = torch.tensor([150, 201], dtype=torch.int32)
+    q = mk(B, T, Hq, D)
+
+    def call(dev):
+        return kv.flash_attn_with_kvcache(
+            q.to(dev), kc.to(dev), vc.to(dev), cache_seqlens=cs.to(dev),
+            block_table=tbl.to(dev), causal=True, kv_cache_layout="HND",
+            return_softmax_lse=True,
+            **{n: x.to(dev) for n, x in scales.items()})
+    route = (vl.flash_attn_varlen_fwd_paged if T > 1
+             else dec.paged_decode_attention)
+    before = (route.launches, dict(route.quant_launches))
+    out, lse = call(cuda)
+    torch.cuda.synchronize()
+    if kind is None:
+        assert route.launches == before[0] + 1
+    else:
+        assert route.quant_launches[kind] == before[1][kind] + 1
+    assert out.shape == q.shape and out.dtype == torch.float32
+    ref, lse_ref = call("cpu")
+    if kind is None:
+        torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5)
+        torch.testing.assert_close(lse.cpu(), lse_ref, rtol=0, atol=1e-5)
+        return
+    with monkeypatch.context() as m:
+        fd, fv = _plain_quant(False)
+        m.setattr(kv, "paged_decode_attention_merged", fd)
+        m.setattr(kv, "flash_attn_varlen_fwd_paged", fv)
+        unr = call("cpu")[0]
+    _gate_quant(out.cpu(), lse.cpu(), ref, unr, lse_ref,
+                f"kvcache D 16 {kind} T {T}")
 
 
 @pytest.mark.parametrize("kind", list(QUANT_KINDS))
