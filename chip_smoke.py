@@ -89,9 +89,18 @@ LoRA step, with a planted fault.  Last, `phase_bench` runs the port's bench
 (`python -m flash_attn_v100_tpu_torch.bench`: its headline JSON line must
 carry a value > 0) and the three examples as subprocesses on the card
 (train_seq_parallel on 2 gloo ranks), and `phase_scripts` the port's
-bench scripts (bench_serving, bench_decode, bench_lora_sft at 3 steps)
-and the multi-process dryrun (8 gloo ranks on the card), each exiting 0
-with finite numbers.  Prints the card, a `kernels` JSON
+bench scripts (bench_serving, bench_decode, bench_lora_sft at 3 steps; in
+this process) and the multi-process dryrun (8 gloo ranks on the card, a
+subprocess), each finishing with finite numbers.  Then `phase_measure`
+runs the port's measurement and attribution scripts in one fresh process
+(prof_calibrate, profile_kernels, the decode timing probes, prof_int4_rmw,
+prof_decode_attrib and prof_ttft_tail at the JAX scripts' widths with
+fewer rounds, requests and knob sets, bench_scaling and
+check_ring_overlap on 2 gloo ranks) and checks what each reports: no rate
+past the card's peaks, port kernels on top of each profile, equal int4
+append bytes, a decode step's device time within the engine's, TTFT p50
+<= p90, the 2-rank outputs within their gates, each ring step's K1 inside
+its shift's window.  Prints the card, a `kernels` JSON
 line, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 Any failed phase raises and the script exits non-zero; with no GPU, or
@@ -5121,26 +5130,41 @@ def _script_numbers(name, out):
 
 def phase_scripts(torch):
     """The port's bench scripts (bench_serving, bench_decode,
-    bench_lora_sft) and the multi-process dryrun as subprocesses on the
-    card (SCRIPT_RUNS): each must exit 0 with finite numbers on its lines;
-    the serving runs' launch counts must show K4, and the page-128 run's
-    K8 too; no decode rate may pass 3.35 TB/s; the dryrun must print OK.  Returns each run's numbers and
-    seconds."""
+    bench_lora_sft) through their main() in this process, their printed
+    lines captured, and the multi-process dryrun as a subprocess on the
+    card (SCRIPT_RUNS): each must finish (the dryrun exit 0) with finite
+    numbers on its lines; the serving runs' launch counts must show K4,
+    and the page-128 run's K8 too; no decode rate may pass 3.35 TB/s; the
+    dryrun must print OK.  Returns each run's numbers and seconds."""
+    import importlib
+    import io
+
     res = []
     t0 = time.perf_counter()
     for name, args in SCRIPT_RUNS:
         t1 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", f"flash_attn_v100_tpu_torch.benchmarks."
-             f"{name}", *args], capture_output=True, text=True,
-            timeout=SCRIPT_TIMEOUT_S)
+        if name == "dryrun_multiprocess":   # it launches its own processes
+            r = subprocess.run(
+                [sys.executable, "-m", f"flash_attn_v100_tpu_torch."
+                 f"benchmarks.{name}", *args], capture_output=True,
+                text=True, timeout=SCRIPT_TIMEOUT_S)
+            out = r.stdout
+            assert r.returncode == 0, (
+                f"{name} exited {r.returncode}: {r.stderr[-3000:]}")
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                importlib.import_module(
+                    f"flash_attn_v100_tpu_torch.benchmarks.{name}").main(
+                        list(args))
+            out = buf.getvalue()
+            gc.collect()
+            torch.cuda.empty_cache()
         secs = time.perf_counter() - t1
         tag = " ".join((name,) + tuple(args))
-        for line in r.stdout.strip().splitlines():
+        for line in out.strip().splitlines():
             print(f"script {tag}: {line}", flush=True)
-        assert r.returncode == 0, (
-            f"{tag} exited {r.returncode}: {r.stderr[-3000:]}")
-        nums = _script_numbers(name, r.stdout)
+        nums = _script_numbers(name, out)
         flat = [v for row in nums.get("rows", [nums]) for v in row.values()]
         assert all(math.isfinite(v) for v in flat), (tag, nums)
         if name == "bench_serving":
@@ -5152,6 +5176,152 @@ def phase_scripts(torch):
         print(f"script {tag}: {secs:.1f} s", flush=True)
     print(f"scripts: {time.perf_counter() - t0:.1f} s", flush=True)
     return res
+
+
+# ------------------------------------- the measurement and attribution scripts
+
+# (script, arguments) run in this process through their main(): each at
+# its JAX shapes and widths, cut in rounds, chain length, requests, new
+# tokens and knob sets (the full runs are calls of their own)
+MEASURE_RUNS = (
+    ("prof_calibrate", ("--rounds", "2")),
+    ("profile_kernels", ("--iters", "1")),
+    ("prof_decode_scan", ("--rounds", "1", "--chain", "8")),
+    ("prof_decode_int8", ("--rounds", "1")),
+    ("prof_int4", ("--chain", "8")),
+    ("prof_decode_pagesize", ("--chain", "8")),
+    ("prof_int4_rmw", ("--chain", "16")),
+    ("prof_decode_attrib", ("--batch", "4", "--fuse", "1", "8",
+                            "--new-tokens", "24", "--chain", "8")),
+    ("prof_ttft_tail", ("--requests", "6", "--new-tokens", "8",
+                        "--configs", "baseline", "int8_290")),
+    ("bench_scaling", ("--devices", "2")),
+    ("check_ring_overlap", ("--ranks", "2")),
+)
+# the section's top row of profile_kernels: a port kernel
+PROFILE_TOPS = (("K1",), ("K2", "K3"), ("K4",), ("K4q",), ("K5",))
+
+
+def _decode_rates(rows):
+    """Every GB/s a decode script's rows report (calls and device)."""
+    return [r[k] for r in rows.values() if r for k in ("call_gbps",
+                                                       "device_gbps")
+            if k in r]
+
+
+def _check_measure(name, res):
+    """The phase's assertions on one script's result; returns its summary."""
+    peak_gbps = HBM_BYTES_PER_S / 1e9
+    if name == "prof_calibrate":
+        assert res["ok"], res
+        assert max(res["sum_gbps"]) <= peak_gbps, res
+        assert max(res["matmul_tflops"]) <= BF16_FLOPS_PER_S / 1e12, res
+        return dict(gbps=max(res["sum_gbps"]),
+                    tflops=max(res["matmul_tflops"]))
+    if name == "profile_kernels":
+        for sec, tops in zip(res, PROFILE_TOPS):
+            assert sec["top"] in tops, (sec["title"], sec["top"], tops)
+            assert 0 < sec["share_pct"] <= 100, (sec["title"], sec)
+        return {sec["title"]: dict(top=sec["top"], us=sec["total_us"],
+                                   share_pct=sec["share_pct"])
+                for sec in res}
+    if name in ("prof_decode_scan", "prof_decode_int8",
+                "prof_decode_pagesize"):
+        rows = {k: r for k, r in res.items() if r and "failed" not in r}
+        rates = _decode_rates(rows)
+        assert rates and all(0 < g <= peak_gbps for g in rates), res
+        return {str(k): r.get("device_gbps", r["call_gbps"])
+                for k, r in rows.items()}
+    if name == "prof_int4":
+        rates = _decode_rates({k: res[k] for k in ("int8", "int4")})
+        assert all(0 < g <= peak_gbps for g in rates), res
+        return dict(speedup=res["speedup"], int8=res["int8"],
+                    int4=res["int4"])
+    if name == "prof_int4_rmw":
+        assert res["equal"], res
+        return res
+    if name == "prof_decode_attrib":
+        busy = res["device"]["busy_s"]
+        for r in res["engines"]:
+            assert busy <= r["decode_step_s"], (busy, r)
+        return dict(device_ms=busy * 1e3,
+                    graph_ms=res["device"].get("graph_s", math.nan) * 1e3,
+                    engine_ms={r["fuse"]: r["decode_step_s"] * 1e3
+                               for r in res["engines"]})
+    if name == "prof_ttft_tail":
+        for r in res:
+            assert r["p50_s"] <= r["p90_s"], r
+        return {r["tag"]: (r["p50_s"] * 1e3, r["p90_s"] * 1e3) for r in res}
+    if name == "bench_scaling":
+        assert {"ring", "decode"} <= set(res["checks"]), res["checks"]
+        for c in res["checks"].values():
+            assert c["ok"], res["checks"]
+        return dict(ring=res["ring"], decode=res["decode"],
+                    checks=res["checks"])
+    assert name == "check_ring_overlap"
+    if not res["ok"]:
+        for r, rank in enumerate(res["ranks"]):
+            print(f"ring overlap, rank {r}: windows {rank['windows']}, "
+                  f"K1 {rank['kernels']}", flush=True)
+    assert res["ok"], "ring overlap check FAILED (windows above)"
+    return dict(steps=res["steps"], overlapped=res["overlapped"],
+                ratio=res["ratio"], k1_tflops=res["k1_flops_per_s"] / 1e12)
+
+
+def phase_measure(torch):
+    """The port's measurement and attribution scripts (MEASURE_RUNS), each
+    through its main() in this process, its lines printed as they come:
+    the calibration reads no rate past 3.35 TB/s or 989 TFLOP/s; each
+    profile_kernels section's top row is a port kernel, its share of the
+    peak <= 100%; no decode rate passes 3.35 TB/s; both int4 appends write
+    equal bytes; a decode step's device time is <= the engine's ms a
+    decode step; TTFT p50 <= p90 in each knob set; the 2-rank ring and
+    head-sharded decode are within their gates of one rank's; each ring
+    step's K1 overlaps its shift.  Returns each script's summary and
+    seconds."""
+    import importlib
+
+    out = {}
+    t0 = time.perf_counter()
+    for name, args in MEASURE_RUNS:
+        mod = importlib.import_module(
+            f"flash_attn_v100_tpu_torch.benchmarks.{name}")
+        tag = " ".join((name,) + args)
+        print(f"measure {tag}:", flush=True)
+        t1 = time.perf_counter()
+        res = mod.main(list(args))
+        summary = _check_measure(name, res)
+        secs = time.perf_counter() - t1
+        out[name] = dict(seconds=secs, **(summary if isinstance(
+            summary, dict) else dict(result=summary)))
+        print(f"measure {name}: {secs:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"measure: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+MEASURE_TIMEOUT_S = 400
+
+
+def phase_measure_fresh(torch):
+    """phase_measure in a fresh process (`chip_smoke.py --measure-child`):
+    a process that has run the earlier phases gives torch.profiler traces
+    without their device lane (CPU ops only), which the profile and
+    decode-attribution scripts refuse.  Its lines are printed; its last
+    line carries the summary."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = subprocess.run([sys.executable, __file__, "--measure-child"],
+                       capture_output=True, text=True,
+                       timeout=MEASURE_TIMEOUT_S)
+    for line in r.stdout.strip().splitlines():
+        print(line, flush=True)
+    assert r.returncode == 0, (
+        f"the measurement phase exited {r.returncode}: {r.stderr[-3000:]}")
+    (last,) = [ln for ln in r.stdout.splitlines()
+               if ln.startswith("measure-child: ")]
+    return json.loads(last[len("measure-child: "):])
 
 
 # --------------------------------------------- dense kernels, two trees
@@ -5604,6 +5774,10 @@ def main() -> int:
         res = times[sys.argv[1]](torch)
         print(json.dumps(dict(res, tree=sys.argv[2], card=card_line())))
         return 0
+    if sys.argv[1:2] == ["--measure-child"]:
+        print("measure-child: " + json.dumps(phase_measure(torch),
+                                             default=str), flush=True)
+        return 0
     if sys.argv[1:2] == ["--dropin-child"]:
         print("dropin-child: " + json.dumps(dropin_child(torch, sys.argv[2])))
         return 0
@@ -5708,6 +5882,8 @@ def main() -> int:
     lap("bench")
     scripts = phase_scripts(torch)
     lap("scripts")
+    measure = phase_measure_fresh(torch)
+    lap("measure")
 
     rows = [
             ("K1 flash_attn_dense_fwd", dense["K1"], "fwd.cu",
@@ -5839,6 +6015,7 @@ def main() -> int:
         kernels.append(row)
     print(f"bench headline: {json.dumps(bench['headline'])}", flush=True)
     print(f"scripts: {json.dumps(scripts)}", flush=True)
+    print(f"measure: {json.dumps(measure, default=str)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build "
           f"on", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -36,7 +36,29 @@ hand-written kernels of csrc/probes.cu and csrc/probe_int4.cu.
                       initialize(), a hybrid mesh, one sharded SGD step and
                       a sharded engine against a single-process one.
 
+  profile_kernels     device time by kernel (port ids K1-K5) of the dense
+                      prefill and its backward, the 32k decode from bf16
+                      and int8 pools and a mixed varlen batch, against the
+                      card's peaks, as markdown;
+  prof_calibrate      the timer against a 2 GiB sum and a 4096^3 matmul:
+                      no rate past 3.35 TB/s or 989 TFLOP/s;
+  prof_decode_scan    the 32k decode chained 64 times, bf16 / int8 pools,
+                      pages 256 / 512: time a call and device time;
+  prof_decode_int8    the same variants unchained, best of rounds;
+  prof_int4           int4 against int8 pools at the 32k decode;
+  prof_decode_pagesize  the serving-shape decode at pages 128-1024;
+  prof_int4_rmw       one-round against two-round int4 decode append;
+  prof_decode_attrib  a decode step's device time against the engine's
+                      ms a step at decode_fuse 1 / 8 / 16 / 32;
+  prof_ttft_tail      TTFT p50 / p90 of a 24 x 2048-token burst by
+                      scheduling knob set;
+  bench_scaling       ring prefill and head-sharded decode over 1-16 gloo
+                      ranks, efficiency T(1) / T(n);
+  check_ring_overlap  a profiler trace of the ring: each chunk's K1 runs
+                      while its K/V shift is in flight.
+
 Each is the counterpart of the JAX repository's script of the same name.
-They run on the card and refuse to run without one; the last four also
-take `--device cpu` (the kernels' plain versions).
+They run on the card and refuse to run without one; the bench scripts and
+the measurement scripts also take `--device cpu` (the kernels' plain
+versions).
 """

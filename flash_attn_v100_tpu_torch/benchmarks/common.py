@@ -1,19 +1,36 @@
 """What the benchmark scripts share: the card line and the device; for the
 probes seeded inputs, a timer and one printed line a variant; for the
-oracle suite seeded draws, the gate and the sliced oracle."""
+oracle suite seeded draws, the gate and the sliced oracle; for the
+measurement scripts a chained-call timer (as calls and as a CUDA-graph
+replay), the device-busy reader over a trace, the seeded 16-layer d 4096
+model and the spawn of gloo ranks."""
 
 from __future__ import annotations
 
+import argparse
+import os
+import pickle
+import statistics
 import subprocess
-from typing import Dict
+import tempfile
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from flash_attn_v100_tpu_torch.config import resolve_device
+from flash_attn_v100_tpu_torch.models.transformer import (
+    ModelConfig, init_params)
+from flash_attn_v100_tpu_torch.ops import masks as masklib
 from flash_attn_v100_tpu_torch.ops.cuda import probes
+from flash_attn_v100_tpu_torch.ops.cuda.decode import (
+    paged_decode_attention_merged)
+from flash_attn_v100_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from flash_attn_v100_tpu_torch.ops.reference import mha_reference
 from flash_attn_v100_tpu_torch.utils.benchmarking import measure
+from flash_attn_v100_tpu_torch.utils.profiling import (
+    DEVICE_CATS, trace_events)
 from flash_attn_v100_tpu_torch.utils.testing import max_abs_err
 
 # fp32 bytes an oracle keeps a score element, forward and backward (scores,
@@ -161,3 +178,252 @@ def tensor_core_s(probe: probes.Probe, BH: int, M: int, N: int) -> float:
     """The call's products at the bf16 tensor-core peak, seconds."""
     flops, _ = probes.work(probe, BH, 1, M, N)
     return flops / BF16_FLOPS_PER_S
+
+
+# ------------------------------------------------- the measurement scripts
+
+# the model of the JAX repository's prof_decode_attrib.py and
+# prof_ttft_tail.py (their module-level ModelConfig): 16 layers, d 4096,
+# 32/8 heads x 128, ffn 11008, bf16
+MEASURE_MODEL = dict(vocab_size=32000, dim=4096, n_layers=16, n_heads=32,
+                     n_kv_heads=8, head_dim=128, ffn_dim=11008,
+                     max_seq_len=2560, dtype="bfloat16")
+_MODEL_FLAGS = {"vocab_size": "--vocab-size", "dim": "--dim",
+                "n_layers": "--layers", "n_heads": "--heads",
+                "n_kv_heads": "--kv-heads", "head_dim": "--head-dim",
+                "ffn_dim": "--ffn-dim", "max_seq_len": "--max-seq-len",
+                "dtype": "--dtype"}
+
+
+def add_model_flags(ap: argparse.ArgumentParser) -> None:
+    """The model's widths as flags, MEASURE_MODEL's values their defaults."""
+    for key, flag in _MODEL_FLAGS.items():
+        val = MEASURE_MODEL[key]
+        ap.add_argument(flag, type=type(val), default=val)
+
+
+def measure_model(args: argparse.Namespace, dev: torch.device
+                  ) -> Tuple[ModelConfig, Dict]:
+    """(cfg, params) of the flags' model, seeded random weights
+    (`init_params(cfg, seed=0)`, the JAX scripts' PRNGKey(0)) on `dev`."""
+    kw = {key: getattr(args, flag[2:].replace("-", "_"))
+          for key, flag in _MODEL_FLAGS.items()}
+    kw["dtype"] = getattr(torch, kw["dtype"])
+    cfg = ModelConfig(**kw)
+    return cfg, init_params(cfg, seed=0, device=dev)
+
+
+def params_gib(params) -> float:
+    """The parameters' bytes, GiB (what a decode step streams once)."""
+    leaves = [params[k] for k in params if k != "layers"] + [
+        t for layer in params["layers"] for t in layer.values()]
+    return sum(t.numel() * t.element_size() for t in leaves) / 2 ** 30
+
+
+def randn(gen: torch.Generator, shape, dev, dtype=torch.bfloat16
+          ) -> torch.Tensor:
+    """Seeded normal draws made on `dev` (a pool of 2^28 values drawn on
+    the host would take seconds; the values only feed timings)."""
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def chained(fn: Callable, q: torch.Tensor, n: int) -> torch.Tensor:
+    """`n` calls of fn chained as the JAX scripts' scan chains them: q <- q
+    + 1e-6 * fn(q), so each call depends on the one before and none can be
+    skipped or hoisted; returns the last q."""
+    for _ in range(n):
+        q = q + 1e-6 * fn(q).to(q.dtype)
+    return q
+
+
+def graph_seconds(fn: Callable, dev: torch.device, reps: int = 10
+                  ) -> float:
+    """Median seconds of one replay of `fn` captured in a CUDA graph, CUDA
+    events around each replay (chip_smoke.graph_ms): fn's kernels without
+    the host time of their Python wrappers."""
+    fn()
+    torch.cuda.synchronize(dev)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize(dev)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return statistics.median(times)
+
+
+def chain_seconds(fn: Callable, q: torch.Tensor, n: int, dev: torch.device,
+                  iters: int = 4) -> Tuple[float, Optional[float]]:
+    """(seconds a call of fn in a chain of n, host included: `measure` of
+    the chain over n; device seconds a call: a CUDA-graph replay of the
+    chain over n, None on the CPU)."""
+    def run():
+        return chained(fn, q, n)
+    call = measure(run, iters=iters, device=dev) / n
+    return call, (graph_seconds(run, dev) / n if dev.type == "cuda"
+                  else None)
+
+
+def busy_us(intervals: Iterable[Tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
+
+
+def device_lane(trace_dir: str, dev: torch.device) -> List[dict]:
+    """The trace's events as `utils/profiling.trace_events` reads them
+    (the device lane's, or on the CPU the CPU ops); on the card a trace
+    with no device lane (the profiler recorded no kernel) raises, so a
+    CPU op's time is never read as the device's."""
+    events = trace_events(trace_dir)
+    if dev.type == "cuda" and not all(e.get("cat") in DEVICE_CATS
+                                      for e in events):
+        raise RuntimeError(f"the trace under {trace_dir} has no device "
+                           f"lane: the profiler recorded no kernel")
+    return events
+
+
+def device_busy_us(events: Iterable[dict]) -> float:
+    """µs the device was busy over trace events (utils/profiling.
+    trace_events: the device lane's, or a CPU trace's ops): the union of
+    their intervals, so overlapping kernels count once."""
+    return busy_us((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events)
+
+
+def pct(x: float, peak: float) -> float:
+    return 100.0 * x / peak
+
+
+def rate_line(B: int, dt: float, nbytes: int) -> str:
+    """A decode variant's line: tok/s of a B-row step taking dt seconds,
+    ms, GB/s over `nbytes` and its share of 3.35 TB/s."""
+    bw = nbytes / dt / 1e9
+    return (f"{B/dt:7.0f} tok/s  {dt*1e3:7.3f} ms  {bw:6.0f} GB/s  "
+            f"({pct(bw * 1e9, HBM_BYTES_PER_S):5.1f}% of 3.35 TB/s)")
+
+
+ROW_PAD = 8        # the JAX decode scripts' q rows a kv head (group 4, padded)
+DECODE_PAGE = 256  # their pools' page; other page sizes are views of it
+
+
+class DecodeCase:
+    """The inputs of the JAX repository's prof_decode_scan.py and
+    prof_decode_int8.py: K and V pools of their own, (Hk, B * ctx / 256,
+    256, D) bf16 (a pool of ps-token pages is a view of them), GQA-folded q
+    rows (B, Hk, 8, D), every row at `ctx` live tokens, and the pools'
+    int8 quantization; `core` gives the decode call of a variant."""
+
+    def __init__(self, gen, B: int, Hq: int, Hk: int, D: int, ctx: int,
+                 dev):
+        self.B, self.Hk, self.D, self.ctx = B, Hk, D, ctx
+        self.group = Hq // Hk
+        n = B * ctx // DECODE_PAGE
+        self.kpool = randn(gen, (Hk, n, DECODE_PAGE, D), dev)
+        self.vpool = randn(gen, (Hk, n, DECODE_PAGE, D), dev)
+        self.q = randn(gen, (B, Hk, ROW_PAD, D), dev)
+        self.cs = torch.full((B,), ctx, dtype=torch.int32, device=dev)
+        self.kq, self.ks = quantize_kv(self.kpool, torch.int8)
+        self.vq, self.vs = quantize_kv(self.vpool, torch.int8)
+        self.params = masklib.MaskParams(causal=False, window_left=-1,
+                                         window_right=0)
+
+    def nbytes(self, quant: bool) -> int:
+        """The JAX scripts' count: K and V payload (int8: and the fp32
+        scales) of every live token, once."""
+        per = self.D + 4 if quant else self.D * 2
+        return 2 * self.B * self.ctx * self.Hk * per
+
+    def core(self, ps: int, kind: str) -> Callable:
+        """q rows -> merged out (B, Hk, 8, D) through K4 (`kind` "bf16"),
+        K4q ("int8"), or the int8 pools dequantized to bf16, then K4
+        ("int8-deq", the TPU kernel's int8_matmul=False)."""
+        Hk, D = self.Hk, self.D
+        P_ = self.B * self.ctx // ps
+        table = torch.arange(P_, dtype=torch.int32,
+                             device=self.q.device).reshape(self.B, -1)
+
+        def view(pool, last=D):
+            return pool.reshape(1, Hk, P_, ps, last)
+        kw = dict(softmax_scale=D ** -0.5, params=self.params, t_new=1,
+                  group=self.group)
+        if kind == "bf16":
+            a, b = view(self.kpool), view(self.vpool)
+            return lambda q: paged_decode_attention_merged(
+                q, a, b, table, self.cs, None, **kw)[0]
+        a, b = view(self.kq), view(self.vq)
+        c, d = view(self.ks, 1), view(self.vs, 1)
+        if kind == "int8":
+            return lambda q: paged_decode_attention_merged(
+                q, a, b, table, self.cs, None, k_scales=c, v_scales=d,
+                **kw)[0]
+
+        def deq(q):
+            return paged_decode_attention_merged(
+                q, dequantize_kv(a, c), dequantize_kv(b, d), table, self.cs,
+                None, **kw)[0]
+        return deq
+
+
+SPAWN_TIMEOUT_S = 600
+
+
+def spawn_ranks(fn: Callable, world: int, payload, device: str,
+                timeout_s: float = SPAWN_TIMEOUT_S) -> List:
+    """Run fn(rank, world, payload) on `world` spawned processes in one
+    gloo process group (a file:// rendezvous in a temporary directory, as
+    tests/torch_parallel_cases.py::spawn does); on CUDA rank r takes card
+    r % device_count (on a one-card machine every rank shares the card).
+    Returns the ranks' results in rank order; a rank that raises fails
+    the spawn."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix="fa_ranks_") as tmp:
+        ctx = mp.start_processes(
+            _rank_main, args=(world, tmp, fn, payload, device), nprocs=world,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{world} ranks took over {timeout_s} s")
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _rank_main(rank: int, world: int, tmp: str, fn: Callable, payload,
+               device: str) -> None:
+    import torch.distributed as dist
+    if device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            world_size=world, rank=rank)
+    try:
+        res = fn(rank, world, payload)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)

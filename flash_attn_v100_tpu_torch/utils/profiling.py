@@ -27,7 +27,7 @@ from flash_attn_v100_tpu_torch.utils.debugging import trace
 
 # chrome-trace categories of the device's own lane (user annotations
 # mirrored there would double-count the kernels they enclose)
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def capture_trace(fn, *args, iters: int = 3,
@@ -45,10 +45,10 @@ def capture_trace(fn, *args, iters: int = 3,
     return d
 
 
-def trace_events(trace_dir: str) -> List[dict]:
-    """The complete events `summarize_trace` counts, from the newest chrome
-    trace under `trace_dir`: the device lane's (kernels, copies, fills),
-    or, in a trace without one, the CPU ops."""
+def complete_events(trace_dir: str) -> List[dict]:
+    """Every complete event (ph "X", with a duration) of the newest chrome
+    trace under `trace_dir`: CPU ops, user annotations, runtime calls and
+    the device lane's events, on one clock (µs)."""
     files = (glob.glob(os.path.join(trace_dir, "**", "*.json"),
                        recursive=True)
              + glob.glob(os.path.join(trace_dir, "**", "*.json.gz"),
@@ -59,8 +59,15 @@ def trace_events(trace_dir: str) -> List[dict]:
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
         events = json.load(f).get("traceEvents", [])
-    done = [e for e in events if e.get("ph") == "X" and "dur" in e]
-    device = [e for e in done if e.get("cat") in _DEVICE_CATS]
+    return [e for e in events if e.get("ph") == "X" and "dur" in e]
+
+
+def trace_events(trace_dir: str) -> List[dict]:
+    """The complete events `summarize_trace` counts, from the newest chrome
+    trace under `trace_dir`: the device lane's (kernels, copies, fills),
+    or, in a trace without one, the CPU ops."""
+    done = complete_events(trace_dir)
+    device = [e for e in done if e.get("cat") in DEVICE_CATS]
     return device or [e for e in done if e.get("cat") == "cpu_op"]
 
 

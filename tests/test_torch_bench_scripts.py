@@ -11,35 +11,18 @@ SXM) in place of 819 (v5e), and the dryrun's `--local-devices` (virtual
 CPU devices a process) become `--local-ranks` (ranks a host) and gain
 `--weights`."""
 
-import ast
 import math
 import re
-from pathlib import Path
 
 import pytest
 import torch
+from torch_script_flags import JAX, PORT
+from torch_script_flags import flags as _flags
 
 from flash_attn_v100_tpu_torch.benchmarks import (
     bench_decode, bench_lora_sft, bench_serving)
 
 torch.set_num_threads(1)
-
-ROOT = Path(__file__).resolve().parents[1]
-PORT = ROOT / "flash_attn_v100_tpu_torch" / "benchmarks"
-
-
-def _flags(path: Path) -> dict:
-    """{flag: (type name, default)} of a script's ap.add_argument calls."""
-    out = {}
-    for node in ast.walk(ast.parse(path.read_text())):
-        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-                and node.func.attr == "add_argument"):
-            kw = {k.arg: k.value for k in node.keywords}
-            typ = kw.get("type")
-            out[node.args[0].value] = (
-                typ.id if isinstance(typ, ast.Name) else None,
-                ast.literal_eval(kw["default"]) if "default" in kw else None)
-    return out
 
 
 CHANGED = {
@@ -58,7 +41,7 @@ CHANGED = {
 @pytest.mark.parametrize("name", list(CHANGED))
 def test_flags_and_defaults_are_the_jax_scripts(name):
     port = _flags(PORT / f"{name}.py")
-    jax_side = _flags(ROOT / "benchmarks" / f"{name}.py")
+    jax_side = _flags(JAX / f"{name}.py")
     added, replaced = CHANGED[name]
     want = {k: v for k, v in jax_side.items() if k not in replaced}
     want.update(added)

@@ -2289,3 +2289,37 @@ def test_fuzz_trial_on_the_card(cuda, kind, trial):
     assert twins == (dfwd.flash_attn_dense_fwd_ref.calls,
                      vl.flash_attn_varlen_fwd_ref.calls,
                      dec.paged_decode_attention_ref.calls)
+
+
+# ------------------------------------------- the measurement scripts
+
+@pytest.mark.parametrize("start", ["zeros", "random"])
+def test_int4_rmw_append_on_the_card_equals_the_cpu(cuda, start):
+    """prof_int4_rmw's one-round append (`kvcache._int4_rmw_paged`) and its
+    two-round twin write the CPU's bytes on CUDA tensors, at the script's
+    decode shape (Hk 8, 16 layers, B 16, 128-token pages, D 128)."""
+    from flash_attn_v100_tpu_torch.benchmarks import prof_int4_rmw as rmw
+    Hk, L, B, PS, D = 8, 16, 16, 128, 128
+    P = rmw.folded_pages(B, L)
+    arrays = rmw.draw(np.random.default_rng(0), Hk, B, PS, D, P)
+    pool = (np.zeros((Hk, P, PS // 2, D), np.int8) if start == "zeros" else
+            np.random.default_rng(1).integers(
+                -128, 128, (Hk, P, PS // 2, D)).astype(np.int8))
+    for fn in (rmw.one_round, rmw.two_round):
+        want = torch.from_numpy(pool.copy())
+        fn(want, *(torch.from_numpy(a) for a in arrays))
+        got = torch.from_numpy(pool).to(cuda)
+        fn(got, *(torch.from_numpy(a).to(cuda) for a in arrays))
+        assert torch.equal(got.cpu(), want), fn.__name__
+
+
+def test_ring_overlap_on_a_two_rank_trace(cuda):
+    """check_ring_overlap on 2 gloo ranks sharing the card: the trace holds
+    each rank's shift windows and chunk kernels (rank 0 one K1, rank 1
+    two), and every chunk with a shift in flight overlaps it."""
+    from flash_attn_v100_tpu_torch.benchmarks import check_ring_overlap as co
+    res = co.main(["--ranks", "2", "--seqlen", "4096", "--rate-seqlen",
+                   "1024"])
+    assert [sorted(r["kernels"]) for r in res["ranks"]] == [[0], [0, 1]]
+    assert all(sorted(r["windows"]) == [0] for r in res["ranks"])
+    assert res["steps"] == res["overlapped"] == 2 and res["ok"]

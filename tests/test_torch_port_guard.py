@@ -37,3 +37,17 @@ def test_port_files_found():
 def test_port_does_not_import_jax(path):
     bad = FORBIDDEN & set(_imported_roots(path))
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+MEASURE_SCRIPTS = ["common", "profile_kernels", "prof_calibrate",
+                   "prof_decode_scan", "prof_decode_int8", "prof_int4",
+                   "prof_decode_pagesize", "prof_int4_rmw",
+                   "prof_decode_attrib", "prof_ttft_tail", "bench_scaling",
+                   "check_ring_overlap"]
+
+
+@pytest.mark.parametrize("name", MEASURE_SCRIPTS)
+def test_measurement_scripts_are_guarded(name):
+    """The measurement and attribution scripts are among the files held
+    free of JAX above."""
+    assert PKG / "benchmarks" / f"{name}.py" in FILES
