@@ -100,8 +100,13 @@ check_ring_overlap on 2 gloo ranks) and checks what each reports: no rate
 past the card's peaks, port kernels on top of each profile, equal int4
 append bytes, a decode step's device time within the engine's, TTFT p50
 <= p90, the 2-rank outputs within their gates, each ring step's K1 inside
-its shift's window.  Prints the card, a `kernels` JSON
-line, and as its last line
+its shift's window; in the same process `phase_sweeps` runs the nine tile
+and unroll sweeps (their variant libraries built with the shipped ones)
+at the JAX shapes with one round and one or two variants each: no rate
+past a peak, every same-function variant within its kernel's gate
+against the plain twin, the shipped rows within PERF.md's spread of
+profile_kernels' rows of the same kernels.  Prints the card, a `kernels`
+JSON line, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 Any failed phase raises and the script exits non-zero; with no GPU, or
 without the package beside it, it exits non-zero and prints no result.
@@ -3759,9 +3764,9 @@ RING_LAYOUTS = (("contiguous causal", dict(causal=True)),
                 ("contiguous causal, window (4096, 0)",
                  dict(causal=True, window_size=RING_WINDOW)))
 # (c): TinyLlama-1.1B width, B 2 x 2049 tokens (1024 rows a rank after the
-# shift), three AdamW steps through make_train_step(mesh=) on seq 2 x
-# model 2
-RT_MESH, RT_B, RT_S, RT_STEPS, RT_LAYERS = (1, 2, 2), 2, 2048, 3, 22
+# shift), two AdamW steps (the second from the first's update and
+# optimizer state) through make_train_step(mesh=) on seq 2 x model 2
+RT_MESH, RT_B, RT_S, RT_STEPS, RT_LAYERS = (1, 2, 2), 2, 2048, 2, 22
 # (c)'s step-1 loss gate, derived before the first chip run (PERF.md §6):
 # phase_train holds the unsharded kernel path's mean loss to max(2
 # d + 1e-5, 3 s / sqrt(n)) of the fp32-plain-attention mean (d: the
@@ -5044,9 +5049,10 @@ def phase_probes(torch, flush):
 
 def phase_bench(torch):
     """The port's bench (`python -m flash_attn_v100_tpu_torch.bench`) and
-    the three examples, each a subprocess on the card: the bench must exit
-    0 with its JSON line's value > 0, each example 0 with its shapes
-    printed; train_seq_parallel spawns 2 gloo ranks sharing the card."""
+    the three examples, each a subprocess on the card (the examples at
+    once, after the bench): the bench must exit 0 with its JSON line's
+    value > 0, each example 0 with its shapes printed; train_seq_parallel
+    spawns 2 gloo ranks sharing the card."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "flash_attn_v100_tpu_torch.bench"],
                        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
@@ -5065,18 +5071,31 @@ def phase_bench(torch):
                              "{0: 24, 1: 24, 2: 24, 3: 24, 4: 24, 5: 24}"],
             "train_seq_parallel": ["'seq': 2", "global dq: (2, 1024, 8, 64) "
                                    "finite: True"]}
+    # the three examples at once (each mostly start-up; none is timed)
+    t1 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"flash_attn_v100_tpu_torch.examples.{name}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in want}
     secs = {}
-    for name, lines in want.items():
-        t1 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", f"flash_attn_v100_tpu_torch.examples.{name}"],
-            capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
-        secs[name] = time.perf_counter() - t1
-        assert r.returncode == 0, f"{name} exited {r.returncode}: {r.stderr[-2000:]}"
-        for want_line in lines:
-            assert want_line in r.stdout, f"{name}: no {want_line!r} in {r.stdout!r}"
-        print(f"example {name} ({secs[name]:.1f} s): "
-              f"{' | '.join(r.stdout.strip().splitlines())}", flush=True)
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(
+                timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter()
+                                                      - t1)))
+            secs[name] = time.perf_counter() - t1
+            assert proc.returncode == 0, \
+                f"{name} exited {proc.returncode}: {err[-2000:]}"
+            for want_line in want[name]:
+                assert want_line in out, f"{name}: no {want_line!r} in {out!r}"
+            print(f"example {name} (done {secs[name]:.1f} s after the three "
+                  f"started): {' | '.join(out.strip().splitlines())}",
+                  flush=True)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     return dict(headline=head[-1], bench_s=time.perf_counter() - t0,
                 example_s=secs)
 
@@ -5222,8 +5241,12 @@ def _check_measure(name, res):
         for sec, tops in zip(res, PROFILE_TOPS):
             assert sec["top"] in tops, (sec["title"], sec["top"], tops)
             assert 0 < sec["share_pct"] <= 100, (sec["title"], sec)
+        # each section's port kernels' µs a call: phase_sweeps holds the
+        # sweeps' shipped rows to them
         return {sec["title"]: dict(top=sec["top"], us=sec["total_us"],
-                                   share_pct=sec["share_pct"])
+                                   share_pct=sec["share_pct"],
+                                   kernels={n: us for n, us, _ in sec["rows"]
+                                            if n.startswith("K")})
                 for sec in res}
     if name in ("prof_decode_scan", "prof_decode_int8",
                 "prof_decode_pagesize"):
@@ -5301,15 +5324,134 @@ def phase_measure(torch):
     return out
 
 
-MEASURE_TIMEOUT_S = 400
+# ------------------------------------------------ the tile and unroll sweeps
+
+# (script, arguments) run after phase_measure in its fresh process through
+# their main(): the JAX shapes, one round, short chains, the shipped rows
+# and one or two variants a script (the full sweeps are calls of their
+# own; every variant's gates: tests/test_torch_gpu.py)
+SWEEP_RUNS = (
+    ("prof_prefill", ("causal", "ceiling", "--rounds", "1", "--chain", "1",
+                      "--iters", "1", "--tiles", "bk128")),
+    ("prof_varlen", ("bs", "--rounds", "1", "--chain", "1", "--iters", "1",
+                     "--tiles", "bk128")),
+    ("prof_bwd", ("--rounds", "1", "--chain", "1", "--iters", "1",
+                  "--dq-tiles", "bk64", "--dkv-tiles", "bq64")),
+    ("prof_bwd_unroll", ("--rounds", "1", "--chain", "1", "--iters", "1",
+                         "--dq-tiles")),
+    ("prof_dkv_wide", ("--rounds", "1", "--chain", "1", "--iters", "1",
+                       "--dkv-tiles", "keys128")),
+    ("prof_fwd_pipeline", ("--rounds", "1", "--chain", "2", "--iters", "1",
+                           "--variants", "pingpong")),
+    ("prof_fwd_unroll", ("--rounds", "1", "--chain", "2", "--iters", "1",
+                         "--unroll", "1", "2")),
+    ("prof_varlen_unroll", ("--rounds", "1", "--chain", "2", "--iters", "1",
+                            "--unroll", "1", "4", "--full-unroll", "1",
+                            "--mixed-unroll", "1", "--paged-unroll", "1",
+                            "8")),
+    ("prof_int4_ablate", ("--rounds", "1", "--iters", "1", "--variants",
+                          "int8", "int4-prod", "int4-qk-one")),
+)
+# PERF.md section 2's spread of K1-K3 and K5 in a call (1-20%), and of the
+# decode's device time (0.1-5%, here 10%): a sweep's shipped row (one call
+# alone, or the split's kernel) against the same kernel in
+# profile_kernels' section of that title: (script, row, key, section,
+# id, spread)
+SWEEP_SPREAD = {"dense": 0.20, "decode": 0.10}
+SWEEP_VS_PROFILE = (
+    ("prof_prefill", "causal shipped 128x64", "alone_s",
+     "Dense causal prefill", "K1", "dense"),
+    ("prof_bwd_unroll", "split causal=True", "K2",
+     "Dense causal backward", "K2", "dense"),
+    ("prof_bwd_unroll", "split causal=True", "K3",
+     "Dense causal backward", "K3", "dense"),
+    ("prof_varlen", "mixed causal  fwd", "alone_s",
+     "Varlen mixed-length causal", "K5", "dense"),
+    ("prof_int4_ablate", "int8", "alone_s", "Decode 32k ctx INT8", "K4q",
+     "decode"),
+)
+
+
+def _check_sweep(name, res):
+    """A sweep script's rows: no rate past 989 TFLOP/s or 3.35 TB/s, every
+    same-function variant held to its plain twin (its check's text, the
+    script raised otherwise), every timing-only row checked finite.
+    Returns the rows' summary."""
+    from flash_attn_v100_tpu_torch.benchmarks.common import TIMING_ONLY
+    out = {}
+    for row, r in res.items():
+        if row.startswith("split"):
+            out[row] = {k: v * 1e3 for k, v in r.items()}
+            continue
+        if "call_s" not in r:
+            out[row] = r["skipped"][:40]
+            continue
+        for key in ("tflops", "device_tflops"):
+            assert r.get(key, 0) <= BF16_FLOPS_PER_S / 1e12, (name, row, r)
+        for key in ("gbps", "device_gbps"):
+            assert r.get(key, 0) <= HBM_BYTES_PER_S / 1e9, (name, row, r)
+        if r["variant"] is not None:
+            if r["timing_only"]:
+                assert r["check"] == TIMING_ONLY, (name, row, r)
+            else:
+                assert r["check"] and "<=" in r["check"], (name, row, r)
+        s = dict(ms=r["device_s"] * 1e3, alone_ms=r["alone_s"] * 1e3)
+        s.update({k: r[k] for k in ("device_tflops", "device_gbps")
+                  if k in r})
+        if r["variant"] is not None:
+            occ = r["occupancy"]
+            s.update(variant=f"{r['kernel']} {r['variant']}",
+                     regs=occ["regs"], local=occ["local"], smem=occ["smem"])
+        out[row] = s
+    return out
+
+
+def phase_sweeps(torch, measure):
+    """The tile and unroll sweeps (SWEEP_RUNS), each through its main() in
+    this process (the measurement phase's fresh one), checked by
+    _check_sweep; then each kernel's shipped row against profile_kernels'
+    row of the same kernel in `measure` (this process's
+    phase_measure), within PERF.md section 2's spread.  Returns each
+    script's summary and seconds."""
+    import importlib
+
+    out, raw = {}, {}
+    t0 = time.perf_counter()
+    for name, args in SWEEP_RUNS:
+        mod = importlib.import_module(
+            f"flash_attn_v100_tpu_torch.benchmarks.{name}")
+        print(f"sweep {' '.join((name,) + args)}:", flush=True)
+        t1 = time.perf_counter()
+        raw[name] = mod.main(list(args))
+        out[name] = dict(rows=_check_sweep(name, raw[name]),
+                         seconds=time.perf_counter() - t1)
+        print(f"sweep {name}: {out[name]['seconds']:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    prof = measure["profile_kernels"]
+    vs = {}
+    for script, row, key, section, kid, spread in SWEEP_VS_PROFILE:
+        ours = raw[script][row][key] * 1e6
+        (title,) = [t for t in prof if t.startswith(section)]
+        theirs = prof[title]["kernels"][kid]
+        vs[f"{kid} ({script})"] = (ours, theirs)
+        assert abs(ours / theirs - 1) <= SWEEP_SPREAD[spread], (
+            f"{kid}: {script}'s {row} {ours:.1f} us against profile_kernels' "
+            f"{theirs:.1f} us, past the spread {SWEEP_SPREAD[spread]}")
+    out["vs_profile_kernels_us"] = vs
+    print(f"sweeps: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+MEASURE_TIMEOUT_S = 520
 
 
 def phase_measure_fresh(torch):
-    """phase_measure in a fresh process (`chip_smoke.py --measure-child`):
-    a process that has run the earlier phases gives torch.profiler traces
-    without their device lane (CPU ops only), which the profile and
-    decode-attribution scripts refuse.  Its lines are printed; its last
-    line carries the summary."""
+    """phase_measure, then phase_sweeps, in a fresh process (`chip_smoke.py
+    --measure-child`): a process that has run the earlier phases gives
+    torch.profiler traces without their device lane (CPU ops only), which
+    the profile and decode-attribution scripts refuse.  Its lines are
+    printed; its last line carries both phases' summaries."""
     gc.collect()
     torch.cuda.empty_cache()
     r = subprocess.run([sys.executable, __file__, "--measure-child"],
@@ -5775,7 +5917,11 @@ def main() -> int:
         print(json.dumps(dict(res, tree=sys.argv[2], card=card_line())))
         return 0
     if sys.argv[1:2] == ["--measure-child"]:
-        print("measure-child: " + json.dumps(phase_measure(torch),
+        torch.backends.cuda.matmul.allow_tf32 = False
+        measure = phase_measure(torch)
+        sweeps = phase_sweeps(torch, measure)
+        print("measure-child: " + json.dumps(dict(measure=measure,
+                                                  sweeps=sweeps),
                                              default=str), flush=True)
         return 0
     if sys.argv[1:2] == ["--dropin-child"]:
@@ -5795,19 +5941,23 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t_start = t0 = time.perf_counter()
-    built = build.build_all()
+    # the shipped libraries and the sweeps' variant libraries, every nvcc
+    # at once
+    built = build.build_all(variants=build.all_variants())
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc per translation "
           f"unit, concurrent: {built})", flush=True)
-    for name in build.SOURCES:
-        log = build.build_log(name).splitlines()
+    for name, variant in [(n, None) for n in build.SOURCES] + \
+            build.all_variants():
+        log = build.build_log(name, variant).splitlines()
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in log
                 if "registers" in ln and "Used " in ln]
         stack = [ln.strip() for ln in log if "stack frame" in ln
                  and not ln.strip().startswith("0 bytes stack frame, 0 bytes "
                                                "spill stores, 0 bytes spill")]
-        print(f"build {name}: {len(regs)} kernels, registers "
-              f"{min(regs)}-{max(regs)}, stack/spills: {stack or 'none'}",
-              flush=True)
+        print(f"build {name}{'' if variant is None else '-' + variant}: "
+              f"{len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+              f"stack/spills: {stack or 'none'}, wgmma serialized (C7520): "
+              f"{any('C7520' in ln for ln in log)}", flush=True)
 
     laps = [time.perf_counter()]
 
@@ -5882,8 +6032,9 @@ def main() -> int:
     lap("bench")
     scripts = phase_scripts(torch)
     lap("scripts")
-    measure = phase_measure_fresh(torch)
-    lap("measure")
+    child = phase_measure_fresh(torch)
+    measure, sweeps = child["measure"], child["sweeps"]
+    lap("measure, sweeps")
 
     rows = [
             ("K1 flash_attn_dense_fwd", dense["K1"], "fwd.cu",
@@ -6016,6 +6167,7 @@ def main() -> int:
     print(f"bench headline: {json.dumps(bench['headline'])}", flush=True)
     print(f"scripts: {json.dumps(scripts)}", flush=True)
     print(f"measure: {json.dumps(measure, default=str)}", flush=True)
+    print(f"sweeps: {json.dumps(sweeps, default=str)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build "
           f"on", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -3,11 +3,13 @@ probes seeded inputs, a timer and one printed line a variant; for the
 oracle suite seeded draws, the gate and the sliced oracle; for the
 measurement scripts a chained-call timer (as calls and as a CUDA-graph
 replay), the device-busy reader over a trace, the seeded 16-layer d 4096
-model and the spawn of gloo ranks."""
+model and the spawn of gloo ranks; for the tile and unroll sweeps their
+rows, timed in turns, and the rows' gates."""
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import pickle
 import statistics
@@ -427,3 +429,129 @@ def _rank_main(rank: int, world: int, tmp: str, fn: Callable, payload,
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
+
+
+# ------------------------------------------------ the tile and unroll sweeps
+
+NEEDS_CARD = ("needs the card (a build variant of the kernel, "
+              "benchmarks/variants.py: no plain version of its own)")
+TIMING_ONLY = "TIMING ONLY: wrong numbers on purpose, checked finite"
+
+
+@dataclasses.dataclass
+class SweepRow:
+    """One row of a sweep script: `fn` maps the chain's q to a tensor of
+    q's shape (chained as `chained` chains it); None for a row that does
+    not run here (`note` says why).  A variant row names its kernel and
+    variant (its registers, spills and shared memory are printed); `check`
+    holds its output against the plain twin (or, timing-only, checks it
+    finite) once before the timing and returns the gate's text."""
+    name: str
+    fn: Optional[Callable]
+    q: Optional[torch.Tensor] = None
+    flops: Optional[int] = None
+    nbytes: Optional[int] = None
+    batch: Optional[int] = None       # tok/s of a decode row
+    kernel: Optional[str] = None
+    variant: Optional[str] = None
+    check: Optional[Callable[[], str]] = None
+    note: str = ""
+
+
+def sweep_card(device: str) -> Tuple[torch.device, str]:
+    """(device, its line) for a sweep script, the line printed."""
+    dev, line = backend(device)
+    print(f"card: {line}", flush=True)
+    return dev, line
+
+
+def run_sweep(rows: List[SweepRow], dev: torch.device, chain: int,
+              rounds: int, iters: int) -> Dict[str, Dict]:
+    """Checks first, then every runnable row timed in turns (round r runs
+    each row once, A B A B): `chain_seconds` of a chain of `chain` calls,
+    the median of the rounds, as a call with its host time and (on the
+    card) as a CUDA-graph replay's device time; on the card also one call
+    alone as a graph replay (`alone_s`: the kernels without the chain's
+    q + 1e-6 o).  Prints one line a row and returns {name: its numbers}."""
+    from flash_attn_v100_tpu_torch.benchmarks import variants as var
+    checks = {r.name: r.check() for r in rows
+              if r.fn is not None and r.check is not None}
+    times = {r.name: [] for r in rows if r.fn is not None}
+    for _ in range(rounds):
+        for r in rows:
+            if r.fn is not None:
+                times[r.name].append(chain_seconds(r.fn, r.q, chain, dev,
+                                                   iters=iters))
+    # on the card, one call alone (a CUDA-graph replay, no chain): the
+    # kernels' device time without the chain's elementwise step
+    alone = {r.name: graph_seconds(lambda r=r: r.fn(r.q), dev)
+             for r in rows if r.fn is not None and dev.type == "cuda"}
+    out = {}
+    for r in rows:
+        res = dict(flops=r.flops, nbytes=r.nbytes, kernel=r.kernel,
+                   variant=r.variant)
+        info = ""
+        if r.variant is not None:
+            res["timing_only"] = var.timing_only(r.kernel, r.variant)
+            info = f"   [{r.kernel} {r.variant}: {var.WHAT[(r.kernel, r.variant)]}"
+            if dev.type == "cuda":
+                res["occupancy"] = var.occupancy(r.kernel, r.variant)
+                info += "; " + var.occupancy_text(res["occupancy"])
+            info += "]"
+        if r.fn is None:
+            print(f"{r.name}: {r.note or NEEDS_CARD}{info}", flush=True)
+            out[r.name] = dict(res, skipped=r.note or NEEDS_CARD)
+            continue
+        runs = times[r.name]
+        dt = statistics.median(t[0] for t in runs)
+        ddt = (statistics.median(t[1] for t in runs) if dev.type == "cuda"
+               else None)
+        res.update(call_s=dt, device_s=ddt, runs=[t[0] for t in runs],
+                   check=checks.get(r.name), alone_s=alone.get(r.name))
+        line = f"{r.name}: " + _rate(r, dt, res, "", dev.type == "cuda")
+        line += f"  runs={['%.3f' % (t[0] * 1e3) for t in runs]}"
+        if ddt is not None:
+            line += "; device " + _rate(r, ddt, res, "device_", True)
+            line += f"; one call alone {alone[r.name] * 1e3:.3f} ms"
+        if checks.get(r.name):
+            line += f"; {checks[r.name]}"
+        print(line + info, flush=True)
+        out[r.name] = res
+    return out
+
+
+def _rate(r: SweepRow, dt: float, res: Dict, key: str, card: bool) -> str:
+    """A row's rate over dt seconds (TF/s against 989, or GB/s against
+    3.35 TB/s with tok/s), recorded in res under `key`; off the card no
+    share of a device peak."""
+    if r.flops is not None:
+        tf = r.flops / dt / 1e12
+        res[key + "tflops"] = tf
+        share = (f" ({pct(tf * 1e12, BF16_FLOPS_PER_S):5.1f}% of 989)"
+                 if card else " (cpu)")
+        return f"{tf:6.1f} TF/s {dt * 1e3:8.3f} ms" + share
+    gb = r.nbytes / dt / 1e9
+    res[key + "gbps"] = gb
+    if not card:
+        return f"{r.batch / dt:7.0f} tok/s {dt * 1e3:8.3f} ms (cpu)"
+    return rate_line(r.batch, dt, r.nbytes)
+
+
+def gate_text(out, ref32, ref_native, mult: float, atol: float, name: str
+              ) -> str:
+    """Hold `out` to the plain twin at the shipped kernel's gate (error
+    against the fp32 twin <= mult x the same-dtype twin's + atol), raising
+    where it is missed; the gate's text for the row's line."""
+    e, e_nat, ok = gate(out, ref32, ref_native, mult, atol)
+    if not ok or not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError(f"{name}: err {e:.3e} > gate {mult} x "
+                             f"{e_nat:.3e} + {atol:g}")
+    return f"{name} err {e:.2e} <= {mult * e_nat + atol:.2e}"
+
+
+def finite_text(*ts: torch.Tensor) -> str:
+    """The timing-only rows' check: finite outputs (raises otherwise)."""
+    for t in ts:
+        if not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError("a timing-only row gave non-finite values")
+    return TIMING_ONLY

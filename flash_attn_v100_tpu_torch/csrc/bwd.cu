@@ -82,6 +82,11 @@
 //   * Nothing is summed across blocks: every output element belongs to one
 //     block, which adds its terms in a fixed order, so two calls are
 //     bitwise equal.
+//   * Variants (BwdTune; the shipped kernels take its defaults).  The
+//     sweep library (FA_SWEEP, ops/cuda/build.py VARIANTS) instantiates
+//     others at bf16, D 128 for the backward tile sweeps
+//     (benchmarks/prof_bwd*, prof_dkv_wide): K2 at 64 keys a step, K3 at
+//     64 q rows a step, K3 at 128 keys a block (two warpgroups).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -92,11 +97,17 @@
 #include "philox.cuh"
 #include "seq.cuh"
 
+// FA_SWEEP 1 builds the sweep library (ops/cuda/build.py VARIANTS) in
+// place of the shipped one: only the tile variants of find_variant below.
+#ifndef FA_SWEEP
+#define FA_SWEEP 0
+#endif
+
 namespace {
 
 using namespace fa::attn;
 
-constexpr int kThreads = 128;   // 4 warps, both kernels
+constexpr int kThreads = 128;   // 4 warps, both kernels (K3: a warpgroup)
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
@@ -117,14 +128,31 @@ struct BwdArgs {
   fa::DropoutParams dp;
 };
 
-template <int D>
+// The tiles of a backward kernel; 0 is the body's own choice for D.  The
+// shipped kernels take the defaults.
+//   DQBK   K2: keys a step
+//   DKVBQ  K3: q rows a step
+//   KG     K3: warpgroups a block, each over 64 keys of its own (the wgmma
+//          path, D 64 / 128)
+template <int DQBK = 0, int DKVBQ = 0, int KG = 1>
+struct BwdTune {
+  static constexpr int kDqBK = DQBK, kDkvBQ = DKVBQ, kKeyGroups = KG;
+};
+
+template <int D, class TN = BwdTune<>>
 struct Tiles {
   static constexpr int kDqBQ = 64;                    // K2: q rows a block
-  static constexpr int kDqBK = D <= 64 ? 64 : 32;     // K2: keys a step
+  static constexpr int kDqBK =                        // K2: keys a step
+      TN::kDqBK ? TN::kDqBK : (D <= 64 ? 64 : 32);
   static constexpr int kKeyWarps = D <= 128 ? 4 : 2;  // K3: 16-key slabs
   static constexpr int kSplit = 4 / kKeyWarps;        // K3: warps a slab
-  static constexpr int kDkvBK = 16 * kKeyWarps;       // K3: keys a block
-  static constexpr int kDkvBQ = D <= 64 ? 64 : 32;    // K3: q rows a step
+  static constexpr int kKeyGroups = TN::kKeyGroups;   // K3: warpgroups
+  static constexpr int kDkvBK = 16 * kKeyWarps * kKeyGroups;  // K3: keys
+  static constexpr int kDkvBQ =                       // K3: q rows a step
+      TN::kDkvBQ ? TN::kDkvBQ : (D <= 64 ? 64 : 32);
+  static constexpr int kDkvThreads = kThreads * kKeyGroups;
+  static_assert(kKeyGroups == 1 || (kKeyWarps == 4 && (D == 64 || D == 128)),
+                "K3's warpgroups take the wgmma path");
 };
 
 __device__ __forceinline__ Live make_live(const BwdArgs& a,
@@ -181,8 +209,9 @@ __device__ __forceinline__ void grad_score(float& s, float& dp, int qp, int kp,
 }
 
 // ROWS rows of a (rows, H, D) tensor from packed row row0, head h, into a
-// tile in P's layout, 16 bytes a copy; tile rows at or past n are zero
-template <typename T, int D, int ROWS, class P>
+// tile in P's layout, 16 bytes a copy by NT threads; tile rows at or past n
+// are zero
+template <typename T, int D, int ROWS, class P, int NT = kThreads>
 __device__ __forceinline__ void load_tile_async(unsigned char* dst,
                                                 const void* src,
                                                 long long row0, int n, int H,
@@ -191,9 +220,9 @@ __device__ __forceinline__ void load_tile_async(unsigned char* dst,
   constexpr int kTotal = ROWS * kChunks;
   const T* g = static_cast<const T*>(src);
 #pragma unroll
-  for (int i = 0; i < (kTotal + kThreads - 1) / kThreads; ++i) {
-    const int idx = i * kThreads + threadIdx.x;
-    if (kTotal % kThreads == 0 || idx < kTotal) {
+  for (int i = 0; i < (kTotal + NT - 1) / NT; ++i) {
+    const int idx = i * NT + threadIdx.x;
+    if (kTotal % NT == 0 || idx < kTotal) {
       const int r = idx / kChunks;
       const int c8 = idx % kChunks;
       const bool in = r < n;
@@ -205,10 +234,10 @@ __device__ __forceinline__ void load_tile_async(unsigned char* dst,
 
 // ------------------------------------------------------------------ K2: dQ
 
-template <typename T, int D>
+template <typename T, int D, class TN = BwdTune<>>
 struct DqSmem {
   using P = PathOf<T, D>;
-  static constexpr int BQ = Tiles<D>::kDqBQ, BK = Tiles<D>::kDqBK;
+  static constexpr int BQ = Tiles<D, TN>::kDqBQ, BK = Tiles<D, TN>::kDqBK;
   static constexpr size_t q_off = 0;
   static constexpr size_t do_off = P::template tile_bytes<BQ>();
   static constexpr size_t stage_off = align1k(2 * do_off);
@@ -220,9 +249,9 @@ struct DqSmem {
   static constexpr size_t bytes = stage_off + 2 * stage_bytes + 1024;
 };
 
-template <typename T, int D, bool kVarlen, bool EXTRA>
+template <typename T, int D, bool kVarlen, bool EXTRA, class TN = BwdTune<>>
 __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
-  using L = DqSmem<T, D>;
+  using L = DqSmem<T, D, TN>;
   using P = typename L::P;
   constexpr int BQ = L::BQ, BK = L::BK;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -356,10 +385,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
 
 // ------------------------------------------------------------ K3: dK, dV
 
-template <typename T, int D>
+template <typename T, int D, class TN = BwdTune<>>
 struct DkvSmem {
   using P = PathOf<T, D>;
-  static constexpr int BK = Tiles<D>::kDkvBK, BQ = Tiles<D>::kDkvBQ;
+  static constexpr int BK = Tiles<D, TN>::kDkvBK, BQ = Tiles<D, TN>::kDkvBQ;
+  // the K and V tiles: one of BK rows, or (two warpgroups) one of 64 rows
+  // each, so that each warpgroup's rows are a tile of their own
+  static constexpr size_t gk_bytes =
+      P::template tile_bytes<BK / Tiles<D, TN>::kKeyGroups>();
   static constexpr size_t k_off = 0;
   static constexpr size_t v_off = P::template tile_bytes<BK>();
   static constexpr size_t stage_off = align1k(2 * v_off);
@@ -373,13 +406,17 @@ struct DkvSmem {
   static constexpr size_t bytes = stage_off + 2 * stage_bytes + 1024;
 };
 
-template <typename T, int D, bool kVarlen, bool EXTRA>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
-  using L = DkvSmem<T, D>;
+template <typename T, int D, bool kVarlen, bool EXTRA, class TN = BwdTune<>>
+__global__ void __launch_bounds__(Tiles<D, TN>::kDkvThreads)
+    dkv_kernel(BwdArgs a) {
+  using L = DkvSmem<T, D, TN>;
   using P = typename L::P;
   constexpr int BK = L::BK, BQ = L::BQ;
-  constexpr int kKeyWarps = Tiles<D>::kKeyWarps;
-  constexpr int DW = D / Tiles<D>::kSplit;   // dK/dV columns a warp holds
+  constexpr int kKeyWarps = Tiles<D, TN>::kKeyWarps;
+  constexpr int KG = Tiles<D, TN>::kKeyGroups;
+  constexpr int NT = Tiles<D, TN>::kDkvThreads;
+  constexpr int GK = BK / KG;                 // keys a warpgroup
+  constexpr int DW = D / Tiles<D, TN>::kSplit;   // dK/dV columns a warp holds
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_base(smem_raw);
   unsigned char* k_s = smem + L::k_off;
@@ -399,9 +436,12 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
   const int nk = min(BK, sq.slk - k0);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int kr0 = (warp % kKeyWarps) * 16;   // this warp's 16 key rows
-  const int d0 = (warp / kKeyWarps) * DW;    // and its dK/dV columns
-  const int kp = k0 + kr0 + lane / 4;        // this thread's keys: kp, kp + 8
+  const int wg = KG == 1 ? 0 : warp / 4;     // this warp's key warpgroup
+  const int kr0 = (warp % kKeyWarps) * 16;   // its 16 key rows there
+  const int d0 = ((KG == 1 ? warp : warp % 4) / kKeyWarps) * DW;  // and its
+                                                    // dK/dV columns
+  const int kp = k0 + wg * GK + kr0 + lane / 4;  // this thread's keys: kp,
+                                                 // kp + 8
   const Live lv = make_live(a, sq);
   const bool drop = EXTRA && a.dp.enabled;
   // q rows that see any key of this tile: [q_lo, q_hi]
@@ -419,14 +459,14 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
     unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
     const int h = kvh * a.group + s / n_qt;
     const int t0 = (qt0 + s % n_qt) * BQ;
-    load_tile_async<T, D, BQ, P>(st + L::q_off, a.q, sq.q_base + t0,
-                                 sq.slq - t0, a.Hq, h);
-    load_tile_async<T, D, BQ, P>(st + L::do_off, a.dout, sq.q_base + t0,
-                                 sq.slq - t0, a.Hq, h);
+    load_tile_async<T, D, BQ, P, NT>(st + L::q_off, a.q, sq.q_base + t0,
+                                     sq.slq - t0, a.Hq, h);
+    load_tile_async<T, D, BQ, P, NT>(st + L::do_off, a.dout, sq.q_base + t0,
+                                     sq.slq - t0, a.Hq, h);
     const long long base = sq.lse_index(h, t0);
     float* lse = reinterpret_cast<float*>(st + L::lse_off);
     float* delta = reinterpret_cast<float*>(st + L::delta_off);
-    for (int c = threadIdx.x; c < BQ; c += kThreads) {
+    for (int c = threadIdx.x; c < BQ; c += NT) {
       const bool in = t0 + c < sq.slq;
       cp_async4(lse + c, in ? a.lse + base + c : a.lse, in);
       cp_async4(delta + c, in ? a.delta + base + c : a.delta, in);
@@ -435,14 +475,20 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
     if (drop) {
       uint32_t* rw = reinterpret_cast<uint32_t*>(st + L::rw_off);
       const uint32_t bh = fa::dropout_bh(b, h, a.dp);
-      for (int c = threadIdx.x; c < BQ; c += kThreads)
+      for (int c = threadIdx.x; c < BQ; c += NT)
         rw[c] = fa::dropout_row_word(t0 + c + a.dp.q0, bh, a.dp);
     }
   };
 
   if (n_steps > 0) {
-    load_tile_async<T, D, BK, P>(k_s, a.k, sq.k_base + k0, nk, a.Hk, kvh);
-    load_tile_async<T, D, BK, P>(v_s, a.v, sq.k_base + k0, nk, a.Hk, kvh);
+#pragma unroll
+    for (int g = 0; g < KG; ++g) {
+      const size_t off = g * L::gk_bytes;
+      load_tile_async<T, D, GK, P, NT>(k_s + off, a.k, sq.k_base + k0 + g * GK,
+                                       nk - g * GK, a.Hk, kvh);
+      load_tile_async<T, D, GK, P, NT>(v_s + off, a.v, sq.k_base + k0 + g * GK,
+                                       nk - g * GK, a.Hk, kvh);
+    }
     prefetch(0);   // one group: K, V and the first Q/dO stage
     int cur_h = -1;
     float slope = 0.0f;
@@ -473,8 +519,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
       // S^T = K Q^T and dP^T = V dO^T
       float sc[BQ / 8][4], dp[BQ / 8][4];
       P::begin();
-      P::template abt<BK, BQ>(sc, k_s, kr0, q_s, lane);
-      P::template abt<BK, BQ>(dp, v_s, kr0, do_s, lane);
+      const size_t g_off = wg * L::gk_bytes;
+      P::template abt<GK, BQ>(sc, k_s + g_off, kr0, q_s, lane);
+      P::template abt<GK, BQ>(dp, v_s + g_off, kr0, do_s, lane);
       P::commit_wait();
       P::settle(sc);
       P::settle(dp);
@@ -535,22 +582,25 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
 
 // ---------------------------------------------------------------- launch
 
-// one kernel variant: its entry, dynamic shared memory a block and rows a
-// block (key rows in K3, q rows in K2)
+// one kernel variant: its entry, dynamic shared memory a block, rows a
+// block (key rows in K3, q rows in K2) and threads a block
 struct Kernel {
   void (*fn)(BwdArgs);
   int smem;
   int rows;
+  int threads;
 };
 
 // the variant, its shared-memory limit set on first use
-template <bool DKV, bool kVarlen, typename T, int D, bool EXTRA>
+template <bool DKV, bool kVarlen, typename T, int D, bool EXTRA,
+          class TN = BwdTune<>>
 cudaError_t variant(Kernel* k) {
-  k->fn = DKV ? dkv_kernel<T, D, kVarlen, EXTRA>
-              : dq_kernel<T, D, kVarlen, EXTRA>;
-  k->smem = static_cast<int>(DKV ? DkvSmem<T, D>::bytes
-                                : DqSmem<T, D>::bytes);
-  k->rows = DKV ? DkvSmem<T, D>::BK : DqSmem<T, D>::BQ;
+  k->fn = DKV ? dkv_kernel<T, D, kVarlen, EXTRA, TN>
+              : dq_kernel<T, D, kVarlen, EXTRA, TN>;
+  k->smem = static_cast<int>(DKV ? DkvSmem<T, D, TN>::bytes
+                                : DqSmem<T, D, TN>::bytes);
+  k->rows = DKV ? DkvSmem<T, D, TN>::BK : DqSmem<T, D, TN>::BQ;
+  k->threads = DKV ? Tiles<D, TN>::kDkvThreads : kThreads;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -561,6 +611,7 @@ cudaError_t variant(Kernel* k) {
   return cudaSuccess;
 }
 
+#if !FA_SWEEP
 template <bool kVarlen, typename T, int D>
 cudaError_t variant_d(bool dkv, bool extra, Kernel* k) {
   if (dkv)
@@ -590,20 +641,52 @@ cudaError_t find_variant(bool dkv, bool varlen, int dtype, bool extra, int D,
   return dtype == 0 ? find_t<false, __nv_bfloat16>(dkv, extra, D, k)
                     : find_t<false, __half>(dkv, extra, D, k);
 }
+#else
+// The sweep's variants of K2 and K3, by id (flash_attn_v100_tpu_torch/
+// benchmarks/variants.py's DQ and DKV): dense, bf16, D 128, without bias
+// or dropout only.
+//   K2 1 bk64     64 keys a step (the shipped 32)
+//   K3 1 bq64     64 q rows a step (the shipped 32)
+//   K3 2 keys128  128 keys a block, a warpgroup of 4 warps on each 64 (the
+//                 shipped 64 keys, one warpgroup)
+cudaError_t find_variant(bool dkv, bool varlen, int dtype, bool extra, int D,
+                         Kernel* k, int id) {
+  using B = __nv_bfloat16;
+  if (varlen || dtype != 0 || extra || D != 128)
+    return cudaErrorInvalidValue;
+  if (!dkv)
+    return id == 1 ? variant<false, false, B, 128, false, BwdTune<64>>(k)
+                   : cudaErrorInvalidValue;
+  switch (id) {
+    case 1: return variant<true, false, B, 128, false, BwdTune<0, 64>>(k);
+    case 2: return variant<true, false, B, 128, false, BwdTune<0, 0, 2>>(k);
+    default: return cudaErrorInvalidValue;
+  }
+}
+#endif
 
 // varlen: a.seq.M / a.seq.N are max_seqlen_q / max_seqlen_k; blocks past
 // their sequence leave at once
-int launch(bool dkv, bool varlen, int dtype, int D, const BwdArgs& a,
-           void* stream) {
-  Kernel kn;
-  cudaError_t e = find_variant(
-      dkv, varlen, dtype,
-      a.mp_.has_alibi || a.mp_.softcap > 0.0f || a.dp.enabled, D, &kn);
-  if (e != cudaSuccess) return static_cast<int>(e);
+int launch_kernel(const Kernel& kn, bool dkv, const BwdArgs& a,
+                  void* stream) {
   const int tiles = ((dkv ? a.seq.N : a.seq.M) + kn.rows - 1) / kn.rows;
-  kn.fn<<<tiles * (dkv ? a.Hk : a.Hq) * a.B, kThreads, kn.smem,
+  kn.fn<<<tiles * (dkv ? a.Hk : a.Hq) * a.B, kn.threads, kn.smem,
           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch(bool dkv, bool varlen, int dtype, int D, const BwdArgs& a,
+           void* stream, int id = 0) {
+  Kernel kn;
+  const bool extra = a.mp_.has_alibi || a.mp_.softcap > 0.0f || a.dp.enabled;
+#if FA_SWEEP
+  cudaError_t e = find_variant(dkv, varlen, dtype, extra, D, &kn, id);
+#else
+  (void)id;
+  cudaError_t e = find_variant(dkv, varlen, dtype, extra, D, &kn);
+#endif
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_kernel(kn, dkv, a, stream);
 }
 
 void set_common(BwdArgs* a, const void* q, const void* k, const void* v,
@@ -632,7 +715,7 @@ int dense_launch(bool dkv, int dtype, const void* q, const void* k,
                  int window_right, float softcap, int has_alibi, int dropout,
                  unsigned int seed_lo, unsigned int seed_hi,
                  unsigned int threshold, float drop_scale, int q0, int k0,
-                 int b0, int h0, int num_heads, void* stream) {
+                 int b0, int h0, int num_heads, void* stream, int id = 0) {
   if (Hk <= 0 || Hq % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Hq == 0 || (dkv ? N : M) == 0) return 0;
   BwdArgs a = {};
@@ -642,9 +725,10 @@ int dense_launch(bool dkv, int dtype, const void* q, const void* k,
   a.seq.M = M; a.seq.N = N; a.seq.offset = offset;
   a.dp.q0 = q0; a.dp.k0 = k0; a.dp.b0 = b0; a.dp.h0 = h0;
   a.dp.num_heads = num_heads;
-  return launch(dkv, false, dtype, D, a, stream);
+  return launch(dkv, false, dtype, D, a, stream, id);
 }
 
+#if !FA_SWEEP
 int varlen_launch(bool dkv, int dtype, const void* q, const void* k,
                   const void* v, const void* dout, const float* lse,
                   const float* delta, const float* slopes, void* dq,
@@ -671,19 +755,30 @@ int varlen_launch(bool dkv, int dtype, const void* q, const void* k,
   return launch(dkv, true, dtype, D, a, stream);
 }
 
-int occupancy(bool dkv, bool varlen, int dtype, int D, int extra, int* out) {
-  Kernel kn;
+#endif
+
+// out[0] resident blocks a multiprocessor, out[1] dynamic shared memory a
+// block (bytes), out[2] threads a block, out[3] registers a thread, out[4]
+// local memory a thread (bytes: spills and stack)
+int occupancy(const Kernel& kn, int* out) {
   cudaFuncAttributes attr;
-  cudaError_t e = find_variant(dkv, varlen, dtype, extra != 0, D, &kn);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kn.fn);
+  cudaError_t e = cudaFuncGetAttributes(&attr, kn.fn);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[1] = kn.smem;
-  out[2] = kThreads;
+  out[2] = kn.threads;
   out[3] = attr.numRegs;
   out[4] = static_cast<int>(attr.localSizeBytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, kn.fn, kThreads, kn.smem));
+      out, kn.fn, kn.threads, kn.smem));
 }
+
+#if !FA_SWEEP
+int occupancy(bool dkv, bool varlen, int dtype, int D, int extra, int* out) {
+  Kernel kn;
+  cudaError_t e = find_variant(dkv, varlen, dtype, extra != 0, D, &kn);
+  return e != cudaSuccess ? static_cast<int>(e) : occupancy(kn, out);
+}
+#endif
 
 }  // namespace
 
@@ -715,6 +810,7 @@ int occupancy(bool dkv, bool varlen, int dtype, int D, int extra, int* out) {
       scale, causal, window_left, window_right, softcap, has_alibi, dropout, \
       seed_lo, seed_hi, threshold, drop_scale, stream
 
+#if !FA_SWEEP
 // dtype: 0 = bf16, 1 = fp16.  Each returns cudaGetLastError() of its launch.
 // K2 writes dq (dk, dv unused); K3 writes dk and dv (dq unused).
 extern "C" int fa_dq_launch(FA_BWD_PARAMS) {
@@ -749,3 +845,18 @@ extern "C" int fa_varlen_bwd_occupancy(int dkv, int dtype, int D, int extra,
                                        int* out) {
   return occupancy(dkv != 0, true, dtype, D, extra, out);
 }
+#else
+// The sweep library's entries: the shipped entries' arguments after the
+// variant's id (find_variant above), and a variant's occupancy.
+extern "C" int fa_dq_sweep_launch(int id, FA_BWD_PARAMS) {
+  return dense_launch(false, FA_BWD_ARGS, id);
+}
+extern "C" int fa_dkv_sweep_launch(int id, FA_BWD_PARAMS) {
+  return dense_launch(true, FA_BWD_ARGS, id);
+}
+extern "C" int fa_bwd_sweep_occupancy(int dkv, int id, int* out) {
+  Kernel kn;
+  cudaError_t e = find_variant(dkv != 0, false, 0, false, 128, &kn, id);
+  return e != cudaSuccess ? static_cast<int>(e) : occupancy(kn, out);
+}
+#endif

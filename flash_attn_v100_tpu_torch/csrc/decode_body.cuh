@@ -66,6 +66,10 @@
 //     threads over (row, 4 columns), writes O in q's type and the LSE, and
 //     resets the counter to zero.  One launch, no combine kernel; with one
 //     split the block writes the merged output directly.
+//   * Ablations (ABL; the shipped kernels take 0).  The sweep library
+//     (FA_SWEEP in csrc/decode_quant.cu, ops/cuda/build.py VARIANTS)
+//     instantiates int4 K4q at bf16 q, D 128 with parts of the nibble
+//     chain taken out, for timing only (benchmarks/prof_int4_ablate).
 #pragma once
 
 #include <cuda_fp8.h>
@@ -90,6 +94,15 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kGroup = 32;     // keys a warp step: P's int8 group
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// the int4 ablations (wrong numbers, timing only): what of the nibble chain
+// a variant keeps
+constexpr int kAblFullQk = 1;  // the production S; P V over one nibble
+                               // half of V, duplicated into both halves
+constexpr int kAblQkOne = 2;   // S of one K half (16 of the 32 keys'
+                               // products), duplicated; P V as kAblFullQk
+constexpr int kAblNoAnd = 3;   // the packed bytes read as int8 K and V with
+                               // no unpacking; S and P V halved as kAblQkOne
 
 struct DecodeArgs {
   const void* q;          // (B, Hk, Rq, D) contiguous, bf16 or fp16 (K4q:
@@ -294,9 +307,10 @@ __device__ __forceinline__ void v_frags(const unsigned char* vg, int c,
 
 // (a two-block minimum steers ptxas off a 128-register allocation that
 // spilled the fp8 variants at D 128; it caps nothing below 255)
-template <typename T, int D, int KIND, int ROWS>
+template <typename T, int D, int KIND, int ROWS, int ABL = 0>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_kernel(const DecodeArgs a) {
+  static_assert(ABL == 0 || KIND == fa::kInt4, "the ablations are int4's");
   using L = Smem<T, D, KIND, ROWS>;
   constexpr int BK = L::BK, NG = L::NG, KLD = L::KLD, G = L::G;
   constexpr bool SWZ = L::kSwz;
@@ -525,10 +539,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto group_step = [&](const unsigned char* st, int q, int jg) {
     const unsigned char* kg = st + q * (G / TPR) * KLD;
     const unsigned char* vg = kg + L::v_off;
-    if constexpr (KIND == fa::kInt4) {
-      // K unpacked into this warp's tile, keys in order
+    if constexpr (KIND == fa::kInt4 && ABL != kAblNoAnd) {
+      // K unpacked into this warp's tile, keys in order (kAblQkOne: the
+      // first 16 keys only)
       __syncwarp();
-      for (int u = lane; u < 16 * (D / 16); u += 32) {
+      for (int u = lane; u < (ABL == kAblQkOne ? 8 : 16) * (D / 16);
+           u += 32) {
         const int row = u / (D / 16), c = u % (D / 16);
         uint4 ev, od;
         fa::unpack_int4x16(
@@ -612,9 +628,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int e = 0; e < 4; ++e) si[j][e] = 0;
       // int4's K from this warp's unpacked tile (padded), else the stage
-      constexpr bool KSWZ = SWZ && KIND != fa::kInt4;
-      constexpr int KTLD = KIND == fa::kInt4 ? L::K8LD : KLD;
-      const unsigned char* kt = KIND == fa::kInt4 ? k8 : kg;
+      // (kAblNoAnd: int4's packed stage rows)
+      constexpr bool kUnpacked = KIND == fa::kInt4 && ABL != kAblNoAnd;
+      constexpr bool KSWZ = SWZ && !kUnpacked;
+      constexpr int KTLD = kUnpacked ? L::K8LD : KLD;
+      // the ablations but kAblFullQk take one 16-key product, duplicated
+      constexpr int NBS = ABL == kAblQkOne || ABL == kAblNoAnd ? 1 : 2;
+      const unsigned char* kt = kUnpacked ? k8 : kg;
       const unsigned char* qa =
           smem + (wrow + lane % 16) * L::QLD + (lane / 16) * 16;
 #pragma unroll
@@ -622,11 +642,18 @@ __global__ void __launch_bounds__(kThreads, 2)
         uint32_t af[4];
         ldsm_x4(af, qa + kk * 32);
 #pragma unroll
-        for (int nb = 0; nb < 2; ++nb) {
+        for (int nb = 0; nb < NBS; ++nb) {
           uint32_t bf[4];
           ldsm_x4(bf, b_addr<KSWZ>(kt + nb * 16 * KTLD, KTLD, lane, kk));
           mma16832_s8(si[2 * nb], af, bf[0], bf[1]);
           mma16832_s8(si[2 * nb + 1], af, bf[2], bf[3]);
+        }
+      }
+      if constexpr (NBS == 1) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          si[2][e] = si[0][e];
+          si[3][e] = si[1][e];
         }
       }
       const float* qs_s = reinterpret_cast<const float*>(smem + ROWS * L::QLD);
@@ -779,13 +806,34 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int c = 0; c < D / 16; c += CW) {
         uint32_t bE[2][2], bO[2][2];
-        v_frags<KIND, KLD, SWZ>(vg, c / CW, lane, bE, bO);
+        if constexpr (ABL == 0) {
+          v_frags<KIND, KLD, SWZ>(vg, c / CW, lane, bE, bO);
+        } else {
+          // the ablations: v_frags' ldmatrix, then the low nibbles
+          // (kAblNoAnd: the bytes) as the even dims' fragments, no unpack
+          const int li = lane % 8, lm = lane / 8;
+          const int vr = li / 2 + 4 * (li % 2) + 8 * (lm % 2);
+          uint32_t raw[4];
+          ldsm_x4_t(raw, vg + vr * KLD +
+                             chunk<SWZ>(vr, 2 * (c / CW) + lm / 2) * 16);
+#pragma unroll
+          for (int hv = 0; hv < 2; ++hv)
+#pragma unroll
+            for (int kv = 0; kv < 2; ++kv)
+              bE[kv][hv] = ABL == kAblNoAnd ? raw[2 * hv + kv]
+                                            : raw[2 * hv + kv] & 0x0F0F0F0Fu;
+        }
 #pragma unroll
         for (int w = 0; w < CW; ++w) {
           int accE[4] = {kMagicBits, kMagicBits, kMagicBits, kMagicBits};
           int accO[4] = {kMagicBits, kMagicBits, kMagicBits, kMagicBits};
           mma16832_s8(accE, pa, bE[0][w], bE[1][w]);
-          mma16832_s8(accO, pa, bO[0][w], bO[1][w]);
+          if constexpr (ABL == 0) {
+            mma16832_s8(accO, pa, bO[0][w], bO[1][w]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) accO[e] = accE[e];
+          }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float& oe = o[2 * (c + w)][e];
@@ -987,17 +1035,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (tid == 0) *counter = 0;
 }
 
-// the variant of (T, D, KIND, ROWS): its entry and shared memory (without
-// the table's bytes), its limit raised on first use to `smem`
-template <typename T, int D, int KIND, int ROWS>
+// the variant of (T, D, KIND, ROWS, ABL): its entry and shared memory
+// (without the table's bytes), its limit raised on first use to `smem`
+template <typename T, int D, int KIND, int ROWS, int ABL = 0>
 cudaError_t variant(const void** fn, size_t* smem, size_t tbl) {
   using L = Smem<T, D, KIND, ROWS>;
-  *fn = reinterpret_cast<const void*>(decode_kernel<T, D, KIND, ROWS>);
+  *fn = reinterpret_cast<const void*>(decode_kernel<T, D, KIND, ROWS, ABL>);
   *smem = L::bytes(tbl);
   static size_t configured = 0;
   if (*smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<T, D, KIND, ROWS>,
+        decode_kernel<T, D, KIND, ROWS, ABL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
     if (e != cudaSuccess) return e;
     configured = *smem;
@@ -1024,6 +1072,17 @@ cudaError_t find(int D, int rows, const void** fn, size_t* smem, size_t tbl) {
 // q rows a block: 16 (the warps split the keys) up to Rq 16, else 64
 inline int rows_of(int Rq) { return Rq <= 16 ? 16 : 64; }
 
+// a kernel of the body on the grid of a's splits and row tiles
+inline cudaError_t launch_fn(const void* fn, size_t smem, int rows,
+                             const DecodeArgs& a, cudaStream_t stream) {
+  if (smem > 232448) return cudaErrorInvalidValue;
+  dim3 grid(a.S * ((a.Rq + rows - 1) / rows), a.Hk, a.B);
+  void* args[] = {const_cast<DecodeArgs*>(&a)};
+  cudaError_t e = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem,
+                                   stream);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <typename T, int KIND>
 cudaError_t launch(const DecodeArgs& a, int D, cudaStream_t stream) {
   const int rows = rows_of(a.Rq);
@@ -1032,11 +1091,7 @@ cudaError_t launch(const DecodeArgs& a, int D, cudaStream_t stream) {
   cudaError_t e =
       find<T, KIND>(D, rows, &fn, &smem, align16(4 * a.pages_per_split));
   if (e != cudaSuccess) return e;
-  if (smem > 232448) return cudaErrorInvalidValue;
-  dim3 grid(a.S * ((a.Rq + rows - 1) / rows), a.Hk, a.B);
-  void* args[] = {const_cast<DecodeArgs*>(&a)};
-  e = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem, stream);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return launch_fn(fn, smem, rows, a, stream);
 }
 
 // out[0] resident blocks a multiprocessor, out[1] dynamic shared memory a

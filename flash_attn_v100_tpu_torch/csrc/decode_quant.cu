@@ -41,8 +41,15 @@
 // and O in registers, the split merge inside the launch.
 #include "decode_body.cuh"
 
+// FA_SWEEP 1 builds the sweep library (ops/cuda/build.py VARIANTS) in
+// place of the shipped one: only int4's ablations (fa_decode_quant_sweep_*)
+#ifndef FA_SWEEP
+#define FA_SWEEP 0
+#endif
+
 using namespace fa::dec;
 
+#if !FA_SWEEP
 // the fp16 and fp32 q types' kernels: decode_quant_f16.cu and
 // decode_quant_f32.cu, compiled beside this file
 namespace fa {
@@ -55,32 +62,65 @@ extern template cudaError_t occupancy_quant<__half>(int, int, int, int*);
 extern template cudaError_t occupancy_quant<float>(int, int, int, int*);
 }  // namespace dec
 }  // namespace fa
+#endif
 
+#define FA_DECODE_QUANT_PARAMS                                               \
+  int kind, int dtype, const void *q, const void *k, const void *v,          \
+      const float *ks, const float *vs, const int *table, const int *lens,   \
+      const int *leftpad, const int *qpos, const float *slopes,              \
+      float *o_part, float *lse_part, void *o, float *lse, int *counters,    \
+      long long s_c1, long long s_h, long long s_c2, long long s_tok,        \
+      long long sc_c1, long long sc_h, long long sc_c2, long long sc_tok,    \
+      int c2, int B, int Hk, int Rq, int D, int S, int max_pages,            \
+      int page_size, int pages_per_split, int t_new, int group, float scale, \
+      int causal, int window_left, int window_right, float softcap,          \
+      int has_alibi, void *stream
+#define FA_DECODE_QUANT_ARGS                                                 \
+  kind, q, k, v, ks, vs, table, lens, leftpad, qpos, slopes, o_part,         \
+      lse_part, o, lse, counters, s_c1, s_h, s_c2, s_tok, sc_c1, sc_h,       \
+      sc_c2, sc_tok, c2, B, Hk, Rq, S, max_pages, page_size,                 \
+      pages_per_split, t_new, group, scale, causal, window_left,             \
+      window_right, softcap, has_alibi
+
+namespace {
+
+// the launch's DecodeArgs; false where the arguments are refused
+bool make_args(DecodeArgs* a, int kind, const void* q, const void* k,
+               const void* v, const float* ks, const float* vs,
+               const int* table, const int* lens, const int* leftpad,
+               const int* qpos, const float* slopes, float* o_part,
+               float* lse_part, void* o, float* lse, int* counters,
+               long long s_c1, long long s_h, long long s_c2, long long s_tok,
+               long long sc_c1, long long sc_h, long long sc_c2,
+               long long sc_tok, int c2, int B, int Hk, int Rq, int S,
+               int max_pages, int page_size, int pages_per_split, int t_new,
+               int group, float scale, int causal, int window_left,
+               int window_right, float softcap, int has_alibi) {
+  if (Rq % 8 != 0 || (kind == fa::kInt4 && page_size % 2 != 0) ||
+      (o != nullptr && counters == nullptr))
+    return false;
+  *a = {};
+  set_common(*a, q, k, v, table, lens, leftpad, qpos, slopes, o_part,
+             lse_part, o, lse, counters, c2, B, Hk, Rq, S, max_pages,
+             page_size, pages_per_split, t_new, group, scale, causal,
+             window_left, window_right, softcap, has_alibi);
+  a->ks = ks; a->vs = vs;
+  a->s_c1 = s_c1; a->s_h = s_h; a->s_c2 = s_c2; a->s_tok = s_tok;
+  a->sc_c1 = sc_c1; a->sc_h = sc_h; a->sc_c2 = sc_c2; a->sc_tok = sc_tok;
+  return true;
+}
+
+}  // namespace
+
+#if !FA_SWEEP
 // kind: 0 = int8, 1 = fp8 (e4m3), 2 = int4; dtype (of q and of the merged
 // o): 0 = bf16, 1 = fp16, 2 = fp32, any other cudaErrorInvalidValue;
 // payload strides in bytes, scale strides in floats; o / lse / counters
 // null for partials only.  Returns cudaGetLastError() of the launch.
-extern "C" int fa_decode_quant_launch(
-    int kind, int dtype, const void* q, const void* k, const void* v,
-    const float* ks, const float* vs, const int* table, const int* lens,
-    const int* leftpad, const int* qpos, const float* slopes, float* o_part,
-    float* lse_part, void* o, float* lse, int* counters, long long s_c1,
-    long long s_h, long long s_c2, long long s_tok, long long sc_c1,
-    long long sc_h, long long sc_c2, long long sc_tok, int c2, int B, int Hk,
-    int Rq, int D, int S, int max_pages, int page_size, int pages_per_split,
-    int t_new, int group, float scale, int causal, int window_left,
-    int window_right, float softcap, int has_alibi, void* stream) {
-  if (Rq % 8 != 0 || (kind == fa::kInt4 && page_size % 2 != 0) ||
-      (o != nullptr && counters == nullptr))
+extern "C" int fa_decode_quant_launch(FA_DECODE_QUANT_PARAMS) {
+  DecodeArgs a;
+  if (!make_args(&a, FA_DECODE_QUANT_ARGS))
     return static_cast<int>(cudaErrorInvalidValue);
-  DecodeArgs a = {};
-  set_common(a, q, k, v, table, lens, leftpad, qpos, slopes, o_part,
-             lse_part, o, lse, counters, c2, B, Hk, Rq, S, max_pages,
-             page_size, pages_per_split, t_new, group, scale, causal,
-             window_left, window_right, softcap, has_alibi);
-  a.ks = ks; a.vs = vs;
-  a.s_c1 = s_c1; a.s_h = s_h; a.s_c2 = s_c2; a.s_tok = s_tok;
-  a.sc_c1 = sc_c1; a.sc_h = sc_h; a.sc_c2 = sc_c2; a.sc_tok = sc_tok;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
@@ -106,3 +146,58 @@ extern "C" int fa_decode_quant_occupancy(int kind, int dtype, int D,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+#else
+namespace {
+
+// The sweep's int4 ablations of K4q, by id (decode_body.cuh's kAbl*;
+// flash_attn_v100_tpu_torch/benchmarks/variants.py's INT4): int4 pools, bf16
+// q, D 128, Rq <= 16 (the decode step's 16-row tile) only.  Timing only.
+//   1 full-qk  the production S, P V over one nibble half of V
+//   2 qk-one   one K half's product, duplicated
+//   3 no-and   the packed bytes read as int8, no unpacking
+cudaError_t find_ablation(int id, const void** fn, size_t* smem,
+                          size_t tbl) {
+  using B = __nv_bfloat16;
+  switch (id) {
+    case kAblFullQk:
+      return variant<B, 128, fa::kInt4, 16, kAblFullQk>(fn, smem, tbl);
+    case kAblQkOne:
+      return variant<B, 128, fa::kInt4, 16, kAblQkOne>(fn, smem, tbl);
+    case kAblNoAnd:
+      return variant<B, 128, fa::kInt4, 16, kAblNoAnd>(fn, smem, tbl);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The sweep library's entries: fa_decode_quant_launch's arguments after the
+// ablation's id, and its occupancy (as fa_decode_quant_occupancy's).
+extern "C" int fa_decode_quant_sweep_launch(int id, FA_DECODE_QUANT_PARAMS) {
+  DecodeArgs a;
+  if (kind != fa::kInt4 || dtype != 0 || D != 128 || Rq > 16 ||
+      !make_args(&a, FA_DECODE_QUANT_ARGS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn;
+  size_t smem;
+  cudaError_t e = find_ablation(id, &fn, &smem, align16(4 * pages_per_split));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      launch_fn(fn, smem, 16, a, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int fa_decode_quant_sweep_occupancy(int id, int* out) {
+  const void* fn;
+  size_t smem;
+  cudaFuncAttributes attr;
+  cudaError_t e = find_ablation(id, &fn, &smem, 0);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[1] = static_cast<int>(smem);
+  out[2] = kThreads;
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fn, kThreads, smem));
+}
+#endif

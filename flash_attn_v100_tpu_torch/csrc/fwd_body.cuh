@@ -73,6 +73,13 @@
 //         64    128 x 64  wgmma    (51 KB)
 //         128   128 x 64  wgmma    (99 KB)
 //         256    64 x 32  mma.sync (103 KB)
+//   * Variants (FwdTune; the shipped kernels take its defaults).  The
+//     sweep library (FA_SWEEP in csrc/fwd.cu and csrc/varlen_paged.cu,
+//     ops/cuda/build.py VARIANTS) instantiates others at bf16, D 128 for
+//     the tile and unroll sweeps (benchmarks/prof_*): other tiles, U
+//     sub-tiles of keys a step under one online softmax, every tile
+//     unmasked (wrong numbers, timing only) and the FA3 ping-pong of the
+//     two warpgroups.
 #pragma once
 
 #include <cuda_fp8.h>
@@ -136,20 +143,42 @@ struct FwdArgs {
   PagedArgs pg;
 };
 
-template <typename T, int D, int KV = kKv16>
+// The tile and schedule of a forward kernel; 0 is the body's own choice
+// for D.  The shipped kernels take the defaults.
+//   KT    keys a sub-tile, the N of one S product (64 at D <= 128, else 32)
+//   U     sub-tiles a step: U S products of KT keys, one online softmax
+//         over the U * KT keys, U P V products
+//   G     warpgroups a block, 64 q rows each (2 at D 64 / 128, else 1)
+//   FAST  every tile takes the unmasked pass: wrong numbers wherever a
+//         tile straddles a mask edge (timing only)
+//   PP    ping-pong: the two warpgroups take turns to issue their products
+//         through two named barriers, so one's softmax runs while the
+//         other's products are on the tensor cores (FA3)
+template <int KT = 0, int U = 1, int G = 0, bool FAST = false,
+          bool PP = false>
+struct FwdTune {
+  static constexpr int kKT = KT, kU = U, kG = G;
+  static constexpr bool kFast = FAST, kPingPong = PP;
+};
+
+template <typename T, int D, int KV = kKv16, class TN = FwdTune<>>
 struct FwdSmem {
   using P = PathOf<T, D>;
-  static constexpr int kGroups = D == 64 || D == 128 ? 2 : 1;  // warpgroups
+  static constexpr int kGroups =                                // warpgroups
+      TN::kG ? TN::kG : (D == 64 || D == 128 ? 2 : 1);
   static constexpr int kThreads = 128 * kGroups;
   static constexpr int BQ = 64 * kGroups;                  // q rows a block
-  static constexpr int BK = D <= 128 ? 64 : 32;            // keys a step
+  static constexpr int KT = TN::kKT ? TN::kKT : (D <= 128 ? 64 : 32);
+  static constexpr int U = TN::kU;                         // sub-tiles a step
+  static constexpr int BK = U * KT;                        // keys a step
   // a warpgroup's 64-row Q tile (then its O stage)
   static constexpr size_t q_tile = P::template tile_bytes<64>();
   static constexpr size_t stage_off = align1k(kGroups * q_tile);
-  // a stage: the K and V tiles, then the dropout column words (K1, K5) or
-  // the tile's k and v scales (fp8)
+  // a stage: the K and V tiles (U sub-tiles of KT rows each), then the
+  // dropout column words (K1, K5) or the tile's k and v scales (fp8)
   static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = P::template tile_bytes<BK>();
+  static constexpr size_t kt_bytes = P::template tile_bytes<KT>();
+  static constexpr size_t v_off = U * kt_bytes;
   static constexpr size_t cw_off = 2 * v_off;
   static constexpr size_t stage_bytes =
       align1k(cw_off + sizeof(uint32_t) * BK * (KV == kKvFp8 ? 2 : 1));
@@ -258,13 +287,35 @@ struct Fp8Rows {
   }
 };
 
-template <typename T, int D, int MODE, bool EXTRA, int KV = kKv16>
-__global__ void __launch_bounds__(FwdSmem<T, D, KV>::kThreads)
+// named barrier `id` (1-15; 0 is __syncthreads'), `n` threads in all (the
+// ping-pong's turns, as csrc/tma_pipe.cuh's)
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// sub-tile u of a step's fragments (KT keys: N n-blocks of S, or N
+// k-steps of P)
+template <int N, int M, typename E>
+__device__ __forceinline__ E (&part(E (&a)[M][4], int u))[N][4] {
+  return *reinterpret_cast<E(*)[N][4]>(&a[u * N][0]);
+}
+
+template <typename T, int D, int MODE, bool EXTRA, int KV = kKv16,
+          class TN = FwdTune<>>
+__global__ void __launch_bounds__(FwdSmem<T, D, KV, TN>::kThreads)
     fwd_kernel(FwdArgs a) {
-  using L = FwdSmem<T, D, KV>;
+  using L = FwdSmem<T, D, KV, TN>;
   using P = typename L::P;
   constexpr bool kFp8 = KV == kKvFp8;
   static_assert(!kFp8 || MODE == kPaged, "fp8 pools are paged");
+  constexpr int KT = L::KT, U = L::U;
+  static_assert(U == 1 || !kFp8, "fp8 tiles are one sub-tile a step");
+  static_assert(!TN::kPingPong || L::kGroups == 2,
+                "the ping-pong takes two warpgroups");
   // P V's type: q's, or bf16 for fp8 (its P is rounded to bf16)
   using TV = typename std::conditional<kFp8, __nv_bfloat16, T>::type;
   using PV = PathOf<TV, D>;
@@ -351,23 +402,30 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV>::kThreads)
     return tbl_s[raw / ps - slot0] * s_p + kvh * s_h +
            static_cast<long long>(raw % ps) * s_tok;
   };
-  // tile t of K or V into its stage; keys outside [blk_lo, blk_hi] are zero
+  // tile t of K or V into its stage, sub-tile by sub-tile; keys outside
+  // [blk_lo, blk_hi] are zero
   auto copy_kv = [&](int t, const void* src, size_t off, auto& regs) {
     const int k0 = key0(t);
     if constexpr (kFp8) {
       regs.load(static_cast<const uint8_t*>(src) +
                     page_row(t, a.pg.s_p, a.pg.s_h, a.pg.s_tok),
                 a.pg.s_tok, blk_lo - k0, blk_hi - k0);
-    } else if constexpr (MODE == kPaged) {
-      load_strided_async<T, D, BK, NT, P>(
-          stage(t) + off,
-          static_cast<const T*>(src) +
-              page_row(t, a.pg.s_p, a.pg.s_h, a.pg.s_tok),
-          a.pg.s_tok,
-          blk_lo - k0, blk_hi - k0);
     } else {
-      load_rows_async<T, D, BK, NT, P>(stage(t) + off, src, sq.k_base + k0,
-                                       a.Hk, kvh, blk_lo - k0, blk_hi - k0);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k0u = k0 + u * KT;
+        unsigned char* dst = stage(t) + off + u * L::kt_bytes;
+        if constexpr (MODE == kPaged)
+          load_strided_async<T, D, KT, NT, P>(
+              dst,
+              static_cast<const T*>(src) +
+                  page_row(t, a.pg.s_p, a.pg.s_h, a.pg.s_tok) +
+                  u * KT * a.pg.s_tok,
+              a.pg.s_tok, blk_lo - k0u, blk_hi - k0u);
+        else
+          load_rows_async<T, D, KT, NT, P>(dst, src, sq.k_base + k0u, a.Hk,
+                                           kvh, blk_lo - k0u, blk_hi - k0u);
+      }
     }
   };
   auto copy_k = [&](int t) {
@@ -463,7 +521,9 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV>::kThreads)
       for (int i = 0; i < 2; ++i)
         l[i] = l[i] * alpha[i] + (ls[2 * i] + ls[2 * i + 1]);
     };
-    if (nq_g == 64 && lv.full(g0, 64, k0, BK))
+    if constexpr (TN::kFast)
+      pass(std::false_type{});
+    else if (nq_g == 64 && lv.full(g0, 64, k0, BK))
       pass(std::false_type{});
     else
       pass(std::true_type{});
@@ -486,11 +546,45 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV>::kThreads)
     cp_async_commit();
   };
 
+  // S(t) = Q K(t)^T, U products of KT keys; P(t) V(t), U products of
+  // depth KT
+  auto s_products = [&](float (&sc)[BK / 8][4], int t) {
+    if constexpr (U == 1) {
+      P::template abt<64, KT>(sc, q_s, wrow, stage(t) + L::k_off, lane);
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        P::template abt<64, KT>(part<KT / 8>(sc, u), q_s, wrow,
+                                stage(t) + L::k_off + u * L::kt_bytes, lane);
+    }
+  };
+  auto pv_products = [&](const uint32_t (&pa)[BK / 16][4], int t) {
+    if constexpr (U == 1) {
+      PV::template ab<BK, D>(o, pa, stage(t) + L::v_off, 0, lane);
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        PV::template ab<KT, D>(o, part<KT / 16>(pa, u),
+                               stage(t) + L::v_off + u * L::kt_bytes, 0,
+                               lane);
+    }
+  };
+  // the ping-pong (PP): wait for this warpgroup's turn to issue, then hand
+  // the turn to the other (named barriers 1 + w: warpgroup w's turn)
+  auto turn_wait = [&]() {
+    if constexpr (TN::kPingPong) named_bar_sync(1 + wg, 256);
+  };
+  auto turn_pass = [&]() {
+    if constexpr (TN::kPingPong) named_bar_arrive(2 - wg, 256);
+  };
+
   // Every warpgroup runs every tile of the block (a tile none of its rows
   // sees gives P = 0), so no product sits in a branch.  At step s >= 1 it
   // issues S(s) and then P(s - 1) V(s - 1), and runs the softmax of S(s)
   // while the second product is in flight.
   if (n_steps > 0) {
+    // the first warpgroup holds the first turn
+    if (TN::kPingPong && wg == 0) named_bar_arrive(1, 256);
     if constexpr (MODE == kPaged) {
       const int n_slots = ((kt0 + n_steps) * BK - 1) / ps - slot0 + 1;
       int* tbl = reinterpret_cast<int*>(smem + L::tbl_off);
@@ -522,19 +616,24 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV>::kThreads)
     };
 
     copies(0);
+    turn_wait();
     P::begin();
-    P::template abt<64, BK>(sc, q_s, wrow, stage(0) + L::k_off, lane);
-    P::commit_wait();
+    s_products(sc, 0);
+    P::commit();
+    turn_pass();
+    P::template wait<0>();
     P::settle(sc);
     softmax(0, sc);
     rescale_pack();
     for (int s = 1; s < n_steps; ++s) {
       copies(s);
+      turn_wait();
       P::begin();
-      P::template abt<64, BK>(sc, q_s, wrow, stage(s) + L::k_off, lane);
+      s_products(sc, s);
       P::commit();
-      PV::template ab<BK, D>(o, pa, stage(s - 1) + L::v_off, 0, lane);
+      pv_products(pa, s - 1);
       P::commit();
+      turn_pass();
       P::template wait<1>();
       P::settle(sc);
       softmax(s, sc);
@@ -549,10 +648,15 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV>::kThreads)
       rescale_pack();
     }
     copies(n_steps);
+    turn_wait();
     P::begin();
-    PV::template ab<BK, D>(o, pa, stage(n_steps - 1) + L::v_off, 0, lane);
-    P::commit_wait();
+    pv_products(pa, n_steps - 1);
+    P::commit();
+    turn_pass();
+    P::template wait<0>();
     P::settle(o);
+    // the second warpgroup's last turn, taken: the turn barriers end even
+    if (TN::kPingPong && wg == 0) turn_wait();
   }
 
   // epilogue: the row sums, O * (1 / l) through the warpgroup's Q tile as
@@ -603,10 +707,11 @@ struct Kernel {
 
 // the variant, its shared-memory limit raised on first use (paged: to the
 // largest block table it has been launched with, `extra` bytes)
-template <typename T, int D, int MODE, bool EXTRA, int KV = kKv16>
+template <typename T, int D, int MODE, bool EXTRA, int KV = kKv16,
+          class TN = FwdTune<>>
 cudaError_t variant(Kernel* k, int extra = 0) {
-  using L = FwdSmem<T, D, KV>;
-  k->fn = fwd_kernel<T, D, MODE, EXTRA, KV>;
+  using L = FwdSmem<T, D, KV, TN>;
+  k->fn = fwd_kernel<T, D, MODE, EXTRA, KV, TN>;
   k->smem = static_cast<int>(L::bytes);
   k->threads = L::kThreads;
   k->rows = L::BQ;

@@ -236,6 +236,7 @@ struct Wgmma;
 // The accumulators as asm operands %0..%(N/2 - 1) (FA_WG_R<n>) and their
 // "+f" bindings from d[i] on (FA_WG_D<n>(i)), for n = N / 2 accumulators a
 // thread.
+#define FA_WG_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define FA_WG_R16                                                           \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define FA_WG_R32                                                           \
@@ -246,6 +247,7 @@ struct Wgmma;
             "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
             "%56, %57, %58, %59, %60, %61, %62, %63"
 #define FA_WG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define FA_WG_D8(i) FA_WG_D4(i), FA_WG_D4(i + 4)
 #define FA_WG_D16(i) \
   FA_WG_D4(i), FA_WG_D4(i + 4), FA_WG_D4(i + 8), FA_WG_D4(i + 12)
 #define FA_WG_D32(i) FA_WG_D16(i), FA_WG_D16(i + 16)
@@ -281,6 +283,7 @@ struct Wgmma;
   FA_WG_SPEC(N, __nv_bfloat16, "bf16", REGS, OUTS, O0, O1, O2, O3, O4, O5) \
   FA_WG_SPEC(N, __half, "f16", REGS, OUTS, O0, O1, O2, O3, O4, O5)
 
+FA_WG_N(16, FA_WG_R8, FA_WG_D8, "8", "9", "10", "11", "12", "13")
 FA_WG_N(32, FA_WG_R16, FA_WG_D16, "16", "17", "18", "19", "20", "21")
 FA_WG_N(64, FA_WG_R32, FA_WG_D32, "32", "33", "34", "35", "36", "37")
 FA_WG_N(128, FA_WG_R64, FA_WG_D64, "64", "65", "66", "67", "68", "69")

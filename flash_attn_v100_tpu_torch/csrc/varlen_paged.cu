@@ -31,30 +31,58 @@
 // K5's over the same keys, so K8 gives K5's bits on the gathered cache.
 #include "fwd_body.cuh"
 
+// FA_SWEEP 1 builds the sweep library (ops/cuda/build.py VARIANTS) in
+// place of the shipped one: only the unroll variants below.
+#ifndef FA_SWEEP
+#define FA_SWEEP 0
+#endif
+
 namespace {
 
+#if !FA_SWEEP
 // dtype 0 = bf16, 1 = fp16; smem_extra: the block table's bytes
 cudaError_t find_variant(int dtype, int D, bool extra, Kernel* k,
-                         int smem_extra) {
+                         int smem_extra, int) {
   return dtype == 0
              ? find_d<__nv_bfloat16, kPaged>(D, extra, k, smem_extra)
              : find_d<__half, kPaged>(D, extra, k, smem_extra);
 }
+#else
+// The sweep's variants of K8, by id (flash_attn_v100_tpu_torch/benchmarks/
+// variants.py's PAGED): bf16, D 128, without bias, pages a multiple of 128
+// rows (a step never straddles a page) only; each steps over 128 keys.
+//   1 u2  two 64-key sub-tiles a step, one online softmax
+//   2 u4  four 32-key sub-tiles
+//   3 u8  eight 16-key sub-tiles
+cudaError_t find_variant(int dtype, int D, bool extra, Kernel* k,
+                         int smem_extra, int id) {
+  using B = __nv_bfloat16;
+  if (dtype != 0 || D != 128 || extra) return cudaErrorInvalidValue;
+  switch (id) {
+    case 1:
+      return variant<B, 128, kPaged, false, kKv16, FwdTune<64, 2>>(
+          k, smem_extra);
+    case 2:
+      return variant<B, 128, kPaged, false, kKv16, FwdTune<32, 4>>(
+          k, smem_extra);
+    case 3:
+      return variant<B, 128, kPaged, false, kKv16, FwdTune<16, 8>>(
+          k, smem_extra);
+    default: return cudaErrorInvalidValue;
+  }
+}
+#endif
 
-}  // namespace
-
-// dtype: 0 = bf16, 1 = fp16.  Returns cudaGetLastError() of the launch.
-// Pool strides in elements; the grid covers max_seqlen_q rows of each
-// sequence.
-extern "C" int fa_varlen_paged_launch(
-    int dtype, const void* q, const void* k, const void* v, const int* table,
-    int table_stride, const int* cu_q, const int* seqlens_k,
-    const int* seqused_k, const int* leftpad_k, const float* slopes, void* out,
-    float* lse, long long s_h, long long s_p, long long s_tok, int B, int Tq,
-    int Hq, int Hk, int D, int page_size, int mp, int max_seqlen_q,
-    float scale, int causal, int window_left, int window_right, float softcap,
-    int has_alibi, void* stream) {
-  if (page_size <= 0 || page_size % 64 != 0 || Hk <= 0 || Hq % Hk != 0)
+int paged(int id, int dtype, const void* q, const void* k, const void* v,
+          const int* table, int table_stride, const int* cu_q,
+          const int* seqlens_k, const int* seqused_k, const int* leftpad_k,
+          const float* slopes, void* out, float* lse, long long s_h,
+          long long s_p, long long s_tok, int B, int Tq, int Hq, int Hk,
+          int D, int page_size, int mp, int max_seqlen_q, float scale,
+          int causal, int window_left, int window_right, float softcap,
+          int has_alibi, void* stream) {
+  if (page_size <= 0 || page_size % (FA_SWEEP ? 128 : 64) != 0 || Hk <= 0 ||
+      Hq % Hk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || max_seqlen_q <= 0 || Hq == 0) return 0;
   FwdArgs a = {};
@@ -71,22 +99,19 @@ extern "C" int fa_varlen_paged_launch(
   a.pg.s_h = s_h; a.pg.s_p = s_p; a.pg.s_tok = s_tok;
   const int tb = table_bytes(mp);
   Kernel kn;
-  cudaError_t e = find_variant(dtype, D, needs_extra(a), &kn, tb);
+  cudaError_t e = find_variant(dtype, D, needs_extra(a), &kn, tb, id);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(
       launch_kernel(kn, a, tb, static_cast<cudaStream_t>(stream)));
 }
 
-// The occupancy of K8 for (dtype, D), in the variant without bias (extra 0)
-// or with (extra 1), without the block table's bytes: out[0] resident
-// blocks a multiprocessor, out[1] dynamic shared memory a block (bytes),
-// out[2] threads a block, out[3] registers a thread, out[4] local memory a
-// thread (bytes: spills and stack).  Returns a cudaError_t.
-extern "C" int fa_varlen_paged_occupancy(int dtype, int D, int extra,
-                                         int* out) {
+// out[0] resident blocks a multiprocessor, out[1] dynamic shared memory a
+// block (bytes), out[2] threads a block, out[3] registers a thread, out[4]
+// local memory a thread (bytes: spills and stack)
+int occupancy(int dtype, int D, int extra, int id, int* out) {
   Kernel kn;
   cudaFuncAttributes attr;
-  cudaError_t e = find_variant(dtype, D, extra != 0, &kn, 0);
+  cudaError_t e = find_variant(dtype, D, extra != 0, &kn, 0, id);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kn.fn);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[1] = kn.smem;
@@ -96,3 +121,46 @@ extern "C" int fa_varlen_paged_occupancy(int dtype, int D, int extra,
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, kn.fn, kn.threads, kn.smem));
 }
+
+}  // namespace
+
+#define FA_PAGED_PARAMS                                                      \
+  int dtype, const void *q, const void *k, const void *v, const int *table,  \
+      int table_stride, const int *cu_q, const int *seqlens_k,               \
+      const int *seqused_k, const int *leftpad_k, const float *slopes,       \
+      void *out, float *lse, long long s_h, long long s_p, long long s_tok,  \
+      int B, int Tq, int Hq, int Hk, int D, int page_size, int mp,           \
+      int max_seqlen_q, float scale, int causal, int window_left,            \
+      int window_right, float softcap, int has_alibi, void *stream
+#define FA_PAGED_ARGS                                                        \
+  dtype, q, k, v, table, table_stride, cu_q, seqlens_k, seqused_k,           \
+      leftpad_k, slopes, out, lse, s_h, s_p, s_tok, B, Tq, Hq, Hk, D,        \
+      page_size, mp, max_seqlen_q, scale, causal, window_left, window_right, \
+      softcap, has_alibi, stream
+
+#if !FA_SWEEP
+// dtype: 0 = bf16, 1 = fp16.  Returns cudaGetLastError() of the launch.
+// Pool strides in elements; the grid covers max_seqlen_q rows of each
+// sequence.
+extern "C" int fa_varlen_paged_launch(FA_PAGED_PARAMS) {
+  return paged(0, FA_PAGED_ARGS);
+}
+
+// The occupancy of K8 for (dtype, D), in the variant without bias (extra 0)
+// or with (extra 1), without the block table's bytes, into out[5]
+// (occupancy() above).  Returns a cudaError_t.
+extern "C" int fa_varlen_paged_occupancy(int dtype, int D, int extra,
+                                         int* out) {
+  return occupancy(dtype, D, extra, 0, out);
+}
+#else
+// The sweep library's entries: the shipped entry's arguments after the
+// variant's id (find_variant above), and its occupancy.
+extern "C" int fa_varlen_paged_sweep_launch(int id, FA_PAGED_PARAMS) {
+  return paged(id, FA_PAGED_ARGS);
+}
+
+extern "C" int fa_varlen_paged_sweep_occupancy(int id, int* out) {
+  return occupancy(0, 128, 0, id, out);
+}
+#endif

@@ -11,6 +11,13 @@ rebuilt and an unchanged one is loaded as it is.
 
 `build_all()` starts one `nvcc` for every source at once and waits for all
 of them; `chip_smoke.py` calls it so that the build is timed on its own.
+
+Variant libraries (`VARIANTS`): a source built again with `-D` macros, into
+a library whose file name carries the variant's name and whose hash covers
+its flags, for the tile and unroll sweeps (benchmarks/prof_*).  The
+shipped libraries are built with no `-D`; only `benchmarks/`,
+`chip_smoke.py` and the tests ask for a variant (`load(name, variant)`),
+no kernel wrapper does.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 PKG_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PKG_ROOT / "csrc"
@@ -147,7 +154,46 @@ SIGNATURES = {
     },
 }
 
-_libs: Dict[str, ctypes.CDLL] = {}
+# library -> variant -> ({macro: value}, what the build is restricted to,
+# the variant library's C entry points).  FA_SWEEP=1 compiles a source's
+# sweep entries in place of its shipped ones: the kernel variants of
+# flash_attn_v100_tpu_torch/benchmarks/variants.py, bf16 at D 128 only.
+_SWEEP = {"FA_SWEEP": 1}
+VARIANTS: Dict[str, Dict[str, tuple]] = {
+    "fwd": {"sweep": (
+        _SWEEP, "K1 and K5 at bf16, D 128, no bias or dropout: 7 tiles and "
+        "schedules", {
+            "fa_fwd_sweep_launch": ([_I] + SIGNATURES["fwd"]["fa_fwd_launch"][0],
+                                    _I),
+            "fa_varlen_fwd_sweep_launch": (
+                [_I] + SIGNATURES["fwd"]["fa_varlen_fwd_launch"][0], _I),
+            # (id, varlen, int out[5])
+            "fa_fwd_sweep_occupancy": ([_I, _I, _P], _I)})},
+    "varlen_paged": {"sweep": (
+        _SWEEP, "K8 at bf16, D 128, no bias, pages of a multiple of 128 "
+        "rows: U 2 / 4 / 8", {
+            "fa_varlen_paged_sweep_launch": (
+                [_I] + SIGNATURES["varlen_paged"]["fa_varlen_paged_launch"][0],
+                _I),
+            "fa_varlen_paged_sweep_occupancy": ([_I, _P], _I)})},
+    "bwd": {"sweep": (
+        _SWEEP, "dense K2 / K3 at bf16, D 128, no bias or dropout: K2 at 64 "
+        "keys a step, K3 at 64 q rows a step or 128 keys a block", {
+            **{f"fa_{k}_sweep_launch": (
+                [_I] + SIGNATURES["bwd"][f"fa_{k}_launch"][0], _I)
+               for k in ("dq", "dkv")},
+            # (dkv, id, int out[5])
+            "fa_bwd_sweep_occupancy": ([_I, _I, _P], _I)})},
+    "decode_quant": {"sweep": (
+        _SWEEP, "K4q over int4 pools at bf16 q, D 128, Rq <= 16: three "
+        "ablations of the nibble chain (timing only)", {
+            "fa_decode_quant_sweep_launch": (
+                [_I] + SIGNATURES["decode_quant"]["fa_decode_quant_launch"][0],
+                _I),
+            "fa_decode_quant_sweep_occupancy": ([_I, _P], _I)})},
+}
+
+_libs: Dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -162,35 +208,50 @@ def nvcc_path() -> str:
     return found
 
 
-def _sources(name: str) -> List[Path]:
-    return [CSRC / f for f in (SOURCES[name], *PARTS.get(name, ()))]
+def _sources(name: str, variant: Optional[str] = None) -> List[Path]:
+    """The library's translation units; a variant's is its main source."""
+    parts = () if variant else PARTS.get(name, ())
+    return [CSRC / f for f in (SOURCES[name], *parts)]
 
 
-def _lib_path(name: str) -> Path:
+def _defines(name: str, variant: Optional[str]) -> List[str]:
+    """A variant's -D flags (none for a shipped library)."""
+    if variant is None:
+        return []
+    macros = VARIANTS[name][variant][0]
+    return [f"-D{k}={v}" for k, v in sorted(macros.items())]
+
+
+def _tag(name: str, variant: Optional[str]) -> str:
+    return name if variant is None else f"{name}-{variant}"
+
+
+def _lib_path(name: str, variant: Optional[str] = None) -> Path:
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + _sources(name):
+    for f in sorted(CSRC.glob("*.cuh")) + _sources(name, variant):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + _defines(name, variant)).encode())
+    return BUILD_DIR / f"lib{_tag(name, variant)}-{h.hexdigest()[:16]}.so"
 
 
-def library_path(name: str) -> Path:
-    """Where library `name` of the current sources is (or will be) built."""
-    return _lib_path(name)
+def library_path(name: str, variant: Optional[str] = None) -> Path:
+    """Where library `name` (or its variant) of the current sources is (or
+    will be) built."""
+    return _lib_path(name, variant)
 
 
-def _start(name: str):
+def _start(name: str, variant: Optional[str] = None):
     """nvcc for each of the library's translation units, all at once: one
     that writes the library, or (several units) one object file each."""
-    out = _lib_path(name)
+    out = _lib_path(name, variant)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    srcs = _sources(name)
+    srcs = _sources(name, variant)
     objs = ([tmp.with_suffix(f".{i}.o") for i in range(len(srcs))]
             if len(srcs) > 1 else [])
     flags = ([f for f in NVCC_FLAGS if f != "-shared"] + ["-c"] if objs
-             else NVCC_FLAGS)
+             else NVCC_FLAGS) + _defines(name, variant)
     procs = [subprocess.Popen(
         [nvcc_path(), *flags, "-I", str(CSRC), "-o", str(dst), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -198,7 +259,7 @@ def _start(name: str):
     return procs, objs, tmp, out
 
 
-def _finish(name: str, procs, objs: List[Path], tmp: Path, out: Path,
+def _finish(tag: str, procs, objs: List[Path], tmp: Path, out: Path,
             timeout: float) -> str:
     logs = []
     try:
@@ -206,7 +267,7 @@ def _finish(name: str, procs, objs: List[Path], tmp: Path, out: Path,
             log, _ = proc.communicate(timeout=timeout)
             logs.append(log)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {name}:\n{log}")
+                raise RuntimeError(f"nvcc failed building {tag}:\n{log}")
         if objs:   # the units' objects into the library
             link = subprocess.run(
                 [nvcc_path(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
@@ -214,10 +275,10 @@ def _finish(name: str, procs, objs: List[Path], tmp: Path, out: Path,
                 capture_output=True, text=True, timeout=timeout)
             logs.append(link.stdout + link.stderr)
             if link.returncode != 0:
-                raise RuntimeError(f"nvcc failed linking {name}:\n{logs[-1]}")
+                raise RuntimeError(f"nvcc failed linking {tag}:\n{logs[-1]}")
         os.replace(tmp, out)
     except subprocess.TimeoutExpired:
-        raise RuntimeError(f"nvcc timed out building {name}") from None
+        raise RuntimeError(f"nvcc timed out building {tag}") from None
     finally:
         for proc in procs:   # a unit still compiling after a failure
             if proc.poll() is None:
@@ -227,44 +288,61 @@ def _finish(name: str, procs, objs: List[Path], tmp: Path, out: Path,
         for o in objs:
             o.unlink(missing_ok=True)
     log = "".join(logs)
-    (BUILD_DIR / f"{name}.log").write_text(log)
+    (BUILD_DIR / f"{tag}.log").write_text(log)
     return log
 
 
+def all_variants() -> List[Tuple[str, str]]:
+    """(library, variant) of every variant library."""
+    return [(n, v) for n, vs in VARIANTS.items() for v in vs]
+
+
 def build_all(names: Optional[List[str]] = None,
-              timeout: float = 600.0) -> Dict[str, float]:
-    """Compile every kernel that is not built yet, all `nvcc`s at once.
-    Returns {name: seconds} for the ones compiled here."""
+              timeout: float = 600.0,
+              variants: Optional[List[Tuple[str, str]]] = None
+              ) -> Dict[str, float]:
+    """Compile every library of `names` (default all shipped ones) and of
+    `variants` ((library, variant) pairs; default none) that is not built
+    yet, all `nvcc`s at once.  Returns {name or name-variant: seconds} for
+    the ones compiled here."""
     names = list(SOURCES) if names is None else names
+    jobs = [(n, None) for n in names] + list(variants or ())
     t0 = time.perf_counter()
-    started = {n: _start(n) for n in names if not _lib_path(n).exists()}
+    started = {(n, v): _start(n, v) for n, v in jobs
+               if not _lib_path(n, v).exists()}
     secs = {}
-    for n, job in started.items():
-        _finish(n, *job, timeout)
-        secs[n] = time.perf_counter() - t0
+    for (n, v), job in started.items():
+        _finish(_tag(n, v), *job, timeout)
+        secs[_tag(n, v)] = time.perf_counter() - t0
     return secs
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, variant: Optional[str] = None) -> str:
     """nvcc's output (with -Xptxas -v: registers, shared memory, spills)."""
-    p = BUILD_DIR / f"{name}.log"
+    p = BUILD_DIR / f"{_tag(name, variant)}.log"
     return p.read_text() if p.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, variant: Optional[str] = None) -> ctypes.CDLL:
+    """The kernel library `name`, or its variant `variant` (VARIANTS), built
+    first if needed."""
+    lib = _libs.get((name, variant))
     if lib is not None:
         return lib
-    path = _lib_path(name)
+    path = _lib_path(name, variant)
     if not path.exists():
-        build_all([name])
+        if variant is None:
+            build_all([name])
+        else:
+            build_all([], variants=[(name, variant)])
     lib = ctypes.CDLL(str(path))
-    for fn, (argtypes, restype) in SIGNATURES[name].items():
+    sigs = (SIGNATURES[name] if variant is None
+            else VARIANTS[name][variant][2])
+    for fn, (argtypes, restype) in sigs.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = restype
-    _libs[name] = lib
+    _libs[(name, variant)] = lib
     return lib
 
 

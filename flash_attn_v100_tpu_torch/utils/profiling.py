@@ -97,9 +97,10 @@ def _arg(args: Sequence[str], i: int, default: int = 0) -> int:
 
 # CUDA symbol of a port kernel -> its id, from the template arguments that
 # tell the instantiations of one body apart (csrc/): fwd_kernel<T, D, MODE,
-# EXTRA, KV> with MODE 0 dense / 1 varlen / 2 paged and KV 0 16-bit / 1
-# e4m3; dq_kernel / dkv_kernel<T, D, kVarlen, EXTRA>; decode_kernel<T, D,
-# KIND, ROWS> with KIND 3 a 16-bit pool; int_kernel<T, D, KIND, EXTRA> is
+# EXTRA, KV, TN> with MODE 0 dense / 1 varlen / 2 paged and KV 0 16-bit / 1
+# e4m3; dq_kernel / dkv_kernel<T, D, kVarlen, EXTRA, TN>; decode_kernel<T,
+# D, KIND, ROWS, ABL> with KIND 3 a 16-bit pool (a sweep library's variant
+# takes its kernel's id); int_kernel<T, D, KIND, EXTRA> is
 # K8q's int8/int4 kernel.
 _PORT_KERNELS = {
     "fwd_kernel": lambda a: ("K1", "K5", "K8q" if _arg(a, 4) else "K8")[
@@ -109,8 +110,10 @@ _PORT_KERNELS = {
     "decode_kernel": lambda a: "K4" if _arg(a, 2) == 3 else "K4q",
     "int_kernel": lambda a: "K8q",
 }
+# (the template arguments may hold one nested template: the kernels' tile
+# parameters, FwdTune<...> / BwdTune<...>, after the ones read here)
 _SYMBOL = re.compile(r"(?:^|[\s:])(" + "|".join(_PORT_KERNELS)
-                     + r")<([^<>]*)>")
+                     + r")<((?:[^<>]|<[^<>]*>)*)>")
 
 
 def kernel_id(name: str) -> Optional[str]:

@@ -30,6 +30,12 @@ def _macros(text: str) -> dict:
             for m in re.finditer(r"^#define (\w+)\s+(.*)$", joined, re.M)}
 
 
+def _variant_sigs(lib: str) -> dict:
+    """Every entry point of the library's variant builds."""
+    return {fn: sig for v in build.VARIANTS.get(lib, {}).values()
+            for fn, sig in v[2].items()}
+
+
 def _entries(lib: str) -> dict:
     """{name: number of parameters} of the library's extern "C" functions,
     macro parameter lists expanded."""
@@ -86,7 +92,8 @@ def test_signatures_are_defined_in_their_source(lib):
 
 @pytest.mark.parametrize("lib", sorted(build.SOURCES))
 def test_entry_points_are_registered(lib):
-    missing = set(_entries(lib)) - set(build.SIGNATURES[lib])
+    missing = (set(_entries(lib)) - set(build.SIGNATURES[lib])
+               - set(_variant_sigs(lib)))
     assert not missing, f"{build.SOURCES[lib]}: {sorted(missing)} unregistered"
 
 
@@ -125,3 +132,103 @@ def test_fp32_entries_take_the_16bit_arguments(entry):
     lib, fn = entry
     assert build.SIGNATURES[lib32][fn32] == build.SIGNATURES[lib][fn]
     assert _entries(lib32)[fn32] == _entries(lib)[fn]
+
+
+# ------------------------------------------------------ variant libraries
+
+PKG = CUDA_OPS.parents[1]
+
+
+def test_variant_registry_found():
+    assert set(build.VARIANTS) == {"fwd", "varlen_paged", "bwd",
+                                   "decode_quant"}
+    assert build.all_variants() == [(lib, v) for lib in build.VARIANTS
+                                    for v in build.VARIANTS[lib]]
+
+
+@pytest.mark.parametrize("lib", sorted(build.VARIANTS))
+def test_variant_signatures_are_defined_in_their_source(lib):
+    entries = _entries(lib)
+    for name, (argtypes, _) in _variant_sigs(lib).items():
+        assert name in entries, name
+        assert entries[name] == len(argtypes), name
+        assert name not in build.SIGNATURES[lib]
+
+
+@pytest.mark.parametrize("lib", sorted(build.VARIANTS))
+def test_variant_macros_default_to_the_shipped_build(lib):
+    """Each macro is defined in the variant's source as 0 unless given: the
+    shipped library is built with no -D and compiles its shipped entries,
+    the variant's -D sets the macro to its value."""
+    text = (build.CSRC / build.SOURCES[lib]).read_text()
+    for variant, (macros, what, _) in build.VARIANTS[lib].items():
+        assert what and macros
+        for macro, value in macros.items():
+            assert f"#ifndef {macro}\n#define {macro} 0\n#endif" in text
+            assert value != 0
+            assert f"-D{macro}={value}" in build._defines(lib, variant)
+    assert build._defines(lib, None) == []
+
+
+@pytest.mark.parametrize("lib", sorted(build.VARIANTS))
+def test_variant_library_paths(lib, monkeypatch):
+    """A variant's library file carries its name and its flags' hash; a
+    shipped library's path does not depend on VARIANTS."""
+    shipped = build.library_path(lib)
+    for variant in build.VARIANTS[lib]:
+        path = build.library_path(lib, variant)
+        assert path != shipped and path.name.startswith(f"lib{lib}-{variant}-")
+    monkeypatch.setattr(build, "VARIANTS", {})
+    assert build.library_path(lib) == shipped
+
+
+def test_tune_defaults_are_the_shipped_tiles():
+    """The kernels' tile and schedule parameters default to the shipped
+    values (0: the body's own choice for D), and no shipped kernel names
+    them before their sweep dispatch (#else)."""
+    fwd = (build.CSRC / "fwd_body.cuh").read_text()
+    assert ("template <int KT = 0, int U = 1, int G = 0, bool FAST = false,\n"
+            "          bool PP = false>\nstruct FwdTune" in fwd)
+    assert "static constexpr int BK = U * KT;" in fwd
+    assert "TN::kKT ? TN::kKT : (D <= 128 ? 64 : 32)" in fwd
+    bwd = (build.CSRC / "bwd.cu").read_text()
+    assert ("template <int DQBK = 0, int DKVBQ = 0, int KG = 1>\n"
+            "struct BwdTune" in bwd)
+    assert "TN::kDqBK ? TN::kDqBK : (D <= 64 ? 64 : 32)" in bwd
+    assert "TN::kDkvBQ ? TN::kDkvBQ : (D <= 64 ? 64 : 32)" in bwd
+    dec = (build.CSRC / "decode_body.cuh").read_text()
+    assert "template <typename T, int D, int KIND, int ROWS, int ABL = 0>" in dec
+    for f in ("fwd.cu", "varlen_paged.cu", "bwd.cu", "decode_quant.cu",
+              "varlen_paged_quant.cuh", "decode.cu"):
+        shipped = (build.CSRC / f).read_text().split("#else")[0]
+        assert not re.search(r"(Fwd|Bwd)Tune<[^>]", shipped), f
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K8", "K2", "K3", "K4q"])
+def test_variant_ids_are_the_sources(kernel):
+    """benchmarks/variants.py's ids are the sweep entries' (the table in
+    the comment above each source's sweep dispatch)."""
+    from flash_attn_v100_tpu_torch.benchmarks import variants as var
+    table, lib = var.TABLES[kernel]
+    text = (build.CSRC / build.SOURCES[lib]).read_text()
+    prefix = f"{kernel} " if lib == "bwd" else ""
+    for name, vid in table.items():
+        assert re.search(rf"^//   {prefix}{vid} {re.escape(name)}\b", text,
+                         re.M), (kernel, name)
+        assert (kernel, name) in var.WHAT
+
+
+def test_only_benchmarks_ask_for_a_variant():
+    """No module of the port outside benchmarks/ loads a variant library or
+    imports the variants' launchers: no main-path wrapper reaches one
+    (build/, the git-ignored build output, holds no module of the
+    port)."""
+    for path in PKG.rglob("*.py"):
+        rel = path.relative_to(PKG)
+        if (rel.parts[0] in ("benchmarks", "build")
+                or rel == Path("ops/cuda/build.py")):
+            continue
+        text = path.read_text()
+        assert not re.search(r"build\.load\([^)]*,", text), rel
+        assert "benchmarks.variants" not in text, rel
+        assert "benchmarks import variants" not in text, rel

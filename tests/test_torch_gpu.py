@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from flash_attn_v100_tpu_torch import ModelConfig, ServingEngine
+from flash_attn_v100_tpu_torch.benchmarks import variants as var
 from flash_attn_v100_tpu_torch.models import transformer as tmodel
 from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
 from flash_attn_v100_tpu_torch.ops import kvcache as kv
@@ -2323,3 +2324,160 @@ def test_ring_overlap_on_a_two_rank_trace(cuda):
     assert [sorted(r["kernels"]) for r in res["ranks"]] == [[0], [0, 1]]
     assert all(sorted(r["windows"]) == [0] for r in res["ranks"])
     assert res["steps"] == res["overlapped"] == 2 and res["ok"]
+
+
+# ------------------------------------------- the sweeps' kernel variants
+
+# (benchmarks/variants.py; the sweep libraries of build.VARIANTS, bf16 at
+# D 128): each same-function variant against its kernel's plain twin at
+# the shipped kernel's gate, the timing-only ones finite
+
+FWD_SAME = [v for v in var.FWD if not var.timing_only("K1", v)]
+
+
+@pytest.fixture(scope="module")
+def sweep(cuda):
+    build.build_all([], variants=build.all_variants())
+    return cuda
+
+
+def _bf16(rng, dev, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(2, 700, 700), (1, 300, 700),
+                                   (1, 700, 300), (1, 129, 129)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("variant", FWD_SAME)
+def test_k1_variants_match_plain(sweep, variant, causal, shape):
+    B, M, N = shape
+    rng = np.random.default_rng(41)
+    q, k, v = (_bf16(rng, sweep, B, M, 8, 128), _bf16(rng, sweep, B, N, 2, 128),
+               _bf16(rng, sweep, B, N, 2, 128))
+    params = masklib.MaskParams(causal=causal)
+    out, lse = var.dense_fwd(q, k, v, causal, variant)
+    torch.cuda.synchronize()
+    o32, l32 = dfwd.flash_attn_dense_fwd_ref(q, k, v, 128 ** -0.5, params)
+    o16, l16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, 128 ** -0.5, params,
+                                             upcast=False)
+    assert_fwd_close(out, o32, o16, name=f"K1 {variant} out")
+    _gate_lse(lse, l32, l16, f"K1 {variant} lse")
+
+
+VARIANT_LENS = [128, 512, 1024, 300, 37, 700, 1]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("variant", FWD_SAME)
+def test_k5_variants_match_plain(sweep, variant, causal):
+    rng = np.random.default_rng(43)
+    T = sum(VARIANT_LENS)
+    q, k, v = (_bf16(rng, sweep, T, 8, 128), _bf16(rng, sweep, T, 2, 128),
+               _bf16(rng, sweep, T, 2, 128))
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(VARIANT_LENS)]),
+                      dtype=torch.int32, device=sweep)
+    L = max(VARIANT_LENS)
+    params = masklib.MaskParams(causal=causal)
+    out, lse = var.varlen_fwd(q, k, v, cu, L, causal, variant)
+    torch.cuda.synchronize()
+    args = (q, k, v, cu, cu, L, L, 128 ** -0.5, params)
+    o32, l32 = vl.flash_attn_varlen_fwd_ref(*args)
+    o16, l16 = vl.flash_attn_varlen_fwd_ref(*args, upcast=False)
+    assert_fwd_close(out, o32, o16, name=f"K5 {variant} out")
+    _gate_lse(lse, l32, l16, f"K5 {variant} lse")
+
+
+@pytest.mark.parametrize("variant", list(var.PAGED))
+def test_k8_variants_match_plain(sweep, variant):
+    """128-token pages, q behind cached prefixes (M < N), a shuffled pool."""
+    rng = np.random.default_rng(47)
+    lq, lk, Hq, Hk, D, ps = [64, 300, 17, 129], [300, 300, 37, 700], 8, 2, \
+        128, 128
+    q = _bf16(rng, sweep, sum(lq), Hq, D)
+    kp, tbl = _paged_pool(_bf16(rng, sweep, sum(lk), Hk, D), lk, ps, sweep,
+                          torch.bfloat16)
+    vp, _ = _paged_pool(_bf16(rng, sweep, sum(lk), Hk, D), lk, ps, sweep,
+                        torch.bfloat16)
+    kp, vp = (p.permute(2, 0, 1, 3).contiguous() for p in (kp, vp))
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lq)]),
+                      dtype=torch.int32, device=sweep)
+    lens = torch.tensor(lk, dtype=torch.int32, device=sweep)
+    params = masklib.MaskParams(causal=True)
+    out, lse = var.paged_fwd(q, kp, vp, tbl, cu, lens, max(lq), max(lk),
+                             True, variant)
+    torch.cuda.synchronize()
+    args = (q, kp, vp, tbl, cu, lens, max(lq), max(lk), D ** -0.5, params)
+    o32, l32 = vl.flash_attn_varlen_fwd_paged_ref(*args)
+    o16, l16 = vl.flash_attn_varlen_fwd_paged_ref(*args, upcast=False)
+    assert_fwd_close(out, o32, o16, name=f"K8 {variant} out")
+    _gate_lse(lse, l32, l16, f"K8 {variant} lse")
+
+
+@pytest.mark.parametrize("shape", [(2, 700, 700), (1, 300, 700),
+                                   (1, 700, 300)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv", [("dq", "bk64"), ("dkv", "bq64"),
+                                ("dkv", "keys128")], ids="-".join)
+def test_k2_k3_variants_match_plain(sweep, kv, causal, shape):
+    """The variant's gradients at the gradient gate (3x + 1e-4): a K3 tile
+    sums dK / dV over q in another order."""
+    B, M, N = shape
+    rng = np.random.default_rng(53)
+    q, k, v, do = (_bf16(rng, sweep, B, M, 8, 128),
+                   _bf16(rng, sweep, B, N, 2, 128),
+                   _bf16(rng, sweep, B, N, 2, 128),
+                   _bf16(rng, sweep, B, M, 8, 128))
+    params = masklib.MaskParams(causal=causal)
+    scale = 128 ** -0.5
+    out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params)
+    which, name = kv
+    got = var.dense_bwd(q, k, v, out, do, lse, causal,
+                        dq_variant=name if which == "dq" else None,
+                        dkv_variant=name if which == "dkv" else None)
+    torch.cuda.synchronize()
+    g32 = dbwd.flash_attn_dense_bwd_ref(q, k, v, out, do, lse, scale, params)
+    g16 = dbwd.flash_attn_dense_bwd_ref(q, k, v, out, do, lse, scale, params,
+                                        upcast=False)
+    for g, r32, r16, n in zip(got, g32, g16, ("dq", "dk", "dv")):
+        assert_bwd_close(g, r32, r16, name=f"{which} {name} {n}")
+
+
+def test_timing_only_variants_are_finite(sweep):
+    """The unmasked K1 / K5 and K4q's int4 ablations compute wrong numbers
+    on purpose; their outputs are finite and of the shipped shapes."""
+    rng = np.random.default_rng(59)
+    q, k, v = (_bf16(rng, sweep, 1, 500, 8, 128),
+               _bf16(rng, sweep, 1, 500, 2, 128),
+               _bf16(rng, sweep, 1, 500, 2, 128))
+    out, lse = var.dense_fwd(q, k, v, True, "unmasked")
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    assert torch.isfinite(lse).all()
+    cu = torch.tensor([0, 200, 500], dtype=torch.int32, device=sweep)
+    out, lse = var.varlen_fwd(q[0], k[0], v[0], cu, 300, True, "unmasked")
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    B, Hk, ctx, ps = 2, 2, 2048, 512
+    kf, vf = (torch.randn((Hk, B * ctx // ps, ps, 128), device=sweep)
+              for _ in range(2))
+    k4, ks = quant.quantize_kv(kf, "int4")
+    v4, vs = quant.quantize_kv(vf, "int4")
+    tbl = torch.arange(B * ctx // ps, dtype=torch.int32,
+                       device=sweep).reshape(B, -1)
+    lens = torch.full((B,), ctx - 5, dtype=torch.int32, device=sweep)
+    qr = _bf16(rng, sweep, B, Hk, 8, 128)
+    for name in var.INT4:
+        o = var.decode_int4(qr, k4[None], v4[None], ks[None], vs[None], tbl,
+                            lens, name, group=4)
+        torch.cuda.synchronize()
+        assert o.shape == qr.shape and torch.isfinite(o).all(), name
+
+
+def test_variant_occupancy_entries(sweep):
+    for kernel, (table, _) in var.TABLES.items():
+        for name in table:
+            occ = var.occupancy(kernel, name)
+            assert occ["regs"] > 0 and occ["threads"] in (128, 256), \
+                (kernel, name, occ)
+            assert occ["blocks"] >= 1, (kernel, name, occ)

@@ -43,11 +43,16 @@ MEASURE_SCRIPTS = ["common", "profile_kernels", "prof_calibrate",
                    "prof_decode_scan", "prof_decode_int8", "prof_int4",
                    "prof_decode_pagesize", "prof_int4_rmw",
                    "prof_decode_attrib", "prof_ttft_tail", "bench_scaling",
-                   "check_ring_overlap"]
+                   "check_ring_overlap",
+                   # the tile and unroll sweeps and their variants
+                   "variants", "prof_prefill", "prof_varlen", "prof_bwd",
+                   "prof_bwd_unroll", "prof_dkv_wide", "prof_fwd_pipeline",
+                   "prof_fwd_unroll", "prof_varlen_unroll",
+                   "prof_int4_ablate"]
 
 
 @pytest.mark.parametrize("name", MEASURE_SCRIPTS)
 def test_measurement_scripts_are_guarded(name):
-    """The measurement and attribution scripts are among the files held
-    free of JAX above."""
+    """The measurement, attribution and sweep scripts are among the files
+    held free of JAX above."""
     assert PKG / "benchmarks" / f"{name}.py" in FILES

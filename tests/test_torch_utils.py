@@ -138,6 +138,19 @@ def test_profile_ops_on_the_cpu_lists_aten_ops(tmp_path):
      "(fa::dec::DecodeArgs)", "K4q"),
     ("void (anonymous namespace)::int_kernel<__nv_bfloat16, 64, 2, false>"
      "((anonymous namespace)::IntArgs)", "K8q"),
+    # with the tile parameters (csrc/fwd_body.cuh FwdTune, csrc/bwd.cu
+    # BwdTune, the decode body's ABL), the shipped defaults or a variant's
+    ("void (anonymous namespace)::fwd_kernel<__nv_bfloat16, 128, 0, false, "
+     "0, (anonymous namespace)::FwdTune<0, 1, 0, false, false> >"
+     "((anonymous namespace)::FwdArgs)", "K1"),
+    ("void (anonymous namespace)::fwd_kernel<__nv_bfloat16, 128, 2, false, "
+     "0, (anonymous namespace)::FwdTune<16, 8, 0, false, false> >"
+     "((anonymous namespace)::FwdArgs)", "K8"),
+    ("void (anonymous namespace)::dkv_kernel<__nv_bfloat16, 128, true, "
+     "false, (anonymous namespace)::BwdTune<0, 0, 1> >"
+     "((anonymous namespace)::BwdArgs)", "K7"),
+    ("void fa::dec::decode_kernel<__nv_bfloat16, 128, 2, 16, 0>"
+     "(fa::dec::DecodeArgs)", "K4q"),
     ("void at::native::vectorized_elementwise_kernel<4, "
      "at::native::FillFunctor<float>, at::detail::Array<char*, 1> >(int, "
      "at::native::FillFunctor<float>, at::detail::Array<char*, 1>)", None),
