@@ -32,7 +32,15 @@ PyTorch library call computing the same function:
     pools at the same shapes, against their plain twins and the fp32
     oracle over the dequantized pool, all eight timed in turns over
     5 x 100 launches (the spread of each), also as CUDA-graph replays
-    (their device time without the wrapper's host time).
+    (their device time without the wrapper's host time);
+  * head dim 256 (`d256_checks`, after the dense phase) at Gemma-2B's
+    attention, B 4 x 2048, 8 q heads over 1 kv head: K1 and K3 (K2 with
+    them) against their plain versions with and without dropout, K5 / K6
+    / K7 on equal lengths bit-equal to K1 / K2 / K3 and on packed
+    documents against theirs, K8 and K8q fp8 at the prefill wave; each
+    D 256 kernel's occupancy, SASS HGMMA count (> 0 for the wgmma ones)
+    and local memory (none), and K1-K3 at (a) 1 x 32 x 8192^2 and (b)
+    that batch, causal and full, beside SDPA and the bound.
 Then the drop-in phase: in a fresh process the port takes the canonical
 `flash_attn` import name (`utils/distinfo.install_canonical_name`, no JAX
 imported) and HF transformers' padded-attention pattern (unpad_input ->
@@ -62,8 +70,8 @@ sequence-parallel training path on four more such processes: ring
 attention at the headline head shape over seq 4 (contiguous, zigzag, and
 with a window; forward and backward) against the fp32 oracle, Ulysses
 bit for bit against the unsharded kernels, and make_train_step(mesh=) at
-TinyLlama width on seq 2 x model 2 against the unsharded run, with each
-rank's K1-K3 launch counts.  Then the cost probes P1-P4 (`phase_probes`,
+TinyLlama width (cut to 8 layers) on seq 2 x model 2 against the
+unsharded run, with each rank's K1-K3 launch counts.  Then the cost probes P1-P4 (`phase_probes`,
 run after the quantized kernels): each probe variant's SASS holds the
 tensor-core (HGMMA) and exp2 (MUFU.EX2) instructions its stages claim,
 P4's kernels integer wgmma (IGMMA .S8.S8) and no mma.sync (IMMA),
@@ -74,8 +82,9 @@ torch._int_mm (P4).  Then `phase_fp32`: the fp32 bodies of K1-K8
 (csrc/fwd_f32.cu, bwd_f32.cu, decode_f32.cu) at the same shapes in fp32,
 each against its plain twin and an fp64 oracle (forward within 2 x the
 twin's error + 1e-5, gradients 3 x + 1e-4) and timed beside it and fp32
-SDPA; TinyLlama-1.1B's widths in fp32 trained for three AdamW steps
-through K1-K3 (step 1's loss and every gradient against the plain path's)
+SDPA; TinyLlama-1.1B's widths in fp32 (8 of its 22 layers) trained for
+three AdamW steps through K1-K3 (step 1's loss and every gradient against
+the plain path's)
 and serving 8 requests through K8 and K4 (logits against the plain
 twins', greedy tokens against a plain run's), and the same for
 ModelConfig.tiny(); then fp32 q over int8, fp8 and int4 pools on K4q's
@@ -85,7 +94,13 @@ timed beside fp32 SDPA, ModelConfig.tiny() served from each pool with the
 tokens of a direct paged_forward loop, and the TinyLlama fp32 serve again
 from an int8 pool; the ring phase also takes one
 make_lora_train_step(mesh=) step on seq 2 x model 2 against the unsharded
-LoRA step, with a planted fault.  Last, `phase_bench` runs the port's bench
+LoRA step, with a planted fault.  After the ring phase, `phase_d256`
+runs the repo's Llama body at Gemma-2B's widths (head dim 256; random
+weights): two AdamW steps at B 4 x S 2048 cut to 2 layers through K1-K3
+(step 1's losses and gradients against the plain attention's), then the
+engine runs' traffic at full depth (18 layers) through K8 and K4, every
+forward call's logits and greedy tokens against a plain replay of it.
+Last, `phase_bench` runs the port's bench
 (`python -m flash_attn_v100_tpu_torch.bench`: its headline JSON line must
 carry a value > 0) and the three examples as subprocesses on the card
 (train_seq_parallel on 2 gloo ranks), and `phase_scripts` the port's
@@ -114,8 +129,10 @@ without the package beside it, it exits non-zero and prints no result.
     python3 chip_smoke.py --dense-times TREE
 
 instead times K1-K3 of the port found in the directory TREE (a checkout,
-e.g. of a parent commit) at the training shape and prints a digest of each
-kernel's outputs, to compare two trees on one card in one call;
+e.g. of a parent commit) at the training shape and at head dim 256 (both
+`d256_checks` shapes, causal and full, beside SDPA and the bound) and
+prints a digest of each kernel's outputs and the D 256 kernels'
+occupancy, to compare two trees on one card in one call;
 
     python3 chip_smoke.py --varlen-times TREE
 
@@ -149,6 +166,7 @@ each pool's decode tok/s and TTFT p50 with their medians and quartiles.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -542,18 +560,18 @@ def phase_k4(torch, flush):
 
 # ---------------------------------------------------------------- K8 phase
 
-def k8_case(torch, dtype=None):
+def k8_case(torch, dtype=None, Hq=32, Hk=4, D=64):
     """The engine's prefill wave as K8 sees it: 4 sequences of 512 new
-    tokens behind cached prefixes 0/300/0/300, 32/4 heads x 64, page 128,
-    bf16 (or `dtype`), from fixed seeds.  Returns (sizes (B, T, Hq, Hk, D, ps), prefix,
-    seqlens, q, kp, vp, the call's arguments after the pools, the CUDA
-    generator for more inputs)."""
+    tokens behind cached prefixes 0/300/0/300, 32/4 heads x 64 (or Hq / Hk
+    x D), page 128, bf16 (or `dtype`), from fixed seeds.  Returns (sizes
+    (B, T, Hq, Hk, D, ps), prefix, seqlens, q, kp, vp, the call's arguments
+    after the pools, the CUDA generator for more inputs)."""
     from flash_attn_v100_tpu_torch.ops import masks as masklib
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     ggen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    B, T, Hq, Hk, D, ps = 4, 512, 32, 4, 64, 128
+    B, T, ps = 4, 512, 128
     prefix = torch.tensor([0, 300, 0, 300])
     seqlens = prefix + T
     max_k = int(seqlens.max())
@@ -885,12 +903,12 @@ def spliced(x, y, lo, n=64):
     return z
 
 
-def dense_work(B, S, Hq, Hk, D, esize=2):
-    """(flops, bytes) of K1, K2 and K3 for a causal B x S x Hq x D call:
-    4, 6 and 8 flops x D per live (q row, key) pair (2, 3 and 4 products),
-    each input read once and each output written once (`esize` bytes an
-    element)."""
-    pairs = B * Hq * S * (S + 1) // 2
+def dense_work(B, S, Hq, Hk, D, esize=2, causal=True):
+    """(flops, bytes) of K1, K2 and K3 for a causal (or full) B x S x Hq x
+    D call: 4, 6 and 8 flops x D per live (q row, key) pair (2, 3 and 4
+    products), each input read once and each output written once (`esize`
+    bytes an element)."""
+    pairs = B * Hq * S * (S + 1) // 2 if causal else B * Hq * S * S
     q_bytes, kv_bytes, row_bytes = B * S * Hq * D * esize, \
         B * S * Hk * D * esize, B * Hq * S * 4
     return {
@@ -1205,6 +1223,387 @@ def k1_bench_shape(torch, flush):
           f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
     return dict(shape=[B, S, Hq, Hk, D], max_abs_err=err, gate=gate, ms=ms,
                 library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+# head dim 256: (a) sweep_dense's 1 x 32 x 8192^2 (benchmarks/
+# sweep_dense.py:53), (b) Gemma-2B's attention at a training batch, B 4 x
+# 2048, 8 q heads over 1 kv head (google/gemma-2b config.json): (B, S, Hq,
+# Hk, D)
+D256_SHAPES = {"a": (1, 8192, 32, 32, 256), "b": (4, 2048, 8, 1, 256)}
+
+
+def plain_fwd16(torch, dfwd, q, k, v, scale, params, **kw):
+    """The plain forward's out and LSE with both products in q's dtype
+    (upcast=False), 4 kv heads (and their q heads) at a time: at 1 x 32 x
+    8192^2 one call's fp32 scores would take 8.6 GB a tensor.  Dropout
+    keys on the head, so a call with dropout takes all heads."""
+    Hq, Hk = q.shape[2], k.shape[2]
+    g = Hq // Hk
+    step = Hk if kw.get("dropout_p") else 4
+    outs, lses = [], []
+    for h0 in range(0, Hk, step):
+        h1 = min(Hk, h0 + step)
+        o, l = dfwd.flash_attn_dense_fwd_ref(
+            q[:, :, h0 * g:h1 * g], k[:, :, h0:h1], v[:, :, h0:h1], scale,
+            params, upcast=False, **kw)
+        outs.append(o)
+        lses.append(l)
+    return torch.cat(outs, 2), torch.cat(lses, 1)
+
+
+def d256_rows(torch, flush, digests=None) -> dict:
+    """K1, K2 and K3 alone at head dim 256 (`D256_SHAPES`), bf16, causal
+    and full: each kernel's device time from CUDA-graph replays, SDPA's
+    forward and backward (`enable_gqa`; CUDA events around one call) and
+    the bound.  K2 and K3 take the plain forward's out and LSE in bf16, so
+    their inputs are the same in every tree (without `digests`, K1's: the
+    time is the same).  With a dict `digests`, adds a digest of each
+    kernel's outputs to it (and, at (b), causal, of the dropout p 0.1
+    calls: the bias / dropout variants)."""
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    seed = torch.tensor([0x2468ACE1, 0x10000001], dtype=torch.int64)
+    rows = {}
+    for tag, (B, S, Hq, Hk, D) in D256_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(
+            torch.bfloat16) for s in ((B, S, Hq, D), (B, S, Hk, D),
+                                      (B, S, Hk, D), (B, S, Hq, D)))
+        scale = D ** -0.5
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        do_s = do.transpose(1, 2).contiguous()
+        for causal in (True, False):
+            name = f"D 256 {tag} {'causal' if causal else 'full'}"
+            params = masklib.MaskParams(causal=causal)
+            # digests need inputs that are the same in every tree; a time
+            # does not, and K1's out and LSE are cheaper at (a)
+            o16, l16 = (plain_fwd16(torch, dfwd, q, k, v, scale, params)
+                        if digests is not None else
+                        dfwd.flash_attn_dense_fwd(q, k, v, scale, params))
+            kargs = (q, k, v, do, l16.clamp_min(NEG_INF).contiguous(),
+                     dbwd.softmax_delta(o16, do), None, scale, params, 0.0,
+                     None, 0, None, Hq)
+            del o16, l16
+            if digests is not None:
+                digests[f"K1 {name}"] = digest(
+                    torch, *dfwd.flash_attn_dense_fwd(q, k, v, scale, params))
+                digests[f"K2 {name}"] = digest(torch, dbwd.dq_kernel(*kargs))
+                digests[f"K3 {name}"] = digest(torch,
+                                               *dbwd.dkv_kernel(*kargs))
+            ms = {"K1": graph_ms(torch, lambda: dfwd.flash_attn_dense_fwd(
+                      q, k, v, scale, params), flush=flush),
+                  "K2": graph_ms(torch, lambda: dbwd.dq_kernel(*kargs),
+                                 flush=flush),
+                  "K3": graph_ms(torch, lambda: dbwd.dkv_kernel(*kargs),
+                                 flush=flush)}
+            del kargs
+            lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal, enable_gqa=True), flush=flush)
+            o_lib = F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=causal,
+                                                   enable_gqa=True)
+            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qs, ks, vs), do_s, retain_graph=True), flush=flush)
+            del o_lib
+            work = dense_work(B, S, Hq, Hk, D, causal=causal)
+            row = dict(shape=[B, S, Hq, Hk, D], causal=causal,
+                       sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd)
+            for kid in ("K1", "K2", "K3"):
+                flops, nbytes = work[kid]
+                bms, by = bound_ms(nbytes, flops)
+                row[kid] = dict(ms=ms[kid], bound_ms=bms, bound_by=by,
+                                tflops=flops / ms[kid] / 1e9)
+            rows[name] = row
+            print(f"{name} (B={B} S={S} Hq={Hq} Hk={Hk}, bf16, graph "
+                  f"replays): " + ", ".join(
+                      f"{kid} {row[kid]['ms']:.4f} ms (bound "
+                      f"{row[kid]['bound_ms']:.4f}, "
+                      f"{row[kid]['tflops']:.1f} TFLOP/s)"
+                      for kid in ("K1", "K2", "K3")) +
+                  f"; sdpa fwd {lib_fwd:.4f} ms, bwd {lib_bwd:.4f} ms "
+                  f"(K2 + K3 {row['K2']['ms'] + row['K3']['ms']:.4f})",
+                  flush=True)
+        if digests is not None and tag == "b":
+            params = masklib.MaskParams(causal=True)
+            kw = dict(dropout_p=DENSE_DROPOUT, dropout_seed=seed)
+            name = "D 256 b causal p=0.1"
+            digests[f"K1 {name}"] = digest(torch, *dfwd.flash_attn_dense_fwd(
+                q, k, v, scale, params, **kw))
+            o16, l16 = plain_fwd16(torch, dfwd, q, k, v, scale, params, **kw)
+            dq, dk, dv = dbwd.flash_attn_dense_bwd(q, k, v, o16, do, l16,
+                                                   scale, params, **kw)
+            digests[f"K2 {name}"] = digest(torch, dq)
+            digests[f"K3 {name}"] = digest(torch, dk, dv)
+            del o16, l16, dq, dk, dv
+        del q, k, v, do, qs, ks, vs, do_s
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the head-dim-256 kernels: (id, library), and those whose D 256 body runs
+# on wgmma (K2 / K6 keep mma.sync there)
+D256_KERNELS = (("K1", "fwd"), ("K5", "fwd"), ("K8", "varlen_paged"),
+                ("K8q", "varlen_paged_quant"), ("K2", "bwd"), ("K6", "bwd"),
+                ("K3", "bwd"), ("K7", "bwd"))
+D256_WGMMA = ("K1", "K5", "K8", "K8q", "K3", "K7")
+
+
+def d256_build_report(build) -> dict:
+    """Each head-dim-256 instantiation of D256_KERNELS (both 16-bit types,
+    both variants; K8q: its e4m3 pool on the forward body): its SASS
+    HGMMA / HMMA counts (`build.sass_counts`) and its ptxas registers and
+    local bytes (`build.ptxas_usage`), keyed by its CUDA name.  Asserts
+    HGMMA > 0 and no local memory in each D256_WGMMA one."""
+    from concurrent.futures import ThreadPoolExecutor
+    from flash_attn_v100_tpu_torch.utils import profiling as tprof
+
+    libs = list(dict.fromkeys(lib for _, lib in D256_KERNELS))
+    with ThreadPoolExecutor(len(libs)) as pool:   # one cuobjdump a library
+        sass = dict(zip(libs, pool.map(build.sass_counts, libs)))
+    res = {}
+    for lib in libs:
+        usage = build.ptxas_usage(lib)
+        for name, c in sass[lib].items():
+            kid = tprof.kernel_id(name)
+            if (tprof.kernel_head_dim(name) != 256
+                    or (kid, lib) not in D256_KERNELS
+                    or (kid == "K8q" and "fwd_kernel" not in name)):
+                continue
+            u = usage[name]
+            res[name] = dict(id=kid, hgmma=c["hgmma"], hmma=c["hmma"],
+                             registers=u["registers"],
+                             local_bytes=u["stack"] + u["spill_stores"])
+            if kid in D256_WGMMA:
+                assert c["hgmma"] > 0, f"{name}: no HGMMA in its SASS"
+                assert res[name]["local_bytes"] == 0, f"{name}: local memory"
+    for kid, _ in D256_KERNELS:
+        rows = [r for r in res.values() if r["id"] == kid]
+        assert len(rows) == 4, f"{kid}: {len(rows)} D 256 instantiations"
+        print(f"{kid} D 256 SASS (bf16 / fp16 x no bias / bias variants): "
+              f"HGMMA {[r['hgmma'] for r in rows]}, HMMA "
+              f"{[r['hmma'] for r in rows]}, registers "
+              f"{[r['registers'] for r in rows]}, local bytes "
+              f"{[r['local_bytes'] for r in rows]}", flush=True)
+    return res
+
+
+def d256_checks(torch, flush) -> dict:
+    """Head dim 256 at Gemma-2B's attention (D256_SHAPES (b): B 4 x 2048, 8
+    q heads over 1 kv head, causal, bf16): K1 and K3 (with K2, which keeps
+    its mma.sync body) against their plain versions at p 0 and 0.1, two
+    backward calls bit-equal; K5 and K7 (through the varlen wrappers, K6
+    beside K7) on the same batch as equal-length sequences bit-equal to K1
+    and K2 / K3 (one body each), and on packed documents against their
+    plain versions; K8 and K8q fp8 at the engine's prefill wave (k8_case,
+    8/1 heads x 256) against theirs; the D 256 kernels' occupancy and
+    `d256_build_report`; then `d256_rows`' times at both shapes.  Returns
+    the K1, K2, K3 and K8 rows of the `kernels` line ((b), causal)."""
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    from flash_attn_v100_tpu_torch.utils import testing as tt
+
+    dev = torch.device("cuda")
+    B, S, Hq, Hk, D = D256_SHAPES["b"]
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    q, k, v, do = (torch.randn(sh, generator=ggen, device=dev).to(
+        torch.bfloat16) for sh in ((B, S, Hq, D), (B, S, Hk, D),
+                                   (B, S, Hk, D), (B, S, Hq, D)))
+    params = masklib.MaskParams(causal=True)
+    scale = D ** -0.5
+    seed = torch.tensor([0x3C2D1E0F, 0x78695A4B], dtype=torch.int64)
+    errs, rows = {}, {}
+    laps = [time.perf_counter()]
+    for p in (0.0, DENSE_DROPOUT):
+        kw = dict(dropout_p=p, dropout_seed=seed if p else None)
+        tag = f"D 256 p={p}"
+        out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params, **kw)
+        dq, dk, dv = dbwd.flash_attn_dense_bwd(q, k, v, out, do, lse, scale,
+                                               params, **kw)
+        torch.cuda.synchronize()
+        o32, l32 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params, **kw)
+        o16, l16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params,
+                                                 upcast=False, **kw)
+        errs[("K1", p)] = gated(torch, out, o32, o16, f"K1 {tag} out")
+        errs[("K1", p, "lse")] = gated(torch, lse, l32, l16, f"K1 {tag} lse")
+        rows[f"K1 {tag} out"] = gated_rows(torch, out, o32, o16,
+                                           f"K1 {tag} out", tt.FWD_MULT)[0]
+        del o32, o16, l32, l16
+        g32 = dbwd.flash_attn_dense_bwd_ref(q, k, v, out, do, lse, scale,
+                                            params, **kw)
+        g16 = dbwd.flash_attn_dense_bwd_ref(q, k, v, out, do, lse, scale,
+                                            params, upcast=False, **kw)
+        for name, key, g, r32, r16 in (("K2", "dq", dq, g32[0], g16[0]),
+                                       ("K3", "dk", dk, g32[1], g16[1]),
+                                       ("K3", "dv", dv, g32[2], g16[2])):
+            errs[(name, p, key)] = gated(torch, g, r32, r16,
+                                         f"{name} {tag} {key}", tt.BWD_MULT,
+                                         tt.BWD_ATOL)
+            rows[f"{name} {tag} {key}"] = gated_rows(
+                torch, g, r32, r16, f"{name} {tag} {key}", tt.BWD_MULT)[0]
+        del g32, g16
+        again = dbwd.flash_attn_dense_bwd(q, k, v, out, do, lse, scale,
+                                          params, **kw)
+        assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)), \
+            f"{tag}: two backward calls differ"
+        del again
+        if not p:
+            # K5 / K6 / K7 on the batch as 4 equal-length sequences: K1's,
+            # K2's and K3's bits
+            cu = torch.arange(B + 1, dtype=torch.int32, device=dev) * S
+            pk = [t.reshape(B * S, *t.shape[2:]) for t in (q, k, v, do)]
+            o_v, lse_v = vl.flash_attn_varlen_fwd(pk[0], pk[1], pk[2], cu, cu,
+                                                  S, S, scale, params)
+            assert torch.equal(o_v, out.reshape(B * S, Hq, D)), "K5 != K1"
+            assert torch.equal(lse_v, lse.permute(1, 0, 2).reshape(
+                Hq, B * S)), "K5 lse != K1's"
+            g_v = vl.flash_attn_varlen_bwd(pk[0], pk[1], pk[2], o_v, pk[3],
+                                           lse_v, cu, cu, S, S, scale, params)
+            for a, b, what in zip(g_v, (dq, dk, dv), ("dq", "dk", "dv")):
+                assert torch.equal(a, b.reshape(a.shape)), \
+                    f"equal lengths: varlen {what} != dense"
+            del o_v, lse_v, g_v
+        print(f"dense {tag} (B={B}, S={S}, Hq={Hq}, Hk={Hk}, D={D}, causal, "
+              f"bf16): max abs err vs fp32 plain <= gate: " + ", ".join(
+                  f"{' '.join(str(x) for x in key if x != p)} "
+                  f"{e[0]:.3e} <= {e[1]:.3e}" for key, e in errs.items()
+                  if key[1] == p) + "; per-row err/gate " + ", ".join(
+                  f"{key.split(' ', 3)[0]} {key.split()[-1]} {r:.3f}"
+                  for key, r in rows.items() if tag in key) +
+              "; two backward calls bit-equal" +
+              ("; K5 / K6 / K7 on 4 equal-length sequences bit-equal to K1 /"
+               " K2 / K3" if not p else ""), flush=True)
+        del out, lse, dq, dk, dv
+
+    laps.append(time.perf_counter())
+    # K5 / K7 on packed documents of 37-2048 tokens in the 4 rows
+    docs = [n for d in packed_doc_lengths(B, S, SEED) for n in d]
+    cu = torch.tensor([0] + docs, device=dev).cumsum(0).to(torch.int32)
+    ms = max(docs)
+    pk = [t.reshape(B * S, *t.shape[2:]) for t in (q, k, v, do)]
+    o_v, lse_v = vl.flash_attn_varlen_fwd(pk[0], pk[1], pk[2], cu, cu, ms,
+                                          ms, scale, params)
+    g_v = vl.flash_attn_varlen_bwd(pk[0], pk[1], pk[2], o_v, pk[3], lse_v,
+                                   cu, cu, ms, ms, scale, params)
+    torch.cuda.synchronize()
+    vargs = (pk[0], pk[1], pk[2], cu, cu, ms, ms, scale, params)
+    o32 = vl.flash_attn_varlen_fwd_ref(*vargs)[0]
+    o16 = vl.flash_attn_varlen_fwd_ref(*vargs, upcast=False)[0]
+    e5 = gated(torch, o_v, o32, o16, "K5 D 256 out")
+    bargs = (pk[0], pk[1], pk[2], o_v, pk[3], lse_v, cu, cu, ms, ms, scale,
+             params)
+    g32 = vl.flash_attn_varlen_bwd_ref(*bargs)
+    g16 = vl.flash_attn_varlen_bwd_ref(*bargs, upcast=False)
+    e7 = [gated(torch, g, r32, r16, f"K7 D 256 {what}", tt.BWD_MULT,
+                tt.BWD_ATOL)
+          for g, r32, r16, what in zip(g_v[1:], g32[1:], g16[1:],
+                                       ("dk", "dv"))]
+    print(f"varlen D 256 ({len(docs)} packed documents of {min(docs)}-"
+          f"{max(docs)} tokens, {Hq}/{Hk} heads, causal, bf16): K5 out "
+          f"{e5[0]:.3e} <= {e5[1]:.3e}; K7 dk {e7[0][0]:.3e} <= "
+          f"{e7[0][1]:.3e}, dv {e7[1][0]:.3e} <= {e7[1][1]:.3e}", flush=True)
+    del o_v, lse_v, g_v, o32, o16, g32, g16, pk
+
+    laps.append(time.perf_counter())
+    # K8 and K8q fp8 at the engine's prefill wave, 8/1 heads x 256
+    (Bp, T, _, _, _, ps), prefix, seqlens, qp, kp, vp, tail, _ = k8_case(
+        torch, Hq=Hq, Hk=Hk, D=D)
+    args = (qp, kp, vp) + tail
+    out8, lse8 = vl.flash_attn_varlen_fwd_paged(*args)
+    torch.cuda.synchronize()
+    o32, l32 = vl.flash_attn_varlen_fwd_paged_ref(*args)
+    o16, l16 = vl.flash_attn_varlen_fwd_paged_ref(*args, upcast=False)
+    e8 = gated(torch, out8, o32, o16, "K8 D 256 out")
+    e8l = gated(torch, lse8, l32, l16, "K8 D 256 lse")
+    r8 = gated_rows(torch, out8, o32, o16, "K8 D 256 out", 2.0)[0]
+    (kq, vq, ks, vs), (kd, vd) = quant_pools(torch, kp, vp, "fp8")
+    qargs = (qp, kq, vq, *tail)
+    skw = dict(k_scales=ks, v_scales=vs)
+    outq, lseq = vl.flash_attn_varlen_fwd_paged(*qargs, **skw)
+    twin, lse_twin = vl.flash_attn_varlen_fwd_paged_ref(*qargs, **skw)
+    unr = vl.flash_attn_varlen_fwd_paged_ref(*qargs, round_p=False, **skw)[0]
+    oracle = vl.flash_attn_varlen_fwd_paged_ref(qp, kd, vd, *tail)[0]
+    o_w = vl.flash_attn_varlen_fwd_paged(
+        *qargs, k_scales=ks, v_scales=torch.roll(vs, 1, dims=2))[0]
+    eq = gate_quant(torch, "K8q fp8 D 256 prefill", "fp8", outq, lseq, twin,
+                    unr, lse_twin, oracle, spliced0(outq, o_w, Bp * T - 64))
+    print(f"K8 D 256 prefill (B={Bp} x T={T} behind prefixes "
+          f"{prefix.tolist()}, {Hq}/{Hk} heads, ps={ps}): out {e8[0]:.3e} <= "
+          f"{e8[1]:.3e}, worst row err/gate {r8:.3f}, lse {e8l[0]:.3e} <= "
+          f"{e8l[1]:.3e}", flush=True)
+    k8_ms = graph_ms(torch, lambda: vl.flash_attn_varlen_fwd_paged(*args),
+                     flush=flush)
+    k8_plain = time_ms(torch, lambda: vl.flash_attn_varlen_fwd_paged_ref(
+        *args), reps=5, flush=flush)
+    kc, vc = gather_kv(torch, kp, vp, tail[0], seqlens, ps)
+    k8_lib = time_ms(torch, prefill_sdpa(torch, qp, kc, vc, prefix, T),
+                     flush=flush)
+    live = sum(T * int(x) + T * (T + 1) // 2 for x in prefix)
+    k8_bound = bound_ms(2 * qp.numel() * 2 + Hq * Bp * T * 4
+                        + 2 * int(seqlens.sum()) * Hk * D * 2
+                        + tail[0].numel() * 4, 4 * live * Hq * D)
+    del args, qargs, out8, lse8, o32, o16, l32, l16, outq, lseq, twin, unr, \
+        oracle, o_w, kc, vc, kp, vp, kq, vq, kd, vd
+
+    laps.append(time.perf_counter())
+    # what each D 256 kernel holds, and its SASS
+    occ = occupancy(build, ("K1", "K3", "K7", "K8", "K8q fp8"), dims=(256,))
+    occ_res = {n: {} for n in ("K1", "K3", "K7", "K8", "K8q fp8")}
+    print_occupancy(occ_res, occ, 256)
+    for (name, _, extra), o in occupancy(build, ("K2", "K6"),
+                                         dims=(256,)).items():
+        print(f"{name} occupancy (bf16, D 256, mma.sync as the parent's, "
+              f"{'bias/dropout' if extra else 'no bias/dropout'} variant): "
+              f"{o['registers']} registers, local {o['local_bytes']} B, "
+              f"{o['smem_bytes']} B shared, {o['warps_per_sm']} warps an SM",
+              flush=True)
+    report = d256_build_report(build)
+
+    laps.append(time.perf_counter())
+    # the kernels line's rows: times at (b), causal, beside both shapes'
+    d256 = d256_rows(torch, flush)
+    tb = d256["D 256 b causal"]
+    kw = dict(dropout_p=0.0, dropout_seed=None)
+    plain_fwd = time_ms(torch, lambda: dfwd.flash_attn_dense_fwd_ref(
+        q, k, v, scale, params, **kw), reps=3, warmup=1, flush=flush)
+    out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params)
+    plain_bwd = time_ms(torch, lambda: dbwd.flash_attn_dense_bwd_ref(
+        q, k, v, out, do, lse, scale, params, **kw), reps=3, warmup=1,
+        flush=flush)
+    res = {}
+    for name, plain, lib in (("K1", plain_fwd, tb["sdpa_fwd_ms"]),
+                             ("K2", plain_bwd, tb["sdpa_bwd_ms"]),
+                             ("K3", plain_bwd, tb["sdpa_bwd_ms"])):
+        worst = max((e for key, e in errs.items() if key[0] == name),
+                    key=lambda e: e[0] / e[1])
+        res[name] = dict(max_abs_err=worst[0], gate=worst[1],
+                         ms=tb[name]["ms"], plain_ms=plain, library_ms=lib,
+                         bound_ms=tb[name]["bound_ms"],
+                         bound_by=tb[name]["bound_by"])
+        if name in occ_res:
+            res[name]["occupancy"] = occ_res[name]["occupancy"]
+    res["K8"] = dict(max_abs_err=e8[0], gate=e8[1], ms=k8_ms,
+                     plain_ms=k8_plain, library_ms=k8_lib,
+                     bound_ms=k8_bound[0], bound_by=k8_bound[1],
+                     occupancy=occ_res["K8"]["occupancy"])
+    res["hgmma"] = {r["id"]: r["hgmma"] for r in report.values()}
+    laps.append(time.perf_counter())
+    print(f"K8 D 256 prefill: kernel {k8_ms:.4f} ms (graph replays), plain "
+          f"{k8_plain:.4f} ms, sdpa {k8_lib:.4f} ms, bound "
+          f"{k8_bound[0]:.5f} ms ({k8_bound[1]})", flush=True)
+    print("d256 checks, s: " + ", ".join(
+        f"{name} {b - a:.1f}" for name, a, b in zip(
+            ("dense", "varlen", "paged", "occupancy + SASS", "times"),
+            laps, laps[1:])), flush=True)
+    return res
 
 
 # ------------------------------------------------- K5-K7 (varlen phase)
@@ -2347,6 +2746,239 @@ def phase_engine(torch, cfg, kind=None):
                 first_prefill=first)
 
 
+# ------------------------------------------- head dim 256 on the main path
+
+# Gemma-2B's published attention and model widths (google/gemma-2b
+# config.json: hidden_size 2048, num_attention_heads 8, num_key_value_heads
+# 1, head_dim 256, intermediate_size 16384, vocab_size 256000, 18 layers,
+# rms_norm_eps 1e-6) on the repo's Llama body (models/transformer.py): no
+# GeGLU, tied embeddings or embedding scale; random seeded weights
+D256_TRAIN_LAYERS, D256_TRAIN_STEPS = 2, 2
+
+
+def gemma_2b_config(torch):
+    from flash_attn_v100_tpu_torch import ModelConfig
+    return ModelConfig(vocab_size=256000, dim=2048, n_layers=18, n_heads=8,
+                       n_kv_heads=1, head_dim=256, ffn_dim=16384,
+                       rope_theta=10000.0, max_seq_len=8192, norm_eps=1e-6,
+                       dtype=torch.bfloat16)
+
+
+def d256_train(torch, cfg):
+    """Step 1's per-token losses and gradients of `cfg` at B TRAIN_B x
+    TRAIN_S through K1-K3 against the same through the plain attention in
+    fp32 and bf16 (phase_train's loss gates; each leaf's gradient within
+    `gated`'s backward gate, 3 x the bf16 plain one's distance + 1e-4),
+    then D256_TRAIN_STEPS AdamW steps from the counters at 0: each of K1,
+    K2, K3 launched n_layers times a step, the plain versions never."""
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.utils import testing as tt
+
+    dev = torch.device("cuda")
+    params = tm.init_params(cfg, seed=SEED, device=dev, lm_head=True)
+    leaves = tm.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    tokens = train_tokens(torch, cfg, dev)
+    names = ["embed", "ln_f", "lm_head"] + [
+        f"layer {i} {k}" for i, lp in enumerate(params["layers"])
+        for k in sorted(lp)]
+    assert len(names) == len(leaves)
+
+    def losses_grads():
+        logits = tm.forward(params, tokens[:, :-1], cfg)
+        logp = torch.log_softmax(logits, dim=-1)
+        del logits
+        nll = -logp.gather(-1, tokens[:, 1:, None].to(torch.long))[..., 0]
+        del logp
+        grads = torch.autograd.grad(nll.mean(), leaves)
+        return nll.detach(), grads
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(dfwd, dbwd)
+    nll_k, g_k = losses_grads()
+    counts = _kernel_counts(dfwd, dbwd)
+    L = cfg.n_layers
+    assert [counts[n] for n in ("K1", "K2", "K3")] == [L] * 3, counts
+    with _plain_attention(fa_mod, dfwd, dbwd, True):
+        nll32, g32 = losses_grads()
+    with _plain_attention(fa_mod, dfwd, dbwd, False):
+        nll16, g16 = losses_grads()
+    err, gate = gated(torch, nll_k, nll32, nll16, "d256 step 1 token losses",
+                      2.0, 1e-5)
+    means = [float(x.double().mean()) for x in (nll_k, nll32, nll16)]
+    e16 = (nll16 - nll32).double()
+    spread = 3.0 * float(e16.std()) / e16.numel() ** 0.5
+    mean_err = abs(means[0] - means[1])
+    mean_gate = max(2.0 * abs(means[2] - means[1]) + 1e-5, spread)
+    assert mean_err <= mean_gate, (
+        f"d256 step 1 loss: err {mean_err:.3e} > gate {mean_gate:.3e}")
+    worst = (0.0, "")
+    for name, a, r32, r16 in zip(names, g_k, g32, g16):
+        e, gt = gated(torch, a, r32, r16, f"d256 step 1 grad {name}",
+                      tt.BWD_MULT, tt.BWD_ATOL)
+        worst = max(worst, (e / gt, name))
+    del g_k, g32, g16, nll32, nll16, e16
+    print(f"d256 train step 1 (B {TRAIN_B} x S {TRAIN_S}): token losses max "
+          f"err {err:.3e} <= gate {gate:.3e}; mean kernel {means[0]:.6f}, "
+          f"plain fp32 {means[1]:.6f}, plain bf16 {means[2]:.6f}: err "
+          f"{mean_err:.3e} <= gate {mean_gate:.3e} ({TRAIN_LOSS_GATE}); "
+          f"{len(names)} gradients within 3 x the bf16 plain error + 1e-4, "
+          f"worst err/gate {worst[0]:.3f} ({worst[1]})", flush=True)
+
+    step, init_opt = tm.make_train_step(cfg)
+    opt = init_opt(params)
+    torch.cuda.synchronize()
+    _reset_counts(dfwd, dbwd)
+    losses, secs = [], []
+    for _ in range(D256_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, tokens)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = _kernel_counts(dfwd, dbwd)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert all(math.isfinite(x) for x in losses), losses
+    for name in ("K1", "K2", "K3"):
+        assert counts[name] == L * D256_TRAIN_STEPS, counts
+    assert counts["plain_fwd"] == 0 and counts["plain_bwd"] == 0, counts
+    n_params = sum(t.numel() for t in leaves)
+    print(f"d256 train: {L} layers (reduced: 18 -> {L}), dim {cfg.dim}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, ffn "
+          f"{cfg.ffn_dim}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+          f"params; AdamW, B {TRAIN_B} x S {TRAIN_S} (batch not cut); losses "
+          f"{[round(x, 5) for x in losses]} (step 1's mean above "
+          f"{means[0]:.5f}), step times {[round(x * 1e3, 1) for x in secs]} "
+          f"ms, peak memory {peak_gb:.2f} GB; launches K1 {counts['K1']}, K2 "
+          f"{counts['K2']}, K3 {counts['K3']}; plain calls "
+          f"{counts['plain_fwd']} / {counts['plain_bwd']}", flush=True)
+    return dict(launches=counts, losses=losses, step_ms=secs[-1] * 1e3,
+                peak_gb=peak_gb, loss_err=mean_err, loss_gate=mean_gate,
+                grad_worst=worst)
+
+
+def d256_serve(torch, cfg):
+    """`serve_traffic` on `cfg` at full depth (the K8 route's prefill wave,
+    then K4 decodes), every forward call of the run replayed on copies of
+    its pools through the plain attention versions: each call's logits
+    within phase_engine's gate (2 x the bf16-product plain run's error vs
+    the fp32 one + 1e-5), and each served greedy token a greedy token of
+    the plain run within that gate (its plain logit at most the gate below
+    the plain maximum, so a near-tie may fall either way).  Launch counts
+    of the run itself: K4 / K8 n_layers a forward call of their route, the
+    plain twins never."""
+    import functools
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops import kvcache as kv_mod
+    from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    from flash_attn_v100_tpu_torch.runtime import engine as eng_mod
+
+    params = tm.init_params(cfg, seed=SEED, device="cuda", lm_head=True)
+    n_params = sum(t.numel() for t in tm.param_leaves(params))
+    eng = make_engine(torch, params, cfg)
+    real_pf = eng_mod.paged_forward
+    twins = (dec.paged_decode_attention_ref, vl.flash_attn_varlen_fwd_paged_ref)
+    calls = {"decode": 0, "varlen": 0}
+    own = {"launches": {"decode": 0, "varlen": 0}, "twins": [0, 0]}
+    worst = {"decode": (0.0, 0.0), "varlen": (0.0, 0.0)}
+
+    def replay(k, v, args, kw, decode_fn, varlen_fn):
+        def merged(*a, **k_):
+            o, lse = dec.merge_partials(*decode_fn(*a, **k_))
+            return o.to(a[0].dtype), lse
+        saved = (kv_mod.paged_decode_attention_merged,
+                 kv_mod.flash_attn_varlen_fwd_paged)
+        kv_mod.paged_decode_attention_merged = merged
+        kv_mod.flash_attn_varlen_fwd_paged = varlen_fn
+        try:
+            return real_pf(params, k.clone(), v.clone(), *args, cfg,
+                           **kw)[0]
+        finally:
+            (kv_mod.paged_decode_attention_merged,
+             kv_mod.flash_attn_varlen_fwd_paged) = saved
+
+    def spy(params_, k_pool, v_pool, tokens, cs, bt, cfg_, **kw):
+        route = eng_mod._route(cfg_, tokens.shape[1], k_pool.shape[2])
+        k0, v0 = k_pool.clone(), v_pool.clone()
+        args = (tokens.clone(), cs.clone(), bt.clone())
+        before = serving_counts()
+        out = real_pf(params_, k_pool, v_pool, tokens, cs, bt, cfg_, **kw)
+        after = serving_counts()
+        for r in own["launches"]:
+            own["launches"][r] += after[0][r] - before[0][r]
+        own["twins"] = [a + y - x for a, x, y in
+                        zip(own["twins"], before[1], after[1])]
+        calls[route] += 1
+        logits = out[0].float()
+        plain = replay(k0, v0, args, kw, *twins).float()
+        plain_y = replay(k0, v0, args, kw, *(functools.partial(
+            t, upcast=False) for t in twins)).float()
+        assert torch.isfinite(logits).all(), "non-finite served logits"
+        err, gate = gated(torch, logits, plain, plain_y,
+                          f"d256 engine {route} call {calls[route]} logits",
+                          ENGINE_LOGITS_MULT, ENGINE_LOGITS_ATOL)
+        chosen = plain.gather(-1, logits.argmax(-1, keepdim=True))[..., 0]
+        margin = float((plain.amax(-1) - chosen).max())
+        assert margin <= gate, (
+            f"d256 engine {route} call {calls[route]}: a served token's "
+            f"plain logit {margin:.3e} below the plain maximum > gate "
+            f"{gate:.3e}")
+        worst[route] = max(worst[route], (err / gate, margin / gate))
+        return out
+
+    reset_serving_counts()
+    eng_mod.paged_forward = spy
+    try:
+        out, rids, (t0, t_a, t_b), (tok_a, tok_b) = serve_traffic(
+            torch, eng, cfg)
+    finally:
+        eng_mod.paged_forward = real_pf
+    assert sorted(out) == sorted(rids), "every request must finish"
+    for rid in rids:
+        assert len(out[rid]) == N_NEW, (rid, len(out[rid]))
+    L = cfg.n_layers
+    for route in ("decode", "varlen"):
+        assert calls[route] > 0, calls
+        assert own["launches"][route] == L * calls[route], (route, own, calls)
+    assert own["twins"] == [0, 0], f"plain twins called: {own['twins']}"
+    print(f"d256 engine: {L} layers, dim {cfg.dim}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads x {cfg.head_dim}, ffn {cfg.ffn_dim}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, untied lm_head, {n_params / 1e9:.3f}"
+          f" B params (not cut); {len(rids)} requests ({N_LONG} x {LONG_LEN} "
+          f"+ {list(SHORT_LENS)} prompt tokens, {N_NEW} greedy tokens each), "
+          f"max_batch {eng.max_batch}, page {PAGE_SIZE}; forward calls "
+          f"{calls}, launches {own['launches']}, plain twin calls "
+          f"{own['twins']}; every call's logits vs the plain replays: worst "
+          f"err/gate decode {worst['decode'][0]:.3f}, varlen "
+          f"{worst['varlen'][0]:.3f} ({ENGINE_LOGITS_GATE}); served tokens' "
+          f"plain-logit shortfall / gate: decode {worst['decode'][1]:.3f}, "
+          f"varlen {worst['varlen'][1]:.3f}; TTFT p50 "
+          f"{statistics.median([eng.ttft(r) for r in rids]) * 1e3:.1f} ms "
+          f"(with the replays)", flush=True)
+    return dict(launches=own["launches"], calls=calls, worst=worst)
+
+
+def phase_d256(torch):
+    """The repo's Llama body at Gemma-2B's widths (head dim 256): training
+    (d256_train, cut to D256_TRAIN_LAYERS layers) through K1-K3 at D 256,
+    then serving at full depth (d256_serve) through K8 and K4 at D 256."""
+    cfg = gemma_2b_config(torch)
+    train = d256_train(torch, dataclasses.replace(
+        cfg, n_layers=D256_TRAIN_LAYERS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = d256_serve(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(train=train, serve=serve)
+
+
 def reset_serving_counts():
     """Zero the serving kernels' launch counters (K4, K8 and each payload's
     K4q / K8q), their plain twins' call counters and paged_forward's
@@ -2425,6 +3057,7 @@ FP32_GATE = ("err vs the fp64 oracle <= 2 x the fp32 plain twin's + 1e-5 "
 FP32_PATH_ATOL = 1e-4         # kernel path vs plain path: loss, gradients,
                               # engine logits (the twins are the fp32 oracle)
 FP32_TRAIN_B = 4              # cut to 2 if the activations do not fit
+FP32_LAYERS = 8               # TinyLlama-1.1B's 22 cut for the time limit
 
 
 def attn64(torch, q, k, v, valid, scale, do=None):
@@ -3014,7 +3647,7 @@ def fp32_serve(torch, params, cfg, tag, prompts, n_new, page_size=PAGE_SIZE,
     (T = 1) replayed through the plain twins (logits within
     FP32_PATH_ATOL; over a quantized pool within ENGINE_QUANT_GATE: an
     ulp of P's exponential flips an int8 value of P where its quotient
-    lies at a half, in kernel or twin, and 22 layers carry those flips to
+    lies at a half, in kernel or twin, and the layers carry those flips to
     the logits), and the same
     traffic served again on the plain twins: greedy tokens equal.  At a
     first difference the top-two logit margin there is printed; over an
@@ -3261,7 +3894,8 @@ def phase_fp32(torch, flush):
     twin and the fp64 oracle at its main shape (K1-K3 at the training
     shape, ModelConfig.tiny's heads and D 128 / 256; K5-K7 at the packed
     documents; K8 at the engine's prefill wave; K4 at its decode step);
-    (2) the path at full width: TinyLlama-1.1B's widths in fp32, three
+    (2) the path at full width: TinyLlama-1.1B's widths in fp32 (depth
+    cut to FP32_LAYERS), three
     AdamW steps through K1-K3 (step 1's loss and every leaf's gradient
     against the plain path's) and phase_engine's 8 requests through K8
     and K4 (the first prefill's and decode step's logits against the plain
@@ -3310,7 +3944,7 @@ def phase_fp32(torch, flush):
 
     # (2) the path at full width, then ModelConfig.tiny()
     t1 = time.perf_counter()
-    cfg = ModelConfig.tinyllama_1b(dtype=torch.float32)
+    cfg = ModelConfig.tinyllama_1b(dtype=torch.float32, n_layers=FP32_LAYERS)
     train = None
     try:
         train, params = fp32_train(torch, cfg, FP32_TRAIN_B, "TinyLlama-1.1B")
@@ -3763,10 +4397,18 @@ RING_LAYOUTS = (("contiguous causal", dict(causal=True)),
                 ("zigzag causal", dict(causal=True, layout="zigzag")),
                 ("contiguous causal, window (4096, 0)",
                  dict(causal=True, window_size=RING_WINDOW)))
-# (c): TinyLlama-1.1B width, B 2 x 2049 tokens (1024 rows a rank after the
-# shift), two AdamW steps (the second from the first's update and
-# optimizer state) through make_train_step(mesh=) on seq 2 x model 2
-RT_MESH, RT_B, RT_S, RT_STEPS, RT_LAYERS = (1, 2, 2), 2, 2048, 2, 22
+# (c): TinyLlama-1.1B width at RT_LAYERS layers (its 22 cut for the smoke's
+# time limit), B 2 x 2049 tokens (1024 rows a rank after the shift), two
+# AdamW steps (the second from the first's update and optimizer state)
+# through make_train_step(mesh=) on seq 2 x model 2
+RT_MESH, RT_B, RT_S, RT_STEPS, RT_LAYERS = (1, 2, 2), 2, 2048, 2, 8
+
+
+def ring_config():
+    """(c)'s model: TinyLlama-1.1B's widths cut to RT_LAYERS layers (the
+    depth of 22 cut for the smoke's time limit)."""
+    from flash_attn_v100_tpu_torch import ModelConfig
+    return ModelConfig.tinyllama_1b(n_layers=RT_LAYERS)
 # (c)'s step-1 loss gate, derived before the first chip run (PERF.md §6):
 # phase_train holds the unsharded kernel path's mean loss to max(2
 # d + 1e-5, 3 s / sqrt(n)) of the fp32-plain-attention mean (d: the
@@ -3955,12 +4597,11 @@ def _ring_train(torch, dist, tmp):
     unsharded fp32-attention gradient (tmp/g32.pt, this rank's shard of
     it).  Then RT_STEPS AdamW steps on RT_MESH: each step's loss, host time
     and K1-K3 launches, the step-1 gradient errors, and the peak memory."""
-    from flash_attn_v100_tpu_torch import ModelConfig
     from flash_attn_v100_tpu_torch.models import transformer as tm
     from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
     from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
     from flash_attn_v100_tpu_torch.parallel import make_mesh
-    cfg = ModelConfig.tinyllama_1b()
+    cfg = ring_config()
     full = tm.init_params(cfg, seed=SEED, device="cuda", lm_head=True)
     g32 = torch.load(f"{tmp}/g32.pt", mmap=True)
     tokens = ring_train_tokens(torch, cfg)
@@ -4032,9 +4673,8 @@ def _ring_train(torch, dist, tmp):
 def _rl_setup(torch, tmp):
     """(d)'s model, adapter config and tokens, and the adapters of
     tmp/lora.pt on the card, requiring grad."""
-    from flash_attn_v100_tpu_torch import ModelConfig
     from flash_attn_v100_tpu_torch.integrations import lora as lora_mod
-    cfg = ModelConfig.tinyllama_1b()
+    cfg = ring_config()
     lora = torch.load(f"{tmp}/lora.pt")
     lora = dict(layers=[{n: {k: t.cuda().requires_grad_(True)
                              for k, t in ab.items()} for n, ab in ad.items()}
@@ -4088,13 +4728,12 @@ def _ring_lora_reference(torch, tmp):
     token losses and adapter gradients of lora_loss through the kernels
     and through the plain attention in fp32 and bf16; then one unsharded
     make_lora_train_step AdamW step."""
-    from flash_attn_v100_tpu_torch import ModelConfig
     from flash_attn_v100_tpu_torch.integrations import lora as lora_mod
     from flash_attn_v100_tpu_torch.models import transformer as tm
     from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
     from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
     from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
-    cfg = ModelConfig.tinyllama_1b()
+    cfg = ring_config()
     lcfg = lora_mod.LoraConfig()
     params = tm.init_params(cfg, seed=SEED, device="cuda", lm_head=True)
     lora = lora_mod.lora_init(params, lcfg, seed=SEED, device="cuda")
@@ -4199,13 +4838,12 @@ def _ring_train_reference(torch, tmp):
     RT_STEPS AdamW steps of make_train_step on the same weights and
     batch."""
     import numpy as np
-    from flash_attn_v100_tpu_torch import ModelConfig
     from flash_attn_v100_tpu_torch.models import transformer as tm
     from flash_attn_v100_tpu_torch.ops import flash_attention as fa_mod
     from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
     from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
     from flash_attn_v100_tpu_torch.parallel.mesh import AXES, Mesh
-    cfg = ModelConfig.tinyllama_1b()
+    cfg = ring_config()
     params = tm.init_params(cfg, seed=SEED, device="cuda", lm_head=True)
     leaves = tm.param_leaves(params)
     for t in leaves:
@@ -4487,8 +5125,9 @@ def phase_ring(torch):
               f"{statistics.median(x[0] for x in ratios):.2f})", flush=True)
         return ok
 
-    print(f"ring (c) make_train_step(mesh=) at TinyLlama-1.1B width (22 "
-          f"layers, bf16), B {RT_B} x {RT_S + 1} tokens: the step-1 loss "
+    print(f"ring (c) make_train_step(mesh=) at TinyLlama-1.1B width "
+          f"({RT_LAYERS} layers, reduced from 22; bf16), B {RT_B} x "
+          f"{RT_S + 1} tokens: the step-1 loss "
           f"against the fp32-plain-attention mean {ref['mean32']:.6f}, gate "
           f"max({RT_LOSS_MULT:g} x the bf16-plain mean's distance "
           f"{d16:.3e} + {RT_LOSS_ATOL:g}, {RT_FLOOR_MULT:g} x 3 std / "
@@ -5481,9 +6120,10 @@ def digest(torch, *tensors) -> str:
 def dense_times(torch) -> dict:
     """K1, K2 and K3 of the `flash_attn_v100_tpu_torch` on sys.path at the
     training shape: a SHA-256 digest of each kernel's outputs at p 0 and
-    0.1 (K1: out and LSE; K2: dq; K3: dk and dv) and their times, and K1's
-    time at the headline prefill shape, to compare two trees of the port
-    in one call:
+    0.1 (K1: out and LSE; K2: dq; K3: dk and dv) and their times, K1's
+    time at the headline prefill shape, and the head-dim-256 rows
+    (`d256_rows`: digests, times, SDPA, bounds) with the D 256 kernels'
+    occupancy, to compare two trees of the port in one call:
         python3 chip_smoke.py --dense-times TREE
     K2 and K3 take the plain forward's out and LSE in bf16, not K1's, so
     their inputs are the same in every tree."""
@@ -5493,7 +6133,7 @@ def dense_times(torch) -> dict:
     from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
     from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
 
-    build.build_all(["fwd", "bwd"])
+    build.build_all(["fwd", "bwd", "varlen_paged", "varlen_paged_quant"])
     dev = torch.device("cuda")
     B, S, Hq, Hk, D = DENSE_B, DENSE_S, DENSE_HQ, DENSE_HK, DENSE_D
     ggen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -5534,7 +6174,18 @@ def dense_times(torch) -> dict:
                          (BENCH_B, BENCH_S, BENCH_HK, BENCH_D)))
     ms["K1 D 128"] = time_ms(torch, lambda: dfwd.flash_attn_dense_fwd(
         q, k, v, BENCH_D ** -0.5, params), flush=flush)
-    return {"digest": digests, "ms": ms}
+    del q, k, v
+    # head dim 256: digests, graph-replay times beside SDPA's and the bound,
+    # and each kernel's registers, spills and shared memory
+    d256 = d256_rows(torch, flush, digests)
+    for name, row in d256.items():
+        for kid in ("K1", "K2", "K3"):
+            ms[f"{kid} {name}"] = row[kid]["ms"]
+    occ = occupancy(build, ("K1", "K2", "K3", "K6", "K7", "K8", "K8q fp8"),
+                    dims=(256,))
+    return {"digest": digests, "ms": ms, "d256": d256,
+            "occupancy_d256": {f"{n} extra {e}": o
+                               for (n, _, e), o in occ.items()}}
 
 
 def varlen_times(torch) -> dict:
@@ -5970,6 +6621,8 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20 // 4, device="cuda")   # > 50 MB L2
     dense = phase_dense(torch, flush)
     lap("dense")
+    d256 = d256_checks(torch, flush)
+    lap("d256 kernels")
     torch.cuda.empty_cache()
     varlen = phase_varlen(torch, flush)
     lap("varlen")
@@ -6028,6 +6681,8 @@ def main() -> int:
     lap("ring")
     gc.collect()
     torch.cuda.empty_cache()
+    d256_path = phase_d256(torch)
+    lap("d256")
     bench = phase_bench(torch)
     lap("bench")
     scripts = phase_scripts(torch)
@@ -6096,6 +6751,30 @@ def main() -> int:
             row["oracle_err"] = res["oracle_err"]
             row["library"] = "SDPA over the dequantized, pre-gathered KV"
         kernels.append(row)
+    # head dim 256: times at Gemma-2B's attention, B 4 x 2048, causal
+    # (d256_checks), launches from phase_d256's training and serving runs
+    for kid, name, src, replaces, launches in (
+            ("K1", "flash_attn_dense_fwd", "fwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/fwd.py:152",
+             d256_path["train"]["launches"]["K1"]),
+            ("K2", "flash_attn_dense_bwd (dq)", "bwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/bwd.py:122",
+             d256_path["train"]["launches"]["K2"]),
+            ("K3", "flash_attn_dense_bwd (dk, dv)", "bwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/bwd.py:330",
+             d256_path["train"]["launches"]["K3"]),
+            ("K8", "flash_attn_varlen_fwd_paged", "varlen_paged.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:947",
+             d256_path["serve"]["launches"]["varlen"])):
+        r = d256[kid]
+        kernels.append(dict(
+            name=f"{kid} {name} (D 256)", route="cuda",
+            source=f"flash_attn_v100_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=launches,
+            max_abs_err=r["max_abs_err"], max_abs_err_gate=r["gate"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            hgmma=d256["hgmma"].get(kid), occupancy=r.get("occupancy")))
     # the fp32 bodies: each instantiation's worst output against its gate
     for name, outs, src, replaces in (
             ("K1 flash_attn_dense_fwd", ("K1", "K1 lse"), "fwd_f32.cu",

@@ -1,7 +1,7 @@
 // Tile machinery shared by the forward (csrc/fwd.cu) and backward
 // (csrc/bwd.cu) attention kernels: the live-key interval of a q row, the
-// two product paths (mma.sync at head_dim 32/256, wgmma at 64/128) and the
-// dynamic shared memory's 1024-byte alignment.
+// two product paths (mma.sync, wgmma) and the dynamic shared memory's
+// 1024-byte alignment.
 //
 // The products of a block run on one of two paths with the same per-thread
 // accumulator layout (a warp's 16 rows in mma C fragments):
@@ -10,10 +10,11 @@
 //   ab:  acc += A B, A this warp's rows in registers (k = the K rows of
 //        tile b), B the columns [n0, n0 + N) of tile b (K x D): O += P V,
 //        dQ = dS K, dV = P_drop^T dO, dK = dS^T Q.
-// SyncPath (D 32 and 256): mma.sync, each warp its own 16 rows (a_row),
-// operands through ldmatrix from rows padded by 16 bytes.  WgPath (D 64 and
-// 128): wgmma, four warps one warpgroup over all 64 rows of A, B read by
-// the tensor cores from 128-byte-swizzled tiles; a batch of products starts
+// SyncPath: mma.sync, each warp its own 16 rows (a_row), operands through
+// ldmatrix from rows padded by 16 bytes.  WgPath: wgmma, four warps one
+// warpgroup over all 64 rows of A, B read by the tensor cores from
+// 128-byte-swizzled tiles (a 64-column sub-tile is one 128-byte swizzle
+// atom a row, so D 256 has four); a batch of products starts
 // with begin() and its results are readable after commit_wait() (or
 // commit() and wait<N>(), which leaves the N latest batches in flight) and
 // settle().
@@ -163,9 +164,18 @@ struct WgPath {
   }
 };
 
+// The path of K2 and of K3 at D <= 128 (csrc/bwd.cu): wgmma at D 64 and
+// 128, mma.sync at 32 and 256 (K3 at D 256 is a kernel of its own on
+// wgmma).
 template <typename T, int D>
 using PathOf = typename std::conditional<D == 64 || D == 128, WgPath<T, D>,
                                          SyncPath<T, D>>::type;
+
+// The forward's (csrc/fwd_body.cuh): wgmma at D 64, 128 and 256, mma.sync
+// at 32.
+template <typename T, int D>
+using FwdPathOf = typename std::conditional<D == 32, SyncPath<T, D>,
+                                            WgPath<T, D>>::type;
 
 constexpr size_t align1k(size_t x) { return (x + 1023) / 1024 * 1024; }
 

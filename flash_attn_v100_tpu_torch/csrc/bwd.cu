@@ -37,9 +37,9 @@
 //     head, batch row or sequence), each warp owning 16 q rows, looping
 //     over the key tiles its rows' intervals touch.  K3 is key-centric:
 //     one block of 4 warps per (key tile, kv head, batch row or sequence),
-//     each warp owning 16 key rows (at D 256 two warps share them, each
-//     holding half of D), looping over the `group` q heads of its kv head
-//     and, for each, over the live q tiles.  A varlen block reads its
+//     each warp owning 16 key rows, looping over the `group` q heads of
+//     its kv head and, for each, over the live q tiles (at D 256 a block
+//     of two warpgroups: dkv_split_kernel below).  A varlen block reads its
 //     sequence's bounds from device memory and leaves at once, before any
 //     copy or product, if its tile lies past the sequence (the grid covers
 //     max_seqlen).
@@ -48,8 +48,8 @@
 //     dO V^T (K3: S^T = K Q^T, dP^T = V dO^T) with both operands read from
 //     shared memory, K-major; dQ += dS K (K3: dV += P_drop^T dO,
 //     dK += dS^T Q) with A from registers and B read MN-major through the
-//     transpose bit.  At D 32 and 256 each warp runs mma.sync m16n8k16 on
-//     its own rows, operands through ldmatrix.
+//     transpose bit.  At D 32 (and K2 at 256) each warp runs mma.sync
+//     m16n8k16 on its own rows, operands through ldmatrix.
 //   * Registers.  The accumulators (dQ in K2; dK and dV in K3) live in
 //     registers for the block's whole life and go to device memory once.
 //     S and dP of the current tile stay in the accumulator fragments; the
@@ -78,7 +78,7 @@
 //         32    64 x 64  mma.sync (33 KB)   64 x 64  mma.sync (33 KB)
 //         64    64 x 64  wgmma    (51 KB)   64 x 64  wgmma    (51 KB)
 //         128   64 x 32  wgmma    (67 KB)   64 x 32  wgmma    (67 KB)
-//         256   64 x 32  mma.sync (135 KB)  32 x 32  mma.sync (102 KB)
+//         256   64 x 32  mma.sync (135 KB)  64 x 64  wgmma    (211 KB)
 //   * Nothing is summed across blocks: every output element belongs to one
 //     block, which adds its terms in a fixed order, so two calls are
 //     bitwise equal.
@@ -134,6 +134,7 @@ struct BwdArgs {
 //   DKVBQ  K3: q rows a step
 //   KG     K3: warpgroups a block, each over 64 keys of its own (the wgmma
 //          path, D 64 / 128)
+// (K3 at D 256 takes none: dkv_split_kernel has one tile.)
 template <int DQBK = 0, int DKVBQ = 0, int KG = 1>
 struct BwdTune {
   static constexpr int kDqBK = DQBK, kDkvBQ = DKVBQ, kKeyGroups = KG;
@@ -144,8 +145,7 @@ struct Tiles {
   static constexpr int kDqBQ = 64;                    // K2: q rows a block
   static constexpr int kDqBK =                        // K2: keys a step
       TN::kDqBK ? TN::kDqBK : (D <= 64 ? 64 : 32);
-  static constexpr int kKeyWarps = D <= 128 ? 4 : 2;  // K3: 16-key slabs
-  static constexpr int kSplit = 4 / kKeyWarps;        // K3: warps a slab
+  static constexpr int kKeyWarps = 4;                 // K3: 16-key slabs
   static constexpr int kKeyGroups = TN::kKeyGroups;   // K3: warpgroups
   static constexpr int kDkvBK = 16 * kKeyWarps * kKeyGroups;  // K3: keys
   static constexpr int kDkvBQ =                       // K3: q rows a step
@@ -416,7 +416,8 @@ __global__ void __launch_bounds__(Tiles<D, TN>::kDkvThreads)
   constexpr int KG = Tiles<D, TN>::kKeyGroups;
   constexpr int NT = Tiles<D, TN>::kDkvThreads;
   constexpr int GK = BK / KG;                 // keys a warpgroup
-  constexpr int DW = D / Tiles<D, TN>::kSplit;   // dK/dV columns a warp holds
+  constexpr int DW = D;                       // dK/dV columns a warp holds
+  static_assert(D <= 128, "K3 at D 256 is dkv_split_kernel");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_base(smem_raw);
   unsigned char* k_s = smem + L::k_off;
@@ -580,6 +581,259 @@ __global__ void __launch_bounds__(Tiles<D, TN>::kDkvThreads)
   }
 }
 
+// ------------------------------------------------ K3 at D 256: dK, dV
+//
+// At D 256 K3 is a block of two warpgroups over 64 keys of one kv head,
+// looping as dkv_kernel does over the `group` q heads and their live q
+// tiles, 64 q rows a step (FA3's head-dim-256 backward layout, without its
+// dQ atomics: K2 stays a kernel of its own and nothing is summed across
+// blocks).  Each product runs once:
+//   * S^T = K Q^T and dP^T = V dO^T are wgmmas split between the two
+//     warpgroups by q columns, 64 keys x 32 q rows each, with K / V and
+//     Q / dO read K-major from 128-byte-swizzled tiles.
+//   * The score pass (mask, bias, exp from LSE, dropout, dS with delta)
+//     runs on the fragments, and P_drop^T and dS^T, rounded to the input
+//     type, go to two 64 x 64 swizzled tiles: one block barrier, and each
+//     warpgroup reads all 64 q columns of both.
+//   * dV[:, half] += P_drop^T dO[:, half] and dK[:, half] += dS^T Q[:, half]
+//     are wgmmas with A from those tiles (K-major) and B read MN-major
+//     through the transpose bit; warpgroup w holds D columns [128 w, 128 w
+//     + 128) of dK and dV, 128 fp32 registers a thread for the block's
+//     life, stored once.
+// So a live (q row, key) pair costs 8 * D flops.  Shared memory: K and V
+// (64 KB), the two exchange tiles (16 KB) and two stages of Q, dO (64 KB)
+// with lse, delta and the dropout row words: 211 KB, one block an SM.
+
+template <typename T>
+struct DkvSplitSmem {
+  static constexpr int D = 256;
+  static constexpr int BK = 64;              // keys a block
+  static constexpr int BQ = 64;              // q rows a step
+  static constexpr int kThreads = 256;       // two warpgroups
+  using P = WgPath<T, D>;
+  static constexpr size_t k_off = 0;
+  static constexpr size_t v_off = P::template tile_bytes<BK>();
+  // P_drop^T and dS^T: BK rows (keys) of BQ values (q), one swizzle atom
+  static constexpr size_t xt_bytes = static_cast<size_t>(BK) * BQ * sizeof(T);
+  static constexpr size_t pt_off = 2 * v_off;
+  static constexpr size_t ds_off = pt_off + xt_bytes;
+  static constexpr size_t stage_off = align1k(ds_off + xt_bytes);
+  // a stage: the Q and dO tiles, lse, delta and the dropout row words
+  static constexpr size_t q_off = 0;
+  static constexpr size_t do_off = P::template tile_bytes<BQ>();
+  static constexpr size_t lse_off = 2 * do_off;
+  static constexpr size_t delta_off = lse_off + sizeof(float) * BQ;
+  static constexpr size_t rw_off = delta_off + sizeof(float) * BQ;
+  static constexpr size_t stage_bytes = align1k(rw_off + sizeof(uint32_t) * BQ);
+  static constexpr size_t bytes = stage_off + 2 * stage_bytes + 1024;
+  static_assert(BQ * sizeof(T) == 128, "an exchange row is one swizzle atom");
+};
+
+template <typename T, int D, bool kVarlen, bool EXTRA>
+__global__ void __launch_bounds__(DkvSplitSmem<T>::kThreads)
+    dkv_split_kernel(BwdArgs a) {
+  static_assert(D == 256, "K3's split layout is D 256's");
+  using L = DkvSplitSmem<T>;
+  using P = typename L::P;
+  constexpr int BK = L::BK, BQ = L::BQ, NT = L::kThreads;
+  constexpr int HQ = BQ / 2;   // q columns of a step a warpgroup computes
+  constexpr int HD = D / 2;    // dK / dV columns a warpgroup holds
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_base(smem_raw);
+  unsigned char* k_s = smem + L::k_off;
+  unsigned char* v_s = smem + L::v_off;
+  unsigned char* pt_s = smem + L::pt_off;
+  unsigned char* ds_s = smem + L::ds_off;
+
+  // heaviest first, as dkv_kernel
+  const int hb = blockIdx.x % (a.Hk * a.B);
+  const int kvh = hb % a.Hk;
+  const int b = hb / a.Hk;
+  const int k0 = static_cast<int>(blockIdx.x) / (a.Hk * a.B) * BK;
+  const fa::Seq seq_r = fa::seq_info<kVarlen>(a.seq, b, a.Hq);
+  if (kVarlen && k0 >= seq_r.slk) return;  // uniform over the block
+  __shared__ fa::Seq seq_s;
+  const fa::Seq& sq = block_seq<kVarlen>(seq_r, seq_s);
+  const int nk = min(BK, sq.slk - k0);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int kr0 = (warp % 4) * 16;       // this warp's 16 keys
+  const int kp = k0 + kr0 + lane / 4;    // this thread's keys: kp, kp + 8
+  const int c0 = wg * HQ;                // its warpgroup's q columns
+  const int d0 = wg * HD;                // and dK / dV columns
+  const Live lv = make_live(a, sq);
+  const bool drop = EXTRA && a.dp.enabled;
+  // q rows that see any key of this tile: [q_lo, q_hi]
+  const int k_last = k0 + nk - 1;
+  const int q_lo = lv.wr >= 0 ? max(0, k0 - lv.offs - lv.wr) : 0;
+  const int q_hi = lv.wl >= 0 ? min(sq.slq - 1, k_last - lv.offs + lv.wl)
+                              : sq.slq - 1;
+  const int qt0 = q_lo / BQ;
+  const int n_qt = q_hi >= q_lo ? q_hi / BQ - qt0 + 1 : 0;
+  const int n_steps = a.group * n_qt;   // (q head, q tile), head-major
+
+  float dk[HD / 8][4] = {}, dv[HD / 8][4] = {};
+
+  auto prefetch = [&](int s) {
+    unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
+    const int h = kvh * a.group + s / n_qt;
+    const int t0 = (qt0 + s % n_qt) * BQ;
+    load_tile_async<T, D, BQ, P, NT>(st + L::q_off, a.q, sq.q_base + t0,
+                                     sq.slq - t0, a.Hq, h);
+    load_tile_async<T, D, BQ, P, NT>(st + L::do_off, a.dout, sq.q_base + t0,
+                                     sq.slq - t0, a.Hq, h);
+    const long long base = sq.lse_index(h, t0);
+    float* lse = reinterpret_cast<float*>(st + L::lse_off);
+    float* delta = reinterpret_cast<float*>(st + L::delta_off);
+    for (int c = threadIdx.x; c < BQ; c += NT) {
+      const bool in = t0 + c < sq.slq;
+      cp_async4(lse + c, in ? a.lse + base + c : a.lse, in);
+      cp_async4(delta + c, in ? a.delta + base + c : a.delta, in);
+    }
+    cp_async_commit();
+    if (drop) {
+      uint32_t* rw = reinterpret_cast<uint32_t*>(st + L::rw_off);
+      const uint32_t bh = fa::dropout_bh(b, h, a.dp);
+      for (int c = threadIdx.x; c < BQ; c += NT)
+        rw[c] = fa::dropout_row_word(t0 + c + a.dp.q0, bh, a.dp);
+    }
+  };
+
+  if (n_steps > 0) {
+    load_tile_async<T, D, BK, P, NT>(k_s, a.k, sq.k_base + k0, nk, a.Hk,
+                                     kvh);
+    load_tile_async<T, D, BK, P, NT>(v_s, a.v, sq.k_base + k0, nk, a.Hk,
+                                     kvh);
+    prefetch(0);   // one group: K, V and the first Q/dO stage
+    const uint32_t sk = smem_u32(k_s), sv = smem_u32(v_s);
+    const uint32_t spt = smem_u32(pt_s), sds = smem_u32(ds_s);
+    int cur_h = -1;
+    float slope = 0.0f;
+    uint32_t cw[2] = {0u, 0u};
+    for (int s = 0; s < n_steps; ++s) {
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();   // stage s landed for all; stage s + 1 and the
+                         // exchange tiles are free
+      if (s + 1 < n_steps) prefetch(s + 1);
+      const int h = kvh * a.group + s / n_qt;
+      const int t0 = (qt0 + s % n_qt) * BQ;
+      if (EXTRA && h != cur_h) {
+        cur_h = h;
+        slope = a.slopes ? a.slopes[b * a.Hq + h] : 0.0f;
+        if (drop) {
+          const uint32_t bh = fa::dropout_bh(b, h, a.dp);
+          cw[0] = fa::dropout_col_word(kp + a.dp.k0, bh, a.dp);
+          cw[1] = fa::dropout_col_word(kp + 8 + a.dp.k0, bh, a.dp);
+        }
+      }
+      const unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
+      const uint32_t sq_s = smem_u32(st + L::q_off);
+      const uint32_t sdo_s = smem_u32(st + L::do_off);
+      const float* lse_s = reinterpret_cast<const float*>(st + L::lse_off);
+      const float* delta_s = reinterpret_cast<const float*>(st + L::delta_off);
+      const uint32_t* rw_s = reinterpret_cast<const uint32_t*>(st + L::rw_off);
+
+      // S^T = K Q^T and dP^T = V dO^T on this warpgroup's q columns: the
+      // B tiles' rows [c0, c0 + HQ), each 64-column sub-tile BQ rows long
+      float sc[HQ / 8][4], dp[HQ / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ao = (kk / 4) * BK * 128 + (kk % 4) * 32;
+        const uint32_t bo = (kk / 4) * BQ * 128 + c0 * 128 + (kk % 4) * 32;
+        Wgmma<HQ, T>::ss(&sc[0][0], sw128_desc(sk + ao, 0, 1024),
+                         sw128_desc(sq_s + bo, 0, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ao = (kk / 4) * BK * 128 + (kk % 4) * 32;
+        const uint32_t bo = (kk / 4) * BQ * 128 + c0 * 128 + (kk % 4) * 32;
+        Wgmma<HQ, T>::ss(&dp[0][0], sw128_desc(sv + ao, 0, 1024),
+                         sw128_desc(sdo_s + bo, 0, 1024), kk > 0);
+      }
+      P::commit_wait();
+      P::settle(sc);
+      P::settle(dp);
+
+      // P_drop^T in place of S^T and dS^T in place of dP^T (lv_s as in K2)
+      const Live lv_s = make_live(a, sq);
+      auto scores = [&](auto masked) {
+        constexpr bool MASK = decltype(masked)::value;
+#pragma unroll
+        for (int j = 0; j < HQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e / 2;
+            const int c = c0 + j * 8 + (lane % 4) * 2 + e % 2;
+            grad_score<MASK, EXTRA>(sc[j][e], dp[j][e], t0 + c, kp + 8 * i,
+                                    lse_s[c], delta_s[c],
+                                    drop ? rw_s[c] : 0u, cw[i], slope, lv_s,
+                                    sq.slq, a);
+          }
+      };
+      if (t0 + BQ <= sq.slq && nk == BK && lv_s.full(t0, BQ, k0, BK))
+        scores(std::false_type{});
+      else
+        scores(std::true_type{});
+
+      // this warpgroup's columns of P_drop^T and dS^T, rounded to T, into
+      // the exchange tiles (rows: keys)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = kr0 + lane / 4 + 8 * i;
+#pragma unroll
+        for (int j = 0; j < HQ / 8; ++j) {
+          const int off = sw128_chunk<BK>(r, c0 / 8 + j) + (lane % 4) * 4;
+          *reinterpret_cast<uint32_t*>(pt_s + off) =
+              pack2<T>(sc[j][2 * i], sc[j][2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(ds_s + off) =
+              pack2<T>(dp[j][2 * i], dp[j][2 * i + 1]);
+        }
+      }
+      fence_proxy_async();
+      __syncthreads();   // both warpgroups' columns written
+
+      // dV += P_drop^T dO and dK += dS^T Q on this warpgroup's D columns
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        Wgmma<HD, T>::ss_t(&dv[0][0], sw128_desc(spt + kk * 32, 0, 1024),
+                           sw128_desc(sdo_s + (d0 / 64) * BQ * 128 +
+                                          kk * 16 * 128,
+                                      BQ * 128, 1024),
+                           1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        Wgmma<HD, T>::ss_t(&dk[0][0], sw128_desc(sds + kk * 32, 0, 1024),
+                           sw128_desc(sq_s + (d0 / 64) * BQ * 128 +
+                                          kk * 16 * 128,
+                                      BQ * 128, 1024),
+                           1);
+      P::commit_wait();
+    }
+    P::settle(dk);
+    P::settle(dv);
+  }
+
+  T* dkg = static_cast<T*>(a.dk);
+  T* dvg = static_cast<T*>(a.dv);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kp + 8 * i - k0 >= nk) continue;
+    const long long row =
+        ((sq.k_base + kp + 8 * i) * a.Hk + kvh) * D + d0 + (lane % 4) * 2;
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      *reinterpret_cast<uint32_t*>(dkg + row + nb * 8) =
+          pack2<T>(dk[nb][2 * i], dk[nb][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dvg + row + nb * 8) =
+          pack2<T>(dv[nb][2 * i], dv[nb][2 * i + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 // one kernel variant: its entry, dynamic shared memory a block, rows a
@@ -595,12 +849,22 @@ struct Kernel {
 template <bool DKV, bool kVarlen, typename T, int D, bool EXTRA,
           class TN = BwdTune<>>
 cudaError_t variant(Kernel* k) {
-  k->fn = DKV ? dkv_kernel<T, D, kVarlen, EXTRA, TN>
-              : dq_kernel<T, D, kVarlen, EXTRA, TN>;
-  k->smem = static_cast<int>(DKV ? DkvSmem<T, D, TN>::bytes
-                                : DqSmem<T, D, TN>::bytes);
-  k->rows = DKV ? DkvSmem<T, D, TN>::BK : DqSmem<T, D, TN>::BQ;
-  k->threads = DKV ? Tiles<D, TN>::kDkvThreads : kThreads;
+  if constexpr (DKV && D == 256) {
+    k->fn = dkv_split_kernel<T, D, kVarlen, EXTRA>;
+    k->smem = static_cast<int>(DkvSplitSmem<T>::bytes);
+    k->rows = DkvSplitSmem<T>::BK;
+    k->threads = DkvSplitSmem<T>::kThreads;
+  } else if constexpr (DKV) {
+    k->fn = dkv_kernel<T, D, kVarlen, EXTRA, TN>;
+    k->smem = static_cast<int>(DkvSmem<T, D, TN>::bytes);
+    k->rows = DkvSmem<T, D, TN>::BK;
+    k->threads = Tiles<D, TN>::kDkvThreads;
+  } else {
+    k->fn = dq_kernel<T, D, kVarlen, EXTRA, TN>;
+    k->smem = static_cast<int>(DqSmem<T, D, TN>::bytes);
+    k->rows = DqSmem<T, D, TN>::BQ;
+    k->threads = kThreads;
+  }
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(

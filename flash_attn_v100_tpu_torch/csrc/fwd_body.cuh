@@ -15,7 +15,8 @@
 // live-key intervals in csrc/attn_tiles.cuh):
 //   * Work.  One block per (q tile, q head, batch row or sequence), each
 //     64 q rows of the tile owned by one warpgroup of 4 warps (16 rows a
-//     warp); at D 64/128 two warpgroups share each K/V tile (128 q rows).
+//     warp); at D 64, 128 and 256 two warpgroups share each K/V tile (128
+//     q rows).
 //     A varlen or paged block reads its sequence's bounds from device
 //     memory (csrc/seq.cuh) and leaves at once if its tile lies past the
 //     sequence; the key loop covers only the tiles its rows'
@@ -24,11 +25,17 @@
 //     warpgroup's rows sees gives P = 0), so no product sits in a branch:
 //     ptxas serializes every wgmma of a kernel that leaves one in flight
 //     across a branch.
-//   * Products.  At D 64 and 128 S = Q K^T is a wgmma from 128-byte-
-//     swizzled Q and K tiles, both K-major, and O += P V a wgmma with P
-//     from registers and V read MN-major through the transpose bit.  At D
-//     32 and 256 each warp runs mma.sync m16n8k16 on its own rows, operands
+//   * Products.  At D 64, 128 and 256 S = Q K^T is a wgmma from 128-byte-
+//     swizzled Q and K tiles, both K-major (four swizzle atoms a row at D
+//     256), and O += P V a wgmma with P from registers and V read MN-major
+//     through the transpose bit (one m64n256k16 a k-step at D 256).  At D
+//     32 each warp runs mma.sync m16n8k16 on its own rows, operands
 //     through ldmatrix.
+//   * D 256.  O alone is 128 fp32 registers a thread; with S and P of a
+//     64-key step the 16-bit kernels stay under 255 registers with no
+//     local memory.  fp8 (K8q) holds its next K and V tiles in registers
+//     through the softmax, so it steps 32 keys.  Q (two 32 KB tiles) and
+//     two stages of K + V fill ~195 KB: one block an SM.
 //   * Registers.  S stays in the accumulator fragments and O in registers
 //     for the block's whole life.  The online softmax runs on the
 //     fragments in base 2 (scale * log2(e) folded into the exponent's
@@ -72,7 +79,7 @@
 //         32     64 x 64  mma.sync (28 KB)
 //         64    128 x 64  wgmma    (51 KB)
 //         128   128 x 64  wgmma    (99 KB)
-//         256    64 x 32  mma.sync (103 KB)
+//         256   128 x 64  wgmma    (195 KB; fp8 128 x 32, 131 KB)
 //   * Variants (FwdTune; the shipped kernels take its defaults).  The
 //     sweep library (FA_SWEEP in csrc/fwd.cu and csrc/varlen_paged.cu,
 //     ops/cuda/build.py VARIANTS) instantiates others at bf16, D 128 for
@@ -145,10 +152,12 @@ struct FwdArgs {
 
 // The tile and schedule of a forward kernel; 0 is the body's own choice
 // for D.  The shipped kernels take the defaults.
-//   KT    keys a sub-tile, the N of one S product (64 at D <= 128, else 32)
+//   KT    keys a sub-tile, the N of one S product (64; 32 for fp8 at D
+//         256)
 //   U     sub-tiles a step: U S products of KT keys, one online softmax
 //         over the U * KT keys, U P V products
-//   G     warpgroups a block, 64 q rows each (2 at D 64 / 128, else 1)
+//   G     warpgroups a block, 64 q rows each (2 at D 64 / 128 / 256, 1
+//         at D 32)
 //   FAST  every tile takes the unmasked pass: wrong numbers wherever a
 //         tile straddles a mask edge (timing only)
 //   PP    ping-pong: the two warpgroups take turns to issue their products
@@ -163,12 +172,13 @@ struct FwdTune {
 
 template <typename T, int D, int KV = kKv16, class TN = FwdTune<>>
 struct FwdSmem {
-  using P = PathOf<T, D>;
+  using P = FwdPathOf<T, D>;
   static constexpr int kGroups =                                // warpgroups
-      TN::kG ? TN::kG : (D == 64 || D == 128 ? 2 : 1);
+      TN::kG ? TN::kG : (D == 32 ? 1 : 2);
   static constexpr int kThreads = 128 * kGroups;
   static constexpr int BQ = 64 * kGroups;                  // q rows a block
-  static constexpr int KT = TN::kKT ? TN::kKT : (D <= 128 ? 64 : 32);
+  static constexpr int KT =
+      TN::kKT ? TN::kKT : (D == 256 && KV == kKvFp8 ? 32 : 64);
   static constexpr int U = TN::kU;                         // sub-tiles a step
   static constexpr int BK = U * KT;                        // keys a step
   // a warpgroup's 64-row Q tile (then its O stage)
@@ -318,7 +328,7 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV, TN>::kThreads)
                 "the ping-pong takes two warpgroups");
   // P V's type: q's, or bf16 for fp8 (its P is rounded to bf16)
   using TV = typename std::conditional<kFp8, __nv_bfloat16, T>::type;
-  using PV = PathOf<TV, D>;
+  using PV = FwdPathOf<TV, D>;
   constexpr int BQ = L::BQ, BK = L::BK, NT = L::kThreads;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_base(smem_raw);

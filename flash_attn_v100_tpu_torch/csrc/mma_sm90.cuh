@@ -1,6 +1,6 @@
 // Tensor-core and asynchronous-copy helpers for the attention kernels of
 // this package (sm_90a): warp-level mma.sync m16n8k16 and ldmatrix,
-// warpgroup-level wgmma m64nNk16 (N 32, 64, 128), both with 16-bit inputs
+// warpgroup-level wgmma m64nNk16 (N 16 to 256), both with 16-bit inputs
 // and fp32 accumulators, warp-level mma.sync m16n8k32 and warpgroup-level
 // wgmma m64n256k32 with int8 inputs and int32 accumulators, and cp.async
 // with zero fill.
@@ -228,8 +228,9 @@ __device__ __forceinline__ void fence_operand(float& x) {
 }
 
 // d (+)= A B over one k16 step, m64nNk16, fp32 accumulators d[N / 2]
-// (acc 0: overwrite).  ss: A and B from shared memory, both K-major; rs: A
-// from registers, B from shared memory, MN-major (transposed).
+// (acc 0: overwrite).  ss: A and B from shared memory, both K-major; ss_t:
+// A from shared memory, K-major, B MN-major (transposed); rs: A from
+// registers, B from shared memory, MN-major (transposed).
 template <int N, typename T>
 struct Wgmma;
 
@@ -246,12 +247,20 @@ struct Wgmma;
   FA_WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
             "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
             "%56, %57, %58, %59, %60, %61, %62, %63"
+#define FA_WG_R128                                                          \
+  FA_WG_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, "     \
+            "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "  \
+            "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "  \
+            "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "   \
+            "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "  \
+            "%119, %120, %121, %122, %123, %124, %125, %126, %127"
 #define FA_WG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define FA_WG_D8(i) FA_WG_D4(i), FA_WG_D4(i + 4)
 #define FA_WG_D16(i) \
   FA_WG_D4(i), FA_WG_D4(i + 4), FA_WG_D4(i + 8), FA_WG_D4(i + 12)
 #define FA_WG_D32(i) FA_WG_D16(i), FA_WG_D16(i + 16)
 #define FA_WG_D64(i) FA_WG_D32(i), FA_WG_D32(i + 32)
+#define FA_WG_D128(i) FA_WG_D64(i), FA_WG_D64(i + 64)
 
 // Wgmma<N, T> for PTX type TY ("bf16", "f16"); REGS and OUTS are the
 // FA_WG_R<n> and FA_WG_D<n> of N, O0..O5 the numbers of the six asm
@@ -264,6 +273,14 @@ struct Wgmma;
           "{\n.reg .pred p;\nsetp.ne.b32 p, %" O2 ", 0;\n"                   \
           "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY "\n"   \
           "{" REGS "}, %" O0 ", %" O1 ", p, 1, 1, 0, 0;\n}\n"                \
+          : OUTS(0)                                                          \
+          : "l"(a), "l"(b), "r"(acc));                                       \
+    }                                                                        \
+    __device__ static void ss_t(float* d, uint64_t a, uint64_t b, int acc) { \
+      asm volatile(                                                          \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" O2 ", 0;\n"                   \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY "\n"   \
+          "{" REGS "}, %" O0 ", %" O1 ", p, 1, 1, 0, 1;\n}\n"                \
           : OUTS(0)                                                          \
           : "l"(a), "l"(b), "r"(acc));                                       \
     }                                                                        \
@@ -287,6 +304,8 @@ FA_WG_N(16, FA_WG_R8, FA_WG_D8, "8", "9", "10", "11", "12", "13")
 FA_WG_N(32, FA_WG_R16, FA_WG_D16, "16", "17", "18", "19", "20", "21")
 FA_WG_N(64, FA_WG_R32, FA_WG_D32, "32", "33", "34", "35", "36", "37")
 FA_WG_N(128, FA_WG_R64, FA_WG_D64, "64", "65", "66", "67", "68", "69")
+FA_WG_N(256, FA_WG_R128, FA_WG_D128, "128", "129", "130", "131", "132",
+        "133")
 
 // d (+)= A B over one k32 step of 8-bit integers, m64nNk32, int32
 // accumulators d[N / 2] in the fp32 accumulators' layout (acc 0:
@@ -303,13 +322,6 @@ struct WgmmaS8;
 #define FA_WGI_D32(i) FA_WGI_D16(i), FA_WGI_D16(i + 16)
 #define FA_WGI_D64(i) FA_WGI_D32(i), FA_WGI_D32(i + 32)
 #define FA_WGI_D128(i) FA_WGI_D64(i), FA_WGI_D64(i + 64)
-#define FA_WG_R128                                                          \
-  FA_WG_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, "     \
-            "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "  \
-            "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "  \
-            "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "   \
-            "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "  \
-            "%119, %120, %121, %122, %123, %124, %125, %126, %127"
 #define FA_WGI_SPEC(N, REGS, OUTS, O0, O1, O2)                             \
   template <>                                                              \
   struct WgmmaS8<N> {                                                      \
@@ -334,6 +346,7 @@ FA_WGI_SPEC(256, FA_WG_R128, FA_WGI_D128, "128", "129", "130")
 #undef FA_WGI_D4
 #undef FA_WG_N
 #undef FA_WG_SPEC
+#undef FA_WG_D128
 #undef FA_WG_D64
 #undef FA_WG_D32
 #undef FA_WG_D16

@@ -36,7 +36,8 @@
 // What the design does about it:
 //   * fp8 is K8's schedule: the paged instantiation of the forward body
 //     (csrc/fwd_body.cuh) with e4m3 K/V tiles converted in registers, the
-//     tile's scales in its stage, wgmma at D 64/128 and mma.sync at 32/256.
+//     tile's scales in its stage, wgmma at D 64/128/256 and mma.sync at
+//     32.
 //   * int8 and int4 run a kernel of their own on the int8 tensor cores
 //     (mma.sync m16n8k32, int32 accumulators), with S, P and O in
 //     registers.  A block is 4 warps of 16 q rows (64 rows; two or three

@@ -323,6 +323,78 @@ def build_log(name: str, variant: Optional[str] = None) -> str:
     return p.read_text() if p.exists() else ""
 
 
+def parse_sass(sass: str, names: Dict[str, str]) -> Dict[str, Dict[str, int]]:
+    """{kernel: {"hgmma": n, "hmma": n}} from `cuobjdump -sass` text: the
+    warpgroup (HGMMA, wgmma) and warp (HMMA, mma.sync) tensor-core
+    instructions of each function, keyed by `names[mangled]` where the
+    mangled name is there, else by the mangled name."""
+    counts: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            cur = counts.setdefault(names.get(fn, fn), dict(hgmma=0, hmma=0))
+        elif cur is not None and "HGMMA." in line:
+            cur["hgmma"] += 1
+        elif cur is not None and "HMMA." in line:
+            cur["hmma"] += 1
+    return counts
+
+
+def _demangle(mangled: List[str]) -> Dict[str, str]:
+    """{mangled: demangled} through `cu++filt` beside the build's nvcc."""
+    if not mangled:
+        return {}
+    out = subprocess.run([str(Path(nvcc_path()).with_name("cu++filt"))]
+                         + mangled, check=True, capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    assert len(out) == len(mangled), "cu++filt: one name a line"
+    return dict(zip(mangled, out))
+
+
+def sass_counts(name: str) -> Dict[str, Dict[str, int]]:
+    """`parse_sass` of library `name`, built first if needed, keyed by the
+    demangled kernel names (`cuobjdump` beside the build's nvcc)."""
+    load(name)
+    sass = subprocess.run([str(Path(nvcc_path()).with_name("cuobjdump")),
+                           "-sass", str(library_path(name))], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    mangled = sorted({ln.split("Function : ", 1)[1].strip()
+                      for ln in sass.splitlines() if "Function : " in ln})
+    return parse_sass(sass, _demangle(mangled))
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from nvcc -Xptxas -v output."""
+    res: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        for key in ("Compiling entry function '", "Function properties for "):
+            if key in line:
+                cur = res.setdefault(line.split(key, 1)[1].split("'")[0]
+                                     .split()[0], {})
+        if cur is None:
+            continue
+        if "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            cur.update(stack=nums[0], spill_stores=nums[1],
+                       spill_loads=nums[2])
+        elif "Used " in line and " registers" in line:
+            cur["registers"] = int(line.split("Used ", 1)[1].split()[0])
+    return res
+
+
+def ptxas_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """`parse_ptxas` of library `name`'s build log (built first if needed),
+    keyed by the demangled kernel names."""
+    load(name)
+    usage = parse_ptxas(build_log(name))
+    names = _demangle(sorted(usage))
+    return {names[m]: u for m, u in usage.items()}
+
+
 def load(name: str, variant: Optional[str] = None) -> ctypes.CDLL:
     """The kernel library `name`, or its variant `variant` (VARIANTS), built
     first if needed."""

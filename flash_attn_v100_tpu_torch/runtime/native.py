@@ -1,5 +1,6 @@
-"""ctypes loader for the native runtime core (`csrc/fa_runtime.cpp` at the
-repository root: paged allocator + continuous-batching scheduler).
+"""ctypes loader for the native runtime core (the port's own copy of it,
+`flash_attn_v100_tpu_torch/csrc/fa_runtime.cpp`: paged allocator +
+continuous-batching scheduler).
 
 Built with g++ on first use into the port's own git-ignored build directory
 (`flash_attn_v100_tpu_torch/build/`), and loaded with the C ABI below.  If no
@@ -16,7 +17,7 @@ import subprocess
 from pathlib import Path
 from typing import Optional
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "fa_runtime.cpp"
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "fa_runtime.cpp"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
 _CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared"]
 _lib: Optional[ctypes.CDLL] = None

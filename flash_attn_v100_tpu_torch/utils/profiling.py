@@ -98,7 +98,8 @@ def _arg(args: Sequence[str], i: int, default: int = 0) -> int:
 # CUDA symbol of a port kernel -> its id, from the template arguments that
 # tell the instantiations of one body apart (csrc/): fwd_kernel<T, D, MODE,
 # EXTRA, KV, TN> with MODE 0 dense / 1 varlen / 2 paged and KV 0 16-bit / 1
-# e4m3; dq_kernel / dkv_kernel<T, D, kVarlen, EXTRA, TN>; decode_kernel<T,
+# e4m3; dq_kernel / dkv_kernel<T, D, kVarlen, EXTRA, TN> and K3's head-dim
+# 256 kernel dkv_split_kernel<T, D, kVarlen, EXTRA>; decode_kernel<T,
 # D, KIND, ROWS, ABL> with KIND 3 a 16-bit pool (a sweep library's variant
 # takes its kernel's id); int_kernel<T, D, KIND, EXTRA> is
 # K8q's int8/int4 kernel.
@@ -107,6 +108,7 @@ _PORT_KERNELS = {
         _arg(a, 2)],
     "dq_kernel": lambda a: "K6" if _arg(a, 2) else "K2",
     "dkv_kernel": lambda a: "K7" if _arg(a, 2) else "K3",
+    "dkv_split_kernel": lambda a: "K7" if _arg(a, 2) else "K3",
     "decode_kernel": lambda a: "K4" if _arg(a, 2) == 3 else "K4q",
     "int_kernel": lambda a: "K8q",
 }
@@ -123,6 +125,13 @@ def kernel_id(name: str) -> Optional[str]:
     if m is None:
         return None
     return _PORT_KERNELS[m.group(1)](m.group(2).split(","))
+
+
+def kernel_head_dim(name: str) -> Optional[int]:
+    """The head dim of a port kernel's CUDA name (its second template
+    argument in every body), or None for any other kernel."""
+    m = _SYMBOL.search(name)
+    return None if m is None else _arg(m.group(2).split(","), 1)
 
 
 def _readable_label(e) -> str:

@@ -190,7 +190,7 @@ def test_tune_defaults_are_the_shipped_tiles():
     assert ("template <int KT = 0, int U = 1, int G = 0, bool FAST = false,\n"
             "          bool PP = false>\nstruct FwdTune" in fwd)
     assert "static constexpr int BK = U * KT;" in fwd
-    assert "TN::kKT ? TN::kKT : (D <= 128 ? 64 : 32)" in fwd
+    assert "TN::kKT ? TN::kKT : (D == 256 && KV == kKvFp8 ? 32 : 64)" in fwd
     bwd = (build.CSRC / "bwd.cu").read_text()
     assert ("template <int DQBK = 0, int DKVBQ = 0, int KG = 1>\n"
             "struct BwdTune" in bwd)
@@ -232,3 +232,44 @@ def test_only_benchmarks_ask_for_a_variant():
         assert not re.search(r"build\.load\([^)]*,", text), rel
         assert "benchmarks.variants" not in text, rel
         assert "benchmarks import variants" not in text, rel
+
+
+SASS = """\
+        code for sm_90a
+                Function : _Z3fooPf
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0100*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0110*/                   HGMMA.64x256x16.F32.BF16 R24, R152, gdesc[UR8], R24 ;
+        /*0120*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+                Function : _Z3barPf
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+
+PTXAS = """\
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z3barPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3barPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+"""
+
+
+def test_parse_sass_counts_warpgroup_and_warp_products():
+    """`cuobjdump -sass` text -> each function's HGMMA (wgmma) and HMMA
+    (mma.sync) instructions, under the names given for its mangled name."""
+    got = build.parse_sass(SASS, {"_Z3fooPf": "foo(float*)"})
+    assert got == {"foo(float*)": dict(hgmma=2, hmma=1),
+                   "_Z3barPf": dict(hgmma=0, hmma=1)}
+
+
+def test_parse_ptxas_registers_and_local_memory():
+    """nvcc -Xptxas -v output -> each kernel's registers, stack and
+    spills."""
+    assert build.parse_ptxas(PTXAS) == {
+        "_Z3fooPf": dict(stack=8, spill_stores=4, spill_loads=12,
+                         registers=255),
+        "_Z3barPf": dict(stack=0, spill_stores=0, spill_loads=0,
+                         registers=96)}

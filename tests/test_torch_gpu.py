@@ -193,8 +193,9 @@ def test_dense_kernels_match_plain(cuda, dt, D, name):
         assert not out[:, :dead].any() and not grads[0][:, :dead].any()
 
 
-def test_dense_backward_bitwise_deterministic(cuda):
-    args, do, kw = _dense_inputs("dropout_gqa_causal", torch.bfloat16, 64,
+@pytest.mark.parametrize("D", [64, 256])
+def test_dense_backward_bitwise_deterministic(cuda, D):
+    args, do, kw = _dense_inputs("dropout_gqa_causal", torch.bfloat16, D,
                                  cuda)
     out, lse = dfwd.flash_attn_dense_fwd(*args, **kw)
     g1 = dbwd.flash_attn_dense_bwd(*args[:3], out, do, lse, *args[3:], **kw)
@@ -574,8 +575,9 @@ def test_varlen_kernels_match_plain(cuda, dt, D, name):
     assert not grads[1][~live_k].any() and not grads[2][~live_k].any()
 
 
-def test_varlen_backward_bitwise_deterministic(cuda):
-    args, do, kw = _packed_inputs("dropout_gqa_causal", torch.bfloat16, 64,
+@pytest.mark.parametrize("D", [64, 256])
+def test_varlen_backward_bitwise_deterministic(cuda, D):
+    args, do, kw = _packed_inputs("dropout_gqa_causal", torch.bfloat16, D,
                                   cuda)
     q, k, v, cu_q, cu_k, msq, msk, scale, params = args
     out, lse = vl.flash_attn_varlen_fwd(*args, **kw)
@@ -625,14 +627,15 @@ def test_varlen_kernels_dropout_masks_bit_equal(cuda, dt):
     assert torch.equal(dv_keep > 0, keep)
 
 
+@pytest.mark.parametrize("D", [64, 256])
 @pytest.mark.parametrize("p", [0.0, 0.2])
-def test_varlen_equal_lengths_bit_equal_to_flash_attn_func(cuda, p,
+def test_varlen_equal_lengths_bit_equal_to_flash_attn_func(cuda, p, D,
                                                            monkeypatch):
     """cu_seqlens = b * S: K5 is K1's body and K6/K7 are K2/K3's on the
     same sequences, so out, LSE, the dropout mask and dq, dk, dv agree bit
     for bit; the gradients of both paths are also held to the plain
     backward's gate."""
-    B, S, Hq, Hk, D = 3, 200, 8, 2, 64
+    B, S, Hq, Hk = 3, 200, 8, 2
     rng = np.random.default_rng(12)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
         np.float32)).to(cuda, torch.bfloat16)
@@ -1482,7 +1485,7 @@ def _gathered(args, kw):
 
 
 @pytest.mark.parametrize("name", ["causal_prefix", "window_softcap_alibi"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_varlen_paged_bit_equal_to_varlen_fwd(cuda, dt, D, name):
     """With leftpad 0, K8 over the pools and K5 over the same cache rows
@@ -1495,15 +1498,16 @@ def test_varlen_paged_bit_equal_to_varlen_fwd(cuda, dt, D, name):
     assert torch.equal(out8, out5) and torch.equal(lse8, lse5)
 
 
+@pytest.mark.parametrize("D", [128, 256])
 @pytest.mark.parametrize("kind", [None] + list(QUANT_KINDS))
-def test_varlen_paged_bitwise_deterministic(cuda, kind):
+def test_varlen_paged_bitwise_deterministic(cuda, kind, D):
     """K8 and K8q give the same out and LSE bits on two calls."""
     name = "q127_129_193_leftpad63_65"
     if kind is None:
-        args, kw = _varlen_inputs(name, torch.bfloat16, 128, cuda,
+        args, kw = _varlen_inputs(name, torch.bfloat16, D, cuda,
                                   EDGE_CASES)
     else:
-        args, kw = _varlen_quant_inputs(name, kind, torch.bfloat16, 128,
+        args, kw = _varlen_quant_inputs(name, kind, torch.bfloat16, D,
                                         cuda, EDGE_CASES)
     one = vl.flash_attn_varlen_fwd_paged(*args, **kw)
     two = vl.flash_attn_varlen_fwd_paged(*args, **kw)
@@ -1529,6 +1533,33 @@ def test_varlen_paged_kernels_use_no_local_memory(cuda, D):
         blocks, _, threads, _, local = out
         assert local == 0, f"{what}: {local} B of local memory"
         assert blocks * threads // 32 >= 8, f"{what}: {blocks} blocks"
+
+
+# the head-dim-256 kernels on the warpgroup products: (id, library); K8q
+# is its e4m3 pool's instantiation of the forward body
+D256_WGMMA = {"K1": "fwd", "K5": "fwd", "K8": "varlen_paged",
+              "K8q": "varlen_paged_quant", "K3": "bwd", "K7": "bwd"}
+
+
+@pytest.mark.parametrize("kid", list(D256_WGMMA))
+def test_head_dim_256_kernels_run_wgmma_without_local_memory(cuda, kid):
+    """Each D 256 instantiation of K1, K5, K8, K8q fp8, K3 and K7 (bf16
+    and fp16, with and without bias / dropout) has warpgroup products
+    (HGMMA) in its SASS and no spills or stack in ptxas's report."""
+    from flash_attn_v100_tpu_torch.utils import profiling as tprof
+    lib = D256_WGMMA[kid]
+    usage = build.ptxas_usage(lib)
+    found = 0
+    for name, c in build.sass_counts(lib).items():
+        if (tprof.kernel_id(name) != kid or tprof.kernel_head_dim(name) != 256
+                or (kid == "K8q" and "fwd_kernel" not in name)):
+            continue
+        found += 1
+        u = usage[name]
+        assert c["hgmma"] > 0, f"{name}: no HGMMA"
+        assert u["stack"] == u["spill_stores"] == u["spill_loads"] == 0, \
+            f"{name}: local memory {u}"
+    assert found == 4, f"{kid}: {found} D 256 instantiations"
 
 
 # ------------------------------------------- K4 and K4q: stage and split edges

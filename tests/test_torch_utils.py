@@ -132,6 +132,11 @@ def test_profile_ops_on_the_cpu_lists_aten_ops(tmp_path):
      "false>((anonymous namespace)::BwdArgs)", "K6"),
     ("void (anonymous namespace)::dkv_kernel<__half, 32, true, false>"
      "((anonymous namespace)::BwdArgs)", "K7"),
+    # K3 / K7 at head dim 256 (csrc/bwd.cu dkv_split_kernel)
+    ("void (anonymous namespace)::dkv_split_kernel<__nv_bfloat16, 256, "
+     "false, false>((anonymous namespace)::BwdArgs)", "K3"),
+    ("void (anonymous namespace)::dkv_split_kernel<__half, 256, true, "
+     "true>((anonymous namespace)::BwdArgs)", "K7"),
     ("void fa::dec::decode_kernel<__nv_bfloat16, 64, 3, 16>"
      "(fa::dec::DecodeArgs)", "K4"),
     ("void fa::dec::decode_kernel<__nv_bfloat16, 128, 0, 64>"
@@ -161,6 +166,25 @@ def test_profile_ops_on_the_cpu_lists_aten_ops(tmp_path):
 def test_kernel_ids_from_cuda_names(name, want):
     assert tprof.kernel_id(name) == want
     assert tprof._readable_label({"name": name}) == (want or name)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void (anonymous namespace)::fwd_kernel<__nv_bfloat16, 64, 0, false, "
+     "0>((anonymous namespace)::FwdArgs)", 64),
+    # cu++filt's form of a build log's or cuobjdump's mangled name
+    ("void <unnamed>::fwd_kernel<__half, (int)256, (int)2, (bool)1, (int)1, "
+     "<unnamed>::FwdTune<(int)0, (int)1, (int)0, (bool)0, (bool)0>>"
+     "(<unnamed>::FwdArgs)", 256),
+    ("void <unnamed>::dkv_split_kernel<__nv_bfloat16, (int)256, (bool)1, "
+     "(bool)0>(<unnamed>::BwdArgs)", 256),
+    ("void fa::dec::decode_kernel<__nv_bfloat16, 128, 0, 64>"
+     "(fa::dec::DecodeArgs)", 128),
+    ("void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<64, "
+     "128, 128, 4, false, false, cutlass::bfloat16_t> >(Flash_fwd_params)",
+     None),
+])
+def test_kernel_head_dims_from_cuda_names(name, want):
+    assert tprof.kernel_head_dim(name) == want
 
 
 def test_dist_info_byte_equal_to_jax(tmp_path):
