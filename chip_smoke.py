@@ -1346,30 +1346,40 @@ def d256_rows(torch, flush, digests=None) -> dict:
     return rows
 
 
-# the head-dim-256 kernels: (id, library), and those whose D 256 body runs
-# on wgmma (K2 / K6 keep mma.sync there)
+# the head-dim-256 kernels, every one on wgmma: (id, library)
 D256_KERNELS = (("K1", "fwd"), ("K5", "fwd"), ("K8", "varlen_paged"),
                 ("K8q", "varlen_paged_quant"), ("K2", "bwd"), ("K6", "bwd"),
                 ("K3", "bwd"), ("K7", "bwd"))
-D256_WGMMA = ("K1", "K5", "K8", "K8q", "K3", "K7")
 
 
-def d256_build_report(build) -> dict:
-    """Each head-dim-256 instantiation of D256_KERNELS (both 16-bit types,
-    both variants; K8q: its e4m3 pool on the forward body): its SASS
-    HGMMA / HMMA counts (`build.sass_counts`) and its ptxas registers and
-    local bytes (`build.ptxas_usage`), keyed by its CUDA name.  Asserts
-    HGMMA > 0 and no local memory in each D256_WGMMA one."""
+def d256_sass(build) -> dict:
+    """Starts `build.sass_counts` of each library of D256_KERNELS, one
+    thread (cuobjdump, cu++filt) a library, and returns {library: future}:
+    host work that main() starts after the build, beside the card's
+    phases."""
     from concurrent.futures import ThreadPoolExecutor
-    from flash_attn_v100_tpu_torch.utils import profiling as tprof
 
     libs = list(dict.fromkeys(lib for _, lib in D256_KERNELS))
-    with ThreadPoolExecutor(len(libs)) as pool:   # one cuobjdump a library
-        sass = dict(zip(libs, pool.map(build.sass_counts, libs)))
+    pool = ThreadPoolExecutor(len(libs))
+    futures = {lib: pool.submit(build.sass_counts, lib) for lib in libs}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def d256_build_report(build, sass=None) -> dict:
+    """Each head-dim-256 instantiation of D256_KERNELS (both 16-bit types,
+    both variants; K8q: its e4m3 pool on the forward body): its SASS
+    HGMMA / HMMA counts (`build.sass_counts`, from `sass`, d256_sass's
+    futures, when given) and its ptxas registers and local bytes
+    (`build.ptxas_usage`), keyed by its CUDA name.  Asserts HGMMA > 0, no
+    HMMA (mma.sync) and no local memory in each."""
+    from flash_attn_v100_tpu_torch.utils import profiling as tprof
+
+    sass = sass or d256_sass(build)
     res = {}
-    for lib in libs:
+    for lib in sass:
         usage = build.ptxas_usage(lib)
-        for name, c in sass[lib].items():
+        for name, c in sass[lib].result().items():
             kid = tprof.kernel_id(name)
             if (tprof.kernel_head_dim(name) != 256
                     or (kid, lib) not in D256_KERNELS
@@ -1379,9 +1389,9 @@ def d256_build_report(build) -> dict:
             res[name] = dict(id=kid, hgmma=c["hgmma"], hmma=c["hmma"],
                              registers=u["registers"],
                              local_bytes=u["stack"] + u["spill_stores"])
-            if kid in D256_WGMMA:
-                assert c["hgmma"] > 0, f"{name}: no HGMMA in its SASS"
-                assert res[name]["local_bytes"] == 0, f"{name}: local memory"
+            assert c["hgmma"] > 0, f"{name}: no HGMMA in its SASS"
+            assert c["hmma"] == 0, f"{name}: mma.sync (HMMA) in its SASS"
+            assert res[name]["local_bytes"] == 0, f"{name}: local memory"
     for kid, _ in D256_KERNELS:
         rows = [r for r in res.values() if r["id"] == kid]
         assert len(rows) == 4, f"{kid}: {len(rows)} D 256 instantiations"
@@ -1393,17 +1403,20 @@ def d256_build_report(build) -> dict:
     return res
 
 
-def d256_checks(torch, flush) -> dict:
+def d256_checks(torch, flush, sass=None) -> dict:
     """Head dim 256 at Gemma-2B's attention (D256_SHAPES (b): B 4 x 2048, 8
-    q heads over 1 kv head, causal, bf16): K1 and K3 (with K2, which keeps
-    its mma.sync body) against their plain versions at p 0 and 0.1, two
-    backward calls bit-equal; K5 and K7 (through the varlen wrappers, K6
-    beside K7) on the same batch as equal-length sequences bit-equal to K1
-    and K2 / K3 (one body each), and on packed documents against their
-    plain versions; K8 and K8q fp8 at the engine's prefill wave (k8_case,
+    q heads over 1 kv head, causal, bf16): K1, K2 and K3 against their
+    plain versions at p 0 and 0.1, two backward calls bit-equal; K5, K6
+    and K7 (through the varlen wrappers) on the same batch as equal-length
+    sequences bit-equal to K1, K2 and K3 (one body each), and on
+    `phase_varlen`'s ragged packed documents (`packed_doc_lengths`: lengths
+    drawn from 37-2048 tokens) against their plain versions, each
+    document's out, dq, dk and dv bit-equal to K1's, K2's and K3's on that
+    document alone; K8 and K8q fp8 at the engine's prefill wave (k8_case,
     8/1 heads x 256) against theirs; the D 256 kernels' occupancy and
-    `d256_build_report`; then `d256_rows`' times at both shapes.  Returns
-    the K1, K2, K3 and K8 rows of the `kernels` line ((b), causal)."""
+    `d256_build_report` (on `sass`, d256_sass's futures, when given); then
+    `d256_rows`' times at both shapes.  Returns the K1, K2, K3 and K8 rows
+    of the `kernels` line ((b), causal)."""
     from flash_attn_v100_tpu_torch.ops import masks as masklib
     from flash_attn_v100_tpu_torch.ops.cuda import build
     from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
@@ -1502,14 +1515,29 @@ def d256_checks(torch, flush) -> dict:
              params)
     g32 = vl.flash_attn_varlen_bwd_ref(*bargs)
     g16 = vl.flash_attn_varlen_bwd_ref(*bargs, upcast=False)
-    e7 = [gated(torch, g, r32, r16, f"K7 D 256 {what}", tt.BWD_MULT,
-                tt.BWD_ATOL)
-          for g, r32, r16, what in zip(g_v[1:], g32[1:], g16[1:],
-                                       ("dk", "dv"))]
+    e67 = [gated(torch, g, r32, r16, f"{kid} D 256 {what}", tt.BWD_MULT,
+                 tt.BWD_ATOL)
+           for g, r32, r16, kid, what in zip(g_v, g32, g16,
+                                             ("K6", "K7", "K7"),
+                                             ("dq", "dk", "dv"))]
+    # each document alone through K1, K2 and K3: K5's, K6's and K7's bits
+    for i, (a, n) in enumerate(zip(cu[:-1].tolist(), docs)):
+        one = [t[None, a:a + n] for t in pk]
+        o1, l1 = dfwd.flash_attn_dense_fwd(one[0], one[1], one[2], scale,
+                                           params)
+        assert torch.equal(o1[0], o_v[a:a + n]), f"document {i}: K5 != K1"
+        g1 = dbwd.flash_attn_dense_bwd(one[0], one[1], one[2], o1, one[3],
+                                       l1, scale, params)
+        for g, gv, what in zip(g1, g_v, ("dq", "dk", "dv")):
+            assert torch.equal(g[0], gv[a:a + n]), \
+                f"document {i} ({n} tokens): varlen {what} != dense alone"
+        del one, o1, l1, g1
     print(f"varlen D 256 ({len(docs)} packed documents of {min(docs)}-"
           f"{max(docs)} tokens, {Hq}/{Hk} heads, causal, bf16): K5 out "
-          f"{e5[0]:.3e} <= {e5[1]:.3e}; K7 dk {e7[0][0]:.3e} <= "
-          f"{e7[0][1]:.3e}, dv {e7[1][0]:.3e} <= {e7[1][1]:.3e}", flush=True)
+          f"{e5[0]:.3e} <= {e5[1]:.3e}; K6 dq {e67[0][0]:.3e} <= "
+          f"{e67[0][1]:.3e}; K7 dk {e67[1][0]:.3e} <= {e67[1][1]:.3e}, dv "
+          f"{e67[2][0]:.3e} <= {e67[2][1]:.3e}; each document's out, dq, dk, "
+          f"dv bit-equal to K1, K2, K3 on it alone", flush=True)
     del o_v, lse_v, g_v, o32, o16, g32, g16, pk
 
     laps.append(time.perf_counter())
@@ -1555,17 +1583,11 @@ def d256_checks(torch, flush) -> dict:
 
     laps.append(time.perf_counter())
     # what each D 256 kernel holds, and its SASS
-    occ = occupancy(build, ("K1", "K3", "K7", "K8", "K8q fp8"), dims=(256,))
-    occ_res = {n: {} for n in ("K1", "K3", "K7", "K8", "K8q fp8")}
+    occ_names = ("K1", "K2", "K3", "K6", "K7", "K8", "K8q fp8")
+    occ = occupancy(build, occ_names, dims=(256,))
+    occ_res = {n: {} for n in occ_names}
     print_occupancy(occ_res, occ, 256)
-    for (name, _, extra), o in occupancy(build, ("K2", "K6"),
-                                         dims=(256,)).items():
-        print(f"{name} occupancy (bf16, D 256, mma.sync as the parent's, "
-              f"{'bias/dropout' if extra else 'no bias/dropout'} variant): "
-              f"{o['registers']} registers, local {o['local_bytes']} B, "
-              f"{o['smem_bytes']} B shared, {o['warps_per_sm']} warps an SM",
-              flush=True)
-    report = d256_build_report(build)
+    report = d256_build_report(build, sass)
 
     laps.append(time.perf_counter())
     # the kernels line's rows: times at (b), causal, beside both shapes'
@@ -6244,7 +6266,69 @@ def varlen_times(torch) -> dict:
                         flush=flush),
           "K7": time_ms(torch, lambda: vl.varlen_dkv_kernel(*kargs),
                         flush=flush)}
-    return {"digest": digests, "ms": ms}
+    del x, un, qc, kc, vc, doc, o16, l16, delta, lse_c, kargs
+    d256 = varlen_times_d256(torch, vl, cu, ms_c, flush)
+    for kid, row in d256.items():
+        digests[f"{kid} D 256"] = row.pop("digest")
+        ms[f"{kid} D 256"] = row["ms"]
+    return {"digest": digests, "ms": ms, "d256": d256}
+
+
+def varlen_times_d256(torch, vl, cu, max_len, flush) -> dict:
+    """K6 and K7 at head dim 256: the packed documents of `varlen_times`
+    (cu, max_len) at Gemma-2B's 8/1 heads x 256 (D256_SHAPES (b)), causal,
+    bf16, fed the plain varlen forward's out and LSE in bf16.  Per kernel:
+    a digest of its outputs, its device time from CUDA-graph replays, the
+    bound (varlen_work), the plain backward's time (dq, dk, dv together)
+    and the library's backward (`varlen_library`, K6 + K7 together)."""
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+
+    dev = torch.device("cuda")
+    _, _, Hq, Hk, D = D256_SHAPES["b"]
+    T = int(cu[-1])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    q, k, v, do = (torch.randn((T, h, D), generator=gen, device=dev).to(
+        torch.bfloat16) for h in (Hq, Hk, Hk, Hq))
+    params = masklib.MaskParams(causal=True)
+    scale = D ** -0.5
+    o16, l16 = vl.flash_attn_varlen_fwd_ref(q, k, v, cu, cu, max_len,
+                                            max_len, scale, params,
+                                            upcast=False)
+    kargs = (q, k, v, do, l16.clamp_min(NEG_INF).contiguous(),
+             vl.varlen_delta(o16, do), None, cu, cu, None, None, max_len,
+             max_len, scale, params, 0.0, None)
+    plain = time_ms(torch, lambda: vl.flash_attn_varlen_bwd_ref(
+        q, k, v, o16, do, l16, cu, cu, max_len, max_len, scale, params),
+        reps=3, warmup=1, flush=flush)
+    del o16, l16
+    calls = {"K6": lambda: vl.varlen_dq_kernel(*kargs),
+             "K7": lambda: vl.varlen_dkv_kernel(*kargs)}
+    ql, kl, vl_ = (t.clone().requires_grad_() for t in (q, k, v))
+    label, lib_fn, o_lib = varlen_library(torch, ql, kl, vl_, cu, max_len)
+    o_lib = o_lib[0] if isinstance(o_lib, tuple) else o_lib
+    do_lib = do if o_lib.dim() == 3 else do.transpose(0, 1)[None]
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (ql, kl, vl_), do_lib, retain_graph=True), flush=flush)
+    del o_lib, do_lib, ql, kl, vl_
+    lens = (cu[1:] - cu[:-1]).tolist()
+    work = varlen_work(lens, Hq, Hk, D)
+    res = {}
+    for kid, fn in calls.items():
+        out = fn()
+        dig = digest(torch, *(out if isinstance(out, tuple) else (out,)))
+        del out
+        flops, nbytes = work[kid]
+        bms, by = bound_ms(nbytes, flops)
+        res[kid] = dict(digest=dig, ms=graph_ms(torch, fn, flush=flush),
+                        bound_ms=bms, bound_by=by, plain_ms=plain,
+                        library_ms=lib_bwd,
+                        library=f"{label} bwd (K6 + K7)")
+        print(f"{kid} D 256 ({len(lens)} packed documents, {T} tokens, "
+              f"{Hq}/{Hk} heads, causal, graph replays): {res[kid]['ms']:.4f}"
+              f" ms, bound {bms:.4f} ms ({by}), plain {plain:.4f} ms (dq, "
+              f"dk, dv); {label} bwd {lib_bwd:.4f} ms", flush=True)
+    return res
 
 
 def paged_times(torch) -> dict:
@@ -6609,6 +6693,8 @@ def main() -> int:
               f"{len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
               f"stack/spills: {stack or 'none'}, wgmma serialized (C7520): "
               f"{any('C7520' in ln for ln in log)}", flush=True)
+    # the D 256 kernels' SASS (cuobjdump), read beside the card's phases
+    sass_d256 = d256_sass(build)
 
     laps = [time.perf_counter()]
 
@@ -6621,7 +6707,7 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20 // 4, device="cuda")   # > 50 MB L2
     dense = phase_dense(torch, flush)
     lap("dense")
-    d256 = d256_checks(torch, flush)
+    d256 = d256_checks(torch, flush, sass_d256)
     lap("d256 kernels")
     torch.cuda.empty_cache()
     varlen = phase_varlen(torch, flush)

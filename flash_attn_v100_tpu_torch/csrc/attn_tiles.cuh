@@ -164,18 +164,12 @@ struct WgPath {
   }
 };
 
-// The path of K2 and of K3 at D <= 128 (csrc/bwd.cu): wgmma at D 64 and
-// 128, mma.sync at 32 and 256 (K3 at D 256 is a kernel of its own on
-// wgmma).
+// The path of the forward (csrc/fwd_body.cuh) and of K2 and K3 at D <= 128
+// (csrc/bwd.cu): wgmma at D 64, 128 and 256, mma.sync at 32.  (K2 and K3
+// at D 256 are kernels of their own on WgPath.)
 template <typename T, int D>
-using PathOf = typename std::conditional<D == 64 || D == 128, WgPath<T, D>,
-                                         SyncPath<T, D>>::type;
-
-// The forward's (csrc/fwd_body.cuh): wgmma at D 64, 128 and 256, mma.sync
-// at 32.
-template <typename T, int D>
-using FwdPathOf = typename std::conditional<D == 32, SyncPath<T, D>,
-                                            WgPath<T, D>>::type;
+using PathOf = typename std::conditional<D == 32, SyncPath<T, D>,
+                                         WgPath<T, D>>::type;
 
 constexpr size_t align1k(size_t x) { return (x + 1023) / 1024 * 1024; }
 

@@ -35,21 +35,22 @@
 // intervals in csrc/attn_tiles.cuh):
 //   * Work.  K2 is q-centric: one block of 4 warps per (64-row q tile, q
 //     head, batch row or sequence), each warp owning 16 q rows, looping
-//     over the key tiles its rows' intervals touch.  K3 is key-centric:
-//     one block of 4 warps per (key tile, kv head, batch row or sequence),
-//     each warp owning 16 key rows, looping over the `group` q heads of
-//     its kv head and, for each, over the live q tiles (at D 256 a block
-//     of two warpgroups: dkv_split_kernel below).  A varlen block reads its
-//     sequence's bounds from device memory and leaves at once, before any
-//     copy or product, if its tile lies past the sequence (the grid covers
-//     max_seqlen).
-//   * Products.  At D 64 and 128 the 4 warps are one warpgroup and every
-//     product is a wgmma over the block's 64 rows: S = Q K^T and dP =
-//     dO V^T (K3: S^T = K Q^T, dP^T = V dO^T) with both operands read from
-//     shared memory, K-major; dQ += dS K (K3: dV += P_drop^T dO,
-//     dK += dS^T Q) with A from registers and B read MN-major through the
-//     transpose bit.  At D 32 (and K2 at 256) each warp runs mma.sync
-//     m16n8k16 on its own rows, operands through ldmatrix.
+//     over the key tiles its rows' intervals touch (at D 256 a block of
+//     two warpgroups over 128 q rows: dq_split_kernel below).  K3 is
+//     key-centric: one block of 4 warps per (key tile, kv head, batch row
+//     or sequence), each warp owning 16 key rows, looping over the `group`
+//     q heads of its kv head and, for each, over the live q tiles (at D
+//     256 a block of two warpgroups: dkv_split_kernel below).  A varlen
+//     block reads its sequence's bounds from device memory and leaves at
+//     once, before any copy or product, if its tile lies past the sequence
+//     (the grid covers max_seqlen).
+//   * Products.  At D 64, 128 and 256 every product is a wgmma over a
+//     warpgroup's 64 rows: S = Q K^T and dP = dO V^T (K3: S^T = K Q^T,
+//     dP^T = V dO^T) with both operands read from shared memory, K-major;
+//     dQ += dS K (K3 at D <= 128: dV += P_drop^T dO, dK += dS^T Q) with A
+//     from registers and B read MN-major through the transpose bit (K3 at
+//     D 256 reads A from an exchange tile).  At D 32 each warp runs
+//     mma.sync m16n8k16 on its own rows, operands through ldmatrix.
 //   * Registers.  The accumulators (dQ in K2; dK and dV in K3) live in
 //     registers for the block's whole life and go to device memory once.
 //     S and dP of the current tile stay in the accumulator fragments; the
@@ -78,7 +79,7 @@
 //         32    64 x 64  mma.sync (33 KB)   64 x 64  mma.sync (33 KB)
 //         64    64 x 64  wgmma    (51 KB)   64 x 64  wgmma    (51 KB)
 //         128   64 x 32  wgmma    (67 KB)   64 x 32  wgmma    (67 KB)
-//         256   64 x 32  mma.sync (135 KB)  64 x 64  wgmma    (211 KB)
+//         256  128 x 32  wgmma    (195 KB)  64 x 64  wgmma    (211 KB)
 //   * Nothing is summed across blocks: every output element belongs to one
 //     block, which adds its terms in a fixed order, so two calls are
 //     bitwise equal.
@@ -107,7 +108,8 @@ namespace {
 
 using namespace fa::attn;
 
-constexpr int kThreads = 128;   // 4 warps, both kernels (K3: a warpgroup)
+constexpr int kThreads = 128;   // 4 warps: dq_kernel, dkv_kernel (one
+                                // warpgroup)
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
@@ -134,7 +136,8 @@ struct BwdArgs {
 //   DKVBQ  K3: q rows a step
 //   KG     K3: warpgroups a block, each over 64 keys of its own (the wgmma
 //          path, D 64 / 128)
-// (K3 at D 256 takes none: dkv_split_kernel has one tile.)
+// (K2 and K3 at D 256 take none: dq_split_kernel and dkv_split_kernel
+// have one tile each.)
 template <int DQBK = 0, int DKVBQ = 0, int KG = 1>
 struct BwdTune {
   static constexpr int kDqBK = DQBK, kDkvBQ = DKVBQ, kKeyGroups = KG;
@@ -143,6 +146,7 @@ struct BwdTune {
 template <int D, class TN = BwdTune<>>
 struct Tiles {
   static constexpr int kDqBQ = 64;                    // K2: q rows a block
+                                                      // (D 256: DqSplitSmem)
   static constexpr int kDqBK =                        // K2: keys a step
       TN::kDqBK ? TN::kDqBK : (D <= 64 ? 64 : 32);
   static constexpr int kKeyWarps = 4;                 // K3: 16-key slabs
@@ -251,6 +255,7 @@ struct DqSmem {
 
 template <typename T, int D, bool kVarlen, bool EXTRA, class TN = BwdTune<>>
 __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
+  static_assert(D <= 128, "K2 at D 256 is dq_split_kernel");
   using L = DqSmem<T, D, TN>;
   using P = typename L::P;
   constexpr int BQ = L::BQ, BK = L::BK;
@@ -380,6 +385,206 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
     for (int nb = 0; nb < D / 8; ++nb)
       *reinterpret_cast<uint32_t*>(dqg + row * D + nb * 8 + (lane % 4) * 2) =
           pack2<T>(dq[nb][2 * i], dq[nb][2 * i + 1]);
+  }
+}
+
+// ------------------------------------------------------ K2 at D 256: dQ
+//
+// At D 256 K2 is a block of two warpgroups over 128 q rows of one (q head,
+// batch row or sequence), K1's D 256 layout applied to dQ: warpgroup w
+// owns rows [64 w, 64 w + 64) and all 256 dQ columns, 128 fp32 registers a
+// thread for the block's life, stored once.  It loops over the live keys
+// 32 a step, heaviest first, as dq_kernel does; each step each warpgroup
+// runs
+//   * S = Q K^T and dP = dO V^T, wgmma m64n32k16 with its Q / dO tile and
+//     the shared K / V tile read K-major from 128-byte-swizzled tiles,
+//     issued back to back and waited for once;
+//   * the score pass (grad_score) on the fragments;
+//   * dQ += dS K, one wgmma m64n256k16 a k-step with dS from registers and
+//     K read MN-major through the transpose bit.
+// Nothing goes through shared memory between the products, and each K / V
+// stage serves 128 q rows.  Shared memory: Q and dO (128 KB) and two
+// stages of K, V and the dropout column words (66 KB): 195 KB, one block
+// of 8 warps an SM.  Both warpgroups run every step of the block (one that
+// none of a warpgroup's rows sees gives dS = 0), so no product sits in a
+// branch.  The epilogue rounds dQ into the warpgroup's Q tile and stores
+// 16-byte rows.
+
+template <typename T>
+struct DqSplitSmem {
+  static constexpr int D = 256;
+  static constexpr int BQ = 128;             // q rows a block
+  static constexpr int BK = 32;              // keys a step
+  static constexpr int kThreads = 256;       // two warpgroups
+  using P = WgPath<T, D>;
+  // warpgroup w's 64-row Q tile at q_off + w * q_tile, its dO tile at
+  // do_off + w * q_tile
+  static constexpr size_t q_tile = P::template tile_bytes<64>();
+  static constexpr size_t q_off = 0;
+  static constexpr size_t do_off = 2 * q_tile;
+  static constexpr size_t stage_off = align1k(4 * q_tile);
+  // a stage: the K and V tiles and the dropout column words
+  static constexpr size_t k_off = 0;
+  static constexpr size_t v_off = P::template tile_bytes<BK>();
+  static constexpr size_t cw_off = 2 * v_off;
+  static constexpr size_t stage_bytes = align1k(cw_off + sizeof(uint32_t) * BK);
+  static constexpr size_t bytes = stage_off + 2 * stage_bytes + 1024;
+};
+
+template <typename T, int D, bool kVarlen, bool EXTRA>
+__global__ void __launch_bounds__(DqSplitSmem<T>::kThreads)
+    dq_split_kernel(BwdArgs a) {
+  static_assert(D == 256, "K2's split layout is D 256's");
+  using L = DqSplitSmem<T>;
+  using P = typename L::P;
+  constexpr int BQ = L::BQ, BK = L::BK, NT = L::kThreads;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_base(smem_raw);
+
+  // heaviest first, as dq_kernel
+  const int n_tiles = (a.seq.M + BQ - 1) / BQ;
+  const int hb = blockIdx.x % (a.Hq * a.B);
+  const int h = hb % a.Hq;
+  const int b = hb / a.Hq;
+  const int qp0 =
+      (n_tiles - 1 - static_cast<int>(blockIdx.x) / (a.Hq * a.B)) * BQ;
+  const fa::Seq seq_r = fa::seq_info<kVarlen>(a.seq, b, a.Hq);
+  if (kVarlen && qp0 >= seq_r.slq) return;  // uniform over the block
+  __shared__ fa::Seq seq_s;
+  const fa::Seq& sq = block_seq<kVarlen>(seq_r, seq_s);
+  const int nq = min(BQ, sq.slq - qp0);
+  const int kvh = h / a.group;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;                 // this thread's warpgroup
+  const int g0 = qp0 + 64 * wg;            // its first q row
+  const int nq_g = min(64, sq.slq - g0);   // its rows in the sequence
+  const int r0 = (warp % 4) * 16 + lane / 4;   // this thread's rows there:
+                                               // r0, r0 + 8
+  unsigned char* q_s = smem + L::q_off + wg * L::q_tile;
+  unsigned char* do_s = smem + L::do_off + wg * L::q_tile;
+  const Live lv = make_live(a, sq);
+  const bool drop = EXTRA && a.dp.enabled;
+  const float slope = EXTRA && a.slopes ? a.slopes[b * a.Hq + h] : 0.0f;
+  const uint32_t bh = fa::dropout_bh(b, h, a.dp);
+  int qp[2];
+  float lse[2], delta[2];
+  uint32_t rw[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    qp[i] = g0 + r;
+    const long long row = sq.lse_index(h, qp[i]);
+    lse[i] = r < nq_g ? a.lse[row] : 0.0f;
+    delta[i] = r < nq_g ? a.delta[row] : 0.0f;
+    if (drop) rw[i] = fa::dropout_row_word(qp[i] + a.dp.q0, bh, a.dp);
+  }
+  const int blk_lo = lv.key_lo(qp0);
+  const int blk_hi = lv.key_hi(qp0 + nq - 1);
+  const int kt0 = blk_lo / BK;
+  const int n_steps = blk_hi >= blk_lo ? blk_hi / BK - kt0 + 1 : 0;
+
+  float dq[D / 8][4] = {};
+
+  auto prefetch = [&](int s) {
+    unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
+    const int k0 = (kt0 + s) * BK;
+    load_tile_async<T, D, BK, P, NT>(st + L::k_off, a.k, sq.k_base + k0,
+                                     sq.slk - k0, a.Hk, kvh);
+    load_tile_async<T, D, BK, P, NT>(st + L::v_off, a.v, sq.k_base + k0,
+                                     sq.slk - k0, a.Hk, kvh);
+    cp_async_commit();
+    if (drop) {
+      uint32_t* cw = reinterpret_cast<uint32_t*>(st + L::cw_off);
+      for (int c = threadIdx.x; c < BK; c += NT)
+        cw[c] = fa::dropout_col_word(k0 + c + a.dp.k0, bh, a.dp);
+    }
+  };
+
+  if (n_steps > 0) {
+    // both warpgroups' Q and dO tiles; rows past the sequence are zero
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const long long row0 = sq.q_base + qp0 + 64 * w;
+      load_tile_async<T, D, 64, P, NT>(smem + L::q_off + w * L::q_tile, a.q,
+                                       row0, nq - 64 * w, a.Hq, h);
+      load_tile_async<T, D, 64, P, NT>(smem + L::do_off + w * L::q_tile,
+                                       a.dout, row0, nq - 64 * w, a.Hq, h);
+    }
+    prefetch(0);   // one group: Q, dO and the first K/V stage
+    for (int s = 0; s < n_steps; ++s) {
+      cp_async_wait<0>();
+      P::copies_landed();
+      __syncthreads();   // stage s landed for all; stage s + 1 is free
+      if (s + 1 < n_steps) prefetch(s + 1);
+      const unsigned char* st = smem + L::stage_off + (s & 1) * L::stage_bytes;
+      const unsigned char* k_s = st + L::k_off;
+      const uint32_t* cw_s = reinterpret_cast<const uint32_t*>(st + L::cw_off);
+      const int k0 = (kt0 + s) * BK;
+
+      // S = Q K^T and dP = dO V^T on this warpgroup's 64 rows
+      float sc[BK / 8][4], dp[BK / 8][4];
+      P::begin();
+      P::template abt<64, BK>(sc, q_s, 0, k_s, 0);
+      P::template abt<64, BK>(dp, do_s, 0, st + L::v_off, 0);
+      P::commit_wait();
+      P::settle(sc);
+      P::settle(dp);
+
+      // dS in place of dP (lv_s as in dq_kernel)
+      const Live lv_s = make_live(a, sq);
+      auto scores = [&](auto masked) {
+        constexpr bool MASK = decltype(masked)::value;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e / 2;
+            const int c = j * 8 + (lane % 4) * 2 + e % 2;
+            grad_score<MASK, EXTRA>(sc[j][e], dp[j][e], qp[i], k0 + c, lse[i],
+                                    delta[i], rw[i], drop ? cw_s[c] : 0u,
+                                    slope, lv_s, sq.slq, a);
+          }
+      };
+      if (nq_g == 64 && lv_s.full(g0, 64, k0, BK))
+        scores(std::false_type{});
+      else
+        scores(std::true_type{});
+
+      // dQ += dS K
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        pack_a<T>(da[kk], dp[2 * kk], dp[2 * kk + 1]);
+      P::begin();
+      P::template ab<BK, D>(dq, da, k_s, 0, 0);
+      P::commit_wait();
+    }
+    P::settle(dq);
+  }
+
+  // epilogue: dQ rounded to T through this warpgroup's Q tile, then stored
+  // as 16-byte rows
+  __syncthreads();   // every product has read Q
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<uint32_t*>(q_s + P::template chunk<64>(r, nb) +
+                                   (lane % 4) * 4) =
+          pack2<T>(dq[nb][2 * i], dq[nb][2 * i + 1]);
+  }
+  __syncthreads();
+  T* dqg = static_cast<T*>(a.dq);
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x % 128; idx < 64 * kChunks; idx += 128) {
+    const int r = idx / kChunks;
+    const int c8 = idx % kChunks;
+    if (r < nq_g)
+      *reinterpret_cast<uint4*>(dqg + ((sq.q_base + g0 + r) * a.Hq + h) * D +
+                                c8 * 8) =
+          *reinterpret_cast<const uint4*>(q_s + P::template chunk<64>(r, c8));
   }
 }
 
@@ -859,6 +1064,11 @@ cudaError_t variant(Kernel* k) {
     k->smem = static_cast<int>(DkvSmem<T, D, TN>::bytes);
     k->rows = DkvSmem<T, D, TN>::BK;
     k->threads = Tiles<D, TN>::kDkvThreads;
+  } else if constexpr (D == 256) {
+    k->fn = dq_split_kernel<T, D, kVarlen, EXTRA>;
+    k->smem = static_cast<int>(DqSplitSmem<T>::bytes);
+    k->rows = DqSplitSmem<T>::BQ;
+    k->threads = DqSplitSmem<T>::kThreads;
   } else {
     k->fn = dq_kernel<T, D, kVarlen, EXTRA, TN>;
     k->smem = static_cast<int>(DqSmem<T, D, TN>::bytes);

@@ -172,7 +172,7 @@ struct FwdTune {
 
 template <typename T, int D, int KV = kKv16, class TN = FwdTune<>>
 struct FwdSmem {
-  using P = FwdPathOf<T, D>;
+  using P = PathOf<T, D>;
   static constexpr int kGroups =                                // warpgroups
       TN::kG ? TN::kG : (D == 32 ? 1 : 2);
   static constexpr int kThreads = 128 * kGroups;
@@ -328,7 +328,7 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV, TN>::kThreads)
                 "the ping-pong takes two warpgroups");
   // P V's type: q's, or bf16 for fp8 (its P is rounded to bf16)
   using TV = typename std::conditional<kFp8, __nv_bfloat16, T>::type;
-  using PV = FwdPathOf<TV, D>;
+  using PV = PathOf<TV, D>;
   constexpr int BQ = L::BQ, BK = L::BK, NT = L::kThreads;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_base(smem_raw);

@@ -29,10 +29,30 @@ from flash_attn_v100_tpu_torch.ops.cuda.fwd import (
     dense_keep_mask, kernel_head_dim, pad_head_dim, slopes_bh)
 
 
+# torch's CUDA sum over the last axis picks its reduction tree by the
+# number of rows: under 16 rows of 256 values it spreads a row over 64
+# lanes, from 16 rows on over 32 (ATen/native/cuda/Reduce.cuh,
+# set_block_dimension), and the two trees round differently.
+_SUM_ROWS = 16
+
+
+def row_dot(out, dout) -> torch.Tensor:
+    """rowsum(out * dout) over the last axis in fp32, each row's bits the
+    same whatever rows come with it: fewer than _SUM_ROWS rows are summed
+    padded with zero rows, so a sequence's delta alone equals its rows of
+    a packed batch's."""
+    prod = out.to(torch.float32) * dout.to(torch.float32)
+    rows = prod.numel() // max(prod.shape[-1], 1)
+    if not 0 < rows < _SUM_ROWS:
+        return prod.sum(-1)
+    flat = torch.nn.functional.pad(prod.reshape(rows, prod.shape[-1]),
+                                   (0, 0, 0, _SUM_ROWS - rows))
+    return flat.sum(-1)[:rows].reshape(prod.shape[:-1])
+
+
 def softmax_delta(out, dout, dlse=None) -> torch.Tensor:
     """delta (B, Hq, M) fp32 = rowsum(O * dO) - dlse."""
-    delta = (out.to(torch.float32) * dout.to(torch.float32)).sum(-1)
-    delta = delta.transpose(1, 2)
+    delta = row_dot(out, dout).transpose(1, 2)
     if dlse is not None:
         delta = delta - dlse.to(torch.float32)
     return delta.contiguous()

@@ -37,11 +37,13 @@ KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def kernel_head_dim(D: int) -> int:
-    """The kernel head dim that holds D."""
+    """The kernel head dim that holds D.  Head dims over 256 raise: the
+    port's CUDA entry points cap the head dim at 256, as the reference
+    CUDA code and upstream FlashAttention do (the JAX package pads any)."""
     for kd in KERNEL_HEAD_DIMS:
         if D <= kd:
             return kd
-    raise ValueError(f"the dense kernels take head_dim <= 256, got {D}")
+    raise ValueError(f"the kernels take head_dim <= 256, got {D}")
 
 
 def pad_head_dim(x: torch.Tensor, Dk: int) -> torch.Tensor:

@@ -64,7 +64,8 @@ import torch
 from flash_attn_v100_tpu_torch.config import NEG_INF
 from flash_attn_v100_tpu_torch.ops import masks as masklib
 from flash_attn_v100_tpu_torch.ops.cuda import build
-from flash_attn_v100_tpu_torch.ops.cuda.bwd import flash_attn_dense_bwd_ref
+from flash_attn_v100_tpu_torch.ops.cuda.bwd import (
+    flash_attn_dense_bwd_ref, row_dot)
 from flash_attn_v100_tpu_torch.ops.cuda.decode import (
     KIND_CODE, _check_quant, _int_matmul, _quantize_rows,
     quant_payload_values)
@@ -243,7 +244,7 @@ flash_attn_varlen_fwd_ref.calls = 0
 
 def varlen_delta(out, dout, dlse=None) -> torch.Tensor:
     """delta (Hq, Tq) fp32 = rowsum(O * dO) - dlse."""
-    delta = (out.to(torch.float32) * dout.to(torch.float32)).sum(-1).t()
+    delta = row_dot(out, dout).t()
     if dlse is not None:
         delta = delta - dlse.to(torch.float32)
     return delta.contiguous()

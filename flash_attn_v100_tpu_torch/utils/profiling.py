@@ -98,16 +98,17 @@ def _arg(args: Sequence[str], i: int, default: int = 0) -> int:
 # CUDA symbol of a port kernel -> its id, from the template arguments that
 # tell the instantiations of one body apart (csrc/): fwd_kernel<T, D, MODE,
 # EXTRA, KV, TN> with MODE 0 dense / 1 varlen / 2 paged and KV 0 16-bit / 1
-# e4m3; dq_kernel / dkv_kernel<T, D, kVarlen, EXTRA, TN> and K3's head-dim
-# 256 kernel dkv_split_kernel<T, D, kVarlen, EXTRA>; decode_kernel<T,
-# D, KIND, ROWS, ABL> with KIND 3 a 16-bit pool (a sweep library's variant
-# takes its kernel's id); int_kernel<T, D, KIND, EXTRA> is
-# K8q's int8/int4 kernel.
+# e4m3; dq_kernel / dkv_kernel<T, D, kVarlen, EXTRA, TN> and their head-dim
+# 256 kernels dq_split_kernel / dkv_split_kernel<T, D, kVarlen, EXTRA>;
+# decode_kernel<T, D, KIND, ROWS, ABL> with KIND 3 a 16-bit pool (a sweep
+# library's variant takes its kernel's id); int_kernel<T, D, KIND, EXTRA>
+# is K8q's int8/int4 kernel.
 _PORT_KERNELS = {
     "fwd_kernel": lambda a: ("K1", "K5", "K8q" if _arg(a, 4) else "K8")[
         _arg(a, 2)],
     "dq_kernel": lambda a: "K6" if _arg(a, 2) else "K2",
     "dkv_kernel": lambda a: "K7" if _arg(a, 2) else "K3",
+    "dq_split_kernel": lambda a: "K6" if _arg(a, 2) else "K2",
     "dkv_split_kernel": lambda a: "K7" if _arg(a, 2) else "K3",
     "decode_kernel": lambda a: "K4" if _arg(a, 2) == 3 else "K4q",
     "int_kernel": lambda a: "K8q",

@@ -677,7 +677,7 @@ def test_varlen_equal_lengths_bit_equal_to_flash_attn_func(cuda, p, D,
 
 @pytest.mark.parametrize("name", ["causal_gqa_ragged",
                                   "cross_window_softcap_alibi"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_varlen_sequences_bit_equal_to_flash_attn_func_alone(cuda, dt, D,
                                                              name):
@@ -711,11 +711,28 @@ def test_varlen_sequences_bit_equal_to_flash_attn_func_alone(cuda, dt, D,
             assert torch.equal(g[s], t.grad[0]), f"sequence {b} {what}"
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_row_dot_rows_alone_bit_equal_to_among_many(cuda, D):
+    """delta's row sums (ops/cuda/bwd.py::row_dot) of 1-3 rows x 8 heads
+    alone equal the same rows' among 64 rows, bit for bit: torch's CUDA sum
+    spreads a 256-value row over 64 lanes under 16 rows and over 32 from
+    16 on, which made a one-token sequence's delta (and so its dq, dk)
+    differ from its rows of a packed batch."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    o, do = (torch.randn((64, 8, D), generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    many = dbwd.row_dot(o, do)
+    for n in (1, 2, 3):
+        assert torch.equal(dbwd.row_dot(o[:n].clone(), do[:n].clone()),
+                           many[:n]), f"{n} rows"
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_varlen_backward_kernels_use_no_local_memory(cuda, D):
-    """K6 and K7, the varlen instantiation of K2/K3's body, in bf16 and
-    fp16, with and without bias/dropout: no spills or stack (local memory)
-    and at least 8 warps resident a multiprocessor."""
+    """K6 and K7, the varlen instantiation of K2/K3's body (at D 256 of
+    dq_split_kernel / dkv_split_kernel), in bf16 and fp16, with and
+    without bias/dropout: no spills or stack (local memory) and at least 8
+    warps resident a multiprocessor."""
     import ctypes
     lib = build.load("bwd")
     for dkv in (0, 1):
@@ -1538,14 +1555,16 @@ def test_varlen_paged_kernels_use_no_local_memory(cuda, D):
 # the head-dim-256 kernels on the warpgroup products: (id, library); K8q
 # is its e4m3 pool's instantiation of the forward body
 D256_WGMMA = {"K1": "fwd", "K5": "fwd", "K8": "varlen_paged",
-              "K8q": "varlen_paged_quant", "K3": "bwd", "K7": "bwd"}
+              "K8q": "varlen_paged_quant", "K2": "bwd", "K6": "bwd",
+              "K3": "bwd", "K7": "bwd"}
 
 
 @pytest.mark.parametrize("kid", list(D256_WGMMA))
 def test_head_dim_256_kernels_run_wgmma_without_local_memory(cuda, kid):
-    """Each D 256 instantiation of K1, K5, K8, K8q fp8, K3 and K7 (bf16
-    and fp16, with and without bias / dropout) has warpgroup products
-    (HGMMA) in its SASS and no spills or stack in ptxas's report."""
+    """Each D 256 instantiation of K1, K5, K8, K8q fp8, K2, K6, K3 and K7
+    (bf16 and fp16, with and without bias / dropout) has warpgroup
+    products (HGMMA) and no warp-level ones (HMMA, mma.sync) in its SASS,
+    and no spills or stack in ptxas's report."""
     from flash_attn_v100_tpu_torch.utils import profiling as tprof
     lib = D256_WGMMA[kid]
     usage = build.ptxas_usage(lib)
@@ -1557,9 +1576,48 @@ def test_head_dim_256_kernels_run_wgmma_without_local_memory(cuda, kid):
         found += 1
         u = usage[name]
         assert c["hgmma"] > 0, f"{name}: no HGMMA"
+        assert c["hmma"] == 0, f"{name}: {c['hmma']} HMMA"
         assert u["stack"] == u["spill_stores"] == u["spill_loads"] == 0, \
             f"{name}: local memory {u}"
     assert found == 4, f"{kid}: {found} D 256 instantiations"
+
+
+def _all_launch_counts():
+    """{(module, wrapper): launches} of every kernel wrapper."""
+    return {(m.__name__, n): getattr(m, n).launches
+            for m in (dfwd, dbwd, vl, dec) for n in dir(m)
+            if isinstance(getattr(getattr(m, n), "launches", None), int)}
+
+
+def test_head_dim_over_256_raises_before_any_launch(cuda):
+    """Head dim 264 on CUDA tensors: flash_attn_func,
+    flash_attn_varlen_func and flash_attn_with_kvcache raise
+    kernel_head_dim's ValueError (the port's cap, 256, as the reference
+    CUDA code's and upstream FlashAttention's) and launch no kernel."""
+    B, S, Hq, Hk, D = 2, 64, 4, 2, 264
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=cuda).to(
+        torch.bfloat16) for h in (Hq, Hk, Hk))
+    cu = torch.arange(B + 1, dtype=torch.int32, device=cuda) * S
+    k_cache, v_cache = (torch.zeros((B, 2 * S, Hk, D), device=cuda,
+                                    dtype=torch.bfloat16) for _ in range(2))
+    lens = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    before = _all_launch_counts()
+    assert before, "no kernel wrapper found"
+    calls = {
+        "flash_attn_func": lambda: fa_mod.flash_attn_func(q, k, v,
+                                                          causal=True),
+        "flash_attn_varlen_func": lambda: varlen_mod.flash_attn_varlen_func(
+            q.reshape(B * S, Hq, D), k.reshape(B * S, Hk, D),
+            v.reshape(B * S, Hk, D), cu, cu, S, S, causal=True),
+        "flash_attn_with_kvcache": lambda: kv.flash_attn_with_kvcache(
+            q[:, :1], k_cache, v_cache, cache_seqlens=lens, causal=True),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="head_dim <= 256, got 264"):
+            call()
+        torch.cuda.synchronize()
+        assert _all_launch_counts() == before, f"{name} launched a kernel"
 
 
 # ------------------------------------------- K4 and K4q: stage and split edges

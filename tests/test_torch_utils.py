@@ -132,7 +132,12 @@ def test_profile_ops_on_the_cpu_lists_aten_ops(tmp_path):
      "false>((anonymous namespace)::BwdArgs)", "K6"),
     ("void (anonymous namespace)::dkv_kernel<__half, 32, true, false>"
      "((anonymous namespace)::BwdArgs)", "K7"),
-    # K3 / K7 at head dim 256 (csrc/bwd.cu dkv_split_kernel)
+    # K2 / K6 and K3 / K7 at head dim 256 (csrc/bwd.cu dq_split_kernel,
+    # dkv_split_kernel)
+    ("void (anonymous namespace)::dq_split_kernel<__nv_bfloat16, 256, "
+     "false, true>((anonymous namespace)::BwdArgs)", "K2"),
+    ("void (anonymous namespace)::dq_split_kernel<__half, 256, true, "
+     "false>((anonymous namespace)::BwdArgs)", "K6"),
     ("void (anonymous namespace)::dkv_split_kernel<__nv_bfloat16, 256, "
      "false, false>((anonymous namespace)::BwdArgs)", "K3"),
     ("void (anonymous namespace)::dkv_split_kernel<__half, 256, true, "
@@ -177,6 +182,8 @@ def test_kernel_ids_from_cuda_names(name, want):
      "(<unnamed>::FwdArgs)", 256),
     ("void <unnamed>::dkv_split_kernel<__nv_bfloat16, (int)256, (bool)1, "
      "(bool)0>(<unnamed>::BwdArgs)", 256),
+    ("void <unnamed>::dq_split_kernel<__half, (int)256, (bool)0, "
+     "(bool)1>(<unnamed>::BwdArgs)", 256),
     ("void fa::dec::decode_kernel<__nv_bfloat16, 128, 0, 64>"
      "(fa::dec::DecodeArgs)", 128),
     ("void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<64, "
