@@ -40,7 +40,16 @@ PyTorch library call computing the same function:
     documents against theirs, K8 and K8q fp8 at the prefill wave; each
     D 256 kernel's occupancy, SASS HGMMA count (> 0 for the wgmma ones)
     and local memory (none), and K1-K3 at (a) 1 x 32 x 8192^2 and (b)
-    that batch, causal and full, beside SDPA and the bound.
+    that batch, causal and full, beside SDPA and the bound;
+  * head dim 32 (`d32_checks`, after it): K1-K3 at B 4 x 2048, 32/4
+    heads against their plain versions, K5 / K6 / K7 on equal lengths
+    bit-equal to them, the small encoders' batch (256 sequences of 16-512
+    tokens, 12/12 heads) through unpad_input -> flash_attn_varlen_func
+    -> pad_input and back (one launch each of K5-K7) against the plain
+    versions, K8 and K8q fp8 at the prefill wave; SASS HGMMA (K1, K5, K8,
+    K8q fp8, K3, K7), HMMA (K2, K6) and MUFU.EX2 counts, no local memory;
+    times beside SDPA / varlen_attn and a bound that counts one ex2 a
+    live pair.
 Then the drop-in phase: in a fresh process the port takes the canonical
 `flash_attn` import name (`utils/distinfo.install_canonical_name`, no JAX
 imported) and HF transformers' padded-attention pattern (unpad_input ->
@@ -99,7 +108,9 @@ runs the repo's Llama body at Gemma-2B's widths (head dim 256; random
 weights): two AdamW steps at B 4 x S 2048 cut to 2 layers through K1-K3
 (step 1's losses and gradients against the plain attention's), then the
 engine runs' traffic at full depth (18 layers) through K8 and K4, every
-forward call's logits and greedy tokens against a plain replay of it.
+forward call's logits and greedy tokens against a plain replay of it;
+`phase_d32` does the same at all-MiniLM-L6-v2's widths (head dim 32, 6
+layers, not cut).
 Last, `phase_bench` runs the port's bench
 (`python -m flash_attn_v100_tpu_torch.bench`: its headline JSON line must
 carry a value > 0) and the three examples as subprocesses on the card
@@ -136,7 +147,16 @@ occupancy, to compare two trees on one card in one call;
 
     python3 chip_smoke.py --varlen-times TREE
 
-does the same for K5-K7 at the varlen phase's packed documents, and
+does the same for K5-K7 at the varlen phase's packed documents,
+
+    python3 chip_smoke.py --d32-times TREE
+
+for K1-K3 at head dim 32 (B 4 x 2048, 32 / 4 heads, causal and full),
+K5 (non-causal) and K6 / K7 (causal) on the small encoders' batch (256
+sequences of 16-512 tokens, 12 / 12 heads x 32) and K1 at sweep_dense's
+4 x 16 x 1024^2 at D 16 and 32 (a call, and the kernel alone as a graph
+replay), each beside SDPA / varlen_attn and a bound that counts the
+exponentials at the SM clock measured under load, and
 
     python3 chip_smoke.py --paged-times TREE
 
@@ -560,10 +580,12 @@ def phase_k4(torch, flush):
 
 # ---------------------------------------------------------------- K8 phase
 
-def k8_case(torch, dtype=None, Hq=32, Hk=4, D=64):
+def k8_case(torch, dtype=None, Hq=32, Hk=4, D=64, T=512,
+            prefix=(0, 300, 0, 300)):
     """The engine's prefill wave as K8 sees it: 4 sequences of 512 new
     tokens behind cached prefixes 0/300/0/300, 32/4 heads x 64 (or Hq / Hk
-    x D), page 128, bf16 (or `dtype`), from fixed seeds.  Returns (sizes
+    x D, `T` new tokens behind each of `prefix`), page 128, bf16 (or
+    `dtype`), from fixed seeds.  Returns (sizes
     (B, T, Hq, Hk, D, ps), prefix, seqlens, q, kp, vp, the call's arguments
     after the pools, the CUDA generator for more inputs)."""
     from flash_attn_v100_tpu_torch.ops import masks as masklib
@@ -571,8 +593,8 @@ def k8_case(torch, dtype=None, Hq=32, Hk=4, D=64):
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     ggen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    B, T, ps = 4, 512, 128
-    prefix = torch.tensor([0, 300, 0, 300])
+    B, ps = len(prefix), 128
+    prefix = torch.tensor(prefix)
     seqlens = prefix + T
     max_k = int(seqlens.max())
     tbl, n_pages = paged_tables(torch, gen, seqlens, ps, -(-max_k // ps),
@@ -1251,9 +1273,10 @@ def plain_fwd16(torch, dfwd, q, k, v, scale, params, **kw):
     return torch.cat(outs, 2), torch.cat(lses, 1)
 
 
-def d256_rows(torch, flush, digests=None) -> dict:
+def d256_rows(torch, flush, digests=None, cases=None) -> dict:
     """K1, K2 and K3 alone at head dim 256 (`D256_SHAPES`), bf16, causal
-    and full: each kernel's device time from CUDA-graph replays, SDPA's
+    and full (or only the rows named in `cases`, as "D 256 b causal"):
+    each kernel's device time from CUDA-graph replays, SDPA's
     forward and backward (`enable_gqa`; CUDA events around one call) and
     the bound.  K2 and K3 take the plain forward's out and LSE in bf16, so
     their inputs are the same in every tree (without `digests`, K1's: the
@@ -1270,6 +1293,10 @@ def d256_rows(torch, flush, digests=None) -> dict:
     seed = torch.tensor([0x2468ACE1, 0x10000001], dtype=torch.int64)
     rows = {}
     for tag, (B, S, Hq, Hk, D) in D256_SHAPES.items():
+        masks = [c for c in (True, False) if cases is None or
+                 f"D 256 {tag} {'causal' if c else 'full'}" in cases]
+        if not masks:
+            continue
         gen = torch.Generator(device=dev).manual_seed(SEED + 11)
         q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(
             torch.bfloat16) for s in ((B, S, Hq, D), (B, S, Hk, D),
@@ -1278,7 +1305,7 @@ def d256_rows(torch, flush, digests=None) -> dict:
         qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
         do_s = do.transpose(1, 2).contiguous()
-        for causal in (True, False):
+        for causal in masks:
             name = f"D 256 {tag} {'causal' if causal else 'full'}"
             params = masklib.MaskParams(causal=causal)
             # digests need inputs that are the same in every tree; a time
@@ -1347,57 +1374,76 @@ def d256_rows(torch, flush, digests=None) -> dict:
 
 
 # the head-dim-256 kernels, every one on wgmma: (id, library)
-D256_KERNELS = (("K1", "fwd"), ("K5", "fwd"), ("K8", "varlen_paged"),
-                ("K8q", "varlen_paged_quant"), ("K2", "bwd"), ("K6", "bwd"),
-                ("K3", "bwd"), ("K7", "bwd"))
+# each kernel's library and product path by head dim: (id, library, on
+# wgmma); K2 / K6 keep mma.sync at D 32
+SASS_KERNELS = {
+    256: (("K1", "fwd", True), ("K5", "fwd", True),
+          ("K8", "varlen_paged", True), ("K8q", "varlen_paged_quant", True),
+          ("K2", "bwd", True), ("K6", "bwd", True), ("K3", "bwd", True),
+          ("K7", "bwd", True)),
+    32: (("K1", "fwd", True), ("K5", "fwd", True),
+         ("K8", "varlen_paged", True), ("K8q", "varlen_paged_quant", True),
+         ("K3", "bwd", True), ("K7", "bwd", True), ("K2", "bwd", False),
+         ("K6", "bwd", False)),
+}
 
 
-def d256_sass(build) -> dict:
-    """Starts `build.sass_counts` of each library of D256_KERNELS, one
+def kernel_sass(build) -> dict:
+    """Starts `build.sass_counts` of each library of SASS_KERNELS, one
     thread (cuobjdump, cu++filt) a library, and returns {library: future}:
     host work that main() starts after the build, beside the card's
     phases."""
     from concurrent.futures import ThreadPoolExecutor
 
-    libs = list(dict.fromkeys(lib for _, lib in D256_KERNELS))
+    libs = list(dict.fromkeys(lib for table in SASS_KERNELS.values()
+                              for _, lib, _ in table))
     pool = ThreadPoolExecutor(len(libs))
     futures = {lib: pool.submit(build.sass_counts, lib) for lib in libs}
     pool.shutdown(wait=False)
     return futures
 
 
-def d256_build_report(build, sass=None) -> dict:
-    """Each head-dim-256 instantiation of D256_KERNELS (both 16-bit types,
-    both variants; K8q: its e4m3 pool on the forward body): its SASS
-    HGMMA / HMMA counts (`build.sass_counts`, from `sass`, d256_sass's
-    futures, when given) and its ptxas registers and local bytes
-    (`build.ptxas_usage`), keyed by its CUDA name.  Asserts HGMMA > 0, no
-    HMMA (mma.sync) and no local memory in each."""
+def sass_report(build, head_dim, sass=None) -> dict:
+    """Each `head_dim` instantiation of SASS_KERNELS[head_dim] (both 16-bit
+    types, both variants; K8q: its e4m3 pool on the forward body): its SASS
+    HGMMA / HMMA / MUFU.EX2 counts (`build.sass_counts`, from `sass`,
+    kernel_sass's futures, when given) and its ptxas registers and local
+    bytes (`build.ptxas_usage`), keyed by its CUDA name.  Asserts HGMMA > 0
+    and no HMMA (mma.sync) in each wgmma kernel, HMMA > 0 and no HGMMA in
+    the others, and no local memory in any."""
     from flash_attn_v100_tpu_torch.utils import profiling as tprof
 
-    sass = sass or d256_sass(build)
+    table = SASS_KERNELS[head_dim]
+    sass = sass or kernel_sass(build)
+    paths = {(kid, lib): wg for kid, lib, wg in table}
     res = {}
-    for lib in sass:
+    for lib in dict.fromkeys(lib for _, lib, _ in table):
         usage = build.ptxas_usage(lib)
         for name, c in sass[lib].result().items():
             kid = tprof.kernel_id(name)
-            if (tprof.kernel_head_dim(name) != 256
-                    or (kid, lib) not in D256_KERNELS
+            if (tprof.kernel_head_dim(name) != head_dim
+                    or (kid, lib) not in paths
                     or (kid == "K8q" and "fwd_kernel" not in name)):
                 continue
             u = usage[name]
             res[name] = dict(id=kid, hgmma=c["hgmma"], hmma=c["hmma"],
+                             mufu_ex2=c["mufu_ex2"],
                              registers=u["registers"],
                              local_bytes=u["stack"] + u["spill_stores"])
-            assert c["hgmma"] > 0, f"{name}: no HGMMA in its SASS"
-            assert c["hmma"] == 0, f"{name}: mma.sync (HMMA) in its SASS"
+            if paths[(kid, lib)]:
+                assert c["hgmma"] > 0, f"{name}: no HGMMA in its SASS"
+                assert c["hmma"] == 0, f"{name}: mma.sync (HMMA) in its SASS"
+            else:
+                assert c["hmma"] > 0 and c["hgmma"] == 0, f"{name}: {c}"
             assert res[name]["local_bytes"] == 0, f"{name}: local memory"
-    for kid, _ in D256_KERNELS:
+    for kid, _, _ in table:
         rows = [r for r in res.values() if r["id"] == kid]
-        assert len(rows) == 4, f"{kid}: {len(rows)} D 256 instantiations"
-        print(f"{kid} D 256 SASS (bf16 / fp16 x no bias / bias variants): "
-              f"HGMMA {[r['hgmma'] for r in rows]}, HMMA "
-              f"{[r['hmma'] for r in rows]}, registers "
+        assert len(rows) == 4, f"{kid}: {len(rows)} D {head_dim} " \
+            "instantiations"
+        print(f"{kid} D {head_dim} SASS (bf16 / fp16 x no bias / bias "
+              f"variants): HGMMA {[r['hgmma'] for r in rows]}, HMMA "
+              f"{[r['hmma'] for r in rows]}, MUFU.EX2 "
+              f"{[r['mufu_ex2'] for r in rows]}, registers "
               f"{[r['registers'] for r in rows]}, local bytes "
               f"{[r['local_bytes'] for r in rows]}", flush=True)
     return res
@@ -1414,8 +1460,8 @@ def d256_checks(torch, flush, sass=None) -> dict:
     document's out, dq, dk and dv bit-equal to K1's, K2's and K3's on that
     document alone; K8 and K8q fp8 at the engine's prefill wave (k8_case,
     8/1 heads x 256) against theirs; the D 256 kernels' occupancy and
-    `d256_build_report` (on `sass`, d256_sass's futures, when given); then
-    `d256_rows`' times at both shapes.  Returns the K1, K2, K3 and K8 rows
+    `sass_report` (on `sass`, kernel_sass's futures, when given); then
+    `d256_rows`' times at (b), causal.  Returns the K1, K2, K3 and K8 rows
     of the `kernels` line ((b), causal)."""
     from flash_attn_v100_tpu_torch.ops import masks as masklib
     from flash_attn_v100_tpu_torch.ops.cuda import build
@@ -1587,11 +1633,12 @@ def d256_checks(torch, flush, sass=None) -> dict:
     occ = occupancy(build, occ_names, dims=(256,))
     occ_res = {n: {} for n in occ_names}
     print_occupancy(occ_res, occ, 256)
-    report = d256_build_report(build, sass)
+    report = sass_report(build, 256, sass)
 
     laps.append(time.perf_counter())
-    # the kernels line's rows: times at (b), causal, beside both shapes'
-    d256 = d256_rows(torch, flush)
+    # the kernels line's rows: times at (b), causal (the other shapes and
+    # masks are timed by --dense-times)
+    d256 = d256_rows(torch, flush, cases=("D 256 b causal",))
     tb = d256["D 256 b causal"]
     kw = dict(dropout_p=0.0, dropout_seed=None)
     plain_fwd = time_ms(torch, lambda: dfwd.flash_attn_dense_fwd_ref(
@@ -1628,6 +1675,387 @@ def d256_checks(torch, flush, sass=None) -> dict:
     return res
 
 
+def timed_ms(torch, fn):
+    """(fn(), its device time in ms): CUDA events around this one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def max_sm_mhz() -> float:
+    """The card's maximum SM clock (MHz), as nvidia-smi reads it: the
+    clock of the exponentials' least time."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def d32_checks(torch, flush, sass) -> dict:
+    """Head dim 32.  (d32a), causal, bf16: K1, K2 and K3 against their
+    plain versions (whole-tensor and per-row gates), two backward calls
+    bit-equal, K5 / K6 / K7 on the batch as equal-length sequences
+    bit-equal to K1 / K2 / K3.  (d32b): the encoders' path, a padded batch
+    through unpad_input -> flash_attn_varlen_func (non-causal) -> pad_input
+    and its backward, from the launch counters at 0: one launch each of
+    K5, K6, K7 and none of the plain versions; the packed out and
+    gradients against the plain versions'.  (d16): K1 and K5 at head dim
+    16 read the rows unpadded (one launch each, no F.pad) within the
+    forward gate, K5 bit-equal to K1.  K8 and K8q fp8 at the engine's
+    prefill wave at 12/12 heads x 32 against theirs.  The SASS report
+    (`sass_report` on `sass`).  The `kernels` line's D 32 rows: each
+    kernel's graph-replay time on the inputs it was checked on, the plain
+    versions' times from their one call in the checks, one library call,
+    and the bound (bytes or operations; the exponentials' term at the
+    card's maximum SM clock beside it).  The rounds in turns with a parent
+    tree are `--d32-times`'."""
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops import padding as padlib
+    from flash_attn_v100_tpu_torch.ops import varlen as varlen_mod
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+    from flash_attn_v100_tpu_torch.utils import testing as tt
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = max_sm_mhz()
+    laps = [time.perf_counter()]
+    B, S, Hq, Hk, D = D32A_SHAPE
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    q, k, v, do = (torch.randn(sh, generator=ggen, device=dev).to(
+        torch.bfloat16) for sh in ((B, S, Hq, D), (B, S, Hk, D),
+                                   (B, S, Hk, D), (B, S, Hq, D)))
+    params = masklib.MaskParams(causal=True)
+    scale = D ** -0.5
+    errs, rows, res = {}, {}, {}
+    out, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params)
+    dq, dk, dv = dbwd.flash_attn_dense_bwd(q, k, v, out, do, lse, scale,
+                                           params)
+    torch.cuda.synchronize()
+    (o32, l32), plain_fwd = timed_ms(
+        torch, lambda: dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params))
+    o16, l16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params,
+                                             upcast=False)
+    errs[("K1", "out")] = gated(torch, out, o32, o16, "K1 D 32 out")
+    errs[("K1", "lse")] = gated(torch, lse, l32, l16, "K1 D 32 lse")
+    rows["K1 out"] = gated_rows(torch, out, o32, o16, "K1 D 32 out",
+                                tt.FWD_MULT)[0]
+    del o32, o16, l32, l16
+    g32, plain_bwd = timed_ms(torch, lambda: dbwd.flash_attn_dense_bwd_ref(
+        q, k, v, out, do, lse, scale, params))
+    g16 = dbwd.flash_attn_dense_bwd_ref(q, k, v, out, do, lse, scale, params,
+                                        upcast=False)
+    for kid, key, g, r32, r16 in (("K2", "dq", dq, g32[0], g16[0]),
+                                  ("K3", "dk", dk, g32[1], g16[1]),
+                                  ("K3", "dv", dv, g32[2], g16[2])):
+        errs[(kid, key)] = gated(torch, g, r32, r16, f"{kid} D 32 {key}",
+                                 tt.BWD_MULT, tt.BWD_ATOL)
+        rows[f"{kid} {key}"] = gated_rows(torch, g, r32, r16,
+                                          f"{kid} D 32 {key}",
+                                          tt.BWD_MULT)[0]
+    del g32, g16
+    again = dbwd.flash_attn_dense_bwd(q, k, v, out, do, lse, scale, params)
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)), \
+        "D 32: two backward calls differ"
+    cu = torch.arange(B + 1, dtype=torch.int32, device=dev) * S
+    pk = [t.reshape(B * S, *t.shape[2:]) for t in (q, k, v, do)]
+    o_v, lse_v = vl.flash_attn_varlen_fwd(pk[0], pk[1], pk[2], cu, cu, S, S,
+                                          scale, params)
+    assert torch.equal(o_v, out.reshape(B * S, Hq, D)), "D 32: K5 != K1"
+    assert torch.equal(lse_v, lse.permute(1, 0, 2).reshape(Hq, B * S)), \
+        "D 32: K5 lse != K1's"
+    g_v = vl.flash_attn_varlen_bwd(pk[0], pk[1], pk[2], o_v, pk[3], lse_v,
+                                   cu, cu, S, S, scale, params)
+    for a, b, what in zip(g_v, (dq, dk, dv), ("dq", "dk", "dv")):
+        assert torch.equal(a, b.reshape(a.shape)), \
+            f"D 32 equal lengths: varlen {what} != dense"
+    print(f"dense D 32 (B={B}, S={S}, Hq={Hq}, Hk={Hk}, causal, bf16): max "
+          f"abs err vs fp32 plain <= gate: " + ", ".join(
+              f"{kid} {key} {e[0]:.3e} <= {e[1]:.3e}"
+              for (kid, key), e in errs.items()) + "; per-row err/gate " +
+          ", ".join(f"{key} {r:.3f}" for key, r in rows.items()) +
+          "; two backward calls bit-equal; K5 / K6 / K7 on 4 equal-length "
+          "sequences bit-equal to K1 / K2 / K3", flush=True)
+    del again, o_v, lse_v, g_v, pk
+    # the kernels line's (d32a) rows: each kernel alone on these inputs
+    kargs = (q, k, v, do, lse.clamp_min(NEG_INF).contiguous(),
+             dbwd.softmax_delta(out, do), None, scale, params, 0.0, None, 0,
+             None, Hq)
+    ms = {"K1": graph_ms(torch, lambda: dfwd.flash_attn_dense_fwd(
+              q, k, v, scale, params), reps=5, flush=flush),
+          "K2": graph_ms(torch, lambda: dbwd.dq_kernel(*kargs), reps=5,
+                         flush=flush),
+          "K3": graph_ms(torch, lambda: dbwd.dkv_kernel(*kargs), reps=5,
+                         flush=flush)}
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), reps=3, warmup=1,
+        flush=flush)
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+    do_s = do.transpose(1, 2).contiguous()
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qs, ks, vs), do_s, retain_graph=True), reps=3, warmup=1,
+        flush=flush)
+    work = dense_work(B, S, Hq, Hk, D, causal=True)
+    pairs = B * Hq * S * (S + 1) // 2
+    for kid in ("K1", "K2", "K3"):
+        worst = max((e for key, e in errs.items() if key[0] == kid),
+                    key=lambda e: e[0] / e[1])
+        flops, nbytes = work[kid]
+        res[kid] = dict(max_abs_err=worst[0], gate=worst[1], ms=ms[kid],
+                        plain_ms=plain_fwd if kid == "K1" else plain_bwd,
+                        library_ms=lib_fwd if kid == "K1" else lib_bwd,
+                        bound3=bound3(nbytes, flops, pairs, mhz, sms))
+    print(f"dense D 32 times (graph replays): " + ", ".join(
+        f"{kid} {ms[kid]:.4f} ms" for kid in ms) + f"; plain fwd "
+        f"{plain_fwd:.4f}, bwd {plain_bwd:.4f} ms (one call); sdpa fwd "
+        f"{lib_fwd:.4f}, bwd {lib_bwd:.4f} ms", flush=True)
+    del out, lse, dq, dk, dv, q, k, v, do, kargs, qs, ks, vs, o_lib, do_s
+
+    laps.append(time.perf_counter())
+    # (d32b): the encoders' padded batch through the drop-in's pattern
+    lens = d32b_lengths()
+    H, n, S_pad = D32B_HEADS, len(lens), D32B_LENS[1]
+    mask = (torch.arange(S_pad, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None])
+    xq, xk, xv, xdo = (torch.randn((n, S_pad, H, D), generator=ggen,
+                                   device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+    full = masklib.MaskParams()
+    reset_kernel_counts()
+    leaves = [t.clone().requires_grad_() for t in (xq, xk, xv)]
+    uq, idx, cu_b, ml, _ = padlib.unpad_input(leaves[0], mask)
+    uk, uv = (padlib.unpad_input(t, mask)[0] for t in leaves[1:])
+    o_b = varlen_mod.flash_attn_varlen_func(uq, uk, uv, cu_b, cu_b, ml, ml,
+                                            causal=False)
+    padlib.pad_input(o_b, idx, n, S_pad).backward(xdo)
+    torch.cuda.synchronize()
+    launches, twins = kernel_counts()
+    assert (launches["K5"], launches["K6"], launches["K7"]) == (1, 1, 1), \
+        launches
+    assert not any(twins.values()), twins
+    grads = [t.grad[mask] for t in leaves]
+    pq, pk_, pv, pdo = (t[mask] for t in (xq, xk, xv, xdo))
+    bargs = (pq, pk_, pv, cu_b, cu_b, ml, ml, scale, full)
+    (o32, l32), plain5 = timed_ms(
+        torch, lambda: vl.flash_attn_varlen_fwd_ref(*bargs))
+    o16, _ = vl.flash_attn_varlen_fwd_ref(*bargs, upcast=False)
+    e5 = gated(torch, o_b.detach(), o32, o16, "K5 D 32 b out")
+    r5 = gated_rows(torch, o_b.detach(), o32, o16, "K5 D 32 b out",
+                    tt.FWD_MULT)[0]
+    rargs = (pq, pk_, pv, o_b.detach(), pdo, l32, cu_b, cu_b, ml, ml, scale,
+             full)
+    g32, plain67 = timed_ms(torch,
+                            lambda: vl.flash_attn_varlen_bwd_ref(*rargs))
+    g16 = vl.flash_attn_varlen_bwd_ref(*rargs, upcast=False)
+    e67 = [gated(torch, g, r32, r16, f"{kid} D 32 b {what}", tt.BWD_MULT,
+                 tt.BWD_ATOL)
+           for g, r32, r16, kid, what in zip(grads, g32, g16,
+                                             ("K6", "K7", "K7"),
+                                             ("dq", "dk", "dv"))]
+    print(f"varlen D 32 b (the encoders' batch: {n} sequences of "
+          f"{min(lens)}-{max(lens)} tokens padded to {S_pad}, {H}/{H} heads, "
+          f"non-causal, bf16, unpad_input -> flash_attn_varlen_func -> "
+          f"pad_input and back): launches K5 {launches['K5']}, K6 "
+          f"{launches['K6']}, K7 {launches['K7']}, plain twins "
+          f"{sum(twins.values())}; K5 out {e5[0]:.3e} <= {e5[1]:.3e} (worst row err/gate "
+          f"{r5:.3f}); K6 dq {e67[0][0]:.3e} <= {e67[0][1]:.3e}; K7 dk "
+          f"{e67[1][0]:.3e} <= {e67[1][1]:.3e}, dv {e67[2][0]:.3e} <= "
+          f"{e67[2][1]:.3e}", flush=True)
+    del leaves, o_b, grads, g32, g16, o32, o16, l32, xq, xk, xv, xdo
+    # the kernels line's (d32b) rows: each kernel alone on these inputs
+    fargs = (pq, pk_, pv, cu_b, cu_b, ml, ml, scale, full)
+    o5, lse5 = vl.flash_attn_varlen_fwd(*fargs)
+    kargs = (pq, pk_, pv, pdo, lse5.clamp_min(NEG_INF).contiguous(),
+             vl.varlen_delta(o5, pdo), None, cu_b, cu_b, None, None, ml, ml,
+             scale, full, 0.0, None)
+    ms = {"K5": graph_ms(torch, lambda: vl.flash_attn_varlen_fwd(*fargs),
+                         reps=5, flush=flush),
+          "K6": graph_ms(torch, lambda: vl.varlen_dq_kernel(*kargs), reps=5,
+                         flush=flush),
+          "K7": graph_ms(torch, lambda: vl.varlen_dkv_kernel(*kargs),
+                         reps=5, flush=flush)}
+    ql, kl, vl_ = (t.clone().requires_grad_() for t in (pq, pk_, pv))
+    label, lib_fn, o_lib = varlen_library(torch, ql, kl, vl_, cu_b, ml,
+                                          causal=False)
+    lib5 = time_ms(torch, lib_fn, reps=3, warmup=1, flush=flush)
+    o_lib = o_lib[0] if isinstance(o_lib, tuple) else o_lib
+    do_lib = pdo if o_lib.dim() == 3 else pdo.transpose(0, 1)[None]
+    lib67 = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (ql, kl, vl_), do_lib, retain_graph=True), reps=3, warmup=1,
+        flush=flush)
+    work = varlen_work(lens, H, H, D, causal=False)
+    for kid, e in (("K5", e5), ("K6", e67[0]),
+                   ("K7", max(e67[1:], key=lambda x: x[0] / x[1]))):
+        flops, nbytes = work[kid]
+        pairs = flops // ({"K5": 4, "K6": 6, "K7": 8}[kid] * D)
+        res[kid] = dict(max_abs_err=e[0], gate=e[1], ms=ms[kid],
+                        plain_ms=plain5 if kid == "K5" else plain67,
+                        library_ms=lib5 if kid == "K5" else lib67,
+                        library=f"{label} {'fwd' if kid == 'K5' else 'bwd'}",
+                        bound3=bound3(nbytes, flops, pairs, mhz, sms))
+    print(f"varlen D 32 b times (graph replays): " + ", ".join(
+        f"{kid} {ms[kid]:.4f} ms" for kid in ms) + f"; plain fwd "
+        f"{plain5:.4f}, bwd {plain67:.4f} ms (one call); {label} fwd "
+        f"{lib5:.4f}, bwd {lib67:.4f} ms", flush=True)
+    del pq, pk_, pv, pdo, o5, lse5, kargs, ql, kl, vl_, o_lib, do_lib
+
+    laps.append(time.perf_counter())
+    # (d16): K1 and K5 at head dim 16 read the rows as they are
+    Bn, Sn, Hn = D16_SHAPE
+    Dn = 16
+    q, k, v = (torch.randn((Bn, Sn, Hn, Dn), generator=ggen,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    scale16 = Dn ** -0.5
+    cu16 = torch.arange(Bn + 1, dtype=torch.int32, device=dev) * Sn
+    pk = [t.reshape(Bn * Sn, Hn, Dn) for t in (q, k, v)]
+    pads = []
+    real_pad = F.pad
+    reset_kernel_counts()
+    F.pad = lambda *a, **kw: pads.append(1) or real_pad(*a, **kw)
+    try:
+        o1, l1 = dfwd.flash_attn_dense_fwd(q, k, v, scale16, params)
+        o5, l5 = vl.flash_attn_varlen_fwd(*pk, cu16, cu16, Sn, Sn, scale16,
+                                          params)
+        torch.cuda.synchronize()
+    finally:
+        F.pad = real_pad
+    launches16, twins16 = kernel_counts()
+    assert (launches16["K1"], launches16["K5"]) == (1, 1), launches16
+    assert not any(twins16.values()), twins16
+    assert not pads, f"D 16: {len(pads)} F.pad calls"
+    assert o1.shape == q.shape and o5.shape == pk[0].shape
+    assert torch.equal(o5, o1.reshape(o5.shape)), "D 16: K5 != K1"
+    assert torch.equal(l5, l1.permute(1, 0, 2).reshape(Hn, Bn * Sn)), \
+        "D 16: K5 lse != K1's"
+    o32, l32 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale16, params)
+    o16, l16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale16, params,
+                                             upcast=False)
+    e16 = gated(torch, o1, o32, o16, "K1 D 16 out")
+    e16l = gated(torch, l1, l32, l16, "K1 D 16 lse")
+    print(f"d16 (B={Bn}, S={Sn}, {Hn}/{Hn} heads x 16, causal, bf16): one "
+          f"launch each of K1 and K5, no F.pad, no plain twin; K1 out "
+          f"{e16[0]:.3e} <= {e16[1]:.3e}, lse {e16l[0]:.3e} <= "
+          f"{e16l[1]:.3e}; K5 on 4 equal-length sequences bit-equal to K1",
+          flush=True)
+    res["d16"] = dict(out=e16, lse=e16l, launches=dict(
+        K1=launches16["K1"], K5=launches16["K5"]))
+    del q, k, v, pk, o1, l1, o5, l5, o32, l32, o16, l16
+
+    laps.append(time.perf_counter())
+    # K8 and K8q fp8 at the engine's prefill wave, 12/12 heads x 32
+    (Bp, T, _, _, _, ps), prefix, seqlens, qp, kp, vp, tail, _ = k8_case(
+        torch, Hq=H, Hk=H, D=D)
+    args = (qp, kp, vp) + tail
+    out8, lse8 = vl.flash_attn_varlen_fwd_paged(*args)
+    torch.cuda.synchronize()
+    (o32, l32), k8_plain = timed_ms(
+        torch, lambda: vl.flash_attn_varlen_fwd_paged_ref(*args))
+    o16, l16 = vl.flash_attn_varlen_fwd_paged_ref(*args, upcast=False)
+    e8 = gated(torch, out8, o32, o16, "K8 D 32 out")
+    e8l = gated(torch, lse8, l32, l16, "K8 D 32 lse")
+    (kq, vq, ks, vs), (kd, vd) = quant_pools(torch, kp, vp, "fp8")
+    qargs = (qp, kq, vq, *tail)
+    skw = dict(k_scales=ks, v_scales=vs)
+    outq, lseq = vl.flash_attn_varlen_fwd_paged(*qargs, **skw)
+    (twin, lse_twin), k8q_plain = timed_ms(
+        torch, lambda: vl.flash_attn_varlen_fwd_paged_ref(*qargs, **skw))
+    unr = vl.flash_attn_varlen_fwd_paged_ref(*qargs, round_p=False, **skw)[0]
+    oracle = vl.flash_attn_varlen_fwd_paged_ref(qp, kd, vd, *tail)[0]
+    o_w = vl.flash_attn_varlen_fwd_paged(
+        *qargs, k_scales=ks, v_scales=torch.roll(vs, 1, dims=2))[0]
+    eq = gate_quant(torch, "K8q fp8 D 32 prefill", "fp8", outq, lseq, twin,
+                    unr, lse_twin, oracle, spliced0(outq, o_w, Bp * T - 64))
+    k8_ms = graph_ms(torch, lambda: vl.flash_attn_varlen_fwd_paged(*args),
+                     flush=flush)
+    k8q_ms = graph_ms(torch, lambda: vl.flash_attn_varlen_fwd_paged(
+        *qargs, **skw), flush=flush)
+    kc, vc = gather_kv(torch, kp, vp, tail[0], seqlens, ps)
+    k8_lib = time_ms(torch, prefill_sdpa(torch, qp, kc, vc, prefix, T),
+                     reps=5, warmup=1, flush=flush)
+    live = sum(T * int(x) + T * (T + 1) // 2 for x in prefix)
+    kv_tok = int(seqlens.sum())
+    k8_bound = bound_ms(2 * qp.numel() * 2 + H * Bp * T * 4
+                        + 2 * kv_tok * H * D * 2 + tail[0].numel() * 4,
+                        4 * live * H * D)
+    k8q_bound = bound_ms(2 * qp.numel() * 2 + H * Bp * T * 4
+                         + 2 * kv_tok * H * (D + 4) + tail[0].numel() * 4,
+                         4 * live * H * D)
+    print(f"K8 / K8q fp8 D 32 prefill (B={Bp} x T={T} behind prefixes "
+          f"{prefix.tolist()}, {H}/{H} heads, ps={ps}): K8 out {e8[0]:.3e} <="
+          f" {e8[1]:.3e}, lse {e8l[0]:.3e} <= {e8l[1]:.3e}; graph replays "
+          f"K8 {k8_ms:.4f} ms, K8q fp8 {k8q_ms:.4f} ms; plain {k8_plain:.4f} /"
+          f" {k8q_plain:.4f} ms (one call); sdpa {k8_lib:.4f} ms; bounds "
+          f"{k8_bound[0]:.5f} / {k8q_bound[0]:.5f} ms", flush=True)
+    del args, qargs, out8, lse8, o32, o16, l32, l16, outq, lseq, twin, unr, \
+        oracle, o_w, kc, vc, kp, vp, kq, vq, kd, vd
+
+    laps.append(time.perf_counter())
+    report = sass_report(build, 32, sass)
+    res["K8"] = dict(max_abs_err=e8[0], gate=e8[1], ms=k8_ms,
+                     plain_ms=k8_plain, library_ms=k8_lib,
+                     bound_ms=k8_bound[0], bound_by=k8_bound[1])
+    res["K8q"] = dict(max_abs_err=eq["max_abs_err"], gate=eq["gate"],
+                      ms=k8q_ms, plain_ms=k8q_plain, library_ms=None,
+                      bound_ms=k8q_bound[0], bound_by=k8q_bound[1])
+    for kid in ("K1", "K2", "K3", "K5", "K6", "K7"):
+        # the kernels line's bound: bytes or tensor-core operations, the
+        # exponentials' term beside it
+        t = res[kid]["bound3"]["terms"]
+        res[kid]["bound_ms"] = max(t["bytes"], t["operations"])
+        res[kid]["bound_by"] = ("bytes" if t["bytes"] >= t["operations"]
+                                else "operations")
+        res[kid]["bound3_clock_mhz"] = mhz
+    res["sass"] = report
+    res["launches_b"] = launches
+    laps.append(time.perf_counter())
+    print("d32 checks, s: " + ", ".join(
+        f"{name} {b - a:.1f}" for name, a, b in zip(
+            ("dense", "varlen", "d16", "paged", "SASS"), laps, laps[1:])),
+        flush=True)
+    return res
+
+
+def minilm_config(torch):
+    """sentence-transformers/all-MiniLM-L6-v2's widths (config.json: hidden
+    384, 6 layers, 12 heads x 32, intermediate 1536, vocab 30522;
+    BAAI/bge-small-en-v1.5 has the same heads and widths at 12 layers) on
+    the repo's Llama body, bf16; max_seq_len 2048 (the encoders' 512
+    positions raised to the repo's training batch)."""
+    from flash_attn_v100_tpu_torch import ModelConfig
+    return ModelConfig(vocab_size=30522, dim=384, n_layers=6, n_heads=12,
+                       n_kv_heads=12, head_dim=32, ffn_dim=1536,
+                       rope_theta=10000.0, max_seq_len=2048,
+                       dtype=torch.bfloat16)
+
+
+def phase_d32(torch):
+    """The repo's Llama body at the small encoders' widths (head dim 32,
+    `minilm_config`, not cut): training (head_dim_train) through K1-K3 at D
+    32, then serving (head_dim_serve) through K8 and K4 at D 32."""
+    cfg = minilm_config(torch)
+    train = head_dim_train(torch, cfg, "d32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # at group 1 a prefill takes the K8 route from 1024 rows
+    # (ops/kvcache.py VARLEN_PREFILL_MIN_ROWS): 1024-token prompts
+    serve = head_dim_serve(torch, cfg, "d32", long_len=1024)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(train=train, serve=serve)
+
+
 # ------------------------------------------------- K5-K7 (varlen phase)
 
 # TinyLlama-1.1B attention at B 4 x S 2048, as the dense phase; the padded
@@ -1652,12 +2080,12 @@ def packed_doc_lengths(rows: int, S: int, seed: int = 0):
     return out
 
 
-def varlen_work(lens, Hq, Hk, D, esize=2):
-    """(flops, bytes) of K5, K6 and K7 for causal self-attention over
-    sequences of `lens`: dense_work's rule per sequence (4, 6 and 8 flops x
-    D per live (q row, key) pair), each input read once and each output
-    written once."""
-    pairs = Hq * sum(n * (n + 1) // 2 for n in lens)
+def varlen_work(lens, Hq, Hk, D, esize=2, causal=True):
+    """(flops, bytes) of K5, K6 and K7 for causal (or full) self-attention
+    over sequences of `lens`: dense_work's rule per sequence (4, 6 and 8
+    flops x D per live (q row, key) pair), each input read once and each
+    output written once."""
+    pairs = Hq * sum(n * (n + 1) // 2 if causal else n * n for n in lens)
     T = sum(lens)
     q_bytes, kv_bytes, row_bytes = (T * Hq * D * esize, T * Hk * D * esize,
                                     T * Hq * 4)
@@ -1675,11 +2103,11 @@ def spliced0(x, y, lo, n=64):
     return z
 
 
-def varlen_library(torch, q, k, v, cu, max_len):
-    """The library yardstick for causal varlen attention: one call of
-    torch.nn.attention.varlen.varlen_attn where the installed torch has it,
-    else SDPA (`enable_gqa`) with a boolean block-diagonal causal mask over
-    the packed sequence.  Returns (label, forward fn, output)."""
+def varlen_library(torch, q, k, v, cu, max_len, causal=True):
+    """The library yardstick for causal (or full) varlen attention: one
+    call of torch.nn.attention.varlen.varlen_attn where the installed torch
+    has it, else SDPA (`enable_gqa`) with a boolean block-diagonal (causal)
+    mask over the packed sequence.  Returns (label, forward fn, output)."""
     import inspect
     F = torch.nn.functional
     try:
@@ -1694,9 +2122,9 @@ def varlen_library(torch, q, k, v, cu, max_len):
             kk, vv = (t.repeat_interleave(g, dim=1) for t in (k, v))
             label += " (k/v heads repeated)"
         if "window_size" in sig:
-            kw["window_size"] = (-1, 0)
+            kw["window_size"] = (-1, 0) if causal else (-1, -1)
         else:
-            kw["is_causal"] = True
+            kw["is_causal"] = causal
 
         def fn():
             return varlen_attn(q, kk, vv, cu, cu, max_len, max_len, **kw)
@@ -1712,7 +2140,8 @@ def varlen_library(torch, q, k, v, cu, max_len):
         torch.arange(cu.numel() - 1, device=q.device),
         (cu[1:] - cu[:-1]).long(), output_size=T)
     pos = torch.arange(T, device=q.device)
-    mask = (seg[:, None] == seg[None, :]) & (pos[None, :] <= pos[:, None])
+    mask = (seg[:, None] == seg[None, :]) & (
+        (pos[None, :] <= pos[:, None]) | (not causal))
     qs, ks, vs = (t.transpose(0, 1)[None] for t in (q, k, v))
 
     def fn():
@@ -2615,15 +3044,15 @@ def make_engine(torch, params, cfg, kind=None):
     return eng
 
 
-def serve_traffic(torch, eng, cfg):
-    """The engine runs' traffic: N_LONG prompts of LONG_LEN tokens
+def serve_traffic(torch, eng, cfg, long_len=LONG_LEN):
+    """The engine runs' traffic: N_LONG prompts of `long_len` tokens
     prefilled in one step (the K8 route), then SHORT_LENS prompts beside
     their decodes (the K4 route), N_NEW greedy tokens each.  Returns (the
     outputs, the request ids, the host clock at submit / after the second
     step / at the end, the tokens generated at the last two)."""
     import numpy as np
     rng = np.random.default_rng(SEED)
-    long_prompts = [rng.integers(1, cfg.vocab_size, LONG_LEN).tolist()
+    long_prompts = [rng.integers(1, cfg.vocab_size, long_len).tolist()
                     for _ in range(N_LONG)]
     short_prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                      for n in SHORT_LENS]
@@ -2786,7 +3215,7 @@ def gemma_2b_config(torch):
                        dtype=torch.bfloat16)
 
 
-def d256_train(torch, cfg):
+def head_dim_train(torch, cfg, tag):
     """Step 1's per-token losses and gradients of `cfg` at B TRAIN_B x
     TRAIN_S through K1-K3 against the same through the plain attention in
     fp32 and bf16 (phase_train's loss gates; each leaf's gradient within
@@ -2830,7 +3259,7 @@ def d256_train(torch, cfg):
         nll32, g32 = losses_grads()
     with _plain_attention(fa_mod, dfwd, dbwd, False):
         nll16, g16 = losses_grads()
-    err, gate = gated(torch, nll_k, nll32, nll16, "d256 step 1 token losses",
+    err, gate = gated(torch, nll_k, nll32, nll16, f"{tag} step 1 token losses",
                       2.0, 1e-5)
     means = [float(x.double().mean()) for x in (nll_k, nll32, nll16)]
     e16 = (nll16 - nll32).double()
@@ -2838,14 +3267,14 @@ def d256_train(torch, cfg):
     mean_err = abs(means[0] - means[1])
     mean_gate = max(2.0 * abs(means[2] - means[1]) + 1e-5, spread)
     assert mean_err <= mean_gate, (
-        f"d256 step 1 loss: err {mean_err:.3e} > gate {mean_gate:.3e}")
+        f"{tag} step 1 loss: err {mean_err:.3e} > gate {mean_gate:.3e}")
     worst = (0.0, "")
     for name, a, r32, r16 in zip(names, g_k, g32, g16):
-        e, gt = gated(torch, a, r32, r16, f"d256 step 1 grad {name}",
+        e, gt = gated(torch, a, r32, r16, f"{tag} step 1 grad {name}",
                       tt.BWD_MULT, tt.BWD_ATOL)
         worst = max(worst, (e / gt, name))
     del g_k, g32, g16, nll32, nll16, e16
-    print(f"d256 train step 1 (B {TRAIN_B} x S {TRAIN_S}): token losses max "
+    print(f"{tag} train step 1 (B {TRAIN_B} x S {TRAIN_S}): token losses max "
           f"err {err:.3e} <= gate {gate:.3e}; mean kernel {means[0]:.6f}, "
           f"plain fp32 {means[1]:.6f}, plain bf16 {means[2]:.6f}: err "
           f"{mean_err:.3e} <= gate {mean_gate:.3e} ({TRAIN_LOSS_GATE}); "
@@ -2870,7 +3299,7 @@ def d256_train(torch, cfg):
         assert counts[name] == L * D256_TRAIN_STEPS, counts
     assert counts["plain_fwd"] == 0 and counts["plain_bwd"] == 0, counts
     n_params = sum(t.numel() for t in leaves)
-    print(f"d256 train: {L} layers (reduced: 18 -> {L}), dim {cfg.dim}, "
+    print(f"{tag} train: {L} layers, dim {cfg.dim}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, ffn "
           f"{cfg.ffn_dim}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
           f"params; AdamW, B {TRAIN_B} x S {TRAIN_S} (batch not cut); losses "
@@ -2884,14 +3313,15 @@ def d256_train(torch, cfg):
                 grad_worst=worst)
 
 
-def d256_serve(torch, cfg):
+def head_dim_serve(torch, cfg, tag, long_len=LONG_LEN):
     """`serve_traffic` on `cfg` at full depth (the K8 route's prefill wave,
     then K4 decodes), every forward call of the run replayed on copies of
     its pools through the plain attention versions: each call's logits
     within phase_engine's gate (2 x the bf16-product plain run's error vs
     the fp32 one + 1e-5), and each served greedy token a greedy token of
     the plain run within that gate (its plain logit at most the gate below
-    the plain maximum, so a near-tie may fall either way).  Launch counts
+    the plain maximum, so a near-tie may fall either way); the long
+    prompts of `long_len` tokens.  Launch counts
     of the run itself: K4 / K8 n_layers a forward call of their route, the
     plain twins never."""
     import functools
@@ -2943,12 +3373,12 @@ def d256_serve(torch, cfg):
             t, upcast=False) for t in twins)).float()
         assert torch.isfinite(logits).all(), "non-finite served logits"
         err, gate = gated(torch, logits, plain, plain_y,
-                          f"d256 engine {route} call {calls[route]} logits",
+                          f"{tag} engine {route} call {calls[route]} logits",
                           ENGINE_LOGITS_MULT, ENGINE_LOGITS_ATOL)
         chosen = plain.gather(-1, logits.argmax(-1, keepdim=True))[..., 0]
         margin = float((plain.amax(-1) - chosen).max())
         assert margin <= gate, (
-            f"d256 engine {route} call {calls[route]}: a served token's "
+            f"{tag} engine {route} call {calls[route]}: a served token's "
             f"plain logit {margin:.3e} below the plain maximum > gate "
             f"{gate:.3e}")
         worst[route] = max(worst[route], (err / gate, margin / gate))
@@ -2958,7 +3388,7 @@ def d256_serve(torch, cfg):
     eng_mod.paged_forward = spy
     try:
         out, rids, (t0, t_a, t_b), (tok_a, tok_b) = serve_traffic(
-            torch, eng, cfg)
+            torch, eng, cfg, long_len)
     finally:
         eng_mod.paged_forward = real_pf
     assert sorted(out) == sorted(rids), "every request must finish"
@@ -2969,10 +3399,10 @@ def d256_serve(torch, cfg):
         assert calls[route] > 0, calls
         assert own["launches"][route] == L * calls[route], (route, own, calls)
     assert own["twins"] == [0, 0], f"plain twins called: {own['twins']}"
-    print(f"d256 engine: {L} layers, dim {cfg.dim}, {cfg.n_heads}/"
+    print(f"{tag} engine: {L} layers, dim {cfg.dim}, {cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads x {cfg.head_dim}, ffn {cfg.ffn_dim}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, untied lm_head, {n_params / 1e9:.3f}"
-          f" B params (not cut); {len(rids)} requests ({N_LONG} x {LONG_LEN} "
+          f" B params (not cut); {len(rids)} requests ({N_LONG} x {long_len} "
           f"+ {list(SHORT_LENS)} prompt tokens, {N_NEW} greedy tokens each), "
           f"max_batch {eng.max_batch}, page {PAGE_SIZE}; forward calls "
           f"{calls}, launches {own['launches']}, plain twin calls "
@@ -2988,14 +3418,15 @@ def d256_serve(torch, cfg):
 
 def phase_d256(torch):
     """The repo's Llama body at Gemma-2B's widths (head dim 256): training
-    (d256_train, cut to D256_TRAIN_LAYERS layers) through K1-K3 at D 256,
-    then serving at full depth (d256_serve) through K8 and K4 at D 256."""
+    (head_dim_train, cut to D256_TRAIN_LAYERS layers) through K1-K3 at D
+    256, then serving at full depth (head_dim_serve) through K8 and K4 at D
+    256."""
     cfg = gemma_2b_config(torch)
-    train = d256_train(torch, dataclasses.replace(
-        cfg, n_layers=D256_TRAIN_LAYERS))
+    train = head_dim_train(torch, dataclasses.replace(
+        cfg, n_layers=D256_TRAIN_LAYERS), "d256")
     gc.collect()
     torch.cuda.empty_cache()
-    serve = d256_serve(torch, cfg)
+    serve = head_dim_serve(torch, cfg, "d256")
     gc.collect()
     torch.cuda.empty_cache()
     return dict(train=train, serve=serve)
@@ -5711,9 +6142,11 @@ def phase_probes(torch, flush):
 def phase_bench(torch):
     """The port's bench (`python -m flash_attn_v100_tpu_torch.bench`) and
     the three examples, each a subprocess on the card (the examples at
-    once, after the bench): the bench must exit 0 with its JSON line's
+    once, after the bench, beside phase_scripts' multi-process dryrun:
+    none of the four is timed): the bench must exit 0 with its JSON line's
     value > 0, each example 0 with its shapes printed; train_seq_parallel
-    spawns 2 gloo ranks sharing the card."""
+    spawns 2 gloo ranks sharing the card.  Returns the dryrun's output,
+    exit code and seconds with the bench's numbers."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "flash_attn_v100_tpu_torch.bench"],
                        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
@@ -5732,14 +6165,21 @@ def phase_bench(torch):
                              "{0: 24, 1: 24, 2: 24, 3: 24, 4: 24, 5: 24}"],
             "train_seq_parallel": ["'seq': 2", "global dq: (2, 1024, 8, 64) "
                                    "finite: True"]}
-    # the three examples at once (each mostly start-up; none is timed)
+    # the three examples and the dryrun at once (each mostly start-up;
+    # none is timed)
     t1 = time.perf_counter()
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", f"flash_attn_v100_tpu_torch.examples.{name}"],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for name in want}
+    dry = subprocess.Popen(
+        [sys.executable, "-m", DRYRUN], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
     secs = {}
     try:
+        dry_out, dry_err = dry.communicate(timeout=SCRIPT_TIMEOUT_S)
+        dryrun = dict(out=dry_out, err=dry_err, rc=dry.returncode,
+                      seconds=time.perf_counter() - t1)
         for name, proc in procs.items():
             out, err = proc.communicate(
                 timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter()
@@ -5749,16 +6189,16 @@ def phase_bench(torch):
                 f"{name} exited {proc.returncode}: {err[-2000:]}"
             for want_line in want[name]:
                 assert want_line in out, f"{name}: no {want_line!r} in {out!r}"
-            print(f"example {name} (done {secs[name]:.1f} s after the three "
+            print(f"example {name} (done {secs[name]:.1f} s after the four "
                   f"started): {' | '.join(out.strip().splitlines())}",
                   flush=True)
     finally:
-        for proc in procs.values():
+        for proc in (*procs.values(), dry):
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
     return dict(headline=head[-1], bench_s=time.perf_counter() - t0,
-                example_s=secs)
+                example_s=secs, dryrun=dryrun)
 
 
 # ----------------------------------------- the bench scripts and the dryrun
@@ -5768,14 +6208,14 @@ SCRIPT_TIMEOUT_S = 300
 # route rule sends a prefill to K8 only at pages of a multiple of 128, so
 # its prefills take K4's route) and again at page 128, cut to 8 requests of
 # 16 new tokens (its 512-token prefills on K8), bench_decode at its
-# defaults, bench_lora_sft
-# at its config with 3 steps, the dryrun at 2 x 4 gloo ranks on the card
+# defaults, bench_lora_sft at its config with 3 steps; the dryrun (DRYRUN)
+# at 2 x 4 gloo ranks on the card, run by phase_bench
 SCRIPT_RUNS = (("bench_serving", ()),
                ("bench_serving", ("--page-size", "128", "--requests", "8",
                                   "--max-batch", "8", "--gen-len", "16")),
                ("bench_decode", ()),
-               ("bench_lora_sft", ("--steps", "3")),
-               ("dryrun_multiprocess", ()))
+               ("bench_lora_sft", ("--steps", "3")))
+DRYRUN = "flash_attn_v100_tpu_torch.benchmarks.dryrun_multiprocess"
 _NUM = r"([-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?)"
 
 
@@ -5808,29 +6248,26 @@ def _script_numbers(name, out):
     return grab(rf"step-1 loss {_NUM}, equal", ("loss",))[0]
 
 
-def phase_scripts(torch):
+def phase_scripts(torch, dryrun):
     """The port's bench scripts (bench_serving, bench_decode,
     bench_lora_sft) through their main() in this process, their printed
-    lines captured, and the multi-process dryrun as a subprocess on the
-    card (SCRIPT_RUNS): each must finish (the dryrun exit 0) with finite
-    numbers on its lines; the serving runs' launch counts must show K4,
-    and the page-128 run's K8 too; no decode rate may pass 3.35 TB/s; the
-    dryrun must print OK.  Returns each run's numbers and seconds."""
+    lines captured (SCRIPT_RUNS), and the multi-process dryrun's output
+    (`dryrun`, phase_bench's run of it as a subprocess on the card): each
+    must finish (the dryrun exit 0) with finite numbers on its lines; the
+    serving runs' launch counts must show K4, and the page-128 run's K8
+    too; no decode rate may pass 3.35 TB/s; the dryrun must print OK.
+    Returns each run's numbers and seconds."""
     import importlib
     import io
 
     res = []
     t0 = time.perf_counter()
-    for name, args in SCRIPT_RUNS:
+    for name, args in SCRIPT_RUNS + (("dryrun_multiprocess", ()),):
         t1 = time.perf_counter()
         if name == "dryrun_multiprocess":   # it launches its own processes
-            r = subprocess.run(
-                [sys.executable, "-m", f"flash_attn_v100_tpu_torch."
-                 f"benchmarks.{name}", *args], capture_output=True,
-                text=True, timeout=SCRIPT_TIMEOUT_S)
-            out = r.stdout
-            assert r.returncode == 0, (
-                f"{name} exited {r.returncode}: {r.stderr[-3000:]}")
+            out = dryrun["out"]
+            assert dryrun["rc"] == 0, (
+                f"{name} exited {dryrun['rc']}: {dryrun['err'][-3000:]}")
         else:
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
@@ -5840,7 +6277,8 @@ def phase_scripts(torch):
             out = buf.getvalue()
             gc.collect()
             torch.cuda.empty_cache()
-        secs = time.perf_counter() - t1
+        secs = (dryrun["seconds"] if name == "dryrun_multiprocess"
+                else time.perf_counter() - t1)
         tag = " ".join((name,) + tuple(args))
         for line in out.strip().splitlines():
             print(f"script {tag}: {line}", flush=True)
@@ -5990,14 +6428,16 @@ def phase_measure(torch):
 # (script, arguments) run after phase_measure in its fresh process through
 # their main(): the JAX shapes, one round, short chains, the shipped rows
 # and one or two variants a script (the full sweeps are calls of their
-# own; every variant's gates: tests/test_torch_gpu.py)
+# own; every variant's gates: tests/test_torch_gpu.py).  Two variants fewer
+# since the head-dim-32 phases joined the run (K3's bq64 in prof_bwd,
+# prof_int4_ablate's int4-qk-one), for its time limit.
 SWEEP_RUNS = (
     ("prof_prefill", ("causal", "ceiling", "--rounds", "1", "--chain", "1",
                       "--iters", "1", "--tiles", "bk128")),
     ("prof_varlen", ("bs", "--rounds", "1", "--chain", "1", "--iters", "1",
                      "--tiles", "bk128")),
     ("prof_bwd", ("--rounds", "1", "--chain", "1", "--iters", "1",
-                  "--dq-tiles", "bk64", "--dkv-tiles", "bq64")),
+                  "--dq-tiles", "bk64", "--dkv-tiles")),
     ("prof_bwd_unroll", ("--rounds", "1", "--chain", "1", "--iters", "1",
                          "--dq-tiles")),
     ("prof_dkv_wide", ("--rounds", "1", "--chain", "1", "--iters", "1",
@@ -6011,7 +6451,7 @@ SWEEP_RUNS = (
                             "--mixed-unroll", "1", "--paged-unroll", "1",
                             "8")),
     ("prof_int4_ablate", ("--rounds", "1", "--iters", "1", "--variants",
-                          "int8", "int4-prod", "int4-qk-one")),
+                          "int8", "int4-prod")),
 )
 # PERF.md section 2's spread of K1-K3 and K5 in a call (1-20%), and of the
 # decode's device time (0.1-5%, here 10%): a sweep's shipped row (one call
@@ -6331,6 +6771,390 @@ def varlen_times_d256(torch, vl, cu, max_len, flush) -> dict:
     return res
 
 
+# ------------------------------------------------------------ head dim 32
+#
+# (d32a) the D 64 training shape at D 32: B 4 x 2048, 32 q / 4 kv heads;
+# (d32b) the small encoders' serving batch, BAAI/bge-small-en-v1.5 and
+# sentence-transformers/all-MiniLM-L6-v2 (config.json: hidden 384, 12
+# heads x 32, 512 positions) through the drop-in's unpad -> varlen -> pad:
+# 256 sequences of 16-512 tokens, numpy default_rng(0); (d16) sweep_dense's
+# 4 x 16 x 1024^2 rows at D 16 and 32 (benchmarks/sweep_dense.py:48).
+D32A_SHAPE = (4, 2048, 32, 4, 32)
+D32B_HEADS, D32B_SEQS, D32B_LENS = 12, 256, (16, 512)
+D16_SHAPE = (4, 1024, 16)          # B, S, heads (q and kv)
+# MUFU.EX2 a clock on each SM: ~3.9 TFLOP/s of special functions on the
+# H100 SXM (FlashAttention-3's paper) over 132 SMs at its boost clock
+MUFU_EX2_PER_SM_CLOCK = 16
+
+
+def d32b_lengths():
+    """(d32b)'s 256 sequence lengths, uniform in 16-512."""
+    import numpy as np
+    lo, hi = D32B_LENS
+    return [int(n) for n in
+            np.random.default_rng(0).integers(lo, hi + 1, D32B_SEQS)]
+
+
+def sm_clock(torch, fn) -> dict:
+    """The SM clock (MHz) nvidia-smi reads three times while `fn` (a graph
+    replay) runs back to back on the card from another thread, and the
+    card's maximum SM clock: the clock of the exponentials' bound."""
+    import threading
+    stop = threading.Event()
+
+    def run():
+        while not stop.is_set():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    t = threading.Thread(target=run)
+    t.start()
+    reads = []
+    try:
+        time.sleep(0.3)
+        for _ in range(3):
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True, timeout=60)
+            reads.append([float(x) for x in
+                          out.stdout.strip().splitlines()[0].split(",")])
+            time.sleep(0.1)
+    finally:
+        stop.set()
+        t.join()
+    return dict(sm_mhz=statistics.median(r[0] for r in reads),
+                max_sm_mhz=reads[0][1], reads=[r[0] for r in reads])
+
+
+def graph_ms_clock(torch, fn, flush):
+    """(`graph_ms` of fn, `sm_clock` under back-to-back replays of the
+    same graph, read just before they are timed): a kernel's time with
+    the clock it ran at, since a card under its power limit clocks each
+    kernel differently."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+    clock = sm_clock(torch, g.replay)
+    return time_ms(torch, g.replay, reps=20, warmup=1, flush=flush), clock
+
+
+def bound3(nbytes, flops, exps, clock_mhz, sms) -> dict:
+    """A head-dim-32 row's bound: the largest of the bytes over 3.35 TB/s,
+    the operations over 989 TFLOP/s and the exponentials (one ex2 a live
+    pair) over the MUFU rate, MUFU_EX2_PER_SM_CLOCK x `sms` x `clock_mhz`."""
+    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+         "operations": flops / BF16_FLOPS_PER_S * 1e3,
+         "exponentials": exps / (MUFU_EX2_PER_SM_CLOCK * sms * clock_mhz
+                                 * 1e6) * 1e3}
+    by = max(t, key=t.get)
+    return dict(bound_ms=t[by], bound_by=by, terms=t)
+
+
+def d32_dense_rows(torch, flush, digests=None) -> dict:
+    """K1, K2 and K3 alone at (d32a), bf16, causal and full: each
+    kernel's device time from CUDA-graph replays with the SM clock under
+    them (`graph_ms_clock`) and its thousands of clock cycles (ms x MHz),
+    SDPA's forward and backward (`enable_gqa`; CUDA events around one
+    call), the plain forward's and backward's times (causal) and the
+    three-term bound (`bound3`) at the kernel's clock.  K2 and K3 take the
+    plain forward's out and LSE in bf16, so their inputs are the same in
+    every tree.  With a dict `digests`, adds a digest of each kernel's
+    outputs (and of the causal p 0.1 calls: the dropout variants)."""
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, S, Hq, Hk, D = D32A_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16) for s in ((B, S, Hq, D), (B, S, Hk, D),
+                                  (B, S, Hk, D), (B, S, Hq, D)))
+    scale = D ** -0.5
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    do_s = do.transpose(1, 2).contiguous()
+    rows = {}
+    for causal in (True, False):
+        name = f"D 32 a {'causal' if causal else 'full'}"
+        params = masklib.MaskParams(causal=causal)
+        o16, l16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params,
+                                                 upcast=False)
+        kargs = (q, k, v, do, l16.clamp_min(NEG_INF).contiguous(),
+                 dbwd.softmax_delta(o16, do), None, scale, params, 0.0,
+                 None, 0, None, Hq)
+        if digests is not None:
+            digests[f"K1 {name}"] = digest(
+                torch, *dfwd.flash_attn_dense_fwd(q, k, v, scale, params))
+            digests[f"K2 {name}"] = digest(torch, dbwd.dq_kernel(*kargs))
+            digests[f"K3 {name}"] = digest(torch, *dbwd.dkv_kernel(*kargs))
+        ms, clock = {}, {}
+        for kid, fn in (
+                ("K1", lambda: dfwd.flash_attn_dense_fwd(q, k, v, scale,
+                                                         params)),
+                ("K2", lambda: dbwd.dq_kernel(*kargs)),
+                ("K3", lambda: dbwd.dkv_kernel(*kargs))):
+            ms[kid], clock[kid] = graph_ms_clock(torch, fn, flush)
+        row = dict(shape=[B, S, Hq, Hk, D], causal=causal)
+        if causal:
+            row["plain_fwd_ms"] = time_ms(
+                torch, lambda: dfwd.flash_attn_dense_fwd_ref(
+                    q, k, v, scale, params), reps=3, warmup=1, flush=flush)
+            row["plain_bwd_ms"] = time_ms(
+                torch, lambda: dbwd.flash_attn_dense_bwd_ref(
+                    q, k, v, o16, do, l16, scale, params), reps=3, warmup=1,
+                flush=flush)
+        del o16, l16, kargs
+        row["sdpa_fwd_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal, enable_gqa=True), flush=flush)
+        o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                               enable_gqa=True)
+        row["sdpa_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qs, ks, vs), do_s, retain_graph=True), flush=flush)
+        del o_lib
+        work = dense_work(B, S, Hq, Hk, D, causal=causal)
+        pairs = B * Hq * (S * (S + 1) // 2 if causal else S * S)
+        for kid in ("K1", "K2", "K3"):
+            flops, nbytes = work[kid]
+            mhz = clock[kid]["sm_mhz"]
+            row[kid] = dict(ms=ms[kid], clock=clock[kid],
+                            kcycles=ms[kid] * mhz, flops=flops, bytes=nbytes,
+                            exps=pairs, **bound3(nbytes, flops, pairs, mhz,
+                                                 sms))
+        rows[name] = row
+        print(f"{name} (B={B} S={S} Hq={Hq} Hk={Hk}, bf16, graph replays): "
+              + ", ".join(
+                  f"{kid} {row[kid]['ms']:.4f} ms at "
+                  f"{row[kid]['clock']['sm_mhz']:.0f} MHz "
+                  f"({row[kid]['kcycles']:.1f} kcycles; bound "
+                  f"{row[kid]['bound_ms']:.4f}, {row[kid]['bound_by']}: "
+                  + "/".join(f"{t:.4f}" for t in row[kid]["terms"].values())
+                  + ")" for kid in ("K1", "K2", "K3")) +
+              f"; sdpa fwd {row['sdpa_fwd_ms']:.4f} ms, bwd "
+              f"{row['sdpa_bwd_ms']:.4f} ms", flush=True)
+    if digests is not None:
+        params = masklib.MaskParams(causal=True)
+        kw = dict(dropout_p=DENSE_DROPOUT,
+                  dropout_seed=torch.tensor([0x2468ACE1, 0x10000001],
+                                            dtype=torch.int64))
+        name = "D 32 a causal p=0.1"
+        digests[f"K1 {name}"] = digest(torch, *dfwd.flash_attn_dense_fwd(
+            q, k, v, scale, params, **kw))
+        o16, l16 = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params,
+                                                 upcast=False, **kw)
+        dq, dk, dv = dbwd.flash_attn_dense_bwd(q, k, v, o16, do, l16, scale,
+                                               params, **kw)
+        digests[f"K2 {name}"] = digest(torch, dq)
+        digests[f"K3 {name}"] = digest(torch, dk, dv)
+    return rows
+
+
+def d32_varlen_rows(torch, flush, digests=None) -> dict:
+    """K5 at (d32b), non-causal, and K6 / K7 there with causal=True (fed
+    the plain causal forward's out and LSE in bf16), each alone: device
+    time from CUDA-graph replays (the wrapper's fills with the kernel) with
+    the SM clock under them (`graph_ms_clock`), the three-term bound at
+    that clock, the plain version's time, and varlen_attn's forward
+    (non-causal) and backward (causal; K6 + K7 together).  With a dict
+    `digests`, adds a digest of each kernel's outputs."""
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    H, D = D32B_HEADS, 32
+    lens = d32b_lengths()
+    T, ml = sum(lens), max(lens)
+    cu = torch.tensor([0] + lens, device=dev).cumsum(0).to(torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    q, k, v, do = (torch.randn((T, H, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    scale = D ** -0.5
+    full, causal = masklib.MaskParams(), masklib.MaskParams(causal=True)
+    fargs = (q, k, v, cu, cu, ml, ml, scale, full)
+    o16, l16 = vl.flash_attn_varlen_fwd_ref(q, k, v, cu, cu, ml, ml, scale,
+                                            causal, upcast=False)
+    kargs = (q, k, v, do, l16.clamp_min(NEG_INF).contiguous(),
+             vl.varlen_delta(o16, do), None, cu, cu, None, None, ml, ml,
+             scale, causal, 0.0, None)
+    calls = {"K5": lambda: vl.flash_attn_varlen_fwd(*fargs),
+             "K6": lambda: vl.varlen_dq_kernel(*kargs),
+             "K7": lambda: vl.varlen_dkv_kernel(*kargs)}
+    plain = {"K5": time_ms(torch, lambda: vl.flash_attn_varlen_fwd_ref(
+                 *fargs), reps=3, warmup=1, flush=flush)}
+    plain["K6"] = plain["K7"] = time_ms(
+        torch, lambda: vl.flash_attn_varlen_bwd_ref(
+            q, k, v, o16, do, l16, cu, cu, ml, ml, scale, causal), reps=3,
+        warmup=1, flush=flush)
+    del o16, l16
+    ql, kl, vl_ = (t.clone().requires_grad_() for t in (q, k, v))
+    label, lib_fwd, _ = varlen_library(torch, ql, kl, vl_, cu, ml,
+                                       causal=False)
+    lib = {"K5": time_ms(torch, lib_fwd, flush=flush)}
+    _, _, o_lib = varlen_library(torch, ql, kl, vl_, cu, ml)
+    o_lib = o_lib[0] if isinstance(o_lib, tuple) else o_lib
+    do_lib = do if o_lib.dim() == 3 else do.transpose(0, 1)[None]
+    lib["K6"] = lib["K7"] = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (ql, kl, vl_), do_lib, retain_graph=True), flush=flush)
+    del o_lib, do_lib, ql, kl, vl_
+    work = {"K5": varlen_work(lens, H, H, D, causal=False)["K5"],
+            **{kid: varlen_work(lens, H, H, D)[kid] for kid in ("K6", "K7")}}
+    res = {}
+    for kid, fn in calls.items():
+        out = fn()
+        if digests is not None:
+            digests[f"{kid} D 32 b"] = digest(
+                torch, *(out if isinstance(out, tuple) else (out,)))
+        del out
+        flops, nbytes = work[kid]
+        pairs = flops // ({"K5": 4, "K6": 6, "K7": 8}[kid] * D)
+        ms, clock = graph_ms_clock(torch, fn, flush)
+        mhz = clock["sm_mhz"]
+        res[kid] = dict(ms=ms, clock=clock, kcycles=ms * mhz, flops=flops,
+                        bytes=nbytes, exps=pairs, plain_ms=plain[kid],
+                        library_ms=lib[kid],
+                        library=f"{label} {'fwd' if kid == 'K5' else 'bwd'}",
+                        causal=kid != "K5",
+                        **bound3(nbytes, flops, pairs, mhz, sms))
+        print(f"{kid} D 32 b ({len(lens)} sequences of {min(lens)}-"
+              f"{max(lens)} tokens, {T} tokens, {H}/{H} heads, "
+              f"{'causal' if kid != 'K5' else 'non-causal'}, graph replays):"
+              f" {ms:.4f} ms at {mhz:.0f} MHz ({ms * mhz:.1f} kcycles), "
+              f"bound {res[kid]['bound_ms']:.4f} "
+              f"ms ({res[kid]['bound_by']}), plain {plain[kid]:.4f} ms; "
+              f"{res[kid]['library']} {lib[kid]:.4f} ms", flush=True)
+    return res
+
+
+def d16_rows(torch, flush, digests=None) -> dict:
+    """(d16): K1 through flash_attn_func at 4 x 16 x 1024^2, D 16 and D
+    32, causal and full, timed four ways: `measure`'s queue-delta time of
+    a call (as sweep_dense times it), CUDA events around one call, a
+    CUDA-graph replay of the wrapper (pad copies, kernel, slice) and a
+    graph replay of the kernel alone on inputs already at D 32; beside
+    SDPA's call."""
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.ops.flash_attention import flash_attn_func
+    from flash_attn_v100_tpu_torch.utils.benchmarking import measure
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    B, S, H = D16_SHAPE
+    rows = {}
+    for D in (16, 32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+        q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        q32, k32, v32 = (F.pad(t, (0, 32 - D)).contiguous()
+                         for t in (q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        for causal in (True, False):
+            name = f"D {D} {'causal' if causal else 'full'}"
+            params = masklib.MaskParams(causal=causal)
+            scale = D ** -0.5
+            with torch.no_grad():
+                call = lambda: flash_attn_func(q, k, v, causal=causal)
+                if digests is not None:
+                    digests[f"K1 d16 {name}"] = digest(torch, call())
+                rows[name] = dict(
+                    measure_ms=measure(call, iters=8, device=dev) * 1e3,
+                    call_ms=time_ms(torch, call),
+                    wrapper_graph_ms=graph_ms(
+                        torch, lambda: dfwd.flash_attn_dense_fwd(
+                            q, k, v, scale, params), flush=flush),
+                    kernel_graph_ms=graph_ms(
+                        torch, lambda: dfwd.flash_attn_dense_fwd(
+                            q32, k32, v32, scale, params), flush=flush),
+                    sdpa_measure_ms=measure(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=causal), iters=8,
+                        device=dev) * 1e3)
+            r = rows[name]
+            print(f"d16 {name} (B={B} S={S} H={H}): flash_attn_func "
+                  f"{r['measure_ms']:.4f} ms a call (queue delta), "
+                  f"{r['call_ms']:.4f} (one call); graph replays: wrapper "
+                  f"{r['wrapper_graph_ms']:.4f}, kernel alone "
+                  f"{r['kernel_graph_ms']:.4f}; sdpa "
+                  f"{r['sdpa_measure_ms']:.4f} a call", flush=True)
+    return rows
+
+
+# the paged prefills timed at D 32: k8_case's wave, and phase_d32's
+# serving wave (six 1024-token prompts, no cached prefix)
+D32_PREFILLS = {"prefill": dict(), "serve": dict(T=1024, prefix=(0,) * 6)}
+
+
+def d32_paged_rows(torch, flush, digests=None) -> dict:
+    """K8 and K8q fp8 alone at the encoders' 12/12 heads x 32 on each wave
+    of D32_PREFILLS (k8_case): device time from CUDA-graph replays with
+    the SM clock under them (`graph_ms_clock`), and with a dict `digests`
+    a digest of each one's out and LSE."""
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+
+    res = {}
+    for wave, kw in D32_PREFILLS.items():
+        _, _, _, qp, kp, vp, tail, _ = k8_case(torch, Hq=D32B_HEADS,
+                                               Hk=D32B_HEADS, D=32, **kw)
+        (kq, vq, ks, vs), _ = quant_pools(torch, kp, vp, "fp8")
+        calls = {"K8": lambda: vl.flash_attn_varlen_fwd_paged(
+                     qp, kp, vp, *tail),
+                 "K8q fp8": lambda: vl.flash_attn_varlen_fwd_paged(
+                     qp, kq, vq, *tail, k_scales=ks, v_scales=vs)}
+        for kid, fn in calls.items():
+            key = f"{kid} D 32 {wave}"
+            if digests is not None:
+                digests[key] = digest(torch, *fn())
+            ms, clock = graph_ms_clock(torch, fn, flush)
+            res[key] = dict(ms=ms, clock=clock, kcycles=ms * clock["sm_mhz"])
+        del qp, kp, vp, kq, vq, ks, vs, tail, calls
+    print(f"K8 / K8q fp8 D 32 ({D32B_HEADS}/{D32B_HEADS} heads, graph "
+          f"replays): " + ", ".join(
+              f"{k} {r['ms']:.4f} ms at {r['clock']['sm_mhz']:.0f} MHz "
+              f"({r['kcycles']:.2f} kcycles)" for k, r in res.items()),
+          flush=True)
+    return res
+
+
+def d32_times(torch) -> dict:
+    """Head dim 32 of the `flash_attn_v100_tpu_torch` on sys.path: K1, K2,
+    K3 at (d32a) (`d32_dense_rows`), K5 / K6 / K7 at (d32b)
+    (`d32_varlen_rows`), K1 at (d16) (`d16_rows`) and K8 / K8q fp8 at the
+    prefill waves (`d32_paged_rows`), with a digest of each kernel's
+    outputs, to compare two trees in one call:
+        python3 chip_smoke.py --d32-times TREE"""
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+
+    build.build_all(["fwd", "bwd", "varlen_paged", "varlen_paged_quant"])
+    flush = torch.empty(64 * 2 ** 20 // 4, device="cuda")
+    digests = {}
+    dense = d32_dense_rows(torch, flush, digests)
+    varlen = d32_varlen_rows(torch, flush, digests)
+    d16 = d16_rows(torch, flush, digests)
+    paged = d32_paged_rows(torch, flush, digests)
+    timed = {f"{kid} {name}": row[kid] for name, row in dense.items()
+             for kid in ("K1", "K2", "K3")}
+    timed.update({f"{kid} D 32 b": r for kid, r in varlen.items()})
+    timed.update(paged)
+    ms = {key: r["ms"] for key, r in timed.items()}
+    ms.update({f"K1 d16 {name} {how}": r[how] for name, r in d16.items()
+               for how in ("measure_ms", "kernel_graph_ms")})
+    return {"digest": digests, "ms": ms,
+            "kcycles": {key: r["kcycles"] for key, r in timed.items()},
+            "sm_mhz": {key: r["clock"]["sm_mhz"] for key, r in timed.items()},
+            "d32a": dense, "d32b": varlen, "d16": d16}
+
+
 def paged_times(torch) -> dict:
     """K8 and K8q (int8, fp8, int4 pools) of the `flash_attn_v100_tpu_torch`
     on sys.path at `phase_k8`'s shape (the same seeds, tables, pools and
@@ -6637,6 +7461,23 @@ def serve_times(torch, rounds: int) -> dict:
 
 # -------------------------------------------------------------------- main
 
+def print_build_logs(build, libs):
+    """Each library of `libs` ((name, variant) pairs): its kernels'
+    register range, any stack or spills, and whether ptxas serialized a
+    wgmma (C7520), from nvcc's log."""
+    for name, variant in libs:
+        log = build.build_log(name, variant).splitlines()
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in log
+                if "registers" in ln and "Used " in ln]
+        stack = [ln.strip() for ln in log if "stack frame" in ln
+                 and not ln.strip().startswith("0 bytes stack frame, 0 bytes "
+                                               "spill stores, 0 bytes spill")]
+        print(f"build {name}{'' if variant is None else '-' + variant}: "
+              f"{len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+              f"stack/spills: {stack or 'none'}, wgmma serialized (C7520): "
+              f"{any('C7520' in ln for ln in log)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -6645,7 +7486,7 @@ def main() -> int:
         return 1
     times = {"--dense-times": dense_times, "--varlen-times": varlen_times,
              "--paged-times": paged_times, "--decode-times": decode_times,
-             "--probe-times": probe_times}
+             "--probe-times": probe_times, "--d32-times": d32_times}
     if sys.argv[1:2] and sys.argv[1] in times:
         sys.path.insert(0, sys.argv[2])
         res = times[sys.argv[1]](torch)
@@ -6678,23 +7519,20 @@ def main() -> int:
     t_start = t0 = time.perf_counter()
     # the shipped libraries and the sweeps' variant libraries, every nvcc
     # at once
-    built = build.build_all(variants=build.all_variants())
+    built = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc per translation "
           f"unit, concurrent: {built})", flush=True)
-    for name, variant in [(n, None) for n in build.SOURCES] + \
-            build.all_variants():
-        log = build.build_log(name, variant).splitlines()
-        regs = [int(ln.split("Used ")[1].split()[0]) for ln in log
-                if "registers" in ln and "Used " in ln]
-        stack = [ln.strip() for ln in log if "stack frame" in ln
-                 and not ln.strip().startswith("0 bytes stack frame, 0 bytes "
-                                               "spill stores, 0 bytes spill")]
-        print(f"build {name}{'' if variant is None else '-' + variant}: "
-              f"{len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
-              f"stack/spills: {stack or 'none'}, wgmma serialized (C7520): "
-              f"{any('C7520' in ln for ln in log)}", flush=True)
-    # the D 256 kernels' SASS (cuobjdump), read beside the card's phases
-    sass_d256 = d256_sass(build)
+    # the sweep libraries, first loaded by phase_sweeps, build beside the
+    # card's phases
+    from concurrent.futures import ThreadPoolExecutor
+    sweep_pool = ThreadPoolExecutor(1)
+    sweep_build = sweep_pool.submit(build.build_all, [],
+                                    variants=build.all_variants())
+    sweep_pool.shutdown(wait=False)
+    print_build_logs(build, [(n, None) for n in build.SOURCES])
+    # the D 256 and D 32 kernels' SASS (cuobjdump: one thread a library),
+    # read beside the card's phases
+    sass = kernel_sass(build)
 
     laps = [time.perf_counter()]
 
@@ -6707,8 +7545,10 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20 // 4, device="cuda")   # > 50 MB L2
     dense = phase_dense(torch, flush)
     lap("dense")
-    d256 = d256_checks(torch, flush, sass_d256)
+    d256 = d256_checks(torch, flush, sass)
     lap("d256 kernels")
+    d32 = d32_checks(torch, flush, sass)
+    lap("d32 kernels")
     torch.cuda.empty_cache()
     varlen = phase_varlen(torch, flush)
     lap("varlen")
@@ -6769,10 +7609,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     d256_path = phase_d256(torch)
     lap("d256")
+    d32_path = phase_d32(torch)
+    lap("d32")
     bench = phase_bench(torch)
     lap("bench")
-    scripts = phase_scripts(torch)
+    scripts = phase_scripts(torch, bench["dryrun"])
     lap("scripts")
+    print(f"build of the sweep libraries (beside the phases): "
+          f"{sweep_build.result()}", flush=True)
+    print_build_logs(build, build.all_variants())
     child = phase_measure_fresh(torch)
     measure, sweeps = child["measure"], child["sweeps"]
     lap("measure, sweeps")
@@ -6861,6 +7706,44 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             hgmma=d256["hgmma"].get(kid), occupancy=r.get("occupancy")))
+    # head dim 32: K1-K3 at (d32a) causal and K5-K7 at (d32b) (d32_checks),
+    # launches from phase_d32's training (K1-K3) and serving (K8) runs and
+    # from the encoders' path of d32_checks (K5-K7); the exponentials' bound
+    # beside the kernels line's
+    for kid, name, src, replaces, launches in (
+            ("K1", "flash_attn_dense_fwd", "fwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/fwd.py:152",
+             d32_path["train"]["launches"]["K1"]),
+            ("K2", "flash_attn_dense_bwd (dq)", "bwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/bwd.py:122",
+             d32_path["train"]["launches"]["K2"]),
+            ("K3", "flash_attn_dense_bwd (dk, dv)", "bwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/bwd.py:330",
+             d32_path["train"]["launches"]["K3"]),
+            ("K5", "flash_attn_varlen_fwd", "fwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:289",
+             d32["launches_b"]["K5"]),
+            ("K6", "flash_attn_varlen_bwd (dq)", "bwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:1160",
+             d32["launches_b"]["K6"]),
+            ("K7", "flash_attn_varlen_bwd (dk, dv)", "bwd.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:1343",
+             d32["launches_b"]["K7"]),
+            ("K8", "flash_attn_varlen_fwd_paged", "varlen_paged.cu",
+             "flash_attn_v100_tpu/ops/pallas/varlen.py:947",
+             d32_path["serve"]["launches"]["varlen"])):
+        r = d32[kid]
+        row = dict(
+            name=f"{kid} {name} (D 32)", route="cuda",
+            source=f"flash_attn_v100_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=launches,
+            max_abs_err=r["max_abs_err"], max_abs_err_gate=r["gate"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"])
+        if "bound3" in r:
+            row["bound3"] = r["bound3"]
+            row["bound3_max_sm_mhz"] = r["bound3_clock_mhz"]
+        kernels.append(row)
     # the fp32 bodies: each instantiation's worst output against its gate
     for name, outs, src, replaces in (
             ("K1 flash_attn_dense_fwd", ("K1", "K1 lse"), "fwd_f32.cu",

@@ -10,7 +10,12 @@ oracle's error + 1e-5, each gradient <= 3 x + 1e-4).  The oracle runs one
 sequence at a time, sliced over heads to half the device's free memory.
 Then the in-kernel paged prefill over an HND page pool against the oracle,
 and (without --quick) its time against the packed-contiguous forward
-(gate: at least 80% of its speed).
+(gate: at least 80% of its speed).  Last, a case of the port's own (the
+JAX script has none): the same pool quantized to int8, fp8 and int4
+payloads with per-token scales, prefilled through flash_attn_with_kvcache's
+paged route (K8q, one launch each) and held to the fp32 oracle over the
+dequantized pool within the JAX package's quantized gates (0.1 for int8
+and fp8, 0.3 for int4).
 
     python -m flash_attn_v100_tpu_torch.benchmarks.sweep_varlen [--quick]
 """
@@ -26,6 +31,9 @@ import torch
 
 from flash_attn_v100_tpu_torch.benchmarks.common import (
     gate, normal, oracle, oracle_budget, run_device)
+from flash_attn_v100_tpu_torch.ops import quant
+from flash_attn_v100_tpu_torch.ops.cuda import varlen as cuda_varlen
+from flash_attn_v100_tpu_torch.ops.kvcache import flash_attn_with_kvcache
 from flash_attn_v100_tpu_torch.ops.varlen import flash_attn_varlen_func
 from flash_attn_v100_tpu_torch.utils.benchmarking import measure, tflops
 from flash_attn_v100_tpu_torch.utils.testing import (
@@ -47,6 +55,10 @@ CASES = [
 QUICK = [CASES[0], CASES[3], CASES[4]]
 SEED = 421
 PAGED_MIN_SPEED = 0.8          # paged prefill vs the contiguous forward
+# the quantized paged case's payloads and their gates against the fp32
+# oracle over the dequantized pool (the JAX package's tests/test_quant.py)
+QUANT_GATES = {"int8": (torch.int8, 0.1), "fp8": (torch.float8_e4m3fn, 0.1),
+               "int4": ("int4", 0.3)}
 
 
 def _cu(lens, dev):
@@ -190,6 +202,57 @@ def run_paged_case(rng, do_time=False, device="cuda", Hq=32, Hk=8, D=128,
     return ok
 
 
+def run_paged_quant_case(rng, kind, device="cuda", Hq=32, Hk=8, D=128,
+                         ps=256, T=512, lens_k=(700, 2048, 600, 1500)):
+    """K8q: T new q rows a sequence behind caches of `lens_k` tokens in an
+    HND pool of payload `kind` with per-token scales, through
+    flash_attn_with_kvcache's paged route (counted: one K8q launch on the
+    card), against the fp32 oracle over the dequantized pool (the K/V the
+    payloads stand for), causal, within QUANT_GATES[kind]."""
+    dev = torch.device(device)
+    B = len(lens_k)
+
+    def mk(*s):
+        return normal(rng, s, dev)
+    q = mk(B, T, Hq, D)
+    ppseq = [-(-L // ps) for L in lens_k]
+    kp = mk(Hk, sum(ppseq) + 1, ps, D)
+    vp = mk(Hk, sum(ppseq) + 1, ps, D)
+    bt = torch.zeros((B, max(ppseq)), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(ppseq):
+        bt[b, :n] = torch.arange(nxt, nxt + n)
+        nxt += n
+    bt = bt.to(dev)
+    dtype, tol = QUANT_GATES[kind]
+    (kq, ks), (vq, vs) = (quant.quantize_kv(x, dtype) for x in (kp, vp))
+    kd, vd = (quant.dequantize_kv(p, sc, torch.float32, int4=kind == "int4")
+              for p, sc in ((kq, ks), (vq, vs)))
+    before = cuda_varlen.flash_attn_varlen_fwd_paged.quant_launches[kind]
+    with torch.no_grad():
+        out = flash_attn_with_kvcache(
+            q, kq, vq, cache_seqlens=torch.tensor(lens_k, dtype=torch.int32,
+                                                  device=dev),
+            block_table=bt, causal=True, kv_cache_layout="HND",
+            k_scales=ks, v_scales=vs)
+        launched = (cuda_varlen.flash_attn_varlen_fwd_paged
+                    .quant_launches[kind] - before)
+        err = 0.0
+        budget = oracle_budget(dev)
+        for b, L in enumerate(lens_k):
+            rows = bt[b, :ppseq[b]].long()
+            kb, vb = (x[:, rows].reshape(Hk, -1, D)[:, :L].transpose(0, 1)
+                      for x in (kd, vd))
+            ref, _ = oracle(q[b:b + 1].float(), kb[None], vb[None], None, True,
+                            budget, causal=True)
+            err = max(err, float((out[b].float() - ref[0]).abs().max()))
+    ok = err <= tol and (dev.type != "cuda" or launched == 1)
+    print(f"{'PASS' if ok else 'FAIL'} varlen paged-HND {kind} pool (K8q, "
+          f"{launched} launch): err vs the fp32 oracle over the dequantized "
+          f"pool {err:.2e} <= {tol}", flush=True)
+    return ok
+
+
 def main(quick: bool = False, device: str = "cuda") -> int:
     """Run the cases (QUICK with `quick`) and the paged case; returns the
     number that failed."""
@@ -208,6 +271,10 @@ def main(quick: bool = False, device: str = "cuda") -> int:
     t0 = time.time()
     n_fail += not run_paged_case(rng, do_time=not quick, device=dev)
     print(f"  ({time.time() - t0:.1f}s)", flush=True)
+    for kind in QUANT_GATES:
+        t0 = time.time()
+        n_fail += not run_paged_quant_case(rng, kind, device=dev)
+        print(f"  ({time.time() - t0:.1f}s)", flush=True)
     print(f"sweep_varlen: {'OK' if n_fail == 0 else f'{n_fail} FAILURES'}",
           flush=True)
     return n_fail

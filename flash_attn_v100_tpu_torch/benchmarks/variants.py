@@ -125,7 +125,7 @@ def dense_fwd(q, k, v, causal: bool, variant: str,
     lse = torch.empty((B, Hq, M), dtype=torch.float32, device=q.device)
     rc = _lib("K1").fa_fwd_sweep_launch(
         _id("K1", variant), _BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None, out.data_ptr(), lse.data_ptr(), B, M, N, Hq, Hk, D, N - M,
+        None, out.data_ptr(), lse.data_ptr(), B, M, N, Hq, Hk, D, D, N - M,
         float(scale), *c_mask_args(_params(causal)),
         *c_dropout_args(0.0, None, None, Hq), _stream(q.device))
     _done(rc, "K1", variant)
@@ -150,7 +150,7 @@ def varlen_fwd(q, k, v, cu_seqlens, max_seqlen: int, causal: bool,
     rc = _lib("K5").fa_varlen_fwd_sweep_launch(
         _id("K5", variant), _BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         cu.data_ptr(), cu.data_ptr(), None, None, None, out.data_ptr(),
-        lse.data_ptr(), B, Tq, int(max_seqlen), Hq, Hk, D, float(scale),
+        lse.data_ptr(), B, Tq, int(max_seqlen), Hq, Hk, D, D, float(scale),
         *c_mask_args(_params(causal)), *c_dropout_args(0.0, None, None, Hq),
         _stream(q.device))
     _done(rc, "K5", variant)

@@ -14,7 +14,8 @@
 // ldmatrix from rows padded by 16 bytes.  WgPath: wgmma, four warps one
 // warpgroup over all 64 rows of A, B read by the tensor cores from
 // 128-byte-swizzled tiles (a 64-column sub-tile is one 128-byte swizzle
-// atom a row, so D 256 has four); a batch of products starts
+// atom a row, so D 256 has four; at D 32 a row is one 64-byte atom, so the
+// tiles are 64-byte swizzled); a batch of products starts
 // with begin() and its results are readable after commit_wait() (or
 // commit() and wait<N>(), which leaves the N latest batches in flight) and
 // settle().
@@ -109,13 +110,18 @@ struct SyncPath {
 
 template <typename T, int D>
 struct WgPath {
+  // D 32: 64-byte rows, each one 64-byte swizzle atom
+  static constexpr bool kSw64 = D == 32;
   template <int R>
   static constexpr size_t tile_bytes() {
     return static_cast<size_t>(R) * D * sizeof(T);
   }
   template <int R>
   __device__ static int chunk(int r, int c8) {
-    return sw128_chunk<R>(r, c8);
+    if constexpr (kSw64)
+      return sw64_chunk(r, c8);
+    else
+      return sw128_chunk<R>(r, c8);
   }
   // this thread's cp.async writes, landed, made visible to wgmma
   __device__ static void copies_landed() { fence_proxy_async(); }
@@ -141,14 +147,22 @@ struct WgPath {
                              int, const unsigned char* b, int) {
     static_assert(RA == 64, "one warpgroup: 64 rows of A");
     const uint32_t sa = smem_u32(a), sb = smem_u32(b);
+    if constexpr (kSw64) {
+      // both k16 steps inside the row's one atom, 32 bytes apart
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<N, T>::ss(&acc[0][0],
-                      sw128_desc(sa + (kk / 4) * RA * 128 + (kk % 4) * 32, 0,
-                                 1024),
-                      sw128_desc(sb + (kk / 4) * N * 128 + (kk % 4) * 32, 0,
-                                 1024),
-                      kk > 0);
+      for (int kk = 0; kk < 2; ++kk)
+        Wgmma<N, T>::ss(&acc[0][0], sw64_desc(sa + kk * 32, 0, 512),
+                        sw64_desc(sb + kk * 32, 0, 512), kk > 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<N, T>::ss(&acc[0][0],
+                        sw128_desc(sa + (kk / 4) * RA * 128 + (kk % 4) * 32,
+                                   0, 1024),
+                        sw128_desc(sb + (kk / 4) * N * 128 + (kk % 4) * 32,
+                                   0, 1024),
+                        kk > 0);
+    }
   }
 
   template <int K, int N>
@@ -158,18 +172,23 @@ struct WgPath {
     static_assert(N == D, "one warpgroup: all D columns");
     const uint32_t sb = smem_u32(b);
 #pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk)
-      Wgmma<N, T>::rs(&acc[0][0], af[kk],
-                      sw128_desc(sb + kk * 16 * 128, K * 128, 1024), 1);
+    for (int kk = 0; kk < K / 16; ++kk) {
+      if constexpr (kSw64)
+        Wgmma<N, T>::rs(&acc[0][0], af[kk],
+                        sw64_desc(sb + kk * 16 * 64, K * 64, 512), 1);
+      else
+        Wgmma<N, T>::rs(&acc[0][0], af[kk],
+                        sw128_desc(sb + kk * 16 * 128, K * 128, 1024), 1);
+    }
   }
 };
 
 // The path of the forward (csrc/fwd_body.cuh) and of K2 and K3 at D <= 128
-// (csrc/bwd.cu): wgmma at D 64, 128 and 256, mma.sync at 32.  (K2 and K3
-// at D 256 are kernels of their own on WgPath.)
+// (csrc/bwd.cu): wgmma at every head dim.  (K2 keeps mma.sync at D 32
+// through its own alias, bwd.cu DqPathOf; K2 and K3 at D 256 are kernels
+// of their own on WgPath.)
 template <typename T, int D>
-using PathOf = typename std::conditional<D == 32, SyncPath<T, D>,
-                                         WgPath<T, D>>::type;
+using PathOf = WgPath<T, D>;
 
 constexpr size_t align1k(size_t x) { return (x + 1023) / 1024 * 1024; }
 

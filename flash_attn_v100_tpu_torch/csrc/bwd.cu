@@ -49,8 +49,9 @@
 //     dP^T = V dO^T) with both operands read from shared memory, K-major;
 //     dQ += dS K (K3 at D <= 128: dV += P_drop^T dO, dK += dS^T Q) with A
 //     from registers and B read MN-major through the transpose bit (K3 at
-//     D 256 reads A from an exchange tile).  At D 32 each warp runs
-//     mma.sync m16n8k16 on its own rows, operands through ldmatrix.
+//     D 256 reads A from an exchange tile).  At D 32 K3's tiles are
+//     64-byte swizzled (a row is one atom) and K2 runs mma.sync m16n8k16,
+//     each warp on its own rows, operands through ldmatrix.
 //   * Registers.  The accumulators (dQ in K2; dK and dV in K3) live in
 //     registers for the block's whole life and go to device memory once.
 //     S and dP of the current tile stay in the accumulator fragments; the
@@ -62,8 +63,9 @@
 //   * Shared memory.  The block's fixed operands (Q and dO in K2; K and V
 //     in K3) and a two-stage cp.async ring of the streamed ones (K, V and
 //     the dropout column words in K2; Q, dO, lse, delta and the dropout row
-//     words in K3).  Tiles are 128-byte swizzled for wgmma and padded by 16
-//     bytes a row for ldmatrix, so neither has bank conflicts.
+//     words in K3).  Tiles are 128-byte swizzled for wgmma (64-byte at D
+//     32) and padded by 16 bytes a row for ldmatrix, so neither has bank
+//     conflicts.
 //   * In flight.  While a stage is computed on, the next tile's copies run;
 //     one block barrier a tile.
 //   * Masks.  Only tiles that straddle a row's causal/window edge or the
@@ -76,7 +78,7 @@
 //   * Tiles (shared memory a block, 16-bit inputs, with 1 KB of alignment
 //     slack):
 //         D     K2: q rows x keys a step    K3: keys x q rows a step
-//         32    64 x 64  mma.sync (33 KB)   64 x 64  mma.sync (33 KB)
+//         32    64 x 64  mma.sync (33 KB)   64 x 64  wgmma    (27 KB)
 //         64    64 x 64  wgmma    (51 KB)   64 x 64  wgmma    (51 KB)
 //         128   64 x 32  wgmma    (67 KB)   64 x 32  wgmma    (67 KB)
 //         256  128 x 32  wgmma    (195 KB)  64 x 64  wgmma    (211 KB)
@@ -135,7 +137,7 @@ struct BwdArgs {
 //   DQBK   K2: keys a step
 //   DKVBQ  K3: q rows a step
 //   KG     K3: warpgroups a block, each over 64 keys of its own (the wgmma
-//          path, D 64 / 128)
+//          path, D 32 / 64 / 128)
 // (K2 and K3 at D 256 take none: dq_split_kernel and dkv_split_kernel
 // have one tile each.)
 template <int DQBK = 0, int DKVBQ = 0, int KG = 1>
@@ -155,7 +157,7 @@ struct Tiles {
   static constexpr int kDkvBQ =                       // K3: q rows a step
       TN::kDkvBQ ? TN::kDkvBQ : (D <= 64 ? 64 : 32);
   static constexpr int kDkvThreads = kThreads * kKeyGroups;
-  static_assert(kKeyGroups == 1 || (kKeyWarps == 4 && (D == 64 || D == 128)),
+  static_assert(kKeyGroups == 1 || (kKeyWarps == 4 && D <= 128),
                 "K3's warpgroups take the wgmma path");
 };
 
@@ -238,9 +240,15 @@ __device__ __forceinline__ void load_tile_async(unsigned char* dst,
 
 // ------------------------------------------------------------------ K2: dQ
 
+// K2's path: mma.sync at D 32, where its wgmma body is not written yet
+// (K3's is), else PathOf's
+template <typename T, int D>
+using DqPathOf = typename std::conditional<D == 32, SyncPath<T, D>,
+                                           PathOf<T, D>>::type;
+
 template <typename T, int D, class TN = BwdTune<>>
 struct DqSmem {
-  using P = PathOf<T, D>;
+  using P = DqPathOf<T, D>;
   static constexpr int BQ = Tiles<D, TN>::kDqBQ, BK = Tiles<D, TN>::kDqBK;
   static constexpr size_t q_off = 0;
   static constexpr size_t do_off = P::template tile_bytes<BQ>();

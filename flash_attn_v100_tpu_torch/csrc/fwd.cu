@@ -20,7 +20,10 @@
 //
 // Both: scale -> ALiBi -> softcap; Philox dropout on the unnormalized P
 // after l has summed the pre-dropout P; out in q's dtype, LSE fp32; a row
-// with no live key gives O = 0 and LSE = -inf.
+// with no live key gives O = 0 and LSE = -inf.  D is the kernel head dim
+// (32, 64, 128, 256) and D_in the rows' columns in memory: D, or at D 32 a
+// multiple of 8 below it (head dim 8-24 without padded copies: the tiles'
+// other columns are zero and only D_in columns of out are written).
 //
 // What bounds it and what its design does about it: csrc/fwd_body.cuh.
 #include "fwd_body.cuh"
@@ -111,18 +114,25 @@ cudaError_t launch(bool varlen, int dtype, int D, const FwdArgs& a,
   return launch_kernel(kn, a, 0, stream);
 }
 
+// D_in: D, or at D 32 a multiple of 8 below it
+bool head_dims_ok(int D, int D_in) {
+  return D_in == D || (D == 32 && D_in > 0 && D_in < D && D_in % 8 == 0);
+}
+
 int dense(int id, int dtype, const void* q, const void* k, const void* v,
           const float* slopes, void* out, float* lse, int B, int M, int N,
-          int Hq, int Hk, int D, int offset, float scale, int causal,
+          int Hq, int Hk, int D, int D_in, int offset, float scale,
+          int causal,
           int window_left, int window_right, float softcap, int has_alibi,
           int dropout, unsigned int seed_lo, unsigned int seed_hi,
           unsigned int threshold, float drop_scale, int q0, int k0, int b0,
           int h0, int num_heads, void* stream) {
-  if (Hk <= 0 || Hq % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hk <= 0 || Hq % Hk != 0 || !head_dims_ok(D, D_in))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || M == 0 || Hq == 0) return 0;
   FwdArgs a = {};
   a.q = q; a.k = k; a.v = v; a.slopes = has_alibi ? slopes : nullptr;
-  a.out = out; a.lse = lse;
+  a.out = out; a.lse = lse; a.d_in = D_in;
   a.seq.M = M; a.seq.N = N; a.seq.offset = offset;
   a.B = B; a.Hq = Hq; a.Hk = Hk; a.group = Hq / Hk; a.scale = scale;
   set_mask_dropout(&a, causal, window_left, window_right, softcap, has_alibi,
@@ -135,16 +145,17 @@ int dense(int id, int dtype, const void* q, const void* k, const void* v,
 int varlen(int id, int dtype, const void* q, const void* k, const void* v,
            const int* cu_q, const int* cu_k, const int* seqused_k,
            const int* leftpad_k, const float* slopes, void* out, float* lse,
-           int B, int Tq, int max_seqlen_q, int Hq, int Hk, int D,
+           int B, int Tq, int max_seqlen_q, int Hq, int Hk, int D, int D_in,
            float scale, int causal, int window_left, int window_right,
            float softcap, int has_alibi, int dropout, unsigned int seed_lo,
            unsigned int seed_hi, unsigned int threshold, float drop_scale,
            int q0, int k0, int b0, int h0, int num_heads, void* stream) {
-  if (Hk <= 0 || Hq % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hk <= 0 || Hq % Hk != 0 || !head_dims_ok(D, D_in))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || max_seqlen_q <= 0 || Hq == 0) return 0;
   FwdArgs a = {};
   a.q = q; a.k = k; a.v = v; a.slopes = has_alibi ? slopes : nullptr;
-  a.out = out; a.lse = lse;
+  a.out = out; a.lse = lse; a.d_in = D_in;
   a.seq.M = max_seqlen_q; a.seq.Tq = Tq; a.seq.cu_q = cu_q;
   a.seq.cu_k = cu_k; a.seq.seqused_k = seqused_k;
   a.seq.leftpad_k = leftpad_k;
@@ -184,31 +195,31 @@ int occupancy(const Kernel& kn, int* out) {
 #define FA_DENSE_PARAMS                                                     \
   int dtype, const void *q, const void *k, const void *v,                   \
       const float *slopes, void *out, float *lse, int B, int M, int N,      \
-      int Hq, int Hk, int D, int offset, float scale,                       \
+      int Hq, int Hk, int D, int D_in, int offset, float scale,             \
       FA_MASK_DROPOUT_PARAMS, void *stream
 #define FA_DENSE_ARGS                                                       \
-  dtype, q, k, v, slopes, out, lse, B, M, N, Hq, Hk, D, offset, scale,      \
-      FA_MASK_DROPOUT_ARGS, stream
+  dtype, q, k, v, slopes, out, lse, B, M, N, Hq, Hk, D, D_in, offset,       \
+      scale, FA_MASK_DROPOUT_ARGS, stream
 #define FA_VARLEN_PARAMS                                                    \
   int dtype, const void *q, const void *k, const void *v, const int *cu_q,  \
       const int *cu_k, const int *seqused_k, const int *leftpad_k,          \
       const float *slopes, void *out, float *lse, int B, int Tq,            \
-      int max_seqlen_q, int Hq, int Hk, int D, float scale,                 \
+      int max_seqlen_q, int Hq, int Hk, int D, int D_in, float scale,       \
       FA_MASK_DROPOUT_PARAMS, void *stream
 #define FA_VARLEN_ARGS                                                      \
   dtype, q, k, v, cu_q, cu_k, seqused_k, leftpad_k, slopes, out, lse, B,    \
-      Tq, max_seqlen_q, Hq, Hk, D, scale, FA_MASK_DROPOUT_ARGS, stream
+      Tq, max_seqlen_q, Hq, Hk, D, D_in, scale, FA_MASK_DROPOUT_ARGS, stream
 
 #if !FA_SWEEP
 // dtype: 0 = bf16, 1 = fp16.  Each returns cudaGetLastError() of its launch.
-// K1: dense (B, M, Hq, D) q against (B, N, Hk, D) k/v.
+// K1: dense (B, M, Hq, D_in) q against (B, N, Hk, D_in) k/v.
 extern "C" int fa_fwd_launch(FA_DENSE_PARAMS) {
   return dense(0, FA_DENSE_ARGS);
 }
 
-// K5: packed (Tq, Hq, D) q split by cu_q (B + 1,) against packed (Tk, Hk, D)
-// k/v split by cu_k; seqused_k / leftpad_k (B,) may be null.  The grid
-// covers max_seqlen_q rows of each sequence.
+// K5: packed (Tq, Hq, D_in) q split by cu_q (B + 1,) against packed (Tk,
+// Hk, D_in) k/v split by cu_k; seqused_k / leftpad_k (B,) may be null.  The
+// grid covers max_seqlen_q rows of each sequence.
 extern "C" int fa_varlen_fwd_launch(FA_VARLEN_PARAMS) {
   return varlen(0, FA_VARLEN_ARGS);
 }

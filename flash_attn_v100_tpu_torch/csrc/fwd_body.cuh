@@ -9,14 +9,15 @@
 // once per q tile, far above the ~295 flop/byte ridge, so the floor is the
 // flops over the 989 TFLOP/s of the bf16 tensor cores.  Beside the products
 // each pair costs an exp2 and a few fp32 operations, which at D 64 take
-// about as long as its 256 tensor-core flops.
+// about as long as its 256 tensor-core flops; at D 32 the pair's one exp2
+// (16 a clock an SM on the MUFU) takes about twice its 128 flops, so the
+// exponentials bound it.
 //
 // What the design does about it (K2's shape in csrc/bwd.cu; products and
 // live-key intervals in csrc/attn_tiles.cuh):
 //   * Work.  One block per (q tile, q head, batch row or sequence), each
 //     64 q rows of the tile owned by one warpgroup of 4 warps (16 rows a
-//     warp); at D 64, 128 and 256 two warpgroups share each K/V tile (128
-//     q rows).
+//     warp); two warpgroups share each K/V tile (128 q rows).
 //     A varlen or paged block reads its sequence's bounds from device
 //     memory (csrc/seq.cuh) and leaves at once if its tile lies past the
 //     sequence; the key loop covers only the tiles its rows'
@@ -25,12 +26,11 @@
 //     warpgroup's rows sees gives P = 0), so no product sits in a branch:
 //     ptxas serializes every wgmma of a kernel that leaves one in flight
 //     across a branch.
-//   * Products.  At D 64, 128 and 256 S = Q K^T is a wgmma from 128-byte-
-//     swizzled Q and K tiles, both K-major (four swizzle atoms a row at D
-//     256), and O += P V a wgmma with P from registers and V read MN-major
-//     through the transpose bit (one m64n256k16 a k-step at D 256).  At D
-//     32 each warp runs mma.sync m16n8k16 on its own rows, operands
-//     through ldmatrix.
+//   * Products.  S = Q K^T is a wgmma from 128-byte-swizzled Q and K
+//     tiles, both K-major (four swizzle atoms a row at D 256; at D 32 a
+//     row is one 64-byte atom, two k16 steps 32 bytes apart), and O += P V
+//     a wgmma with P from registers and V read MN-major through the
+//     transpose bit (one m64n256k16 a k-step at D 256, m64n32k16 at 32).
 //   * D 256.  O alone is 128 fp32 registers a thread; with S and P of a
 //     64-key step the 16-bit kernels stay under 255 registers with no
 //     local memory.  fp8 (K8q) holds its next K and V tiles in registers
@@ -76,7 +76,7 @@
 //   * Tiles (shared memory a block, 16-bit inputs, with 1 KB of alignment
 //     slack; paged blocks add 4 bytes a page of the table):
 //         D     q rows x keys a step
-//         32     64 x 64  mma.sync (28 KB)
+//         32    128 x 64  wgmma    (27 KB; 64-byte swizzle)
 //         64    128 x 64  wgmma    (51 KB)
 //         128   128 x 64  wgmma    (99 KB)
 //         256   128 x 64  wgmma    (195 KB; fp8 128 x 32, 131 KB)
@@ -148,6 +148,8 @@ struct FwdArgs {
   fa::MaskParams mp_;
   fa::DropoutParams dp;
   PagedArgs pg;
+  int d_in;               // K1, K5 at D 32: the rows' columns in memory (8,
+                          //   16, 24 or 32)
 };
 
 // The tile and schedule of a forward kernel; 0 is the body's own choice
@@ -156,8 +158,7 @@ struct FwdArgs {
 //         256)
 //   U     sub-tiles a step: U S products of KT keys, one online softmax
 //         over the U * KT keys, U P V products
-//   G     warpgroups a block, 64 q rows each (2 at D 64 / 128 / 256, 1
-//         at D 32)
+//   G     warpgroups a block, 64 q rows each (2)
 //   FAST  every tile takes the unmasked pass: wrong numbers wherever a
 //         tile straddles a mask edge (timing only)
 //   PP    ping-pong: the two warpgroups take turns to issue their products
@@ -173,8 +174,7 @@ struct FwdTune {
 template <typename T, int D, int KV = kKv16, class TN = FwdTune<>>
 struct FwdSmem {
   using P = PathOf<T, D>;
-  static constexpr int kGroups =                                // warpgroups
-      TN::kG ? TN::kG : (D == 32 ? 1 : 2);
+  static constexpr int kGroups = TN::kG ? TN::kG : 2;       // warpgroups
   static constexpr int kThreads = 128 * kGroups;
   static constexpr int BQ = 64 * kGroups;                  // q rows a block
   static constexpr int KT =
@@ -199,14 +199,15 @@ struct FwdSmem {
 
 // ROWS rows of D elements from g (the tile's row 0), `stride` elements
 // apart, into a tile in P's layout, NT threads, 16 bytes a copy; tile rows
-// outside [lo, hi] are zero.  Thread t copies the chunks
-// (r_t + kRowStep i, c8_t), so its addresses are one base plus constant
-// steps.
-template <typename T, int D, int ROWS, int NT, class P>
+// outside [lo, hi] are zero, and (NARROW) so are the chunks from `chunks`
+// on.  Thread t copies the chunks (r_t + kRowStep i, c8_t), so its
+// addresses are one base plus constant steps.
+template <typename T, int D, int ROWS, int NT, class P, bool NARROW = false>
 __device__ __forceinline__ void load_strided_async(unsigned char* dst,
                                                    const T* g,
                                                    long long stride,
-                                                   int lo, int hi) {
+                                                   int lo, int hi,
+                                                   int chunks = D / 8) {
   constexpr int kChunks = D / 8, kRowStep = NT / kChunks;
   static_assert(NT % kChunks == 0 && ROWS % kRowStep == 0, "copy split");
   // a swizzled tile's chunk offset is linear in the row over whole 8-row
@@ -215,27 +216,29 @@ __device__ __forceinline__ void load_strided_async(unsigned char* dst,
                 "row step");
   const int r_t = threadIdx.x / kChunks;
   const int c8_t = threadIdx.x % kChunks;
+  const bool col_in = !NARROW || c8_t < chunks;
   const long long step = kRowStep * stride;
   const T* gt = g + r_t * stride + c8_t * 8;
   unsigned char* d = dst + P::template chunk<ROWS>(r_t, c8_t);
 #pragma unroll
   for (int i = 0; i < ROWS / kRowStep; ++i) {
     const int r = r_t + i * kRowStep;
-    const bool in = r >= lo && r <= hi;
+    const bool in = col_in && r >= lo && r <= hi;
     cp_async16(d + P::template chunk<ROWS>(i * kRowStep, 0),
                in ? gt + i * step : g, in);
   }
 }
 
-// the same for ROWS rows of a (rows, H, D) tensor from row row0, head h
-template <typename T, int D, int ROWS, int NT, class P>
+// the same for ROWS rows of a (rows, H, DR) tensor from row row0, head h:
+// DR = D, or (NARROW) fewer columns, the tile's others zero
+template <typename T, int D, int ROWS, int NT, class P, bool NARROW = false>
 __device__ __forceinline__ void load_rows_async(unsigned char* dst,
                                                 const void* src,
                                                 long long row0, int H, int h,
-                                                int lo, int hi) {
-  load_strided_async<T, D, ROWS, NT, P>(
-      dst, static_cast<const T*>(src) + (row0 * H + h) * D,
-      static_cast<long long>(H) * D, lo, hi);
+                                                int lo, int hi, int DR = D) {
+  load_strided_async<T, D, ROWS, NT, P, NARROW>(
+      dst, static_cast<const T*>(src) + (row0 * H + h) * DR,
+      static_cast<long long>(H) * DR, lo, hi, DR / 8);
 }
 
 // two e4m3 values (low byte first) -> two TT values, exactly (every e4m3
@@ -255,14 +258,21 @@ __device__ __forceinline__ uint32_t e4m3x2_to(uint32_t two) {
 // fp8 (K8q): a tile of ROWS e4m3 rows of D bytes through registers, 16
 // bytes a load: load() during one step, store() converted into a 16-bit
 // tile in P's layout at the end of it.  Rows outside [lo, hi] are zero.
+// The first kUsed threads copy (at D 32 a tile has fewer 16-byte chunks
+// than the block has threads).
 template <int D, int ROWS, int NT>
 struct Fp8Rows {
-  static constexpr int kChunks = D / 16, kRowStep = NT / kChunks;
+  static constexpr int kChunks = D / 16;
+  static constexpr int kUsed = ROWS * kChunks < NT ? ROWS * kChunks : NT;
+  static constexpr int kRowStep = kUsed / kChunks;
   static constexpr int kN = ROWS / kRowStep;
-  static_assert(NT % kChunks == 0 && ROWS % kRowStep == 0, "copy split");
+  static_assert(kUsed % kChunks == 0 && ROWS % kRowStep == 0, "copy split");
   uint4 r[kN];
 
   __device__ void load(const uint8_t* g, long long stride, int lo, int hi) {
+    if constexpr (kUsed < NT) {
+      if (threadIdx.x >= kUsed) return;
+    }
     const int r_t = threadIdx.x / kChunks;
     const uint8_t* gt = g + r_t * stride + (threadIdx.x % kChunks) * 16;
 #pragma unroll
@@ -277,6 +287,9 @@ struct Fp8Rows {
 
   template <typename TT, class P>
   __device__ void store(unsigned char* dst) const {
+    if constexpr (kUsed < NT) {
+      if (threadIdx.x >= kUsed) return;
+    }
     const int r_t = threadIdx.x / kChunks;
     const int c8 = 2 * (threadIdx.x % kChunks);
 #pragma unroll
@@ -326,6 +339,10 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV, TN>::kThreads)
   static_assert(U == 1 || !kFp8, "fp8 tiles are one sub-tile a step");
   static_assert(!TN::kPingPong || L::kGroups == 2,
                 "the ping-pong takes two warpgroups");
+  // K1 and K5 at D 32 read and write rows of a.d_in columns (D 16 without
+  // the wrapper's pad copies): the tiles' other columns are zero
+  constexpr bool kNarrow = D == 32 && MODE != kPaged;
+  const int DR = kNarrow ? a.d_in : D;
   // P V's type: q's, or bf16 for fp8 (its P is rounded to bf16)
   using TV = typename std::conditional<kFp8, __nv_bfloat16, T>::type;
   using PV = PathOf<TV, D>;
@@ -433,8 +450,9 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV, TN>::kThreads)
                   u * KT * a.pg.s_tok,
               a.pg.s_tok, blk_lo - k0u, blk_hi - k0u);
         else
-          load_rows_async<T, D, KT, NT, P>(dst, src, sq.k_base + k0u, a.Hk,
-                                           kvh, blk_lo - k0u, blk_hi - k0u);
+          load_rows_async<T, D, KT, NT, P, kNarrow>(
+              dst, src, sq.k_base + k0u, a.Hk, kvh, blk_lo - k0u,
+              blk_hi - k0u, DR);
       }
     }
   };
@@ -604,12 +622,12 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV, TN>::kThreads)
       __syncthreads();
     }
     // Q rows past the sequence are zero
-    load_rows_async<T, D, 64, NT, P>(smem, a.q, sq.q_base + qp0, a.Hq, h, 0,
-                                     nq - 1);
+    load_rows_async<T, D, 64, NT, P, kNarrow>(smem, a.q, sq.q_base + qp0,
+                                              a.Hq, h, 0, nq - 1, DR);
     if (L::kGroups == 2)
-      load_rows_async<T, D, 64, NT, P>(smem + L::q_tile, a.q,
-                                       sq.q_base + qp0 + 64, a.Hq, h, 0,
-                                       nq - 65);
+      load_rows_async<T, D, 64, NT, P, kNarrow>(
+          smem + L::q_tile, a.q, sq.q_base + qp0 + 64, a.Hq, h, 0, nq - 65,
+          DR);
     copy_k(0);
     if constexpr (kFp8) k8r.template store<T, P>(stage(0) + L::k_off);
     cp_async_commit();   // one group: Q and K(0)
@@ -697,8 +715,8 @@ __global__ void __launch_bounds__(FwdSmem<T, D, KV, TN>::kThreads)
   for (int idx = threadIdx.x % 128; idx < 64 * kChunks; idx += 128) {
     const int r = idx / kChunks;
     const int c8 = idx % kChunks;
-    if (r < nq_g)
-      *reinterpret_cast<uint4*>(og + ((sq.q_base + g0 + r) * a.Hq + h) * D +
+    if (r < nq_g && (!kNarrow || c8 < DR / 8))
+      *reinterpret_cast<uint4*>(og + ((sq.q_base + g0 + r) * a.Hq + h) * DR +
                                 c8 * 8) =
           *reinterpret_cast<const uint4*>(q_s + P::template chunk<64>(r, c8));
   }

@@ -282,15 +282,16 @@ void set_dropout(Args* a, int dropout, unsigned int seed_lo,
       int h0, int num_heads
 
 // The arguments of fa_fwd_launch / fa_varlen_fwd_launch (csrc/fwd.cu) and
-// fa_varlen_paged_launch (csrc/varlen_paged.cu); dtype must be 2 (fp32).
+// fa_varlen_paged_launch (csrc/varlen_paged.cu); dtype must be 2 (fp32),
+// and D_in must be D (fp32 rows are padded by the wrapper).
 // Each returns cudaGetLastError() of its launch.
 // K1: dense (B, M, Hq, D) q against (B, N, Hk, D) k/v.
 extern "C" int fa_fwd_f32_launch(
     int dtype, const void* q, const void* k, const void* v,
     const float* slopes, void* out, float* lse, int B, int M, int N, int Hq,
-    int Hk, int D, int offset, float scale, FA_MASK_DROPOUT_PARAMS,
+    int Hk, int D, int D_in, int offset, float scale, FA_MASK_DROPOUT_PARAMS,
     void* stream) {
-  if (dtype != kF32 || Hk <= 0 || Hq % Hk != 0)
+  if (dtype != kF32 || Hk <= 0 || Hq % Hk != 0 || D_in != D)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || M == 0 || Hq == 0) return 0;
   Args a = {};
@@ -312,9 +313,9 @@ extern "C" int fa_varlen_fwd_f32_launch(
     int dtype, const void* q, const void* k, const void* v, const int* cu_q,
     const int* cu_k, const int* seqused_k, const int* leftpad_k,
     const float* slopes, void* out, float* lse, int B, int Tq,
-    int max_seqlen_q, int Hq, int Hk, int D, float scale,
+    int max_seqlen_q, int Hq, int Hk, int D, int D_in, float scale,
     FA_MASK_DROPOUT_PARAMS, void* stream) {
-  if (dtype != kF32 || Hk <= 0 || Hq % Hk != 0)
+  if (dtype != kF32 || Hk <= 0 || Hq % Hk != 0 || D_in != D)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || max_seqlen_q <= 0 || Hq == 0) return 0;
   Args a = {};

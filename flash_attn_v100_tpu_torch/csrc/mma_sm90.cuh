@@ -27,7 +27,9 @@
 // same rows in the layout of A above.  B, and A when it is read from shared
 // memory, are tiles in the 128-byte-swizzle layout: 64-column sub-tiles of
 // R rows x 128 bytes, 1024-byte aligned, the 16-byte chunk c of row r
-// stored at chunk c ^ (r % 8) (sw128_chunk).  A K-major operand ([n][k]
+// stored at chunk c ^ (r % 8) (sw128_chunk); a 32-column tile is one
+// 64-byte swizzle atom a row (sw64_chunk, sw64_desc: 8-row groups of 512
+// bytes, the same steps at half the row).  A K-major operand ([n][k]
 // rows, e.g. K for S = Q K^T) advances its descriptor 32 bytes a k-step
 // inside a sub-tile; an MN-major one ([k][n] rows, e.g. K for dQ = dS K,
 // read with the transpose bit) advances 16 rows (2048 bytes) a k-step and
@@ -189,6 +191,24 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
 template <int R>
 __device__ __forceinline__ int sw128_chunk(int r, int c8) {
   return (c8 / 8) * R * 128 + r * 128 + ((c8 % 8) ^ (r % 8)) * 16;
+}
+
+// byte offset of 16-byte chunk c8 (0-3) of row r in a tile of 64-byte rows
+// (32 16-bit columns: one 64-byte swizzle atom a row) in the 64-byte-swizzle
+// layout: chunk c8 stored at chunk c8 ^ ((r / 2) % 4), address bits 4-5
+// XOR bits 7-8, a pattern that repeats every 8 rows (512 bytes)
+__device__ __forceinline__ int sw64_chunk(int r, int c8) {
+  return r * 64 + ((c8 ^ ((r >> 1) & 3)) * 16);
+}
+
+// shared-memory matrix descriptor, 64-byte swizzle (layout type 2): the
+// fields of sw128_desc (an 8-row group is 512 bytes)
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(2) << 62;
 }
 
 // shared-memory matrix descriptor, 128-byte swizzle: start address, leading

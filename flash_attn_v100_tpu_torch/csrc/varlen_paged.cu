@@ -20,8 +20,8 @@
 // 989 TFLOP/s of the bf16 tensor cores.
 //
 // What the design does about it: K1/K5's body (csrc/fwd_body.cuh): 128 q
-// rows in two warpgroups at D 64/128/256 with every product on wgmma, 64
-// rows on mma.sync at D 32, S and O in registers with the base-2 online
+// rows in two warpgroups with every product on wgmma (64-byte swizzled
+// tiles at D 32), S and O in registers with the base-2 online
 // softmax on the fragments, S(s) overlapping P(s - 1) V(s - 1), a two-stage
 // cp.async K/V ring, masks on edge tiles only, heaviest tiles first.  Its
 // paged mode starts key tiles at cache-row multiples of the step (a tile

@@ -81,10 +81,11 @@ SIGNATURES = {
         # (dtype, D, extra, int out[5]): occupancy of K8
         "fa_varlen_paged_occupancy": ([_I, _I, _I, _P], _I),
     },
+    # (..., Hq, Hk, D, D_in, ...): D_in the rows' columns (D, or below D 32)
     "fwd": {
-        "fa_fwd_launch": ([_I] + [_P] * 6 + [_I] * 7 + [_F] + _MASK_DROPOUT
+        "fa_fwd_launch": ([_I] + [_P] * 6 + [_I] * 8 + [_F] + _MASK_DROPOUT
                           + [_P], _I),
-        "fa_varlen_fwd_launch": ([_I] + [_P] * 10 + [_I] * 6 + [_F]
+        "fa_varlen_fwd_launch": ([_I] + [_P] * 10 + [_I] * 7 + [_F]
                                  + _MASK_DROPOUT + [_P], _I),
         # (dtype, D, extra, int out[5]): occupancy of K1
         "fa_fwd_occupancy": ([_I, _I, _I, _P], _I),
@@ -118,9 +119,9 @@ SIGNATURES = {
     },
     # the fp32 bodies take the arguments of the 16-bit entries (dtype 2)
     "fwd_f32": {
-        "fa_fwd_f32_launch": ([_I] + [_P] * 6 + [_I] * 7 + [_F]
+        "fa_fwd_f32_launch": ([_I] + [_P] * 6 + [_I] * 8 + [_F]
                               + _MASK_DROPOUT + [_P], _I),
-        "fa_varlen_fwd_f32_launch": ([_I] + [_P] * 10 + [_I] * 6 + [_F]
+        "fa_varlen_fwd_f32_launch": ([_I] + [_P] * 10 + [_I] * 7 + [_F]
                                      + _MASK_DROPOUT + [_P], _I),
         "fa_varlen_paged_f32_launch": ([_I, _P, _P, _P, _P, _I] + [_P] * 6
                                        + [_P] + [_LL] * 3 + [_I] * 8
@@ -324,20 +325,24 @@ def build_log(name: str, variant: Optional[str] = None) -> str:
 
 
 def parse_sass(sass: str, names: Dict[str, str]) -> Dict[str, Dict[str, int]]:
-    """{kernel: {"hgmma": n, "hmma": n}} from `cuobjdump -sass` text: the
-    warpgroup (HGMMA, wgmma) and warp (HMMA, mma.sync) tensor-core
-    instructions of each function, keyed by `names[mangled]` where the
+    """{kernel: {"hgmma": n, "hmma": n, "mufu_ex2": n}} from `cuobjdump
+    -sass` text: the warpgroup (HGMMA, wgmma) and warp (HMMA, mma.sync)
+    tensor-core instructions and the exponentials on the special-function
+    unit (MUFU.EX2) of each function, keyed by `names[mangled]` where the
     mangled name is there, else by the mangled name."""
     counts: Dict[str, Dict[str, int]] = {}
     cur = None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
-            cur = counts.setdefault(names.get(fn, fn), dict(hgmma=0, hmma=0))
+            cur = counts.setdefault(names.get(fn, fn),
+                                    dict(hgmma=0, hmma=0, mufu_ex2=0))
         elif cur is not None and "HGMMA." in line:
             cur["hgmma"] += 1
         elif cur is not None and "HMMA." in line:
             cur["hmma"] += 1
+        elif cur is not None and "MUFU.EX2" in line:
+            cur["mufu_ex2"] += 1
     return counts
 
 

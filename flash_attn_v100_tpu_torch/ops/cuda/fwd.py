@@ -14,7 +14,9 @@ global head count in bh = (b + b0) * num_heads_total + (h + h0).
 
 The kernel takes head_dim 32/64/128/256; other head dims up to 256 are
 zero-padded to the next of those (the scores and the real output columns
-do not change) and sliced back.
+do not change) and sliced back, except that 16-bit rows of 8, 16 or 24
+columns go to the D 32 kernel as they are (`fwd_head_dims`): it reads
+them into zero-filled tiles and writes only their columns of out.
 
 bf16 and fp16 inputs run on `csrc/fwd.cu`, fp32 inputs on the fp32 body
 `csrc/fwd_f32.cu` (the same entry arguments, dtype code 2); other dtypes
@@ -44,6 +46,16 @@ def kernel_head_dim(D: int) -> int:
         if D <= kd:
             return kd
     raise ValueError(f"the kernels take head_dim <= 256, got {D}")
+
+
+def fwd_head_dims(D: int, dtype) -> Tuple[int, int]:
+    """(kernel head dim, columns of the rows the forward kernel reads) for
+    head dim D: K1 and K5 at kernel head dim 32 take 16-bit rows of any
+    multiple of 8 columns themselves, so D 8-24 need no padded copies;
+    every other head dim is padded to the kernel's."""
+    Dk = kernel_head_dim(D)
+    narrow = Dk == 32 and D % 8 == 0 and dtype != torch.float32
+    return Dk, D if narrow else Dk
 
 
 def pad_head_dim(x: torch.Tensor, Dk: int) -> torch.Tensor:
@@ -142,8 +154,8 @@ def flash_attn_dense_fwd(
     B, M, Hq, D = q.shape
     N, Hk = k.shape[1], k.shape[2]
     dev = q.device
-    Dk = kernel_head_dim(D)
-    q, k, v = (pad_head_dim(t, Dk).contiguous() for t in (q, k, v))
+    Dk, Din = fwd_head_dims(D, q.dtype)
+    q, k, v = (pad_head_dim(t, Din).contiguous() for t in (q, k, v))
     slopes = slopes_bh(alibi_slopes, B, Hq, dev) if params.has_alibi else None
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, M), dtype=torch.float32, device=dev)
@@ -155,13 +167,14 @@ def flash_attn_dense_fwd(
     rc = launch(
         DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, M, N, Hq, Hk, Dk, offset, float(softmax_scale),
+        lse.data_ptr(), B, M, N, Hq, Hk, Dk, Din, offset,
+        float(softmax_scale),
         *c_mask_args(params),
         *c_dropout_args(dropout_p, dropout_seed, pos_base, nh),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "flash_attn_dense_fwd")
     flash_attn_dense_fwd.launches += 1
-    return (out if Dk == D else out[..., :D].contiguous()), lse
+    return (out if Din == D else out[..., :D].contiguous()), lse
 
 
 flash_attn_dense_fwd.launches = 0

@@ -16,7 +16,8 @@ bh = b * Hq + h); the forward returns out (Tq, Hq, D) in q's dtype and lse
 `dlse` in as delta - dlse.  Packed rows past cu_q[B] and keys that no
 sequence uses come out as O = 0, LSE = -inf and zero gradients.  The
 kernels take head_dim 32/64/128/256; other head dims up to 256 are
-zero-padded to the next of those and sliced back.  `max_seqlen_q` and
+zero-padded to the next of those and sliced back (K5 reads 16-bit rows of
+8-24 columns as they are: fwd.py's `fwd_head_dims`).  `max_seqlen_q` and
 `max_seqlen_k` are host ints that must bound every sequence's lengths: they
 size the grids.  The CUDA path reads cu_seqlens, seqused_k and leftpad_k on
 the device and never syncs with the host; the plain versions do.
@@ -71,7 +72,7 @@ from flash_attn_v100_tpu_torch.ops.cuda.decode import (
     quant_payload_values)
 from flash_attn_v100_tpu_torch.ops.cuda.fwd import (
     DTYPE_CODE, c_dropout_args, c_mask_args, flash_attn_dense_fwd_ref,
-    kernel_head_dim, pad_head_dim, slopes_bh)
+    fwd_head_dims, kernel_head_dim, pad_head_dim, slopes_bh)
 from flash_attn_v100_tpu_torch.ops.quant import FP8, payload_bytes
 
 P_TILE = 64       # K8q's key step: P's int8 group (BK in the kernels)
@@ -178,8 +179,8 @@ def flash_attn_varlen_fwd(
     dev = q.device
     cu_q, cu_k, used, lp = _ragged_device_args(
         cu_seqlens_q, cu_seqlens_k, seqused_k, leftpad_k, B, dev)
-    Dk = kernel_head_dim(D)
-    q, k, v = (pad_head_dim(t, Dk).contiguous() for t in (q, k, v))
+    Dk, Din = fwd_head_dims(D, q.dtype)
+    q, k, v = (pad_head_dim(t, Din).contiguous() for t in (q, k, v))
     slopes = slopes_bh(alibi_slopes, B, Hq, dev) if params.has_alibi else None
     # packed rows past cu_q[B] belong to no block: O = 0, LSE = -inf
     out = torch.zeros_like(q)
@@ -192,13 +193,13 @@ def flash_attn_varlen_fwd(
         DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         cu_q.data_ptr(), cu_k.data_ptr(), _ptr(used), _ptr(lp),
         _ptr(slopes), out.data_ptr(), lse.data_ptr(), B, Tq,
-        int(max_seqlen_q), Hq, Hk, Dk, float(softmax_scale),
+        int(max_seqlen_q), Hq, Hk, Dk, Din, float(softmax_scale),
         *c_mask_args(params),
         *c_dropout_args(dropout_p, dropout_seed, None, Hq),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "flash_attn_varlen_fwd")
     flash_attn_varlen_fwd.launches += 1
-    return (out if Dk == D else out[..., :D].contiguous()), lse
+    return (out if Din == D else out[..., :D].contiguous()), lse
 
 
 flash_attn_varlen_fwd.launches = 0

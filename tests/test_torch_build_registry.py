@@ -191,6 +191,9 @@ def test_tune_defaults_are_the_shipped_tiles():
             "          bool PP = false>\nstruct FwdTune" in fwd)
     assert "static constexpr int BK = U * KT;" in fwd
     assert "TN::kKT ? TN::kKT : (D == 256 && KV == kKvFp8 ? 32 : 64)" in fwd
+    # two warpgroups (128 q rows) a block at every head dim since D 32
+    # moved to wgmma
+    assert "static constexpr int kGroups = TN::kG ? TN::kG : 2;" in fwd
     bwd = (build.CSRC / "bwd.cu").read_text()
     assert ("template <int DQBK = 0, int DKVBQ = 0, int KG = 1>\n"
             "struct BwdTune" in bwd)
@@ -241,6 +244,8 @@ SASS = """\
         /*0100*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
         /*0110*/                   HGMMA.64x256x16.F32.BF16 R24, R152, gdesc[UR8], R24 ;
         /*0120*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0130*/                   MUFU.EX2 R5, R6 ;
+        /*0140*/                   MUFU.RCP R7, R8 ;
                 Function : _Z3barPf
         /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
 """
@@ -259,10 +264,11 @@ ptxas info    : Used 96 registers, used 1 barriers
 
 def test_parse_sass_counts_warpgroup_and_warp_products():
     """`cuobjdump -sass` text -> each function's HGMMA (wgmma) and HMMA
-    (mma.sync) instructions, under the names given for its mangled name."""
+    (mma.sync) instructions and its MUFU.EX2 (no other MUFU), under the
+    names given for its mangled name."""
     got = build.parse_sass(SASS, {"_Z3fooPf": "foo(float*)"})
-    assert got == {"foo(float*)": dict(hgmma=2, hmma=1),
-                   "_Z3barPf": dict(hgmma=0, hmma=1)}
+    assert got == {"foo(float*)": dict(hgmma=2, hmma=1, mufu_ex2=1),
+                   "_Z3barPf": dict(hgmma=0, hmma=1, mufu_ex2=0)}
 
 
 def test_parse_ptxas_registers_and_local_memory():

@@ -193,7 +193,7 @@ def test_dense_kernels_match_plain(cuda, dt, D, name):
         assert not out[:, :dead].any() and not grads[0][:, :dead].any()
 
 
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [32, 64, 256])
 def test_dense_backward_bitwise_deterministic(cuda, D):
     args, do, kw = _dense_inputs("dropout_gqa_causal", torch.bfloat16, D,
                                  cuda)
@@ -575,7 +575,7 @@ def test_varlen_kernels_match_plain(cuda, dt, D, name):
     assert not grads[1][~live_k].any() and not grads[2][~live_k].any()
 
 
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [32, 64, 256])
 def test_varlen_backward_bitwise_deterministic(cuda, D):
     args, do, kw = _packed_inputs("dropout_gqa_causal", torch.bfloat16, D,
                                   cuda)
@@ -589,17 +589,20 @@ def test_varlen_backward_bitwise_deterministic(cuda, D):
 
 
 def test_forward_bitwise_deterministic(cuda):
-    """K1 and K5 give the same out and LSE bits on two calls."""
-    args, _, kw = _dense_inputs("m193_n300_causal_dropout", torch.bfloat16,
-                                64, cuda)
-    one = dfwd.flash_attn_dense_fwd(*args, **kw)
-    two = dfwd.flash_attn_dense_fwd(*args, **kw)
-    assert all(torch.equal(a, b) for a, b in zip(one, two))
-    args, _, kw = _packed_inputs("mixed_1_empty_2000", torch.bfloat16, 128,
-                                 cuda)
-    one = vl.flash_attn_varlen_fwd(*args, **kw)
-    two = vl.flash_attn_varlen_fwd(*args, **kw)
-    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    """K1 and K5 give the same out and LSE bits on two calls (K1 at D 64
+    and 32, K5 at D 128 and 32)."""
+    for D in (64, 32):
+        args, _, kw = _dense_inputs("m193_n300_causal_dropout",
+                                    torch.bfloat16, D, cuda)
+        one = dfwd.flash_attn_dense_fwd(*args, **kw)
+        two = dfwd.flash_attn_dense_fwd(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(one, two)), D
+    for D in (128, 32):
+        args, _, kw = _packed_inputs("mixed_1_empty_2000", torch.bfloat16, D,
+                                     cuda)
+        one = vl.flash_attn_varlen_fwd(*args, **kw)
+        two = vl.flash_attn_varlen_fwd(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(one, two)), D
 
 
 @pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
@@ -627,7 +630,7 @@ def test_varlen_kernels_dropout_masks_bit_equal(cuda, dt):
     assert torch.equal(dv_keep > 0, keep)
 
 
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [32, 64, 256])
 @pytest.mark.parametrize("p", [0.0, 0.2])
 def test_varlen_equal_lengths_bit_equal_to_flash_attn_func(cuda, p, D,
                                                            monkeypatch):
@@ -677,7 +680,7 @@ def test_varlen_equal_lengths_bit_equal_to_flash_attn_func(cuda, p, D,
 
 @pytest.mark.parametrize("name", ["causal_gqa_ragged",
                                   "cross_window_softcap_alibi"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_varlen_sequences_bit_equal_to_flash_attn_func_alone(cuda, dt, D,
                                                              name):
@@ -727,7 +730,7 @@ def test_row_dot_rows_alone_bit_equal_to_among_many(cuda, D):
                            many[:n]), f"{n} rows"
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_varlen_backward_kernels_use_no_local_memory(cuda, D):
     """K6 and K7, the varlen instantiation of K2/K3's body (at D 256 of
     dq_split_kernel / dkv_split_kernel), in bf16 and fp16, with and
@@ -1502,7 +1505,7 @@ def _gathered(args, kw):
 
 
 @pytest.mark.parametrize("name", ["causal_prefix", "window_softcap_alibi"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_varlen_paged_bit_equal_to_varlen_fwd(cuda, dt, D, name):
     """With leftpad 0, K8 over the pools and K5 over the same cache rows
@@ -1515,7 +1518,7 @@ def test_varlen_paged_bit_equal_to_varlen_fwd(cuda, dt, D, name):
     assert torch.equal(out8, out5) and torch.equal(lse8, lse5)
 
 
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [32, 128, 256])
 @pytest.mark.parametrize("kind", [None] + list(QUANT_KINDS))
 def test_varlen_paged_bitwise_deterministic(cuda, kind, D):
     """K8 and K8q give the same out and LSE bits on two calls."""
@@ -1552,34 +1555,98 @@ def test_varlen_paged_kernels_use_no_local_memory(cuda, D):
         assert blocks * threads // 32 >= 8, f"{what}: {blocks} blocks"
 
 
-# the head-dim-256 kernels on the warpgroup products: (id, library); K8q
-# is its e4m3 pool's instantiation of the forward body
-D256_WGMMA = {"K1": "fwd", "K5": "fwd", "K8": "varlen_paged",
-              "K8q": "varlen_paged_quant", "K2": "bwd", "K6": "bwd",
-              "K3": "bwd", "K7": "bwd"}
+# each kernel's library and product path by head dim: (library, on
+# wgmma); K8q is its e4m3 pool's instantiation of the forward body; K2 /
+# K6 keep mma.sync at D 32
+SASS_PATHS = {
+    256: {"K1": ("fwd", True), "K5": ("fwd", True),
+          "K8": ("varlen_paged", True),
+          "K8q": ("varlen_paged_quant", True), "K2": ("bwd", True),
+          "K6": ("bwd", True), "K3": ("bwd", True), "K7": ("bwd", True)},
+    32: {"K1": ("fwd", True), "K5": ("fwd", True),
+         "K8": ("varlen_paged", True), "K8q": ("varlen_paged_quant", True),
+         "K3": ("bwd", True), "K7": ("bwd", True), "K2": ("bwd", False),
+         "K6": ("bwd", False)},
+}
 
 
-@pytest.mark.parametrize("kid", list(D256_WGMMA))
-def test_head_dim_256_kernels_run_wgmma_without_local_memory(cuda, kid):
-    """Each D 256 instantiation of K1, K5, K8, K8q fp8, K2, K6, K3 and K7
-    (bf16 and fp16, with and without bias / dropout) has warpgroup
-    products (HGMMA) and no warp-level ones (HMMA, mma.sync) in its SASS,
-    and no spills or stack in ptxas's report."""
+def _check_sass_paths(kid, head_dim):
+    """Each head_dim instantiation of `kid` (bf16 and fp16, with and
+    without bias / dropout): warpgroup products (HGMMA) and no warp-level
+    ones (HMMA, mma.sync) in its SASS where SASS_PATHS says wgmma, else
+    HMMA and no HGMMA; exponentials on the MUFU; no spills or stack in
+    ptxas's report."""
     from flash_attn_v100_tpu_torch.utils import profiling as tprof
-    lib = D256_WGMMA[kid]
+    lib, wgmma = SASS_PATHS[head_dim][kid]
     usage = build.ptxas_usage(lib)
     found = 0
     for name, c in build.sass_counts(lib).items():
-        if (tprof.kernel_id(name) != kid or tprof.kernel_head_dim(name) != 256
+        if (tprof.kernel_id(name) != kid
+                or tprof.kernel_head_dim(name) != head_dim
                 or (kid == "K8q" and "fwd_kernel" not in name)):
             continue
         found += 1
         u = usage[name]
-        assert c["hgmma"] > 0, f"{name}: no HGMMA"
-        assert c["hmma"] == 0, f"{name}: {c['hmma']} HMMA"
+        if wgmma:
+            assert c["hgmma"] > 0, f"{name}: no HGMMA"
+            assert c["hmma"] == 0, f"{name}: {c['hmma']} HMMA"
+        else:
+            assert c["hmma"] > 0 and c["hgmma"] == 0, f"{name}: {c}"
+        assert c["mufu_ex2"] > 0, f"{name}: no MUFU.EX2"
         assert u["stack"] == u["spill_stores"] == u["spill_loads"] == 0, \
             f"{name}: local memory {u}"
-    assert found == 4, f"{kid}: {found} D 256 instantiations"
+    assert found == 4, f"{kid}: {found} D {head_dim} instantiations"
+
+
+@pytest.mark.parametrize("kid", list(SASS_PATHS[256]))
+def test_head_dim_256_kernels_run_wgmma_without_local_memory(cuda, kid):
+    """K1, K5, K8, K8q fp8, K2, K6, K3 and K7 at D 256 all run wgmma."""
+    _check_sass_paths(kid, 256)
+
+
+@pytest.mark.parametrize("kid", list(SASS_PATHS[32]))
+def test_head_dim_32_kernels_run_wgmma_without_local_memory(cuda, kid):
+    """K1, K5, K8, K8q fp8, K3 and K7 at D 32 run wgmma; K2 and K6 keep
+    mma.sync."""
+    _check_sass_paths(kid, 32)
+
+
+@pytest.mark.parametrize("D", [8, 16, 24])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_narrow_head_dims_read_unpadded_rows(cuda, dt, D, monkeypatch):
+    """K1 and K5 at head dim 8-24 read the rows as they are (no F.pad copy
+    on the forward), and give the bits of the D 32 kernel on zero-padded
+    copies (the tiles are the same), out sliced; two calls bit-equal; out
+    within the plain version's gate."""
+    rng = np.random.default_rng(16)
+    B, S, Hq, Hk = 2, 200, 4, 2
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda, DTYPES[dt])
+        for s in ((B, S, Hq, D), (B, S, Hk, D), (B, S, Hk, D)))
+    params, scale = masklib.MaskParams(causal=True), D ** -0.5
+    cu = torch.arange(B + 1, dtype=torch.int32, device=cuda) * S
+    pk = [t.reshape(B * S, *t.shape[2:]) for t in (q, k, v)]
+    padded = [torch.nn.functional.pad(t, (0, 32 - D)) for t in (q, k, v)]
+    ref1 = dfwd.flash_attn_dense_fwd(*padded, scale, params)
+    ref5 = vl.flash_attn_varlen_fwd(
+        *[t.reshape(B * S, *t.shape[2:]) for t in padded], cu, cu, S, S,
+        scale, params)
+    pads = []
+    real_pad = torch.nn.functional.pad
+    monkeypatch.setattr(torch.nn.functional, "pad",
+                        lambda *a, **k_: pads.append(1) or real_pad(*a, **k_))
+    for _ in range(2):
+        o1, l1 = dfwd.flash_attn_dense_fwd(q, k, v, scale, params)
+        o5, l5 = vl.flash_attn_varlen_fwd(*pk, cu, cu, S, S, scale, params)
+        assert not pads, "a head dim under 32 was padded"
+        assert o1.shape == q.shape and o5.shape == pk[0].shape
+        assert torch.equal(o1, ref1[0][..., :D]) and torch.equal(l1, ref1[1])
+        assert torch.equal(o5, ref5[0][..., :D]) and torch.equal(l5, ref5[1])
+    monkeypatch.undo()
+    o32, _ = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params)
+    o16, _ = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params,
+                                           upcast=False)
+    assert_fwd_close(o1, o32, o16, name=f"K1 D {D} out")
 
 
 def _all_launch_counts():
