@@ -176,6 +176,15 @@ for every P1-P3 probe row of the probe phase and both P4 kernels at
 4096^3 (three rounds in turns: medians and output digests), with P4's
 host time a call.
 
+    python3 chip_smoke.py --fp32-times TREE
+
+for the fp32 bodies: K1-K3 at the training shape and at B 1 x 4096^2,
+32 / 32 heads x 128 (beside fp32 SDPA with heads repeated on its
+efficient backend, and with enable_gqa), K5 / K7 at the packed
+documents, K8 at the prefill wave (graph replays, ms and kcycles under
+each kernel's own clock, digests) and the 8-layer fp32 TinyLlama AdamW
+step.
+
     python3 chip_smoke.py --serve-times ROUNDS
 
 instead serves the engine runs' traffic from a bf16, an int8, an fp8 and
@@ -3503,7 +3512,24 @@ def phase_engine_quant(torch, cfg, bf16):
 TF32_OPS_PER_S = 494.7e12     # H100 SXM dense TF32 tensor-core peak: the
                               # fp32 bound's operations rate
 FFMA_OPS_PER_S = 66.9e12      # H100 SXM fp32 FMA on the CUDA cores: the
-                              # fp32 bodies' own ceiling (csrc/f32_tiles.cuh)
+                              # ceiling of the FFMA bodies (K2 / K6, K4)
+SPLIT_OPS_PER_S = TF32_OPS_PER_S / 3   # 3 x TF32 split products: the
+                              # ceiling of K1's and K3's fp32 bodies
+FP32_D128 = (1, 4096, 32, 32, 128)   # K1 / K3 fp32 beside the fair SDPA at
+                              # B 1 x 4096^2, 32/32 heads x 128, causal
+# the fp32 bodies (csrc/f32_tiles.cuh): id -> (library, kernel, its MODE /
+# VARLEN template argument as cu++filt prints it, the head dims on wgmma);
+# K1's body on TF32 wgmma at D 32-128, TF32 mma.sync at D 256 and in K3's,
+# K2 on FFMA (for contrast)
+F32_TF32_KERNELS = {
+    "K1": ("fwd_f32", "fwd_f32_kernel", "(int)0", (32, 64, 128)),
+    "K5": ("fwd_f32", "fwd_f32_kernel", "(int)1", (32, 64, 128)),
+    "K8": ("fwd_f32", "fwd_f32_kernel", "(int)2", (32, 64, 128)),
+    "K3": ("bwd_f32", "dkv_f32_kernel", "(bool)0", ()),
+    "K7": ("bwd_f32", "dkv_f32_kernel", "(bool)1", ()),
+    "K2": ("bwd_f32", "dq_f32_kernel", "(bool)0", ())}
+F32_SASS_OPS = {"hgmma_tf32": ("HGMMA.", ".TF32"),
+                "hmma_tf32": ("HMMA.", ".TF32"), "ffma": ("FFMA",)}
 FP32_GATES = {"fwd": (2.0, 1e-5), "bwd": (3.0, 1e-4)}
 FP32_GATE = ("err vs the fp64 oracle <= 2 x the fp32 plain twin's + 1e-5 "
              "(out, LSE), 3 x + 1e-4 (gradients)")
@@ -4221,11 +4247,88 @@ def fp32_serve(torch, params, cfg, tag, prompts, n_new, page_size=PAGE_SIZE,
     return dict(launches=launches, logits_err=errs, tokens_equal=not diff)
 
 
+def fair_sdpa(torch, flush, q, k, v, do, causal=True) -> dict:
+    """fp32 SDPA's forward and backward (CUDA events around one call) on
+    q / k / v (B, S, H, D), two ways: `fwd_ms` / `bwd_ms` with k / v heads
+    repeated to q's under the efficient backend (3 x TF32 products in its
+    CUTLASS sources: the fair fp32 yardstick), `gqa_fwd_ms` / `gqa_bwd_ms`
+    with `enable_gqa` and the default choice of backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    group = q.shape[2] // k.shape[2]
+    do_s = do.transpose(1, 2).contiguous()
+    res = {}
+    for how in ("fair", "gqa"):
+        rep = 1 if how == "gqa" else group
+        qs, ks, vs = (t.repeat_interleave(r, dim=2).transpose(1, 2)
+                      .contiguous().requires_grad_()
+                      for t, r in ((q, 1), (k, rep), (v, rep)))
+        kw = dict(is_causal=causal, enable_gqa=how == "gqa" and group > 1)
+        ctx = (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if how == "fair"
+               else contextlib.nullcontext())
+        with ctx:
+            fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, **kw), reps=5, flush=flush)
+            o = F.scaled_dot_product_attention(qs, ks, vs, **kw)
+            bwd = time_ms(torch, lambda: torch.autograd.grad(
+                o, (qs, ks, vs), do_s, retain_graph=True), reps=5,
+                flush=flush)
+        pre = "" if how == "fair" else "gqa_"
+        res[pre + "fwd_ms"], res[pre + "bwd_ms"] = fwd, bwd
+        del o, qs, ks, vs
+    return res
+
+
+def f32_sass(build) -> dict:
+    """Each instantiation of F32_TF32_KERNELS at D 32-256: its SASS counts
+    (`build.sass_counts` with F32_SASS_OPS: TF32 HGMMA and HMMA, every
+    FFMA) and ptxas's registers and local bytes.  Asserts for K1 / K5 / K8
+    and K3 / K7 that every tensor-core product is a TF32 one, HGMMA (no
+    HMMA) at the head dims on wgmma, HMMA (no HGMMA) at the others, and no
+    local memory; K2 (FFMA) has neither."""
+    import re
+    res = {}
+    counts = {lib: build.sass_counts(lib, F32_SASS_OPS)
+              for lib in ("fwd_f32", "bwd_f32")}
+    usage = {lib: build.ptxas_usage(lib) for lib in counts}
+    for kid, (lib, kernel, arg, wgmma) in F32_TF32_KERNELS.items():
+        rows = []
+        for D in (32, 64, 128, 256):
+            pat = re.compile(re.escape(f"{kernel}<(int){D}, {arg}>"))
+            (name, c), = [(n, c) for n, c in counts[lib].items()
+                          if pat.search(n)]
+            u = usage[lib][name]
+            r = dict(D=D, **c, registers=u["registers"],
+                     local_bytes=u["stack"] + u["spill_stores"])
+            if kid == "K2":
+                assert r["hmma"] == r["hgmma"] == 0, (name, r)
+            else:
+                wg = D in wgmma
+                assert r["hgmma_tf32" if wg else "hmma_tf32"] > 0, (name, r)
+                assert r["hgmma_tf32"] == r["hgmma"], (name, r)
+                assert r["hmma_tf32"] == r["hmma"], (name, r)
+                assert r["hmma" if wg else "hgmma"] == 0, (name, r)
+                assert r["local_bytes"] == 0, (name, r)
+            rows.append(r)
+        res[kid] = rows
+        print(f"fp32 {kid} SASS (D 32 / 64 / 128 / 256): HGMMA.TF32 "
+              f"{[r['hgmma_tf32'] for r in rows]}, HMMA.TF32 "
+              f"{[r['hmma_tf32'] for r in rows]}, FFMA "
+              f"{[r['ffma'] for r in rows]}, MUFU.EX2 "
+              f"{[r['mufu_ex2'] for r in rows]}, registers "
+              f"{[r['registers'] for r in rows]}, local bytes "
+              f"{[r['local_bytes'] for r in rows]}", flush=True)
+    return res
+
+
 def fp32_times(torch, flush, dense, varlen, k8, k4):
-    """Kernel, plain twin and library (fp32 SDPA, enable_gqa; pre-gathered
-    KV for K4 / K8) times of each fp32 kernel at its main shape, with the
-    bound (bytes over 3.35 TB/s or operations over the TF32 rate) and the
-    FFMA ceiling."""
+    """Kernel, plain twin and library times of each fp32 kernel at its main
+    shape, with the bound (bytes over 3.35 TB/s or operations over the
+    TF32 rate), the 3 x TF32 ceiling (operations at a third of it) and the
+    FFMA ceiling; K1-K3 also at FP32_D128.  The library: for K1-K3
+    `fair_sdpa` (heads repeated, the efficient backend; its `enable_gqa`
+    call beside it), for K5-K7 `varlen_library` (heads repeated), for K4
+    / K8 SDPA over the pre-gathered KV."""
     from flash_attn_v100_tpu_torch.config import NEG_INF
     from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
     from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
@@ -4234,54 +4337,68 @@ def fp32_times(torch, flush, dense, varlen, k8, k4):
     F = torch.nn.functional
     out = {}
 
-    def row(name, ms, plain, lib, flops, nbytes, library):
+    def row(name, ms, plain, lib, flops, nbytes, library, gqa=None):
         bms, by = bound_ms(nbytes, flops, TF32_OPS_PER_S)
+        split = bound_ms(nbytes, flops, SPLIT_OPS_PER_S)[0]
         ceil = bound_ms(nbytes, flops, FFMA_OPS_PER_S)[0]
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                         bound_by=by, ffma_bound_ms=ceil, library=library)
+                         bound_by=by, split_bound_ms=split,
+                         ffma_bound_ms=ceil, library=library)
+        if gqa is not None:
+            out[name]["library_gqa_ms"] = gqa
         print(f"fp32 {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"{library} {lib:.4f} ms, bound {bms:.4f} ms ({by}, "
-              f"{flops:.3e} flop at TF32), FFMA ceiling {ceil:.4f} ms; "
+              f"{library} {lib:.4f} ms"
+              + ("" if gqa is None else f" (enable_gqa {gqa:.4f} ms)")
+              + f", bound {bms:.4f} ms ({by}, {flops:.3e} flop at TF32), "
+              f"3xTF32 ceiling {split:.4f} ms, FFMA ceiling {ceil:.4f} ms; "
               f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bms / ms:.1f}% of the "
-              f"bound, {100 * ceil / ms:.1f}% of the FFMA ceiling",
-              flush=True)
+              f"bound, {100 * split / ms:.1f}% of the 3xTF32 ceiling, "
+              f"{100 * ceil / ms:.1f}% of the FFMA ceiling", flush=True)
 
-    # K1-K3 at the training shape
-    q, k, v, do, o, lse, scale, params = dense
-    B, S, Hq, D = q.shape
-    Hk = k.shape[2]
-    delta = dbwd.softmax_delta(o, do)
-    lse_c = lse.clamp_min(NEG_INF).contiguous()
-    kargs = (q, k, v, do, lse_c, delta, None, scale, params, 0.0, None, 0,
-             None, Hq)
-    ms = {"K1": time_ms(torch, lambda: dfwd.flash_attn_dense_fwd(
-              q, k, v, scale, params), reps=10, flush=flush),
-          "K2": time_ms(torch, lambda: dbwd.dq_kernel(*kargs), reps=10,
-                        flush=flush),
-          "K3": time_ms(torch, lambda: dbwd.dkv_kernel(*kargs), reps=10,
-                        flush=flush)}
-    p_fwd = time_ms(torch, lambda: dfwd.flash_attn_dense_fwd_ref(
-        q, k, v, scale, params), reps=3, warmup=1, flush=flush)
-    p_bwd = time_ms(torch, lambda: dbwd.flash_attn_dense_bwd_ref(
-        q, k, v, o, do, lse, scale, params), reps=3, warmup=1, flush=flush)
-    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    l_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True), reps=5, flush=flush)
-    o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                           enable_gqa=True)
-    do_s = do.transpose(1, 2).contiguous()
-    l_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        o_lib, (qs, ks, vs), do_s, retain_graph=True), reps=5, flush=flush)
-    del o_lib, qs, ks, vs
-    work = dense_work(B, S, Hq, Hk, D, esize=4)
-    for name, plain, lib in (("K1", p_fwd, l_fwd), ("K2", p_bwd, l_bwd),
-                             ("K3", p_bwd, l_bwd)):
-        row(name, ms[name], plain, lib, *work[name],
-            "sdpa fp32 " + ("fwd" if name == "K1" else "bwd (K2 + K3)"))
+    def dense_rows(tag, q, k, v, do, o, lse, scale, params):
+        """K1-K3 (`tag` after the id) on these inputs beside fair_sdpa."""
+        B, S, Hq, D = q.shape
+        Hk = k.shape[2]
+        delta = dbwd.softmax_delta(o, do)
+        lse_c = lse.clamp_min(NEG_INF).contiguous()
+        kargs = (q, k, v, do, lse_c, delta, None, scale, params, 0.0, None,
+                 0, None, Hq)
+        ms = {"K1": time_ms(torch, lambda: dfwd.flash_attn_dense_fwd(
+                  q, k, v, scale, params), reps=10, flush=flush),
+              "K2": time_ms(torch, lambda: dbwd.dq_kernel(*kargs), reps=10,
+                            flush=flush),
+              "K3": time_ms(torch, lambda: dbwd.dkv_kernel(*kargs), reps=10,
+                            flush=flush)}
+        p_fwd = time_ms(torch, lambda: dfwd.flash_attn_dense_fwd_ref(
+            q, k, v, scale, params), reps=3, warmup=1, flush=flush)
+        p_bwd = time_ms(torch, lambda: dbwd.flash_attn_dense_bwd_ref(
+            q, k, v, o, do, lse, scale, params), reps=3, warmup=1,
+            flush=flush)
+        lib = fair_sdpa(torch, flush, q, k, v, do)
+        work = dense_work(B, S, Hq, Hk, D, esize=4)
+        for kid, plain, what in (("K1", p_fwd, "fwd"), ("K2", p_bwd, "bwd"),
+                                 ("K3", p_bwd, "bwd")):
+            row(kid + tag, ms[kid], plain, lib[what + "_ms"], *work[kid],
+                "sdpa fp32 " + ("fwd" if kid == "K1" else "bwd (K2 + K3)")
+                + ", heads repeated, efficient backend",
+                gqa=lib[f"gqa_{what}_ms"])
+
+    # K1-K3 at the training shape, then at FP32_D128
+    dense_rows("", *dense)
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    B, S, Hq, Hk, D = FP32_D128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    q, k, v, do = (torch.randn((B, S, h, D), generator=gen, device="cuda")
+                   for h in (Hq, Hk, Hk, Hq))
+    scale, params = D ** -0.5, masklib.MaskParams(causal=True)
+    o, lse = dfwd.flash_attn_dense_fwd(q, k, v, scale, params)
+    dense_rows(" D 128", q, k, v, do, o, lse, scale, params)
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
 
     # K5-K7 at the packed documents
     q, k, v, do, cu, mx, lens, scale, params = varlen
+    Hq, Hk, D = q.shape[1], k.shape[1], q.shape[2]
     o, lse = vl.flash_attn_varlen_fwd(q, k, v, cu, cu, mx, mx, scale, params)
     delta = vl.varlen_delta(o, do)
     lse_c = lse.clamp_min(NEG_INF).contiguous()
@@ -4354,7 +4471,9 @@ def phase_fp32(torch, flush):
     and K4 (the first prefill's and decode step's logits against the plain
     twins', greedy tokens equal to a plain run's); the same for
     ModelConfig.tiny(); (3) each kernel's times beside its plain twin, fp32
-    SDPA, the TF32 bound and the FFMA ceiling; then fp32 q over int8, fp8
+    SDPA (`fp32_times`: the fair call and the `enable_gqa` one), the TF32
+    bound, the 3 x TF32 and FFMA ceilings, and the SASS of the bodies on
+    the tensor cores (`f32_sass`); then fp32 q over int8, fp8
     and int4 pools (K4q / K8q's fp32 instantiations: fp32_quant's checks
     and times, ModelConfig.tiny() served from each pool against a direct
     paged_forward loop, and the TinyLlama serve again from an int8
@@ -4388,8 +4507,9 @@ def phase_fp32(torch, flush):
     del dense, varlen, k8, k4
     gc.collect()
     torch.cuda.empty_cache()
-    # fp32 q over quantized pools: K4q / K8q's fp32 instantiations
     from flash_attn_v100_tpu_torch.ops.cuda import build
+    sass = f32_sass(build)
+    # fp32 q over quantized pools: K4q / K8q's fp32 instantiations
     quant_occ = fp32_quant_occupancy(build)
     quant = fp32_quant(torch, flush)
     gc.collect()
@@ -4459,7 +4579,7 @@ def phase_fp32(torch, flush):
     return dict(errs=errs, times=times, launches=launches, train=train,
                 serve=serve, tiny_train=tiny_train, tiny_serve=tiny_serve,
                 quant=quant, quant_launches=quant_launches,
-                quant_occupancy=quant_occ, serve_int8=serve_int8)
+                quant_occupancy=quant_occ, serve_int8=serve_int8, sass=sass)
 
 
 PAR_WORLD = 4
@@ -7155,6 +7275,122 @@ def d32_times(torch) -> dict:
             "d32a": dense, "d32b": varlen, "d16": d16}
 
 
+FP32_STEP_REPS = 3              # fp32 AdamW steps timed a tree (one untimed)
+
+
+def fp32_turn_times(torch) -> dict:
+    """The fp32 bodies of the `flash_attn_v100_tpu_torch` on sys.path: K1,
+    K2 (FFMA, the same code in both trees: the floor) and K3 at the
+    training shape and at FP32_D128, K5 / K7 at `fp32_varlen`'s packed
+    documents and K8 at k8_case's prefill wave, each as CUDA-graph replays
+    with the SM clock read under them (ms and kcycles = ms x MHz) and a
+    digest of its outputs; K2 / K3 and K7 take the plain forward's out and
+    LSE, so their inputs are the same in every tree.  Then the
+    FP32_LAYERS-layer fp32 TinyLlama AdamW step (make_train_step, B
+    FP32_TRAIN_B x TRAIN_S; the median of FP32_STEP_REPS steps after one,
+    CUDA events; a digest of the losses).  To compare two trees in one
+    call, in turns:
+        python3 chip_smoke.py --fp32-times TREE"""
+    from flash_attn_v100_tpu_torch import ModelConfig
+    from flash_attn_v100_tpu_torch.config import NEG_INF
+    from flash_attn_v100_tpu_torch.models import transformer as tm
+    from flash_attn_v100_tpu_torch.ops import masks as masklib
+    from flash_attn_v100_tpu_torch.ops.cuda import build
+    from flash_attn_v100_tpu_torch.ops.cuda import bwd as dbwd
+    from flash_attn_v100_tpu_torch.ops.cuda import fwd as dfwd
+    from flash_attn_v100_tpu_torch.ops.cuda import varlen as vl
+
+    build.build_all(["fwd_f32", "bwd_f32"])
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+    params = masklib.MaskParams(causal=True)
+    digests, rows, lib = {}, {}, {}
+
+    def timed(key, fn):
+        digests[key] = digest(torch, *fn())
+        ms, clock = graph_ms_clock(torch, fn, flush)
+        rows[key] = dict(ms=ms, clock=clock, kcycles=ms * clock["sm_mhz"])
+        print(f"fp32-times {key}: {ms:.4f} ms at {clock['sm_mhz']:.0f} MHz "
+              f"({rows[key]['kcycles']:.1f} kcycles), digest "
+              f"{digests[key]}", flush=True)
+
+    for tag, (B, S, Hq, Hk, D), seed in (
+            ("train", (TRAIN_B, TRAIN_S, 32, 4, 64), SEED + 10),
+            ("D 128", FP32_D128, SEED + 23)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v, do = (torch.randn((B, S, h, D), generator=gen, device=dev)
+                       for h in (Hq, Hk, Hk, Hq))
+        scale = D ** -0.5
+        o, lse = dfwd.flash_attn_dense_fwd_ref(q, k, v, scale, params)
+        kargs = (q, k, v, do, lse.clamp_min(NEG_INF).contiguous(),
+                 dbwd.softmax_delta(o, do), None, scale, params, 0.0, None,
+                 0, None, Hq)
+        del o, lse
+        timed(f"K1 {tag}", lambda: dfwd.flash_attn_dense_fwd(q, k, v, scale,
+                                                             params))
+        timed(f"K2 {tag}", lambda: (dbwd.dq_kernel(*kargs),))
+        timed(f"K3 {tag}", lambda: dbwd.dkv_kernel(*kargs))
+        lib[tag] = fair_sdpa(torch, flush, q, k, v, do)
+        print(f"fp32-times SDPA fp32 {tag}: " + ", ".join(
+            f"{n} {t:.4f}" for n, t in lib[tag].items()), flush=True)
+        del q, k, v, do, kargs
+        torch.cuda.empty_cache()
+
+    B, S, Hq, Hk, D = TRAIN_B, TRAIN_S, 32, 4, 64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    lens = [n for row in packed_doc_lengths(B, S, SEED) for n in row]
+    cu = torch.tensor([0] + lens, device=dev).cumsum(0).to(torch.int32)
+    mx = max(lens)
+    q, k, v, do = (torch.randn((sum(lens), h, D), generator=gen, device=dev)
+                   for h in (Hq, Hk, Hk, Hq))
+    scale = D ** -0.5
+    o, lse = vl.flash_attn_varlen_fwd_ref(q, k, v, cu, cu, mx, mx, scale,
+                                          params)
+    bk = (q, k, v, do, lse.clamp_min(NEG_INF).contiguous(),
+          vl.varlen_delta(o, do), None, cu, cu, None, None, mx, mx, scale,
+          params, 0.0, None)
+    timed("K5 packed", lambda: vl.flash_attn_varlen_fwd(
+        q, k, v, cu, cu, mx, mx, scale, params))
+    timed("K7 packed", lambda: vl.varlen_dkv_kernel(*bk))
+    del q, k, v, do, o, lse, bk
+    _, _, _, q, kp, vp, tail, _ = k8_case(torch, torch.float32)
+    timed("K8 wave", lambda: vl.flash_attn_varlen_fwd_paged(q, kp, vp,
+                                                            *tail))
+    del q, kp, vp, tail
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = ModelConfig.tinyllama_1b(dtype=torch.float32, n_layers=FP32_LAYERS)
+    mparams = tm.init_params(cfg, seed=SEED, device=dev, lm_head=True)
+    for t in tm.param_leaves(mparams):
+        t.requires_grad_(True)
+    step, init_opt = tm.make_train_step(cfg)
+    opt = init_opt(mparams)
+    tokens = torch.randint(0, cfg.vocab_size, (FP32_TRAIN_B, TRAIN_S + 1),
+                           generator=torch.Generator().manual_seed(SEED)
+                           ).to(dev)
+    losses, step_ms = [], []
+    for i in range(FP32_STEP_REPS + 1):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        loss, mparams, opt = step(mparams, opt, tokens)
+        t1.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        if i:
+            step_ms.append(t0.elapsed_time(t1))
+    digests["step losses"] = digest(torch, torch.tensor(losses))
+    step = dict(ms=statistics.median(step_ms), ms_repeats=step_ms,
+                losses=losses, layers=FP32_LAYERS, B=FP32_TRAIN_B, S=TRAIN_S)
+    print(f"fp32-times step: {FP32_LAYERS} layers, B {FP32_TRAIN_B} x "
+          f"{TRAIN_S}: {step['ms']:.1f} ms ({[round(x, 1) for x in step_ms]}"
+          f"), losses {losses}", flush=True)
+    return {"digest": digests, "ms": {k_: r["ms"] for k_, r in rows.items()},
+            "kcycles": {k_: r["kcycles"] for k_, r in rows.items()},
+            "sm_mhz": {k_: r["clock"]["sm_mhz"] for k_, r in rows.items()},
+            "sdpa_fp32": lib, "step": step}
+
+
 def paged_times(torch) -> dict:
     """K8 and K8q (int8, fp8, int4 pools) of the `flash_attn_v100_tpu_torch`
     on sys.path at `phase_k8`'s shape (the same seeds, tables, pools and
@@ -7486,7 +7722,8 @@ def main() -> int:
         return 1
     times = {"--dense-times": dense_times, "--varlen-times": varlen_times,
              "--paged-times": paged_times, "--decode-times": decode_times,
-             "--probe-times": probe_times, "--d32-times": d32_times}
+             "--probe-times": probe_times, "--d32-times": d32_times,
+             "--fp32-times": fp32_turn_times}
     if sys.argv[1:2] and sys.argv[1] in times:
         sys.path.insert(0, sys.argv[2])
         res = times[sys.argv[1]](torch)
@@ -7774,6 +8011,9 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             library=t["library"], ffma_bound_ms=t["ffma_bound_ms"],
+            split_bound_ms=t["split_bound_ms"],
+            **({"library_gqa_ms": t["library_gqa_ms"]}
+               if "library_gqa_ms" in t else {}),
             error_vs="the fp64 oracle", gate=FP32_GATE))
     # K4q / K8q's fp32-q instantiations: launches from the tiny model's
     # engine runs over each pool

@@ -17,26 +17,39 @@
 //
 // What bounds them on this card: operations.  dQ does 6 * D flops per live
 // (q row, key) pair and dK / dV 8 * D, against operand bytes read once per
-// tile; on FFMA (csrc/f32_tiles.cuh says why) the ceiling is 66.9 TFLOP/s.
+// tile.  K3 / K7 run their four products as 3 x TF32 split products on the
+// tensor cores (csrc/f32_tiles.cuh: a ceiling of 164.9 TFLOP/s); K2 / K6
+// keep fp32 FFMA on the CUDA cores (66.9 TFLOP/s).
 //
-// What the design does about it (the FlashAttention-2 split, products in
-// csrc/f32_tiles.cuh):
+// What the design does about it (the FlashAttention-2 split):
 //   * K2 is q-centric: one block of 128 threads per (q tile, q head,
 //     sequence) holding Q and dO (64 rows at D 32 / 64, 32 at D 128 / 256),
 //     dQ in registers, over the key tiles (32 keys, 16 at D 256) its rows'
-//     intervals touch.
+//     intervals touch; S and dP in registers, dS once through shared
+//     memory to dQ's product (FFMA register tiles: abt / ab).
 //   * K3 is key-centric: one block per (key tile, kv head, sequence)
-//     holding K and V (64 keys at D 32 / 64, 32 at 128, 16 at 256), dK and
-//     dV in registers, over the group's q heads and, for each, the q tiles
-//     (32 rows, 16 at D 256) whose intervals reach its keys.
+//     holding K and V, W warps of 16 keys each (4 warps, 64 keys at D 32 /
+//     64; 8 warps, 128 keys at D 128; at D 256 8 warps, two a 16-key group
+//     with half of dK / dV's columns each, 64 keys), dK and dV in
+//     registers, over the group's q heads and, for each, the q tiles (64
+//     rows at D 32, 32 at 64, 16 at 128 / 256) whose intervals reach its
+//     keys.  S^T = K Q^T and dP^T = V dO^T are mma.sync m16n8k8 .tf32 with
+//     K and V as A and Q, dO as B (rows of D + 4 floats); P_drop^T and dS^T
+//     stay in registers as the A operands of dV += P_drop^T dO and dK +=
+//     dS^T Q, whose B fragments are read from the row-major Q and dO
+//     tiles; every operand is split into TF32 hi / lo parts as it is read.
+//     dK and dV take two q-row steps at a time into zeroed fragments added
+//     in fp32 (the tensor cores' accumulation truncates).
 //   * The streamed operands (K2: K, V and the dropout column words; K3: Q,
 //     dO, lse, delta and both dropout words of the step's head) run
 //     through a two-stage cp.async ring, the next tile copied while this
-//     one is computed.  S and dP stay in registers, P_drop and dS go once
-//     through shared memory to the second products.
+//     one is computed.
 //   * Nothing is summed across blocks: each output element belongs to one
-//     block, which adds its terms in a fixed order, so two calls are
-//     bitwise equal.
+//     block (one warp), which adds its terms in a fixed order, so two
+//     calls are bitwise equal, and K7, the varlen instantiation of K3's
+//     body, gives each sequence K3's bits on it alone.  Shared memory of a
+//     K3 block (K, V, two stages): D 32 57 KB, 64 71 KB, 128 170 KB, 256
+//     201 KB.
 #include <math.h>
 
 #include "attn_tiles.cuh"
@@ -90,6 +103,11 @@ __device__ __forceinline__ void grad_score(float& s, float& dp, int qp,
   s = pd;
   dp = ds;
 }
+
+// a compiler barrier: the fragments of dK / dV's next column block are
+// read after this one's products, so ptxas does not hoist the reads of
+// every block ahead (which took K3 past 255 registers into local memory)
+__device__ __forceinline__ void pin() { asm volatile("" ::: "memory"); }
 
 __device__ __forceinline__ Live make_live(const Args& a, const fa::Seq& sq) {
   return Live{sq.slk, sq.offs, a.mp.window_left,
@@ -231,10 +249,14 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Args a) {
 
 template <int D>
 struct DkvCfg {
-  static constexpr int BK = D <= 64 ? 64 : (D == 128 ? 32 : 16);  // keys
-  static constexpr int BQ = D <= 128 ? 32 : 16;   // q rows a step
-  static constexpr int RT = BK / 16, CT = BQ / 8;
-  static constexpr int LD = D + 4, PLD = BQ + 8;
+  // warps a block; each owns 16 keys and DW columns of their dK / dV (at
+  // D 256 two warps share 16 keys, one half of the columns each)
+  static constexpr int W = D == 128 || D == 256 ? 8 : 4;
+  static constexpr int DW = D <= 128 ? D : 128;
+  static constexpr int BK = 16 * W / (D / DW);    // keys a block
+  static constexpr int BQ = D == 32 ? 64 : (D == 64 ? 32 : 16);  // q rows
+  static constexpr int NT = 32 * W;
+  static constexpr int LD = D + 4;
   // a stage (floats): Q, dO, then lse, delta and the row words of its BQ
   // rows, the column words of the block's BK keys for its head
   static constexpr int st_do = BQ * LD;
@@ -242,27 +264,23 @@ struct DkvCfg {
   static constexpr int st_delta = st_lse + BQ;
   static constexpr int st_rw = st_delta + BQ;
   static constexpr int st_cw = st_rw + BQ;
-  static constexpr int stage = st_cw + BK;
-  // floats: K, V, two stages, P_drop^T, dS^T
+  static constexpr int stage = (st_cw + BK + 3) / 4 * 4;
+  // floats: K, V, two stages
   static constexpr int v_off = BK * LD;
   static constexpr int st_off = 2 * BK * LD;
-  static constexpr int pd_off = st_off + 2 * ((stage + 3) / 4 * 4);
-  static constexpr int ds_off = pd_off + BK * PLD;
-  static constexpr size_t bytes = (ds_off + BK * PLD) * sizeof(float);
+  static constexpr size_t bytes = (st_off + 2 * stage) * sizeof(float);
 };
 
 template <int D, bool VARLEN>
-__global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Args a) {
+__global__ void __launch_bounds__(DkvCfg<D>::NT, 1)
+    dkv_f32_kernel(const Args a) {
   using C = DkvCfg<D>;
-  constexpr int BK = C::BK, BQ = C::BQ, RT = C::RT, CT = C::CT;
-  constexpr int PLD = C::PLD, DC = D / 32;
-  constexpr int kStage = (C::stage + 3) / 4 * 4;
+  constexpr int BK = C::BK, BQ = C::BQ, NT = C::NT, LD = C::LD, DW = C::DW;
+  constexpr int NB = BQ / 8, DB = DW / 8;   // n-blocks of S^T, of dK / dV
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;
   float* v_s = smem + C::v_off;
-  float* pd_s = smem + C::pd_off;
-  float* ds_s = smem + C::ds_off;
-  auto st = [&](int t) { return smem + C::st_off + (t & 1) * kStage; };
+  auto st = [&](int t) { return smem + C::st_off + (t & 1) * C::stage; };
 
   // heaviest first under causal masking: key tiles from the first
   const int hb = blockIdx.x % (a.Hk * a.B);
@@ -272,7 +290,9 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Args a) {
   const fa::Seq sq = fa::seq_info<VARLEN>(a.seq, b, a.Hq);
   if (kp0 >= sq.slk) return;
   const int nk = min(BK, sq.slk - kp0);
-  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = 16 * (warp / (D / DW));   // the warp's keys in the tile
+  const int c0 = DW * (warp % (D / DW));   // and its dK / dV columns
   const Live lv = make_live(a, sq);
   // the q rows whose intervals reach keys [kp0, kp0 + nk)
   const int q_lo = lv.wr >= 0 ? max(0, kp0 - sq.offs - lv.wr) : 0;
@@ -287,16 +307,16 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Args a) {
     const int h = head_of(t), q0 = q0_of(t);
     const int n = min(BQ, q_hi - q0 + 1);
     float* s = st(t);
-    load_rows<D, BQ>(s, a.q, [&](int r) {
+    load_rows<D, BQ, NT>(s, a.q, [&](int r) {
       return packed_row(a.q, sq.q_base + q0, r, n, a.Hq, h, D);
     });
-    load_rows<D, BQ>(s + C::st_do, a.dout, [&](int r) {
+    load_rows<D, BQ, NT>(s + C::st_do, a.dout, [&](int r) {
       return packed_row(a.dout, sq.q_base + q0, r, n, a.Hq, h, D);
     });
     const uint32_t bh = fa::dropout_bh(b, h, a.dp);
     uint32_t* rw = reinterpret_cast<uint32_t*>(s + C::st_rw);
     uint32_t* cw = reinterpret_cast<uint32_t*>(s + C::st_cw);
-    for (int r = threadIdx.x; r < BQ; r += kThreads) {
+    for (int r = threadIdx.x; r < BQ; r += NT) {
       const bool in = r < n;
       cp_async4(s + C::st_lse + r,
                 in ? a.lse + sq.lse_index(h, q0 + r) : a.lse, in);
@@ -305,25 +325,28 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Args a) {
       if (a.dp.enabled) rw[r] = fa::dropout_row_word(q0 + r + a.dp.q0, bh, a.dp);
     }
     if (a.dp.enabled)
-      for (int c = threadIdx.x; c < BK; c += kThreads)
+      for (int c = threadIdx.x; c < BK; c += NT)
         cw[c] = fa::dropout_col_word(kp0 + c + a.dp.k0, bh, a.dp);
   };
 
-  float4 dk[RT][DC], dv[RT][DC];
-  zero(dk);
-  zero(dv);
+  // dK, dV: the warp's key rows g, g + 8 x columns c0 + 8 n + 2c, + 1
+  float dk[DB][4], dv[DB][4];
+#pragma unroll
+  for (int n = 0; n < DB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
   if (n_steps > 0) {
-    load_rows<D, BK>(k_s, a.k, [&](int r) {
+    load_rows<D, BK, NT>(k_s, a.k, [&](int r) {
       return packed_row(a.k, sq.k_base + kp0, r, nk, a.Hk, kvh, D);
     });
-    load_rows<D, BK>(v_s, a.v, [&](int r) {
+    load_rows<D, BK, NT>(v_s, a.v, [&](int r) {
       return packed_row(a.v, sq.k_base + kp0, r, nk, a.Hk, kvh, D);
     });
     copy_q(0);
     cp_async_commit();
     for (int s = 0; s < n_steps; ++s) {
       cp_async_wait<0>();
-      __syncthreads();   // stage s landed; stage s - 1, P_drop^T, dS^T free
+      __syncthreads();   // stage s landed; stage s - 1 is free
       if (s + 1 < n_steps) copy_q(s + 1);
       cp_async_commit();
       const int h = head_of(s), q0 = q0_of(s);
@@ -331,37 +354,83 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Args a) {
       const float slope = a.slopes ? a.slopes[b * a.Hq + h] : 0.0f;
       const uint32_t* rw = reinterpret_cast<const uint32_t*>(sg + C::st_rw);
       const uint32_t* cw = reinterpret_cast<const uint32_t*>(sg + C::st_cw);
-      float sc[RT][CT], dp[RT][CT];   // S^T, dP^T: keys x q rows
-      abt<D, RT, CT>(sc, k_s, sg, ty, tx);
-      abt<D, RT, CT>(dp, v_s, sg + C::st_do, ty, tx);
+      // S^T = K Q^T and dP^T = V dO^T (keys x q rows), 3 x TF32
+      float sc[NB][4], dp[NB][4];
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
+      for (int j = 0; j < NB; ++j)
 #pragma unroll
-        for (int j = 0; j < CT; ++j) {
-          const int kl = ty + 16 * i, ql = tx + 8 * j;
-          const int kp = kp0 + kl, qp = q0 + ql;
-          grad_score(sc[i][j], dp[i][j], qp, kp,
-                     kp < sq.slk && qp <= q_hi && lv.valid(qp, kp),
-                     sg[C::st_lse + ql], sg[C::st_delta + ql], rw[ql],
-                     cw[kl], slope, sq.offs, a);
-          pd_s[kl * PLD + ql] = sc[i][j];
-          ds_s[kl * PLD + ql] = dp[i][j];
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.0f;
+#pragma unroll 1
+      for (int kk = 0; kk < D; kk += 8) {
+        FragA fk, fv;
+        frag_a<LD>(fk, k_s, r0, kk, lane);
+        frag_a<LD>(fv, v_s, r0, kk, lane);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          FragB fq, fd;
+          frag_b_k<LD>(fq, sg, 8 * j, kk, lane);
+          frag_b_k<LD>(fd, sg + C::st_do, 8 * j, kk, lane);
+          mma3(sc[j], fk, fq);
+          mma3(dp[j], fv, fd);
         }
-      __syncthreads();   // P_drop^T and dS^T stored
-      ab<D, RT, BQ, PLD>(dv, pd_s, sg + C::st_do, ty, tx);
-      ab<D, RT, BQ, PLD>(dk, ds_s, sg, ty, tx);
+      }
+      // P_drop^T into sc, dS^T into dp
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int kl = r0 + lane / 4 + 8 * i;
+        const int kp = kp0 + kl;
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ql = 8 * j + 2 * (lane % 4) + e, qp = q0 + ql;
+            grad_score(sc[j][2 * i + e], dp[j][2 * i + e], qp, kp,
+                       kp < sq.slk && qp <= q_hi && lv.valid(qp, kp),
+                       sg[C::st_lse + ql], sg[C::st_delta + ql], rw[ql],
+                       cw[kl], slope, sq.offs, a);
+          }
+      }
+      // dV += P_drop^T dO, dK += dS^T Q: A from the registers of S^T and
+      // dP^T, kG q-row steps into zeroed fragments, then added in fp32
+#pragma unroll
+      for (int j = 0; j < NB; j += kG) {
+        FragA fp[kG], fs[kG];
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          frag_a_c(fp[g], sc[j + g]);
+          frag_a_c(fs[g], dp[j + g]);
+        }
+#pragma unroll
+        for (int n = 0; n < DB; ++n) {
+          float tv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float tk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+            FragB fd, fq;
+            frag_b_mn<LD>(fd, sg + C::st_do, 8 * (j + g), c0 + 8 * n, lane);
+            frag_b_mn<LD>(fq, sg, 8 * (j + g), c0 + 8 * n, lane);
+            mma3(tv, fp[g], fd);
+            mma3(tk, fs[g], fq);
+          }
+          flush(dv[n], tv);
+          flush(dk[n], tk);
+          pin();
+        }
+      }
     }
   }
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int kp = kp0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int kp = kp0 + r0 + lane / 4 + 8 * i;
     if (kp >= sq.slk) continue;
     const long long row = ((sq.k_base + kp) * a.Hk + kvh) *
-                          static_cast<long long>(D);
+                          static_cast<long long>(D) + c0 + 2 * (lane % 4);
 #pragma unroll
-    for (int u = 0; u < DC; ++u) {
-      *reinterpret_cast<float4*>(a.dk + row + 4 * (tx + 8 * u)) = dk[i][u];
-      *reinterpret_cast<float4*>(a.dv + row + 4 * (tx + 8 * u)) = dv[i][u];
+    for (int n = 0; n < DB; ++n) {
+      *reinterpret_cast<float2*>(a.dk + row + 8 * n) =
+          make_float2(dk[n][2 * i], dk[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(a.dv + row + 8 * n) =
+          make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }
@@ -377,7 +446,7 @@ cudaError_t launch_d(bool dkv, const Args& a, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     const int tiles = (a.seq.N + C::BK - 1) / C::BK;
     dkv_f32_kernel<D, VARLEN>
-        <<<tiles * a.Hk * a.B, kThreads, C::bytes, stream>>>(a);
+        <<<tiles * a.Hk * a.B, C::NT, C::bytes, stream>>>(a);
   } else {
     using C = DqCfg<D>;
     cudaError_t e = allow_smem(dq_f32_kernel<D, VARLEN>, C::bytes, &conf_dq);

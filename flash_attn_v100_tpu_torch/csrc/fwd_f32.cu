@@ -16,18 +16,37 @@
 //
 // What bounds it on this card: operations.  A causal 2048-token sequence
 // does 4 * D flops per live (q row, key) pair against each K/V byte read
-// once per q tile.  On FFMA (csrc/f32_tiles.cuh says why) the ceiling is
-// 66.9 TFLOP/s, an eighth of the dense TF32 rate the bound is stated at.
+// once per q tile.  The products run as 3 x TF32 split products on the
+// tensor cores (csrc/f32_tiles.cuh), so the ceiling is a third of the
+// 494.7 TFLOP/s dense TF32 rate the bound is stated at, 164.9 TFLOP/s
+// (66.9 for fp32 FFMA on the CUDA cores).
 //
-// What the design does about it: one block of 128 threads per (q tile,
-// q head, sequence), the q tile (64 rows, 32 at D 256) loaded once; K and V
-// tiles of 32 keys (16 at D 256) stream through a two-stage cp.async ring,
-// tile t + 1 copied while tile t is computed; each thread holds 4 rows x 4
-// keys of S (register tiling: 8 float4 loads a 64 FMAs) and 4 rows x D / 8
-// columns of O; P goes once through shared memory between the two
-// products; the key loop covers only the tiles the block's causal / window
-// intervals touch, and blocks run heaviest q tile first.  Shared memory a
-// block: D 32 38 KB, 64 63 KB, 128 112 KB, 256 103 KB.
+// What the design does about it: one block per (q tile, q head,
+// sequence), the q tile loaded once; K and V tiles stream through
+// cp.async; the key loop covers only the tiles the block's causal / window
+// intervals touch, and blocks run heaviest q tile first.  The online
+// softmax (row max and sum over a quad's 4 lanes), masks, ALiBi, softcap
+// and Philox dropout run in fp32 on S's accumulator fragments
+// (softmax_tile), and P never goes through shared memory.
+//   * D 32-128, warpgroup products: two warpgroups over 128 q rows, 64-key
+//     tiles (32 at D 128) landing in one raw stage while the tile before
+//     is computed.  Each landed tile is split once per block (split_kv)
+//     into 128-byte-swizzled K-major TF32 hi / lo tiles: K as it is, V
+//     transposed, its keys ordered as P's A fragment reads them.  S = Q K^T
+//     is three wgmma m64nBKk8 .tf32 a k-step, Q's A fragments split in
+//     registers as they are read from the q tile (two k-steps a batch, two
+//     register sets); P V is three m64nDk8 a key step with P's A
+//     fragments made from S's accumulators, into a zeroed accumulator that
+//     O takes as O alpha + P V in fp32 (the tensor cores' accumulation
+//     truncates: csrc/f32_tiles.cuh).  Shared memory a block (the split
+//     tiles, Q, the raw stage, the dropout words): D 32 71 KB, 64 137 KB,
+//     128 168 KB.
+//   * D 256, warp products: 4 warps over 64 q rows, 16-key tiles through a
+//     two-stage ring, mma.sync m16n8k8 .tf32, every operand split in
+//     registers as its fragment is read (rows of D + 4 floats: no bank
+//     conflicts), O taking two key steps at a time from a zeroed fragment
+//     (a wgmma accumulator of P V beside O would need 256 registers a
+//     thread).  Shared memory a block: 133 KB.
 #include <math.h>
 
 #include "attn_tiles.cuh"
@@ -39,6 +58,7 @@
 namespace {
 
 using fa::attn::Live;
+using fa::sm90::WgmmaTf32;
 using namespace fa::f32;
 
 constexpr int kDense = 0;    // K1: (B, N, Hk, D)
@@ -65,31 +85,191 @@ struct Args {
   int table_stride, page_size, max_pages;
 };
 
+// One key tile's online softmax on S's C fragments (n-block j, element e:
+// row g + 8 (e / 2), key k0 + 8 j + 2c + e % 2): scale -> ALiBi -> softcap,
+// the live-key mask [k_lo, k_hi] of each row, the running max m and this
+// thread's part of the row sum l, P = exp(S - m) in place (dropped after
+// l has summed it) and each row's rescale of O, alpha.
+template <int NB>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[NB][4], float (&alpha)[2], float (&m)[2], float (&l)[2],
+    int k0, const uint32_t* cw, const int (&qp)[2], const int (&k_lo)[2],
+    const int (&k_hi)[2], const uint32_t (&rw)[2], bool drop, float slope,
+    int offs, const Args& a, int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kp = k0 + 8 * j + 2 * (lane % 4) + e;
+        float x = fa::score_bias(sc[j][2 * i + e], qp[i] + offs, kp, a.scale,
+                                 slope, a.mp);
+        if (kp < k_lo[i] || kp > k_hi[i]) x = -INFINITY;
+        sc[j][2 * i + e] = x;
+        mx = fmaxf(mx, x);
+      }
+    const float m_next = fmaxf(m[i], quad_max(mx));
+    // a row with no live key so far keeps P = 0 (exp(-inf - 0))
+    const float base = m_next == -INFINITY ? 0.0f : m_next;
+    alpha[i] = expf(m[i] - base);
+    m[i] = m_next;
+    float ls = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p = expf(sc[j][2 * i + e] - base);
+        ls += p;
+        if (drop)
+          p = fa::dropout_keep(rw[i], cw[8 * j + 2 * (lane % 4) + e], a.dp)
+                  ? p * a.dp.scale
+                  : 0.0f;
+        sc[j][2 * i + e] = p;
+      }
+    l[i] = l[i] * alpha[i] + ls;
+  }
+}
+
 template <int D>
 struct Cfg {
-  static constexpr int BQ = D <= 128 ? 64 : 32;   // q rows a block
-  static constexpr int BK = D <= 128 ? 32 : 16;   // keys a step
-  static constexpr int RT = BQ / 16, CT = BK / 8;
-  static constexpr int LD = D + 4, PLD = BK + 8;
-  // offsets in floats: Q, two stages of (K, V), P, two stages of the
-  // dropout column words
-  static constexpr int kv_off = BQ * LD;
-  static constexpr int p_off = kv_off + 4 * BK * LD;
-  static constexpr int cw_off = p_off + BQ * PLD;
-  static constexpr size_t bytes = (cw_off + 2 * BK) * sizeof(float);
+  // warpgroup products (wgmma) at D <= 128, two warpgroups over 128 q rows;
+  // mma.sync at D 256, 4 warps over 64 rows
+  static constexpr bool kWg = D <= 128;
+  static constexpr int W = kWg ? 8 : 4;   // warps, each 16 q rows
+  static constexpr int BQ = 16 * W;
+  static constexpr int BK = D <= 64 ? 64 : (D == 128 ? 32 : 16);  // keys
+  static constexpr int NT = 32 * W;
+  static constexpr int LD = D + 4;
+  static constexpr int kStages = kWg ? 1 : 2;   // raw K / V stages
+  // bytes from the (1024-aligned) base: on wgmma the split tiles K hi, K
+  // lo, V^T hi, V^T lo (128-byte-swizzled, kTile bytes each), then Q, the
+  // raw K / V stages, two stages of the dropout column words
+  static constexpr int kTile = kWg ? BK * D * 4 : 0;
+  static constexpr int q_off = 4 * kTile;
+  static constexpr int kv_off = q_off + BQ * LD * 4;
+  static constexpr int cw_off = kv_off + kStages * 2 * BK * LD * 4;
+  static constexpr size_t bytes = cw_off + 2 * BK * 4 + (kWg ? 1024 : 0);
 };
 
+// The raw K / V tile (BK rows of D floats, row stride LD) split for wgmma:
+// K's row r into the K-major K hi / lo tiles (BK rows of D), V's row r into
+// column pos(r) of the K-major V^T hi / lo tiles (D rows of BK keys), pos
+// ordering each 8 keys 0, 2, 4, 6, 1, 3, 5, 7: P's A fragment, made from
+// S's C fragment (frag_a_c), reads key 2c as its k = c and key 2c + 1 as
+// k = c + 4.
+template <int D, int BK, int LD, int NT>
+__device__ __forceinline__ void split_kv(unsigned char* t, const float* kr,
+                                         const float* vr) {
+  constexpr int C = D / 4, kTile = BK * D * 4;
+  for (int idx = threadIdx.x; idx < BK * C; idx += NT) {
+    const int r = idx / C, u = idx % C;   // a warp along a row of K
+    const float4 x = *reinterpret_cast<const float4*>(kr + r * LD + 4 * u);
+    uint32_t h[4], l[4];
+    split(x.x, h[0], l[0]);
+    split(x.y, h[1], l[1]);
+    split(x.z, h[2], l[2]);
+    split(x.w, h[3], l[3]);
+    const int off = fa::sm90::sw128_chunk<BK>(r, u);
+    *reinterpret_cast<uint4*>(t + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(t + kTile + off) =
+        make_uint4(l[0], l[1], l[2], l[3]);
+  }
+  for (int idx = threadIdx.x; idx < BK * C; idx += NT) {
+    const int r = idx % BK, u = idx / BK;   // a warp along V's keys
+    const float4 x = *reinterpret_cast<const float4*>(vr + r * LD + 4 * u);
+    const int pos = (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t h, l;
+      split(xs[e], h, l);
+      const int off =
+          fa::sm90::sw128_chunk<D>(4 * u + e, pos / 4) + (pos % 4) * 4;
+      *reinterpret_cast<uint32_t*>(t + 2 * kTile + off) = h;
+      *reinterpret_cast<uint32_t*>(t + 3 * kTile + off) = l;
+    }
+  }
+}
+
+// a K-major 128-byte-swizzled tile's descriptor at k8 step kk (R rows)
+template <int R>
+__device__ __forceinline__ uint64_t tf32_desc(uint32_t tile, int kk) {
+  return fa::sm90::sw128_desc(tile + (kk / 4) * R * 128 + (kk % 4) * 32, 0,
+                              1024);
+}
+
+// S = Q K^T on wgmma, 3 x TF32: Q's A fragments (this warp's 16 rows of
+// q_s, split in registers) KC k-steps a batch in two register sets, K hi /
+// lo from the split tiles; S's C fragments in sc on return
+template <int D, int BK, int LD>
+__device__ __forceinline__ void s_wgmma(float (&sc)[BK / 8][4],
+                                        const float* q_s, int r0,
+                                        uint32_t kh, uint32_t kl, int lane) {
+  constexpr int KS = D / 8, KC = KS < 2 ? KS : 2;
+  FragA qa[2][KC];
+#pragma unroll
+  for (int c = 0; c < KS / KC; ++c) {
+#pragma unroll
+    for (int i = 0; i < KC; ++i)
+      frag_a<LD>(qa[c & 1][i], q_s, r0, 8 * (c * KC + i), lane);
+    fa::sm90::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < KC; ++i) {
+      const int kk = c * KC + i;
+      WgmmaTf32<BK>::rs(&sc[0][0], qa[c & 1][i].lo, tf32_desc<BK>(kh, kk),
+                        kk > 0);
+      WgmmaTf32<BK>::rs(&sc[0][0], qa[c & 1][i].hi, tf32_desc<BK>(kl, kk),
+                        1);
+      WgmmaTf32<BK>::rs(&sc[0][0], qa[c & 1][i].hi, tf32_desc<BK>(kh, kk),
+                        1);
+    }
+    fa::sm90::wgmma_commit();
+    fa::sm90::wgmma_wait<1>();   // the batch before: its register set free
+  }
+  fa::sm90::wgmma_wait<0>();
+  settle(sc);
+}
+
+// ot = P V on wgmma, 3 x TF32, into a zeroed accumulator: P's A fragments
+// from sc (frag_a_c), V^T hi / lo from the split tiles
+template <int D, int BK>
+__device__ __forceinline__ void pv_wgmma(float (&ot)[D / 8][4],
+                                         const float (&sc)[BK / 8][4],
+                                         uint32_t vh, uint32_t vl) {
+  FragA pa[BK / 8];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) frag_a_c(pa[j], sc[j]);
+  fa::sm90::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    WgmmaTf32<D>::rs(&ot[0][0], pa[j].lo, tf32_desc<D>(vh, j), j > 0);
+    WgmmaTf32<D>::rs(&ot[0][0], pa[j].hi, tf32_desc<D>(vl, j), 1);
+    WgmmaTf32<D>::rs(&ot[0][0], pa[j].hi, tf32_desc<D>(vh, j), 1);
+  }
+  fa::sm90::wgmma_commit();
+  fa::sm90::wgmma_wait<0>();
+  settle(ot);
+}
+
 template <int D, int MODE>
-__global__ void __launch_bounds__(kThreads) fwd_f32_kernel(const Args a) {
+__global__ void __launch_bounds__(Cfg<D>::NT, 1)
+    fwd_f32_kernel(const Args a) {
   using C = Cfg<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, RT = C::RT, CT = C::CT;
-  constexpr int LD = C::LD, PLD = C::PLD, DC = D / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;
-  float* p_s = smem + C::p_off;
-  uint32_t* cw_s = reinterpret_cast<uint32_t*>(smem + C::cw_off);
-  auto k_s = [&](int t) { return smem + C::kv_off + (t & 1) * 2 * BK * LD; };
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, LD = C::LD;
+  constexpr int NB = BK / 8, DB = D / 8;   // n-blocks of S and of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      C::kWg ? fa::attn::smem_base(smem_raw) : smem_raw;
+  float* q_s = reinterpret_cast<float*>(base + C::q_off);
+  uint32_t* cw_s = reinterpret_cast<uint32_t*>(base + C::cw_off);
+  auto k_s = [&](int t) {
+    return reinterpret_cast<float*>(base + C::kv_off) +
+           (C::kStages == 2 ? (t & 1) : 0) * 2 * BK * LD;
+  };
   auto v_s = [&](int t) { return k_s(t) + BK * LD; };
+  const uint32_t split_s = fa::sm90::smem_u32(base);   // wgmma's tiles
 
   // heaviest first: q tiles from the last, each over all heads and
   // sequences
@@ -108,17 +288,22 @@ __global__ void __launch_bounds__(kThreads) fwd_f32_kernel(const Args a) {
   if (qp0 >= sq.slq) return;   // uniform over the block
   const int nq = min(BQ, sq.slq - qp0);
   const int kvh = h / a.group;
-  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = 16 * warp;            // the warp's rows in the tile
   const Live lv = {sq.slk, sq.offs, a.mp.window_left,
                    a.mp.effective_window_right()};
   const bool drop = MODE != kPaged && a.dp.enabled;
   const float slope = a.slopes ? a.slopes[b * a.Hq + h] : 0.0f;
   const uint32_t bh = fa::dropout_bh(b, h, a.dp);
-  int qp[RT];
-  uint32_t rw[RT];
+  // this thread's two C rows, g and g + 8 of the warp's 16, and their
+  // live keys [k_lo, k_hi] (none past the sequence)
+  int qp[2], k_lo[2], k_hi[2];
+  uint32_t rw[2];
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    qp[i] = qp0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    qp[i] = qp0 + r0 + lane / 4 + 8 * i;
+    k_lo[i] = lv.key_lo(qp[i]);
+    k_hi[i] = qp[i] < sq.slq ? lv.key_hi(qp[i]) : -1;
     rw[i] = drop ? fa::dropout_row_word(qp[i] + a.dp.q0, bh, a.dp) : 0u;
   }
   // live keys of the block's rows, in tiles from the first
@@ -142,27 +327,30 @@ __global__ void __launch_bounds__(kThreads) fwd_f32_kernel(const Args a) {
   // tile t's K, V and dropout column words into stage t & 1
   auto copy_kv = [&](int t) {
     const int k0 = blk_lo + t * BK;
-    load_rows<D, BK>(k_s(t), a.k,
-                     [&](int r) { return key_row(a.k, k0 + r); });
-    load_rows<D, BK>(v_s(t), a.v,
-                     [&](int r) { return key_row(a.v, k0 + r); });
+    load_rows<D, BK, NT>(k_s(t), a.k,
+                         [&](int r) { return key_row(a.k, k0 + r); });
+    load_rows<D, BK, NT>(v_s(t), a.v,
+                         [&](int r) { return key_row(a.v, k0 + r); });
     if (drop)
-      for (int c = threadIdx.x; c < BK; c += kThreads)
+      for (int c = threadIdx.x; c < BK; c += NT)
         cw_s[(t & 1) * BK + c] =
             fa::dropout_col_word(k0 + c + a.dp.k0, bh, a.dp);
   };
 
-  float4 o[RT][DC];
-  zero(o);
-  float m[RT], l[RT];   // running row max; this thread's part of the sum
+  float o[DB][4];   // O's rows g, g + 8 x columns 8 n + 2c, + 1
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
+  for (int n = 0; n < DB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  float m[2], l[2];   // running row max; this thread's part of the sum
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.0f;
   }
   if (n_steps > 0) {
     // Q rows past the sequence are zero
-    load_rows<D, BQ>(q_s, a.q, [&](int r) -> const float* {
+    load_rows<D, BQ, NT>(q_s, a.q, [&](int r) -> const float* {
       return r < nq ? a.q + ((sq.q_base + qp0 + r) * a.Hq + h) *
                                 static_cast<long long>(D)
                     : nullptr;
@@ -171,61 +359,93 @@ __global__ void __launch_bounds__(kThreads) fwd_f32_kernel(const Args a) {
     cp_async_commit();
     for (int s = 0; s < n_steps; ++s) {
       cp_async_wait<0>();
-      __syncthreads();   // tile s landed; tile s - 1's stage and P are free
+      // tile s landed; tile s - 1's stage (mma.sync) or split tiles
+      // (wgmma, each warpgroup past its waits) are free
+      __syncthreads();
+      if constexpr (C::kWg) {
+        split_kv<D, BK, LD, NT>(base, k_s(s), v_s(s));
+        fa::sm90::fence_proxy_async();   // visible to wgmma
+        __syncthreads();   // split; the raw stage is free
+      }
       if (s + 1 < n_steps) copy_kv(s + 1);
       cp_async_commit();
-      float sc[RT][CT];
-      abt<D, RT, CT>(sc, q_s, k_s(s), ty, tx);
-      const int k0 = blk_lo + s * BK;
-      const uint32_t* cw = cw_s + (s & 1) * BK;
+      // S = Q K^T, 3 x TF32
+      float sc[NB][4];
+      if constexpr (C::kWg) {
+        s_wgmma<D, BK, LD>(sc, q_s, r0, split_s, split_s + C::kTile, lane);
+      } else {
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        float mx = -INFINITY;
+        for (int j = 0; j < NB; ++j)
 #pragma unroll
-        for (int j = 0; j < CT; ++j) {
-          const int kp = k0 + tx + 8 * j;
-          float x = fa::score_bias(sc[i][j], qp[i] + sq.offs, kp, a.scale,
-                                   slope, a.mp);
-          if (!(qp[i] < sq.slq && lv.valid(qp[i], kp))) x = -INFINITY;
-          sc[i][j] = x;
-          mx = fmaxf(mx, x);
+          for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+        const float* ks = k_s(s);
+#pragma unroll 2
+        for (int kk = 0; kk < D; kk += 8) {
+          FragA fa_;
+          frag_a<LD>(fa_, q_s, r0, kk, lane);
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            FragB fb;
+            frag_b_k<LD>(fb, ks, 8 * j, kk, lane);
+            mma3(sc[j], fa_, fb);
+          }
         }
-        const float m_next = fmaxf(m[i], octet_max(mx));
-        // a row with no live key so far keeps P = 0 (exp(-inf - 0))
-        const float base = m_next == -INFINITY ? 0.0f : m_next;
-        const float alpha = expf(m[i] - base);
-        m[i] = m_next;
-        float ls = 0.0f;
-#pragma unroll
-        for (int j = 0; j < CT; ++j) {
-          float p = expf(sc[i][j] - base);
-          ls += p;
-          if (drop)
-            p = fa::dropout_keep(rw[i], cw[tx + 8 * j], a.dp) ? p * a.dp.scale
-                                                              : 0.0f;
-          p_s[(ty + 16 * i) * PLD + tx + 8 * j] = p;
-        }
-        l[i] = l[i] * alpha + ls;
-#pragma unroll
-        for (int u = 0; u < DC; ++u) o[i][u] = scale4(o[i][u], alpha);
       }
-      __syncthreads();   // P stored
-      ab<D, RT, BK, PLD>(o, p_s, v_s(s), ty, tx);
+      float alpha[2];
+      softmax_tile<NB>(sc, alpha, m, l, blk_lo + s * BK, cw_s + (s & 1) * BK,
+                       qp, k_lo, k_hi, rw, drop, slope, sq.offs, a, lane);
+      if constexpr (C::kWg) {
+        // O = O alpha + P V, the product into a zeroed accumulator
+        float ot[DB][4];
+        pv_wgmma<D, BK>(ot, sc, split_s + 2 * C::kTile,
+                        split_s + 3 * C::kTile);
+#pragma unroll
+        for (int n = 0; n < DB; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[n][e] = fmaf(o[n][e], alpha[e / 2], ot[n][e]);
+      } else {
+#pragma unroll
+        for (int n = 0; n < DB; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e / 2];
+        // O += P V, 3 x TF32: P from the registers of S, kG key steps
+        // into a zeroed fragment, then added to O in fp32 (flush)
+        const float* vs = v_s(s);
+#pragma unroll
+        for (int j = 0; j < NB; j += kG) {
+          FragA fp[kG];
+#pragma unroll
+          for (int g = 0; g < kG; ++g) frag_a_c(fp[g], sc[j + g]);
+#pragma unroll
+          for (int n = 0; n < DB; ++n) {
+            float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int g = 0; g < kG; ++g) {
+              FragB fb;
+              frag_b_mn<LD>(fb, vs, 8 * (j + g), 8 * n, lane);
+              mma3(t, fp[g], fb);
+            }
+            flush(o[n], t);
+          }
+        }
+      }
     }
   }
 
   // epilogue: O * (1 / l), LSE = m + log(l), -inf where l = 0
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const float ll = octet_sum(l[i]);
+  for (int i = 0; i < 2; ++i) {
+    const float ll = quad_sum(l[i]);
     if (qp[i] >= sq.slq) continue;
     const float inv = ll == 0.0f ? 0.0f : 1.0f / ll;
     float* og = a.out + ((sq.q_base + qp[i]) * a.Hq + h) *
                             static_cast<long long>(D);
 #pragma unroll
-    for (int u = 0; u < DC; ++u)
-      *reinterpret_cast<float4*>(og + 4 * (tx + 8 * u)) = scale4(o[i][u], inv);
-    if (tx == 0)
+    for (int n = 0; n < DB; ++n)
+      *reinterpret_cast<float2*>(og + 8 * n + 2 * (lane % 4)) =
+          make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    if (lane % 4 == 0)
       a.lse[sq.lse_index(h, qp[i])] =
           ll == 0.0f ? -INFINITY : m[i] + logf(ll);
   }
@@ -238,7 +458,7 @@ cudaError_t launch_d(const Args& a, cudaStream_t stream) {
   cudaError_t e = allow_smem(fwd_f32_kernel<D, MODE>, C::bytes, &configured);
   if (e != cudaSuccess) return e;
   const int tiles = (a.seq.M + C::BQ - 1) / C::BQ;
-  fwd_f32_kernel<D, MODE><<<tiles * a.Hq * a.B, kThreads, C::bytes, stream>>>(
+  fwd_f32_kernel<D, MODE><<<tiles * a.Hq * a.B, C::NT, C::bytes, stream>>>(
       a);
   return cudaGetLastError();
 }

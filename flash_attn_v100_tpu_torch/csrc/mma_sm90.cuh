@@ -327,6 +327,35 @@ FA_WG_N(128, FA_WG_R64, FA_WG_D64, "64", "65", "66", "67", "68", "69")
 FA_WG_N(256, FA_WG_R128, FA_WG_D128, "128", "129", "130", "131", "132",
         "133")
 
+// d (+)= A B over one k8 step of TF32, m64nNk8, fp32 accumulators d[N / 2]
+// (acc 0: overwrite); rs: A from registers (a warp's 16 rows in the
+// m16n8k8 .tf32 A layout: a0 (row g, k c), a1 (g + 8, c), a2 (g, c + 4),
+// a3 (g + 8, c + 4)), B from shared memory, K-major (32-bit types take no
+// transpose): a 128-byte-swizzled tile of 32 fp32 k values a row, a k8
+// step 32 bytes into the row, as a bf16 k16 step.
+template <int N>
+struct WgmmaTf32;
+
+#define FA_WGT_SPEC(N, REGS, OUTS, O0, O1, O2, O3, O4, O5)                  \
+  template <>                                                              \
+  struct WgmmaTf32<N> {                                                    \
+    __device__ static void rs(float* d, const uint32_t (&a)[4], uint64_t b, \
+                              int acc) {                                   \
+      asm volatile(                                                        \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" O5 ", 0;\n"                 \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32\n"      \
+          "{" REGS "}, {%" O0 ", %" O1 ", %" O2 ", %" O3 "}, %" O4         \
+          ", p, 1, 1;\n}\n"                                                \
+          : OUTS(0)                                                        \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc)); \
+    }                                                                      \
+  };
+
+FA_WGT_SPEC(32, FA_WG_R16, FA_WG_D16, "16", "17", "18", "19", "20", "21")
+FA_WGT_SPEC(64, FA_WG_R32, FA_WG_D32, "32", "33", "34", "35", "36", "37")
+FA_WGT_SPEC(128, FA_WG_R64, FA_WG_D64, "64", "65", "66", "67", "68", "69")
+#undef FA_WGT_SPEC
+
 // d (+)= A B over one k32 step of 8-bit integers, m64nNk32, int32
 // accumulators d[N / 2] in the fp32 accumulators' layout (acc 0:
 // overwrite).  A and B both from shared memory and K-major, the only

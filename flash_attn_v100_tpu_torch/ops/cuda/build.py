@@ -324,25 +324,37 @@ def build_log(name: str, variant: Optional[str] = None) -> str:
     return p.read_text() if p.exists() else ""
 
 
-def parse_sass(sass: str, names: Dict[str, str]) -> Dict[str, Dict[str, int]]:
+def parse_sass(sass: str, names: Dict[str, str],
+               ops: Optional[Dict[str, Tuple[str, ...]]] = None
+               ) -> Dict[str, Dict[str, int]]:
     """{kernel: {"hgmma": n, "hmma": n, "mufu_ex2": n}} from `cuobjdump
     -sass` text: the warpgroup (HGMMA, wgmma) and warp (HMMA, mma.sync)
     tensor-core instructions and the exponentials on the special-function
     unit (MUFU.EX2) of each function, keyed by `names[mangled]` where the
-    mangled name is there, else by the mangled name."""
+    mangled name is there, else by the mangled name.  `ops` adds a count a
+    key of the lines that hold every one of its strings (e.g. "tf32":
+    ("HMMA.", ".TF32"))."""
+    ops = ops or {}
     counts: Dict[str, Dict[str, int]] = {}
     cur = None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
             cur = counts.setdefault(names.get(fn, fn),
-                                    dict(hgmma=0, hmma=0, mufu_ex2=0))
-        elif cur is not None and "HGMMA." in line:
+                                    dict(hgmma=0, hmma=0, mufu_ex2=0,
+                                         **{k: 0 for k in ops}))
+            continue
+        if cur is None:
+            continue
+        if "HGMMA." in line:
             cur["hgmma"] += 1
-        elif cur is not None and "HMMA." in line:
+        elif "HMMA." in line:
             cur["hmma"] += 1
-        elif cur is not None and "MUFU.EX2" in line:
+        elif "MUFU.EX2" in line:
             cur["mufu_ex2"] += 1
+        for k, parts in ops.items():
+            if all(p in line for p in parts):
+                cur[k] += 1
     return counts
 
 
@@ -357,16 +369,18 @@ def _demangle(mangled: List[str]) -> Dict[str, str]:
     return dict(zip(mangled, out))
 
 
-def sass_counts(name: str) -> Dict[str, Dict[str, int]]:
-    """`parse_sass` of library `name`, built first if needed, keyed by the
-    demangled kernel names (`cuobjdump` beside the build's nvcc)."""
+def sass_counts(name: str, ops: Optional[Dict[str, Tuple[str, ...]]] = None
+                ) -> Dict[str, Dict[str, int]]:
+    """`parse_sass` of library `name` (with `ops`), built first if needed,
+    keyed by the demangled kernel names (`cuobjdump` beside the build's
+    nvcc)."""
     load(name)
     sass = subprocess.run([str(Path(nvcc_path()).with_name("cuobjdump")),
                            "-sass", str(library_path(name))], check=True,
                           capture_output=True, text=True, timeout=300).stdout
     mangled = sorted({ln.split("Function : ", 1)[1].strip()
                       for ln in sass.splitlines() if "Function : " in ln})
-    return parse_sass(sass, _demangle(mangled))
+    return parse_sass(sass, _demangle(mangled), ops)
 
 
 def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:

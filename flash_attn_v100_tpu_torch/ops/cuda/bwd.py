@@ -165,11 +165,13 @@ def flash_attn_dense_bwd_ref(
     dropout_seed=None, dlse=None, offset: Optional[int] = None,
     pos_base=None, num_heads_total: Optional[int] = None,
     upcast: bool = True,
+    einsum=torch.einsum,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2 and K3, one batch row at a time, with the
     kernels' rounding points (dS and P_drop rounded to the compute type
     before their products).  `upcast=False` keeps the products in q's
-    dtype."""
+    dtype; `einsum` computes all five (ops/cuda/tf32.py passes its split
+    products)."""
     flash_attn_dense_bwd_ref.calls += 1
     B, M, Hq, D = q.shape
     N, Hk = k.shape[1], k.shape[2]
@@ -193,7 +195,7 @@ def flash_attn_dense_bwd_ref(
         dob = dout[b].transpose(0, 1).to(cd)
         kb = k[b].transpose(0, 1).repeat_interleave(group, dim=0).to(cd)
         vb = v[b].transpose(0, 1).repeat_interleave(group, dim=0).to(cd)
-        s = torch.einsum("hmd,hnd->hmn", qb, kb).to(torch.float32)
+        s = einsum("hmd,hnd->hmn", qb, kb).to(torch.float32)
         s = masklib.apply_score_bias(
             s, rows, cols, softmax_scale=softmax_scale, offset=offset,
             params=params,
@@ -206,15 +208,15 @@ def flash_attn_dense_bwd_ref(
                                    pos_base, num_heads_total, dev)
             p_drop = torch.where(keep, p * (1.0 / (1.0 - dropout_p)),
                                  torch.zeros_like(p))
-        dp = torch.einsum("hmd,hnd->hmn", dob, vb).to(torch.float32)
+        dp = einsum("hmd,hnd->hmn", dob, vb).to(torch.float32)
         ds = (p_drop * dp - p * delta[b][..., None]) * softmax_scale
         if params.softcap > 0.0:
             sn = s * (1.0 / params.softcap)
             ds = ds * (1.0 - sn * sn)
         ds_c = ds.to(cd)
-        dq_b = torch.einsum("hmn,hnd->hmd", ds_c, kb).to(torch.float32)
-        dk_b = torch.einsum("hmn,hmd->hnd", ds_c, qb).to(torch.float32)
-        dv_b = torch.einsum("hmn,hmd->hnd", p_drop.to(cd),
+        dq_b = einsum("hmn,hnd->hmd", ds_c, kb).to(torch.float32)
+        dk_b = einsum("hmn,hmd->hnd", ds_c, qb).to(torch.float32)
+        dv_b = einsum("hmn,hmd->hnd", p_drop.to(cd),
                             dob).to(torch.float32)
         dq[b] = dq_b.transpose(0, 1).to(q.dtype)
         dk[b] = dk_b.view(Hk, group, N, D).sum(1).transpose(0, 1).to(k.dtype)

@@ -185,11 +185,13 @@ def flash_attn_dense_fwd_ref(
     alibi_slopes=None, dropout_p: float = 0.0, dropout_seed=None,
     offset: Optional[int] = None, pos_base=None,
     num_heads_total: Optional[int] = None, upcast: bool = True,
+    einsum=torch.einsum,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel, one batch row at a time: P is
     taken unnormalized against the row max and rounded to the compute type
     before P V, as the kernel does.  `upcast=False` keeps both products in
-    q's dtype."""
+    q's dtype; `einsum` computes both (ops/cuda/tf32.py passes its split
+    products)."""
     flash_attn_dense_fwd_ref.calls += 1
     B, M, Hq, D = q.shape
     N, Hk = k.shape[1], k.shape[2]
@@ -209,7 +211,7 @@ def flash_attn_dense_fwd_ref(
         qb = q[b].transpose(0, 1).to(cd)
         kb = k[b].transpose(0, 1).repeat_interleave(group, dim=0).to(cd)
         vb = v[b].transpose(0, 1).repeat_interleave(group, dim=0).to(cd)
-        s = torch.einsum("hmd,hnd->hmn", qb, kb).to(torch.float32)
+        s = einsum("hmd,hnd->hmn", qb, kb).to(torch.float32)
         s = masklib.apply_score_pipeline(
             s, rows, cols, softmax_scale=softmax_scale, offset=offset,
             params=params, valid=valid,
@@ -223,7 +225,7 @@ def flash_attn_dense_fwd_ref(
             p = torch.where(keep, p * (1.0 / (1.0 - dropout_p)),
                             torch.zeros_like(p))
         safe = torch.where(l == 0, torch.ones_like(l), l)
-        o = torch.einsum("hmn,hnd->hmd", p.to(cd), vb).to(torch.float32) / safe
+        o = einsum("hmn,hnd->hmd", p.to(cd), vb).to(torch.float32) / safe
         o = torch.where(l == 0, torch.zeros_like(o), o)
         out[b] = o.transpose(0, 1).to(q.dtype)
         lse[b] = torch.where(l[..., 0] == 0,

@@ -1611,6 +1611,47 @@ def test_head_dim_32_kernels_run_wgmma_without_local_memory(cuda, kid):
     _check_sass_paths(kid, 32)
 
 
+# the fp32 bodies on the tensor cores: id -> (library, kernel, its MODE /
+# VARLEN template argument as cu++filt prints it, the head dims on wgmma)
+F32_WGMMA_DIMS = (32, 64, 128)
+F32_TF32_KERNELS = {"K1": ("fwd_f32", "fwd_f32_kernel", "(int)0",
+                           F32_WGMMA_DIMS),
+                    "K5": ("fwd_f32", "fwd_f32_kernel", "(int)1",
+                           F32_WGMMA_DIMS),
+                    "K8": ("fwd_f32", "fwd_f32_kernel", "(int)2",
+                           F32_WGMMA_DIMS),
+                    "K3": ("bwd_f32", "dkv_f32_kernel", "(bool)0", ()),
+                    "K7": ("bwd_f32", "dkv_f32_kernel", "(bool)1", ())}
+TF32_OPS = {"hgmma_tf32": ("HGMMA.", ".TF32"), "hmma_tf32": ("HMMA.", ".TF32")}
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("kid", list(F32_TF32_KERNELS))
+def test_fp32_kernels_run_tf32_products_without_local_memory(cuda, kid, D):
+    """K1, K5, K8 (csrc/fwd_f32.cu) and K3, K7 (csrc/bwd_f32.cu) over fp32
+    run their products as 3 x TF32 on the tensor cores: every product a
+    TF32 wgmma (HGMMA ... TF32, no HMMA) in K1's body at D 32-128, a TF32
+    mma.sync (HMMA ... TF32, no HGMMA) in K1's at D 256 and in K3's, with
+    no stack or spills in ptxas's report."""
+    import re
+    lib, kernel, arg, wgmma = F32_TF32_KERNELS[kid]
+    usage = build.ptxas_usage(lib)
+    pat = re.compile(re.escape(f"{kernel}<(int){D}, {arg}>"))
+    found = [(name, c) for name, c in build.sass_counts(lib, TF32_OPS).items()
+             if pat.search(name)]
+    assert len(found) == 1, f"{kid} D {D}: {[n for n, _ in found]}"
+    name, c = found[0]
+    if D in wgmma:
+        assert c["hgmma_tf32"] > 0 and c["hgmma_tf32"] == c["hgmma"], c
+        assert c["hmma"] == 0, f"{name}: {c}"
+    else:
+        assert c["hmma_tf32"] > 0 and c["hmma_tf32"] == c["hmma"], c
+        assert c["hgmma"] == 0, f"{name}: {c}"
+    u = usage[name]
+    assert u["stack"] == u["spill_stores"] == u["spill_loads"] == 0, \
+        f"{name}: local memory {u}"
+
+
 @pytest.mark.parametrize("D", [8, 16, 24])
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_narrow_head_dims_read_unpadded_rows(cuda, dt, D, monkeypatch):
