@@ -178,12 +178,12 @@ host time a call.
 
     python3 chip_smoke.py --fp32-times TREE
 
-for the fp32 bodies: K1-K3 at the training shape and at B 1 x 4096^2,
-32 / 32 heads x 128 (beside fp32 SDPA with heads repeated on its
-efficient backend, and with enable_gqa), K5 / K7 at the packed
-documents, K8 at the prefill wave (graph replays, ms and kcycles under
-each kernel's own clock, digests) and the 8-layer fp32 TinyLlama AdamW
-step.
+for the fp32 bodies: K1-K3 at the training shape, at B 1 x 4096^2,
+32 / 32 heads x 128 and at 4 x 2048, 32 / 4 heads x 32 (beside fp32
+SDPA with heads repeated on its efficient backend, and with enable_gqa),
+K5 / K6 / K7 at the packed documents, K8 at the prefill wave (graph
+replays, ms and kcycles under each kernel's own clock, digests) and the
+8-layer fp32 TinyLlama AdamW step.
 
     python3 chip_smoke.py --serve-times ROUNDS
 
@@ -1382,9 +1382,8 @@ def d256_rows(torch, flush, digests=None, cases=None) -> dict:
     return rows
 
 
-# the head-dim-256 kernels, every one on wgmma: (id, library)
 # each kernel's library and product path by head dim: (id, library, on
-# wgmma); K2 / K6 keep mma.sync at D 32
+# wgmma); every one runs wgmma at D 32 and 256
 SASS_KERNELS = {
     256: (("K1", "fwd", True), ("K5", "fwd", True),
           ("K8", "varlen_paged", True), ("K8q", "varlen_paged_quant", True),
@@ -1392,8 +1391,8 @@ SASS_KERNELS = {
           ("K7", "bwd", True)),
     32: (("K1", "fwd", True), ("K5", "fwd", True),
          ("K8", "varlen_paged", True), ("K8q", "varlen_paged_quant", True),
-         ("K3", "bwd", True), ("K7", "bwd", True), ("K2", "bwd", False),
-         ("K6", "bwd", False)),
+         ("K3", "bwd", True), ("K7", "bwd", True), ("K2", "bwd", True),
+         ("K6", "bwd", True)),
 }
 
 
@@ -3512,30 +3511,35 @@ def phase_engine_quant(torch, cfg, bf16):
 TF32_OPS_PER_S = 494.7e12     # H100 SXM dense TF32 tensor-core peak: the
                               # fp32 bound's operations rate
 FFMA_OPS_PER_S = 66.9e12      # H100 SXM fp32 FMA on the CUDA cores: the
-                              # ceiling of the FFMA bodies (K2 / K6, K4)
+                              # ceiling of the FFMA body (K4)
 SPLIT_OPS_PER_S = TF32_OPS_PER_S / 3   # 3 x TF32 split products: the
-                              # ceiling of K1's and K3's fp32 bodies
+                              # ceiling of K1's, K2's and K3's fp32 bodies
 FP32_D128 = (1, 4096, 32, 32, 128)   # K1 / K3 fp32 beside the fair SDPA at
                               # B 1 x 4096^2, 32/32 heads x 128, causal
 # the fp32 bodies (csrc/f32_tiles.cuh): id -> (library, kernel, its MODE /
 # VARLEN template argument as cu++filt prints it, the head dims on wgmma);
-# K1's body on TF32 wgmma at D 32-128, TF32 mma.sync at D 256 and in K3's,
-# K2 on FFMA (for contrast)
+# K1's body on TF32 wgmma at D 32-128, K2's at D 32 / 64, TF32 mma.sync
+# at the others and in K3's
 F32_TF32_KERNELS = {
     "K1": ("fwd_f32", "fwd_f32_kernel", "(int)0", (32, 64, 128)),
     "K5": ("fwd_f32", "fwd_f32_kernel", "(int)1", (32, 64, 128)),
     "K8": ("fwd_f32", "fwd_f32_kernel", "(int)2", (32, 64, 128)),
+    "K2": ("bwd_f32", "dq_f32_kernel", "(bool)0", (32, 64)),
+    "K6": ("bwd_f32", "dq_f32_kernel", "(bool)1", (32, 64)),
     "K3": ("bwd_f32", "dkv_f32_kernel", "(bool)0", ()),
-    "K7": ("bwd_f32", "dkv_f32_kernel", "(bool)1", ()),
-    "K2": ("bwd_f32", "dq_f32_kernel", "(bool)0", ())}
+    "K7": ("bwd_f32", "dkv_f32_kernel", "(bool)1", ())}
 F32_SASS_OPS = {"hgmma_tf32": ("HGMMA.", ".TF32"),
                 "hmma_tf32": ("HMMA.", ".TF32"), "ffma": ("FFMA",)}
+F32_FFMA_MAX = 500            # FFMA of a body on the tensor cores: the
+                              # score pass's only (the FFMA product loops of
+                              # K2's old body gave 627-987)
 FP32_GATES = {"fwd": (2.0, 1e-5), "bwd": (3.0, 1e-4)}
 FP32_GATE = ("err vs the fp64 oracle <= 2 x the fp32 plain twin's + 1e-5 "
              "(out, LSE), 3 x + 1e-4 (gradients)")
 FP32_PATH_ATOL = 1e-4         # kernel path vs plain path: loss, gradients,
                               # engine logits (the twins are the fp32 oracle)
 FP32_TRAIN_B = 4              # cut to 2 if the activations do not fit
+FP32_K4_GRAPH_REPS = 5        # graph replays of one K4 fp32 launch
 FP32_LAYERS = 8               # TinyLlama-1.1B's 22 cut for the time limit
 
 
@@ -4282,10 +4286,11 @@ def fair_sdpa(torch, flush, q, k, v, do, causal=True) -> dict:
 def f32_sass(build) -> dict:
     """Each instantiation of F32_TF32_KERNELS at D 32-256: its SASS counts
     (`build.sass_counts` with F32_SASS_OPS: TF32 HGMMA and HMMA, every
-    FFMA) and ptxas's registers and local bytes.  Asserts for K1 / K5 / K8
-    and K3 / K7 that every tensor-core product is a TF32 one, HGMMA (no
-    HMMA) at the head dims on wgmma, HMMA (no HGMMA) at the others, and no
-    local memory; K2 (FFMA) has neither."""
+    FFMA) and ptxas's registers and local bytes.  Asserts for every one
+    (K1 / K5 / K8, K2 / K6, K3 / K7) that every tensor-core product is a
+    TF32 one, HGMMA (no HMMA) at the head dims on wgmma, HMMA (no HGMMA)
+    at the others, fewer than F32_FFMA_MAX FFMA (no FFMA product loop),
+    and no local memory."""
     import re
     res = {}
     counts = {lib: build.sass_counts(lib, F32_SASS_OPS)
@@ -4300,15 +4305,13 @@ def f32_sass(build) -> dict:
             u = usage[lib][name]
             r = dict(D=D, **c, registers=u["registers"],
                      local_bytes=u["stack"] + u["spill_stores"])
-            if kid == "K2":
-                assert r["hmma"] == r["hgmma"] == 0, (name, r)
-            else:
-                wg = D in wgmma
-                assert r["hgmma_tf32" if wg else "hmma_tf32"] > 0, (name, r)
-                assert r["hgmma_tf32"] == r["hgmma"], (name, r)
-                assert r["hmma_tf32"] == r["hmma"], (name, r)
-                assert r["hmma" if wg else "hgmma"] == 0, (name, r)
-                assert r["local_bytes"] == 0, (name, r)
+            wg = D in wgmma
+            assert r["hgmma_tf32" if wg else "hmma_tf32"] > 0, (name, r)
+            assert r["hgmma_tf32"] == r["hgmma"], (name, r)
+            assert r["hmma_tf32"] == r["hmma"], (name, r)
+            assert r["hmma" if wg else "hgmma"] == 0, (name, r)
+            assert r["ffma"] < F32_FFMA_MAX, (name, r)
+            assert r["local_bytes"] == 0, (name, r)
             rows.append(r)
         res[kid] = rows
         print(f"fp32 {kid} SASS (D 32 / 64 / 128 / 256): HGMMA.TF32 "
@@ -4444,10 +4447,13 @@ def fp32_times(torch, flush, dense, varlen, k8, k4):
     row("K8", kms, plain, lib, 4 * D * pairs, nbytes,
         "sdpa fp32 (pre-gathered KV)")
 
-    # K4 at the engine's decode step, through the merged entry
+    # K4 at the engine's decode step, through the merged entry: a call, and
+    # FP32_K4_GRAPH_REPS graph replays of it (the launch's device time)
     q, kp, vp, tbl, lens, lens_d, args, kw, kc, vc, group = k4
     kms = time_ms(torch, lambda: dec.paged_decode_attention_merged(
         *args, **kw), flush=flush)
+    k4_graph = graph_ms(torch, lambda: dec.paged_decode_attention_merged(
+        *args, **kw), reps=FP32_K4_GRAPH_REPS, flush=flush)
     plain = time_ms(torch, lambda: dec.merge_partials(
         *dec.paged_decode_attention_ref(*args, **kw)), reps=5, flush=flush)
     lib = time_ms(torch, decode_sdpa(torch, q, kc, vc, lens_d, group),
@@ -4456,6 +4462,10 @@ def fp32_times(torch, flush, dense, varlen, k8, k4):
     nbytes = 2 * n_kv * q.shape[-1] * 4 + 2 * q.numel() * 4
     row("K4", kms, plain, lib, 4 * q.shape[-1] * group * n_kv, nbytes,
         "sdpa fp32 (pre-gathered KV)")
+    out["K4"]["graph_ms"] = k4_graph
+    print(f"fp32 K4: {k4_graph:.4f} ms a graph replay (device time, median "
+          f"of {FP32_K4_GRAPH_REPS}) beside its {out['K4']['bound_ms']:.4f} "
+          f"ms bound", flush=True)
     return out
 
 
@@ -4472,8 +4482,9 @@ def phase_fp32(torch, flush):
     twins', greedy tokens equal to a plain run's); the same for
     ModelConfig.tiny(); (3) each kernel's times beside its plain twin, fp32
     SDPA (`fp32_times`: the fair call and the `enable_gqa` one), the TF32
-    bound, the 3 x TF32 and FFMA ceilings, and the SASS of the bodies on
-    the tensor cores (`f32_sass`); then fp32 q over int8, fp8
+    bound, the 3 x TF32 and FFMA ceilings (K4 also as graph replays of one
+    launch: its device time), and the SASS of the bodies on the tensor
+    cores (`f32_sass`); then fp32 q over int8, fp8
     and int4 pools (K4q / K8q's fp32 instantiations: fp32_quant's checks
     and times, ModelConfig.tiny() served from each pool against a direct
     paged_forward loop, and the TinyLlama serve again from an int8
@@ -7280,12 +7291,12 @@ FP32_STEP_REPS = 3              # fp32 AdamW steps timed a tree (one untimed)
 
 def fp32_turn_times(torch) -> dict:
     """The fp32 bodies of the `flash_attn_v100_tpu_torch` on sys.path: K1,
-    K2 (FFMA, the same code in both trees: the floor) and K3 at the
-    training shape and at FP32_D128, K5 / K7 at `fp32_varlen`'s packed
-    documents and K8 at k8_case's prefill wave, each as CUDA-graph replays
-    with the SM clock read under them (ms and kcycles = ms x MHz) and a
-    digest of its outputs; K2 / K3 and K7 take the plain forward's out and
-    LSE, so their inputs are the same in every tree.  Then the
+    K2 and K3 at the training shape, at FP32_D128 and at the training
+    shape's heads x 32 (the (d32a) shape in fp32), K5 / K6 / K7 at
+    `fp32_varlen`'s packed documents and K8 at k8_case's prefill wave, each
+    as CUDA-graph replays with the SM clock read under them (ms and kcycles
+    = ms x MHz) and a digest of its outputs; K2 / K3 and K6 / K7 take the plain forward's out
+    and LSE, so their inputs are the same in every tree.  Then the
     FP32_LAYERS-layer fp32 TinyLlama AdamW step (make_train_step, B
     FP32_TRAIN_B x TRAIN_S; the median of FP32_STEP_REPS steps after one,
     CUDA events; a digest of the losses).  To compare two trees in one
@@ -7316,7 +7327,8 @@ def fp32_turn_times(torch) -> dict:
 
     for tag, (B, S, Hq, Hk, D), seed in (
             ("train", (TRAIN_B, TRAIN_S, 32, 4, 64), SEED + 10),
-            ("D 128", FP32_D128, SEED + 23)):
+            ("D 128", FP32_D128, SEED + 23),
+            ("D 32", (TRAIN_B, TRAIN_S, 32, 4, 32), SEED + 24)):
         gen = torch.Generator(device=dev).manual_seed(seed)
         q, k, v, do = (torch.randn((B, S, h, D), generator=gen, device=dev)
                        for h in (Hq, Hk, Hk, Hq))
@@ -7351,6 +7363,7 @@ def fp32_turn_times(torch) -> dict:
           params, 0.0, None)
     timed("K5 packed", lambda: vl.flash_attn_varlen_fwd(
         q, k, v, cu, cu, mx, mx, scale, params))
+    timed("K6 packed", lambda: (vl.varlen_dq_kernel(*bk),))
     timed("K7 packed", lambda: vl.varlen_dkv_kernel(*bk))
     del q, k, v, do, o, lse, bk
     _, _, _, q, kp, vp, tail, _ = k8_case(torch, torch.float32)
@@ -8012,8 +8025,8 @@ def main() -> int:
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             library=t["library"], ffma_bound_ms=t["ffma_bound_ms"],
             split_bound_ms=t["split_bound_ms"],
-            **({"library_gqa_ms": t["library_gqa_ms"]}
-               if "library_gqa_ms" in t else {}),
+            **{key: t[key] for key in ("library_gqa_ms", "graph_ms")
+               if key in t},
             error_vs="the fp64 oracle", gate=FP32_GATE))
     # K4q / K8q's fp32-q instantiations: launches from the tiny model's
     # engine runs over each pool

@@ -184,9 +184,9 @@ struct WgPath {
 };
 
 // The path of the forward (csrc/fwd_body.cuh) and of K2 and K3 at D <= 128
-// (csrc/bwd.cu): wgmma at every head dim.  (K2 keeps mma.sync at D 32
-// through its own alias, bwd.cu DqPathOf; K2 and K3 at D 256 are kernels
-// of their own on WgPath.)
+// (csrc/bwd.cu): wgmma at every head dim.  (K2 and K3 at D 256 are kernels
+// of their own on WgPath; SyncPath serves the decode body,
+// csrc/decode_body.cuh.)
 template <typename T, int D>
 using PathOf = WgPath<T, D>;
 

@@ -49,9 +49,10 @@
 //     dP^T = V dO^T) with both operands read from shared memory, K-major;
 //     dQ += dS K (K3 at D <= 128: dV += P_drop^T dO, dK += dS^T Q) with A
 //     from registers and B read MN-major through the transpose bit (K3 at
-//     D 256 reads A from an exchange tile).  At D 32 K3's tiles are
-//     64-byte swizzled (a row is one atom) and K2 runs mma.sync m16n8k16,
-//     each warp on its own rows, operands through ldmatrix.
+//     D 256 reads A from an exchange tile).  At D 32 every product is a
+//     wgmma too, on 64-byte-swizzled tiles (a row is one atom): S and dP
+//     m64n64k16, two k-steps 32 bytes apart; dQ m64n32k16 with dS from
+//     registers.
 //   * Registers.  The accumulators (dQ in K2; dK and dV in K3) live in
 //     registers for the block's whole life and go to device memory once.
 //     S and dP of the current tile stay in the accumulator fragments; the
@@ -64,8 +65,7 @@
 //     in K3) and a two-stage cp.async ring of the streamed ones (K, V and
 //     the dropout column words in K2; Q, dO, lse, delta and the dropout row
 //     words in K3).  Tiles are 128-byte swizzled for wgmma (64-byte at D
-//     32) and padded by 16 bytes a row for ldmatrix, so neither has bank
-//     conflicts.
+//     32), so the tensor cores read them without bank conflicts.
 //   * In flight.  While a stage is computed on, the next tile's copies run;
 //     one block barrier a tile.
 //   * Masks.  Only tiles that straddle a row's causal/window edge or the
@@ -78,7 +78,7 @@
 //   * Tiles (shared memory a block, 16-bit inputs, with 1 KB of alignment
 //     slack):
 //         D     K2: q rows x keys a step    K3: keys x q rows a step
-//         32    64 x 64  mma.sync (33 KB)   64 x 64  wgmma    (27 KB)
+//         32    64 x 64  wgmma    (27 KB)   64 x 64  wgmma    (27 KB)
 //         64    64 x 64  wgmma    (51 KB)   64 x 64  wgmma    (51 KB)
 //         128   64 x 32  wgmma    (67 KB)   64 x 32  wgmma    (67 KB)
 //         256  128 x 32  wgmma    (195 KB)  64 x 64  wgmma    (211 KB)
@@ -240,15 +240,9 @@ __device__ __forceinline__ void load_tile_async(unsigned char* dst,
 
 // ------------------------------------------------------------------ K2: dQ
 
-// K2's path: mma.sync at D 32, where its wgmma body is not written yet
-// (K3's is), else PathOf's
-template <typename T, int D>
-using DqPathOf = typename std::conditional<D == 32, SyncPath<T, D>,
-                                           PathOf<T, D>>::type;
-
 template <typename T, int D, class TN = BwdTune<>>
 struct DqSmem {
-  using P = DqPathOf<T, D>;
+  using P = PathOf<T, D>;
   static constexpr int BQ = Tiles<D, TN>::kDqBQ, BK = Tiles<D, TN>::kDqBK;
   static constexpr size_t q_off = 0;
   static constexpr size_t do_off = P::template tile_bytes<BQ>();

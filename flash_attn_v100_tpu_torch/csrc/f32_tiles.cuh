@@ -1,9 +1,9 @@
 // Tile machinery of the fp32 attention bodies (csrc/fwd_f32.cu: K1, K5, K8;
 // csrc/bwd_f32.cu: K2/K3, K6/K7; csrc/decode_f32.cu: K4): fp32 products
-// either as 3 x TF32 split products on the tensor cores (K1's body: wgmma
-// m64nNk8 .tf32 at D 32-128, csrc/fwd_f32.cu, and mma.sync m16n8k8 .tf32,
-// below, at D 256; K3's: mma.sync) or in fp32 FFMA on the CUDA cores (K2
-// / K6 and K4: abt / ab below), operands from shared memory.
+// either as 3 x TF32 split products on the tensor cores (wgmma m64nNk8
+// .tf32, s_wgmma / pv_wgmma below, in K1's body at D 32-128 and K2's at D
+// 32 / 64; mma.sync m16n8k8 .tf32 at the others and in K3's) or in fp32
+// FFMA on the CUDA cores (K4: abt / ab below), operands from shared memory.
 //
 // 3 x TF32: x = hi + lo with hi = tf32(x) (cvt.rna: 10 mantissa bits, round
 // to nearest) and lo = x - hi, exact in fp32 and passed as it is (whatever
@@ -25,8 +25,9 @@
 //                   a3 (row g+8, k c+4)
 //   B 8x8,  2 regs: b0 (k c, col g), b1 (k c+4, col g)
 //   C 16x8, 4 fp32: c0, c1 (row g, cols 2c, 2c+1), c2, c3 (row g+8)
-// A product whose k is the keys (O += P V; in K3 dV += P_drop^T dO, dK +=
-// dS^T Q) takes its A from the registers of the previous product's C:
+// A product whose k is the keys (O += P V, dQ += dS K) or the q rows (in K3
+// dV += P_drop^T dO, dK += dS^T Q) takes its A from the registers of the
+// previous product's C:
 // k-step j's logical k = c is key 2c of n-block j and k = c + 4 key 2c + 1
 // (the order of the terms of a sum does not matter to the product), so
 // A = {C0, C2, C1, C3} and B reads rows 2c and 2c + 1 of the tile
@@ -34,15 +35,15 @@
 // both the row-g, column-c reads of frag_a / frag_b_k and the row-2c,
 // column-g reads of frag_b_mn then touch 32 distinct banks.
 //
-// The FFMA thread layout (128 threads, 4 warps; K2 / K6, K4): thread t is
-// (ty, tx) = (t / 8, t % 8).  In a product C = A B^T over the head dim
-// (S = Q K^T, dP = dO V^T) it holds C's rows ty + 16 i and columns tx + 8 j;
-// in a product C += P B over keys (dQ += dS K) it holds rows ty + 16 i and
-// the float4 columns 4 (tx + 8 u).  So a row's 8 threads are the 8 lanes of
-// one lane-octet (row max / sum: three shuffles), and the accumulator rows
-// of both products are the same rows.  A key-wide tile (dS) has rows of
-// BK + 8 floats: a 16-byte read of the 8 lanes of an octet then touches 8
-// distinct bank groups and the A rows of a warp's 4 octets broadcast.
+// The FFMA thread layout (128 threads, 4 warps; K4): thread t is (ty, tx)
+// = (t / 8, t % 8).  In a product C = A B^T over the head dim (S = Q K^T)
+// it holds C's rows ty + 16 i and columns tx + 8 j; in a product C += P B
+// over keys (O += P V) it holds rows ty + 16 i and the float4 columns 4 (tx
+// + 8 u).  So a row's 8 threads are the 8 lanes of one lane-octet (row max
+// / sum: three shuffles), and the accumulator rows of both products are
+// the same rows.  A key-wide tile (P) has rows of BK + 8 floats: a 16-byte
+// read of the 8 lanes of an octet then touches 8 distinct bank groups and
+// the A rows of a warp's 4 octets broadcast.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,6 +59,7 @@ using fa::sm90::cp_async16;
 using fa::sm90::cp_async4;
 using fa::sm90::cp_async_commit;
 using fa::sm90::cp_async_wait;
+using fa::sm90::WgmmaTf32;
 
 constexpr int kThreads = 128;
 
@@ -114,7 +116,7 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
 // (round toward zero), not fp32's round to nearest, so one long chain of
 // products into one accumulator drifts towards zero by about one unit in
 // the last place a product.  An accumulator that lives across tiles (O,
-// dK, dV) takes kG k-steps at a time into a zeroed fragment, added to it
+// dQ, dK, dV) takes kG k-steps at a time into a zeroed fragment, added to it
 // with an FADD (flush).
 constexpr int kG = 2;
 
@@ -169,6 +171,70 @@ __device__ __forceinline__ void settle(float (&acc)[NB][4]) {
   for (int j = 0; j < NB; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) fa::sm90::fence_operand(acc[j][e]);
+}
+
+// ----------------------------------------------- 3 x TF32 on wgmma
+
+// a K-major 128-byte-swizzled tile's descriptor at k8 step kk (R rows)
+template <int R>
+__device__ __forceinline__ uint64_t tf32_desc(uint32_t tile, int kk) {
+  return fa::sm90::sw128_desc(tile + (kk / 4) * R * 128 + (kk % 4) * 32, 0,
+                              1024);
+}
+
+// S = Q K^T on wgmma, 3 x TF32 (also dP = dO V^T): Q's A fragments (this
+// warp's 16 rows of q_s, split in registers) KC k-steps a batch in two
+// register sets, K hi / lo from split K-major tiles (BK rows of D); S's C
+// fragments in sc on return
+template <int D, int BK, int LD>
+__device__ __forceinline__ void s_wgmma(float (&sc)[BK / 8][4],
+                                        const float* q_s, int r0,
+                                        uint32_t kh, uint32_t kl, int lane) {
+  constexpr int KS = D / 8, KC = KS < 2 ? KS : 2;
+  FragA qa[2][KC];
+#pragma unroll
+  for (int c = 0; c < KS / KC; ++c) {
+#pragma unroll
+    for (int i = 0; i < KC; ++i)
+      frag_a<LD>(qa[c & 1][i], q_s, r0, 8 * (c * KC + i), lane);
+    fa::sm90::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < KC; ++i) {
+      const int kk = c * KC + i;
+      WgmmaTf32<BK>::rs(&sc[0][0], qa[c & 1][i].lo, tf32_desc<BK>(kh, kk),
+                        kk > 0);
+      WgmmaTf32<BK>::rs(&sc[0][0], qa[c & 1][i].hi, tf32_desc<BK>(kl, kk),
+                        1);
+      WgmmaTf32<BK>::rs(&sc[0][0], qa[c & 1][i].hi, tf32_desc<BK>(kh, kk),
+                        1);
+    }
+    fa::sm90::wgmma_commit();
+    fa::sm90::wgmma_wait<1>();   // the batch before: its register set free
+  }
+  fa::sm90::wgmma_wait<0>();
+  settle(sc);
+}
+
+// ot = P V on wgmma, 3 x TF32 (also dS K), into a zeroed accumulator: P's
+// A fragments from sc (frag_a_c), V^T hi / lo from split K-major tiles (D
+// rows of BK keys, each 8 keys ordered as frag_a_c reads them)
+template <int D, int BK>
+__device__ __forceinline__ void pv_wgmma(float (&ot)[D / 8][4],
+                                         const float (&sc)[BK / 8][4],
+                                         uint32_t vh, uint32_t vl) {
+  FragA pa[BK / 8];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) frag_a_c(pa[j], sc[j]);
+  fa::sm90::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    WgmmaTf32<D>::rs(&ot[0][0], pa[j].lo, tf32_desc<D>(vh, j), j > 0);
+    WgmmaTf32<D>::rs(&ot[0][0], pa[j].hi, tf32_desc<D>(vl, j), 1);
+    WgmmaTf32<D>::rs(&ot[0][0], pa[j].hi, tf32_desc<D>(vh, j), 1);
+  }
+  fa::sm90::wgmma_commit();
+  fa::sm90::wgmma_wait<0>();
+  settle(ot);
 }
 
 // over the 4 lanes of this thread's quad (one C row's threads)

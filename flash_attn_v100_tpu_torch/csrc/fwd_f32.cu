@@ -58,7 +58,6 @@
 namespace {
 
 using fa::attn::Live;
-using fa::sm90::WgmmaTf32;
 using namespace fa::f32;
 
 constexpr int kDense = 0;    // K1: (B, N, Hk, D)
@@ -191,66 +190,6 @@ __device__ __forceinline__ void split_kv(unsigned char* t, const float* kr,
       *reinterpret_cast<uint32_t*>(t + 3 * kTile + off) = l;
     }
   }
-}
-
-// a K-major 128-byte-swizzled tile's descriptor at k8 step kk (R rows)
-template <int R>
-__device__ __forceinline__ uint64_t tf32_desc(uint32_t tile, int kk) {
-  return fa::sm90::sw128_desc(tile + (kk / 4) * R * 128 + (kk % 4) * 32, 0,
-                              1024);
-}
-
-// S = Q K^T on wgmma, 3 x TF32: Q's A fragments (this warp's 16 rows of
-// q_s, split in registers) KC k-steps a batch in two register sets, K hi /
-// lo from the split tiles; S's C fragments in sc on return
-template <int D, int BK, int LD>
-__device__ __forceinline__ void s_wgmma(float (&sc)[BK / 8][4],
-                                        const float* q_s, int r0,
-                                        uint32_t kh, uint32_t kl, int lane) {
-  constexpr int KS = D / 8, KC = KS < 2 ? KS : 2;
-  FragA qa[2][KC];
-#pragma unroll
-  for (int c = 0; c < KS / KC; ++c) {
-#pragma unroll
-    for (int i = 0; i < KC; ++i)
-      frag_a<LD>(qa[c & 1][i], q_s, r0, 8 * (c * KC + i), lane);
-    fa::sm90::wgmma_fence();
-#pragma unroll
-    for (int i = 0; i < KC; ++i) {
-      const int kk = c * KC + i;
-      WgmmaTf32<BK>::rs(&sc[0][0], qa[c & 1][i].lo, tf32_desc<BK>(kh, kk),
-                        kk > 0);
-      WgmmaTf32<BK>::rs(&sc[0][0], qa[c & 1][i].hi, tf32_desc<BK>(kl, kk),
-                        1);
-      WgmmaTf32<BK>::rs(&sc[0][0], qa[c & 1][i].hi, tf32_desc<BK>(kh, kk),
-                        1);
-    }
-    fa::sm90::wgmma_commit();
-    fa::sm90::wgmma_wait<1>();   // the batch before: its register set free
-  }
-  fa::sm90::wgmma_wait<0>();
-  settle(sc);
-}
-
-// ot = P V on wgmma, 3 x TF32, into a zeroed accumulator: P's A fragments
-// from sc (frag_a_c), V^T hi / lo from the split tiles
-template <int D, int BK>
-__device__ __forceinline__ void pv_wgmma(float (&ot)[D / 8][4],
-                                         const float (&sc)[BK / 8][4],
-                                         uint32_t vh, uint32_t vl) {
-  FragA pa[BK / 8];
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) frag_a_c(pa[j], sc[j]);
-  fa::sm90::wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    WgmmaTf32<D>::rs(&ot[0][0], pa[j].lo, tf32_desc<D>(vh, j), j > 0);
-    WgmmaTf32<D>::rs(&ot[0][0], pa[j].hi, tf32_desc<D>(vl, j), 1);
-    WgmmaTf32<D>::rs(&ot[0][0], pa[j].hi, tf32_desc<D>(vh, j), 1);
-  }
-  fa::sm90::wgmma_commit();
-  fa::sm90::wgmma_wait<0>();
-  settle(ot);
 }
 
 template <int D, int MODE>

@@ -11,13 +11,23 @@ rounded to TF32 (10 mantissa bits, round to nearest, ties away from zero:
 This module computes the same products on the CPU in fp32, so that the
 error of the split can be held against the reference before and apart from
 the card: the plain twins of K1 and K2 / K3 (`fwd.flash_attn_dense_fwd_ref`,
-`bwd.flash_attn_dense_bwd_ref`) take `einsum=einsum_3xtf32`.  Nothing on
-the main path calls it.
+`bwd.flash_attn_dense_bwd_ref`) and of K5 and K6 / K7 (`varlen.
+flash_attn_varlen_fwd_ref`, `varlen.flash_attn_varlen_bwd_ref`) take
+`einsum=einsum_3xtf32`.
+
+The tensor cores add each product into the fp32 accumulator by truncation
+(round toward zero), so an accumulator that lives across a long loop (K2's
+dQ over every key of a row) drifts towards zero.  `add_rz` models that
+addition and `matmul_3xtf32_chain` a product accumulated as a kernel
+accumulates it: k-steps of 8, three split products each added by
+truncation, `flush` k-steps at a time into a zeroed fragment that is then
+added to the result in fp32 (f32_tiles.cuh `flush`), or one chain.
+Nothing on the main path calls this module.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,3 +73,38 @@ def einsum_tf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One TF32 product (both operands rounded once): the single product the
     split replaces, for comparison."""
     return torch.einsum(eq, round_tf32(a), round_tf32(b))
+
+
+def add_rz(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """acc + x in fp32 rounded toward zero: the sum rounded to nearest,
+    moved one unit towards zero where it was rounded away from it (the sign
+    of TwoSum's exact error against the sum's)."""
+    s = acc + x
+    bb = s - acc
+    err = (acc - (s - bb)) + (x - bb)
+    away = (err != 0) & ((err > 0) != (s > 0))
+    return torch.where(away, torch.nextafter(s, torch.zeros_like(s)), s)
+
+
+def matmul_3xtf32_chain(a: torch.Tensor, b: torch.Tensor, k_step: int = 8,
+                        flush: Optional[int] = 2) -> torch.Tensor:
+    """a @ b ((..., M, K) x (K, N) or (..., K, N)) as the kernels
+    accumulate it: per k-step of `k_step`, the split's three products (each
+    an fp32 product of TF32 operands) added to a fragment by truncation;
+    every `flush` k-steps the fragment is added to the result in fp32 and
+    zeroed.  `flush=None` is one chain of truncating additions."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    K = a.shape[-1]
+    t = torch.zeros(torch.broadcast_shapes(a.shape[:-1] + (1,),
+                                           b.shape[:-2] + (1, 1))[:-1]
+                    + (b.shape[-1],), dtype=torch.float32)
+    acc = torch.zeros_like(t)
+    for i, k0 in enumerate(range(0, K, k_step)):
+        ks = slice(k0, k0 + k_step)
+        for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+            t = add_rz(t, x[..., ks] @ y[..., ks, :])
+        if flush is not None and (i + 1) % flush == 0:
+            acc = acc + t
+            t = torch.zeros_like(t)
+    return acc + t

@@ -210,11 +210,13 @@ def flash_attn_varlen_fwd_ref(
     max_seqlen_k: int, softmax_scale: float, params: masklib.MaskParams,
     alibi_slopes=None, dropout_p: float = 0.0, dropout_seed=None,
     seqused_k=None, leftpad_k=None, upcast: bool = True,
+    einsum=torch.einsum,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K5, one sequence at a time through the
     dense plain version (the kernels' rounding points) with the sequence's
     offset and dropout keyed on bh = b * Hq + h.  `upcast=False` keeps both
-    products in q's dtype."""
+    products in q's dtype; `einsum` computes them (ops/cuda/tf32.py passes
+    its split products)."""
     flash_attn_varlen_fwd_ref.calls += 1
     Tq, Hq, _ = q.shape
     B = cu_seqlens_q.shape[0] - 1
@@ -232,7 +234,8 @@ def flash_attn_varlen_fwd_ref(
             v[None, k0:k0 + slk], softmax_scale, params,
             alibi_slopes=None if slopes is None else slopes[b:b + 1],
             dropout_p=dropout_p, dropout_seed=dropout_seed, offset=offs,
-            pos_base=(0, 0, b, 0), num_heads_total=Hq, upcast=upcast)
+            pos_base=(0, 0, b, 0), num_heads_total=Hq, upcast=upcast,
+            einsum=einsum)
         out[q0:q0 + slq] = o[0]
         lse[:, q0:q0 + slq] = l[0]
     return out, lse
@@ -367,10 +370,12 @@ def flash_attn_varlen_bwd_ref(
     max_seqlen_k: int, softmax_scale: float, params: masklib.MaskParams,
     alibi_slopes=None, dropout_p: float = 0.0, dropout_seed=None,
     seqused_k=None, leftpad_k=None, dlse=None, upcast: bool = True,
+    einsum=torch.einsum,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K6 and K7, one sequence at a time through
     the dense plain version (the kernels' rounding points).
-    `upcast=False` keeps the products in q's dtype."""
+    `upcast=False` keeps the products in q's dtype; `einsum` computes all
+    five (ops/cuda/tf32.py passes its split products)."""
     flash_attn_varlen_bwd_ref.calls += 1
     Hq = q.shape[1]
     B = cu_seqlens_q.shape[0] - 1
@@ -388,7 +393,8 @@ def flash_attn_varlen_bwd_ref(
             alibi_slopes=None if slopes is None else slopes[b:b + 1],
             dropout_p=dropout_p, dropout_seed=dropout_seed,
             dlse=None if dlse is None else dlse[None, :, sq], offset=offs,
-            pos_base=(0, 0, b, 0), num_heads_total=Hq, upcast=upcast)
+            pos_base=(0, 0, b, 0), num_heads_total=Hq, upcast=upcast,
+            einsum=einsum)
         dq[sq], dk[sk], dv[sk] = g[0][0], g[1][0], g[2][0]
     return dq, dk, dv
 

@@ -195,13 +195,16 @@ def test_dense_kernels_match_plain(cuda, dt, D, name):
 
 @pytest.mark.parametrize("D", [32, 64, 256])
 def test_dense_backward_bitwise_deterministic(cuda, D):
-    args, do, kw = _dense_inputs("dropout_gqa_causal", torch.bfloat16, D,
-                                 cuda)
-    out, lse = dfwd.flash_attn_dense_fwd(*args, **kw)
-    g1 = dbwd.flash_attn_dense_bwd(*args[:3], out, do, lse, *args[3:], **kw)
-    g2 = dbwd.flash_attn_dense_bwd(*args[:3], out, do, lse, *args[3:], **kw)
-    for a, b in zip(g1, g2):
-        assert torch.equal(a, b)
+    """Two calls of K2 and K3 give the same bits, bf16 and fp32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        args, do, kw = _dense_inputs("dropout_gqa_causal", dtype, D, cuda)
+        out, lse = dfwd.flash_attn_dense_fwd(*args, **kw)
+        g1 = dbwd.flash_attn_dense_bwd(*args[:3], out, do, lse, *args[3:],
+                                       **kw)
+        g2 = dbwd.flash_attn_dense_bwd(*args[:3], out, do, lse, *args[3:],
+                                       **kw)
+        for a, b in zip(g1, g2):
+            assert torch.equal(a, b), dtype
 
 
 @pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
@@ -577,15 +580,16 @@ def test_varlen_kernels_match_plain(cuda, dt, D, name):
 
 @pytest.mark.parametrize("D", [32, 64, 256])
 def test_varlen_backward_bitwise_deterministic(cuda, D):
-    args, do, kw = _packed_inputs("dropout_gqa_causal", torch.bfloat16, D,
-                                  cuda)
-    q, k, v, cu_q, cu_k, msq, msk, scale, params = args
-    out, lse = vl.flash_attn_varlen_fwd(*args, **kw)
-    bargs = (q, k, v, out, do, lse, cu_q, cu_k, msq, msk, scale, params)
-    g1 = vl.flash_attn_varlen_bwd(*bargs, **kw)
-    g2 = vl.flash_attn_varlen_bwd(*bargs, **kw)
-    for a, b in zip(g1, g2):
-        assert torch.equal(a, b)
+    """Two calls of K6 and K7 give the same bits, bf16 and fp32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        args, do, kw = _packed_inputs("dropout_gqa_causal", dtype, D, cuda)
+        q, k, v, cu_q, cu_k, msq, msk, scale, params = args
+        out, lse = vl.flash_attn_varlen_fwd(*args, **kw)
+        bargs = (q, k, v, out, do, lse, cu_q, cu_k, msq, msk, scale, params)
+        g1 = vl.flash_attn_varlen_bwd(*bargs, **kw)
+        g2 = vl.flash_attn_varlen_bwd(*bargs, **kw)
+        for a, b in zip(g1, g2):
+            assert torch.equal(a, b), dtype
 
 
 def test_forward_bitwise_deterministic(cuda):
@@ -636,12 +640,17 @@ def test_varlen_equal_lengths_bit_equal_to_flash_attn_func(cuda, p, D,
                                                            monkeypatch):
     """cu_seqlens = b * S: K5 is K1's body and K6/K7 are K2/K3's on the
     same sequences, so out, LSE, the dropout mask and dq, dk, dv agree bit
-    for bit; the gradients of both paths are also held to the plain
-    backward's gate."""
+    for bit, bf16 and fp32; the gradients of both paths are also held to
+    the plain backward's gate."""
+    for dtype in (torch.bfloat16, torch.float32):
+        _equal_lengths_case(cuda, p, D, dtype, monkeypatch)
+
+
+def _equal_lengths_case(cuda, p, D, dtype, monkeypatch):
     B, S, Hq, Hk = 3, 200, 8, 2
     rng = np.random.default_rng(12)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
-        np.float32)).to(cuda, torch.bfloat16)
+        np.float32)).to(cuda, dtype)
         for s in ((B, S, Hq, D), (B, S, Hk, D), (B, S, Hk, D),
                   (B, S, Hq, D)))
     cu = torch.arange(B + 1, dtype=torch.int32, device=cuda) * S
@@ -681,7 +690,7 @@ def test_varlen_equal_lengths_bit_equal_to_flash_attn_func(cuda, p, D,
 @pytest.mark.parametrize("name", ["causal_gqa_ragged",
                                   "cross_window_softcap_alibi"])
 @pytest.mark.parametrize("D", [32, 64, 128, 256])
-@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dt", list(KERNEL_DTYPES))
 def test_varlen_sequences_bit_equal_to_flash_attn_func_alone(cuda, dt, D,
                                                              name):
     """Each packed sequence's dq, dk and dv from flash_attn_varlen_func
@@ -689,7 +698,7 @@ def test_varlen_sequences_bit_equal_to_flash_attn_func_alone(cuda, dt, D,
     K2/K3's body with the sequence's bounds (causal, GQA, cross-attention,
     window, softcap and ALiBi; no dropout, whose keep mask is keyed by the
     sequence index)."""
-    args, do, kw = _packed_inputs(name, DTYPES[dt], D, cuda)
+    args, do, kw = _packed_inputs(name, KERNEL_DTYPES[dt], D, cuda)
     q, k, v, cu_q, cu_k, msq, msk, scale, params = args
     slopes = kw["alibi_slopes"]
     fkw = dict(softmax_scale=scale, causal=params.causal,
@@ -1556,8 +1565,7 @@ def test_varlen_paged_kernels_use_no_local_memory(cuda, D):
 
 
 # each kernel's library and product path by head dim: (library, on
-# wgmma); K8q is its e4m3 pool's instantiation of the forward body; K2 /
-# K6 keep mma.sync at D 32
+# wgmma); K8q is its e4m3 pool's instantiation of the forward body
 SASS_PATHS = {
     256: {"K1": ("fwd", True), "K5": ("fwd", True),
           "K8": ("varlen_paged", True),
@@ -1565,8 +1573,8 @@ SASS_PATHS = {
           "K6": ("bwd", True), "K3": ("bwd", True), "K7": ("bwd", True)},
     32: {"K1": ("fwd", True), "K5": ("fwd", True),
          "K8": ("varlen_paged", True), "K8q": ("varlen_paged_quant", True),
-         "K3": ("bwd", True), "K7": ("bwd", True), "K2": ("bwd", False),
-         "K6": ("bwd", False)},
+         "K3": ("bwd", True), "K7": ("bwd", True), "K2": ("bwd", True),
+         "K6": ("bwd", True)},
 }
 
 
@@ -1606,8 +1614,7 @@ def test_head_dim_256_kernels_run_wgmma_without_local_memory(cuda, kid):
 
 @pytest.mark.parametrize("kid", list(SASS_PATHS[32]))
 def test_head_dim_32_kernels_run_wgmma_without_local_memory(cuda, kid):
-    """K1, K5, K8, K8q fp8, K3 and K7 at D 32 run wgmma; K2 and K6 keep
-    mma.sync."""
+    """K1, K5, K8, K8q fp8, K2, K6, K3 and K7 at D 32 all run wgmma."""
     _check_sass_paths(kid, 32)
 
 
@@ -1620,19 +1627,27 @@ F32_TF32_KERNELS = {"K1": ("fwd_f32", "fwd_f32_kernel", "(int)0",
                            F32_WGMMA_DIMS),
                     "K8": ("fwd_f32", "fwd_f32_kernel", "(int)2",
                            F32_WGMMA_DIMS),
+                    "K2": ("bwd_f32", "dq_f32_kernel", "(bool)0", (32, 64)),
+                    "K6": ("bwd_f32", "dq_f32_kernel", "(bool)1", (32, 64)),
                     "K3": ("bwd_f32", "dkv_f32_kernel", "(bool)0", ()),
                     "K7": ("bwd_f32", "dkv_f32_kernel", "(bool)1", ())}
-TF32_OPS = {"hgmma_tf32": ("HGMMA.", ".TF32"), "hmma_tf32": ("HMMA.", ".TF32")}
+TF32_OPS = {"hgmma_tf32": ("HGMMA.", ".TF32"), "hmma_tf32": ("HMMA.", ".TF32"),
+            "ffma": ("FFMA",)}
+# FFMA of a body on the tensor cores: the score pass's only (the FFMA
+# bodies' product loops gave 627-987)
+F32_FFMA_MAX = 500
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("kid", list(F32_TF32_KERNELS))
 def test_fp32_kernels_run_tf32_products_without_local_memory(cuda, kid, D):
-    """K1, K5, K8 (csrc/fwd_f32.cu) and K3, K7 (csrc/bwd_f32.cu) over fp32
-    run their products as 3 x TF32 on the tensor cores: every product a
-    TF32 wgmma (HGMMA ... TF32, no HMMA) in K1's body at D 32-128, a TF32
-    mma.sync (HMMA ... TF32, no HGMMA) in K1's at D 256 and in K3's, with
-    no stack or spills in ptxas's report."""
+    """K1, K5, K8 (csrc/fwd_f32.cu) and K2, K6, K3, K7 (csrc/bwd_f32.cu)
+    over fp32 run their products as 3 x TF32 on the tensor cores: every
+    product a TF32 wgmma (HGMMA ... TF32, no HMMA) in K1's body at D
+    32-128 and in K2's at D 32 / 64, a TF32 mma.sync (HMMA ... TF32, no
+    HGMMA) in K1's at D 256, in K2's at 128 / 256 and in K3's; no FFMA
+    product loop (fewer than F32_FFMA_MAX FFMA), and no stack or spills in
+    ptxas's report."""
     import re
     lib, kernel, arg, wgmma = F32_TF32_KERNELS[kid]
     usage = build.ptxas_usage(lib)
@@ -1647,6 +1662,7 @@ def test_fp32_kernels_run_tf32_products_without_local_memory(cuda, kid, D):
     else:
         assert c["hmma_tf32"] > 0 and c["hmma_tf32"] == c["hmma"], c
         assert c["hgmma"] == 0, f"{name}: {c}"
+    assert c["ffma"] < F32_FFMA_MAX, f"{name}: {c['ffma']} FFMA"
     u = usage[name]
     assert u["stack"] == u["spill_stores"] == u["spill_loads"] == 0, \
         f"{name}: local memory {u}"

@@ -1,7 +1,8 @@
 """The 3 x TF32 split products of the fp32 kernels (K1's body: K1, K5, K8;
-K3's: K3, K7), modelled on the CPU by flash_attn_v100_tpu_torch/ops/cuda/
-tf32.py, against the JAX package's fp32 flash_attn_func (Pallas interpret
-mode) and its jax.grad.
+K2's: K2, K6; K3's: K3, K7), modelled on the CPU by
+flash_attn_v100_tpu_torch/ops/cuda/tf32.py, against the JAX package's fp32
+flash_attn_func (Pallas interpret mode) and its jax.grad.  Packed
+documents: tests/test_torch_tf32_split_varlen.py.
 
 Gate (utils/testing.py, the fp32 reading of the reference's model): the
 model's error against the fp64 oracle (the port's plain twins on fp64
@@ -128,8 +129,7 @@ def _jax(q, k, v, do, slopes, mask, p):
 
 def _port(q, k, v, do, slopes, mask, p, einsum, dtype):
     """The plain twins of K1 and K2 / K3 with every product through
-    `einsum` (dq is K2's, which keeps FFMA: its split model predicts K2's
-    own): (out, lse, dq, dk, dv)."""
+    `einsum`: (out, lse, dq, dk, dv)."""
     wl, wr = mask.get("window_size", (-1, -1))
     params = masklib.MaskParams(causal=mask.get("causal", False),
                                 window_left=wl, window_right=wr,
