@@ -3511,23 +3511,27 @@ def phase_engine_quant(torch, cfg, bf16):
 TF32_OPS_PER_S = 494.7e12     # H100 SXM dense TF32 tensor-core peak: the
                               # fp32 bound's operations rate
 FFMA_OPS_PER_S = 66.9e12      # H100 SXM fp32 FMA on the CUDA cores: the
-                              # ceiling of the FFMA body (K4)
+                              # ceiling of an fp32 body on FFMA
 SPLIT_OPS_PER_S = TF32_OPS_PER_S / 3   # 3 x TF32 split products: the
                               # ceiling of K1's, K2's and K3's fp32 bodies
 FP32_D128 = (1, 4096, 32, 32, 128)   # K1 / K3 fp32 beside the fair SDPA at
                               # B 1 x 4096^2, 32/32 heads x 128, causal
-# the fp32 bodies (csrc/f32_tiles.cuh): id -> (library, kernel, its MODE /
-# VARLEN template argument as cu++filt prints it, the head dims on wgmma);
-# K1's body on TF32 wgmma at D 32-128, K2's at D 32 / 64, TF32 mma.sync
-# at the others and in K3's
+# the fp32 bodies (csrc/f32_tiles.cuh): id -> (library, the kernel's name
+# at head dim {D} as cu++filt prints it, the head dims on wgmma); K1's
+# body on TF32 wgmma at D 32-128, K2's at D 32 / 64, TF32 mma.sync at the
+# others, in K3's and in K4's (the decode body's fp32 instantiation, T
+# float and KIND kK32 = 4, at 16 and 64 q rows a block)
+_K4_F32 = "decode_kernel<float, (int){D}, (int)4, (int){rows}, (int)0>"
 F32_TF32_KERNELS = {
-    "K1": ("fwd_f32", "fwd_f32_kernel", "(int)0", (32, 64, 128)),
-    "K5": ("fwd_f32", "fwd_f32_kernel", "(int)1", (32, 64, 128)),
-    "K8": ("fwd_f32", "fwd_f32_kernel", "(int)2", (32, 64, 128)),
-    "K2": ("bwd_f32", "dq_f32_kernel", "(bool)0", (32, 64)),
-    "K6": ("bwd_f32", "dq_f32_kernel", "(bool)1", (32, 64)),
-    "K3": ("bwd_f32", "dkv_f32_kernel", "(bool)0", ()),
-    "K7": ("bwd_f32", "dkv_f32_kernel", "(bool)1", ())}
+    "K1": ("fwd_f32", "fwd_f32_kernel<(int){D}, (int)0>", (32, 64, 128)),
+    "K5": ("fwd_f32", "fwd_f32_kernel<(int){D}, (int)1>", (32, 64, 128)),
+    "K8": ("fwd_f32", "fwd_f32_kernel<(int){D}, (int)2>", (32, 64, 128)),
+    "K2": ("bwd_f32", "dq_f32_kernel<(int){D}, (bool)0>", (32, 64)),
+    "K6": ("bwd_f32", "dq_f32_kernel<(int){D}, (bool)1>", (32, 64)),
+    "K3": ("bwd_f32", "dkv_f32_kernel<(int){D}, (bool)0>", ()),
+    "K7": ("bwd_f32", "dkv_f32_kernel<(int){D}, (bool)1>", ()),
+    "K4": ("decode_f32", _K4_F32.replace("{rows}", "16"), ()),
+    "K4 rows 64": ("decode_f32", _K4_F32.replace("{rows}", "64"), ())}
 F32_SASS_OPS = {"hgmma_tf32": ("HGMMA.", ".TF32"),
                 "hmma_tf32": ("HMMA.", ".TF32"), "ffma": ("FFMA",)}
 F32_FFMA_MAX = 500            # FFMA of a body on the tensor cores: the
@@ -4287,19 +4291,19 @@ def f32_sass(build) -> dict:
     """Each instantiation of F32_TF32_KERNELS at D 32-256: its SASS counts
     (`build.sass_counts` with F32_SASS_OPS: TF32 HGMMA and HMMA, every
     FFMA) and ptxas's registers and local bytes.  Asserts for every one
-    (K1 / K5 / K8, K2 / K6, K3 / K7) that every tensor-core product is a
-    TF32 one, HGMMA (no HMMA) at the head dims on wgmma, HMMA (no HGMMA)
-    at the others, fewer than F32_FFMA_MAX FFMA (no FFMA product loop),
-    and no local memory."""
+    (K1 / K5 / K8, K2 / K6, K3 / K7, K4 at 16 and 64 rows) that every
+    tensor-core product is a TF32 one, HGMMA (no HMMA) at the head dims on
+    wgmma, HMMA (no HGMMA) at the others, fewer than F32_FFMA_MAX FFMA (no
+    FFMA product loop), and no local memory."""
     import re
     res = {}
     counts = {lib: build.sass_counts(lib, F32_SASS_OPS)
-              for lib in ("fwd_f32", "bwd_f32")}
+              for lib in ("fwd_f32", "bwd_f32", "decode_f32")}
     usage = {lib: build.ptxas_usage(lib) for lib in counts}
-    for kid, (lib, kernel, arg, wgmma) in F32_TF32_KERNELS.items():
+    for kid, (lib, kernel, wgmma) in F32_TF32_KERNELS.items():
         rows = []
         for D in (32, 64, 128, 256):
-            pat = re.compile(re.escape(f"{kernel}<(int){D}, {arg}>"))
+            pat = re.compile(re.escape(kernel.format(D=D)))
             (name, c), = [(n, c) for n, c in counts[lib].items()
                           if pat.search(n)]
             u = usage[lib][name]
@@ -6512,13 +6516,14 @@ def _check_measure(name, res):
         return dict(ring=res["ring"], decode=res["decode"],
                     checks=res["checks"])
     assert name == "check_ring_overlap"
-    if not res["ok"]:
-        for r, rank in enumerate(res["ranks"]):
-            print(f"ring overlap, rank {r}: windows {rank['windows']}, "
-                  f"K1 {rank['kernels']}", flush=True)
-    assert res["ok"], "ring overlap check FAILED (windows above)"
+    seen = "; ".join(
+        f"rank {r}: windows {rank['windows']}, K1 {rank['kernels']}, "
+        f"traces (lane events, K1s) {rank['attempts']}"
+        for r, rank in enumerate(res["ranks"]))
+    assert res["ok"], f"ring overlap check FAILED: {seen}"
     return dict(steps=res["steps"], overlapped=res["overlapped"],
-                ratio=res["ratio"], k1_tflops=res["k1_flops_per_s"] / 1e12)
+                ratio=res["ratio"], k1_tflops=res["k1_flops_per_s"] / 1e12,
+                traces=[len(rank["attempts"]) for rank in res["ranks"]])
 
 
 def phase_measure(torch):
@@ -7564,29 +7569,47 @@ def long_decode_case(torch, ggen, kind=None):
     return q, kc, vc, kw, nbytes
 
 
-def decode_times(torch) -> dict:
+DECODE_ROUNDS = 3              # --decode-times: rounds in turns of each call
+# --decode-times' head-dim rows: MiniLM-L6's 12/12 x 32 and Gemma-2B's 8/1
+# x 256 at (e)'s lengths, and Gemma-2B at its 8192-token context
+D32_DECODE = (12, 12, 32)
+D256_DECODE = (8, 1, 256)
+D256_CTX = 8192
+
+
+def decode_times(torch, rows: str = "") -> dict:
     """K4 and K4q of the `flash_attn_v100_tpu_torch` on sys.path, through
     the public decode call flash_attn_with_kvcache(q, k_cache, v_cache,
     cache_seqlens=, block_table=, causal=True, kv_cache_layout="HND") (no
     append; scales for K4q) and through paged_decode_attention alone
     (`core`, partials unmerged), at
       (e) phase_k4's engine decode step (B 8, 32 / 4 heads x 64, page 128,
-          lens 600-2000): K4 and K4q x 3;
+          lens 600-2000): K4 bf16 and fp32, K4q x 3 with bf16 q and with
+          fp32 q;
       (p) the engine's short-prompt prefill on the K4 route (B 2, T_new
-          64, lens 64 / 364): K4;
-      (L) the 32k-context decode of LONG_*: bf16, int8, fp8 (page 512)
-          and int4 (page 2048).
+          64, lens 64 / 364): K4 bf16 and fp32;
+      (L) the 32k-context decode of LONG_*: bf16, int8, fp8 (page 512),
+          int4 (page 2048) and fp32 (page 512);
+      (e) at D32_DECODE's and D256_DECODE's heads (bf16), and D256_DECODE
+          at B 8 x D256_CTX tokens (page 128).
     Each call is timed as a call (`ms`) and as CUDA-graph replays
-    (`graph_ms`), SPREAD_REPEATS rounds in turns of SPREAD_REPS launches,
-    the L2 flushed before each; a digest of each call's out, and the SM
-    clock and power draw before and after each round:
-        python3 chip_smoke.py --decode-times TREE"""
+    (`graph_ms`, with `kcycles`: ms x the SM clock nvidia-smi reads under
+    the call's own replays), DECODE_ROUNDS rounds in turns of SPREAD_REPS
+    launches, the L2 flushed before each; a digest of each call's out,
+    each row's bytes bound (every live K / V byte, scale, q and out byte
+    once over 3.35 TB/s), SDPA over the pre-gathered KV in the pools'
+    dtype beside the fp32 and head-dim rows (`sdpa` calls), and the SM
+    clock and power
+    draw before and after each round.  ROWS, where given, keeps only the
+    rows whose names hold it (e.g. "K4 fp32"), for quick turns of a body's
+    variants:
+        python3 chip_smoke.py --decode-times TREE [ROWS]"""
     from flash_attn_v100_tpu_torch.ops import kvcache as kv
     from flash_attn_v100_tpu_torch.ops import masks as masklib
     from flash_attn_v100_tpu_torch.ops.cuda import build
     from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
 
-    build.build_all(["decode", "decode_quant"])
+    build.build_all(["decode", "decode_quant", "decode_f32"])
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     ggen = torch.Generator(device=dev).manual_seed(SEED)
@@ -7614,6 +7637,27 @@ def decode_times(torch) -> dict:
             t_new=t_new, group=group,
             k_scales=None if scales is None else scales[0][None],
             v_scales=None if scales is None else scales[1][None], int4=int4)
+        per_key = D * kc.element_size() if scales is None else (
+            (D // 2 if int4 else D) + 4)
+        nbytes = (2 * int(lens.sum()) * Hk * per_key
+                  + 2 * q.numel() * q.element_size())
+        bounds[name] = nbytes / HBM_BYTES_PER_S * 1e3
+
+    def add_sdpa(name, q, kp, vp, lens, tbl, ps, t_new, group):
+        """SDPA in the pools' dtype over the rows' KV gathered beforehand
+        (the library call of the same function), as `{name} sdpa`"""
+        B, T, Hq, D = q.shape
+        Hk = kp.shape[0]
+        kc, vc = gather_kv(torch, kp, vp, tbl, lens, ps)
+        q = q.to(kp.dtype)
+        lens_d = lens.to(dev, torch.long)
+        if t_new == 1:
+            qr = q.transpose(1, 2).reshape(B, Hk, group, D)
+            calls[f"{name} sdpa"] = decode_sdpa(torch, qr, kc, vc, lens_d,
+                                                group)
+        else:
+            calls[f"{name} sdpa"] = prefill_sdpa(
+                torch, q.reshape(B * T, Hq, D), kc, vc, lens.cpu() - T, T)
 
     # (e) and (p): phase_k4's pool and tables (same seeds)
     B, Hk, group, D, ps, max_pages = 8, 4, 8, 64, 128, 16
@@ -7624,8 +7668,10 @@ def decode_times(torch) -> dict:
         torch.bfloat16)
     lens_d = lens.to(dev, torch.int32)
     add("e K4 bf16", q, kp, vp, lens_d, tbl, 1, group)
+    qpools = {}
     for kind in QUANT_KINDS:
         (kq, vq, ks, vs), _ = quant_pools(torch, kp, vp, kind)
+        qpools[kind] = (kq, vq, ks, vs)
         add(f"e K4q {kind}", q, kq, vq, lens_d, tbl, 1, group, (ks, vs))
     plens = torch.tensor([64, 364])
     ptbl = paged_tables(torch, gen, plens, ps, max_pages, dev)[0]
@@ -7639,7 +7685,45 @@ def decode_times(torch) -> dict:
         sc = ((lkw["k_scales"], lkw["v_scales"]) if kind else None)
         add(name, lq, lk, lv, lkw["cache_seqlens"], lkw["block_table"], 1,
             LONG_HQ // LONG_HK, sc)
-        bounds[name] = nbytes / HBM_BYTES_PER_S * 1e3
+        del lq, lk, lv, lkw
+    # fp32 (K4 fp32, K4q's fp32-q instantiations): (e), (p) and (L)
+    kp32, vp32, q32, pq32 = kp.float(), vp.float(), q.float(), pq.float()
+    add("e K4 fp32", q32, kp32, vp32, lens_d, tbl, 1, group)
+    add_sdpa("e K4 fp32", q32, kp32, vp32, lens, tbl, ps, 1, group)
+    for kind, (kq, vq, ks, vs) in qpools.items():
+        add(f"e K4q fp32 q {kind}", q32, kq, vq, lens_d, tbl, 1, group,
+            (ks, vs))
+    add("p K4 fp32", pq32, kp32, vp32, plens.to(dev, torch.int32), ptbl, 64,
+        group)
+    add_sdpa("p K4 fp32", pq32, kp32, vp32, plens, ptbl, ps, 64, group)
+    Lq, Lk, Lv, Lkw, _ = long_decode_case(torch, ggen)
+    Lk, Lv = Lk.float(), Lv.float()
+    add("L K4 fp32", Lq.float(), Lk, Lv, Lkw["cache_seqlens"],
+        Lkw["block_table"], 1, LONG_HQ // LONG_HK)
+    add_sdpa("L K4 fp32", Lq, Lk, Lv, Lkw["cache_seqlens"].cpu(),
+             Lkw["block_table"], 512, 1, LONG_HQ // LONG_HK)
+    del Lq, Lkw
+    # head dims 32 and 256 (16-bit) at (e)'s lengths and tables; D 256 also
+    # at its 8192-token context
+    for tag, (Hq_, Hk_, D_) in (("D32", D32_DECODE), ("D256", D256_DECODE)):
+        hk, hv = make_pool(torch, ggen, dev, Hk_, n_pages, ps, D_,
+                           torch.bfloat16)
+        hq = torch.randn((B, 1, Hq_, D_), generator=ggen, device=dev).to(
+            torch.bfloat16)
+        add(f"e K4 {tag} bf16", hq, hk, hv, lens_d, tbl, 1, Hq_ // Hk_)
+        add_sdpa(f"e K4 {tag} bf16", hq, hk, hv, lens, tbl, ps, 1,
+                 Hq_ // Hk_)
+    Hq_, Hk_, D_ = D256_DECODE
+    clens = torch.full((B,), D256_CTX)
+    ctbl, c_pages = paged_tables(torch, gen, clens, ps, D256_CTX // ps, dev)
+    ck, cv = make_pool(torch, ggen, dev, Hk_, c_pages, ps, D_, torch.bfloat16)
+    cq = torch.randn((B, 1, Hq_, D_), generator=ggen, device=dev).to(
+        torch.bfloat16)
+    add("8k K4 D256 bf16", cq, ck, cv, clens.to(dev, torch.int32), ctbl, 1,
+        Hq_ // Hk_)
+    add_sdpa("8k K4 D256 bf16", cq, ck, cv, clens, ctbl, ps, 1, Hq_ // Hk_)
+    calls = {name: fn for name, fn in calls.items() if rows in name}
+
     digests = {}
     for name, fn in calls.items():
         out = fn()
@@ -7648,20 +7732,25 @@ def decode_times(torch) -> dict:
     flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
     spread = {name: [] for name in calls}
     graph = {name: [] for name in calls}
+    kcyc = {name: [] for name in calls}
     clocks = []
-    for _ in range(SPREAD_REPEATS):
+    for _ in range(DECODE_ROUNDS):
         before = gpu_clocks()
         for name, fn in calls.items():
             spread[name].append(time_ms(torch, fn, reps=SPREAD_REPS,
                                         flush=flush))
-            graph[name].append(graph_ms(torch, fn, reps=SPREAD_REPS,
-                                        flush=flush))
+            g_ms, clock = graph_ms_clock(torch, fn, flush)
+            graph[name].append(g_ms)
+            kcyc[name].append(g_ms * clock["sm_mhz"])
         clocks.append((before, gpu_clocks()))
+    med = statistics.median
     return {"digest": digests,
-            "ms": {n: statistics.median(t) for n, t in spread.items()},
-            "graph_ms": {n: statistics.median(t) for n, t in graph.items()},
+            "ms": {n: med(t) for n, t in spread.items()},
+            "graph_ms": {n: med(t) for n, t in graph.items()},
+            "kcycles": {n: med(t) for n, t in kcyc.items()},
             "bound_ms": bounds, "ms_repeats": spread,
-            "graph_ms_repeats": graph, "clocks": clocks}
+            "graph_ms_repeats": graph, "kcycles_repeats": kcyc,
+            "clocks": clocks}
 
 
 # ------------------------------------------ serving, all four pools in turns
@@ -7739,7 +7828,7 @@ def main() -> int:
              "--fp32-times": fp32_turn_times}
     if sys.argv[1:2] and sys.argv[1] in times:
         sys.path.insert(0, sys.argv[2])
-        res = times[sys.argv[1]](torch)
+        res = times[sys.argv[1]](torch, *sys.argv[3:])
         print(json.dumps(dict(res, tree=sys.argv[2], card=card_line())))
         return 0
     if sys.argv[1:2] == ["--measure-child"]:

@@ -1,7 +1,8 @@
 // The split-KV paged decode body for Hopper (sm_90a), instantiated for
-// 16-bit pools (K4, csrc/decode.cu) and for int8, fp8 (e4m3) and int4
-// pools (K4q, csrc/decode_quant.cu).  The contracts are stated in those
-// files; this one holds the schedule they share.
+// 16-bit pools (K4, csrc/decode.cu), fp32 pools (K4 fp32,
+// csrc/decode_f32.cu) and int8, fp8 (e4m3) and int4 pools (K4q,
+// csrc/decode_quant.cu).  The contracts are stated in those files; this
+// one holds the schedule they share.
 //
 // What bounds it on this card: bytes.  Decode reads every live K and V byte
 // once and does 4 * Rq operations per K/V element pair, far below the ~295
@@ -19,18 +20,20 @@
 //     memory at the end, in warp order.  At Rq > 16 (short-prompt
 //     prefills) the tile is 64 rows, each warp 16 of them over every
 //     group.  Either way a K/V byte is read once per 64 q rows at most.  A
-//     group is 32 keys for payload bytes (P's int8 group) and a quarter of
-//     a stage, at least 16, for 16-bit pools.
+//     group is 32 keys for payload bytes (P's int8 group), a quarter of a
+//     stage, at least 16, for 16-bit pools, and 16 keys for fp32 pools at
+//     D 32 / 64, 8 at D 128 / 256.
 //   * Copies.  The block reads its split's page ids into shared memory
 //     once, beside Q.  K/V (and for K4q the keys' scales) stream through a
 //     cp.async ring in their storage type (bf16/fp16, or bytes), stage
 //     s + NS - 1 copied while stage s is computed: 3 stages of 128 keys at
-//     D 32/64, of 64 at D 128 (16-bit) and of 32 at D 256; 2 of 128 for
-//     payload bytes at D 128, whose 128-byte rows are swizzled (chunk c of
-//     row r at c ^ (r % 8)) instead of padded.  Where the page size is a
-//     multiple of a stage a stage lies in one page, and a thread's
-//     addresses are one base plus constant steps.  Rows outside the live
-//     range are zero-filled.
+//     D 32/64, of 64 at D 128 (16-bit) and of 32 at D 256; for fp32 pools
+//     3 of half as many keys (64 at D 32 / 64, 32 at 128, 16 at 256: the
+//     same bytes); 2 of 128 for payload bytes at D 128, whose 128-byte
+//     rows are swizzled (chunk c of row r at c ^ (r % 8)) instead of
+//     padded.  Where the page size is a multiple of a stage a stage lies
+//     in one page, and a thread's addresses are one base plus constant
+//     steps.  Rows outside the live range are zero-filled.
 //   * Products.  S = Q K^T and O += P V on mma.sync, S, P and O in
 //     registers: m16n8k16 for 16-bit pools and fp8 (e4m3 converted exactly
 //     in registers, K to q's type and V to bf16, by exponent arithmetic
@@ -44,6 +47,23 @@
 //     order that the epilogue undoes.  For fp8, Q's columns are permuted
 //     within each 16 so that the e4m3 K bytes from ldmatrix convert
 //     straight into B fragments.  int4 K is unpacked into a warp tile.
+//   * fp32 pools (K4 fp32).  S and O += P V are 3 x TF32 split products on
+//     mma.sync m16n8k8 .tf32 (csrc/f32_tiles.cuh: x = hi + lo, A B =
+//     A_lo B_hi + A_hi B_lo + A_hi B_hi), K and V split as their fragments
+//     are read from rows of D + 4 floats (no bank conflicts), P's A
+//     fragments split from S's accumulators.  Q is split once into
+//     registers at D 32 / 64; at D 128 / 256 its fragments are read from
+//     an fp32 Q tile each group (registers: O takes D / 2 a thread).  S
+//     runs as two chains of products (even and odd k-steps).  The tensor
+//     cores add into fp32 by truncation, so each group's P V (one or two
+//     k-steps) goes into a zeroed fragment that O takes with an FADD
+//     (f32_tiles.cuh `flush`), as the other fp32 bodies do.  No run showed
+//     that this body needs it: a CPU model of one unflushed chain over 2048
+//     keys stays inside the forward gate, and no card run tested the body
+//     without it.  Shared memory a block: about 55 / 104 /
+//     110 KB at D 32 / 64 / 128 (two blocks an SM; a 64-row block at D 128
+//     holds a 34 KB Q tile besides, one block), 116 KB at D 256 (16 rows;
+//     166 KB at 64): one block an SM at D 256.
 //   * Softmax.  Online, on the fragments, in base 2 (ex2.approx, scale *
 //     log2(e) folded into the FFMA; natural-domain score_bias then log2(e)
 //     where ALiBi or softcap is on), updated per group; a group every row
@@ -51,14 +71,16 @@
 //     skipped where no row's max moved.  For K4q, P's amax and rint(p /
 //     p_scale) run on the fragments of one group, with one exact-division
 //     branch per eight values (the reciprocal fast path of
-//     csrc/varlen_paged_quant.cu).
-//   * fp32 q (K4q only).  int8 / int4 quantize the fp32 rows as they do
-//     16-bit ones.  For fp8 the TPU kernel's S is the fp32 q . k, which
-//     one bf16 (or TF32) rounding of q misses: q is split into three bf16
-//     tiles whose sum is q exactly (fa::split_bf16x3) and S is three
-//     m16n8k16 products against the same converted K fragments, fp32
-//     accumulation (three times the S work, which is a small share of a
-//     bytes-bound step); P V is the 16-bit path's.  O comes out in fp32.
+//     csrc/varlen_paged_quant.cu).  For fp32 pools, in the natural base
+//     with expf, as the fp32 bodies (csrc/fwd_f32.cu) compute it.
+//   * fp32 q over quantized pools (K4q).  int8 / int4 quantize the fp32
+//     rows as they do 16-bit ones.  For fp8 the TPU kernel's S is the fp32
+//     q . k, which one bf16 (or TF32) rounding of q misses: q is split
+//     into three bf16 tiles whose sum is q exactly (fa::split_bf16x3) and
+//     S is three m16n8k16 products against the same converted K
+//     fragments, fp32 accumulation (three times the S work, which is a
+//     small share of a bytes-bound step); P V is the 16-bit path's.  O
+//     comes out in fp32.
 //   * The merge.  Given merged outputs, a block writes its normalized
 //     partial, fences, and bumps its (b, kv head, row tile)'s arrival
 //     counter; the last of the S blocks to arrive merges their partials in
@@ -80,6 +102,7 @@
 #include <type_traits>
 
 #include "attn_tiles.cuh"
+#include "f32_tiles.cuh"
 #include "masks.cuh"
 #include "quant.cuh"
 
@@ -89,6 +112,7 @@ namespace dec {
 using namespace fa::attn;
 
 constexpr int kK16 = 3;        // 16-bit pools; fa::kInt8 / kFp8 / kInt4
+constexpr int kK32 = 4;        // fp32 pools (and q)
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kGroup = 32;     // keys a warp step: P's int8 group
@@ -137,30 +161,44 @@ constexpr size_t align16(size_t x) { return (x + 15) / 16 * 16; }
 // stages at the end, and the merge's row weights
 template <typename T, int D, int KIND, int ROWS>
 struct Smem {
-  static constexpr bool kByte = KIND != kK16;
+  static constexpr bool kWide = KIND == kK32;   // fp32 pools
+  static constexpr bool kByte = KIND != kK16 && !kWide;
   static constexpr bool kInt = KIND == fa::kInt8 || KIND == fa::kInt4;
   static constexpr bool kF32 = std::is_same<T, float>::value;
   // bf16 Q tiles: one, or fp32 q's three parts over an fp8 pool
   static constexpr int QP = KIND == fa::kFp8 && kF32 ? 3 : 1;
+  // fp32 pools: Q's split fragments in registers (D 32 / 64), else an fp32
+  // Q tile
+  static constexpr bool kQReg = kWide && D <= 64;
   // keys a stage and stages: 3 stages of 128 keys at D 32 / 64 and of 64
   // at D 128 for 16-bit pools (two blocks an SM, about 128 KB in flight),
   // 2 of 128 for payload bytes at D 128 (every warp a group of each
-  // stage), 3 of 32 at D 256
-  static constexpr int BK = D <= 64 || (kByte && D == 128) ? 128
+  // stage), 3 of 32 at D 256; fp32 pools 3 of 64 at D 32 / 64, 32 at 128
+  // and 16 at 256
+  static constexpr int BK = kWide ? (D <= 64 ? 64 : (D == 128 ? 32 : 16))
+                            : D <= 64 || (kByte && D == 128) ? 128
                             : (D == 128 ? 64 : 32);
   static constexpr int NS = kByte && D == 128 ? 2 : 3;
   // keys a warp step: P's int8 group (32) for payload bytes; a quarter of
-  // a stage, at least 16, for 16-bit pools
-  static constexpr int G = kByte ? kGroup : (BK / 4 > 16 ? BK / 4 : 16);
+  // a stage, at least 16, for 16- and 32-bit pools, but 8 for fp32 pools at
+  // D 128 / 256 (every warp a group of a 32-key stage at 128; with 16, two
+  // warps of four worked a stage, slower at the 32k decode)
+  static constexpr int G = kByte                ? kGroup
+                           : kWide && D >= 128 ? 8
+                                               : (BK / 4 > 16 ? BK / 4 : 16);
   static constexpr int NG = BK / G;
-  static constexpr int QLD = kInt ? D + 16 : (D + 8) * 2;   // bytes a row
+  static constexpr int QLD =   // bytes a row
+      kInt ? D + 16 : (kWide ? (D + 4) * 4 : (D + 8) * 2);
   static constexpr size_t q_bytes =
-      static_cast<size_t>(QP) * ROWS * QLD + (kInt ? 4 * ROWS : 0);
+      kQReg ? 0
+            : static_cast<size_t>(QP) * ROWS * QLD + (kInt ? 4 * ROWS : 0);
   // payload rows of 128 bytes (D 128) are 128-byte swizzled (16-byte chunk
   // c of row r at c ^ (r % 8): ldmatrix without bank conflicts or
   // padding), others padded by 16 bytes
   static constexpr bool kSwz = kByte && D == 128;
-  static constexpr int KLD = kByte ? (kSwz ? D : D + 16) : (D + 8) * 2;
+  static constexpr int KLD = kByte   ? (kSwz ? D : D + 16)
+                             : kWide ? (D + 4) * 4
+                                     : (D + 8) * 2;
   static constexpr int K8LD = D + 16;   // int4's unpacked K rows
   static constexpr int PR = KIND == fa::kInt4 ? BK / 2 : BK;  // payload rows
   static constexpr size_t v_off = static_cast<size_t>(PR) * KLD;
@@ -211,6 +249,13 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// the softmax's exponential: of a base-2 exponent (ex2), or for fp32
+// pools (NAT) of a natural one (expf, the fp32 bodies')
+template <bool NAT>
+__device__ __forceinline__ float exp_of(float x) {
+  return NAT ? expf(x) : ex2(x);
 }
 
 // int <-> float on the full-rate pipes: kMagic + x holds the integer x in
@@ -315,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   constexpr int BK = L::BK, NG = L::NG, KLD = L::KLD, G = L::G;
   constexpr bool SWZ = L::kSwz;
   constexpr int NJ = G / 8;    // S's n-blocks a warp step
-  constexpr bool kByte = L::kByte, kInt = L::kInt;
+  constexpr bool kByte = L::kByte, kInt = L::kInt, kWide = L::kWide;
   constexpr bool kKeySplit = ROWS == 16;
   constexpr int LDE = D + 8;   // 16-bit Q tile: elements a row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -358,7 +403,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   // stage t: payload rows by cp.async (tokens per row TPR), then the keys'
   // k and v scales (K4q)
   constexpr int TPR = KIND == fa::kInt4 ? 2 : 1;
-  constexpr int CH = (kByte ? D : 2 * D) / 16;   // 16-byte chunks a row
+  constexpr int CH =   // 16-byte chunks a row
+      (kByte ? D : (kWide ? 4 : 2) * D) / 16;
   constexpr int STEP = kThreads / CH;
   static_assert(kThreads % CH == 0 && L::PR % STEP == 0 &&
                     (!L::kSwz || STEP % 8 == 0), "copy split");
@@ -453,6 +499,17 @@ __global__ void __launch_bounds__(kThreads, 2)
       cp_async16(smem + r * L::QLD + c * 16,
                  in ? qg + ((q_row0 + r) * D + c * 8) * 2 : qg, in);
     }
+  } else if constexpr (kWide) {
+    // fp32 rows by cp.async where Q's fragments are read from a tile
+    if constexpr (!L::kQReg) {
+      const unsigned char* qg = static_cast<const unsigned char*>(a.q);
+      for (int idx = tid; idx < ROWS * (D / 4); idx += kThreads) {
+        const int r = idx / (D / 4), c = idx % (D / 4);
+        const bool in = row0 + r < a.Rq;
+        cp_async16(smem + r * L::QLD + c * 16,
+                   in ? qg + ((q_row0 + r) * D + c * 4) * 4 : qg, in);
+      }
+    }
   } else if constexpr (KIND == fa::kFp8 && L::kF32) {
     // fp32 q: its three bf16 parts, tile p at p * ROWS rows
     const float* qg = static_cast<const float*>(a.q);
@@ -513,7 +570,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     slope[i] = a.slopes && r < a.Rq ? a.slopes[bh * a.Rq + r] : 0.0f;
   }
   const bool extra = a.mp.has_alibi || a.mp.softcap > 0.0f;
-  const float to_log2 = extra ? 1.0f : a.scale * kLog2e;
+  // fp32 pools keep the natural base: "log2" units are natural ones there
+  const float to_log2 = extra ? 1.0f : a.scale * (kWide ? 1.0f : kLog2e);
+  constexpr float to_nat = kWide ? 1.0f : kLn2;
   // a key group whose every key every row sees (only the rows past
   // group * t_new masked): the live range holds it and no causal or
   // window edge cuts it, for q positions qbase .. qbase + t_new - 1
@@ -530,7 +589,27 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int nb = 0; nb < D / 8; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nb][e] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY};   // running row max (base 2)
+  // fp32 pools at D 32 / 64: Q's A fragments of every k-step, split once
+  // (rows past Rq zero)
+  constexpr int LDF = D + 4;   // fp32 tiles: floats a row
+  f32::FragA qf[L::kQReg ? D / 8 : 1];
+  if constexpr (L::kQReg) {
+    const float* qg = static_cast<const float*>(a.q);
+    auto at = [&](int r, int c) {
+      return row0 + r < a.Rq ? qg[(q_row0 + r) * D + c] : 0.0f;
+    };
+    const int r = wrow + lane / 4;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int c = 8 * kk + lane % 4;
+      qf[kk].set(0, at(r, c));
+      qf[kk].set(1, at(r + 8, c));
+      qf[kk].set(2, at(r, c + 4));
+      qf[kk].set(3, at(r + 8, c + 4));
+    }
+  }
+  float m[2] = {-INFINITY, -INFINITY};   // running row max (base 2;
+                                         // natural for fp32 pools)
   float l[2] = {0.0f, 0.0f};             // this lane's part of the row sum
   unsigned char* k8 = smem + L::k8_off + warp * L::k8_bytes;
 
@@ -564,6 +643,36 @@ __global__ void __launch_bounds__(kThreads, 2)
     float sc[NJ][4];
     if constexpr (KIND == kK16) {
       SyncPath<T, D>::template abt<16, G>(sc, smem, wrow, kg, lane);
+    } else if constexpr (kWide) {
+      // 3 x TF32: Q's fragments from registers or the Q tile, K's split as
+      // they are read; even and odd k-steps into two accumulators (two
+      // dependent chains of 3 D / 16 products, not one of 3 D / 8: 6% off
+      // the 32k decode), added at the end
+      float s2[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = s2[j][e] = 0.0f;
+      const float* kf = reinterpret_cast<const float*>(kg);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        f32::FragA qa;
+        if constexpr (L::kQReg)
+          qa = qf[kk];
+        else
+          f32::frag_a<LDF>(qa, reinterpret_cast<const float*>(smem), wrow,
+                           8 * kk, lane);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          f32::FragB kb;
+          f32::frag_b_k<LDF>(kb, kf, 8 * j, 8 * kk, lane);
+          f32::mma3(kk % 2 ? s2[j] : sc[j], qa, kb);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] += s2[j][e];
     } else if constexpr (KIND == fa::kFp8 && L::kF32) {
       // fp32 q: the three bf16 parts against the same K fragments, the
       // smallest part first
@@ -688,7 +797,7 @@ __global__ void __launch_bounds__(kThreads, 2)
             const int jl = key - lp;
             if (extra)
               x = fa::score_bias(x, qp[i], jl, a.scale, slope[i], a.mp) *
-                  kLog2e;
+                  (kWide ? 1.0f : kLog2e);
             const bool ok = rok[i] && key >= j_lo && key < j_hi &&
                             fa::position_valid(qp[i], jl, a.mp);
             x = ok ? x : -INFINITY;
@@ -709,7 +818,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
       const float m_next = fmaxf(m[i], r * to_log2);
       base[i] = m_next == -INFINITY ? 0.0f : m_next;
-      alpha[i] = ex2(m[i] - base[i]);
+      alpha[i] = exp_of<kWide>(m[i] - base[i]);
       m[i] = m_next;
     }
     float ls[2] = {0.0f, 0.0f};
@@ -720,7 +829,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         vq = *reinterpret_cast<const float2*>(vs_s + 8 * j + 2 * (lane % 4));
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = ex2(fmaf(sc[j][e], to_log2, -base[e / 2]));
+        const float p =
+            kWide ? expf(sc[j][e] * to_log2 - base[e / 2])
+                  : ex2(fmaf(sc[j][e], to_log2, -base[e / 2]));
         ls[e / 2] += p;
         // P times the key's v scale (K4q): V's dequantization
         sc[j][e] = kByte ? p * (e & 1 ? vq.y : vq.x) : p;
@@ -736,7 +847,28 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int e = 0; e < 4; ++e) o[nb][e] *= alpha[e / 2];
     }
 
-    if constexpr (!kInt) {
+    if constexpr (kWide) {
+      // O += P V, 3 x TF32: P's A fragments split from S's accumulators,
+      // V's split as they are read; the group's one or two k-steps into a
+      // zeroed fragment that O takes in fp32 (the tensor cores' sums
+      // truncate)
+      static_assert(NJ <= f32::kG, "one flush a group");
+      f32::FragA pa[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) f32::frag_a_c(pa[j], sc[j]);
+      const float* vf = reinterpret_cast<const float*>(vg);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          f32::FragB vb;
+          f32::frag_b_mn<LDF>(vb, vf, 8 * j, 8 * n, lane);
+          f32::mma3(t, pa[j], vb);
+        }
+        f32::flush(o[n], t);
+      }
+    } else if constexpr (!kInt) {
       // O += P V, P rounded to the product's 16-bit type (fp8: P times
       // the v scale, to bf16)
       using TP = typename std::conditional<KIND == fa::kFp8, __nv_bfloat16,
@@ -932,7 +1064,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       float mm = cm[row];
 #pragma unroll
       for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, cm[w * 16 + row]);
-      const float f = mm == -INFINITY ? 0.0f : ex2(m[i] - mm);
+      const float f = mm == -INFINITY ? 0.0f : exp_of<kWide>(m[i] - mm);
       float* dst = co + (warp * 16 + row) * OLD;
       columns(i, [&](int d0, float x0, float x1, int d1, float y0, float y1) {
         *reinterpret_cast<float2*>(dst + d0) = make_float2(x0 * f, x1 * f);
@@ -951,7 +1083,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
         ll += mm == -INFINITY ? 0.0f
-                              : cl[w * 16 + row] * ex2(cm[w * 16 + row] - mm);
+                              : cl[w * 16 + row] *
+                                    exp_of<kWide>(cm[w * 16 + row] - mm);
         const float2 v2 =
             *reinterpret_cast<const float2*>(co + (w * 16 + row) * OLD + d);
         x0 += v2.x;
@@ -959,7 +1092,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       const float inv = ll == 0.0f ? 0.0f : 1.0f / ll;
       put(r, d, x0 * inv, x1 * inv);
-      if (d == 0) put_lse(r, ll == 0.0f ? -INFINITY : mm * kLn2 + logf(ll));
+      if (d == 0) put_lse(r, ll == 0.0f ? -INFINITY : mm * to_nat + logf(ll));
     }
   } else {
 #pragma unroll
@@ -972,7 +1105,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         put(r, d1, y0 * inv, y1 * inv);
       });
       if (lane % 4 == 0)
-        put_lse(r, l[i] == 0.0f ? -INFINITY : m[i] * kLn2 + logf(l[i]));
+        put_lse(r, l[i] == 0.0f ? -INFINITY : m[i] * to_nat + logf(l[i]));
     }
   }
   if (a.o == nullptr || direct) return;

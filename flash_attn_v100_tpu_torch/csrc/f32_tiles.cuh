@@ -1,9 +1,9 @@
 // Tile machinery of the fp32 attention bodies (csrc/fwd_f32.cu: K1, K5, K8;
-// csrc/bwd_f32.cu: K2/K3, K6/K7; csrc/decode_f32.cu: K4): fp32 products
-// either as 3 x TF32 split products on the tensor cores (wgmma m64nNk8
-// .tf32, s_wgmma / pv_wgmma below, in K1's body at D 32-128 and K2's at D
-// 32 / 64; mma.sync m16n8k8 .tf32 at the others and in K3's) or in fp32
-// FFMA on the CUDA cores (K4: abt / ab below), operands from shared memory.
+// csrc/bwd_f32.cu: K2/K3, K6/K7; the decode body csrc/decode_body.cuh for
+// fp32 pools: K4): every fp32 product as 3 x TF32 split products on the
+// tensor cores (wgmma m64nNk8 .tf32, s_wgmma / pv_wgmma below, in K1's
+// body at D 32-128 and K2's at D 32 / 64; mma.sync m16n8k8 .tf32 at the
+// others, in K3's and in K4's).
 //
 // 3 x TF32: x = hi + lo with hi = tf32(x) (cvt.rna: 10 mantissa bits, round
 // to nearest) and lo = x - hi, exact in fp32 and passed as it is (whatever
@@ -34,16 +34,6 @@
 // (frag_b_mn).  Tiles are row-major with a row stride of D + 4 floats:
 // both the row-g, column-c reads of frag_a / frag_b_k and the row-2c,
 // column-g reads of frag_b_mn then touch 32 distinct banks.
-//
-// The FFMA thread layout (128 threads, 4 warps; K4): thread t is (ty, tx)
-// = (t / 8, t % 8).  In a product C = A B^T over the head dim (S = Q K^T)
-// it holds C's rows ty + 16 i and columns tx + 8 j; in a product C += P B
-// over keys (O += P V) it holds rows ty + 16 i and the float4 columns 4 (tx
-// + 8 u).  So a row's 8 threads are the 8 lanes of one lane-octet (row max
-// / sum: three shuffles), and the accumulator rows of both products are
-// the same rows.  A key-wide tile (P) has rows of BK + 8 floats: a 16-byte
-// read of the 8 lanes of an octet then touches 8 distinct bank groups and
-// the A rows of a warp's 4 octets broadcast.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -246,99 +236,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// ----------------------------------------------------------------- FFMA
-
-// acc[i][j] = sum_d A[ty + 16 i][d] B[tx + 8 j][d]; A and B D-wide tiles
-template <int D, int RT, int CT>
-__device__ __forceinline__ void abt(float (&acc)[RT][CT], const float* a,
-                                    const float* b, int ty, int tx) {
-  constexpr int LD = D + 4;
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[RT], bv[CT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < CT; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 8 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        float s = acc[i][j];
-        s = fmaf(av[i].x, bv[j].x, s);
-        s = fmaf(av[i].y, bv[j].y, s);
-        s = fmaf(av[i].z, bv[j].z, s);
-        s = fmaf(av[i].w, bv[j].w, s);
-        acc[i][j] = s;
-      }
-  }
-}
-
-// acc[i][u] += sum_k P[ty + 16 i][k] B[k][4 (tx + 8 u) ..]; P a K-wide tile
-// of row stride PLD, B a D-wide tile of K rows
-template <int D, int RT, int K, int PLD>
-__device__ __forceinline__ void ab(float4 (&acc)[RT][D / 32], const float* p,
-                                   const float* b, int ty, int tx) {
-  constexpr int LD = D + 4;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    float4 pv[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(p + (ty + 16 * i) * PLD + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int u = 0; u < D / 32; ++u) {
-        const float4 bv = *reinterpret_cast<const float4*>(
-            b + (k + kk) * LD + 4 * (tx + 8 * u));
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          const float w = kk == 0   ? pv[i].x
-                          : kk == 1 ? pv[i].y
-                          : kk == 2 ? pv[i].z
-                                    : pv[i].w;
-          acc[i][u].x = fmaf(w, bv.x, acc[i][u].x);
-          acc[i][u].y = fmaf(w, bv.y, acc[i][u].y);
-          acc[i][u].z = fmaf(w, bv.z, acc[i][u].z);
-          acc[i][u].w = fmaf(w, bv.w, acc[i][u].w);
-        }
-      }
-    }
-  }
-}
-
-template <int RT, int DC>
-__device__ __forceinline__ void zero(float4 (&acc)[RT][DC]) {
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int u = 0; u < DC; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ float4 scale4(float4 x, float s) {
-  return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
-}
-
-// over the 8 lanes of this thread's octet (one row's threads)
-__device__ __forceinline__ float octet_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float octet_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
 // a kernel's dynamic shared memory limit, raised on its first launch

@@ -42,7 +42,8 @@ SOURCES = {"decode": "decode.cu", "varlen_paged": "varlen_paged.cu",
            "decode_quant": "decode_quant.cu",
            "varlen_paged_quant": "varlen_paged_quant.cu",
            "probes": "probes.cu", "probe_int4": "probe_int4.cu",
-           # the fp32 bodies: K1, K5, K8; K2/K3, K6/K7; K4
+           # the fp32 bodies: K1, K5, K8; K2/K3, K6/K7; K4 (the decode
+           # body's fp32 instantiation)
            "fwd_f32": "fwd_f32.cu", "bwd_f32": "bwd_f32.cu",
            "decode_f32": "decode_f32.cu"}
 # further translation units of a library, each compiled by an nvcc of its
@@ -139,6 +140,8 @@ SIGNATURES = {
     "decode_f32": {
         "fa_decode_f32_launch": ([_I] + [_P] * 13 + [_LL] * 4 + [_I] * 11
                                  + [_F, _I, _I, _I, _F, _I, _P], _I),
+        # (dtype 2, D, rows, int out[5]): occupancy of K4 fp32
+        "fa_decode_f32_occupancy": ([_I, _I, _I, _P], _I),
     },
     # P1-P3: (flags, q, k, v, out, lse, strides[14], B, Hq, Hk, M, N,
     # key tiles, trip, pairs, n_pairs, 3 q-side, 3 k-side, qseg, kseg,

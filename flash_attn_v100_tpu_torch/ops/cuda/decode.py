@@ -23,10 +23,11 @@ kernel's 32-key group) in the kernel and on the CPU path; the TPU kernel's
 grouping is one page (`p_tile=None` in the plain version).
 
 For CUDA tensors it launches the kernel (q in bf16, fp16 or fp32: fp32
-over 32-bit pools on the fp32 body `csrc/decode_f32.cu`, over quantized
-pools on K4q's fp32 instantiations; the merged o is in q's dtype; anything
-else raises); for CPU tensors it computes `paged_decode_attention_ref`,
-the plain PyTorch version of the same function.
+over 32-bit pools on the body's fp32 instantiation `csrc/decode_f32.cu`,
+3 x TF32 split products on the tensor cores, over quantized pools on
+K4q's fp32 instantiations; the merged o is in q's dtype; anything else
+raises); for CPU tensors it computes `paged_decode_attention_ref`, the
+plain PyTorch version of the same function.
 """
 
 from __future__ import annotations
@@ -464,6 +465,7 @@ def paged_decode_attention_ref(
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None, int4: bool = False,
     p_tile: Optional[int] = P_TILE, round_p: bool = True,
+    einsum=torch.einsum,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: same inputs, same partials.
     `upcast=False` keeps both products in the input dtype (the
@@ -471,7 +473,9 @@ def paged_decode_attention_ref(
     quantized arithmetic of K4q, P's int8 scale per `p_tile` rows (None:
     per page, the TPU kernel's grouping); `round_p=False` skips P's int8
     (fp8: bf16) rounding, the yardstick for the kernel's rounding of P.
-    `upcast` does not apply to quantized pools."""
+    `upcast` does not apply to quantized pools.  `einsum` computes S and
+    P V over 16- and 32-bit pools (ops/cuda/tf32.py passes its split
+    products: the fp32 kernel's model)."""
     if qpos_vec is None:
         qpos_vec = cache_seqlens.to(torch.int32) - t_new
     if k_scales is not None:
@@ -499,7 +503,7 @@ def paged_decode_attention_ref(
         return g.to(cd)
     k, v = gather(k_pages), gather(v_pages)
 
-    s = torch.einsum("bhrd,bhnd->bhrn", q_rows.to(cd), k).to(torch.float32)
+    s = einsum("bhrd,bhnd->bhrn", q_rows.to(cd), k).to(torch.float32)
     lens = cache_seqlens.to(device=dev, dtype=torch.long).view(B, 1, 1, 1)
     lp = (0 if leftpad is None
           else leftpad.to(device=dev, dtype=torch.long).view(B, 1, 1, 1))
@@ -525,7 +529,7 @@ def paged_decode_attention_ref(
     p = torch.where(valid, p, torch.zeros_like(p))
     l = p.sum(dim=-1)                                      # (B, Hk, Rq, S)
     vs = v.view(B, Hk, S, span, D)
-    o = torch.einsum("bhrsn,bhsnd->bhsrd", p.to(cd), vs).to(torch.float32)
+    o = einsum("bhrsn,bhsnd->bhsrd", p.to(cd), vs).to(torch.float32)
     l_t = l.permute(0, 1, 3, 2)[..., None]                 # (B, Hk, S, Rq, 1)
     o = o * torch.where(l_t == 0, torch.zeros_like(l_t), 1.0 / l_t)
     m_t = m[..., 0].permute(0, 1, 3, 2)[..., None]

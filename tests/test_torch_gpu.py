@@ -1618,19 +1618,22 @@ def test_head_dim_32_kernels_run_wgmma_without_local_memory(cuda, kid):
     _check_sass_paths(kid, 32)
 
 
-# the fp32 bodies on the tensor cores: id -> (library, kernel, its MODE /
-# VARLEN template argument as cu++filt prints it, the head dims on wgmma)
+# the fp32 bodies on the tensor cores: id -> (library, the kernel's name
+# at head dim {D} as cu++filt prints it, the head dims on wgmma)
 F32_WGMMA_DIMS = (32, 64, 128)
-F32_TF32_KERNELS = {"K1": ("fwd_f32", "fwd_f32_kernel", "(int)0",
-                           F32_WGMMA_DIMS),
-                    "K5": ("fwd_f32", "fwd_f32_kernel", "(int)1",
-                           F32_WGMMA_DIMS),
-                    "K8": ("fwd_f32", "fwd_f32_kernel", "(int)2",
-                           F32_WGMMA_DIMS),
-                    "K2": ("bwd_f32", "dq_f32_kernel", "(bool)0", (32, 64)),
-                    "K6": ("bwd_f32", "dq_f32_kernel", "(bool)1", (32, 64)),
-                    "K3": ("bwd_f32", "dkv_f32_kernel", "(bool)0", ()),
-                    "K7": ("bwd_f32", "dkv_f32_kernel", "(bool)1", ())}
+# K4 fp32: the decode body's fp32 instantiation (T float, KIND kK32 = 4) at
+# 16 and 64 q rows a block
+_K4_F32 = "decode_kernel<float, (int){D}, (int)4, (int){rows}, (int)0>"
+F32_TF32_KERNELS = {
+    "K1": ("fwd_f32", "fwd_f32_kernel<(int){D}, (int)0>", F32_WGMMA_DIMS),
+    "K5": ("fwd_f32", "fwd_f32_kernel<(int){D}, (int)1>", F32_WGMMA_DIMS),
+    "K8": ("fwd_f32", "fwd_f32_kernel<(int){D}, (int)2>", F32_WGMMA_DIMS),
+    "K2": ("bwd_f32", "dq_f32_kernel<(int){D}, (bool)0>", (32, 64)),
+    "K6": ("bwd_f32", "dq_f32_kernel<(int){D}, (bool)1>", (32, 64)),
+    "K3": ("bwd_f32", "dkv_f32_kernel<(int){D}, (bool)0>", ()),
+    "K7": ("bwd_f32", "dkv_f32_kernel<(int){D}, (bool)1>", ()),
+    "K4": ("decode_f32", _K4_F32.replace("{rows}", "16"), ()),
+    "K4 rows 64": ("decode_f32", _K4_F32.replace("{rows}", "64"), ())}
 TF32_OPS = {"hgmma_tf32": ("HGMMA.", ".TF32"), "hmma_tf32": ("HMMA.", ".TF32"),
             "ffma": ("FFMA",)}
 # FFMA of a body on the tensor cores: the score pass's only (the FFMA
@@ -1641,17 +1644,18 @@ F32_FFMA_MAX = 500
 @pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("kid", list(F32_TF32_KERNELS))
 def test_fp32_kernels_run_tf32_products_without_local_memory(cuda, kid, D):
-    """K1, K5, K8 (csrc/fwd_f32.cu) and K2, K6, K3, K7 (csrc/bwd_f32.cu)
-    over fp32 run their products as 3 x TF32 on the tensor cores: every
-    product a TF32 wgmma (HGMMA ... TF32, no HMMA) in K1's body at D
-    32-128 and in K2's at D 32 / 64, a TF32 mma.sync (HMMA ... TF32, no
-    HGMMA) in K1's at D 256, in K2's at 128 / 256 and in K3's; no FFMA
-    product loop (fewer than F32_FFMA_MAX FFMA), and no stack or spills in
-    ptxas's report."""
+    """K1, K5, K8 (csrc/fwd_f32.cu), K2, K6, K3, K7 (csrc/bwd_f32.cu) and
+    K4 (csrc/decode_f32.cu, at 16 and 64 q rows a block) over fp32 run
+    their products as 3 x TF32 on the tensor cores: every product a TF32
+    wgmma (HGMMA ... TF32, no HMMA) in K1's body at D 32-128 and in K2's
+    at D 32 / 64, a TF32 mma.sync (HMMA ... TF32, no HGMMA) in K1's at D
+    256, in K2's at 128 / 256, in K3's and in K4's; no FFMA product loop
+    (fewer than F32_FFMA_MAX FFMA), and no stack or spills in ptxas's
+    report."""
     import re
-    lib, kernel, arg, wgmma = F32_TF32_KERNELS[kid]
+    lib, kernel, wgmma = F32_TF32_KERNELS[kid]
     usage = build.ptxas_usage(lib)
-    pat = re.compile(re.escape(f"{kernel}<(int){D}, {arg}>"))
+    pat = re.compile(re.escape(kernel.format(D=D)))
     found = [(name, c) for name, c in build.sass_counts(lib, TF32_OPS).items()
              if pat.search(name)]
     assert len(found) == 1, f"{kid} D {D}: {[n for n, _ in found]}"
@@ -1811,19 +1815,38 @@ def _assert_merged(om, lsem, o, lse, name):
     torch.testing.assert_close(lsem[fin], lse[fin], rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("kind", [None] + list(QUANT_KINDS))
+def _edge_inputs(name, kind, D, dev):
+    """_decode_edge_inputs for a `kind` of DECODE_KINDS: "fp32" is K4 over
+    fp32 q and pools, None over bf16, the rest K4q's payloads."""
+    if kind == "fp32":
+        return _decode_edge_inputs(name, None, D, dev, torch.float32)
+    return _decode_edge_inputs(name, kind, D, dev)
+
+
+DECODE_KINDS = [None, "fp32"] + list(QUANT_KINDS)
+
+
+@pytest.mark.parametrize("kind", DECODE_KINDS)
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("name", list(DECODE_EDGE_CASES))
 def test_decode_kernel_edges(cuda, name, D, kind):
     """K4 / K4q at stage, group, split and window edges and at Rq 512 /
-    1016, against the plain version (K4q: its twin at P_TILE), and the
-    merged entry against merge_partials of the partials."""
-    args, kw = _decode_edge_inputs(name, kind, D, cuda)
+    1016, against the plain version (K4q: its twin at P_TILE; K4 fp32: the
+    twin on fp64 copies, gated by the fp32 twin's error), and the merged
+    entry against merge_partials of the partials."""
+    args, kw = _edge_inputs(name, kind, D, cuda)
     o, lse = dec.merge_partials(*dec.paged_decode_attention(*args, **kw))
     om, lsem = dec.paged_decode_attention_merged(*args, **kw)
     torch.cuda.synchronize()
-    label = f"K4{'' if kind is None else 'q ' + kind} {name}"
-    if kind is None:
+    label = {None: "K4", "fp32": "K4 fp32"}.get(kind, f"K4q {kind}")
+    label += f" {name}"
+    if kind == "fp32":
+        (o64, lse64), (o32, lse32) = (
+            dec.merge_partials(*r)
+            for r in _refs(dec.paged_decode_attention_ref, args, kw))
+        assert_fwd_close(o, o64, o32, name=f"{label} out")
+        _gate_lse(lse, lse64, lse32, f"{label} lse")
+    elif kind is None:
         o32, lse32 = dec.merge_partials(*dec.paged_decode_attention_ref(
             *args, **kw))
         onat, lsenat = dec.merge_partials(*dec.paged_decode_attention_ref(
@@ -1840,12 +1863,12 @@ def test_decode_kernel_edges(cuda, name, D, kind):
     _assert_merged(om, lsem, o, lse, label)
 
 
-@pytest.mark.parametrize("kind", [None] + list(QUANT_KINDS))
+@pytest.mark.parametrize("kind", DECODE_KINDS)
 def test_decode_merged_deterministic_and_graph_replay(cuda, kind):
     """Two merged calls give the same bits (the merge sums the splits in
     order whatever block arrives last), and a CUDA-graph replay of the
     call, reusing the arrival counters, gives the eager call's bits."""
-    args, kw = _decode_edge_inputs("split_edge", kind, 128, cuda)
+    args, kw = _edge_inputs("split_edge", kind, 128, cuda)
     one = dec.paged_decode_attention_merged(*args, **kw)
     two = dec.paged_decode_attention_merged(*args, **kw)
     assert all(torch.equal(a, b) for a, b in zip(one, two))
@@ -1885,15 +1908,45 @@ def test_decode_long_context_bf16(cuda):
               lsenat[:, :, :group], "K4 32k lse")
 
 
+def test_decode_long_context_fp32(cuda):
+    """K4 fp32 at the 32k-context decode shape at B 1 (32 / 8 heads x 128,
+    page 512, table arange: 268 MB of pool), merged in the launch, against
+    the plain version on fp64 copies, gated by the fp32 plain version's
+    error: a warp's truncating 3 x TF32 chain over 1-2k keys."""
+    Hk, group, D, ctx, ps = 8, 4, 128, 32768, 512
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((1, Hk, 8, D), generator=gen, device=cuda)
+    q[:, :, group:] = 0
+    k, v = (torch.randn((1, Hk, ctx // ps, ps, D), generator=gen,
+                        device=cuda) for _ in range(2))
+    tbl = torch.arange(ctx // ps, dtype=torch.int32, device=cuda)[None]
+    lens = torch.full((1,), ctx, dtype=torch.int32, device=cuda)
+    kw = dict(softmax_scale=D ** -0.5,
+              params=masklib.MaskParams(window_right=0), t_new=1,
+              group=group)
+    args = (q, k, v, tbl, lens, None)
+    om, lsem = dec.paged_decode_attention_merged(*args, **kw)
+    (o64, lse64), (o32, lse32) = (
+        dec.merge_partials(*r)
+        for r in _refs(dec.paged_decode_attention_ref, args, kw))
+    assert_fwd_close(om[:, :, :group], o64[:, :, :group],
+                     o32[:, :, :group], name="K4 fp32 32k")
+    _gate_lse(lsem[:, :, :group], lse64[:, :, :group], lse32[:, :, :group],
+              "K4 fp32 32k lse")
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_decode_kernels_use_no_local_memory(cuda, D):
-    """K4 and K4q (each payload kind) in bf16 and fp16, at 16- and 64-row
-    blocks: no spills or stack (local memory); at 16 rows (every decode
-    step) at least 8 warps resident a multiprocessor."""
+    """K4 and K4q (each payload kind) in bf16 and fp16, and K4 fp32, at 16-
+    and 64-row blocks: no spills or stack (local memory); at 16 rows (every
+    decode step) at least 8 warps resident a multiprocessor."""
     import ctypes
     k4, k4q = build.load("decode"), build.load("decode_quant")
     calls = [(f"K4 dtype {dt} rows {rows}", k4.fa_decode_occupancy,
               (dt, D, rows)) for dt in (0, 1) for rows in (16, 64)]
+    calls += [(f"K4 fp32 rows {rows}",
+               build.load("decode_f32").fa_decode_f32_occupancy,
+               (2, D, rows)) for rows in (16, 64)]
     calls += [(f"K4q {kind} dtype {dt} rows {rows}",
                k4q.fa_decode_quant_occupancy, (code, dt, D, rows))
               for kind, code in dec.KIND_CODE.items()

@@ -1,7 +1,8 @@
 """check_ring_overlap (flash_attn_v100_tpu_torch/benchmarks/
 check_ring_overlap.py): its overlap detector on synthetic shift windows
 and kernel intervals, overlapped and not; the windows read back from
-profiler annotations; its verdict over ranks; its ratio() against the
+profiler annotations; the device-lane and K1 counts that decide whether
+the ranks trace again; its verdict over ranks; its ratio() against the
 JAX script's own formula (the nested `ratio` of benchmarks/
 check_ring_overlap.py, run as it stands, at ICI's and at NVLink's rate);
 and the script on 2 gloo CPU ranks, where it finds each rank's shift but,
@@ -63,6 +64,19 @@ def test_chunk_kernels_take_k1_in_order():
     assert co.chunk_kernels(ev, [0, 1]) == {0: (20.0, 25.0), 1: (50.0, 55.0)}
 
 
+def test_lane_counts_read_the_device_lane_and_its_k1s():
+    k1 = ("void (anonymous namespace)::fwd_kernel<__nv_bfloat16, 128, 0, "
+          "0, 0>(FwdArgs)")
+    ev = [dict(cat="kernel", name=k1, ts=50, dur=5),
+          dict(cat="kernel", name="elementwise", ts=10, dur=1),
+          dict(cat="gpu_memcpy", name="Memcpy DtoH", ts=0, dur=1),
+          dict(cat="cpu_op", name=k1, ts=0, dur=1),
+          dict(cat="user_annotation", name="ring_shift 0", ts=0, dur=1)]
+    assert co.lane_counts(ev) == (3, 1)
+    # a trace with CPU ops only: no lane, so no K1 (the ranks trace again)
+    assert co.lane_counts(ev[3:]) == (0, 0)
+
+
 @pytest.mark.parametrize("shape", [(1, 8192, 4, 4, 128, 8),
                                    (1, 32768, 32, 8, 128, 8),
                                    (2, 4096, 16, 2, 64, 4)])
@@ -85,6 +99,8 @@ def test_two_cpu_ranks(capsys):
         a, b = r["windows"][0]
         assert a <= b
     assert res["ok"] is None
+    # a CPU run has no device lane to wait for: one traced call a rank
+    assert [len(r["attempts"]) for r in res["ranks"]] == [1, 1]
     assert "ring overlap check: n/a (a CPU run has no device lane)" in lines
     assert res["k1_flops_per_s"] > 0
     assert any(ln.startswith("realistic 32k/8-card llama shape: ")
