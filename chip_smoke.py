@@ -222,13 +222,16 @@ def card_line() -> str:
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     """Median device time of one call, CUDA events around each call; the L2
-    is flushed before each timed call when `flush` is given."""
+    is flushed before each timed call when `flush` is given: a tensor
+    larger than the L2, zeroed, or a callable, called."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        if flush is not None:
+        if callable(flush):
+            flush()
+        elif flush is not None:
             flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -383,23 +386,30 @@ def check_merged(torch, om, lsem, o, lse, name):
 
 
 def k4_occupancy(build) -> dict:
-    """K4 and K4q (each payload kind) in bf16 at D 64 / 128, in 16-row
-    blocks (Rq <= 16: the warps split the keys) and 64-row ones:
-    registers, local memory, dynamic shared memory (without the page
-    table), threads and resident blocks a multiprocessor, from
-    `fa_decode_occupancy` / `fa_decode_quant_occupancy`.  Asserts no local
-    memory, and >= 8 resident warps at 16 rows."""
+    """K4 (bf16 and fp32 pools) and K4q (each payload kind, bf16 q) at D
+    32 / 64 / 128 / 256, in 16-row blocks (Rq <= 16: the warps split the
+    keys) and 64-row ones: registers, local memory, dynamic shared memory
+    (without the page table), threads and resident blocks a
+    multiprocessor, from `fa_decode_occupancy` /
+    `fa_decode_f32_occupancy` / `fa_decode_quant_occupancy`.  Asserts no
+    local memory but for DECODE_SPILLS, and >= 8 resident warps at 16 rows
+    but for DECODE_ONE_BLOCK (as
+    tests/test_torch_gpu.py::test_decode_kernels_use_no_local_memory)."""
     import ctypes
     from flash_attn_v100_tpu_torch.ops.cuda.decode import KIND_CODE
     res = {}
-    for name in ("K4",) + tuple(f"K4q {kind}" for kind in QUANT_KINDS):
-        for D in (64, 128):
+    for name in ("K4", "K4 fp32") + tuple(f"K4q {kind}"
+                                          for kind in QUANT_KINDS):
+        for D in (32, 64, 128, 256):
             for rows in (16, 64):
                 out = (ctypes.c_int * 5)()
                 at = ctypes.addressof(out)
                 if name == "K4":
                     rc = build.load("decode").fa_decode_occupancy(0, D, rows,
                                                                   at)
+                elif name == "K4 fp32":
+                    rc = build.load("decode_f32").fa_decode_f32_occupancy(
+                        2, D, rows, at)
                 else:
                     rc = build.load("decode_quant").fa_decode_quant_occupancy(
                         KIND_CODE[name.split()[1]], 0, D, rows, at)
@@ -409,13 +419,16 @@ def k4_occupancy(build) -> dict:
                     registers=regs, local_bytes=local, smem_bytes=smem,
                     threads=threads, blocks_per_sm=blocks,
                     warps_per_sm=blocks * threads // 32)
-                print(f"{name} occupancy (bf16, D {D}, {rows}-row blocks): "
+                print(f"{name} occupancy ({'fp32' if 'fp32' in name else 'bf16'}"
+                      f", D {D}, {rows}-row blocks): "
                       f"{regs} registers, local memory {local} B, {smem} B "
                       f"dynamic shared memory and {threads} threads a block, "
                       f"{blocks} blocks = {o['warps_per_sm']} warps resident "
                       f"a multiprocessor", flush=True)
-                assert local == 0, f"{name} D {D} rows {rows} spills"
-                assert rows > 16 or o["warps_per_sm"] >= 8, \
+                assert local == 0 or (name, D) in DECODE_SPILLS, \
+                    f"{name} D {D} rows {rows} spills"
+                assert rows > 16 or o["warps_per_sm"] >= 8 or \
+                    (name, D) in DECODE_ONE_BLOCK, \
                     f"{name} D {D}: under 8 warps/SM"
     return res
 
@@ -677,6 +690,11 @@ def phase_k8(torch, flush):
 # ------------------------------------------- K4q, K8q (quantized pools)
 
 QUANT_KINDS = ("int8", "fp8", "int4")
+# decode variants (name, D) left out of k4_occupancy's checks, as
+# tests/test_torch_gpu.py leaves them out: K4q int8 / int4 keep local
+# memory at D 256; K4 fp32's 16-row block at D 256 holds one block an SM
+DECODE_SPILLS = {("K4q int8", 256), ("K4q int4", 256)}
+DECODE_ONE_BLOCK = {("K4 fp32", 256)}
 # the fp32 oracle over the dequantized pool: the JAX package's gates
 # (tests/test_quant.py: 0.1 for int8 / fp8, int4's resolution bound 0.3)
 QUANT_ORACLE_GATE = {"int8": 0.1, "fp8": 0.1, "int4": 0.3}
@@ -7571,9 +7589,12 @@ def long_decode_case(torch, ggen, kind=None):
 
 DECODE_ROUNDS = 3              # --decode-times: rounds in turns of each call
 # --decode-times' head-dim rows: MiniLM-L6's 12/12 x 32 and Gemma-2B's 8/1
-# x 256 at (e)'s lengths, and Gemma-2B at its 8192-token context
+# x 256 at (e)'s lengths, and Gemma-2B and Gemma-7B (google/gemma-7b
+# config.json: 16 heads, 16 kv heads, head_dim 256) at an 8192-token
+# context
 D32_DECODE = (12, 12, 32)
 D256_DECODE = (8, 1, 256)
+D256_MHA_DECODE = (16, 16, 256)
 D256_CTX = 8192
 
 
@@ -7591,11 +7612,16 @@ def decode_times(torch, rows: str = "") -> dict:
       (L) the 32k-context decode of LONG_*: bf16, int8, fp8 (page 512),
           int4 (page 2048) and fp32 (page 512);
       (e) at D32_DECODE's and D256_DECODE's heads (bf16), and D256_DECODE
-          at B 8 x D256_CTX tokens (page 128).
+          and D256_MHA_DECODE at B 8 x D256_CTX tokens (page 128); these
+          rows also time the launch with the merge (`merged`), with one
+          split (`merged s1`) and, at D 256, the sweep's ring alone
+          (`copies`, benchmarks/variants.py::decode_ablation).
     Each call is timed as a call (`ms`) and as CUDA-graph replays
     (`graph_ms`, with `kcycles`: ms x the SM clock nvidia-smi reads under
     the call's own replays), DECODE_ROUNDS rounds in turns of SPREAD_REPS
-    launches, the L2 flushed before each; a digest of each call's out,
+    launches, the L2 flushed before each by zeroing 64 MB, and as graph
+    replays after a flush that reads 64 MB (`graph_ms_clean`: no dirty
+    lines left to write back inside the call); a digest of each call's out,
     each row's bytes bound (every live K / V byte, scale, q and out byte
     once over 3.35 TB/s), SDPA over the pre-gathered KV in the pools'
     dtype beside the fp32 and head-dim rows (`sdpa` calls), and the SM
@@ -7609,13 +7635,23 @@ def decode_times(torch, rows: str = "") -> dict:
     from flash_attn_v100_tpu_torch.ops.cuda import build
     from flash_attn_v100_tpu_torch.ops.cuda import decode as dec
 
-    build.build_all(["decode", "decode_quant", "decode_f32"])
+    # (the sweep's K4 ablation where the tree has one)
+    build.build_all(["decode", "decode_quant", "decode_f32"],
+                    variants=[("decode", "sweep")] * ("decode" in
+                                                      build.VARIANTS))
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     ggen = torch.Generator(device=dev).manual_seed(SEED)
-    calls, bounds = {}, {}
+    calls, bounds, plains = {}, {}, {}
 
-    def add(name, q, kc, vc, lens, tbl, t_new, group, scales=None):
+    def add(name, q, kc, vc, lens, tbl, t_new, group, scales=None,
+            split=False):
+        """`{name} api` and `{name} core`; with `split` also the launch
+        with the merge (`merged`), its plain twin merged (`plain_ms`:
+        CUDA events around eager calls), the merge of one split (`merged
+        s1`) and,
+        where the sweep's ablation takes the shape (bf16, D 256), the ring
+        alone (`copies`): where the call's time goes"""
         skw = {} if scales is None else dict(k_scales=scales[0],
                                              v_scales=scales[1])
         calls[f"{name} api"] = lambda: kv.flash_attn_with_kvcache(
@@ -7631,12 +7667,28 @@ def decode_times(torch, rows: str = "") -> dict:
         params = masklib.MaskParams(causal=t_new > 1, window_right=0)
         int4 = scales is not None and kc.dtype == torch.int8 and \
             scales[0].shape[-2] == 2 * kc.shape[-2]
-        calls[f"{name} core"] = lambda: dec.paged_decode_attention(
-            rows, kc[None], vc[None], tbl, lens, None,
-            qpos_vec=lens - t_new, softmax_scale=D ** -0.5, params=params,
-            t_new=t_new, group=group,
-            k_scales=None if scales is None else scales[0][None],
-            v_scales=None if scales is None else scales[1][None], int4=int4)
+        args = (rows, kc[None], vc[None], tbl, lens, None)
+        kw = dict(qpos_vec=lens - t_new, softmax_scale=D ** -0.5,
+                  params=params, t_new=t_new, group=group,
+                  k_scales=None if scales is None else scales[0][None],
+                  v_scales=None if scales is None else scales[1][None],
+                  int4=int4)
+        calls[f"{name} core"] = lambda: dec.paged_decode_attention(*args,
+                                                                   **kw)
+        if split:
+            calls[f"{name} merged"] = \
+                lambda: dec.paged_decode_attention_merged(*args, **kw)
+            plains[name] = lambda: dec.merge_partials(
+                *dec.paged_decode_attention_ref(*args, **kw))
+            calls[f"{name} merged s1"] = \
+                lambda: dec.paged_decode_attention_merged(
+                    *args, **dict(kw, num_splits=1))
+            if D == 256 and kc.dtype == torch.bfloat16 and Rq <= 16 and \
+                    "decode" in build.VARIANTS:
+                from flash_attn_v100_tpu_torch.benchmarks import variants
+                abl = (rows, kc[None], vc[None], tbl, lens, group)
+                calls[f"{name} copies"] = lambda: variants.decode_ablation(
+                    *abl, "copies")
         per_key = D * kc.element_size() if scales is None else (
             (D // 2 if int4 else D) + 4)
         nbytes = (2 * int(lens.sum()) * Hk * per_key
@@ -7704,24 +7756,28 @@ def decode_times(torch, rows: str = "") -> dict:
              Lkw["block_table"], 512, 1, LONG_HQ // LONG_HK)
     del Lq, Lkw
     # head dims 32 and 256 (16-bit) at (e)'s lengths and tables; D 256 also
-    # at its 8192-token context
+    # at its 8192-token context, at Gemma-2B's heads and at Gemma-7B's
     for tag, (Hq_, Hk_, D_) in (("D32", D32_DECODE), ("D256", D256_DECODE)):
         hk, hv = make_pool(torch, ggen, dev, Hk_, n_pages, ps, D_,
                            torch.bfloat16)
         hq = torch.randn((B, 1, Hq_, D_), generator=ggen, device=dev).to(
             torch.bfloat16)
-        add(f"e K4 {tag} bf16", hq, hk, hv, lens_d, tbl, 1, Hq_ // Hk_)
+        add(f"e K4 {tag} bf16", hq, hk, hv, lens_d, tbl, 1, Hq_ // Hk_,
+            split=True)
         add_sdpa(f"e K4 {tag} bf16", hq, hk, hv, lens, tbl, ps, 1,
                  Hq_ // Hk_)
-    Hq_, Hk_, D_ = D256_DECODE
     clens = torch.full((B,), D256_CTX)
     ctbl, c_pages = paged_tables(torch, gen, clens, ps, D256_CTX // ps, dev)
-    ck, cv = make_pool(torch, ggen, dev, Hk_, c_pages, ps, D_, torch.bfloat16)
-    cq = torch.randn((B, 1, Hq_, D_), generator=ggen, device=dev).to(
-        torch.bfloat16)
-    add("8k K4 D256 bf16", cq, ck, cv, clens.to(dev, torch.int32), ctbl, 1,
-        Hq_ // Hk_)
-    add_sdpa("8k K4 D256 bf16", cq, ck, cv, clens, ctbl, ps, 1, Hq_ // Hk_)
+    for tag, (Hq_, Hk_, D_) in (("D256", D256_DECODE),
+                                ("D256 MHA", D256_MHA_DECODE)):
+        ck, cv = make_pool(torch, ggen, dev, Hk_, c_pages, ps, D_,
+                           torch.bfloat16)
+        cq = torch.randn((B, 1, Hq_, D_), generator=ggen, device=dev).to(
+            torch.bfloat16)
+        add(f"8k K4 {tag} bf16", cq, ck, cv, clens.to(dev, torch.int32),
+            ctbl, 1, Hq_ // Hk_, split=True)
+        add_sdpa(f"8k K4 {tag} bf16", cq, ck, cv, clens, ctbl, ps, 1,
+                 Hq_ // Hk_)
     calls = {name: fn for name, fn in calls.items() if rows in name}
 
     digests = {}
@@ -7730,8 +7786,16 @@ def decode_times(torch, rows: str = "") -> dict:
         digests[name] = digest(torch, *(out if isinstance(out, tuple)
                                         else (out,)))
     flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+    # the read flush: the L2 left full of clean lines.  Zeroing `flush`
+    # leaves up to 50 MB of dirty lines, whose write-back to HBM falls
+    # inside the timed call and shares its bandwidth.
+    flush_sum = torch.empty((), device=dev)
+
+    def read_flush():
+        torch.sum(flush, dim=0, out=flush_sum)
     spread = {name: [] for name in calls}
     graph = {name: [] for name in calls}
+    graph_clean = {name: [] for name in calls}
     kcyc = {name: [] for name in calls}
     clocks = []
     for _ in range(DECODE_ROUNDS):
@@ -7742,15 +7806,21 @@ def decode_times(torch, rows: str = "") -> dict:
             g_ms, clock = graph_ms_clock(torch, fn, flush)
             graph[name].append(g_ms)
             kcyc[name].append(g_ms * clock["sm_mhz"])
+            graph_clean[name].append(graph_ms(torch, fn, flush=read_flush))
         clocks.append((before, gpu_clocks()))
     med = statistics.median
+    plain_ms = {name: statistics.median(
+        time_ms(torch, fn, reps=5, flush=flush) for _ in range(DECODE_ROUNDS))
+        for name, fn in plains.items() if rows in name}
     return {"digest": digests,
             "ms": {n: med(t) for n, t in spread.items()},
             "graph_ms": {n: med(t) for n, t in graph.items()},
             "kcycles": {n: med(t) for n, t in kcyc.items()},
+            "graph_ms_clean": {n: med(t) for n, t in graph_clean.items()},
             "bound_ms": bounds, "ms_repeats": spread,
             "graph_ms_repeats": graph, "kcycles_repeats": kcyc,
-            "clocks": clocks}
+            "graph_ms_clean_repeats": graph_clean,
+            "plain_ms": plain_ms, "clocks": clocks}
 
 
 # ------------------------------------------ serving, all four pools in turns
@@ -7862,11 +7932,13 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc per translation "
           f"unit, concurrent: {built})", flush=True)
     # the sweep libraries, first loaded by phase_sweeps, build beside the
-    # card's phases
+    # card's phases (K4's ablation, read by --decode-times only, is not
+    # built here)
     from concurrent.futures import ThreadPoolExecutor
+    sweeps_built = [v for v in build.all_variants() if v[0] != "decode"]
     sweep_pool = ThreadPoolExecutor(1)
     sweep_build = sweep_pool.submit(build.build_all, [],
-                                    variants=build.all_variants())
+                                    variants=sweeps_built)
     sweep_pool.shutdown(wait=False)
     print_build_logs(build, [(n, None) for n in build.SOURCES])
     # the D 256 and D 32 kernels' SASS (cuobjdump: one thread a library),
@@ -7956,7 +8028,7 @@ def main() -> int:
     lap("scripts")
     print(f"build of the sweep libraries (beside the phases): "
           f"{sweep_build.result()}", flush=True)
-    print_build_logs(build, build.all_variants())
+    print_build_logs(build, sweeps_built)
     child = phase_measure_fresh(torch)
     measure, sweeps = child["measure"], child["sweeps"]
     lap("measure, sweeps")

@@ -1,8 +1,9 @@
 """The kernel variants of the tile and unroll sweeps, on the card.
 
-Each is a build variant of a shipped kernel (K1, K5, K8, K2, K3, K4q),
+Each is a build variant of a shipped kernel (K1, K5, K8, K2, K3, K4q, K4),
 compiled into its source's sweep library (`ops/cuda/build.py` VARIANTS,
-`-DFA_SWEEP=1`) at bf16, head_dim 128, without bias or dropout, and
+`-DFA_SWEEP=1`) at bf16, head_dim 128 (K4's at 256), without bias or
+dropout, and
 launched here with the shipped entry's arguments after the variant's id.
 Only the sweep scripts (`benchmarks/prof_*`), `chip_smoke.py` and the tests
 call these: no wrapper of the main path (`flash_attn_func`,
@@ -46,9 +47,11 @@ PAGED = {"u2": 1, "u4": 2, "u8": 3}                  # K8
 DQ = {"bk64": 1}                                     # K2
 DKV = {"bq64": 1, "keys128": 2}                      # K3
 INT4 = {"full-qk": 1, "qk-one": 2, "no-and": 3}      # K4q over int4 pools
+K4 = {"copies": 4}                                   # K4 at D 256
 # kernel -> its variants, the library they are built into
 TABLES = {"K1": (FWD, "fwd"), "K5": (FWD, "fwd"), "K8": (PAGED, "varlen_paged"),
-          "K2": (DQ, "bwd"), "K3": (DKV, "bwd"), "K4q": (INT4, "decode_quant")}
+          "K2": (DQ, "bwd"), "K3": (DKV, "bwd"), "K4q": (INT4, "decode_quant"),
+          "K4": (K4, "decode")}
 # the tile (q rows x keys a step) and what each variant changes
 WHAT = {
     ("K1", "bk128"): "128 x 128, one S product a step",
@@ -66,11 +69,12 @@ WHAT = {
     ("K4q", "full-qk"): "production S; P V over one nibble half",
     ("K4q", "qk-one"): "one K half's S, duplicated; P V halved",
     ("K4q", "no-and"): "packed bytes read as int8, no unpacking",
+    ("K4", "copies"): "the ring alone: copies and barriers, no products",
 }
 WHAT.update({("K5", v): w for (k, v), w in list(WHAT.items()) if k == "K1"})
 # variants whose numbers are wrong on purpose: timing only, never gated
 TIMING_ONLY = {("K1", "unmasked"), ("K5", "unmasked"),
-               *(("K4q", v) for v in INT4)}
+               *(("K4q", v) for v in INT4), ("K4", "copies")}
 _BF16 = 0   # the entries' dtype code
 
 
@@ -296,6 +300,45 @@ def decode_int4(q_rows, k_pages, v_pages, k_scales, v_scales, block_table,
     return o
 
 
+def decode_ablation(q_rows, k_pages, v_pages, block_table, cache_seqlens,
+                    group: int, variant: str):
+    """K4's ablation on GQA-folded q rows (B, Hk, Rq <= 16, 256) bf16 over
+    16-bit pool views (C1, Hk, C2, ps, 256), the shipped launch's grid and
+    auto split count, one new token a row (window_right 0).  "copies": the
+    ring with no products; returns the partials (o_part, lse_part), timing
+    only, its numbers wrong on purpose (O 0, LSE -inf)."""
+    for t in (q_rows, k_pages, v_pages):
+        if (t.device.type != "cuda" or t.dtype != torch.bfloat16
+                or t.shape[-1] != 256):
+            raise ValueError("the K4 ablations take CUDA bf16 at head_dim "
+                             "256")
+    if q_rows.shape[2] > 16 or k_pages.stride() != v_pages.stride():
+        raise ValueError("the K4 ablations take Rq <= 16 and pools of "
+                         "equal strides")
+    vid = _id("K4", variant)
+    q_rows = q_rows.contiguous()
+    B, Hk, Rq, D = q_rows.shape
+    C2, ps = k_pages.shape[2], k_pages.shape[3]
+    dev = q_rows.device
+    max_pages = block_table.shape[1]
+    S = resolve_num_splits(0, B, Hk, Rq, max_pages, dev)
+    tbl, lens = _i32(block_table), _i32(cache_seqlens)
+    o_part = torch.empty((B, Hk, S, Rq, D), dtype=torch.float32, device=dev)
+    lse_part = torch.empty((B, Hk, S, Rq, 1), dtype=torch.float32,
+                           device=dev)
+    p = masklib.MaskParams(window_right=0)   # one new token: causal
+    rc = _lib("K4").fa_decode_sweep_launch(
+        vid, _BF16, q_rows.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), tbl.data_ptr(), lens.data_ptr(), None, None,
+        None, o_part.data_ptr(), lse_part.data_ptr(), None, None, None,
+        *k_pages.stride()[:4], C2, B, Hk, Rq, D, S, max_pages, ps,
+        -(-max_pages // S), 1, group, D ** -0.5, int(p.causal),
+        int(p.window_left), int(p.window_right), float(p.softcap),
+        int(p.has_alibi), _stream(dev))
+    _done(rc, "K4", variant)
+    return o_part, lse_part
+
+
 def occupancy(kernel: str, variant: str) -> Dict[str, int]:
     """The variant's registers, local memory (spills and stack) and dynamic
     shared memory a block, threads a block and resident blocks a
@@ -310,6 +353,8 @@ def occupancy(kernel: str, variant: str) -> Dict[str, int]:
         rc = lib.fa_varlen_paged_sweep_occupancy(vid, at)
     elif kernel in ("K2", "K3"):
         rc = lib.fa_bwd_sweep_occupancy(int(kernel == "K3"), vid, at)
+    elif kernel == "K4":
+        rc = lib.fa_decode_sweep_occupancy(vid, at)
     else:
         rc = lib.fa_decode_quant_sweep_occupancy(vid, at)
     build.check(rc, f"{kernel} {variant} occupancy")

@@ -22,7 +22,11 @@
 //     group.  Either way a K/V byte is read once per 64 q rows at most.  A
 //     group is 32 keys for payload bytes (P's int8 group), a quarter of a
 //     stage, at least 16, for 16-bit pools, and 16 keys for fp32 pools at
-//     D 32 / 64, 8 at D 128 / 256.
+//     D 32 / 64, 8 at D 128 / 256.  (16-bit pools at D 256 keep 16-key
+//     groups, two warps of four a 32-key stage: the ring bounds that shape.
+//     With its products taken out (kAblCopies) it took 94% of the kernel's
+//     time at Gemma-2B's 8k step, and 8-key groups, every warp every stage,
+//     timed no faster.)
 //   * Copies.  The block reads its split's page ids into shared memory
 //     once, beside Q.  K/V (and for K4q the keys' scales) stream through a
 //     cp.async ring in their storage type (bf16/fp16, or bytes), stage
@@ -87,11 +91,23 @@
 //     split order (deterministic whatever the arrival order), all its
 //     threads over (row, 4 columns), writes O in q's type and the LSE, and
 //     resets the counter to zero.  One launch, no combine kernel; with one
-//     split the block writes the merged output directly.
-//   * Ablations (ABL; the shipped kernels take 0).  The sweep library
-//     (FA_SWEEP in csrc/decode_quant.cu, ops/cuda/build.py VARIANTS)
-//     instantiates int4 K4q at bf16 q, D 128 with parts of the nibble
-//     chain taken out, for timing only (benchmarks/prof_int4_ablate).
+//     split the block writes the merged output directly.  At D 256 with
+//     kBulkMergeSplits (32) splits or more (Gemma-2B's step at 8k has 33)
+//     the merge, the launch's tail after the last split lands, reads its
+//     partials together instead (`merge_bulk`): every split's LSE into
+//     shared memory at once, a thread a row takes the weights from there,
+//     the partials come by bulk copies (TMA) a chunk of splits at a time
+//     on one mbarrier, and each thread sums its (row, 4 columns) from
+//     shared memory in split order: the same additions in the same order,
+//     so the same bits.  Its fixed costs (proxy fences, the mbarrier, four
+//     block barriers) made it slower at D 128 over 33 splits and with few
+//     splits (the engine step's 8, Gemma-7B's 2), which keep the loop.
+//   * Ablations (ABL; the shipped kernels take 0).  The sweep libraries
+//     (FA_SWEEP, ops/cuda/build.py VARIANTS) instantiate, for timing only:
+//     int4 K4q at bf16 q, D 128 with parts of the nibble chain taken out
+//     (csrc/decode_quant.cu, benchmarks/prof_int4_ablate); K4 at bf16, D
+//     256, 16 rows with no products at all, the ring's own ceiling
+//     (csrc/decode.cu, `chip_smoke.py --decode-times`' `copies` rows).
 #pragma once
 
 #include <cuda_fp8.h>
@@ -105,6 +121,7 @@
 #include "f32_tiles.cuh"
 #include "masks.cuh"
 #include "quant.cuh"
+#include "tma_pipe.cuh"
 
 namespace fa {
 namespace dec {
@@ -127,6 +144,10 @@ constexpr int kAblQkOne = 2;   // S of one K half (16 of the 32 keys'
                                // products), duplicated; P V as kAblFullQk
 constexpr int kAblNoAnd = 3;   // the packed bytes read as int8 K and V with
                                // no unpacking; S and P V halved as kAblQkOne
+// K4's ablation (16-bit pools): the ring alone, its copies, waits and
+// barriers with no products or softmax (O 0, LSE -inf): the copies' own
+// ceiling
+constexpr int kAblCopies = 4;
 
 struct DecodeArgs {
   const void* q;          // (B, Hk, Rq, D) contiguous, bf16 or fp16 (K4q:
@@ -174,7 +195,9 @@ struct Smem {
   // at D 128 for 16-bit pools (two blocks an SM, about 128 KB in flight),
   // 2 of 128 for payload bytes at D 128 (every warp a group of each
   // stage), 3 of 32 at D 256; fp32 pools 3 of 64 at D 32 / 64, 32 at 128
-  // and 16 at 256
+  // and 16 at 256.  (Five 32-key stages at D 256, one block an SM with
+  // 132 KB in flight, were slower than two blocks of three: the first four
+  // stages took longer to issue than two blocks' first two.)
   static constexpr int BK = kWide ? (D <= 64 ? 64 : (D == 128 ? 32 : 16))
                             : D <= 64 || (kByte && D == 128) ? 128
                             : (D == 128 ? 64 : 32);
@@ -212,10 +235,13 @@ struct Smem {
   static constexpr int OLD = D + 4;                         // floats a row
   static constexpr size_t comb_bytes =
       ROWS == 16 ? sizeof(float) * kWarps * 16 * (OLD + 2) : 0;
-  static size_t bytes(size_t tbl) {
-    const size_t a = tbl_off + tbl, b = stage_off + comb_bytes;
-    return a > b ? a : b;
+  static constexpr size_t bytes(size_t tbl) {
+    return tbl_off + tbl > stage_off + comb_bytes ? tbl_off + tbl
+                                                  : stage_off + comb_bytes;
   }
+  // floats the merge may use from stage_off on (the page ids are spent)
+  static constexpr int kMergeFloats =
+      static_cast<int>((bytes(0) - stage_off) / 4);
 };
 
 // an e4m3 byte as an fp32 value, exactly: its magnitude bits placed at
@@ -350,12 +376,203 @@ __device__ __forceinline__ void v_frags(const unsigned char* vg, int c,
   }
 }
 
+// The split merge of the last block of (b, kv head, row tile) to arrive,
+// at D 256 with at least kBulkMergeSplits splits (the decode body's header,
+// "The merge"): its partials come into shared memory by bulk copies (TMA)
+// and every sum keeps its split order, so the bits are those of the
+// kernel's own merge.
+constexpr int kBulkMergeSplits = 32;
+
+template <typename L, typename T, int D, int ROWS>
+__device__ __forceinline__ void merge_bulk(const DecodeArgs& a,
+                                           unsigned char* smem,
+                                           long long bh, int row0) {
+  __shared__ uint64_t merge_bar;   // the bulk copies' barrier
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the partials, written by the generic proxy of other blocks, read below
+  // by the async proxy (bulk copies)
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  const long long base_row = bh * a.S * a.Rq;
+  const int nr = min(ROWS, a.Rq - row0);
+  // (a volatile load: __ldcg's asm declares no memory access, so the
+  // compiler may hoist it out of the branch that guards it, and a loop
+  // that takes its weights from shared memory then waits on L2 each step)
+  auto lse_of = [&](int s, int r) {
+    float x;
+    asm volatile("ld.global.cg.f32 %0, [%1];\n"
+                 : "=f"(x)
+                 : "l"(a.lse_part + base_row +
+                       static_cast<long long>(s) * a.Rq + r));
+    return x;
+  };
+  // shared memory from the stages on: each row's (max LSE, weight sum),
+  // the weights w[s][i] of the first SC splits in at most half of it (the
+  // rest are recomputed, to the same bits, where they are used), then the
+  // partials' chunks
+  float* mw = reinterpret_cast<float*>(smem + L::stage_off);
+  float* wt = mw + 2 * ROWS;
+  const int SC = min(a.S, (L::kMergeFloats / 2 - 2 * ROWS) / nr);
+  // every LSE of the first SC splits, all threads' loads in flight together
+#pragma unroll 4
+  for (int idx = tid; idx < SC * nr; idx += kThreads)
+    wt[idx] = lse_of(idx / nr, row0 + idx % nr);
+  __syncthreads();
+  // a thread a row: the max over the splits, then the weights
+  // exp(lse - max), 0 in a row with no live key, and their sum in split
+  // order (shared memory reads, so the row's chain is short)
+  for (int i = tid; i < nr; i += kThreads) {
+    float mx = -INFINITY;
+    for (int s = 0; s < SC; ++s) mx = fmaxf(mx, wt[s * nr + i]);
+    for (int s = SC; s < a.S; ++s) mx = fmaxf(mx, lse_of(s, row0 + i));
+    float sw = 0.0f;
+    if (mx != -INFINITY) {
+      for (int s = 0; s < SC; ++s) {
+        const float w = expf(wt[s * nr + i] - mx);
+        wt[s * nr + i] = w;
+        sw += w;
+      }
+      for (int s = SC; s < a.S; ++s) sw += expf(lse_of(s, row0 + i) - mx);
+    } else {
+      for (int s = 0; s < SC; ++s) wt[s * nr + i] = 0.0f;
+    }
+    mw[2 * i] = mx;
+    mw[2 * i + 1] = sw;
+  }
+  __syncthreads();
+  // every (row, 4 columns): the partials summed in split order.  A pass
+  // takes rows [i_lo, i_hi), at most kIt (row, 4 columns) a thread; their
+  // partials are copied into shared memory a chunk of splits at a time,
+  // one bulk copy (TMA) a split (its rows are contiguous), all in flight
+  // together on one mbarrier, then summed from there split by split (a
+  // block's own 16-byte cp.async copies moved half the bytes a second).
+  constexpr int kIt = 4;
+  float* part = wt + (SC * nr + 3) / 4 * 4;   // 16-byte aligned
+  const int cap = L::kMergeFloats - static_cast<int>(part - mw);
+  if (tid == 0) {
+    tma::mbar_init(&merge_bar, 1);
+    tma::mbar_init_fence();
+  }
+  __syncthreads();
+  uint32_t parity = 0;
+  // splits [c0, c0 + nc) of rows [i_lo, i_lo + span_f / D) into `part`:
+  // warp 0 arms the barrier and issues a copy a split, every thread
+  // waits for the bytes (the shared memory they overwrite was last used
+  // by this block's generic loads and stores, ordered by the barrier
+  // before this call and the proxy fence)
+  auto copy_chunk = [&](int c0, int nc, int i_lo, int span_f) {
+    if (warp == 0) {
+      if (lane == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        tma::mbar_expect_tx(&merge_bar, nc * span_f * 4);
+      }
+      __syncwarp();
+      for (int sl = lane; sl < nc; sl += 32)
+        tma::bulk_copy(part + sl * span_f,
+                       a.o_part + (base_row +
+                                   static_cast<long long>(c0 + sl) * a.Rq +
+                                   row0 + i_lo) * D,
+                       span_f * 4, &merge_bar);
+    }
+    tma::mbar_wait(&merge_bar, parity);
+    parity ^= 1;
+  };
+  const int rows_pass = min(kIt * kThreads * 4 / D, cap / D);
+  for (int i_lo = 0; i_lo < nr; i_lo += rows_pass) {
+    const int i_hi = min(nr, i_lo + rows_pass);
+    const int span_f = (i_hi - i_lo) * D;   // floats a split
+    const int sch = cap / span_f;           // splits a chunk
+    const int g0 = i_lo * (D / 4), g1 = i_hi * (D / 4);
+    float4 acc[kIt];
+#pragma unroll
+    for (int k = 0; k < kIt; ++k) acc[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int c0 = 0; c0 < a.S; c0 += sch) {
+      const int nc = min(sch, a.S - c0);
+      copy_chunk(c0, nc, i_lo, span_f);
+      // the thread's items side by side, split by split (an item past the
+      // pass's end repeats its last, unwritten); an empty row weighs 0
+      const float* pv[kIt];
+      int ik[kIt];
+      float mxk[kIt];
+#pragma unroll
+      for (int k = 0; k < kIt; ++k) {
+        const int idx = min(g0 + k * kThreads + tid, g1 - 1);
+        ik[k] = idx / (D / 4);
+        mxk[k] = mw[2 * ik[k]];
+        pv[k] = part + (ik[k] - i_lo) * D + 4 * (idx % (D / 4));
+      }
+      // (splits past SC, beyond the weights' room, recompute theirs)
+      const int n_fast = max(0, min(nc, SC - c0));
+#pragma unroll 4
+      for (int sl = 0; sl < n_fast; ++sl) {
+        const float* ws = wt + (c0 + sl) * nr;
+        float w[kIt];
+        float4 v4[kIt];
+#pragma unroll
+        for (int k = 0; k < kIt; ++k) {
+          w[k] = ws[ik[k]];
+          v4[k] = *reinterpret_cast<const float4*>(pv[k] + sl * span_f);
+        }
+#pragma unroll
+        for (int k = 0; k < kIt; ++k) {
+          acc[k].x += w[k] * v4[k].x;
+          acc[k].y += w[k] * v4[k].y;
+          acc[k].z += w[k] * v4[k].z;
+          acc[k].w += w[k] * v4[k].w;
+        }
+      }
+      for (int sl = n_fast; sl < nc; ++sl) {
+        const int s = c0 + sl;
+        float w[kIt];
+        float4 v4[kIt];
+#pragma unroll
+        for (int k = 0; k < kIt; ++k) {
+          w[k] = mxk[k] == -INFINITY
+                     ? 0.0f
+                     : expf(lse_of(s, row0 + ik[k]) - mxk[k]);
+          v4[k] = *reinterpret_cast<const float4*>(pv[k] + sl * span_f);
+        }
+#pragma unroll
+        for (int k = 0; k < kIt; ++k) {
+          acc[k].x += w[k] * v4[k].x;
+          acc[k].y += w[k] * v4[k].y;
+          acc[k].z += w[k] * v4[k].z;
+          acc[k].w += w[k] * v4[k].w;
+        }
+      }
+      __syncthreads();   // the chunk read before the next overwrites it
+    }
+#pragma unroll
+    for (int k = 0; k < kIt; ++k) {
+      const int idx = g0 + k * kThreads + tid;
+      if (idx >= g1) break;
+      const int i = idx / (D / 4), d = 4 * (idx % (D / 4)), r = row0 + i;
+      const float mx = mw[2 * i], sw = mw[2 * i + 1];
+      float4 o4 = acc[k];
+      if (mx != -INFINITY) {
+        const float inv = 1.0f / sw;
+        o4 = make_float4(o4.x * inv, o4.y * inv, o4.z * inv, o4.w * inv);
+      }
+      if constexpr (L::kF32)
+        *reinterpret_cast<float4*>(static_cast<float*>(a.o) +
+                                   (bh * a.Rq + r) * D + d) = o4;
+      else
+        *reinterpret_cast<uint2*>(static_cast<T*>(a.o) +
+                                  (bh * a.Rq + r) * D + d) =
+            make_uint2(pack2<T>(o4.x, o4.y), pack2<T>(o4.z, o4.w));
+      if (d == 0) a.lse[bh * a.Rq + r] = mx == -INFINITY ? -INFINITY
+                                                         : mx + logf(sw);
+    }
+  }
+}
+
 // (a two-block minimum steers ptxas off a 128-register allocation that
 // spilled the fp8 variants at D 128; it caps nothing below 255)
 template <typename T, int D, int KIND, int ROWS, int ABL = 0>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_kernel(const DecodeArgs a) {
-  static_assert(ABL == 0 || KIND == fa::kInt4, "the ablations are int4's");
+  static_assert(ABL == 0 || (ABL == kAblCopies ? KIND == kK16
+                                                : KIND == fa::kInt4),
+                "the ablations: int4's, and K4's");
   using L = Smem<T, D, KIND, ROWS>;
   constexpr int BK = L::BK, NG = L::NG, KLD = L::KLD, G = L::G;
   constexpr bool SWZ = L::kSwz;
@@ -992,7 +1209,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int jg = j0 + q * G;
       if (kKeySplit && ((jg - split0) / G) % kWarps != warp) continue;
       if (jg >= j_hi || jg + G <= j_lo) continue;
-      group_step(st, q, jg);
+      if constexpr (ABL != kAblCopies) group_step(st, q, jg);
     }
   }
   cp_async_wait<0>();
@@ -1120,6 +1337,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
   if (!last_block) return;
   __threadfence();
+  if constexpr (D == 256) {
+    if (a.S >= kBulkMergeSplits) {
+      merge_bulk<L, T, D, ROWS>(a, smem, bh, row0);
+      if (tid == 0) *counter = 0;
+      return;
+    }
+  }
   const long long base_row = bh * a.S * a.Rq;
   const int nr = min(ROWS, a.Rq - row0);
   auto lse_of = [&](int s, int r) {

@@ -161,7 +161,8 @@ SIGNATURES = {
 # library -> variant -> ({macro: value}, what the build is restricted to,
 # the variant library's C entry points).  FA_SWEEP=1 compiles a source's
 # sweep entries in place of its shipped ones: the kernel variants of
-# flash_attn_v100_tpu_torch/benchmarks/variants.py, bf16 at D 128 only.
+# flash_attn_v100_tpu_torch/benchmarks/variants.py, bf16 at D 128 (K4's
+# copies ablation at D 256).
 _SWEEP = {"FA_SWEEP": 1}
 VARIANTS: Dict[str, Dict[str, tuple]] = {
     "fwd": {"sweep": (
@@ -188,6 +189,12 @@ VARIANTS: Dict[str, Dict[str, tuple]] = {
                for k in ("dq", "dkv")},
             # (dkv, id, int out[5])
             "fa_bwd_sweep_occupancy": ([_I, _I, _P], _I)})},
+    "decode": {"sweep": (
+        _SWEEP, "K4 at bf16, D 256, Rq <= 16: the ring alone, no products "
+        "(timing only)", {
+            "fa_decode_sweep_launch": (
+                [_I] + SIGNATURES["decode"]["fa_decode_launch"][0], _I),
+            "fa_decode_sweep_occupancy": ([_I, _P], _I)})},
     "decode_quant": {"sweep": (
         _SWEEP, "K4q over int4 pools at bf16 q, D 128, Rq <= 16: three "
         "ablations of the nibble chain (timing only)", {

@@ -140,7 +140,7 @@ PKG = CUDA_OPS.parents[1]
 
 
 def test_variant_registry_found():
-    assert set(build.VARIANTS) == {"fwd", "varlen_paged", "bwd",
+    assert set(build.VARIANTS) == {"fwd", "varlen_paged", "bwd", "decode",
                                    "decode_quant"}
     assert build.all_variants() == [(lib, v) for lib in build.VARIANTS
                                     for v in build.VARIANTS[lib]]
@@ -207,7 +207,7 @@ def test_tune_defaults_are_the_shipped_tiles():
         assert not re.search(r"(Fwd|Bwd)Tune<[^>]", shipped), f
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K8", "K2", "K3", "K4q"])
+@pytest.mark.parametrize("kernel", ["K1", "K8", "K2", "K3", "K4q", "K4"])
 def test_variant_ids_are_the_sources(kernel):
     """benchmarks/variants.py's ids are the sweep entries' (the table in
     the comment above each source's sweep dispatch)."""
